@@ -6,13 +6,15 @@ kernels where the JAX package had a Pallas kernel. It imports neither JAX
 nor anything of ``autovc_tpu``.
 
 Ported so far: spmel conversion inference, mel (B, T, 80) -> AutoVC
-``Generator`` -> HiFi-GAN -> waveform (B, T*256).
+``Generator`` -> HiFi-GAN -> waveform (B, T*256), and autoregressive WaveNet
+vocoding, mel (B, Tc, 80) -> conditioning upsampler -> 24-layer generation ->
+waveform (B, Tc*256).
 
-    config     ModelConfig / HiFiGANConfig (the slice's fields)
+    config     ModelConfig / WaveNetConfig / HiFiGANConfig (the slices' fields)
     io         artifact loading and JAX-tree -> state-dict mapping
-    ops        kernels with their plain PyTorch versions (ops.lstm)
+    ops        kernels with their plain PyTorch versions (ops.lstm, ops.wavenet)
     models     layers and the AutoVC generator
-    vocoder    HiFi-GAN
+    vocoder    HiFi-GAN and WaveNet
     convert    pad_seq and the Converter entry point
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card they

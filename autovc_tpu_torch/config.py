@@ -1,8 +1,9 @@
 """Hyperparameters of the spmel conversion path.
 
 A copy of the fields this package reads from the JAX package's
-``autovc_tpu/config.py`` (``ModelConfig`` and ``HiFiGANConfig``), with the
-same defaults: the published AutoVC generator and the HiFi-GAN V1 vocoder.
+``autovc_tpu/config.py`` (``ModelConfig``, ``WaveNetConfig`` and
+``HiFiGANConfig``), with the same defaults: the published AutoVC generator,
+the r9y9 WaveNet vocoder and the HiFi-GAN V1 vocoder.
 """
 
 from __future__ import annotations
@@ -42,3 +43,32 @@ class HiFiGANConfig:
     resblock_kernel_sizes: tuple[int, ...] = (3, 7, 11)
     resblock_dilations: tuple[tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
     leaky_relu_slope: float = 0.1
+
+
+@dataclass(frozen=True)
+class WaveNetConfig:
+    """WaveNet vocoder (r9y9 wavenet_vocoder): scalar input, 24 dilated-conv
+    layers in 4 stacks (kernel 3, dilations 1..32), mixture-of-logistics
+    output (10 mixtures), 80-mel conditioning upsampled x256 by transposed
+    convs (scales 4, 4, 4, 4, freq kernel 3)."""
+
+    out_channels: int = 30  # 10 logistic mixtures * (pi, mu, log_s)
+    layers: int = 24
+    stacks: int = 4
+    residual_channels: int = 512
+    gate_channels: int = 512  # split into tanh/sigmoid halves
+    skip_channels: int = 256
+    kernel_size: int = 3
+    cin_channels: int = 80
+    upsample_scales: tuple[int, ...] = (4, 4, 4, 4)
+    freq_axis_kernel_size: int = 3
+    log_scale_min: float = -32.23619130191664
+    sample_rate: int = 16_000
+    hop_size: int = 256  # = prod(upsample_scales): samples per mel frame
+
+    @property
+    def layers_per_stack(self) -> int:
+        return self.layers // self.stacks
+
+    def dilations(self) -> tuple[int, ...]:
+        return tuple(2 ** (i % self.layers_per_stack) for i in range(self.layers))

@@ -6,7 +6,9 @@ Artifacts are flat ``.npz`` files written by the JAX package
 possibly stored as float16. ``load_artifact`` returns the nested tree as
 float32 numpy arrays; ``generator_state_from_jax`` and
 ``hifigan_state_from_jax`` turn a tree into the state dict of this package's
-``Generator`` and ``HiFiGANGenerator``.
+``Generator`` and ``HiFiGANGenerator``; ``wavenet_state_from_jax`` turns the
+flat WaveNet artifact (no ``params/`` level) into the state dict of
+``autovc_tpu_torch.vocoder.wavenet.WaveNet``.
 
 Layouts (JAX -> this package):
 
@@ -21,6 +23,11 @@ Layouts (JAX -> this package):
   the 4H axis: the input product is ``x @ w_ih + b`` and the CUDA kernel
   reads ``w_hh`` row-major, row ``k`` holding the four gates' columns
   ``g*H + j`` of every hidden unit ``j``.
+
+The WaveNet's leaves keep their JAX names and layouts (dense ``(in, out)``,
+``first_conv/kernel`` ``(1, R)``, ``upsample/<j>/kernel`` ``(kf, 2s)``): the
+CUDA generation kernel reads the layer matrices row-major as the Pallas kernel
+did, and ``/`` becomes ``.``.
 
 Flax wraps each conv, dense and BatchNorm in a child named ``Conv_0``,
 ``Dense_0`` or ``BatchNorm_0``; those path segments are dropped.
@@ -97,3 +104,13 @@ def hifigan_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     vocoder artifact stores them) -> state dict of
     ``autovc_tpu_torch.vocoder.hifigan.HiFiGANGenerator``."""
     return dict(_leaf_to_torch(path, value) for path, value in flatten_params(params).items())
+
+
+def wavenet_state_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX WaveNet parameter tree (``first_conv``, ``layers/<i>``,
+    ``last1``, ``last2``, ``upsample/<j>``) -> state dict of
+    ``autovc_tpu_torch.vocoder.wavenet.WaveNet``, layouts unchanged."""
+    return {
+        path.replace("/", "."): torch.from_numpy(np.array(value, np.float32, order="C"))
+        for path, value in flatten_params(tree).items()
+    }

@@ -5,7 +5,8 @@ A library is built at first use into ``build/kernels/`` at the root of the
 checkout (git-ignored), under a name keyed by a hash of its source and the
 compiler flags, so an edited source is rebuilt and an unchanged one is not.
 The build writes a temporary file and renames it, so an interrupted build
-leaves no half-written library. No PyTorch headers, no
+leaves no half-written library; ``build`` compiles several sources at once,
+one ``nvcc`` each. No PyTorch headers, no
 ``torch.utils.cpp_extension``, no ``ninja``.
 """
 
@@ -43,23 +44,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library for ``csrc/<name>.cu``, built first if needed."""
-    if name in _loaded:
-        return _loaded[name]
-    out = library_path(name)
-    if not out.exists():
-        nvcc = find_nvcc()
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+def build(names: list[str]) -> None:
+    """Build the libraries of ``csrc/<name>.cu`` that are missing, one nvcc
+    process per source, all started together."""
+    todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
+    if not todo:
+        return
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                       tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=max(1.0, BUILD_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            out += f"\nnvcc timed out after {BUILD_TIMEOUT_S} s"
         build_seconds[name] = time.perf_counter() - t0
-        build_log[name] = proc.stdout + proc.stderr
+        build_log[name] = out
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{build_log[name]}")
-        os.replace(tmp, out)
-    _loaded[name] = ctypes.CDLL(str(out))
+            failed.append(name)
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{n}.cu:\n{build_log[n]}" for n in failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library for ``csrc/<name>.cu``, built first if needed."""
+    if name not in _loaded:
+        build([name])
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

@@ -4,6 +4,7 @@ inference end to end.
 
     python3 chip_smoke.py            # seeded random weights at full width
     python3 chip_smoke.py --trained  # the committed artifacts/*.npz weights
+                                     # (generator, HiFi-GAN, wavenet_105k)
 
 Phase 1 builds ``csrc/lstm_fwd.cu`` (plain nvcc) and runs the LSTM kernel
 against ``lstm_sequence_ref`` at the main path's shapes (B=32, T=512,
@@ -13,7 +14,16 @@ synthetic mels of 512 frames and the HiFi-GAN vocoder on its output, checks
 that the generator went through the kernel (7 LSTM sequences per forward),
 that the mel matches the same path with the plain recurrence (max-abs 1e-3)
 and that the waveform is finite and (32, 131072), then times a warm
-iteration.
+iteration. Phase 3 vocodes the first 8 frames of 8 of phase 2's converted
+mels with the full-width WaveNet (24 layers, R=G=512, S=256) through
+``WaveNetVocoder.generate`` and the CUDA kernel ``csrc/wavenet_gen.cu``
+(B=8, T=2048 samples) and checks: (i) the kernel's logits within 1e-3 of the
+teacher-forced forward on its own waveform; (ii) the first 32 samples of
+every row within 1e-4 of ``generate_ref`` on the same uniforms (the first
+divergence per row is printed); (iii) the waveform finite, in [-1, 1] and
+(8, 2048); (iv) T * (2L + 1) kernel launches for the one wrapper call.
+
+Both kernels are built first, one ``nvcc`` each, started together.
 
 The output ends with the card's name and power limit, one JSON line of
 kernel records, and ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -31,6 +41,7 @@ sys.dont_write_bytecode = True  # keep the checkout free of __pycache__
 import argparse  # noqa: E402
 import faulthandler  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 import types  # noqa: E402
@@ -40,18 +51,24 @@ from unittest import mock  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from autovc_tpu_torch.config import ModelConfig  # noqa: E402
+from autovc_tpu_torch.config import ModelConfig, WaveNetConfig  # noqa: E402
 from autovc_tpu_torch.convert import Converter  # noqa: E402
 from autovc_tpu_torch.models import build_generator  # noqa: E402
 from autovc_tpu_torch.ops import _build  # noqa: E402
 from autovc_tpu_torch.ops import lstm as lstm_ops  # noqa: E402
+from autovc_tpu_torch.ops import wavenet as wavenet_ops  # noqa: E402
 from autovc_tpu_torch.vocoder.hifigan import HiFiGANVocoder  # noqa: E402
+from autovc_tpu_torch.vocoder.wavenet import WaveNetVocoder  # noqa: E402
 
 WATCHDOG_S = 600
 ROOT = Path(__file__).resolve().parent
 B, T, N_MELS, HOP = 32, 512, 80, 256
 LSTM_TOL = 1e-4  # f32 kernel vs f32 plain loop: summation order only
 MEL_TOL = 1e-3  # on the whole generator, after 7 recurrences and 11 convs
+KERNELS = ("lstm_fwd", "wavenet_gen")
+WN_B, WN_FRAMES = 8, 8  # utterances and mel frames vocoded by WaveNet: T = 2048 samples
+WN_TF_TOL = 1e-3  # kernel logits vs teacher-forced forward on its own waveform, f32
+WN_PREFIX_TOL, WN_MIN_PREFIX = 1e-4, 32  # kernel vs plain loop, same uniforms
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -101,16 +118,20 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def phase_kernel(dev: torch.device) -> dict:
-    """Build the LSTM kernel and hold it against the plain version."""
+def phase_build() -> None:
+    """Build every kernel from the checkout, one nvcc each, all at once."""
     t0 = time.perf_counter()
-    _build.load("lstm_fwd")
-    log(f"build lstm_fwd: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.build_seconds.get('lstm_fwd', 0.0):.1f} s)")
-    for line in _build.build_log.get("lstm_fwd", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    _build.build(list(KERNELS))
+    log(f"build {', '.join(KERNELS)}: {time.perf_counter() - t0:.1f} s wall")
+    for name in KERNELS:
+        log(f"  {name}: nvcc {_build.build_seconds.get(name, 0.0):.1f} s")
+        for line in _build.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas: {line.strip()}")
 
+
+def phase_kernel(dev: torch.device) -> dict:
+    """Hold the LSTM kernel against the plain version."""
     rng = np.random.RandomState(0)
     record = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
     for hidden, reverse, calls in LSTM_CASES:
@@ -153,9 +174,9 @@ def cudnn_lstm_ms(dev: torch.device, rng: np.random.RandomState) -> float:
     return total
 
 
-def phase_end_to_end(dev: torch.device, trained: bool) -> int:
+def phase_end_to_end(dev: torch.device, trained: bool) -> tuple[int, np.ndarray]:
     """Converter.convert_batch + HiFi-GAN on (32, 512, 80) mels; returns the
-    kernel launches of the main-path run."""
+    kernel launches of the main-path run and the converted mels."""
     cfg = ModelConfig()
     art = ROOT / "artifacts"
     gen = build_generator(cfg, artifact=str(art / "generator_spmel_f16.npz") if trained else None,
@@ -213,7 +234,128 @@ def phase_end_to_end(dev: torch.device, trained: bool) -> int:
     log(f"warm iteration: {warm_s * 1e3:.1f} ms wall for {audio_s:.1f} s of audio "
         f"({audio_s / warm_s:.1f}x realtime); generator {gen_ms:.1f} ms, vocoder {voc_ms:.1f} ms "
         f"(card: {card_line()})")
-    return launches
+    return launches, mels
+
+
+def wavenet_work(cfg: WaveNetConfig, packed: dict, b: int, t: int) -> tuple[float, float]:
+    """(flops, bytes) of generating t samples for b rows: per sample every
+    packed weight read once (98.7 MB at full width: more than the L2 holds),
+    two ring reads and one ring write of (B, R) per layer, the sample's cond
+    and uniforms read and its sample and logits written; the products'
+    2 * B * (multiply-adds) flops (activations and sampling not counted)."""
+    r, g, s, c, nout = (cfg.residual_channels, cfg.gate_channels, cfg.skip_channels,
+                        cfg.cin_channels, cfg.out_channels)
+    macs = cfg.layers * ((3 * r + c) * g + g // 2 * (r + s)) + s * s + s * nout
+    weight_bytes = sum(v.numel() for v in packed.values()) * 4
+    step_bytes = weight_bytes + 4 * b * (3 * cfg.layers * r + c + nout // 3 + 1 + 1 + nout)
+    return 2.0 * b * macs * t, float(step_bytes) * t
+
+
+def first_apart(a: torch.Tensor, b: torch.Tensor, tol: float) -> list[int]:
+    """Per row, the first sample where |a - b| > tol (the length if none)."""
+    idx = torch.arange(a.shape[1], device=a.device).expand_as(a)
+    return torch.where((a - b).abs() > tol, idx, a.shape[1]).min(dim=1).values.tolist()
+
+
+def wavenet_profile(voc: WaveNetVocoder, cond: torch.Tensor, u: torch.Tensor, samples: int) -> None:
+    """Device time by kernel over one generate call of ``samples`` samples
+    (torch.profiler), and the device's busy share of that call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cond, u = cond[:, :samples].contiguous(), u[:, :samples].contiguous()
+    wavenet_ops.generate(voc.packed, voc.cfg.dilations(), cond, u)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wavenet_ops.generate(voc.packed, voc.cfg.dilations(), cond, u)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.count, getattr(e, "device_time_total", 0.0)) for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) > 0 and "_kernel" in e.key]
+    if not rows:
+        log("wavenet profile: the profiler recorded no device time (not measured)")
+        return
+    busy = sum(r[2] for r in rows)
+    for key, count, total in sorted(rows, key=lambda r: -r[2]):
+        name = re.search(r"(\w+_kernel)", key)
+        log(f"wavenet profile: {name.group(1) if name else key[:40]}: {count} launches, {total / count:.2f} us each, "
+            f"{total / samples:.1f} us per sample")
+    log(f"wavenet profile: B={cond.shape[0]}, {samples} samples, device busy {busy:.0f} us of {wall_us:.0f} us wall "
+        f"(idle share {1 - busy / wall_us:.3f})")
+
+
+def phase_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> dict:
+    """WaveNet vocoding of the first WN_FRAMES frames of WN_B converted mels
+    through WaveNetVocoder.generate, checks (i)-(iv), timings."""
+    cfg = WaveNetConfig()
+    art = ROOT / "artifacts" / "wavenet_105k.npz"
+    voc = WaveNetVocoder(cfg, artifact=str(art) if trained else None, device=dev, seed=3)
+    log(f"wavenet weights: {'artifacts/wavenet_105k.npz' if trained else 'seeded random, full width'}")
+    mel = torch.from_numpy(np.ascontiguousarray(mels[:WN_B, :WN_FRAMES])).to(dev)
+    t = WN_FRAMES * cfg.hop_size
+    u = voc.uniforms(WN_B, t, torch.Generator().manual_seed(4))
+    dils = cfg.dilations()
+
+    torch.cuda.synchronize()
+    wavenet_ops.launches = 0
+    t0 = time.perf_counter()
+    wav = voc.generate(mel, uniforms=u)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches, cuda_launches = wavenet_ops.launches, wavenet_ops.last_cuda_launches
+    log(f"wavenet main path (cold): {cold_s:.3f} s, wrapper launches={launches}, "
+        f"CUDA launches={cuda_launches} (T*(2L+1) = {t * (2 * cfg.layers + 1)})")
+    # (iv) one wrapper call, T * (2L + 1) kernel launches
+    if launches != 1 or cuda_launches != t * (2 * cfg.layers + 1):
+        raise AssertionError(f"wavenet launches: wrapper {launches}, CUDA {cuda_launches}")
+    # (iii) the waveform
+    if wav.shape != (WN_B, t) or not bool(torch.isfinite(wav).all()) or float(wav.abs().max()) > 1.0:
+        raise AssertionError(f"wavenet waveform {tuple(wav.shape)} finite={bool(torch.isfinite(wav).all())} "
+                             f"max|x|={float(wav.abs().max())}")
+
+    with torch.inference_mode():
+        cond = voc.model.upsample_conditioning(mel)
+        y, logits = wavenet_ops.generate(voc.packed, dils, cond, u, cfg.log_scale_min)
+        torch.cuda.synchronize()
+        if not torch.equal(y, wav):
+            raise AssertionError("the kernel gave another waveform on the same inputs")
+        # (i) teacher-forced forward on the kernel's own waveform
+        tf_err = (logits - voc.logits(y[..., None], mel)).abs().max().item()
+        log(f"wavenet (i) kernel logits vs teacher-forced forward: max_abs_err={tf_err:.3e} (tol {WN_TF_TOL})")
+        if not tf_err <= WN_TF_TOL:
+            raise AssertionError(f"wavenet teacher-forced check: {tf_err} > {WN_TF_TOL}")
+        # (ii) the plain loop on the same uniforms, timed
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y_ref, _ = wavenet_ops.generate_ref(voc.packed, dils, cond, u, cfg.log_scale_min)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        apart = first_apart(y, y_ref, WN_PREFIX_TOL)
+        prefix = min(apart)
+        prefix_err = (y[:, :prefix] - y_ref[:, :prefix]).abs().max().item() if prefix else float("inf")
+        log(f"wavenet (ii) kernel vs plain loop over {t} samples: first sample apart by > {WN_PREFIX_TOL} "
+            f"per row {apart}; max_abs_err over the common prefix {prefix_err:.3e}")
+        if prefix < WN_MIN_PREFIX:
+            raise AssertionError(f"wavenet kernel leaves the plain loop at sample {prefix} < {WN_MIN_PREFIX}")
+        ms = cuda_ms(lambda: wavenet_ops.generate(voc.packed, dils, cond, u, cfg.log_scale_min), reps=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        voc.generate(mel, uniforms=u)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        for rows in (1, WN_B):
+            wavenet_profile(voc, cond[:rows], u[:rows], samples=64)
+    flops, nbytes = wavenet_work(cfg, voc.packed, WN_B, t)
+    w_bound_ms, w_bound_by = bound_ms(flops, nbytes)
+    audio_s = WN_B * t / cfg.sample_rate
+    log(f"wavenet kernel: {ms:.3f} ms per call, {ms / t * 1e3:.2f} us per sample, "
+        f"{WN_B * t / ms * 1e3:.0f} samples/s; bound {w_bound_ms:.3f} ms ({w_bound_by}), plain {plain_ms:.1f} ms; "
+        f"vocoder call {warm_s * 1e3:.1f} ms wall for {audio_s:.3f} s of audio ({audio_s / warm_s:.3f}x realtime) "
+        f"(card: {card_line()})")
+    # the larger of check (i)'s logit error and check (ii)'s sample error
+    return {"launches": launches, "max_abs_err": max(tf_err, prefix_err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": w_bound_ms, "bound_by": w_bound_by}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -230,8 +372,12 @@ def main(argv: list[str] | None = None) -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    phase_build()
     record = phase_kernel(dev)
-    launches = phase_end_to_end(dev, args.trained)
+    launches, mels = phase_end_to_end(dev, args.trained)
+    t0 = time.perf_counter()
+    wn = phase_wavenet(dev, args.trained, mels)
+    log(f"phase 3 (wavenet): {time.perf_counter() - t0:.1f} s")
     lstm_bound, lstm_bound_by = bound_ms(record["flops"], record["bytes"])
 
     kernels = [{
@@ -246,6 +392,15 @@ def main(argv: list[str] | None = None) -> int:
         "bound_ms": lstm_bound,
         "bound_by": lstm_bound_by,
         "library_ms": record["library_ms"],
+    }, {
+        "name": "wavenet_gen",
+        "route": "cuda",
+        "source": "autovc_tpu_torch/ops/csrc/wavenet_gen.cu",
+        "replaces": "autovc_tpu/ops/pallas_wavenet.py:350 (generate_pallas: _wavenet_kernel :129 "
+                    "and _wavenet_kernel_hybrid :176)",
+        # no single PyTorch call computes autoregressive generation
+        "library_ms": None,
+        **wn,
     }]
     faulthandler.cancel_dump_traceback_later()
     print(card, flush=True)

@@ -85,16 +85,19 @@ def test_convert_batch_groups_and_keeps_order(converters):
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    """With jax, flax and autovc_tpu blocked, every module of the port and
-    chip_smoke still import."""
+    """With jax, flax and autovc_tpu blocked, every module of the port (the
+    WaveNet modules among them) and chip_smoke still import."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'autovc_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import importlib, pkgutil, autovc_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(autovc_tpu_torch.__path__, 'autovc_tpu_torch.')]\n"
+        "assert {'autovc_tpu_torch.ops.wavenet', 'autovc_tpu_torch.vocoder.wavenet'} <= set(mods), mods\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
+        "from autovc_tpu_torch.vocoder import WaveNetVocoder\n"
+        "from autovc_tpu_torch.config import WaveNetConfig\n"
         "import chip_smoke\n"
         "print(len(mods))\n"
     )
@@ -102,4 +105,4 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 9
+    assert int(proc.stdout.split()[-1]) >= 11

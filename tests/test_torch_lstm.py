@@ -102,3 +102,24 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("lstm_fwd")
     assert not (tmp_path / "kernels").exists()
+
+
+def test_build_starts_one_compiler_per_source(monkeypatch, tmp_path):
+    """build() runs every missing source's compiler at once and installs each
+    library under its keyed name; a second call compiles nothing."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    log = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\necho "$@" >> "%s"\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'echo built > "$2"\necho "ptxas info : Used 40 registers"\n' % log)
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    _build.build(["lstm_fwd", "wavenet_gen", "lstm_fwd"])
+    assert len(log.read_text().splitlines()) == 2
+    for name in ("lstm_fwd", "wavenet_gen"):
+        assert _build.library_path(name).read_text() == "built\n"
+        assert "registers" in _build.build_log[name]
+    _build.build(["lstm_fwd", "wavenet_gen"])
+    assert len(log.read_text().splitlines()) == 2
+    assert sorted(p.name for p in (tmp_path / "kernels").iterdir()) == sorted(
+        _build.library_path(n).name for n in ("lstm_fwd", "wavenet_gen"))
