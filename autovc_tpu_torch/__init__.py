@@ -8,20 +8,30 @@ nor anything of ``autovc_tpu``.
 Ported so far: spmel conversion inference, mel (B, T, 80) -> AutoVC
 ``Generator`` -> HiFi-GAN -> waveform (B, T*256), and autoregressive WaveNet
 vocoding, mel (B, Tc, 80) -> conditioning upsampler -> 24-layer generation ->
-waveform (B, Tc*256).
+waveform (B, Tc*256), and training of the spmel generator (``train.Solver``,
+``python -m autovc_tpu_torch.cli.train``).
 
-    config     ModelConfig / WaveNetConfig / HiFiGANConfig (the slices' fields)
-    io         artifact loading and JAX-tree -> state-dict mapping
+    config     ModelConfig / TrainConfig / Config / WaveNetConfig / HiFiGANConfig
+    io         artifact loading and the JAX-tree <-> state-dict mappings
     ops        kernels with their plain PyTorch versions (ops.lstm, ops.wavenet)
     models     layers and the AutoVC generator
+    losses     mse and l1
+    data       train.pkl manifests, the utterance dataset and batch iterator,
+               the device prefetcher
+    train      schedules, EMA, the train step, metrics, profiling, the Solver
     vocoder    HiFi-GAN and WaveNet
     convert    pad_seq and the Converter entry point
+    cli        python -m autovc_tpu_torch.cli.train
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card they
 raise. Pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.
+On the card they run in exact float32 (``exact_f32``).
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Iterator
 
 import torch
 
@@ -38,3 +48,20 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "PyTorch path on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def exact_f32(device: str | torch.device) -> Iterator[None]:
+    """Full float32 products and convolutions on a CUDA ``device`` for the
+    duration: TF32 off for cuDNN and for matmuls (torch's default runs cuDNN
+    convolutions in TF32), the caller's flags restored on exit. Does nothing
+    for another device."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags

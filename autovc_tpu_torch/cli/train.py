@@ -1,0 +1,104 @@
+"""Train the spmel generator on one device.
+
+    python -m autovc_tpu_torch.cli.train --main_dir DIR --run_name NAME
+        [--num_iters N] [--batch_size B] [--len_crop T] [--lr LR]
+        [--lambda_cd W] [--lr_scheduler Cosine|CosineDecay|Plateau]
+        [--ema DECAY] [--resume] [--log_step N] [--checkpoint_step N]
+        [--watch_step N] [--seed S] [--export OUT.npz] [--device cuda|cpu]
+
+The flags of ``autovc_tpu/cli/train.py`` for this slice, plus ``--device``
+(default ``cuda``); the generator has the published widths. It reads
+``<main_dir>/spmel/train.pkl`` and the ``.npy`` features it names; it does
+not make them (the DSP front end and the metadata builder are not ported:
+ROADMAP Queue 1 #3, #4). ``--export`` writes the final parameters and
+BatchNorm statistics as the JAX CLI does: a flat ``.npz`` of
+``params/...`` and ``batch_stats/...`` in the JAX layouts, plus
+``__step__``, which ``autovc_tpu`` and ``build_generator(artifact=...)``
+both load.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from datetime import datetime
+
+from autovc_tpu_torch.config import Config, ModelConfig, TrainConfig
+from autovc_tpu_torch.data import BatchIterator, UtteranceDataset
+from autovc_tpu_torch.io import save_generator_artifact
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--lambda_cd", type=float, default=1.0)
+    ap.add_argument("--lambda_spk", type=float, default=0.0,
+                    help="speaker-consistency weight; above 0 is not ported (ROADMAP Queue 1 #4)")
+    ap.add_argument("--dim_neck", type=int, default=32)
+    ap.add_argument("--dim_emb", type=int, default=256)
+    ap.add_argument("--dim_pre", type=int, default=512)
+    ap.add_argument("--freq", type=int, default=32)
+    ap.add_argument("--main_dir", required=True)
+    ap.add_argument("--batch_size", type=int, default=2)
+    ap.add_argument("--num_iters", type=int, default=10_000_000)
+    ap.add_argument("--len_crop", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--model_type", default="spmel", choices=["spmel", "stft", "wav"])
+    ap.add_argument("--run_name", required=True)
+    ap.add_argument("--lr_scheduler", default=None, choices=[None, "Cosine", "CosineDecay", "Plateau"])
+    ap.add_argument("--ema", type=float, default=0.9999)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--run_id", default=None)
+    ap.add_argument("--log_step", type=int, default=100)
+    ap.add_argument("--checkpoint_step", type=int, default=100)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data_parallel", type=int, default=1)
+    ap.add_argument("--model_parallel", type=int, default=1)
+    ap.add_argument("--multihost", action="store_true", help="not ported (ROADMAP Queue 1 #10)")
+    ap.add_argument("--bf16", action="store_true", help="not ported (ROADMAP Queue 1 #9)")
+    ap.add_argument("--watch_step", type=int, default=0)
+    ap.add_argument("--export", default=None, help="after training, write the final parameters to this .npz")
+    ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (the plain versions)")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.bf16:
+        raise SystemExit("--bf16: bf16 compute is not ported yet (ROADMAP Queue 1 #9)")
+    if args.multihost:
+        raise SystemExit("--multihost: multi-process training is not ported yet (ROADMAP Queue 1 #10)")
+    if args.lambda_spk > 0:
+        raise SystemExit("--lambda_spk > 0 needs the speaker encoder, not ported yet (ROADMAP Queue 1 #4)")
+    if args.model_type != "spmel":
+        raise SystemExit(f"--model_type {args.model_type}: only spmel is ported (ROADMAP Queue 1 #5, #6)")
+    manifest = os.path.join(args.main_dir, "spmel", "train.pkl")
+    if not os.path.exists(manifest):
+        raise SystemExit(f"{manifest} not found: make the spmel features and train.pkl with the JAX "
+                         f"package's cli.make_spect and cli.make_metadata (not ported: ROADMAP Queue 1 #3, #4)")
+
+    run_name = args.run_name if args.resume else args.run_name + datetime.now().strftime("_%y%B%d_%H%M_%S")
+    cfg = Config(
+        model=ModelConfig(dim_neck=args.dim_neck, dim_emb=args.dim_emb, dim_pre=args.dim_pre, freq=args.freq),
+        train=TrainConfig(lambda_cd=args.lambda_cd, lambda_spk=args.lambda_spk, batch_size=args.batch_size,
+                          num_iters=args.num_iters, len_crop=args.len_crop, lr=args.lr,
+                          lr_scheduler=args.lr_scheduler, ema_decay=args.ema, log_step=args.log_step,
+                          checkpoint_step=args.checkpoint_step, watch_step=args.watch_step, seed=args.seed,
+                          data_parallel=args.data_parallel, model_parallel=args.model_parallel),
+        main_dir=args.main_dir,
+        run_name=run_name,
+        run_id=args.run_id,
+    )
+    ds = UtteranceDataset(os.path.dirname(manifest))
+    it = BatchIterator(ds, cfg.train.batch_size, cfg.train.len_crop, seed=cfg.train.seed)
+
+    from autovc_tpu_torch.train import Solver
+
+    solver = Solver(cfg, it, device=args.device)
+    solver.train()
+    if args.export:
+        save_generator_artifact(solver.state.model.state_dict(), solver.state.step, args.export)
+        print(f"[train] exported params -> {args.export}")
+
+
+if __name__ == "__main__":
+    main()

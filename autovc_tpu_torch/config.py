@@ -1,14 +1,15 @@
-"""Hyperparameters of the spmel conversion path.
+"""Hyperparameters of the ported paths.
 
 A copy of the fields this package reads from the JAX package's
-``autovc_tpu/config.py`` (``ModelConfig``, ``WaveNetConfig`` and
-``HiFiGANConfig``), with the same defaults: the published AutoVC generator,
-the r9y9 WaveNet vocoder and the HiFi-GAN V1 vocoder.
+``autovc_tpu/config.py`` (``ModelConfig``, ``TrainConfig``, ``Config``,
+``WaveNetConfig`` and ``HiFiGANConfig``), with the same defaults: the
+published AutoVC generator and its training contract, the r9y9 WaveNet
+vocoder and the HiFi-GAN V1 vocoder.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
@@ -72,3 +73,40 @@ class WaveNetConfig:
 
     def dilations(self) -> tuple[int, ...]:
         return tuple(2 ** (i % self.layers_per_stack) for i in range(self.layers))
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The training contract of the JAX ``TrainConfig``, with its defaults.
+    ``lambda_spk`` (the speaker-consistency auxiliary) is kept so that a
+    config can name it; the port raises when it is above 0."""
+
+    lambda_cd: float = 1.0
+    batch_size: int = 2
+    num_iters: int = 10_000_000
+    len_crop: int = 128  # frames
+    lr: float = 1e-4
+    lr_scheduler: str | None = None  # None | 'Cosine' | 'CosineDecay' | 'Plateau'
+    cosine_t_max: int = 10_000
+    cosine_eta_min_ratio: float = 0.01  # CosineDecay: anneal to this fraction of lr
+    plateau_factor: float = 0.1
+    plateau_patience: int = 10
+    lambda_spk: float = 0.0
+    ema_decay: float = 0.9999  # a real per-step EMA
+    log_step: int = 100
+    checkpoint_step: int = 100
+    watch_step: int = 0  # param/grad histograms every N steps; 0 disables
+    seed: int = 0
+    data_parallel: int = 1
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
+class Config:
+    """Top-level config tree of the training path."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    main_dir: str = "."
+    run_name: str = "run"
+    run_id: str | None = None

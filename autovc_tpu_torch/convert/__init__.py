@@ -15,6 +15,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from autovc_tpu_torch import exact_f32
 from autovc_tpu_torch.config import ModelConfig
 from autovc_tpu_torch.models import Generator
 
@@ -41,7 +42,8 @@ class Converter:
         def dev(a):
             return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
-        _, x_psnt, _ = self.generator(dev(x), dev(emb_org), dev(emb_trg))
+        with exact_f32(self.device):
+            _, x_psnt, _ = self.generator(dev(x), dev(emb_org), dev(emb_trg))
         return x_psnt
 
     def convert(self, spec: Any) -> np.ndarray:

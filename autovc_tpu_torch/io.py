@@ -6,7 +6,10 @@ Artifacts are flat ``.npz`` files written by the JAX package
 possibly stored as float16. ``load_artifact`` returns the nested tree as
 float32 numpy arrays; ``generator_state_from_jax`` and
 ``hifigan_state_from_jax`` turn a tree into the state dict of this package's
-``Generator`` and ``HiFiGANGenerator``; ``wavenet_state_from_jax`` turns the
+``Generator`` and ``HiFiGANGenerator``, and ``generator_state_to_jax`` turns
+a ``Generator`` state dict back into the JAX tree, which
+``save_generator_artifact`` writes in the JAX artifact schema (what
+``cli/train.py --export`` writes); ``wavenet_state_from_jax`` turns the
 flat WaveNet artifact (no ``params/`` level) into the state dict of
 ``autovc_tpu_torch.vocoder.wavenet.WaveNet``.
 
@@ -97,6 +100,43 @@ def generator_state_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
             key, tensor = _leaf_to_torch(path, value)
             state[key] = tensor
     return state
+
+
+_WRAPPER_BY_NDIM = {3: "Conv_0", 2: "Dense_0", 1: "BatchNorm_0"}
+_JAX_LEAF = {"running_mean": "mean", "running_var": "var"}
+
+
+def generator_state_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
+    """State dict of ``autovc_tpu_torch.models.Generator`` -> ``{'params':
+    ..., 'batch_stats': ...}`` of the JAX ``Generator``, float32 numpy in JAX
+    layouts: the inverse of ``generator_state_from_jax``. A module's flax
+    wrapper follows from its ``weight``: 3-D a conv, 2-D a dense layer, 1-D a
+    BatchNorm; the LSTM leaves have none."""
+    wrappers = {key.rsplit(".", 1)[0]: _WRAPPER_BY_NDIM[v.ndim]
+                for key, v in state.items() if key.endswith(".weight")}
+    flat: dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        module, leaf = key.rsplit(".", 1)
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        wrapper = wrappers.get(module)
+        collection = "batch_stats" if leaf in _JAX_LEAF else "params"
+        if leaf == "weight":
+            leaf = {"Conv_0": "kernel", "Dense_0": "kernel", "BatchNorm_0": "scale"}[wrapper]
+            arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
+        leaf = _JAX_LEAF.get(leaf, leaf)
+        parts = [collection, *module.split("."), *([wrapper] if wrapper else []), leaf]
+        flat["/".join(parts)] = np.ascontiguousarray(arr)
+    return unflatten_params(flat)
+
+
+def save_generator_artifact(state: Mapping[str, torch.Tensor], step: int, path: str) -> None:
+    """Write a ``Generator`` state dict as the JAX CLI's ``--export`` does:
+    a flat ``.npz`` of ``params/...`` and ``batch_stats/...`` in the JAX
+    layouts plus ``__step__``, which ``load_artifact`` (and the JAX
+    package's) reads back."""
+    tree = generator_state_to_jax(state)
+    flat = {**flatten_params(tree["params"], "params"), **flatten_params(tree["batch_stats"], "batch_stats")}
+    np.savez(path, **flat, __step__=np.asarray(step, np.int64))
 
 
 def hifigan_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:

@@ -12,10 +12,12 @@ from autovc_tpu_torch.models.layers import LSTM, BatchNorm, ConvNorm, LinearNorm
 
 
 def build_generator(cfg: ModelConfig = ModelConfig(), *, artifact: str | None = None,
-                    device: str | torch.device = "cuda", seed: int = 0) -> Generator:
-    """The generator for ``cfg`` in eval mode on ``device``: weights from an
-    exported JAX artifact (``artifacts/generator_spmel_f16.npz``), or drawn
-    from ``seed`` when ``artifact`` is None."""
+                    device: str | torch.device = "cuda", seed: int = 0,
+                    trainable: bool = False) -> Generator:
+    """The generator for ``cfg`` on ``device``: weights from an exported JAX
+    artifact (``artifacts/generator_spmel_f16.npz``), or drawn from ``seed``
+    when ``artifact`` is None. Frozen in eval mode, or, with ``trainable``,
+    in train mode with gradients on."""
     dev = resolve_device(device)
     model = Generator(cfg.dim_neck, cfg.dim_emb, cfg.dim_pre, cfg.freq, cfg.n_bins,
                       cfg.enc_channels, cfg.dec_lstm_dim, cfg.postnet_channels)
@@ -23,7 +25,8 @@ def build_generator(cfg: ModelConfig = ModelConfig(), *, artifact: str | None = 
         reset_parameters(model, seed)
     else:
         model.load_state_dict(generator_state_from_jax(load_artifact(artifact)[0]))
-    return model.to(dev).eval().requires_grad_(False)
+    model = model.to(dev)
+    return model.train() if trainable else model.eval().requires_grad_(False)
 
 
 __all__ = [

@@ -1,8 +1,11 @@
 """The AutoVC content-bottleneck generator (spmel), over (B, T, C) tensors.
 
 Counterpart of ``autovc_tpu/models/autovc.py``: ``Encoder``, ``Decoder``,
-``Postnet`` and ``Generator`` with the same submodule names, inference only
-(BatchNorm uses its running statistics).
+``Postnet`` and ``Generator`` with the same submodule names. ``train()``
+mode is the JAX ``train=True``: BatchNorm normalises with the batch's
+statistics and updates its running ones, also in ``encode``, the content
+re-encoding of the training loss; ``eval()`` mode uses the running
+statistics.
 """
 
 from __future__ import annotations

@@ -64,9 +64,16 @@ class ConvNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Per-channel BatchNorm over (B, T, C) in inference form: running
-    statistics, eps 1e-5. (Training, with the two-pass batch variance of
-    ``autovc_tpu/models/layers.py::BatchNorm``, is not ported yet.)"""
+    """Per-channel BatchNorm over (B, T, C), eps 1e-5, switched by
+    ``module.train()``. In training form it normalises with the batch's
+    statistics over (B, T), the two-pass biased variance ``mean((x - mean)^2)``
+    of ``autovc_tpu/models/layers.py::BatchNorm`` (``use_fast_variance=False``),
+    and moves the running statistics by momentum 0.1 toward the batch mean
+    and the same biased variance, as flax does (``F.batch_norm`` would move
+    the running variance toward the unbiased one). In eval form it uses the
+    running statistics."""
+
+    momentum = 0.1
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -84,13 +91,22 @@ class BatchNorm(nn.Module):
         nn.init.ones_(self.running_var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * scale + self.bias
+        if self.training:
+            mean = x.mean(dim=(0, 1))
+            var = ((x - mean) ** 2).mean(dim=(0, 1))
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+                self.running_var.copy_(keep * self.running_var + self.momentum * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (self.weight * torch.rsqrt(var + self.eps)) + self.bias
 
 
 class LSTM(nn.Module):
     """Multi-layer, optionally bidirectional LSTM over (B, T, C), zero initial
-    state. Per layer ``k`` and direction ``d`` in (fwd, bwd): ``w_ih_l{k}_{d}``
+    state, differentiable (``ops.lstm.lstm_sequence`` goes through
+    ``LSTMSequenceFn`` when grad is on). Per layer ``k`` and direction ``d`` in (fwd, bwd): ``w_ih_l{k}_{d}``
     (in, 4H), ``w_hh_l{k}_{d}`` (H, 4H), ``b_l{k}_{d}`` (4H,). The input product
     ``x @ w_ih + b`` is one matmul over all steps; the recurrence is
     ``ops.lstm.lstm_sequence``. Returns (B, T, H), or (B, T, 2H) with the

@@ -1,15 +1,23 @@
-"""LSTM recurrence over hoisted input projections: the CUDA kernel and its
-plain PyTorch version.
+"""LSTM recurrence over hoisted input projections: the CUDA kernels and their
+plain PyTorch versions, forward and backward.
 
-Counterpart of ``autovc_tpu/ops/pallas_lstm.py::lstm_sequence``: given
-``xproj = x @ w_ih + b`` of shape (B, T, 4H) and ``w_hh`` (H, 4H), return the
-hidden sequence (B, T, H). Gate order i, f, g, o; float32 carry; zero
-initial state; ``reverse=True`` runs right to left (the backward direction of
-a BLSTM) and returns the sequence in natural time order.
+Counterpart of ``autovc_tpu/ops/pallas_lstm.py``: given
+``xproj = x @ w_ih + b`` of shape (B, T, 4H) and ``w_hh`` (H, 4H), the hidden
+sequence (B, T, H). Gate order i, f, g, o; float32 carry; initial state
+(h0, c0), zero when None; ``reverse=True`` runs right to left (the backward
+direction of a BLSTM) and returns the sequence in natural time order.
 
-``lstm_sequence`` launches the kernel in ``csrc/lstm_fwd.cu`` for a CUDA
-tensor and runs ``lstm_sequence_ref`` for a CPU tensor; there is no fallback
-from one to the other.
+- ``lstm_sequence`` (inference, and training through ``LSTMSequenceFn`` when
+  grad is on) launches ``csrc/lstm_fwd.cu`` for a CUDA tensor and runs the
+  plain version for a CPU tensor; there is no fallback from one to the other.
+- ``LSTMSequenceFn`` is the differentiable form, (xproj, w_hh, h0, c0) ->
+  (h_seq, hN, cN): its forward runs the kernel's training form, which also
+  keeps the cell sequence; its backward runs ``csrc/lstm_bwd.cu`` (the
+  reversed recurrence, then the dW product).
+- ``lstm_sequence_train_ref``, ``lstm_backward_ref`` and
+  ``lstm_weight_grad_ref`` are the plain versions: loops of the same formulas,
+  not autograd, in float32 (float64 for float64 inputs, a reference of
+  higher precision).
 """
 
 from __future__ import annotations
@@ -20,75 +28,258 @@ import torch
 
 from autovc_tpu_torch.ops import _build
 
-# Calls of lstm_sequence that launched the CUDA kernel (one call = one
-# sequence = T step launches). Callers reset it to 0 and read it back.
+# Sequences launched on the card by each wrapper: a forward (T step
+# launches), a backward (T step launches and the dh0 launch), a dW product
+# (one launch). Callers reset them to 0 and read them back.
 launches = 0
+bwd_launches = 0
+dw_launches = 0
 
 
-def lstm_sequence_ref(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """The plain version: a Python loop of the cell update, in float32."""
+def _compute_dtype(xproj: torch.Tensor) -> torch.dtype:
+    """The plain versions compute in float32, or in float64 for float64 inputs."""
+    return torch.promote_types(xproj.dtype, torch.float32)
+
+
+def _zeros_like_state(xproj: torch.Tensor, hidden: int) -> torch.Tensor:
+    return torch.zeros((xproj.shape[0], hidden), dtype=_compute_dtype(xproj), device=xproj.device)
+
+
+def lstm_sequence_train_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None = None,
+                            c0: torch.Tensor | None = None, reverse: bool = False):
+    """The plain forward: a Python loop of the cell update in float32 (float64
+    for float64 inputs) -> (h_seq, c_seq, hN, cN), the sequences (B, T, H)
+    in natural time order."""
     b, t, h4 = xproj.shape
     hidden = h4 // 4
-    xs = xproj.float().flip(1) if reverse else xproj.float()
-    w = w_hh.float()
-    h = xproj.new_zeros((b, hidden), dtype=torch.float32)
-    c = torch.zeros_like(h)
-    outs = []
-    for step in range(t):
-        gates = xs[:, step] + h @ w
+    dt = _compute_dtype(xproj)
+    w = w_hh.to(dt)
+    h = _zeros_like_state(xproj, hidden) if h0 is None else h0.to(dt)
+    c = _zeros_like_state(xproj, hidden) if c0 is None else c0.to(dt)
+    hs: list[torch.Tensor] = [h] * t
+    cs: list[torch.Tensor] = [c] * t
+    for step in (range(t - 1, -1, -1) if reverse else range(t)):
+        gates = xproj[:, step].to(dt) + h @ w
         i, f, g, o = gates.split(hidden, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
-        outs.append(h)
-    out = torch.stack(outs, dim=1)
-    return out.flip(1) if reverse else out
+        hs[step], cs[step] = h, c
+    return torch.stack(hs, dim=1), torch.stack(cs, dim=1), h, c
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("lstm_fwd")
-    fn = lib.autovc_lstm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def lstm_sequence_ref(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """The plain inference forward from a zero state: the hidden sequence."""
+    return lstm_sequence_train_ref(xproj, w_hh, reverse=reverse)[0]
+
+
+def _hprev(h_seq: torch.Tensor, h0: torch.Tensor | None, reverse: bool) -> torch.Tensor:
+    """(B, T, H): the state each step started from (h0, or zero, at the start)."""
+    first = torch.zeros_like(h_seq[:, :1]) if h0 is None else h0[:, None].to(h_seq.dtype)
+    if reverse:
+        return torch.cat([h_seq[:, 1:], first], dim=1)
+    return torch.cat([first, h_seq[:, :-1]], dim=1)
+
+
+def lstm_weight_grad_ref(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: torch.Tensor,
+                         reverse: bool = False) -> torch.Tensor:
+    """dW_hh (H, 4H) = sum over (b, t) of hprev[b, t]^T dxproj[b, t]."""
+    dt = _compute_dtype(dxproj)
+    hprev = _hprev(h_seq.to(dt), h0, reverse)
+    return hprev.reshape(-1, hprev.shape[-1]).T @ dxproj.reshape(-1, dxproj.shape[-1]).to(dt)
+
+
+def lstm_backward_ref(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None, reverse: bool = False):
+    """The plain backward: the reversed loop of ``pallas_lstm.py:438-453``,
+    gates recomputed from (xproj, hprev) -> (dxproj, dW_hh, dh0, dc0)."""
+    b, t, h4 = xproj.shape
+    hidden = h4 // 4
+    dt = _compute_dtype(xproj)
+    w = w_hh.to(dt)
+    hprev_seq = _hprev(h_seq.to(dt), h0, reverse)
+    cprev_seq = _hprev(c_seq.to(dt), c0, reverse)
+    dh_carry = _zeros_like_state(xproj, hidden) if dhn is None else dhn.to(dt)
+    dc = _zeros_like_state(xproj, hidden) if dcn is None else dcn.to(dt)
+    dx = torch.empty((b, t, h4), dtype=dt, device=xproj.device)
+    for step in (range(t) if reverse else range(t - 1, -1, -1)):
+        gates = xproj[:, step].to(dt) + hprev_seq[:, step] @ w
+        gi, gf, gg, go = gates.split(hidden, dim=-1)
+        si, sf, tg, so = torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg), torch.sigmoid(go)
+        tc = torch.tanh(c_seq[:, step].to(dt))
+        dh = dy[:, step].to(dt) + dh_carry
+        d_o = dh * tc * so * (1.0 - so)
+        dc = dc + dh * so * (1.0 - tc * tc)
+        di = dc * tg * si * (1.0 - si)
+        dg = dc * si * (1.0 - tg * tg)
+        df = dc * cprev_seq[:, step] * sf * (1.0 - sf)
+        dgates = torch.cat([di, df, dg, d_o], dim=-1)
+        dx[:, step] = dgates
+        dh_carry = dgates @ w.T
+        dc = dc * sf
+    return dx, lstm_weight_grad_ref(h_seq, h0, dx, reverse), dh_carry, dc
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    if name == "lstm_fwd":
+        lib.autovc_lstm_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.autovc_lstm_fwd.restype = ctypes.c_int
+    else:
+        lib.autovc_lstm_bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.autovc_lstm_bwd.restype = ctypes.c_int
+        lib.autovc_lstm_dw.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.autovc_lstm_dw.restype = ctypes.c_int
     lib.autovc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.autovc_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def lstm_sequence_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronisation)."""
-    global launches
+def _check(xproj: torch.Tensor, w_hh: torch.Tensor | None, **others: torch.Tensor | None) -> tuple[int, int, int]:
+    """Validate what a kernel takes, before it is built: float32 throughout,
+    (B, T, 4H) and w_hh (H, 4H) with H % 8 == 0, the named (B, H) and
+    (B, T, H) tensors of matching shape, all on one CUDA device. Returns
+    (B, T, H)."""
     b, t, h4 = xproj.shape
     hidden = h4 // 4
-    if xproj.dtype != torch.float32 or w_hh.dtype != torch.float32:
-        raise TypeError(f"lstm kernel takes float32, got {xproj.dtype} and {w_hh.dtype}")
-    if w_hh.shape != (hidden, h4) or h4 % 4:
-        raise ValueError(f"shapes do not match: xproj {tuple(xproj.shape)}, w_hh {tuple(w_hh.shape)}")
+    given = {"xproj": xproj, "w_hh": w_hh, **others}
+    given = {k: v for k, v in given.items() if v is not None}
+    for name, v in given.items():
+        if v.dtype != torch.float32:
+            raise TypeError(f"lstm kernels take float32, got {name} {v.dtype}")
+    if h4 % 4 or (w_hh is not None and w_hh.shape != (hidden, h4)):
+        raise ValueError(f"shapes do not match: xproj {tuple(xproj.shape)}, "
+                         f"w_hh {None if w_hh is None else tuple(w_hh.shape)}")
     if hidden % 8:
-        raise ValueError(f"lstm kernel needs H % 8 == 0, got H={hidden}")
-    if w_hh.device != xproj.device:
-        raise ValueError(f"xproj on {xproj.device}, w_hh on {w_hh.device}")
-    lib = _library()
-    xproj = xproj.contiguous()
-    w_hh = w_hh.contiguous()
-    out = torch.empty((b, t, hidden), device=xproj.device, dtype=torch.float32)
-    c = torch.empty((b, hidden), device=xproj.device, dtype=torch.float32)
+        raise ValueError(f"lstm kernels need H % 8 == 0, got H={hidden}")
+    for name, v in others.items():
+        want = (b, hidden) if name in ("h0", "c0", "dhn", "dcn") else (b, t, hidden)
+        if v is not None and tuple(v.shape) != want:
+            raise ValueError(f"{name} is {tuple(v.shape)}, expected {want}")
+    devices = {v.device for v in given.values()}
+    if len(devices) != 1 or xproj.device.type != "cuda":
+        raise ValueError(f"lstm kernels take tensors on one CUDA device, got {sorted(map(str, devices))}")
+    return b, t, hidden
+
+
+def _ptr(v: torch.Tensor | None) -> int | None:
+    """The data pointer of a contiguous, 16-byte aligned tensor (the kernels
+    load float4), or None for an absent one."""
+    if v is None:
+        return None
+    if not v.is_contiguous() or v.data_ptr() % 16:
+        raise ValueError("kernel operand is not contiguous and 16-byte aligned")
+    return v.data_ptr()
+
+
+def _dense(v: torch.Tensor | None) -> torch.Tensor | None:
+    """A contiguous, 16-byte aligned copy of ``v`` when it is not one already."""
+    if v is None:
+        return None
+    v = v.contiguous()
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: {lib.autovc_cuda_error_string(err).decode()}")
+
+
+def lstm_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None = None,
+                      c0: torch.Tensor | None = None, reverse: bool = False, with_cseq: bool = False):
+    """Launch the forward kernel on the current stream (no synchronisation)
+    -> (h_seq, c_seq or None, hN, cN)."""
+    global launches
+    b, t, hidden = _check(xproj, w_hh, h0=h0, c0=c0)
+    lib = _library("lstm_fwd")
+    xproj, w_hh, h0 = _dense(xproj), _dense(w_hh), _dense(h0)
+    h_seq = torch.empty((b, t, hidden), device=xproj.device, dtype=torch.float32)
+    c_seq = torch.empty_like(h_seq) if with_cseq else None
+    c = torch.zeros((b, hidden), device=xproj.device, dtype=torch.float32) if c0 is None else _dense(c0).clone()
     with torch.cuda.device(xproj.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.autovc_lstm_fwd(
-            xproj.data_ptr(), w_hh.data_ptr(), out.data_ptr(), c.data_ptr(),
-            b, t, hidden, int(reverse), stream,
-        )
-    if err:
-        raise RuntimeError(f"lstm kernel launch failed: {lib.autovc_cuda_error_string(err).decode()}")
+        err = lib.autovc_lstm_fwd(_ptr(xproj), _ptr(w_hh), _ptr(h0), _ptr(h_seq), _ptr(c), _ptr(c_seq),
+                                  b, t, hidden, int(reverse), stream)
+    _raise_on(lib, err, "lstm forward kernel")
     launches += 1
-    return out
+    return h_seq, c_seq, h_seq[:, 0 if reverse else -1].clone(), c
+
+
+def lstm_sequence_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """The inference form from a zero state: the hidden sequence only."""
+    return lstm_forward_cuda(xproj, w_hh, reverse=reverse)[0]
+
+
+def lstm_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: torch.Tensor,
+                          reverse: bool = False) -> torch.Tensor:
+    """Launch the dW kernel: (H, 4H) = sum over (b, t) of hprev^T dxproj."""
+    global dw_launches
+    b, t, hidden = _check(dxproj, None, h_seq=h_seq, h0=h0)
+    lib = _library("lstm_bwd")
+    h_seq, h0, dxproj = _dense(h_seq), _dense(h0), _dense(dxproj)
+    dw = torch.empty((hidden, 4 * hidden), device=dxproj.device, dtype=torch.float32)
+    with torch.cuda.device(dxproj.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.autovc_lstm_dw(_ptr(h_seq), _ptr(h0), _ptr(dxproj), _ptr(dw), b, t, hidden, int(reverse), stream)
+    _raise_on(lib, err, "lstm dW kernel")
+    dw_launches += 1
+    return dw
+
+
+def lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None, reverse: bool = False):
+    """Launch the backward kernels on the current stream -> (dxproj, dW_hh,
+    dh0, dc0)."""
+    global bwd_launches
+    b, t, hidden = _check(xproj, w_hh, h0=h0, c0=c0, h_seq=h_seq, c_seq=c_seq, dy=dy, dhn=dhn, dcn=dcn)
+    lib = _library("lstm_bwd")
+    xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn = map(_dense, (xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn))
+    dx = torch.empty_like(xproj)
+    dc = torch.zeros((b, hidden), device=xproj.device, dtype=torch.float32) if dcn is None else _dense(dcn).clone()
+    dh0 = torch.empty((b, hidden), device=xproj.device, dtype=torch.float32)
+    with torch.cuda.device(xproj.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.autovc_lstm_bwd(_ptr(xproj), _ptr(w_hh), _ptr(h0), _ptr(c0), _ptr(h_seq), _ptr(c_seq),
+                                  _ptr(dy), _ptr(dhn), _ptr(dx), _ptr(dc), _ptr(dh0), b, t, hidden,
+                                  int(reverse), stream)
+    _raise_on(lib, err, "lstm backward kernel")
+    bwd_launches += 1
+    return dx, lstm_weight_grad_cuda(h_seq, h0, dx, reverse), dh0, dc
+
+
+def _device_kind(xproj: torch.Tensor) -> str:
+    if xproj.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"lstm_sequence runs on cuda or cpu tensors, not {xproj.device}")
+    return xproj.device.type
+
+
+class LSTMSequenceFn(torch.autograd.Function):
+    """(xproj, w_hh, h0, c0, reverse) -> (h_seq, hN, cN), differentiable in
+    the four tensors (h0 and c0 may be None: zero). The kernels for CUDA
+    tensors, the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, xproj, w_hh, h0, c0, reverse):
+        if _device_kind(xproj) == "cuda":
+            h_seq, c_seq, hn, cn = lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True)
+        else:
+            h_seq, c_seq, hn, cn = lstm_sequence_train_ref(xproj, w_hh, h0, c0, reverse)
+        ctx.save_for_backward(xproj, w_hh, h0, c0, h_seq, c_seq)
+        ctx.reverse = reverse
+        return h_seq, hn, cn
+
+    @staticmethod
+    def backward(ctx, dy, dhn, dcn):
+        xproj, w_hh, h0, c0, h_seq, c_seq = ctx.saved_tensors
+        fn = lstm_backward_cuda if _device_kind(xproj) == "cuda" else lstm_backward_ref
+        dx, dw, dh0, dc0 = fn(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, ctx.reverse)
+        return dx, dw, None if h0 is None else dh0, None if c0 is None else dc0, None
 
 
 def lstm_sequence(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """(B, T, 4H), (H, 4H) -> (B, T, H): the kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
-    if xproj.device.type == "cuda":
+    """(B, T, 4H), (H, 4H) -> (B, T, H) from a zero state: the kernel for a
+    CUDA tensor, the plain version for a CPU tensor; through
+    ``LSTMSequenceFn`` when grad is on and an input requires it."""
+    kind = _device_kind(xproj)
+    if torch.is_grad_enabled() and (xproj.requires_grad or w_hh.requires_grad):
+        return LSTMSequenceFn.apply(xproj, w_hh, None, None, reverse)[0]
+    if kind == "cuda":
         return lstm_sequence_cuda(xproj, w_hh, reverse)
-    if xproj.device.type == "cpu":
-        return lstm_sequence_ref(xproj, w_hh, reverse)
-    raise ValueError(f"lstm_sequence runs on cuda or cpu tensors, not {xproj.device}")
+    return lstm_sequence_ref(xproj, w_hh, reverse)

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from autovc_tpu_torch import resolve_device
+from autovc_tpu_torch import exact_f32, resolve_device
 from autovc_tpu_torch.config import HiFiGANConfig
 from autovc_tpu_torch.io import hifigan_state_from_jax, load_artifact
 
@@ -107,5 +107,6 @@ class HiFiGANVocoder:
         float32 on the vocoder's device."""
         mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
         squeeze = mel.ndim == 2
-        wav = self.model(mel[None] if squeeze else mel)
+        with exact_f32(self.device):
+            wav = self.model(mel[None] if squeeze else mel)
         return wav[0] if squeeze else wav

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from autovc_tpu_torch import resolve_device
+from autovc_tpu_torch import exact_f32, resolve_device
 from autovc_tpu_torch.config import WaveNetConfig
 from autovc_tpu_torch.io import load_artifact, wavenet_state_from_jax
 from autovc_tpu_torch.ops import wavenet as wavenet_ops
@@ -177,13 +177,15 @@ class WaveNetVocoder:
         if squeeze:
             mel = mel[None]
         length = mel.shape[1] * self.cfg.hop_size
-        cond = self.model.upsample_conditioning(mel)[:, :length]
         if uniforms is None:
             uniforms = self.uniforms(mel.shape[0], length, generator)
         elif squeeze and uniforms.ndim == 2:
             uniforms = uniforms[None]
         uniforms = torch.as_tensor(uniforms, dtype=torch.float32, device=self.device)
-        wav, _ = wavenet_ops.generate(self.packed, self.cfg.dilations(), cond, uniforms, self.cfg.log_scale_min)
+        with exact_f32(self.device):
+            cond = self.model.upsample_conditioning(mel)[:, :length]
+            wav, _ = wavenet_ops.generate(self.packed, self.cfg.dilations(), cond, uniforms,
+                                          self.cfg.log_scale_min)
         return wav[0] if squeeze else wav
 
     def generate_bucketed(self, mel: np.ndarray | torch.Tensor, bucket: int = 64,
@@ -205,4 +207,5 @@ class WaveNetVocoder:
     @torch.inference_mode()
     def logits(self, x: torch.Tensor, mel: torch.Tensor) -> torch.Tensor:
         """Teacher-forced MoL logits (B, T, 3K) of waveform x (B, T, 1)."""
-        return self.model.apply(x, mel)
+        with exact_f32(self.device):
+            return self.model.apply(x, mel)

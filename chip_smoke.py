@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels, holds
-each against its plain PyTorch version, and drives spmel conversion
-inference end to end.
+each against its plain PyTorch version, and drives spmel conversion,
+WaveNet vocoding and spmel generator training end to end.
 
     python3 chip_smoke.py            # seeded random weights at full width
     python3 chip_smoke.py --trained  # the committed artifacts/*.npz weights
@@ -22,14 +22,33 @@ teacher-forced forward on its own waveform; (ii) the first 32 samples of
 every row within 1e-4 of ``generate_ref`` on the same uniforms (the first
 divergence per row is printed); (iii) the waveform finite, in [-1, 1] and
 (8, 2048); (iv) T * (2L + 1) kernel launches for the one wrapper call.
+Phase 4 trains the full-width spmel generator at B=7, T=128 on synthetic
+mels written as a ``train.pkl`` directory in a temporary directory: (a) the
+forward kernel's training form and (b) the backward and dW kernels
+(``csrc/lstm_bwd.cu``) against their plain versions at H in {32, 512, 1024},
+both directions, nonzero initial state (1e-4; dW 1e-4 of its largest
+magnitude), timed beside cuDNN's LSTM forward+backward and ``torch.matmul``;
+(c) one train step with the kernels against the same step with the plain
+recurrence under torch autograd, the plain step made to take the kernel
+step's side of every ReLU and abs kink (``train.compare.KinkTape``; the
+elements that fell on the other side are counted and the unforced step's
+gradients printed): loss 1e-5 relative, every gradient leaf within 1e-4 of
+its scale (its largest magnitude; for a convolution's bias, whose exact
+gradient is zero under the BatchNorm after it, that of its weight), 11
+sequences forward and backward; and every leaf of the kernel step as near
+the same step in float64 as twice the plain step's distance on that leaf
+plus 1e-4; (d) 20 ``Solver`` steps (finite loss, the
+mean of the last 5 below the first 5, step time, a profiler split of one
+warm step); (e) a checkpoint at step 20 resumed by a new ``Solver``.
 
-Both kernels are built first, one ``nvcc`` each, started together.
+The kernels are built first, one ``nvcc`` each, started together.
 
 The output ends with the card's name and power limit, one JSON line of
 kernel records, and ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; a watchdog ends a hung run with a stack dump. Without a CUDA
 device it exits non-zero before doing anything. It writes nothing outside
-the kernel build directory.
+the kernel build directory but phase 4's temporary directory, which it
+removes.
 """
 
 from __future__ import annotations
@@ -40,6 +59,9 @@ sys.dont_write_bytecode = True  # keep the checkout free of __pycache__
 
 import argparse  # noqa: E402
 import faulthandler  # noqa: E402
+import os  # noqa: E402
+import shutil  # noqa: E402
+import tempfile  # noqa: E402
 import json  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
@@ -51,12 +73,15 @@ from unittest import mock  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from autovc_tpu_torch.config import ModelConfig, WaveNetConfig  # noqa: E402
+from autovc_tpu_torch.config import Config, ModelConfig, TrainConfig, WaveNetConfig  # noqa: E402
 from autovc_tpu_torch.convert import Converter  # noqa: E402
+from autovc_tpu_torch.data import BatchIterator, SpeakerEntry, UtteranceDataset, save_train_manifest  # noqa: E402
 from autovc_tpu_torch.models import build_generator  # noqa: E402
 from autovc_tpu_torch.ops import _build  # noqa: E402
 from autovc_tpu_torch.ops import lstm as lstm_ops  # noqa: E402
 from autovc_tpu_torch.ops import wavenet as wavenet_ops  # noqa: E402
+from autovc_tpu_torch.train import Solver, TrainState, init_ema, make_optimizer, make_train_step  # noqa: E402
+from autovc_tpu_torch.train.compare import KinkTape, grad_scale  # noqa: E402
 from autovc_tpu_torch.vocoder.hifigan import HiFiGANVocoder  # noqa: E402
 from autovc_tpu_torch.vocoder.wavenet import WaveNetVocoder  # noqa: E402
 
@@ -65,7 +90,7 @@ ROOT = Path(__file__).resolve().parent
 B, T, N_MELS, HOP = 32, 512, 80, 256
 LSTM_TOL = 1e-4  # f32 kernel vs f32 plain loop: summation order only
 MEL_TOL = 1e-3  # on the whole generator, after 7 recurrences and 11 convs
-KERNELS = ("lstm_fwd", "wavenet_gen")
+KERNELS = ("lstm_fwd", "lstm_bwd", "wavenet_gen")
 WN_B, WN_FRAMES = 8, 8  # utterances and mel frames vocoded by WaveNet: T = 2048 samples
 WN_TF_TOL = 1e-3  # kernel logits vs teacher-forced forward on its own waveform, f32
 WN_PREFIX_TOL, WN_MIN_PREFIX = 1e-4, 32  # kernel vs plain loop, same uniforms
@@ -78,6 +103,14 @@ LSTM_CASES = [
     (512, False, 1), (512, True, 0),  # decoder lstm1 (reverse: coverage only)
     (1024, False, 2), (1024, True, 0),  # decoder lstm2, 2 layers
 ]
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 7, 128, 20  # the batch artifacts/generator_spmel_f16.npz was trained at
+# (hidden, reverse, sequences per train step): the encoder BLSTM runs twice
+# (the forward and the content re-encoding), the decoder LSTMs once
+TRAIN_CASES = [(32, False, 4), (32, True, 4), (512, False, 1), (512, True, 0), (1024, False, 2), (1024, True, 0)]
+SEQS_PER_STEP = sum(n for _, _, n in TRAIN_CASES)  # 11
+# one step with the kernels vs the plain recurrence on the card, both on the
+# same side of every kink: the loss, relative; each gradient leaf, of its scale
+LOSS_RTOL, GRAD_TOL = 1e-5, 1e-4
 
 
 def log(msg: str) -> None:
@@ -231,6 +264,14 @@ def phase_end_to_end(dev: torch.device, trained: bool) -> tuple[int, np.ndarray]
     with torch.inference_mode():
         gen_ms = cuda_ms(lambda: gen(x, e_src, e_trg), reps=3)
         voc_ms = cuda_ms(lambda: voc.model(x), reps=3)
+        # a measurement, not a check: what torch's default (cuDNN in TF32)
+        # would make of the mel, which the entry points now refuse
+        exact = gen(x, e_src, e_trg)[1]
+        torch.backends.cudnn.allow_tf32 = True
+        tf32 = gen(x, e_src, e_trg)[1]
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"spmel mel with cuDNN TF32 on (torch's default) vs exact f32: "
+            f"max_abs_delta={(tf32 - exact).abs().max().item():.3e}")
     log(f"warm iteration: {warm_s * 1e3:.1f} ms wall for {audio_s:.1f} s of audio "
         f"({audio_s / warm_s:.1f}x realtime); generator {gen_ms:.1f} ms, vocoder {voc_ms:.1f} ms "
         f"(card: {card_line()})")
@@ -358,6 +399,290 @@ def phase_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> dict:
             "bound_ms": w_bound_ms, "bound_by": w_bound_by}
 
 
+def lstm_train_work(b: int, t: int, h: int) -> tuple[float, float]:
+    """(flops, bytes) of one training-form forward sequence: the recurrent
+    product, xproj + w_hh + h0 + c0 read once, h_seq, c_seq, hN, cN written
+    once (c_seq is the training form's extra B*T*H floats)."""
+    return 2.0 * b * t * h * 4 * h, 4.0 * (b * t * 4 * h + h * 4 * h + 2 * b * h + 2 * b * t * h + 2 * b * h)
+
+
+def lstm_bwd_work(b: int, t: int, h: int) -> tuple[float, float]:
+    """(flops, bytes) of one backward sequence with its dW: the gate
+    recompute 2*B*T*H*4H, the dh contraction 2*B*T*4H*H and dW 2*T*B*H*4H;
+    xproj, hprev, cprev, c and dy read once, w_hh read once, dxproj and dW
+    written once."""
+    return 3 * 2.0 * b * t * h * 4 * h, 4.0 * (2 * b * t * 4 * h + 4 * b * t * h + 2 * h * 4 * h)
+
+
+def cudnn_train_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.Tensor, dy: torch.Tensor) -> float:
+    """Yardstick only: torch.nn.LSTM (cuDNN), one layer of H units on a
+    (B, T, H) input, forward and backward from (h0, c0) with cotangent dy."""
+    net = torch.nn.LSTM(hidden, hidden, batch_first=True).to(dev)
+    x = torch.randn(dy.shape, device=dev, requires_grad=True)
+
+    def run():
+        out, _ = net(x, (h0[None], c0[None]))
+        out.backward(dy)
+
+    return cuda_ms(run, reps=3)
+
+
+def phase_train_kernels(dev: torch.device) -> tuple[dict, dict]:
+    """Phase 4 (a)-(b): the training-form forward, the backward and the dW
+    kernels against their plain versions at the training shapes, timed."""
+    rng = np.random.RandomState(10)
+    b, t = TRAIN_B, TRAIN_T
+    fwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    bwd = {"max_abs_err": 0.0, "dw_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "dw_ms": 0.0,
+           "dw_library_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    for hidden, reverse, n in TRAIN_CASES:
+        xproj = arr(b, t, 4 * hidden, scale=0.5)
+        lim = 1.0 / np.sqrt(hidden)
+        w_hh = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev)
+        h0, c0 = arr(b, hidden, scale=0.5), arr(b, hidden, scale=0.5)
+        dy, dhn, dcn = arr(b, t, hidden), arr(b, hidden), arr(b, hidden)
+        fargs = (xproj, w_hh, h0, c0, reverse)
+        got = lstm_ops.lstm_forward_cuda(*fargs, with_cseq=True)
+        want = lstm_ops.lstm_sequence_train_ref(*fargs)
+        torch.cuda.synchronize()
+        f_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        bargs = (xproj, w_hh, h0, c0, want[0], want[1], dy, dhn, dcn, reverse)
+        bgot = lstm_ops.lstm_backward_cuda(*bargs)
+        bwant = lstm_ops.lstm_backward_ref(*bargs)
+        torch.cuda.synchronize()
+        b_err = max((bgot[i] - bwant[i]).abs().max().item() for i in (0, 2, 3))
+        dw_rel = (bgot[1] - bwant[1]).abs().max().item() / bwant[1].abs().max().item()
+        f_ms = cuda_ms(lambda: lstm_ops.lstm_forward_cuda(*fargs, with_cseq=True), reps=3)
+        f_plain = cuda_ms(lambda: lstm_ops.lstm_sequence_train_ref(*fargs), reps=1)
+        b_ms = cuda_ms(lambda: lstm_ops.lstm_backward_cuda(*bargs), reps=3)
+        b_plain = cuda_ms(lambda: lstm_ops.lstm_backward_ref(*bargs), reps=1)
+        dw_ms = cuda_ms(lambda: lstm_ops.lstm_weight_grad_cuda(want[0], h0, bgot[0], reverse), reps=5)
+        hprev = lstm_ops._hprev(want[0], h0, reverse).reshape(-1, hidden)
+        dgates = bgot[0].reshape(-1, 4 * hidden)
+        dw_lib = cuda_ms(lambda: hprev.T @ dgates, reps=5)
+        lib_ms = cudnn_train_ms(dev, hidden, h0, c0, dy)
+        ff, fb = lstm_train_work(b, t, hidden)
+        bf, bb = lstm_bwd_work(b, t, hidden)
+        fbound, fby = bound_ms(ff, fb)
+        bbound, bby = bound_ms(bf, bb)
+        direction = "reverse" if reverse else "forward"
+        log(f"lstm_fwd train form H={hidden} {direction}: max_abs_err={f_err:.3e} ms={f_ms:.4f} "
+            f"plain_ms={f_plain:.4f} bound_ms={fbound:.4f} ({fby}) seqs_per_step={n}")
+        log(f"lstm_bwd H={hidden} {direction}: max_abs_err={b_err:.3e} dW_rel_err={dw_rel:.3e} ms={b_ms:.4f} "
+            f"(dW {dw_ms:.4f}, torch.matmul {dw_lib:.4f}) plain_ms={b_plain:.4f} bound_ms={bbound:.4f} ({bby}) "
+            f"cudnn_fwd_bwd_ms={lib_ms:.4f} seqs_per_step={n}")
+        if not (f_err <= LSTM_TOL and b_err <= LSTM_TOL and dw_rel <= LSTM_TOL):
+            raise AssertionError(f"lstm training kernels H={hidden} reverse={reverse}: forward {f_err}, "
+                                 f"backward {b_err}, dW relative {dw_rel} (tolerance {LSTM_TOL})")
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], f_err)
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], b_err)
+        bwd["dw_rel_err"] = max(bwd["dw_rel_err"], dw_rel)
+        for rec, vals in ((fwd, dict(ms=f_ms, plain_ms=f_plain, flops=ff, bytes=fb)),
+                          (bwd, dict(ms=b_ms, plain_ms=b_plain, dw_ms=dw_ms, dw_library_ms=dw_lib,
+                                     library_ms=lib_ms, flops=bf, bytes=bb))):
+            for k, v in vals.items():
+                rec[k] += n * v
+    return fwd, bwd
+
+
+def synthetic_spmel(root: str, rng: np.random.RandomState, speakers: int = TRAIN_B, utts: int = 4) -> str:
+    """A train.pkl feature directory of smooth mel-like utterances in [0, 1]
+    (a spectral envelope per speaker, slow modulation, noise), 100-300
+    frames each, with unit-norm random embeddings."""
+    mel_dir = os.path.join(root, "spmel")
+    entries = []
+    for s in range(speakers):
+        os.makedirs(os.path.join(mel_dir, f"s{s}"))
+        env = 0.3 + 0.4 * rng.rand(N_MELS)
+        paths = []
+        for u in range(utts):
+            t = rng.randint(100, 300)
+            mod = 0.15 * np.sin(np.arange(t)[:, None] / rng.uniform(3, 12) + np.arange(N_MELS)[None] / 9.0)
+            mel = np.clip(env + mod + 0.05 * rng.randn(t, N_MELS), 0.0, 1.0).astype(np.float32)
+            np.save(os.path.join(mel_dir, f"s{s}", f"u{u}.npy"), mel)
+            paths.append(f"s{s}/u{u}.npy")
+        emb = rng.randn(256).astype(np.float32)
+        entries.append(SpeakerEntry(f"s{s}", emb / np.linalg.norm(emb), paths))
+    save_train_manifest(os.path.join(mel_dir, "train.pkl"), entries)
+    return mel_dir
+
+
+def counts() -> tuple[int, int, int]:
+    return lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches
+
+
+def zero_counts() -> None:
+    lstm_ops.launches = lstm_ops.bwd_launches = lstm_ops.dw_launches = 0
+
+
+def train_profile(solver: Solver, x: torch.Tensor, emb: torch.Tensor) -> None:
+    """Device time by kind over one warm train step (torch.profiler) and the
+    device's idle share of that step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solver._step_fn(solver.state, x, emb)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver._step_fn(solver.state, x, emb)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device activity only: kernels and copies, not the GPU ranges of
+    # annotations such as Optimizer.step, which span kernels counted already
+    rows = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and e.device_time_total > 0
+            and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+    if not rows:
+        log("train profile: the profiler recorded no device time (not measured)")
+        return
+    kinds = {"lstm forward (lstm_step_kernel)": 0.0, "lstm backward (lstm_bwd_step_kernel, lstm_dh_kernel)": 0.0,
+             "dW (lstm_dw_kernel)": 0.0, "cuDNN convolutions": 0.0, "rest": 0.0}
+    rest = []
+    for key, count, total in rows:
+        if "lstm_bwd_step_kernel" in key or "lstm_dh_kernel" in key:
+            kind = "lstm backward (lstm_bwd_step_kernel, lstm_dh_kernel)"
+        elif "lstm_dw_kernel" in key:
+            kind = "dW (lstm_dw_kernel)"
+        elif "lstm_step_kernel" in key:
+            kind = "lstm forward (lstm_step_kernel)"
+        elif any(w in key.lower() for w in ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "fprop")):
+            kind = "cuDNN convolutions"
+        else:
+            kind = "rest"
+            rest.append((total, count, key[:70]))
+        kinds[kind] += total
+    busy = sum(kinds.values())
+    for kind, total in kinds.items():
+        log(f"train profile: {kind}: {total / 1e3:.3f} ms ({total / busy:.3f} of device time)")
+    for total, count, key in sorted(rest, reverse=True)[:6]:
+        log(f"train profile:   rest: {key}: {count} launches, {total / 1e3:.3f} ms")
+    log(f"train profile: one step at B={TRAIN_B}, T={TRAIN_T}: device busy {busy / 1e3:.3f} ms of "
+        f"{wall_us / 1e3:.3f} ms wall (idle share {1 - busy / wall_us:.3f})")
+
+
+def phase_training(dev: torch.device) -> dict:
+    """Phase 4 (c)-(e): the train step with the kernels against the plain
+    recurrence, 20 Solver steps, a checkpoint round trip."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        rng = np.random.RandomState(20)
+        mel_dir = synthetic_spmel(tmp, rng)
+        cfg = Config(train=TrainConfig(batch_size=TRAIN_B, len_crop=TRAIN_T, num_iters=TRAIN_STEPS, log_step=1,
+                                       checkpoint_step=TRAIN_STEPS), main_dir=tmp, run_name="smoke")
+        data = UtteranceDataset(mel_dir)
+        x, emb = (torch.from_numpy(a).to(dev) for a in next(BatchIterator(data, TRAIN_B, TRAIN_T, seed=1)))
+
+        # (c) one step with the kernels vs the same step with the plain
+        # recurrence, both in f32, and the plain step in f64 as the truth;
+        # the plain steps once as they fall and once on the kernel step's
+        # side of every ReLU and abs kink (KinkTape)
+        def fresh(dtype=torch.float32) -> TrainState:
+            model = build_generator(cfg.model, device=dev, seed=7, trainable=True).to(dtype)
+            return TrainState(0, model, make_optimizer(model, cfg), init_ema(model))
+
+        def plain_step(state: TrainState, dtype=torch.float32):
+            with mock.patch.object(lstm_ops, "lstm_sequence",
+                                   lambda xp, w, reverse=False: lstm_ops.lstm_sequence_ref(xp, w, reverse)):
+                t0 = time.perf_counter()
+                m = step(state, x.to(dtype), emb.to(dtype))
+                torch.cuda.synchronize()
+                return m, time.perf_counter() - t0
+
+        step = make_train_step(cfg)
+        states = {"kernels": fresh(), "plain": fresh(), "plain_kinked": fresh(), "f64": fresh(torch.float64)}
+        tape = KinkTape()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with tape.record():
+            mk = step(states["kernels"], x, emb)
+            torch.cuda.synchronize()
+        k_s, k_counts = time.perf_counter() - t0, counts()
+        mp, p_s = plain_step(states["plain"])
+        with tape.replay():
+            mf, _ = plain_step(states["plain_kinked"])
+        plain_flips = tape.flips
+        with tape.replay():
+            m64, _ = plain_step(states["f64"], torch.float64)
+        if counts() != k_counts:
+            raise AssertionError(f"the plain steps launched kernels: {k_counts} -> {counts()}")
+        if k_counts != (SEQS_PER_STEP,) * 3:
+            raise AssertionError(f"one train step launched {k_counts} (forward, backward, dW) sequences, "
+                                 f"expected {SEQS_PER_STEP} each")
+        loss_k, loss_f, loss_64 = mk["g_loss"].item(), mf["g_loss"].item(), m64["g_loss"].item()
+        loss_rel = abs(loss_k - loss_f) / abs(loss_f)
+        grads = {name: {n: p.grad.double() for n, p in st.model.named_parameters()} for name, st in states.items()}
+        if {p.grad.dtype for p in states["f64"].model.parameters()} != {torch.float64}:
+            raise AssertionError("the f64 step did not compute its gradients in float64")
+
+        def leaf_errors(a: str, b: str) -> dict[str, float]:
+            return {n: (g - grads[b][n]).abs().max().item() / grad_scale(n, grads[b]) for n, g in grads[a].items()}
+
+        pairs = (("kernels", "plain"), ("kernels", "plain_kinked"), ("kernels", "f64"), ("plain_kinked", "f64"))
+        errs = {pair: leaf_errors(*pair) for pair in pairs}
+        worst = {pair: max(e.items(), key=lambda kv: kv[1]) for pair, e in errs.items()}
+        # every leaf of the kernel step as near the f64 step as twice the
+        # plain step's distance on that leaf, plus GRAD_TOL
+        over_f64 = {n: (e, errs[("plain_kinked", "f64")][n]) for n, e in errs[("kernels", "f64")].items()
+                    if e > 2 * errs[("plain_kinked", "f64")][n] + GRAD_TOL}
+        log(f"train (c) step with kernels vs plain recurrence: loss {loss_k!r} vs {loss_f!r} (rel {loss_rel:.3e}); "
+            f"f64 step loss {loss_64!r} ({m64['g_loss'].dtype}); launches (fwd, bwd, dW) {k_counts}; "
+            f"first step {k_s * 1e3:.1f} ms, plain {p_s * 1e3:.1f} ms")
+        log(f"train (c) kinks: {tape.elements} ReLU/abs elements; on the other side of the kernel step's: "
+            f"{plain_flips} in the plain f32 step, {tape.flips} in the f64 step")
+        for (a, b), (name, e) in worst.items():
+            log(f"train (c) worst gradient leaf, {a} vs {b}: {name} at {e:.3e} of its scale")
+        if not (loss_rel <= LOSS_RTOL and worst[("kernels", "plain_kinked")][1] <= GRAD_TOL and not over_f64):
+            raise AssertionError(f"train step with the kernels: loss {loss_rel} (tolerance {LOSS_RTOL}), "
+                                 f"gradients {worst[('kernels', 'plain_kinked')]} from the plain step on the same "
+                                 f"kinks (tolerance {GRAD_TOL}), leaves farther from f64 than twice the plain "
+                                 f"step's plus {GRAD_TOL}: {over_f64}")
+        del states, grads
+
+        # (d) 20 Solver steps through the entry point
+        run_dir = os.path.join(tmp, "run")
+        solver = Solver(cfg, BatchIterator(data, TRAIN_B, TRAIN_T, seed=2), run_dir=run_dir, device=dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        solver.train()
+        torch.cuda.synchronize()
+        train_s, train_counts = time.perf_counter() - t0, counts()
+        losses = [h["g_loss"] for h in solver.history]
+        timing = solver.timer.summary()
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        log(f"train (d) {TRAIN_STEPS} Solver steps in {train_s:.2f} s wall (checkpoint included): g_loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, mean of first 5 {first:.4f}, last 5 {last:.4f}; "
+            f"launches (fwd, bwd, dW) {train_counts}; step p50 {timing['step_ms_p50']:.2f} ms, "
+            f"p95 {timing['step_ms_p95']:.2f} ms, {timing['steps_per_sec']:.2f} steps/s (card: {card_line()})")
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or not last < first:
+            raise AssertionError(f"training did not go down finitely: {losses}")
+        if train_counts != (TRAIN_STEPS * SEQS_PER_STEP,) * 3:
+            raise AssertionError(f"{TRAIN_STEPS} steps launched {train_counts}")
+
+        # (e) resume from the step-20 checkpoint
+        saved = {k: v.clone() for k, v in solver.state.model.state_dict().items()}
+        resumed = Solver(cfg, BatchIterator(data, TRAIN_B, TRAIN_T, seed=3), run_dir=run_dir, device=dev)
+        same = all(torch.equal(saved[k], v) for k, v in resumed.state.model.state_dict().items()) and all(
+            torch.equal(solver.state.ema_params[k], v) for k, v in resumed.state.ema_params.items())
+        log(f"train (e) resume: checkpoints {resumed.checkpoint_steps()}, step {resumed.state.step}, "
+            f"parameters, statistics and EMA equal: {same}; save stalls {solver.save_stall_ms} ms")
+        if resumed.state.step != TRAIN_STEPS or not same:
+            raise AssertionError("the resumed Solver does not hold the step-20 state")
+        del solver, saved
+        train_profile(resumed, x, emb)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        raise AssertionError(f"{tmp} was not removed")
+    return {"launches": train_counts, "step_ms_p50": timing["step_ms_p50"]}
+
+
 def main(argv: list[str] | None = None) -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -378,20 +703,54 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     wn = phase_wavenet(dev, args.trained, mels)
     log(f"phase 3 (wavenet): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fwd_train, bwd = phase_train_kernels(dev)
+    train = phase_training(dev)
+    log(f"phase 4 (training): {time.perf_counter() - t0:.1f} s")
     lstm_bound, lstm_bound_by = bound_ms(record["flops"], record["bytes"])
+    fwd_train_bound, _ = bound_ms(fwd_train["flops"], fwd_train["bytes"])
+    bwd_bound, bwd_bound_by = bound_ms(bwd["flops"], bwd["bytes"])
+    train_fwd, train_bwd, _ = train["launches"]
 
     kernels = [{
         "name": "lstm_fwd",
         "route": "cuda",
         "source": "autovc_tpu_torch/ops/csrc/lstm_fwd.cu",
-        "replaces": "autovc_tpu/ops/pallas_lstm.py:371 (_chunk_fwd) and :328 (_lstm_chunk_split_impl)",
-        "launches": launches,
-        "max_abs_err": record["max_abs_err"],
+        "replaces": "autovc_tpu/ops/pallas_lstm.py:371 (_chunk_fwd: _lstm_kernel :55, _lstm_kernel_train :77) "
+                    "and :328 (_lstm_chunk_split_impl: _lstm_kernel_split :102, _lstm_kernel_split_train :135)",
+        # sequences launched on the two paths: conversion (one Generator
+        # forward) and training (20 steps); the times are per Generator
+        # forward in inference, the train_* ones per train step
+        "launches": launches + train_fwd,
+        "launches_by_path": {"convert": launches, "train": train_fwd},
+        "max_abs_err": max(record["max_abs_err"], fwd_train["max_abs_err"]),
         "ms": record["ms"],
         "plain_ms": record["plain_ms"],
         "bound_ms": lstm_bound,
         "bound_by": lstm_bound_by,
         "library_ms": record["library_ms"],
+        "train_ms": fwd_train["ms"],
+        "train_plain_ms": fwd_train["plain_ms"],
+        "train_bound_ms": fwd_train_bound,
+    }, {
+        "name": "lstm_bwd",
+        "route": "cuda",
+        "source": "autovc_tpu_torch/ops/csrc/lstm_bwd.cu",
+        "replaces": "autovc_tpu/ops/pallas_lstm.py:462 (_chunk_bwd_call: _lstm_bwd_kernel :410) "
+                    "and :262 (_split_bwd_rule: _lstm_bwd_kernel_split :169)",
+        # per train step (11 sequences at B=7, T=128), dW included; the
+        # library yardstick is cuDNN's LSTM forward+backward at those shapes
+        "launches": train_bwd,
+        "max_abs_err": bwd["max_abs_err"],
+        "dw_rel_err": bwd["dw_rel_err"],
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd_bound,
+        "bound_by": bwd_bound_by,
+        "library_ms": bwd["library_ms"],
+        "dw_ms": bwd["dw_ms"],
+        "dw_library_ms": bwd["dw_library_ms"],
+        "train_step_ms_p50": train["step_ms_p50"],
     }, {
         "name": "wavenet_gen",
         "route": "cuda",

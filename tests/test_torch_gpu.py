@@ -6,15 +6,19 @@ The file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+
 import numpy as np
 import pytest
 import torch
 
-from autovc_tpu_torch.config import WaveNetConfig
+from autovc_tpu_torch.config import Config, TrainConfig, WaveNetConfig
+from autovc_tpu_torch.convert import Converter
 from autovc_tpu_torch.models import build_generator
 from autovc_tpu_torch.ops import lstm as lstm_ops
 from autovc_tpu_torch.ops import wavenet as wavenet_ops
-from autovc_tpu_torch.vocoder import WaveNetVocoder
+from autovc_tpu_torch.train import TrainState, init_ema, make_eval_loss, make_optimizer, make_train_step
+from autovc_tpu_torch.train.compare import KinkTape, grad_scale
+from autovc_tpu_torch.vocoder import HiFiGANVocoder, WaveNetVocoder
 
 pytestmark = pytest.mark.gpu
 
@@ -138,3 +142,180 @@ def test_wavenet_vocoder_on_card_matches_cpu(cuda):
     on_card = WaveNetVocoder(WAVENET_TINY, device=cuda, seed=4).generate(mel)
     on_cpu = WaveNetVocoder(WAVENET_TINY, device="cpu", seed=4).generate(mel)
     assert min(_first_apart(on_card.cpu(), on_cpu, 1e-4)) >= 32
+
+
+def _train_inputs(seed, b, t, hidden):
+    """Forward inputs with a nonzero initial state, and random cotangents."""
+    rng = np.random.RandomState(seed)
+    xproj, w_hh = _inputs(seed, b, t, hidden)
+    h0, c0, dy = (rng.randn(*shape).astype(np.float32) * 0.5
+                  for shape in [(b, hidden), (b, hidden), (b, t, hidden)])
+    dhn, dcn = (rng.randn(b, hidden).astype(np.float32) for _ in range(2))
+    return xproj, w_hh, h0, c0, dy, dhn, dcn
+
+
+TRAIN_SHAPES = [(7, 128, 32), (7, 128, 512), (7, 64, 1024), (37, 20, 64), (1, 5, 8)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t, hidden", TRAIN_SHAPES)
+def test_lstm_train_forward_matches_plain(cuda, b, t, hidden, reverse):
+    """The training form (h0, c0 in; h_seq, c_seq, hN, cN out) against the
+    plain loop, within 1e-4: f32 sums in another order."""
+    xproj, w_hh, h0, c0 = (torch.from_numpy(a).to(cuda) for a in _train_inputs(1, b, t, hidden)[:4])
+    before = lstm_ops.launches
+    got = lstm_ops.lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True)
+    torch.cuda.synchronize()
+    assert lstm_ops.launches == before + 1
+    for g, w in zip(got, lstm_ops.lstm_sequence_train_ref(xproj, w_hh, h0, c0, reverse)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+def _assert_backward_close(got, want):
+    """dxproj, dh0 and dc0 within 1e-4; dW, a sum of B*T products per
+    element, within 1e-4 of its largest magnitude."""
+    for name, g, w in zip(("dxproj", "dW", "dh0", "dc0"), got, want):
+        tol = 1e-4 * float(w.abs().max()) if name == "dW" else 1e-4
+        torch.testing.assert_close(g, w, atol=tol, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t, hidden", TRAIN_SHAPES)
+def test_lstm_backward_matches_plain(cuda, b, t, hidden, reverse):
+    xproj, w_hh, h0, c0, dy, dhn, dcn = (torch.from_numpy(a).to(cuda) for a in _train_inputs(2, b, t, hidden))
+    h_seq, c_seq, _, _ = lstm_ops.lstm_sequence_train_ref(xproj, w_hh, h0, c0, reverse)
+    before = lstm_ops.bwd_launches, lstm_ops.dw_launches
+    got = lstm_ops.lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, reverse)
+    torch.cuda.synchronize()
+    assert (lstm_ops.bwd_launches, lstm_ops.dw_launches) == (before[0] + 1, before[1] + 1)
+    _assert_backward_close(got, lstm_ops.lstm_backward_ref(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn,
+                                                           reverse))
+
+
+def test_lstm_backward_takes_strided_cotangent(cuda):
+    """A non-contiguous dy (as a cat of two directions hands it back) is made
+    contiguous by the wrapper; no initial state and no final cotangents."""
+    xproj, w_hh, _, _, dy, _, _ = (torch.from_numpy(a).to(cuda) for a in _train_inputs(3, 5, 24, 64))
+    strided = dy.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    h_seq, c_seq, _, _ = lstm_ops.lstm_sequence_train_ref(xproj, w_hh)
+    got = lstm_ops.lstm_backward_cuda(xproj, w_hh, None, None, h_seq, c_seq, strided)
+    _assert_backward_close(got, lstm_ops.lstm_backward_ref(xproj, w_hh, None, None, h_seq, c_seq, dy))
+
+
+def test_lstm_function_gradients_on_card_match_autograd(cuda):
+    """LSTMSequenceFn on the card against torch autograd through the plain
+    loop, both directions, gradients in all four inputs."""
+    for reverse in (False, True):
+        xproj, w_hh, h0, c0, dy, dhn, dcn = (torch.from_numpy(a).to(cuda)
+                                             for a in _train_inputs(4, 6, 40, 32))
+        ins = [v.clone().requires_grad_() for v in (xproj, w_hh, h0, c0)]
+        ref_ins = [v.clone().requires_grad_() for v in (xproj, w_hh, h0, c0)]
+        h_seq, hn, cn = lstm_ops.LSTMSequenceFn.apply(*ins, reverse)
+        ((h_seq * dy).sum() + (hn * dhn).sum() + (cn * dcn).sum()).backward()
+        r_seq, _, r_hn, r_cn = lstm_ops.lstm_sequence_train_ref(*ref_ins, reverse)
+        ((r_seq * dy).sum() + (r_hn * dhn).sum() + (r_cn * dcn).sum()).backward()
+        _assert_backward_close([v.grad for v in ins], [v.grad for v in ref_ins])
+
+
+def _small_batch(seed, b=2, t=64):
+    rng = np.random.RandomState(seed)
+    return (torch.from_numpy(rng.rand(b, t, 80).astype(np.float32)),
+            torch.from_numpy(rng.randn(b, 256).astype(np.float32)))
+
+
+def test_full_width_train_step_on_card_matches_cpu(cuda):
+    """One train step of the seeded full-width generator (B=2, T=64): the
+    card (the kernels forward and backward, cuDNN convs without TF32)
+    against the CPU (the plain versions), and both against the CPU step in
+    float64, the card's and the float64 step on the CPU step's side of every
+    ReLU and abs kink (``KinkTape``). The loss within 1e-5 relative; 11 LSTM
+    sequences forward and backward; every gradient leaf of the card's step
+    within 1e-3 of its ``grad_scale`` of the float64 step's and of the CPU
+    step's (some leaves, sums over B*T with cancellation, sit a few 1e-4 of
+    their scale from float64 on either float32 engine, each in its own
+    summation order)."""
+    cfg = Config(train=TrainConfig(batch_size=2, len_crop=64))
+    x, emb = _small_batch(7)
+    states = {}
+    for name, dev, dtype in (("cpu", "cpu", torch.float32), ("cuda", cuda, torch.float32),
+                             ("f64", "cpu", torch.float64)):
+        model = build_generator(cfg.model, device=dev, seed=3, trainable=True).to(dtype)
+        states[name] = TrainState(0, model, make_optimizer(model, cfg), init_ema(model))
+    step = make_train_step(cfg)
+    tape = KinkTape()
+    with tape.record():
+        want = step(states["cpu"], x, emb)
+    before = lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches
+    with tape.replay():
+        got = step(states["cuda"], x.to(cuda), emb.to(cuda))
+        torch.cuda.synchronize()
+    assert (lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches) == tuple(n + 11 for n in before)
+    with tape.replay():
+        step(states["f64"], x.double(), emb.double())
+    assert abs(float(got["g_loss"]) - float(want["g_loss"])) <= 1e-5 * abs(float(want["g_loss"]))
+    grads = {k: {n: p.grad.double().cpu() for n, p in st.model.named_parameters()} for k, st in states.items()}
+    for ref in ("f64", "cpu"):
+        for n, g in grads["cuda"].items():
+            apart = float((g - grads[ref][n]).abs().max()) / grad_scale(n, grads[ref])
+            assert apart <= 1e-3, f"{n}: the card's step {apart:.3e} of its scale from the {ref} step"
+
+
+@pytest.fixture
+def torch_default_flags():
+    """torch's own TF32 defaults (cuDNN on, matmul off), restored after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    yield (True, False)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def test_entry_points_run_exact_f32_under_default_flags(cuda, torch_default_flags):
+    """Every entry point, called with torch's default flags, gives the
+    TF32-off result and leaves the caller's flags as they were. Both sides
+    are exact float32 on the same inputs, so the mel and the HiFi-GAN
+    waveform are held to 1e-5, well below what TF32 convolutions move them
+    by (the spmel mel 2.5e-4 in chip_smoke.py on an H100); the WaveNet
+    waveform and logits as the tests above."""
+    rng = np.random.RandomState(11)
+    mel = rng.rand(2, 64, 80).astype(np.float32)
+    emb = rng.randn(2, 256).astype(np.float32)
+    specs = [type("Spec", (), dict(src_features=mel[i], src_embedding=emb[i], trg_embedding=emb[1 - i]))
+             for i in range(2)]
+    converter = Converter(build_generator(device=cuda, seed=5))
+    hifigan = HiFiGANVocoder(device=cuda, seed=6)
+    wavenet = WaveNetVocoder(WAVENET_TINY, device=cuda, seed=7)
+    cfg = Config(train=TrainConfig(batch_size=2, len_crop=64))
+    x, e = (v.to(cuda) for v in _small_batch(8))
+    wn_mel = torch.from_numpy(mel[:, :2]).to(cuda)
+    u = wavenet.uniforms(2, 512, torch.Generator().manual_seed(9))
+
+    def run():
+        model = build_generator(cfg.model, device=cuda, seed=4, trainable=True)
+        state = TrainState(0, model, make_optimizer(model, cfg), init_ema(model))
+        # the eval loss before the step: after it, Adam has turned the
+        # rounding-level gradients of the convolutions' biases (zero in exact
+        # arithmetic) into updates of either sign
+        eval_loss = make_eval_loss(model, cfg)(x, e)["g_loss"]
+        train_loss = make_train_step(cfg)(state, x, e)["g_loss"]
+        wav = wavenet.generate(wn_mel, uniforms=u)
+        return dict(mel=np.stack(converter.convert_batch(specs, batch_size=2)),
+                    hifigan=hifigan.generate(mel), wavenet=wav,
+                    logits=wavenet.logits(wav[..., None], wn_mel),
+                    train=float(train_loss), eval=float(eval_loss))
+
+    got = run()
+    assert _flags() == torch_default_flags
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    want = run()
+    assert _flags() == (False, False)
+    np.testing.assert_allclose(got["mel"], want["mel"], atol=1e-5, rtol=0)
+    torch.testing.assert_close(got["hifigan"], want["hifigan"], atol=1e-5, rtol=0)
+    assert min(_first_apart(got["wavenet"], want["wavenet"], 1e-4)) >= 32
+    torch.testing.assert_close(got["logits"][:, :32], want["logits"][:, :32], atol=1e-4, rtol=0)
+    for key in ("train", "eval"):
+        assert abs(got[key] - want[key]) <= 1e-5 * abs(want[key]), key
