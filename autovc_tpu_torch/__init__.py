@@ -8,12 +8,18 @@ nor anything of ``autovc_tpu``.
 Ported so far: spmel conversion inference, mel (B, T, 80) -> AutoVC
 ``Generator`` -> HiFi-GAN -> waveform (B, T*256), and autoregressive WaveNet
 vocoding, mel (B, Tc, 80) -> conditioning upsampler -> 24-layer generation ->
-waveform (B, Tc*256), and training of the spmel generator (``train.Solver``,
-``python -m autovc_tpu_torch.cli.train``).
+waveform (B, Tc*256), training of the spmel generator (``train.Solver``,
+``python -m autovc_tpu_torch.cli.train``), and feature extraction, wav ->
+highpass + dither -> STFT -> mel + dB -> spmel/stft/legacy/wav features
+(``dsp.MelFrontend``, ``python -m autovc_tpu_torch.cli.make_spect``).
 
-    config     ModelConfig / TrainConfig / Config / WaveNetConfig / HiFiGANConfig
+    config     AudioConfig / ModelConfig / TrainConfig / Config / WaveNetConfig /
+               HiFiGANConfig
     io         artifact loading and the JAX-tree <-> state-dict mappings
-    ops        kernels with their plain PyTorch versions (ops.lstm, ops.wavenet)
+    dsp        mel filterbank, filters, STFT/iSTFT/Griffin-Lim, the feature
+               front end, WAV I/O
+    ops        kernels with their plain versions (ops.lstm, ops.wavenet,
+               ops.mel, ops.sosfilt)
     models     layers and the AutoVC generator
     losses     mse and l1
     data       train.pkl manifests, the utterance dataset and batch iterator,
@@ -21,7 +27,7 @@ waveform (B, Tc*256), and training of the spmel generator (``train.Solver``,
     train      schedules, EMA, the train step, metrics, profiling, the Solver
     vocoder    HiFi-GAN and WaveNet
     convert    pad_seq and the Converter entry point
-    cli        python -m autovc_tpu_torch.cli.train
+    cli        python -m autovc_tpu_torch.cli.train, cli.make_spect
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card they
 raise. Pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.

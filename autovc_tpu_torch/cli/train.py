@@ -8,9 +8,10 @@
 
 The flags of ``autovc_tpu/cli/train.py`` for this slice, plus ``--device``
 (default ``cuda``); the generator has the published widths. It reads
-``<main_dir>/spmel/train.pkl`` and the ``.npy`` features it names; it does
-not make them (the DSP front end and the metadata builder are not ported:
-ROADMAP Queue 1 #3, #4). ``--export`` writes the final parameters and
+``<main_dir>/spmel/train.pkl`` and the ``.npy`` features it names:
+``autovc_tpu_torch.cli.make_spect`` writes the features, but the manifest
+comes from the JAX package's ``cli.make_metadata`` (the metadata builder is
+not ported: ROADMAP Queue 1 #4). ``--export`` writes the final parameters and
 BatchNorm statistics as the JAX CLI does: a flat ``.npz`` of
 ``params/...`` and ``batch_stats/...`` in the JAX layouts, plus
 ``__step__``, which ``autovc_tpu`` and ``build_generator(artifact=...)``
@@ -73,8 +74,8 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit(f"--model_type {args.model_type}: only spmel is ported (ROADMAP Queue 1 #5, #6)")
     manifest = os.path.join(args.main_dir, "spmel", "train.pkl")
     if not os.path.exists(manifest):
-        raise SystemExit(f"{manifest} not found: make the spmel features and train.pkl with the JAX "
-                         f"package's cli.make_spect and cli.make_metadata (not ported: ROADMAP Queue 1 #3, #4)")
+        raise SystemExit(f"{manifest} not found: make the spmel features with autovc_tpu_torch.cli.make_spect "
+                         f"and train.pkl with the JAX package's cli.make_metadata (not ported: ROADMAP Queue 1 #4)")
 
     run_name = args.run_name if args.resume else args.run_name + datetime.now().strftime("_%y%B%d_%H%M_%S")
     cfg = Config(

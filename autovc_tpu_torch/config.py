@@ -1,15 +1,50 @@
 """Hyperparameters of the ported paths.
 
 A copy of the fields this package reads from the JAX package's
-``autovc_tpu/config.py`` (``ModelConfig``, ``TrainConfig``, ``Config``,
-``WaveNetConfig`` and ``HiFiGANConfig``), with the same defaults: the
-published AutoVC generator and its training contract, the r9y9 WaveNet
-vocoder and the HiFi-GAN V1 vocoder.
+``autovc_tpu/config.py`` (``AudioConfig``, ``ModelConfig``, ``TrainConfig``,
+``Config``, ``WaveNetConfig`` and ``HiFiGANConfig``), with the same defaults:
+the feature contract of the reference's make_spect.py, the published AutoVC
+generator and its training contract, the r9y9 WaveNet vocoder and the
+HiFi-GAN V1 vocoder.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class AudioConfig:
+    """Audio/feature contract (reference make_spect.py:21-27,51,82-86)."""
+
+    sample_rate: int = 16_000
+    n_fft: int = 1024
+    hop_length: int = 256
+    win_length: int = 1024
+    n_mels: int = 80
+    mel_fmin: float = 90.0
+    mel_fmax: float = 7600.0
+    # Butterworth highpass used to remove drifting noise (make_spect.py:30-34)
+    highpass_cutoff_hz: float = 30.0
+    highpass_order: int = 5
+    # dB normalization: clip((20*log10(max(1e-5, .)) - ref + 100)/100, 0, 1)
+    min_level_db: float = -100.0
+    ref_level_db: float = 16.0
+    # dither amplitude applied after the highpass (make_spect.py:76)
+    dither_scale: float = 0.96
+    dither_amp: float = 1e-6
+    # RobustScaler quantile range for the raw-waveform variant (make_spect.py:88)
+    robust_quantile_range: tuple[float, float] = (5.0, 95.0)
+    # the legacy 512-pt pipeline ("old code/make_spect_old.py":19) -> 257 bins
+    legacy_n_fft: int = 512
+
+    @property
+    def n_stft_bins(self) -> int:
+        return self.n_fft // 2 + 1  # 513
+
+    @property
+    def n_legacy_bins(self) -> int:
+        return self.legacy_n_fft // 2 + 1  # 257
 
 
 @dataclass(frozen=True)

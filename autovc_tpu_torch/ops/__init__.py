@@ -1,6 +1,10 @@
 """Kernels of the port, each beside its plain PyTorch version.
 
-    lstm    forward LSTM recurrence (CUDA, csrc/lstm_fwd.cu)
+    lstm    LSTM recurrence, forward and backward (CUDA, csrc/lstm_fwd.cu,
+            csrc/lstm_bwd.cu)
     wavenet autoregressive WaveNet generation (CUDA, csrc/wavenet_gen.cu)
+    mel     mel projection fused with the dB normalization (CUDA,
+            csrc/mel_norm.cu)
+    sosfilt one pass of a biquad cascade over time (CUDA, csrc/sosfilt.cu)
     _build  nvcc + ctypes build of csrc/*.cu into build/kernels/
 """

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels, holds
-each against its plain PyTorch version, and drives spmel conversion,
-WaveNet vocoding and spmel generator training end to end.
+each against its plain version, and drives spmel conversion, WaveNet
+vocoding, spmel generator training and feature extraction end to end.
 
     python3 chip_smoke.py            # seeded random weights at full width
     python3 chip_smoke.py --trained  # the committed artifacts/*.npz weights
@@ -27,7 +27,8 @@ mels written as a ``train.pkl`` directory in a temporary directory: (a) the
 forward kernel's training form and (b) the backward and dW kernels
 (``csrc/lstm_bwd.cu``) against their plain versions at H in {32, 512, 1024},
 both directions, nonzero initial state (1e-4; dW 1e-4 of its largest
-magnitude), timed beside cuDNN's LSTM forward+backward and ``torch.matmul``;
+magnitude), timed beside cuDNN's LSTM forward alone and forward+backward and
+``torch.matmul``;
 (c) one train step with the kernels against the same step with the plain
 recurrence under torch autograd, the plain step made to take the kernel
 step's side of every ReLU and abs kink (``train.compare.KinkTape``; the
@@ -40,6 +41,25 @@ the same step in float64 as twice the plain step's distance on that leaf
 plus 1e-4; (d) 20 ``Solver`` steps (finite loss, the
 mean of the last 5 below the first 5, step time, a profiler split of one
 warm step); (e) a checkpoint at step 20 resumed by a new ``Solver``.
+Phase 5 extracts features at full width (16 kHz, n_fft 1024, hop 256, 80
+mels, the 30 Hz 5th-order highpass) from a synthetic corpus written to a
+temporary directory (4 speakers x 24 utterances of 2-8 s: a gliding
+fundamental and formant-shaped harmonics, a noise floor, silent gaps):
+(a) ``csrc/mel_norm.cu`` against ``mel_normalize_ref`` on the |STFT| of 32
+rows of 513 frames (16416 x 513 -> 80), one frame, 1000 frames and the
+257-bin STFT (1e-5), timed beside the plain version and ``torch.matmul`` of
+the projection alone; (b) ``csrc/sosfilt.cu`` against ``sosfilt_ref`` in
+both passes on 4 x 16000 samples (1e-5 of the row max-abs), timed at
+32 x 131072; (c) ``MelFrontend.mel_features`` on the card against the CPU
+float32 path (1e-4) and the float64 host chain (1e-3) on one utterance of
+each speaker, and with both TF32 flags on (1e-6); (d)
+``cli.make_spect.main`` over the corpus on the card (one mel_norm and two
+sosfilt launches a file; every file (T, 80), float32, in [0, 1], within
+1e-4 of ``--device cpu``, and within 1e-3 of ``--exact`` or, where the
+float32 highpass's own rounding takes the CPU path farther, within that
+distance plus 1e-4; the dB clip engaged at both ends), its wall time,
+files/s and seconds of audio per second, a profiler split of one warm file;
+(e) the stft, legacy and wav features of two utterances, card against CPU.
 
 The kernels are built first, one ``nvcc`` each, started together.
 
@@ -47,8 +67,8 @@ The output ends with the card's name and power limit, one JSON line of
 kernel records, and ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; a watchdog ends a hung run with a stack dump. Without a CUDA
 device it exits non-zero before doing anything. It writes nothing outside
-the kernel build directory but phase 4's temporary directory, which it
-removes.
+the kernel build directory but the temporary directories of phases 4 and
+5, which it removes.
 """
 
 from __future__ import annotations
@@ -73,12 +93,19 @@ from unittest import mock  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from autovc_tpu_torch.config import Config, ModelConfig, TrainConfig, WaveNetConfig  # noqa: E402
+from scipy import signal as scipy_signal  # noqa: E402
+
+from autovc_tpu_torch.cli import make_spect  # noqa: E402
+from autovc_tpu_torch.config import AudioConfig, Config, ModelConfig, TrainConfig, WaveNetConfig  # noqa: E402
 from autovc_tpu_torch.convert import Converter  # noqa: E402
+from autovc_tpu_torch.dsp import (MelFrontend, butter_highpass, butter_highpass_sos, mel_filterbank,  # noqa: E402
+                                  read_wav, stft_magnitude, write_wav)
 from autovc_tpu_torch.data import BatchIterator, SpeakerEntry, UtteranceDataset, save_train_manifest  # noqa: E402
 from autovc_tpu_torch.models import build_generator  # noqa: E402
 from autovc_tpu_torch.ops import _build  # noqa: E402
 from autovc_tpu_torch.ops import lstm as lstm_ops  # noqa: E402
+from autovc_tpu_torch.ops import mel as mel_ops  # noqa: E402
+from autovc_tpu_torch.ops import sosfilt as sosfilt_ops  # noqa: E402
 from autovc_tpu_torch.ops import wavenet as wavenet_ops  # noqa: E402
 from autovc_tpu_torch.train import Solver, TrainState, init_ema, make_optimizer, make_train_step  # noqa: E402
 from autovc_tpu_torch.train.compare import KinkTape, grad_scale  # noqa: E402
@@ -90,7 +117,7 @@ ROOT = Path(__file__).resolve().parent
 B, T, N_MELS, HOP = 32, 512, 80, 256
 LSTM_TOL = 1e-4  # f32 kernel vs f32 plain loop: summation order only
 MEL_TOL = 1e-3  # on the whole generator, after 7 recurrences and 11 convs
-KERNELS = ("lstm_fwd", "lstm_bwd", "wavenet_gen")
+KERNELS = ("lstm_fwd", "lstm_bwd", "wavenet_gen", "mel_norm", "sosfilt")
 WN_B, WN_FRAMES = 8, 8  # utterances and mel frames vocoded by WaveNet: T = 2048 samples
 WN_TF_TOL = 1e-3  # kernel logits vs teacher-forced forward on its own waveform, f32
 WN_PREFIX_TOL, WN_MIN_PREFIX = 1e-4, 32  # kernel vs plain loop, same uniforms
@@ -427,12 +454,21 @@ def cudnn_train_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.T
     return cuda_ms(run, reps=3)
 
 
+def cudnn_train_fwd_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.Tensor, dy: torch.Tensor) -> float:
+    """Yardstick only: torch.nn.LSTM (cuDNN), one layer of H units on a
+    (B, T, H) input that requires grad, the forward alone (its training
+    form, which keeps what the backward needs) from (h0, c0)."""
+    net = torch.nn.LSTM(hidden, hidden, batch_first=True).to(dev)
+    x = torch.randn(dy.shape, device=dev, requires_grad=True)
+    return cuda_ms(lambda: net(x, (h0[None], c0[None])), reps=3)
+
+
 def phase_train_kernels(dev: torch.device) -> tuple[dict, dict]:
     """Phase 4 (a)-(b): the training-form forward, the backward and the dW
     kernels against their plain versions at the training shapes, timed."""
     rng = np.random.RandomState(10)
     b, t = TRAIN_B, TRAIN_T
-    fwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    fwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
     bwd = {"max_abs_err": 0.0, "dw_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "dw_ms": 0.0,
            "dw_library_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
 
@@ -465,13 +501,14 @@ def phase_train_kernels(dev: torch.device) -> tuple[dict, dict]:
         dgates = bgot[0].reshape(-1, 4 * hidden)
         dw_lib = cuda_ms(lambda: hprev.T @ dgates, reps=5)
         lib_ms = cudnn_train_ms(dev, hidden, h0, c0, dy)
+        lib_fwd_ms = cudnn_train_fwd_ms(dev, hidden, h0, c0, dy)
         ff, fb = lstm_train_work(b, t, hidden)
         bf, bb = lstm_bwd_work(b, t, hidden)
         fbound, fby = bound_ms(ff, fb)
         bbound, bby = bound_ms(bf, bb)
         direction = "reverse" if reverse else "forward"
         log(f"lstm_fwd train form H={hidden} {direction}: max_abs_err={f_err:.3e} ms={f_ms:.4f} "
-            f"plain_ms={f_plain:.4f} bound_ms={fbound:.4f} ({fby}) seqs_per_step={n}")
+            f"plain_ms={f_plain:.4f} bound_ms={fbound:.4f} ({fby}) cudnn_fwd_ms={lib_fwd_ms:.4f} seqs_per_step={n}")
         log(f"lstm_bwd H={hidden} {direction}: max_abs_err={b_err:.3e} dW_rel_err={dw_rel:.3e} ms={b_ms:.4f} "
             f"(dW {dw_ms:.4f}, torch.matmul {dw_lib:.4f}) plain_ms={b_plain:.4f} bound_ms={bbound:.4f} ({bby}) "
             f"cudnn_fwd_bwd_ms={lib_ms:.4f} seqs_per_step={n}")
@@ -481,7 +518,7 @@ def phase_train_kernels(dev: torch.device) -> tuple[dict, dict]:
         fwd["max_abs_err"] = max(fwd["max_abs_err"], f_err)
         bwd["max_abs_err"] = max(bwd["max_abs_err"], b_err)
         bwd["dw_rel_err"] = max(bwd["dw_rel_err"], dw_rel)
-        for rec, vals in ((fwd, dict(ms=f_ms, plain_ms=f_plain, flops=ff, bytes=fb)),
+        for rec, vals in ((fwd, dict(ms=f_ms, plain_ms=f_plain, library_ms=lib_fwd_ms, flops=ff, bytes=fb)),
                           (bwd, dict(ms=b_ms, plain_ms=b_plain, dw_ms=dw_ms, dw_library_ms=dw_lib,
                                      library_ms=lib_ms, flops=bf, bytes=bb))):
             for k, v in vals.items():
@@ -519,17 +556,17 @@ def zero_counts() -> None:
     lstm_ops.launches = lstm_ops.bwd_launches = lstm_ops.dw_launches = 0
 
 
-def train_profile(solver: Solver, x: torch.Tensor, emb: torch.Tensor) -> None:
-    """Device time by kind over one warm train step (torch.profiler) and the
-    device's idle share of that step's wall time."""
+def device_activity(fn) -> tuple[list[tuple[str, int, float]], float]:
+    """One warm call of ``fn`` under torch.profiler: (key, launches, device
+    us) of every kernel and copy, and the call's wall time in us."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    solver._step_fn(solver.state, x, emb)  # warm
+    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver._step_fn(solver.state, x, emb)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device activity only: kernels and copies, not the GPU ranges of
@@ -537,6 +574,13 @@ def train_profile(solver: Solver, x: torch.Tensor, emb: torch.Tensor) -> None:
     rows = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA and e.device_time_total > 0
             and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+    return rows, wall_us
+
+
+def train_profile(solver: Solver, x: torch.Tensor, emb: torch.Tensor) -> None:
+    """Device time by kind over one warm train step (torch.profiler) and the
+    device's idle share of that step's wall time."""
+    rows, wall_us = device_activity(lambda: solver._step_fn(solver.state, x, emb))
     if not rows:
         log("train profile: the profiler recorded no device time (not measured)")
         return
@@ -683,6 +727,315 @@ def phase_training(dev: torch.device) -> dict:
     return {"launches": train_counts, "step_ms_p50": timing["step_ms_p50"]}
 
 
+SR = 16_000
+FEAT_SPEAKERS, FEAT_UTTS = 4, 24  # the corpus of phase 5: about 480 s of audio
+TIME_B, TIME_L = 32, 512 * HOP  # the kernels' timing batch: 32 rows of 131072 samples, 513 frames each
+MELNORM_TOL = 1e-5  # kernel vs plain: non-negative terms, a reordered f32 sum, after 20 log10 / 100
+SOS_TOL = 1e-5  # of each row's max-abs; the kernel and the plain version round alike
+# card vs CPU front end; for stft/legacy within 40 dB (0.4) of each frame's loudest bin, and 10x more
+# for each further 20 dB (two FFTs' rounding, ~1e-6 of the frame's peak, through the dB step)
+FE_TOL, NEAR_PEAK = 1e-4, 0.4
+EXACT_TOL = 1e-3  # the f32 card path vs the f64 host chain (tests/test_cli.py:170-177)
+# ... which the f32 highpass itself may exceed (its rounding near DC, PERF.md
+# §6): in (d) the card is held to the CPU f32 chain at FE_TOL and to the
+# f64 chain at EXACT_TOL or the CPU f32 chain's own distance plus FE_TOL
+SEQUENTIAL_CYCLES = 16  # a sample's dependent chain through one section: 4 f32 operations x ~4 cycles
+SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock
+
+
+def utterance(rng: np.random.RandomState, n: int, f0_base: float, loud: float) -> np.ndarray:
+    """A voiced utterance: a strong fundamental on a gliding pitch contour
+    plus a sawtooth source through 2-3 formant-like resonators, a syllable
+    envelope, a -60 dB noise floor and 1-3 silent gaps (digital zero, so
+    only the dither remains there). Loud vowels clip the dB step at 1, the
+    gaps at 0."""
+    import scipy.signal
+
+    t = np.arange(n) / SR
+    f0 = f0_base * (1.0 + 0.12 * np.sin(2 * np.pi * rng.uniform(0.3, 1.2) * t + rng.uniform(0, 6.3)))
+    phase = np.cumsum(f0 * (1.0 + 0.01 * rng.randn())) / SR
+    saw = 2.0 * (phase % 1.0) - 1.0
+    formants = np.zeros(n)
+    for (lo, hi, bw), gain in list(zip(((250, 700, 40), (900, 2500, 120), (2200, 3300, 180)), (3.0, 1.0, 1.0)))[
+            : rng.randint(2, 4)]:
+        fc, r = rng.uniform(lo, hi), np.exp(-np.pi * bw / SR)
+        formants += gain * scipy.signal.lfilter([1 - r], [1, -2 * r * np.cos(2 * np.pi * fc / SR), r * r], saw)
+    y = np.sin(2 * np.pi * phase) + 0.35 * formants / np.abs(formants).max()
+    y *= 0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2, 5) * t + rng.uniform(0, 6.3))
+    y *= loud / np.abs(y).max()
+    y += 1e-3 * rng.randn(n)
+    for _ in range(rng.randint(1, 4)):
+        g0 = rng.randint(0, n - 6400)
+        y[g0 : g0 + rng.randint(1600, 6400)] = 0.0
+    return np.clip(y, -1.0, 1.0).astype(np.float32)
+
+
+def write_corpus(root: str, rng: np.random.RandomState) -> list[str]:
+    """<root>/wavs/<speaker>/<speaker>_<utt>.wav, 16 kHz 16-bit: FEAT_SPEAKERS
+    speakers x FEAT_UTTS utterances of 2-8 s. Returns the paths in the CLI's
+    order."""
+    paths = []
+    for s in range(FEAT_SPEAKERS):
+        spk = f"p9{s:02d}"
+        os.makedirs(os.path.join(root, "wavs", spk))
+        for u in range(FEAT_UTTS):
+            x = utterance(rng, int(rng.uniform(2.0, 8.0) * SR), (110.0, 150.0, 200.0, 240.0)[s], rng.uniform(0.5, 0.99))
+            path = os.path.join(root, "wavs", spk, f"{spk}_{u:03d}.wav")
+            write_wav(path, x)
+            paths.append(path)
+    return paths
+
+
+def mel_work(t: int, k: int, m: int) -> tuple[float, float]:
+    """(flops, bytes): the 2*T*K*M of the projection (the epilogue's few
+    operations and one log10 per output not counted); mag and basis read
+    once, out written once, float32."""
+    return 2.0 * t * k * m, 4.0 * (t * k + k * m + t * m)
+
+
+def feature_check_mel(dev: torch.device, batch: torch.Tensor) -> dict:
+    """(a) the mel kernel against mel_normalize_ref on the |STFT| of the
+    timing batch (32 x 513 frames, 513 bins), one frame, a frame count that
+    is no multiple of the tile, and the 257-bin legacy STFT; timed beside
+    the plain version and torch.matmul of the projection alone."""
+    basis = torch.from_numpy(np.ascontiguousarray(mel_filterbank())).to(dev)
+    mag = stft_magnitude(batch).reshape(-1, 513)  # (16416, 513)
+    legacy = stft_magnitude(batch[:2], 512).reshape(-1, 257)
+    legacy_basis = torch.from_numpy(np.ascontiguousarray(mel_filterbank(SR, 512, 80))).to(dev)
+    err = 0.0
+    for name, m, b in (("B*T=16416, 513 bins", mag, basis), ("T=1", mag[:1], basis),
+                       ("T=1000", mag[:1000].contiguous(), basis), ("T=1026, 257 bins", legacy, legacy_basis)):
+        got, want = mel_ops.mel_normalize(m, b), mel_ops.mel_normalize_ref(m, b)
+        torch.cuda.synchronize()
+        case_err = (got - want).abs().max().item()
+        log(f"mel_norm (a) {name}: max_abs_err={case_err:.3e} (tol {MELNORM_TOL}); output at 0: "
+            f"{(want == 0).float().mean().item():.4f}, at 1: {(want == 1).float().mean().item():.4f}")
+        if not case_err <= MELNORM_TOL:
+            raise AssertionError(f"mel kernel {name}: {case_err} > {MELNORM_TOL}")
+        err = max(err, case_err)
+    ms = cuda_ms(lambda: mel_ops.mel_normalize(mag, basis), reps=50)
+    plain_ms = cuda_ms(lambda: mel_ops.mel_normalize_ref(mag, basis), reps=50)
+    lib_ms = cuda_ms(lambda: torch.matmul(mag, basis), reps=50)
+    bound, bound_by = bound_ms(*mel_work(*mag.shape, basis.shape[1]))
+    log(f"mel_norm (a) at (16416, 513) x (513, 80): ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"torch.matmul (projection only)={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
+def feature_check_sosfilt(dev: torch.device, batch: torch.Tensor) -> dict:
+    """(b) the filter kernel against sosfilt_ref on 4 rows of 16000 samples,
+    forward and backward pass as sos_filtfilt runs them; both passes timed
+    at 32 rows of 131072 samples, the plain version on the same rows."""
+    sos = torch.from_numpy(butter_highpass_sos().astype(np.float32)).to(dev)
+    zi_unit = torch.from_numpy(scipy_signal.sosfilt_zi(butter_highpass_sos()).astype(np.float32)).to(dev)
+
+    def two_passes(fn, x):
+        y = fn(sos, x, zi_unit * x[:, :1, None]).flip(-1)
+        return y, fn(sos, y, zi_unit * y[:, :1, None]).flip(-1)
+
+    x = batch[:4, :16_000].contiguous()
+    rel = 0.0
+    for i, (got, want) in enumerate(zip(two_passes(sosfilt_ops.sosfilt, x), two_passes(sosfilt_ops.sosfilt_ref, x))):
+        torch.cuda.synchronize()
+        scale = want.abs().amax(dim=1, keepdim=True)
+        case = ((got - want).abs() / scale).max().item()
+        log(f"sosfilt (b) pass {i + 1} (4 x 16000): max_abs_err {(got - want).abs().max().item():.3e}, "
+            f"{case:.3e} of the row max-abs (tol {SOS_TOL})")
+        if not case <= SOS_TOL:
+            raise AssertionError(f"sosfilt kernel pass {i + 1}: {case} > {SOS_TOL} of the row max-abs")
+        rel = max(rel, case)
+    # the two launches alone, on the inputs sos_filtfilt gives them
+    zi1 = zi_unit * batch[:, :1, None]
+    back = sosfilt_ops.sosfilt(sos, batch, zi1).flip(-1).contiguous()
+    zi2 = zi_unit * back[:, :1, None]
+    ms = cuda_ms(lambda: (sosfilt_ops.sosfilt(sos, batch, zi1), sosfilt_ops.sosfilt(sos, back, zi2)), reps=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sosfilt_ops.sosfilt_ref(sos, batch, zi1), sosfilt_ops.sosfilt_ref(sos, back, zi2)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    b, length = batch.shape
+    bound, bound_by = bound_ms(2 * b * length * 27.0, 2 * 8.0 * b * length)
+    chain_ms = 2 * length * SEQUENTIAL_CYCLES / SM_CLOCK_HZ * 1e3
+    log(f"sosfilt (b) two passes at ({b}, {length}): ms={ms:.4f} plain_ms={plain_ms:.1f} (a Python loop: the host) "
+        f"bound_ms={bound:.4f} ({bound_by}); the serial chain, {2 * length} dependent samples x "
+        f"{SEQUENTIAL_CYCLES} cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz: {chain_ms:.3f} ms, which sets the pace")
+    return {"max_abs_err": rel, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "chain_bound_ms": chain_ms}
+
+
+def feature_profile(fe: MelFrontend, x: np.ndarray, noise: np.ndarray) -> None:
+    """Device time by kind over one warm spmel file (torch.profiler): the
+    filter, the FFT, the mel kernel, copies, the rest; and the device's idle
+    share of that file's wall time."""
+    rows, wall_us = device_activity(lambda: fe.extract("spmel", x, noise).cpu())
+    if not rows:
+        log("feature profile: the profiler recorded no device time (not measured)")
+        return
+    kinds = {"filter (sosfilt_kernel)": 0.0, "FFT (cuFFT)": 0.0, "mel (mel_norm_kernel)": 0.0, "copies": 0.0,
+             "rest": 0.0}
+    rest = []
+    for key, count, total in rows:
+        low = key.lower()
+        if "sosfilt_kernel" in key:
+            kind = "filter (sosfilt_kernel)"
+        elif "mel_norm_kernel" in key:
+            kind = "mel (mel_norm_kernel)"
+        elif "memcpy" in low or "memset" in low:
+            kind = "copies"
+        elif "fft" in low:
+            kind = "FFT (cuFFT)"
+        else:
+            kind = "rest"
+            rest.append((total, count, key[:70]))
+        kinds[kind] += total
+    busy = sum(kinds.values())
+    for kind, total in kinds.items():
+        log(f"feature profile: {kind}: {total:.1f} us ({total / busy:.3f} of device time)")
+    for total, count, key in sorted(rest, reverse=True)[:5]:
+        log(f"feature profile:   rest: {key}: {count} launches, {total:.1f} us")
+    log(f"feature profile: one file of {x.shape[0] / SR:.2f} s: device busy {busy:.1f} us of {wall_us:.1f} us wall "
+        f"(idle share {1 - busy / wall_us:.3f})")
+
+
+def feature_counts() -> tuple[int, int]:
+    return mel_ops.launches, sosfilt_ops.launches
+
+
+def phase_features(dev: torch.device) -> tuple[dict, dict]:
+    """Phase 5: feature extraction at full width on a synthetic corpus in a
+    temporary directory, checks (a)-(e)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_features_")
+    try:
+        rng = np.random.RandomState(50)
+        t0 = time.perf_counter()
+        paths = write_corpus(tmp, rng)
+        batch_np = np.stack([utterance(rng, TIME_L, 110.0 + 5 * i, 0.9) for i in range(TIME_B)])
+        audio_s = sum(read_wav(p)[0].shape[0] for p in paths) / SR
+        log(f"features: corpus of {len(paths)} files, {audio_s:.1f} s of audio, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        batch = torch.from_numpy(batch_np).to(dev)
+        mel_rec = feature_check_mel(dev, batch)
+        sos_rec = feature_check_sosfilt(dev, batch)
+        del batch
+
+        # (c) the front end on the card vs its CPU float32 path and vs the
+        # f64 host chain, one utterance of each speaker; the TF32 flags
+        fe, fe_cpu = MelFrontend(device=dev), MelFrontend(device="cpu")
+        b, a = butter_highpass()
+        basis64 = mel_filterbank(dtype=np.float64)
+        audio = AudioConfig()
+        picks = paths[::FEAT_UTTS]
+        worst_cpu = worst_exact = worst_tf32 = 0.0
+        for path in picks:
+            x, _ = read_wav(path)
+            noise = (rng.rand(x.shape[0]) - 0.5) * 1e-6
+            got = fe.mel_features(x, noise.astype(np.float32))
+            cpu = fe_cpu.mel_features(x, noise.astype(np.float32))
+            exact = make_spect.exact_features(x, noise, "spmel", audio, b, a, basis64)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            tf32 = fe.mel_features(x, noise.astype(np.float32))
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            worst_cpu = max(worst_cpu, (got.cpu() - cpu).abs().max().item())
+            worst_exact = max(worst_exact, float(np.abs(got.cpu().numpy() - exact).max()))
+            worst_tf32 = max(worst_tf32, (tf32 - got).abs().max().item())
+        log(f"features (c) spmel on the card, {len(picks)} utterances: vs the CPU f32 path max_abs_err "
+            f"{worst_cpu:.3e} (tol {FE_TOL}), vs the f64 host chain {worst_exact:.3e} (tol {EXACT_TOL}), "
+            f"TF32 flags on vs off {worst_tf32:.3e} (tol 1e-6)")
+        if not (worst_cpu <= FE_TOL and worst_exact <= EXACT_TOL and worst_tf32 <= 1e-6):
+            raise AssertionError(f"front end: card vs CPU {worst_cpu}, vs exact {worst_exact}, TF32 {worst_tf32}")
+
+        # (d) the CLI over the whole corpus on the card, then --exact and
+        # --device cpu (the float32 chain with the plain versions)
+        dirs = {k: os.path.join(tmp, k) for k in ("card", "exact", "cpu")}
+        wav_dir = os.path.join(tmp, "wavs")
+        torch.cuda.synchronize()
+        mel_ops.launches = sosfilt_ops.launches = 0
+        t0 = time.perf_counter()
+        written = make_spect.main(["--main_dir", dirs["card"], "--wav_dir", wav_dir, "--model_type", "spmel"])
+        torch.cuda.synchronize()
+        cli_s, launches = time.perf_counter() - t0, feature_counts()
+        t0 = time.perf_counter()
+        make_spect.main(["--main_dir", dirs["exact"], "--wav_dir", wav_dir, "--model_type", "spmel", "--exact"])
+        exact_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        make_spect.main(["--main_dir", dirs["cpu"], "--wav_dir", wav_dir, "--model_type", "spmel", "--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        if feature_counts() != launches:
+            raise AssertionError(f"--exact or --device cpu launched kernels: {launches} -> {feature_counts()}")
+        n = len(written)
+        worst = {"cpu": 0.0, "exact": 0.0, "cpu_exact": 0.0}
+        over, zeros, ones, frames = [], 0, 0, 0
+        for path in written:
+            got = np.load(path)
+            ref = {k: np.load(path.replace(dirs["card"], dirs[k])) for k in ("exact", "cpu")}
+            if got.dtype != np.float32 or got.ndim != 2 or got.shape != ref["exact"].shape or got.shape[1] != N_MELS:
+                raise AssertionError(f"{path}: {got.dtype} {got.shape} against {ref['exact'].shape}")
+            if not (got.min() >= 0.0 and got.max() <= 1.0):
+                raise AssertionError(f"{path}: values outside [0, 1]: {got.min()} .. {got.max()}")
+            err = {"cpu": float(np.abs(got - ref["cpu"]).max()), "exact": float(np.abs(got - ref["exact"]).max()),
+                   "cpu_exact": float(np.abs(ref["cpu"] - ref["exact"]).max())}
+            worst = {k: max(v, err[k]) for k, v in worst.items()}
+            if err["exact"] > EXACT_TOL:
+                diff = np.abs(got - ref["exact"])
+                over.append((os.path.basename(path), err["exact"], err["cpu_exact"],
+                             int(np.unravel_index(diff.argmax(), diff.shape)[1])))
+            # the card may be no farther from the f64 chain than the f32
+            # chain's own plain version is, plus the card-vs-CPU tolerance
+            if not (err["cpu"] <= FE_TOL and err["exact"] <= max(EXACT_TOL, err["cpu_exact"] + FE_TOL)):
+                raise AssertionError(f"{path}: card vs --device cpu {err['cpu']} (tol {FE_TOL}), vs --exact "
+                                     f"{err['exact']} (tol {EXACT_TOL}, or the CPU's {err['cpu_exact']} + {FE_TOL})")
+            zeros, ones, frames = zeros + int((got == 0).sum()), ones + int((got == 1).sum()), frames + got.shape[0]
+        log(f"features (d) make_spect on the card: {n} files, {frames} frames, {cli_s:.3f} s wall, "
+            f"{n / cli_s:.1f} files/s, {audio_s / cli_s:.1f} s of audio per wall second; launches (mel_norm, "
+            f"sosfilt) {launches}; --exact (host f64) {exact_s:.3f} s, --device cpu {cpu_s:.1f} s; max_abs_err "
+            f"vs --device cpu {worst['cpu']:.3e} (tol {FE_TOL}), vs --exact {worst['exact']:.3e} (--device cpu vs "
+            f"--exact {worst['cpu_exact']:.3e}); outputs at 0: {zeros / (frames * N_MELS):.4f}, at 1: "
+            f"{ones / (frames * N_MELS):.5f} (card: {card_line()})")
+        log(f"features (d) files beyond {EXACT_TOL} of --exact: {len(over)} of {n}" + "".join(
+            f"; {name}: card {e:.3e}, --device cpu {c:.3e}, worst mel bin {m}" for name, e, c, m in over))
+        if n != len(paths) or launches != (n, 2 * n):
+            raise AssertionError(f"{n} files of {len(paths)} with launches {launches}: expected one mel_norm "
+                                 f"and two sosfilt launches a file")
+        if not (zeros and ones):
+            raise AssertionError("the corpus did not engage the dB clip at both ends")
+        x, _ = read_wav(paths[0])
+        feature_profile(fe, x, ((rng.rand(x.shape[0]) - 0.5) * 1e-6).astype(np.float32))
+
+        # (e) the other three model types on two utterances, card vs CPU
+        for model_type in ("stft", "legacy", "wav"):
+            for path in paths[1:3]:
+                x, _ = read_wav(path)
+                noise = ((rng.rand(x.shape[0]) - 0.5) * 1e-6).astype(np.float32)
+                got = fe.extract(model_type, x, noise).cpu()
+                want = fe_cpu.extract(model_type, x, noise)
+                err = (got - want).abs()
+                if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{model_type}: {tuple(got.shape)} against {tuple(want.shape)}")
+                if model_type == "wav":
+                    tol, note = torch.full_like(want, FE_TOL), ""
+                else:
+                    below = (want.amax(dim=-1, keepdim=True) - want - NEAR_PEAK).clamp(min=0.0)
+                    tol = FE_TOL * 10.0 ** (5.0 * below)
+                    note = f", within 40 dB of the frame's peak {err[below == 0].max().item():.3e}"
+                    if not (got.min().item() >= 0.0 and got.max().item() <= 1.0):
+                        raise AssertionError(f"{model_type}: values outside [0, 1]")
+                log(f"features (e) {model_type} {os.path.basename(path)} {tuple(got.shape)}: max_abs_err "
+                    f"{err.max().item():.3e}{note}; worst share of the tolerance {(err / tol).max().item():.3f}")
+                if not bool((err <= tol).all()):
+                    raise AssertionError(f"{model_type} card vs CPU outside the tolerance ({FE_TOL} within 40 dB "
+                                         f"of the frame's peak, 10x more for each further 20 dB)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        raise AssertionError(f"{tmp} was not removed")
+    mel_rec["launches"], sos_rec["launches"] = launches
+    mel_rec["cli_max_abs_err_vs_exact"] = worst["exact"]
+    mel_rec["cli_audio_s_per_s"] = audio_s / cli_s
+    return mel_rec, sos_rec
+
+
 def main(argv: list[str] | None = None) -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -707,6 +1060,9 @@ def main(argv: list[str] | None = None) -> int:
     fwd_train, bwd = phase_train_kernels(dev)
     train = phase_training(dev)
     log(f"phase 4 (training): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mel_rec, sos_rec = phase_features(dev)
+    log(f"phase 5 (features): {time.perf_counter() - t0:.1f} s")
     lstm_bound, lstm_bound_by = bound_ms(record["flops"], record["bytes"])
     fwd_train_bound, _ = bound_ms(fwd_train["flops"], fwd_train["bytes"])
     bwd_bound, bwd_bound_by = bound_ms(bwd["flops"], bwd["bytes"])
@@ -732,6 +1088,7 @@ def main(argv: list[str] | None = None) -> int:
         "train_ms": fwd_train["ms"],
         "train_plain_ms": fwd_train["plain_ms"],
         "train_bound_ms": fwd_train_bound,
+        "train_library_ms": fwd_train["library_ms"],
     }, {
         "name": "lstm_bwd",
         "route": "cuda",
@@ -760,6 +1117,26 @@ def main(argv: list[str] | None = None) -> int:
         # no single PyTorch call computes autoregressive generation
         "library_ms": None,
         **wn,
+    }, {
+        "name": "mel_norm",
+        "route": "cuda",
+        "source": "autovc_tpu_torch/ops/csrc/mel_norm.cu",
+        "replaces": "autovc_tpu/ops/pallas_mel.py:34 (mel_normalize, pallas_call :53: _kernel :25)",
+        # launches: one a file of phase 5's make_spect run; the times at
+        # (16416, 513) x (513, 80); no single PyTorch call computes the whole
+        # function, so the library time is torch.matmul of the projection alone
+        "library_note": "torch.matmul of the projection alone, without the dB step",
+        **mel_rec,
+    }, {
+        "name": "sosfilt",
+        "route": "cuda",
+        "source": "autovc_tpu_torch/ops/csrc/sosfilt.cu",
+        "replaces": "autovc_tpu/dsp/filters.py:135 (_sosfilt, a lax.scan run twice by _sos_filtfilt_jit :164; "
+                    "no Pallas kernel)",
+        # launches: two a file of phase 5's make_spect run; the times are both
+        # passes at B=32, L=131072; no PyTorch call runs an IIR cascade
+        "library_ms": None,
+        **sos_rec,
     }]
     faulthandler.cancel_dump_traceback_later()
     print(card, flush=True)

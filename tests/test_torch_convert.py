@@ -86,7 +86,8 @@ def test_convert_batch_groups_and_keeps_order(converters):
 
 def test_port_and_chip_smoke_import_without_jax():
     """With jax, flax and autovc_tpu blocked, every module of the port (the
-    WaveNet and training modules among them) and chip_smoke still import."""
+    WaveNet, training and feature-extraction modules among them) and
+    chip_smoke still import."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'autovc_tpu'):\n"
@@ -98,7 +99,10 @@ def test_port_and_chip_smoke_import_without_jax():
         "        'autovc_tpu_torch.train.solver', 'autovc_tpu_torch.train.step', 'autovc_tpu_torch.train.state',\n"
         "        'autovc_tpu_torch.train.schedule', 'autovc_tpu_torch.train.metrics', 'autovc_tpu_torch.train.profiler',\n"
         "        'autovc_tpu_torch.train.watch', 'autovc_tpu_torch.train.compare',\n"
-        "        'autovc_tpu_torch.cli.train'} <= set(mods), mods\n"
+        "        'autovc_tpu_torch.cli.train', 'autovc_tpu_torch.dsp', 'autovc_tpu_torch.dsp.mel',\n"
+        "        'autovc_tpu_torch.dsp.audio_io', 'autovc_tpu_torch.dsp.filters', 'autovc_tpu_torch.dsp.stft',\n"
+        "        'autovc_tpu_torch.dsp.features', 'autovc_tpu_torch.ops.mel', 'autovc_tpu_torch.ops.sosfilt',\n"
+        "        'autovc_tpu_torch.cli.make_spect'} <= set(mods), mods\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "from autovc_tpu_torch.vocoder import WaveNetVocoder\n"
@@ -110,4 +114,4 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 29
+    assert int(proc.stdout.split()[-1]) >= 38

@@ -7,14 +7,20 @@ The file imports no JAX, so it also runs where JAX is not installed:
 """
 
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from autovc_tpu_torch.cli import make_spect
 from autovc_tpu_torch.config import Config, TrainConfig, WaveNetConfig
 from autovc_tpu_torch.convert import Converter
+from autovc_tpu_torch.dsp import MelFrontend, butter_highpass_sos, mel_filterbank, write_wav
 from autovc_tpu_torch.models import build_generator
 from autovc_tpu_torch.ops import lstm as lstm_ops
+from autovc_tpu_torch.ops import mel as mel_ops
+from autovc_tpu_torch.ops import sosfilt as sosfilt_ops
 from autovc_tpu_torch.ops import wavenet as wavenet_ops
 from autovc_tpu_torch.train import TrainState, init_ema, make_eval_loss, make_optimizer, make_train_step
 from autovc_tpu_torch.train.compare import KinkTape, grad_scale
@@ -319,3 +325,144 @@ def test_entry_points_run_exact_f32_under_default_flags(cuda, torch_default_flag
     torch.testing.assert_close(got["logits"][:, :32], want["logits"][:, :32], atol=1e-4, rtol=0)
     for key in ("train", "eval"):
         assert abs(got[key] - want[key]) <= 1e-5 * abs(want[key]), key
+
+
+# ------------------------------------------------------ feature extraction
+
+def _mags(seed, t, n_bins):
+    """Non-negative magnitudes spanning both clips of the dB step."""
+    return (np.random.RandomState(seed).rand(t, n_bins) ** 4 * 200.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("t, n_bins", [(32 * 513, 513), (1, 513), (1000, 513), (300, 257)])
+def test_mel_kernel_matches_plain(cuda, t, n_bins):
+    """chip_smoke.py's shapes: 32 utterances of 513 frames, one frame, a
+    frame count that is no multiple of the tile, and the 257-bin legacy
+    STFT. Tolerance 1e-5: every term of the dot is >= 0, so a reordered f32
+    sum moves m by at most ~513 eps relative, ~5e-6 after 20 log10 / 100."""
+    mag = torch.from_numpy(_mags(t, t, n_bins)).to(cuda)
+    basis = torch.from_numpy(np.ascontiguousarray(mel_filterbank(16_000, 2 * (n_bins - 1), 80))).to(cuda)
+    before = mel_ops.launches
+    got = mel_ops.mel_normalize(mag, basis)
+    torch.cuda.synchronize()
+    assert mel_ops.launches == before + 1 and got.shape == (t, 80)
+    torch.testing.assert_close(got, mel_ops.mel_normalize_ref(mag, basis), atol=1e-5, rtol=0)
+
+
+def test_mel_kernel_refuses_what_it_does_not_take(cuda):
+    mag = torch.from_numpy(_mags(1, 40, 513)).to(cuda)
+    basis = torch.from_numpy(np.ascontiguousarray(mel_filterbank())).to(cuda)
+    with pytest.raises(TypeError, match="float32"):
+        mel_ops.mel_normalize(mag.double(), basis.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        mel_ops.mel_normalize(mag.T.contiguous().T, basis)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        mel_ops.mel_normalize(mag, basis.cpu())
+
+
+@pytest.mark.parametrize("length", [19, 4096])
+@pytest.mark.parametrize("b", [1, 3, 33])
+def test_sosfilt_kernel_matches_plain(cuda, b, length):
+    """One pass from a random state; 33 rows span two blocks. Tolerance
+    1e-5 of each row's max-abs: the kernel and the plain version round
+    alike (one rounding per fused multiply-add)."""
+    rng = np.random.RandomState(b * length)
+    sos = torch.from_numpy(butter_highpass_sos().astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.randn(b, length).astype(np.float32)).to(cuda)
+    zi = torch.from_numpy((rng.randn(b, 3, 2) * 0.1).astype(np.float32)).to(cuda)
+    before = sosfilt_ops.launches
+    got = sosfilt_ops.sosfilt(sos, x, zi)
+    torch.cuda.synchronize()
+    assert sosfilt_ops.launches == before + 1
+    want = sosfilt_ops.sosfilt_ref(sos, x, zi)
+    assert want.device == got.device
+    scale = want.abs().amax(dim=1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-5 * scale).all()), float(((got - want).abs() / scale).max())
+
+
+def test_sosfilt_kernel_refuses_float64(cuda):
+    sos = torch.from_numpy(butter_highpass_sos()).to(cuda)
+    x, zi = torch.zeros(2, 100, dtype=torch.float64, device=cuda), torch.zeros(2, 3, 2, dtype=torch.float64,
+                                                                                 device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        sosfilt_ops.sosfilt(sos, x, zi)
+
+
+def _voiced(seed, n):
+    """A harmonic source with a pitch glide, noise and a silent gap."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / 16_000.0
+    f0 = 120.0 + 30.0 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / 16_000.0
+    x = sum(0.3 / k * np.sin(k * phase) for k in range(1, 12)) + 0.003 * rng.randn(n)
+    x[n // 3 : n // 3 + 2000] = 0.0
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("model_type", ["spmel", "stft", "legacy", "wav"])
+def test_mel_frontend_on_card_matches_cpu(cuda, model_type):
+    """The float32 front end on the card (both kernels, cuFFT) against the
+    CPU (their plain versions, pocketfft) on two 1.5-s rows with dither:
+    1e-4; 'stft' and 'legacy' 1e-4 in bins within 40 dB of their frame's
+    loudest and 10x more for each further 20 dB (two FFTs' rounding,
+    relative to the frame's peak, as tests/test_torch_dsp.py holds the port
+    to JAX). The mel kernel launches once and the filter twice a call."""
+    wav = np.stack([_voiced(1, 24_000), _voiced(2, 24_000)])
+    noise = ((np.random.RandomState(3).rand(*wav.shape) - 0.5) * 1e-6).astype(np.float32)
+    on_card = MelFrontend(device=cuda)
+    before = mel_ops.launches, sosfilt_ops.launches
+    got = on_card.extract(model_type, wav, noise)
+    torch.cuda.synchronize()
+    assert (mel_ops.launches - before[0], sosfilt_ops.launches - before[1]) == (int(model_type == "spmel"), 2)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    want = MelFrontend(device="cpu").extract(model_type, wav, noise)
+    err = (got.cpu() - want).abs()
+    tol = 1e-4
+    if model_type in ("stft", "legacy"):
+        tol = 1e-4 * 10.0 ** (5.0 * (want.amax(dim=-1, keepdim=True) - want - 0.4).clamp(min=0.0))
+    assert bool((err <= tol).all()), (float(err.max()), float((err / tol).max()))
+
+
+def test_mel_frontend_float64_on_card_raises(cuda):
+    with pytest.raises(ValueError, match="CPU only"):
+        MelFrontend(dtype=torch.float64, device=cuda)
+
+
+def test_mel_frontend_ignores_default_tf32_flags(cuda, torch_default_flags):
+    """The front end calls no cuDNN and no matmul on the card: torch's
+    default flags and both TF32 flags on give the exact-f32 result, 1e-6."""
+    wav = _voiced(4, 16_000)
+    fe = MelFrontend(device=cuda)
+    got = fe.mel_features(wav)
+    assert _flags() == torch_default_flags
+    torch.backends.cuda.matmul.allow_tf32 = True
+    both_on = fe.mel_features(wav)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    want = fe.mel_features(wav)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    torch.testing.assert_close(both_on, want, atol=1e-6, rtol=0)
+
+
+def test_make_spect_on_card_matches_exact(cuda, tmp_path):
+    """The CLI without --device runs on the card: one mel and two filter
+    launches a file, every file within 1e-3 of the --exact host chain (the
+    JAX package's bound for its device path, tests/test_cli.py:170-177)."""
+    roots = []
+    for name in ("card", "exact"):
+        root = tmp_path / name
+        for s, spk in enumerate(("p301", "p302")):
+            os.makedirs(root / "wavs" / spk)
+            for u in range(2):
+                write_wav(str(root / "wavs" / spk / f"{spk}_{u:03d}.wav"), _voiced(10 * s + u, 12_000 + 4000 * u))
+        roots.append(str(root))
+    before = mel_ops.launches, sosfilt_ops.launches
+    written = make_spect.main(["--main_dir", roots[0]])
+    assert (mel_ops.launches - before[0], sosfilt_ops.launches - before[1]) == (4, 8)
+    make_spect.main(["--main_dir", roots[1], "--exact"])
+    assert len(written) == 4
+    for path in written:
+        got = np.load(path)
+        want = np.load(path.replace(roots[0], roots[1]))
+        assert got.dtype == np.float32 and got.shape == want.shape and got.shape[1] == 80
+        assert 0.0 <= got.min() and got.max() <= 1.0
+        np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
