@@ -1,5 +1,7 @@
-// Backward of the LSTM recurrence over hoisted input projections, one launch
-// per reversed time step, and the recurrent weight gradient as a tiled SGEMM.
+// Backward of the LSTM recurrence over hoisted input projections: the
+// reversed recurrence with dh0 in one launch per sequence, each block holding
+// its rows of w_hh in shared memory for the whole sequence, and the recurrent
+// weight gradient as a tiled SGEMM.
 //
 // Replaces the backward Pallas kernels of autovc_tpu/ops/pallas_lstm.py:
 //   _chunk_bwd_call (-> _lstm_bwd_kernel, dW_hh accumulated on-chip) and
@@ -7,251 +9,283 @@
 // The TPU split the gates only because a (H, 4H) f32 w_hh of 16 MB at H=1024
 // does not fit its VMEM; here one kernel set serves every H.
 //
-// Inputs are the forward's (csrc/lstm_fwd.cu, training form): xproj (B, T, 4H),
-// w_hh (H, 4H) row-major, h0/c0 (B, H) or null (zero), h_seq and c_seq
-// (B, T, H), and the cotangents dy (B, T, H), dhN (B, H) or null. Walking
-// the steps in the reverse of the forward's order (t = T-1 .. 0, or 0 .. T-1
-// for reverse=1, whose forward ran right to left), step t computes, in float32:
-//   hprev, cprev = h_seq/c_seq at the step the forward took before t (or h0/c0)
-//   gates = xproj[:, t] + hprev @ w_hh            (recomputed, gate order i,f,g,o)
+// Inputs are the forward's training form (csrc/lstm_fwd.cu): the gate
+// activations act (B, T, 4H) = [sigmoid(i), sigmoid(f), tanh(g), sigmoid(o)],
+// c_seq (B, T, H), w_hh (H, 4H) row-major, c0 (B, H) or null (zero), and the
+// cotangents dy (B, T, H), dhN (B, H) or null. Walking the steps in the
+// reverse of the forward's order (t = T-1 .. 0, or 0 .. T-1 for reverse=1,
+// whose forward ran right to left), step t computes, in float32:
+//   si, sf, tg, so = act[:, t];  cprev = c_seq at the forward's step before t (or c0)
 //   dh = dy[:, t] + (dgates_{t_next} @ w_hh^T, or dhN at the first step taken)
 //   do = dh * tanh(c_t) * so * (1 - so)
 //   dc = dc + dh * so * (1 - tanh(c_t)^2)
 //   di = dc * tg * si * (1 - si);  dg = dc * si * (1 - tg^2);  df = dc * cprev * sf * (1 - sf)
 //   dxproj[:, t] = [di, df, dg, do];  dc = dc * sf
-// the formulas of pallas_lstm.py:438-453. A last launch forms
+// the formulas of pallas_lstm.py:438-453, and after the last step
 // dh0 = dgates_{last} @ w_hh^T; dc0 is the carried dc. Then
 //   dW[k, g] = sum over (b, t) of hprev[b, t, k] * dxproj[b, t, g]
 // is a separate kernel over the whole sequence (K = B*T).
 //
-// Design. As in the forward kernel: one launch per step on the caller's
-// stream, the kernel boundary the only synchronisation between steps (no grid
-// barrier, no cooperative launch, no spin-wait), cudaGetLastError after every
-// launch. The dgates of step t_next live in dxproj itself, so dgates is
-// double-buffered by the sequence as h is in the forward. Each block owns TJ
-// hidden units j for BT batch rows and computes (1) the gate recompute, the
-// forward's dot products of length H against columns g*H + j of w_hh, and (2)
-// the dh contraction, a dot product of length 4H of dgates_{t_next} against
-// row j of w_hh (read contiguously), both staged through shared memory; then
-// (3) one thread per (b, j) applies the cell gradient and updates dc in place,
-// which only it reads and writes. The weight gradient is a 64x64-tile SGEMM
-// whose loader builds hprev's rows from h_seq and h0, so no shifted copy of
-// h_seq is made; the reverse direction is walked left to right in place,
-// never flipped by a copy.
+// Bound. A step's dh contraction is 8*B*H^2 flops of f32 FMAs and depends on
+// the step before, as the forward's product does; dW is 8*B*T*H^2 flops in
+// one parallel product. The previous design launched one kernel per step
+// and read w_hh twice a step from L2 (as columns for a gate recompute, as
+// rows for dh): 101 us a step at H=1024, B=7.
 //
-// Bound. Per step the blocks together read w_hh twice (once as columns for
-// the recompute, once as rows for dh: 32 MB at H=1024, resident in the 50 MB
-// L2 across steps) and do 16*B*H^2 flops on the f32 CUDA cores; dW is
-// 8*B*T*H^2 flops. At B=7 the step work is microseconds, so a step is bound
-// by its launch and the L2 reads, as the forward's; the per-sequence minimum
-// the card allows is the larger of the flops at 67 TFLOP/s and the bytes
-// (xproj, h_seq, c_seq, c_prev, dy and w_hh read once, dxproj and dW written
-// once) at 3.35 TB/s. Tensor cores, a persistent kernel and CUDA graphs are
-// later work, to be measured against these numbers.
+// Design. The forward saves the gate activations, so no gate is recomputed
+// here and a block needs only the rows of w_hh of its units (4H floats
+// each): at H=1024 the columns and the rows together (256 KB a block) would
+// not fit. The launch plan comes from ops/lstm.py (launch_plan, kind "bwd"):
+//  (a) w_hh fits one block (H <= 112): one block per tile of batch rows
+//      walks all T steps and the dh0 step with the whole of w_hh and its
+//      rows of dgates in shared memory; __syncthreads only, no grid barrier.
+//  (b) larger H: a persistent cooperative kernel, at most one block per SM,
+//      each block owning `units` hidden units and their rows of w_hh. Step t
+//      stages dgates_{t_next} of every batch row from dxproj (cp.async.cg
+//      through L2, double-buffered K chunks), forms dh for its units, writes
+//      its columns of dxproj[:, t], and meets the other blocks at
+//      cooperative_groups' grid barrier; dh0 is the last step of the launch.
+//      cudaLaunchCooperativeKernel, after an occupancy check.
+// A thread computes RB batch rows x 4 units over a slice of K = 4H, the
+// slices are added in shared memory, and one thread per (row, unit) applies
+// the cell gradient and updates dc in place (only it reads and writes it).
+// The weight gradient is a 64x64-tile SGEMM whose loader builds hprev's rows
+// from h_seq and h0, so no shifted copy of h_seq is made; the reverse
+// direction is walked left to right in place, never flipped by a copy.
 
-#include <cuda_runtime.h>
+#include "lstm_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TJ = 8;    // hidden units per block
-constexpr int BT = 32;   // batch rows per block
-constexpr int RB = 4;    // batch rows per thread
-constexpr int KS = 4;    // ways each reduction is split among threads
-constexpr int KC = 64;   // reduction columns staged per tile
-constexpr int NT = TJ * (BT / RB) * KS;  // 256 threads
-constexpr int HS = KC + 4;               // tile row stride (keeps float4 alignment)
-
-static_assert(NT == 256, "thread layout");
-static_assert((KC / KS) % 4 == 0, "inner loops step by 4");
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-struct Tiles {
-  float ws[KC][4][TJ];  // w_hh rows kc.., columns g*H + j0 + u: [k][gate][unit]
-  float rows[BT][HS];   // h_{t-1} or dgates_{t_next} tile: [batch][k]
-  float wr[TJ][HS];     // w_hh rows j0 + u, columns kc..: [unit][k]
+struct Args {
+  const float* act;
+  const float* w_hh;
+  const float* c0;
+  const float* c_seq;
+  const float* dy;
+  const float* dhn;
+  float* dxproj;
+  float* dc_state;
+  float* dh0;
+  int B, T, H, reverse;
+  int units, rows, kc, ks;
 };
 
-// Thread's partial gate preactivations: acc[r][g] += sum over its k slice of
-// h_prev[b0 + bg*RB + r, k] * w_hh[k, g*H + j0 + j]. h_prev row b is at
-// h_prev + b * h_stride.
-__device__ __forceinline__ void gate_products(float (&acc)[RB][4], Tiles& sm, const float* __restrict__ w_hh,
-                                              const float* h_prev, size_t h_stride, int B, int H, int b0,
-                                              int j0, int j, int bg, int ks) {
-  const int tid = threadIdx.x;
-  for (int kc = 0; kc < H; kc += KC) {
-    for (int e = tid; e < KC * 4 * TJ; e += NT) {
-      const int u = e % TJ, g = (e / TJ) % 4, k = e / (4 * TJ);
-      sm.ws[k][g][u] = (kc + k < H) ? w_hh[(size_t)(kc + k) * 4 * H + (size_t)g * H + j0 + u] : 0.0f;
-    }
-    for (int e = tid; e < BT * (KC / 4); e += NT) {
-      const int k4 = e % (KC / 4), b = e / (KC / 4);
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (b0 + b < B && kc + 4 * k4 < H)
-        v = *reinterpret_cast<const float4*>(h_prev + (size_t)(b0 + b) * h_stride + kc + 4 * k4);
-      *reinterpret_cast<float4*>(&sm.rows[b][4 * k4]) = v;
-    }
-    __syncthreads();
-    for (int k = ks * (KC / KS); k < (ks + 1) * (KC / KS); k += 4) {
-      float4 hv[RB];
-#pragma unroll
-      for (int r = 0; r < RB; ++r) hv[r] = *reinterpret_cast<const float4*>(&sm.rows[bg * RB + r][k]);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        float w[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) w[g] = sm.ws[k + kk][g][j];
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float h = kk == 0 ? hv[r].x : kk == 1 ? hv[r].y : kk == 2 ? hv[r].z : hv[r].w;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) acc[r][g] = fmaf(h, w[g], acc[r][g]);
-        }
-      }
-    }
-    __syncthreads();
+// The block's shape: units TJ (padded to NC, a multiple of 4, with zero
+// columns of W), rows BT, tasks = (BT/RB) * NC/4 (row group, 4 units), each
+// split KS ways over K = 4H.
+struct Layout {
+  int TJ, BT, NC, RG, tasks, KS;
+  __device__ Layout(const Args& a, int tj)
+      : TJ(tj), BT(a.rows), NC((tj + 3) / 4 * 4), RG(a.rows / RB), tasks(RG * NC / 4), KS(a.ks) {}
+};
+
+// Loads the block's rows of w_hh, transposed: W[k][u] = w_hh[j0 + u, k] for
+// k < 4H (zero for u >= TJ), read along the rows.
+__device__ void load_w(float* W, const Args& a, const Layout& L, int j0) {
+  const int K = 4 * a.H, n = K * L.NC;
+  for (int e = threadIdx.x; e < n; e += NT) {
+    const int k = e % K, u = e / K;
+    W[k * L.NC + u] = u < L.TJ ? a.w_hh[(size_t)(j0 + u) * K + k] : 0.0f;
   }
 }
 
-// Thread's partial dh: acc[r] += sum over its k slice of
-// dg[b0 + bg*RB + r, k] * w_hh[j0 + j, k], k over 4H. dg row b is at
-// dg + b * dg_stride.
-__device__ __forceinline__ void dh_products(float (&acc)[RB], Tiles& sm, const float* __restrict__ w_hh,
-                                            const float* dg, size_t dg_stride, int B, int H, int b0, int j0,
-                                            int j, int bg, int ks) {
-  const int tid = threadIdx.x;
-  const int H4 = 4 * H;
-  for (int kc = 0; kc < H4; kc += KC) {
-    for (int e = tid; e < TJ * (KC / 4); e += NT) {
-      const int k4 = e % (KC / 4), u = e / (KC / 4);
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (kc + 4 * k4 < H4) v = *reinterpret_cast<const float4*>(w_hh + (size_t)(j0 + u) * H4 + kc + 4 * k4);
-      *reinterpret_cast<float4*>(&sm.wr[u][4 * k4]) = v;
-    }
-    for (int e = tid; e < BT * (KC / 4); e += NT) {
-      const int k4 = e % (KC / 4), b = e / (KC / 4);
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (b0 + b < B && kc + 4 * k4 < H4)
-        v = *reinterpret_cast<const float4*>(dg + (size_t)(b0 + b) * dg_stride + kc + 4 * k4);
-      *reinterpret_cast<float4*>(&sm.rows[b][4 * k4]) = v;
-    }
-    __syncthreads();
-    for (int k = ks * (KC / KS); k < (ks + 1) * (KC / KS); k += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(&sm.wr[j][k]);
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const float4 d = *reinterpret_cast<const float4*>(&sm.rows[bg * RB + r][k]);
-        acc[r] = fmaf(d.x, w.x, acc[r]);
-        acc[r] = fmaf(d.y, w.y, acc[r]);
-        acc[r] = fmaf(d.z, w.z, acc[r]);
-        acc[r] = fmaf(d.w, w.w, acc[r]);
-      }
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ void task_of(const Layout& L, int& rg, int& cgi, int& ks) {
+  const int tid = threadIdx.x, ncg = L.NC / 4;
+  cgi = tid % ncg;
+  rg = (tid / ncg) % L.RG;
+  ks = tid < L.tasks * L.KS ? tid / L.tasks : -1;
 }
 
-__global__ void __launch_bounds__(NT)
-lstm_bwd_step_kernel(const float* __restrict__ xproj, const float* __restrict__ w_hh,
-                     const float* h_prev, size_t h_stride, const float* c_prev, size_t c_stride,
-                     const float* __restrict__ c_seq, const float* __restrict__ dy,
-                     const float* __restrict__ dh_first, float* dxproj, float* __restrict__ dc_state,
-                     int B, int T, int H, int t, int t_next) {
-  // h_prev/c_prev: rows of the state before step t (null: zero). t_next < 0
-  // marks the first step taken, whose dh carry is dh_first (null: zero);
-  // otherwise the carry is dxproj[:, t_next] @ w_hh^T. dxproj is read at
-  // t_next and written at t, so it is not __restrict__.
-  __shared__ __align__(16) Tiles sm;
-  __shared__ __align__(16) float red[KS][BT][TJ][4];
-  __shared__ float red_dh[KS][BT][TJ];
-
-  const int tid = threadIdx.x;
-  const int j = tid % TJ;
-  const int bg = (tid / TJ) % (BT / RB);
-  const int ks = tid / (TJ * (BT / RB));
-  const int j0 = blockIdx.x * TJ;
-  const int b0 = blockIdx.y * BT;
-  const size_t H4 = 4 * (size_t)H;
-
-  float acc[RB][4];
-  float acc_dh[RB];
+__device__ __forceinline__ void store_partial(float* red, const Layout& L, const float (&acc)[RB][4], int rg, int cgi,
+                                              int ks) {
+  if (ks < 0) return;
 #pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    acc_dh[r] = 0.0f;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) acc[r][g] = 0.0f;
-  }
-  if (h_prev != nullptr) gate_products(acc, sm, w_hh, h_prev, h_stride, B, H, b0, j0, j, bg, ks);
-  if (t_next >= 0) dh_products(acc_dh, sm, w_hh, dxproj + (size_t)t_next * H4, T * H4, B, H, b0, j0, j, bg, ks);
-
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    *reinterpret_cast<float4*>(&red[ks][bg * RB + r][j][0]) =
+  for (int r = 0; r < RB; ++r)
+    *reinterpret_cast<float4*>(red + (size_t)(ks * L.BT + rg * RB + r) * L.NC + 4 * cgi) =
         make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    red_dh[ks][bg * RB + r][j] = acc_dh[r];
-  }
-  __syncthreads();
-
-  // One thread per (batch row, unit): add the KS partial sums, apply the cell
-  // gradient.
-  const int b = tid / TJ, u = tid % TJ;
-  const int bb = b0 + b, jj = j0 + u;
-  if (bb >= B) return;
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float carry = 0.0f;
-#pragma unroll
-  for (int q = 0; q < KS; ++q) {
-#pragma unroll
-    for (int g = 0; g < 4; ++g) s[g] += red[q][b][u][g];
-    carry += red_dh[q][b][u];
-  }
-  if (t_next < 0) carry = dh_first != nullptr ? dh_first[(size_t)bb * H + jj] : 0.0f;
-  const size_t row = (size_t)bb * T + t;
-  const float* xp = xproj + row * H4;
-  const float si = sigmoid(xp[jj] + s[0]);
-  const float sf = sigmoid(xp[H + jj] + s[1]);
-  const float tg = tanhf(xp[2 * H + jj] + s[2]);
-  const float so = sigmoid(xp[3 * H + jj] + s[3]);
-  const float tc = tanhf(c_seq[row * H + jj]);
-  const float cp = c_prev != nullptr ? c_prev[(size_t)bb * c_stride + jj] : 0.0f;
-
-  const float dh = dy[row * H + jj] + carry;
-  const float d_o = dh * tc * so * (1.0f - so);
-  const float dc = dc_state[(size_t)bb * H + jj] + dh * so * (1.0f - tc * tc);
-  const float di = dc * tg * si * (1.0f - si);
-  const float dg = dc * si * (1.0f - tg * tg);
-  const float df = dc * cp * sf * (1.0f - sf);
-  float* dx = dxproj + row * H4;
-  dx[jj] = di;
-  dx[H + jj] = df;
-  dx[2 * H + jj] = dg;
-  dx[3 * H + jj] = d_o;
-  dc_state[(size_t)bb * H + jj] = dc * sf;
 }
 
-// dh_out[b, j] = sum_k dg[b, k] * w_hh[j, k], k over 4H (dh0 after the last step).
-__global__ void __launch_bounds__(NT)
-lstm_dh_kernel(const float* __restrict__ w_hh, const float* __restrict__ dg, size_t dg_stride,
-               float* __restrict__ dh_out, int B, int H) {
-  __shared__ __align__(16) Tiles sm;
-  __shared__ float red_dh[KS][BT][TJ];
-  const int tid = threadIdx.x;
-  const int j = tid % TJ;
-  const int bg = (tid / TJ) % (BT / RB);
-  const int ks = tid / (TJ * (BT / RB));
-  const int j0 = blockIdx.x * TJ;
-  const int b0 = blockIdx.y * BT;
-  float acc[RB] = {0.0f, 0.0f, 0.0f, 0.0f};
-  dh_products(acc, sm, w_hh, dg, dg_stride, B, H, b0, j0, j, bg, ks);
+// The forward's step t: the time step taken s steps into the backward, and
+// the step the forward took before it (-1 or T at the sequence's start).
+__device__ __forceinline__ int step_t(const Args& a, int s) { return a.reverse ? s : a.T - 1 - s; }
+
+// One thread's residuals for its (row, unit) pairs of a tile at step t,
+// loaded before the dh product so that they are in flight during it.
+struct Pairs {
+  float act[RB][4], c[RB], cprev[RB], dy[RB];
+};
+
+__device__ __forceinline__ void prefetch(Pairs& p, const Args& a, const Layout& L, int b0, int j0, int t) {
+  const int t_prev = a.reverse ? t + 1 : t - 1;
 #pragma unroll
-  for (int r = 0; r < RB; ++r) red_dh[ks][bg * RB + r][j] = acc[r];
+  for (int i = 0; i < RB; ++i) {
+    const int q = threadIdx.x + i * NT;
+    const int b = q / L.TJ, u = q % L.TJ;
+    if (q < L.BT * L.TJ && b0 + b < a.B) {
+      const size_t bb = b0 + b, j = j0 + u, row = bb * a.T + t;
+      const float* g = a.act + row * 4 * a.H + j;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) p.act[i][k] = __ldg(g + (size_t)k * a.H);
+      p.c[i] = __ldg(a.c_seq + row * a.H + j);
+      p.dy[i] = __ldg(a.dy + row * a.H + j);
+      p.cprev[i] = (t_prev < 0 || t_prev >= a.T) ? (a.c0 != nullptr ? __ldg(a.c0 + bb * a.H + j) : 0.0f)
+                                                  : __ldg(a.c_seq + (bb * a.T + t_prev) * a.H + j);
+    }
+  }
+}
+
+// Adds the KS partial sums of dh's carry for each (row, unit) of the tile.
+// At s == T writes them to dh0; at s == 0 takes dhN as the carry instead;
+// otherwise applies the cell gradient at step t, writing dxproj[:, t] (and
+// dgs, row stride ldg, when dgs is not null).
+__device__ void cell_backward(const Args& a, const Layout& L, const float* red, const Pairs& p, int b0, int j0, int s,
+                              float* dgs, int ldg) {
+  const int t = s < a.T ? step_t(a, s) : 0;
+#pragma unroll
+  for (int i = 0; i < RB; ++i) {
+    const int q = threadIdx.x + i * NT;
+    const int b = q / L.TJ, u = q % L.TJ;
+    if (q >= L.BT * L.TJ || b0 + b >= a.B) continue;
+    const size_t bb = b0 + b, j = j0 + u;
+    float carry = 0.0f;
+    if (s > 0)
+      for (int k = 0; k < L.KS; ++k) carry += red[(size_t)(k * L.BT + b) * L.NC + u];
+    else if (a.dhn != nullptr)
+      carry = a.dhn[bb * a.H + j];
+    if (s == a.T) {
+      if (a.dh0 != nullptr) a.dh0[bb * a.H + j] = carry;
+      continue;
+    }
+    const float si = p.act[i][0], sf = p.act[i][1], tg = p.act[i][2], so = p.act[i][3];
+    const float tc = tanhf(p.c[i]);
+    const float dh = p.dy[i] + carry;
+    const float d_o = dh * tc * so * (1.0f - so);
+    const float dc = a.dc_state[bb * a.H + j] + dh * so * (1.0f - tc * tc);
+    const float di = dc * tg * si * (1.0f - si);
+    const float dg = dc * si * (1.0f - tg * tg);
+    const float df = dc * p.cprev[i] * sf * (1.0f - sf);
+    float* dx = a.dxproj + (bb * a.T + t) * 4 * a.H + j;
+    dx[0] = di;
+    dx[(size_t)a.H] = df;
+    dx[2 * (size_t)a.H] = dg;
+    dx[3 * (size_t)a.H] = d_o;
+    a.dc_state[bb * a.H + j] = dc * sf;
+    if (dgs != nullptr) {
+      float* d = dgs + b * ldg + j;
+      d[0] = di;
+      d[a.H] = df;
+      d[2 * a.H] = dg;
+      d[3 * a.H] = d_o;
+    }
+  }
+}
+
+// Regime (a): block x owns batch rows [x*rows, x*rows + rows) and all H
+// units. Shared memory: W (4H x H), dgs (rows x (4H + PAD)), red.
+__global__ void __launch_bounds__(NT) lstm_bwd_block_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(a, a.H);
+  const int K = 4 * a.H, ldg = K + PAD;
+  float* W = smem;
+  float* dgs = W + (size_t)K * L.NC;
+  float* red = dgs + (size_t)L.BT * ldg;
+  const int b0 = blockIdx.x * L.BT;
+
+  load_w(W, a, L, 0);
+  for (int e = threadIdx.x; e < L.BT * ldg; e += NT) dgs[e] = 0.0f;
   __syncthreads();
-  const int b = tid / TJ, u = tid % TJ;
-  if (b0 + b >= B) return;
-  float s = 0.0f;
-#pragma unroll
-  for (int q = 0; q < KS; ++q) s += red_dh[q][b][u];
-  dh_out[(size_t)(b0 + b) * H + j0 + u] = s;
+
+  int rg, cgi, ks;
+  task_of(L, rg, cgi, ks);
+  // the next step's residuals are loaded while this step runs
+  Pairs p, next;
+  prefetch(next, a, L, b0, 0, step_t(a, 0));
+  for (int s = 0; s <= a.T; ++s) {  // s == T: the dh0 step
+    p = next;
+    if (s + 1 < a.T) prefetch(next, a, L, b0, 0, step_t(a, s + 1));
+    float acc[RB][4] = {};
+    if (ks >= 0 && s > 0) gemm_slice(acc, dgs, ldg, W, L.NC, rg * RB, 4 * cgi, a.H, ks, L.KS);
+    store_partial(red, L, acc, rg, cgi, ks);
+    __syncthreads();  // partials complete; dgs (dgates_{t_next}) no longer read
+    cell_backward(a, L, red, p, b0, 0, s, dgs, ldg);
+    __syncthreads();
+  }
+}
+
+// Regime (b): block x owns units [x*units, x*units + units) for every batch
+// row. Shared memory: W (4H x NC), two staging buffers (rows x (kc + PAD)),
+// red. Launched cooperatively only.
+__global__ void __launch_bounds__(NT, 1) lstm_bwd_grid_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(a, a.units);
+  const int K = 4 * a.H, lds = a.kc + PAD;
+  float* W = smem;
+  float* stage = W + (size_t)K * L.NC;
+  float* red = stage + 2 * (size_t)L.BT * lds;
+  const int j0 = blockIdx.x * L.TJ;
+  const int ntiles = (a.B + L.BT - 1) / L.BT;
+  const int nch = (K + a.kc - 1) / a.kc;
+  cg::grid_group grid = cg::this_grid();
+
+  load_w(W, a, L, j0);
+  for (int e = threadIdx.x; e < 2 * L.BT * lds; e += NT) stage[e] = 0.0f;
+  __syncthreads();
+
+  int rg, cgi, ks;
+  task_of(L, rg, cgi, ks);
+  Pairs p;
+  for (int s = 0; s <= a.T; ++s) {  // s == T: the dh0 step
+    // dgates of the step taken before: row b at src + b * T * 4H
+    const float* src = s == 0 ? nullptr : a.dxproj + (size_t)step_t(a, s - 1) * K;
+    const size_t stride = (size_t)a.T * K;
+    const int nst = src != nullptr ? ntiles * nch : 0;
+    auto stage_in = [&](int q) {  // stage q = (tile, chunk) into buffer q % 2
+      const int b0 = (q / nch) * L.BT, k0 = (q % nch) * a.kc;
+      const int nrow = min(L.BT, a.B - b0), n4 = min(a.kc, K - k0) / 4;
+      float* buf = stage + (size_t)(q & 1) * L.BT * lds;
+      for (int e = threadIdx.x; e < nrow * n4; e += NT) {
+        const int r = e / n4, c4 = e % n4;
+        cp_async16(buf + r * lds + 4 * c4, src + (b0 + r) * stride + k0 + 4 * c4);
+      }
+      cp_async_commit();
+    };
+    if (nst > 0) stage_in(0);
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int b0 = tile * L.BT;
+      if (s < a.T) prefetch(p, a, L, b0, j0, step_t(a, s));
+      float acc[RB][4] = {};
+      for (int ch = 0; nst > 0 && ch < nch; ++ch) {
+        const int q = tile * nch + ch;
+        if (q + 1 < nst) {
+          stage_in(q + 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();  // stage q visible to every thread
+        const int k0 = ch * a.kc;
+        if (ks >= 0)
+          gemm_slice(acc, stage + (size_t)(q & 1) * L.BT * lds, lds, W + (size_t)k0 * L.NC, L.NC, rg * RB, 4 * cgi,
+                     min(a.kc, K - k0) / 4, ks, L.KS);
+        __syncthreads();  // buffer q % 2 free for stage q + 2
+      }
+      store_partial(red, L, acc, rg, cgi, ks);
+      __syncthreads();
+      cell_backward(a, L, red, p, b0, j0, s, nullptr, 0);
+      __syncthreads();  // red free for the next tile
+    }
+    if (s < a.T) grid.sync();  // every dgates_t written before any block reads it
+  }
+}
+
+// Shared bytes of a plan, computed as the kernels lay them out.
+size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks) {
+  const size_t K = 4 * (size_t)H, nc = (size_t)(units + 3) / 4 * 4;
+  const size_t staged = regime == 0 ? (size_t)rows * (K + PAD) : 2 * (size_t)rows * (kc + PAD);
+  return 4 * (K * nc + staged + (size_t)ks * rows * nc);
 }
 
 constexpr int GM = 64;  // dW rows (k of w_hh) per block
@@ -319,44 +353,30 @@ lstm_dw_kernel(const float* __restrict__ h_seq, const float* __restrict__ h0,
 
 extern "C" {
 
-// The backward over the whole sequence: T step launches and one dh0 launch on
-// `stream`, none synchronising. h0, c0 and dhn may be null (zero); dc_state
-// holds dcN on entry (the caller zeroes it for a zero cotangent) and dc0 on
-// exit; dh0 may be null (not wanted). Returns 0, or the first CUDA error
-// (cudaGetLastError after each launch).
-int autovc_lstm_bwd(const float* xproj, const float* w_hh, const float* h0, const float* c0,
-                    const float* h_seq, const float* c_seq, const float* dy, const float* dhn,
-                    float* dxproj, float* dc_state, float* dh0, int B, int T, int H, int reverse,
-                    cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || H % TJ != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(H / TJ, (B + BT - 1) / BT);
-  const size_t H4 = 4 * (size_t)H;
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? s : T - 1 - s;
-    const int t_next = s == 0 ? -1 : (reverse ? t - 1 : t + 1);
-    const int t_prev = reverse ? t + 1 : t - 1;
-    const bool start = t_prev < 0 || t_prev >= T;
-    const float* h_prev = start ? h0 : h_seq + (size_t)t_prev * H;
-    const float* c_prev = start ? c0 : c_seq + (size_t)t_prev * H;
-    const size_t stride = start ? (size_t)H : (size_t)T * H;
-    lstm_bwd_step_kernel<<<grid, NT, 0, stream>>>(xproj, w_hh, h_prev, stride, c_prev, stride, c_seq, dy,
-                                                  dhn, dxproj, dc_state, B, T, H, t, t_next);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (dh0 != nullptr) {
-    const int t_last = reverse ? T - 1 : 0;
-    lstm_dh_kernel<<<grid, NT, 0, stream>>>(w_hh, dxproj + (size_t)t_last * H4, (size_t)T * H4, dh0, B, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+// The backward recurrence over the whole sequence, dh0 included, in one
+// launch on `stream`, without synchronising. regime 0 is (a), 1 is (b);
+// blocks, units, rows, kc and smem are the plan of ops/lstm.py:launch_plan
+// (kind "bwd"). c0 and dhn may be null (zero); dc_state holds dcN on entry
+// (the caller zeroes it for a zero cotangent) and dc0 on exit; dh0 may be
+// null (not wanted). info (2 ints, may be null) receives the blocks that can
+// be resident on one SM and the SM count. Returns 0, ERR_PLAN, ERR_RESIDENT
+// or the CUDA error of the launch.
+int autovc_lstm_bwd(const float* act, const float* w_hh, const float* c0, const float* c_seq, const float* dy,
+                    const float* dhn, float* dxproj, float* dc_state, float* dh0, int B, int T, int H, int reverse,
+                    int regime, int blocks, int units, int rows, int kc, int smem, int* info, cudaStream_t stream) {
+  const int tasks = rows / RB * (((regime == 0 ? H : units) + 3) / 4);  // (row group, 4 units)
+  int ks = 0;
+  if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
+      smem_bytes(regime, H, units, rows, kc, ks) != (size_t)smem)
+    return ERR_PLAN;
+  const Args a{act, w_hh, c0, c_seq, dy, dhn, dxproj, dc_state, dh0, B, T, H, reverse, units, rows, kc, ks};
+  return launch(lstm_bwd_block_kernel, lstm_bwd_grid_kernel, a, regime, blocks, smem, info, stream);
 }
 
 // dW (H, 4H) = hprev^T @ dxproj over all (b, t), one launch. h0 may be null.
 int autovc_lstm_dw(const float* h_seq, const float* h0, const float* dxproj, float* dw, int B, int T,
                    int H, int reverse, cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || H % TJ != 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || H <= 0 || H % 8 != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((4 * H + GN - 1) / GN, (H + GM - 1) / GM);
   lstm_dw_kernel<<<grid, NT, 0, stream>>>(h_seq, h0, dxproj, dw, B, T, H, reverse);
   return (int)cudaGetLastError();

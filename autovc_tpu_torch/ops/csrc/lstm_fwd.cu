@@ -1,176 +1,303 @@
-// Forward LSTM recurrence over hoisted input projections, one launch per step.
+// Forward LSTM recurrence over hoisted input projections: one launch per
+// sequence, each block holding its slice of w_hh in shared memory for the
+// whole sequence.
 //
 // Replaces the forward Pallas kernels of autovc_tpu/ops/pallas_lstm.py:
 //   _chunk_fwd (-> _lstm_kernel, _lstm_kernel_train) and
 //   _lstm_chunk_split_impl (-> _lstm_kernel_split, _lstm_kernel_split_train).
-// The TPU needed the gate-split variant only because a (H, 4H) f32 w_hh of
-// 16 MB at H=1024 does not fit its VMEM; here one kernel serves every H.
+// The TPU kernel kept w_hh in VMEM for the whole call, with the (h, c) carry
+// on chip; the TPU needed the gate split only because a 16 MB w_hh at H=1024
+// does not fit its VMEM. Here the card's 132 SMs hold it together instead.
 //
 // Computes, for t in time order (or reversed):
 //   gates = xproj[:, t] + h_{t-1} @ w_hh        (B, 4H), gate order i, f, g, o
 //   c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g)
 //   h_t = sigmoid(o) * tanh(c_t)                 h_seq[:, t] = h_t
-// from (h0, c0) and float32 throughout.
+// from (h0, c0), float32 throughout, the formulas of pallas_lstm.py:41-52.
 //   xproj (B, T, 4H), w_hh (H, 4H) row-major, h_seq (B, T, H), c (B, H).
-// h0 (B, H) may be null (zero initial h, the product of step 0 is skipped);
-// c holds c0 on entry (the caller zeroes it for a zero state) and cN on exit.
-// The training form also writes the cell sequence c_seq (B, T, H), the
-// backward's residual (csrc/lstm_bwd.cu); inference passes null and pays no
-// c_seq traffic. hN is h_seq at the last step taken.
+// h0 (B, H) may be null (zero initial h: the product of the first step is
+// skipped); c holds c0 on entry (the caller zeroes it for a zero state) and
+// cN on exit. The training form also writes c_seq (B, T, H) and the gate
+// activations (B, T, 4H) = [sigmoid(i), sigmoid(f), tanh(g), sigmoid(o)],
+// the backward's residuals (csrc/lstm_bwd.cu); inference passes null for both.
 //
-// Design. The host launcher runs one kernel per time step on the caller's
-// stream; the kernel boundary is the only synchronisation between steps (no
-// grid barrier, no cooperative launch, no spin-wait). Step t reads h_{t-1}
-// from h_seq[:, t-1] (written by the previous launch), or h0 at the first
-// step, and writes h_t into h_seq[:, t], so h is double-buffered by the
-// sequence itself. c is updated in place: element (b, j) is read and written
-// by one thread only.
+// Bound. A step does 8*B*H^2 flops of f32 FMAs on the CUDA cores (67 TFLOP/s
+// peak: 4 us at B=32, H=1024, 17 ns at H=32) and depends on the step before,
+// so the sequence is T latency-bound steps unless w_hh stays on chip and the
+// steps synchronise cheaply. The previous design launched one kernel per step
+// and re-read w_hh from L2 on every step; a step cost 4 us of launch latency
+// at H=32 and 35 us at H=1024.
 //
-// Each block owns TJ hidden units for up to BT batch rows and computes their
-// four gate dot products of length H, so the cell update needs no exchange
-// between blocks. Threads split the H reduction KS ways and hold RB batch
-// rows x 4 gates of accumulators; w_hh and h tiles are staged through shared
-// memory KC rows at a time and the KS partial sums are added in shared memory.
-//
-// Bound. Per step the blocks together read all of w_hh once (4H^2 floats:
-// 16 MB at H=1024, which stays resident in the 50 MB L2 across steps) and
-// h_{t-1} once per block (another 16 MB at B=32, H=1024: 128 blocks x 128 KB),
-// and do 8*B*H^2 flops on the f32 CUDA cores (67 TFLOP/s peak): at B=32,
-// H=1024 that is 4 us of arithmetic per step, beside the L2 traffic and a few
-// microseconds of launch latency per step; the training form adds B*T*H
-// floats of c_seq writes. The design accepts all three: no
-// tensor cores, h re-read by every block, and T launches per sequence. A
-// persistent kernel that keeps w_hh in shared memory across SMs, bf16 weights
-// and CUDA graphs are later work, to be measured against these numbers.
+// Design. The Python wrapper computes a launch plan from (B, H) (ops/lstm.py,
+// launch_plan) and passes it here; the launcher checks it against its own
+// reading of the shapes and refuses what does not match.
+//  (a) w_hh fits one block (4H^2 floats plus staging, H <= 112): one block per
+//      tile of batch rows walks all T steps with the whole of w_hh and its
+//      rows of h in shared memory, synchronised by __syncthreads alone. No
+//      grid barrier; the blocks never exchange anything.
+//  (b) larger H: a persistent cooperative kernel, at most one block per SM.
+//      Each block owns `units` hidden units and holds their four gate
+//      columns of w_hh in shared memory (at H=1024, 8 units: 128 blocks x
+//      128 KB). A step stages h_{t-1} of every batch row from global memory
+//      in K chunks (cp.async.cg: read through L2, never a stale L1 line,
+//      the next chunk in flight while one is multiplied), computes its
+//      units' gates and cell update, writes h_t, and meets the other blocks
+//      at cooperative_groups' grid barrier. The launch is
+//      cudaLaunchCooperativeKernel, which refuses a grid that cannot be
+//      resident, after an occupancy check that reports both numbers.
+// In both, a thread computes RB batch rows x the 4 gates of one unit over a
+// slice of K (register tile), the slices are added in shared memory, and one
+// thread per (row, unit) updates the cell; c stays in place in c_state
+// (one thread reads and writes each element). Batch rows are tiled by the
+// plan's `rows`, which follows B (8 rows at B=7).
 
-#include <cuda_runtime.h>
+#include "lstm_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TJ = 8;    // hidden units per block
-constexpr int BT = 32;   // batch rows per block
-constexpr int RB = 4;    // batch rows per thread
-constexpr int KS = 4;    // ways the H reduction is split among threads
-constexpr int KC = 64;   // rows of w_hh / columns of h staged per tile
-constexpr int NT = TJ * (BT / RB) * KS;  // 256 threads
-constexpr int HS = KC + 4;               // h tile row stride (keeps float4 alignment)
-
-static_assert(NT == 256, "thread layout");
-static_assert((KC / KS) % 4 == 0, "inner loop is unrolled by 4");
+struct Args {
+  const float* xproj;
+  const float* w_hh;
+  const float* h0;
+  float* h_seq;
+  float* c_state;
+  float* c_seq;
+  float* gates;
+  int B, T, H, reverse;
+  int units, rows, kc, ks;  // the plan; ks = NT / tasks, derived here
+};
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__global__ void __launch_bounds__(NT)
-lstm_step_kernel(const float* __restrict__ xproj, const float* __restrict__ w_hh,
-                 const float* h_prev, size_t h_stride, float* h_seq,
-                 float* __restrict__ c_state, float* __restrict__ c_seq,
-                 int B, int T, int H, int t) {
-  // h_prev: row b of h_{t-1} at h_prev + b * h_stride, or null for a zero h.
-  // It aliases h_seq (another time slice), so neither is __restrict__.
-  __shared__ __align__(16) float ws[KC][4][TJ];    // w_hh tile: [k][gate][unit]
-  __shared__ __align__(16) float hs[BT][HS];       // h tile: [batch][k]
-  __shared__ __align__(16) float red[KS][BT][TJ][4];
+// The block's shape: units TJ, rows BT, 4*TJ columns of W, tasks = (BT/RB)*TJ
+// (row group, unit) pairs, each split KS ways over K.
+struct Layout {
+  int TJ, BT, NC, RG, tasks, KS;
+  __device__ Layout(const Args& a, int tj) : TJ(tj), BT(a.rows), NC(4 * tj), RG(a.rows / RB), tasks(RG * tj), KS(a.ks) {}
+};
 
-  const int tid = threadIdx.x;
-  const int j = tid % TJ;                  // unit within the block
-  const int bg = (tid / TJ) % (BT / RB);   // group of RB batch rows
-  const int ks = tid / (TJ * (BT / RB));   // slice of each k tile
-  const int j0 = blockIdx.x * TJ;
-  const int b0 = blockIdx.y * BT;
+// Loads the block's gate columns of w_hh: W[k][4u + g] = w_hh[k, g*H + j0 + u]
+// (read in runs of TJ consecutive units).
+__device__ void load_w(float* W, const Args& a, const Layout& L, int j0) {
+  const int n = a.H * L.NC;
+  for (int e = threadIdx.x; e < n; e += NT) {
+    const int u = e % L.TJ, g = (e / L.TJ) % 4, k = e / L.NC;
+    W[k * L.NC + 4 * u + g] = a.w_hh[(size_t)k * 4 * a.H + (size_t)g * a.H + j0 + u];
+  }
+}
 
-  float acc[RB][4];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int g = 0; g < 4; ++g) acc[r][g] = 0.0f;
+// One thread's xproj values for its (row, unit) pairs of a tile, loaded
+// before the product so that they are in flight during it.
+struct Pairs {
+  float xp[RB][4];
+};
 
-  if (h_prev != nullptr) {
-    for (int kc = 0; kc < H; kc += KC) {
-      // w_hh rows kc..kc+KC, columns g*H + j0 .. +TJ: 32-byte runs per gate.
-      for (int e = tid; e < KC * 4 * TJ; e += NT) {
-        const int u = e % TJ, g = (e / TJ) % 4, k = e / (4 * TJ);
-        ws[k][g][u] = (kc + k < H) ? w_hh[(size_t)(kc + k) * 4 * H + (size_t)g * H + j0 + u] : 0.0f;
-      }
-      // h_{t-1} rows b0..b0+BT, columns kc..kc+KC, as float4 (H % 4 == 0).
-      for (int e = tid; e < BT * (KC / 4); e += NT) {
-        const int k4 = e % (KC / 4), b = e / (KC / 4);
-        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (b0 + b < B && kc + 4 * k4 < H)
-          v = *reinterpret_cast<const float4*>(h_prev + (size_t)(b0 + b) * h_stride + kc + 4 * k4);
-        *reinterpret_cast<float4*>(&hs[b][4 * k4]) = v;
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int k = ks * (KC / KS); k < (ks + 1) * (KC / KS); k += 4) {
-        float4 hv[RB];
+__device__ __forceinline__ void prefetch_x(Pairs& p, const Args& a, const Layout& L, int b0, int j0, int t) {
 #pragma unroll
-        for (int r = 0; r < RB; ++r) hv[r] = *reinterpret_cast<const float4*>(&hs[bg * RB + r][k]);
+  for (int i = 0; i < RB; ++i) {
+    const int q = threadIdx.x + i * NT;
+    const int b = q / L.TJ, u = q % L.TJ;
+    if (q < L.BT * L.TJ && b0 + b < a.B) {
+      const float* xp = a.xproj + ((size_t)(b0 + b) * a.T + t) * 4 * a.H + j0 + u;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          float w[4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g) w[g] = ws[k + kk][g][j];
-#pragma unroll
-          for (int r = 0; r < RB; ++r) {
-            const float h = kk == 0 ? hv[r].x : kk == 1 ? hv[r].y : kk == 2 ? hv[r].z : hv[r].w;
-#pragma unroll
-            for (int g = 0; g < 4; ++g) acc[r][g] = fmaf(h, w[g], acc[r][g]);
-          }
-        }
-      }
-      __syncthreads();
+      for (int g = 0; g < 4; ++g) p.xp[i][g] = __ldg(xp + (size_t)g * a.H);
     }
   }
+}
 
+// The thread's (row group, unit, slice) of the product, or -1 for ks when it
+// has none.
+__device__ __forceinline__ void task_of(const Layout& L, int& rg, int& u, int& ks) {
+  const int tid = threadIdx.x;
+  u = tid % L.TJ;
+  rg = (tid / L.TJ) % L.RG;
+  ks = tid < L.tasks * L.KS ? tid / L.tasks : -1;
+}
+
+__device__ __forceinline__ void store_partial(float* red, const Layout& L, const float (&acc)[RB][4], int rg, int u,
+                                              int ks) {
+  if (ks < 0) return;
 #pragma unroll
   for (int r = 0; r < RB; ++r)
-    *reinterpret_cast<float4*>(&red[ks][bg * RB + r][j][0]) =
+    *reinterpret_cast<float4*>(red + (size_t)(ks * L.BT + rg * RB + r) * L.NC + 4 * u) =
         make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+}
+
+// Adds the KS partial sums of each (row, unit) of the tile and updates the
+// cell; writes h_t to h_seq (and to hs, row stride ldh, when hs is not null).
+__device__ void cell_update(const Args& a, const Layout& L, const float* red, const Pairs& p, int b0, int j0, int t,
+                            float* hs, int ldh) {
+#pragma unroll
+  for (int i = 0; i < RB; ++i) {
+    const int q = threadIdx.x + i * NT;
+    const int b = q / L.TJ, u = q % L.TJ;
+    if (q >= L.BT * L.TJ || b0 + b >= a.B) continue;
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int k = 0; k < L.KS; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(red + (size_t)(k * L.BT + b) * L.NC + 4 * u);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    const size_t bb = b0 + b, j = j0 + u;
+    const float si = sigmoid(p.xp[i][0] + s.x);
+    const float sf = sigmoid(p.xp[i][1] + s.y);
+    const float tg = tanhf(p.xp[i][2] + s.z);
+    const float so = sigmoid(p.xp[i][3] + s.w);
+    const float c = sf * a.c_state[bb * a.H + j] + si * tg;
+    const float h = so * tanhf(c);
+    a.c_state[bb * a.H + j] = c;
+    const size_t row = bb * a.T + t;
+    a.h_seq[row * a.H + j] = h;
+    if (a.c_seq != nullptr) a.c_seq[row * a.H + j] = c;
+    if (a.gates != nullptr) {
+      float* gt = a.gates + row * 4 * a.H + j;
+      gt[0] = si;
+      gt[(size_t)a.H] = sf;
+      gt[2 * (size_t)a.H] = tg;
+      gt[3 * (size_t)a.H] = so;
+    }
+    if (hs != nullptr) hs[b * ldh + u] = h;
+  }
+}
+
+// Regime (a): block y owns batch rows [y*rows, y*rows + rows) and all H
+// units. Shared memory: W (H x 4H), hs (rows x (H + PAD)), red.
+__global__ void __launch_bounds__(NT) lstm_fwd_block_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(a, a.H);
+  const int ldh = a.H + PAD;
+  float* W = smem;
+  float* hs = W + (size_t)a.H * L.NC;
+  float* red = hs + (size_t)L.BT * ldh;
+  const int b0 = blockIdx.x * L.BT;
+
+  load_w(W, a, L, 0);
+  for (int e = threadIdx.x; e < L.BT * ldh; e += NT) {
+    const int b = e / ldh, k = e % ldh;
+    hs[e] = (a.h0 != nullptr && k < a.H && b0 + b < a.B) ? a.h0[(size_t)(b0 + b) * a.H + k] : 0.0f;
+  }
   __syncthreads();
 
-  // One thread per (batch row, unit): add the KS partial sums, update the cell.
-  const int b = tid / TJ, u = tid % TJ;
-  const int bb = b0 + b, jj = j0 + u;
-  if (bb >= B) return;
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int q = 0; q < KS; ++q)
-#pragma unroll
-    for (int g = 0; g < 4; ++g) s[g] += red[q][b][u][g];
-  const float* xp = xproj + ((size_t)bb * T + t) * 4 * H;
-  const float gi = xp[jj] + s[0];
-  const float gf = xp[H + jj] + s[1];
-  const float gg = xp[2 * H + jj] + s[2];
-  const float go = xp[3 * H + jj] + s[3];
-  const float c = sigmoid(gf) * c_state[(size_t)bb * H + jj] + sigmoid(gi) * tanhf(gg);
-  c_state[(size_t)bb * H + jj] = c;
-  if (c_seq != nullptr) c_seq[((size_t)bb * T + t) * H + jj] = c;
-  h_seq[((size_t)bb * T + t) * H + jj] = sigmoid(go) * tanhf(c);
+  int rg, u, ks;
+  task_of(L, rg, u, ks);
+  // the next step's xproj is loaded while this step runs: a step here is a
+  // few hundred cycles, shorter than a load from device memory
+  Pairs p, next;
+  prefetch_x(next, a, L, b0, 0, a.reverse ? a.T - 1 : 0);
+  for (int s = 0; s < a.T; ++s) {
+    const int t = a.reverse ? a.T - 1 - s : s;
+    p = next;
+    if (s + 1 < a.T) prefetch_x(next, a, L, b0, 0, a.reverse ? t - 1 : t + 1);
+    float acc[RB][4] = {};
+    if (ks >= 0 && (s > 0 || a.h0 != nullptr)) gemm_slice(acc, hs, ldh, W, L.NC, rg * RB, 4 * u, a.H / 4, ks, L.KS);
+    store_partial(red, L, acc, rg, u, ks);
+    __syncthreads();  // partials complete; hs (h_{t-1}) no longer read
+    cell_update(a, L, red, p, b0, 0, t, hs, ldh);
+    __syncthreads();  // h_t in hs before the next product
+  }
+}
+
+// Regime (b): block x owns units [x*units, x*units + units) for every batch
+// row. Shared memory: W (H x 4 units), two staging buffers
+// (rows x (kc + PAD)), red. Launched cooperatively only.
+__global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(a, a.units);
+  const int lds = a.kc + PAD;
+  float* W = smem;
+  float* stage = W + (size_t)a.H * L.NC;
+  float* red = stage + 2 * (size_t)L.BT * lds;
+  const int j0 = blockIdx.x * L.TJ;
+  const int ntiles = (a.B + L.BT - 1) / L.BT;
+  const int nch = (a.H + a.kc - 1) / a.kc;
+  cg::grid_group grid = cg::this_grid();
+
+  load_w(W, a, L, j0);
+  for (int e = threadIdx.x; e < 2 * L.BT * lds; e += NT) stage[e] = 0.0f;
+  __syncthreads();
+
+  int rg, u, ks;
+  task_of(L, rg, u, ks);
+  Pairs p;
+  for (int s = 0; s < a.T; ++s) {
+    const int t = a.reverse ? a.T - 1 - s : s;
+    const int t_prev = a.reverse ? t + 1 : t - 1;
+    // h_{t-1}: row b at src + b * stride (h0, or the previous slice of h_seq)
+    const float* src = s == 0 ? a.h0 : a.h_seq + (size_t)t_prev * a.H;
+    const size_t stride = s == 0 ? (size_t)a.H : (size_t)a.T * a.H;
+    const int nst = src != nullptr ? ntiles * nch : 0;
+    auto stage_in = [&](int q) {  // stage q = (tile, chunk) into buffer q % 2
+      const int b0 = (q / nch) * L.BT, k0 = (q % nch) * a.kc;
+      const int nrow = min(L.BT, a.B - b0), n4 = min(a.kc, a.H - k0) / 4;
+      float* buf = stage + (size_t)(q & 1) * L.BT * lds;
+      for (int e = threadIdx.x; e < nrow * n4; e += NT) {
+        const int r = e / n4, c4 = e % n4;
+        cp_async16(buf + r * lds + 4 * c4, src + (b0 + r) * stride + k0 + 4 * c4);
+      }
+      cp_async_commit();
+    };
+    if (nst > 0) stage_in(0);
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int b0 = tile * L.BT;
+      prefetch_x(p, a, L, b0, j0, t);
+      float acc[RB][4] = {};
+      for (int ch = 0; nst > 0 && ch < nch; ++ch) {
+        const int q = tile * nch + ch;
+        if (q + 1 < nst) {
+          stage_in(q + 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();  // stage q visible to every thread
+        const int k0 = ch * a.kc;
+        if (ks >= 0)
+          gemm_slice(acc, stage + (size_t)(q & 1) * L.BT * lds, lds, W + (size_t)k0 * L.NC, L.NC, rg * RB, 4 * u,
+                     min(a.kc, a.H - k0) / 4, ks, L.KS);
+        __syncthreads();  // buffer q % 2 free for stage q + 2
+      }
+      store_partial(red, L, acc, rg, u, ks);
+      __syncthreads();
+      cell_update(a, L, red, p, b0, j0, t, nullptr, 0);
+      __syncthreads();  // red free for the next tile
+    }
+    if (s + 1 < a.T) grid.sync();  // every h_t written before any block reads it
+  }
+}
+
+// Shared bytes of a plan, computed as the kernels lay them out.
+size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks) {
+  const size_t nc = 4 * (size_t)units;
+  const size_t w = (size_t)H * nc;
+  const size_t staged = regime == 0 ? (size_t)rows * (H + PAD) : 2 * (size_t)rows * (kc + PAD);
+  return 4 * (w + staged + (size_t)ks * rows * nc);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Runs the whole sequence: T launches on `stream`, none synchronising.
-// h0 and c_seq may be null; c_state holds c0 on entry and cN on exit.
-// Returns 0, or the first CUDA error (cudaGetLastError after each launch).
-int autovc_lstm_fwd(const float* xproj, const float* w_hh, const float* h0, float* h_seq,
-                    float* c_state, float* c_seq, int B, int T, int H, int reverse,
-                    cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || H % TJ != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(H / TJ, (B + BT - 1) / BT);
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    const int t_prev = reverse ? t + 1 : t - 1;
-    const float* h_prev = s == 0 ? h0 : h_seq + (size_t)t_prev * H;
-    const size_t h_stride = s == 0 ? (size_t)H : (size_t)T * H;
-    lstm_step_kernel<<<grid, NT, 0, stream>>>(xproj, w_hh, h_prev, h_stride, h_seq, c_state, c_seq,
-                                              B, T, H, t);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+// Runs the whole sequence in one launch on `stream`, without synchronising.
+// regime 0 is (a), 1 is (b); blocks, units, rows, kc and smem are the plan of
+// ops/lstm.py:launch_plan. h0, c_seq and gates may be null; c_state holds c0
+// on entry and cN on exit. info (2 ints, may be null) receives the blocks
+// that can be resident on one SM and the SM count. Returns 0, ERR_PLAN for a
+// plan that does not fit the shapes, ERR_RESIDENT for a grid that cannot be
+// resident, or the CUDA error of the launch (cudaGetLastError).
+int autovc_lstm_fwd(const float* xproj, const float* w_hh, const float* h0, float* h_seq, float* c_state,
+                    float* c_seq, float* gates, int B, int T, int H, int reverse, int regime, int blocks, int units,
+                    int rows, int kc, int smem, int* info, cudaStream_t stream) {
+  const int tasks = rows / RB * (regime == 0 ? H : units);  // (row group, unit)
+  int ks = 0;
+  if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
+      smem_bytes(regime, H, units, rows, kc, ks) != (size_t)smem)
+    return ERR_PLAN;
+  const Args a{xproj, w_hh, h0, h_seq, c_state, c_seq, gates, B, T, H, reverse, units, rows, kc, ks};
+  return launch(lstm_fwd_block_kernel, lstm_fwd_grid_kernel, a, regime, blocks, smem, info, stream);
 }
 
 const char* autovc_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -12,8 +12,14 @@ direction of a BLSTM) and returns the sequence in natural time order.
   plain version for a CPU tensor; there is no fallback from one to the other.
 - ``LSTMSequenceFn`` is the differentiable form, (xproj, w_hh, h0, c0) ->
   (h_seq, hN, cN): its forward runs the kernel's training form, which also
-  keeps the cell sequence; its backward runs ``csrc/lstm_bwd.cu`` (the
-  reversed recurrence, then the dW product).
+  keeps the cell sequence and the gate activations; its backward runs
+  ``csrc/lstm_bwd.cu`` (the reversed recurrence with dh0, then the dW
+  product) on them.
+- ``launch_plan`` chooses, in plain Python from (B, H), how a sequence is
+  launched: one block per batch tile with all of w_hh (regime a), or one
+  persistent block per SM, each with its slice of w_hh, meeting at a grid
+  barrier each step (regime b). Each kernel keeps its slice of w_hh in
+  shared memory for the whole sequence; one launch runs the sequence.
 - ``lstm_sequence_train_ref``, ``lstm_backward_ref`` and
   ``lstm_weight_grad_ref`` are the plain versions: loops of the same formulas,
   not autograd, in float32 (float64 for float64 inputs, a reference of
@@ -23,14 +29,17 @@ direction of a BLSTM) and returns the sequence in natural time order.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
+from autovc_tpu_torch import exact_f32
 from autovc_tpu_torch.ops import _build
 
-# Sequences launched on the card by each wrapper: a forward (T step
-# launches), a backward (T step launches and the dh0 launch), a dW product
-# (one launch). Callers reset them to 0 and read them back.
+# Sequences launched on the card by each wrapper: a forward, a backward
+# (the reversed recurrence with dh0), a dW product, one kernel launch each.
+# Callers reset them to 0 and read them back.
 launches = 0
 bwd_launches = 0
 dw_launches = 0
@@ -118,13 +127,119 @@ def lstm_backward_ref(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None,
     return dx, lstm_weight_grad_ref(h_seq, h0, dx, reverse), dh_carry, dc
 
 
+def lstm_gates_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None, h_seq: torch.Tensor,
+                   reverse: bool = False) -> torch.Tensor:
+    """(B, T, 4H): the gate activations [sigmoid(i), sigmoid(f), tanh(g),
+    sigmoid(o)] of every step, from the state each step started from. Not a
+    recurrence: one product over all (b, t), in exact float32."""
+    dt = _compute_dtype(xproj)
+    hidden = w_hh.shape[0]
+    with exact_f32(xproj.device):
+        pre = xproj.to(dt) + _hprev(h_seq.to(dt), h0, reverse) @ w_hh.to(dt)
+    i, f, g, o = pre.split(hidden, dim=-1)
+    return torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)], dim=-1)
+
+
+# ------------------------------------------------------------- launch plans
+
+SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
+SMS = 132  # SMs of an H100 SXM: the default where no card is asked
+THREADS, ROWS_PER_THREAD, PAD = 256, 4, 4  # as in csrc/lstm_fwd.cu and csrc/lstm_bwd.cu
+MAX_TILE_ROWS = 32  # batch rows staged at once in regime (b)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one sequence is launched (see the notes of csrc/lstm_fwd.cu).
+
+    regime "a": w_hh fits one block; ``blocks`` blocks of ``rows`` batch rows
+    each walk the sequence with all ``units`` = H units, no grid barrier.
+    regime "b": ``blocks`` = H / ``units`` persistent blocks, each with its
+    units' slice of w_hh, tiles of ``rows`` batch rows staged from global
+    memory ``kc`` columns at a time, a grid barrier between steps.
+    ``smem`` is the dynamic shared memory of one block in bytes."""
+
+    kind: str
+    regime: str
+    blocks: int
+    units: int
+    rows: int
+    kc: int
+    smem: int
+
+
+def _smem(kind: str, regime: str, hidden: int, units: int, rows: int, kc: int) -> int:
+    """Shared bytes of a block, laid out as the kernels lay them out: w_hh's
+    slice (K x NC), the staged rows, the partial sums of the K split."""
+    k = hidden if kind == "fwd" else 4 * hidden
+    nc = 4 * units if kind == "fwd" else -(-units // 4) * 4
+    tasks = rows // ROWS_PER_THREAD * (nc // 4)
+    staged = rows * (k + PAD) if regime == "a" else 2 * rows * (kc + PAD)
+    return 4 * (k * nc + staged + THREADS // tasks * rows * nc)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(batch: int, hidden: int, kind: str = "fwd", sms: int = SMS) -> LaunchPlan | None:
+    """The launch plan of one forward (``kind="fwd"``) or backward ("bwd")
+    sequence at (B, H), or None when w_hh does not fit the shared memory of
+    ``sms`` blocks. Regime (a) where w_hh and the staged rows fit one block,
+    else (b) with the fewest units per block (the most blocks, at most one
+    per SM). Batch rows per block follow B, in steps of 4."""
+    if kind not in ("fwd", "bwd"):
+        raise ValueError(f"kind is 'fwd' or 'bwd', not {kind!r}")
+    k = hidden if kind == "fwd" else 4 * hidden
+    row_groups = -(-batch // ROWS_PER_THREAD)
+
+    # at most THREADS row groups x units: the product's tasks and the cell
+    # update's (row, unit) pairs, RB a thread, share the block's threads. In
+    # regime (a) the blocks are independent, so as many as the SMs take, of
+    # as few rows as that allows: a step's latency falls with its work
+    if hidden <= THREADS:
+        for rg in range(min(-(-row_groups // sms), THREADS // hidden), 0, -1):
+            rows = rg * ROWS_PER_THREAD
+            smem = _smem(kind, "a", hidden, hidden, rows, 0)
+            if smem <= SMEM_MAX:
+                return LaunchPlan(kind, "a", -(-batch // rows), hidden, rows, 0, smem)
+    for units in range(1, hidden + 1):
+        if hidden % units or hidden // units > sms or units > THREADS:
+            continue
+        top = min(row_groups, MAX_TILE_ROWS // ROWS_PER_THREAD, THREADS // units)
+        for rg in range(top, 0, -1):
+            rows = rg * ROWS_PER_THREAD
+            # what is left for the two staging buffers' rows of kc floats; a
+            # chunk is a multiple of 32 floats, so that rows staged kc + PAD
+            # apart fall in other banks
+            room = SMEM_MAX - _smem(kind, "b", hidden, units, rows, 0)
+            kc_max = room // (4 * 2 * rows) // 32 * 32
+            if kc_max < 32:
+                continue
+            chunks = -(-k // kc_max)
+            kc = (-(-k // chunks) + 31) // 32 * 32
+            return LaunchPlan(kind, "b", hidden // units, units, rows, kc,
+                              _smem(kind, "b", hidden, units, rows, kc))
+    return None
+
+
+def _no_plan(batch: int, hidden: int, sms: int) -> ValueError:
+    fits = max(h for h in range(8, hidden, 8)
+               if launch_plan(batch, h, "fwd", sms) is not None and launch_plan(batch, h, "bwd", sms) is not None)
+    return ValueError(
+        f"lstm kernels hold w_hh in shared memory for the whole sequence: at H={hidden} its "
+        f"{16 * hidden * hidden} bytes do not fit {sms} blocks of at most {SMEM_MAX} bytes of shared memory "
+        f"each; the largest H that fits at B={batch} is {fits}")
+
+
+# ------------------------------------------------------------- the kernels
+
 def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     if name == "lstm_fwd":
-        lib.autovc_lstm_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.autovc_lstm_fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                                        + [ctypes.c_void_p, ctypes.c_void_p])
         lib.autovc_lstm_fwd.restype = ctypes.c_int
     else:
-        lib.autovc_lstm_bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.autovc_lstm_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                                        + [ctypes.c_void_p, ctypes.c_void_p])
         lib.autovc_lstm_bwd.restype = ctypes.c_int
         lib.autovc_lstm_dw.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.autovc_lstm_dw.restype = ctypes.c_int
@@ -133,11 +248,13 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _check(xproj: torch.Tensor, w_hh: torch.Tensor | None, **others: torch.Tensor | None) -> tuple[int, int, int]:
+def _check(xproj: torch.Tensor, w_hh: torch.Tensor | None, kind: str = "fwd",
+           **others: torch.Tensor | None) -> tuple[int, int, int, LaunchPlan | None]:
     """Validate what a kernel takes, before it is built: float32 throughout,
-    (B, T, 4H) and w_hh (H, 4H) with H % 8 == 0, the named (B, H) and
-    (B, T, H) tensors of matching shape, all on one CUDA device. Returns
-    (B, T, H)."""
+    (B, T, 4H) and w_hh (H, 4H) with H % 8 == 0 and a w_hh that fits the
+    card's shared memory, the named (B, H) and (B, T, H) tensors of matching
+    shape, all on one CUDA device. Returns (B, T, H) and, when w_hh is
+    given, the ``kind`` launch plan at the card's SM count."""
     b, t, h4 = xproj.shape
     hidden = h4 // 4
     given = {"xproj": xproj, "w_hh": w_hh, **others}
@@ -150,14 +267,15 @@ def _check(xproj: torch.Tensor, w_hh: torch.Tensor | None, **others: torch.Tenso
                          f"w_hh {None if w_hh is None else tuple(w_hh.shape)}")
     if hidden % 8:
         raise ValueError(f"lstm kernels need H % 8 == 0, got H={hidden}")
+    plan = None if w_hh is None else _plan_on_card(b, hidden, kind, xproj.device)
     for name, v in others.items():
-        want = (b, hidden) if name in ("h0", "c0", "dhn", "dcn") else (b, t, hidden)
+        want = (b, hidden) if name in ("h0", "c0", "dhn", "dcn") else (b, t, hidden) if name != "gates" else (b, t, h4)
         if v is not None and tuple(v.shape) != want:
             raise ValueError(f"{name} is {tuple(v.shape)}, expected {want}")
     devices = {v.device for v in given.values()}
     if len(devices) != 1 or xproj.device.type != "cuda":
         raise ValueError(f"lstm kernels take tensors on one CUDA device, got {sorted(map(str, devices))}")
-    return b, t, hidden
+    return b, t, hidden, plan
 
 
 def _ptr(v: torch.Tensor | None) -> int | None:
@@ -178,29 +296,72 @@ def _dense(v: torch.Tensor | None) -> torch.Tensor | None:
     return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+def _raise_on(lib: ctypes.CDLL, err: int, what: str, plan: LaunchPlan | None = None, info=None) -> None:
+    if err == _ERR_PLAN:
+        raise RuntimeError(f"{what}: the kernel refused the launch plan {plan}")
+    if err == _ERR_RESIDENT:
+        raise RuntimeError(f"{what}: {plan.blocks} blocks must be resident for the grid barrier, but the card "
+                           f"holds {info[0]} per SM on {info[1]} SMs")
     if err:
         raise RuntimeError(f"{what} launch failed: {lib.autovc_cuda_error_string(err).decode()}")
 
 
+_ERR_PLAN, _ERR_RESIDENT = -1, -2  # the launchers' own codes
+# The last launch of each kind: (plan, resident blocks per SM, SMs), for
+# chip_smoke.py's report.
+last_launch: dict[str, tuple[LaunchPlan, int, int]] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_on_card(b: int, hidden: int, kind: str, device: torch.device) -> LaunchPlan:
+    """The ``kind`` launch plan at the SM count of the card the tensors lie
+    on (an H100's, ``SMS``, for tensors elsewhere, which ``_check`` refuses
+    after this). Raises with the limit unless the forward's and the
+    backward's w_hh both fit, so that no forward trains into a backward
+    that cannot launch."""
+    if device.type != "cuda":
+        sms = SMS
+    else:
+        sms = _card_sms(device.index if device.index is not None else torch.cuda.current_device())
+    plan = launch_plan(b, hidden, kind, sms)
+    if plan is None or launch_plan(b, hidden, "bwd" if kind == "fwd" else "fwd", sms) is None:
+        raise _no_plan(b, hidden, sms)
+    return plan
+
+
+def _launch(lib: ctypes.CDLL, fn, plan: LaunchPlan, pointers: list, shape: tuple, what: str) -> None:
+    info = (ctypes.c_int * 2)(0, 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*pointers, *shape, int(plan.regime == "b"), plan.blocks, plan.units, plan.rows, plan.kc,
+             plan.smem, info, stream)
+    last_launch[plan.kind] = (plan, info[0], info[1])
+    _raise_on(lib, err, what, plan, info)
+
+
 def lstm_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None = None,
-                      c0: torch.Tensor | None = None, reverse: bool = False, with_cseq: bool = False):
-    """Launch the forward kernel on the current stream (no synchronisation)
-    -> (h_seq, c_seq or None, hN, cN)."""
+                      c0: torch.Tensor | None = None, reverse: bool = False, with_cseq: bool = False,
+                      with_gates: bool = False):
+    """Launch the forward kernel on the current stream (no synchronisation),
+    one launch for the sequence -> (h_seq, c_seq or None, hN, cN), and the
+    gate activations (B, T, 4H) after them when ``with_gates``."""
     global launches
-    b, t, hidden = _check(xproj, w_hh, h0=h0, c0=c0)
+    b, t, hidden, plan = _check(xproj, w_hh, "fwd", h0=h0, c0=c0)
     lib = _library("lstm_fwd")
     xproj, w_hh, h0 = _dense(xproj), _dense(w_hh), _dense(h0)
     h_seq = torch.empty((b, t, hidden), device=xproj.device, dtype=torch.float32)
     c_seq = torch.empty_like(h_seq) if with_cseq else None
+    gates = torch.empty_like(xproj) if with_gates else None
     c = torch.zeros((b, hidden), device=xproj.device, dtype=torch.float32) if c0 is None else _dense(c0).clone()
     with torch.cuda.device(xproj.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.autovc_lstm_fwd(_ptr(xproj), _ptr(w_hh), _ptr(h0), _ptr(h_seq), _ptr(c), _ptr(c_seq),
-                                  b, t, hidden, int(reverse), stream)
-    _raise_on(lib, err, "lstm forward kernel")
+        _launch(lib, lib.autovc_lstm_fwd, plan, [_ptr(v) for v in (xproj, w_hh, h0, h_seq, c, c_seq, gates)],
+                (b, t, hidden, int(reverse)), "lstm forward kernel")
     launches += 1
-    return h_seq, c_seq, h_seq[:, 0 if reverse else -1].clone(), c
+    out = (h_seq, c_seq, h_seq[:, 0 if reverse else -1].clone(), c)
+    return out + (gates,) if with_gates else out
 
 
 def lstm_sequence_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -212,7 +373,7 @@ def lstm_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: 
                           reverse: bool = False) -> torch.Tensor:
     """Launch the dW kernel: (H, 4H) = sum over (b, t) of hprev^T dxproj."""
     global dw_launches
-    b, t, hidden = _check(dxproj, None, h_seq=h_seq, h0=h0)
+    b, t, hidden, _ = _check(dxproj, None, h_seq=h_seq, h0=h0)
     lib = _library("lstm_bwd")
     h_seq, h0, dxproj = _dense(h_seq), _dense(h0), _dense(dxproj)
     dw = torch.empty((hidden, 4 * hidden), device=dxproj.device, dtype=torch.float32)
@@ -224,22 +385,25 @@ def lstm_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: 
     return dw
 
 
-def lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None, reverse: bool = False):
+def lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None, reverse: bool = False, *,
+                       gates):
     """Launch the backward kernels on the current stream -> (dxproj, dW_hh,
-    dh0, dc0)."""
+    dh0, dc0): the reversed recurrence with dh0 in one launch, then dW.
+    ``gates`` are the forward kernel's gate activations (its ``with_gates``
+    output), which the backward reads in place of recomputing them."""
     global bwd_launches
-    b, t, hidden = _check(xproj, w_hh, h0=h0, c0=c0, h_seq=h_seq, c_seq=c_seq, dy=dy, dhn=dhn, dcn=dcn)
+    if gates is None:
+        raise ValueError("lstm_backward_cuda takes the forward kernel's gate activations (with_gates=True)")
+    b, t, hidden, plan = _check(xproj, w_hh, "bwd", h0=h0, c0=c0, h_seq=h_seq, c_seq=c_seq, dy=dy, dhn=dhn,
+                                dcn=dcn, gates=gates)
     lib = _library("lstm_bwd")
-    xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn = map(_dense, (xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn))
-    dx = torch.empty_like(xproj)
+    w_hh, c0, h_seq, c_seq, dy, dhn, gates = map(_dense, (w_hh, c0, h_seq, c_seq, dy, dhn, gates))
+    dx = torch.empty((b, t, 4 * hidden), device=xproj.device, dtype=torch.float32)
     dc = torch.zeros((b, hidden), device=xproj.device, dtype=torch.float32) if dcn is None else _dense(dcn).clone()
     dh0 = torch.empty((b, hidden), device=xproj.device, dtype=torch.float32)
     with torch.cuda.device(xproj.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.autovc_lstm_bwd(_ptr(xproj), _ptr(w_hh), _ptr(h0), _ptr(c0), _ptr(h_seq), _ptr(c_seq),
-                                  _ptr(dy), _ptr(dhn), _ptr(dx), _ptr(dc), _ptr(dh0), b, t, hidden,
-                                  int(reverse), stream)
-    _raise_on(lib, err, "lstm backward kernel")
+        _launch(lib, lib.autovc_lstm_bwd, plan, [_ptr(v) for v in (gates, w_hh, c0, c_seq, dy, dhn, dx, dc, dh0)],
+                (b, t, hidden, int(reverse)), "lstm backward kernel")
     bwd_launches += 1
     return dx, lstm_weight_grad_cuda(h_seq, h0, dx, reverse), dh0, dc
 
@@ -258,18 +422,23 @@ class LSTMSequenceFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xproj, w_hh, h0, c0, reverse):
         if _device_kind(xproj) == "cuda":
-            h_seq, c_seq, hn, cn = lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True)
+            h_seq, c_seq, hn, cn, gates = lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True,
+                                                            with_gates=True)
         else:
             h_seq, c_seq, hn, cn = lstm_sequence_train_ref(xproj, w_hh, h0, c0, reverse)
-        ctx.save_for_backward(xproj, w_hh, h0, c0, h_seq, c_seq)
+            gates = None
+        ctx.save_for_backward(xproj, w_hh, h0, c0, h_seq, c_seq, gates)
         ctx.reverse = reverse
         return h_seq, hn, cn
 
     @staticmethod
     def backward(ctx, dy, dhn, dcn):
-        xproj, w_hh, h0, c0, h_seq, c_seq = ctx.saved_tensors
-        fn = lstm_backward_cuda if _device_kind(xproj) == "cuda" else lstm_backward_ref
-        dx, dw, dh0, dc0 = fn(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, ctx.reverse)
+        xproj, w_hh, h0, c0, h_seq, c_seq, gates = ctx.saved_tensors
+        args = (xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, ctx.reverse)
+        if _device_kind(xproj) == "cuda":
+            dx, dw, dh0, dc0 = lstm_backward_cuda(*args, gates=gates)
+        else:
+            dx, dw, dh0, dc0 = lstm_backward_ref(*args)
         return dx, dw, None if h0 is None else dh0, None if c0 is None else dc0, None
 
 

@@ -8,8 +8,9 @@ vocoding, spmel generator training and feature extraction end to end.
 
 Phase 1 builds ``csrc/lstm_fwd.cu`` (plain nvcc) and runs the LSTM kernel
 against ``lstm_sequence_ref`` at the main path's shapes (B=32, T=512,
-H in {32, 512, 1024}, both directions), max-abs tolerance 1e-4, and times
-both beside cuDNN's LSTM. Phase 2 runs ``Converter.convert_batch`` on 32
+H in {32, 512, 1024}, both directions), max-abs tolerance 1e-4, times
+both beside cuDNN's LSTM, and prints each launch plan (regime, grid, shared
+bytes a block, resident blocks a SM) and the time a step. Phase 2 runs ``Converter.convert_batch`` on 32
 synthetic mels of 512 frames and the HiFi-GAN vocoder on its output, checks
 that the generator went through the kernel (7 LSTM sequences per forward),
 that the mel matches the same path with the plain recurrence (max-abs 1e-3)
@@ -27,8 +28,10 @@ mels written as a ``train.pkl`` directory in a temporary directory: (a) the
 forward kernel's training form and (b) the backward and dW kernels
 (``csrc/lstm_bwd.cu``) against their plain versions at H in {32, 512, 1024},
 both directions, nonzero initial state (1e-4; dW 1e-4 of its largest
-magnitude), timed beside cuDNN's LSTM forward alone and forward+backward and
-``torch.matmul``;
+magnitude), timed beside cuDNN's LSTM forward alone, backward alone and
+forward+backward and ``torch.matmul``, with their launch plans; (a') the
+time a step of both against B at H in {32, 512, 1024}, split by least
+squares into what every step pays and what a batch row adds;
 (c) one train step with the kernels against the same step with the plain
 recurrence under torch autograd, the plain step made to take the kernel
 step's side of every ReLU and abs kink (``train.compare.KinkTape``; the
@@ -135,6 +138,8 @@ TRAIN_B, TRAIN_T, TRAIN_STEPS = 7, 128, 20  # the batch artifacts/generator_spme
 # (the forward and the content re-encoding), the decoder LSTMs once
 TRAIN_CASES = [(32, False, 4), (32, True, 4), (512, False, 1), (512, True, 0), (1024, False, 2), (1024, True, 0)]
 SEQS_PER_STEP = sum(n for _, _, n in TRAIN_CASES)  # 11
+# phase 4 (a'): the LSTM kernels' time a step against B, at these widths
+SPLIT_HIDDEN, SPLIT_BATCH, SPLIT_T = (32, 512, 1024), (1, 4, 8, 16, 32), 256
 # one step with the kernels vs the plain recurrence on the card, both on the
 # same side of every kink: the loss, relative; each gradient leaf, of its scale
 LOSS_RTOL, GRAD_TOL = 1e-5, 1e-4
@@ -207,8 +212,8 @@ def phase_kernel(dev: torch.device) -> dict:
         flops, nbytes = lstm_work(B, T, hidden)
         case_bound_ms, bound_by = bound_ms(flops, nbytes)
         log(f"lstm_fwd H={hidden} {'reverse' if reverse else 'forward'}: max_abs_err={err:.3e} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={case_bound_ms:.4f} ({bound_by}) "
-            f"calls_per_forward={calls}")
+            f"ms={ms:.4f} ({ms / T * 1e3:.2f} us a step) plain_ms={plain_ms:.4f} bound_ms={case_bound_ms:.4f} "
+            f"({bound_by}) calls_per_forward={calls}; {plan_line('fwd')}")
         if not err <= LSTM_TOL:
             raise AssertionError(f"lstm kernel H={hidden} reverse={reverse}: {err} > {LSTM_TOL}")
         record["max_abs_err"] = max(record["max_abs_err"], err)
@@ -218,6 +223,16 @@ def phase_kernel(dev: torch.device) -> dict:
         record["bytes"] += calls * nbytes
     record["library_ms"] = cudnn_lstm_ms(dev, rng)
     return record
+
+
+def plan_line(kind: str) -> str:
+    """The launch plan of the last ``kind`` launch, with the occupancy query's
+    resident blocks per SM."""
+    plan, per_sm, sms = lstm_ops.last_launch[kind]
+    grid = (f"{plan.blocks} blocks x {plan.rows} rows" if plan.regime == "a"
+            else f"{plan.blocks} blocks x {plan.units} units, {plan.rows}-row tiles, K chunks of {plan.kc}")
+    return (f"plan: regime ({plan.regime}), {grid}, {lstm_ops.THREADS} threads, {plan.smem} shared bytes a block, "
+            f"{per_sm} resident a SM on {sms} SMs")
 
 
 def cudnn_lstm_ms(dev: torch.device, rng: np.random.RandomState) -> float:
@@ -454,13 +469,19 @@ def cudnn_train_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.T
     return cuda_ms(run, reps=3)
 
 
-def cudnn_train_fwd_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.Tensor, dy: torch.Tensor) -> float:
+def cudnn_train_parts_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.Tensor,
+                         dy: torch.Tensor) -> tuple[float, float]:
     """Yardstick only: torch.nn.LSTM (cuDNN), one layer of H units on a
-    (B, T, H) input that requires grad, the forward alone (its training
-    form, which keeps what the backward needs) from (h0, c0)."""
+    (B, T, H) input that requires grad, from (h0, c0): the forward alone (its
+    training form, which keeps what the backward needs) and the backward
+    alone (data and weight gradients, over one retained graph; the input
+    projection's included, which the port's kernels leave to other code)."""
     net = torch.nn.LSTM(hidden, hidden, batch_first=True).to(dev)
     x = torch.randn(dy.shape, device=dev, requires_grad=True)
-    return cuda_ms(lambda: net(x, (h0[None], c0[None])), reps=3)
+    fwd_ms = cuda_ms(lambda: net(x, (h0[None], c0[None])), reps=3)
+    out, _ = net(x, (h0[None], c0[None]))
+    bwd_ms = cuda_ms(lambda: out.backward(dy, retain_graph=True), reps=3)
+    return fwd_ms, bwd_ms
 
 
 def phase_train_kernels(dev: torch.device) -> tuple[dict, dict]:
@@ -470,7 +491,7 @@ def phase_train_kernels(dev: torch.device) -> tuple[dict, dict]:
     b, t = TRAIN_B, TRAIN_T
     fwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
     bwd = {"max_abs_err": 0.0, "dw_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "dw_ms": 0.0,
-           "dw_library_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+           "dw_library_ms": 0.0, "library_ms": 0.0, "library_fwd_bwd_ms": 0.0, "flops": 0.0, "bytes": 0.0}
 
     def arr(*shape, scale=1.0):
         return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
@@ -482,36 +503,43 @@ def phase_train_kernels(dev: torch.device) -> tuple[dict, dict]:
         h0, c0 = arr(b, hidden, scale=0.5), arr(b, hidden, scale=0.5)
         dy, dhn, dcn = arr(b, t, hidden), arr(b, hidden), arr(b, hidden)
         fargs = (xproj, w_hh, h0, c0, reverse)
-        got = lstm_ops.lstm_forward_cuda(*fargs, with_cseq=True)
+        # the training form as LSTMSequenceFn runs it: c_seq and the gate
+        # activations kept for the backward, which takes them
+        got = lstm_ops.lstm_forward_cuda(*fargs, with_cseq=True, with_gates=True)
+        f_plan = plan_line("fwd")
         want = lstm_ops.lstm_sequence_train_ref(*fargs)
+        gates_want = lstm_ops.lstm_gates_ref(xproj, w_hh, h0, want[0], reverse)
         torch.cuda.synchronize()
-        f_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        f_err = max((g - w).abs().max().item() for g, w in zip(got, (*want, gates_want)))
         bargs = (xproj, w_hh, h0, c0, want[0], want[1], dy, dhn, dcn, reverse)
-        bgot = lstm_ops.lstm_backward_cuda(*bargs)
+        bgot = lstm_ops.lstm_backward_cuda(*bargs, gates=got[4])
+        b_plan = plan_line("bwd")
         bwant = lstm_ops.lstm_backward_ref(*bargs)
         torch.cuda.synchronize()
         b_err = max((bgot[i] - bwant[i]).abs().max().item() for i in (0, 2, 3))
         dw_rel = (bgot[1] - bwant[1]).abs().max().item() / bwant[1].abs().max().item()
-        f_ms = cuda_ms(lambda: lstm_ops.lstm_forward_cuda(*fargs, with_cseq=True), reps=3)
+        f_ms = cuda_ms(lambda: lstm_ops.lstm_forward_cuda(*fargs, with_cseq=True, with_gates=True), reps=3)
         f_plain = cuda_ms(lambda: lstm_ops.lstm_sequence_train_ref(*fargs), reps=1)
-        b_ms = cuda_ms(lambda: lstm_ops.lstm_backward_cuda(*bargs), reps=3)
+        b_ms = cuda_ms(lambda: lstm_ops.lstm_backward_cuda(*bargs, gates=got[4]), reps=3)
         b_plain = cuda_ms(lambda: lstm_ops.lstm_backward_ref(*bargs), reps=1)
         dw_ms = cuda_ms(lambda: lstm_ops.lstm_weight_grad_cuda(want[0], h0, bgot[0], reverse), reps=5)
         hprev = lstm_ops._hprev(want[0], h0, reverse).reshape(-1, hidden)
         dgates = bgot[0].reshape(-1, 4 * hidden)
         dw_lib = cuda_ms(lambda: hprev.T @ dgates, reps=5)
         lib_ms = cudnn_train_ms(dev, hidden, h0, c0, dy)
-        lib_fwd_ms = cudnn_train_fwd_ms(dev, hidden, h0, c0, dy)
+        lib_fwd_ms, lib_bwd_ms = cudnn_train_parts_ms(dev, hidden, h0, c0, dy)
         ff, fb = lstm_train_work(b, t, hidden)
         bf, bb = lstm_bwd_work(b, t, hidden)
         fbound, fby = bound_ms(ff, fb)
         bbound, bby = bound_ms(bf, bb)
         direction = "reverse" if reverse else "forward"
         log(f"lstm_fwd train form H={hidden} {direction}: max_abs_err={f_err:.3e} ms={f_ms:.4f} "
-            f"plain_ms={f_plain:.4f} bound_ms={fbound:.4f} ({fby}) cudnn_fwd_ms={lib_fwd_ms:.4f} seqs_per_step={n}")
+            f"({f_ms / t * 1e3:.2f} us a step) plain_ms={f_plain:.4f} bound_ms={fbound:.4f} ({fby}) "
+            f"cudnn_fwd_ms={lib_fwd_ms:.4f} seqs_per_step={n}; {f_plan}")
         log(f"lstm_bwd H={hidden} {direction}: max_abs_err={b_err:.3e} dW_rel_err={dw_rel:.3e} ms={b_ms:.4f} "
-            f"(dW {dw_ms:.4f}, torch.matmul {dw_lib:.4f}) plain_ms={b_plain:.4f} bound_ms={bbound:.4f} ({bby}) "
-            f"cudnn_fwd_bwd_ms={lib_ms:.4f} seqs_per_step={n}")
+            f"(dW {dw_ms:.4f}, torch.matmul {dw_lib:.4f}; recurrence {(b_ms - dw_ms) / t * 1e3:.2f} us a step) "
+            f"plain_ms={b_plain:.4f} bound_ms={bbound:.4f} ({bby}) cudnn_bwd_ms={lib_bwd_ms:.4f} "
+            f"cudnn_fwd_bwd_ms={lib_ms:.4f} seqs_per_step={n}; {b_plan}")
         if not (f_err <= LSTM_TOL and b_err <= LSTM_TOL and dw_rel <= LSTM_TOL):
             raise AssertionError(f"lstm training kernels H={hidden} reverse={reverse}: forward {f_err}, "
                                  f"backward {b_err}, dW relative {dw_rel} (tolerance {LSTM_TOL})")
@@ -520,10 +548,45 @@ def phase_train_kernels(dev: torch.device) -> tuple[dict, dict]:
         bwd["dw_rel_err"] = max(bwd["dw_rel_err"], dw_rel)
         for rec, vals in ((fwd, dict(ms=f_ms, plain_ms=f_plain, library_ms=lib_fwd_ms, flops=ff, bytes=fb)),
                           (bwd, dict(ms=b_ms, plain_ms=b_plain, dw_ms=dw_ms, dw_library_ms=dw_lib,
-                                     library_ms=lib_ms, flops=bf, bytes=bb))):
+                                     library_ms=lib_bwd_ms, library_fwd_bwd_ms=lib_ms, flops=bf, bytes=bb))):
             for k, v in vals.items():
                 rec[k] += n * v
     return fwd, bwd
+
+
+def lstm_step_split(dev: torch.device) -> None:
+    """Phase 4 (a'), a yardstick only: the microseconds a step of the
+    training-form forward and of the backward's recurrence (dW taken out) at
+    T=SPLIT_T for each H of SPLIT_HIDDEN and B of SPLIT_BATCH, and per H a
+    least-squares line through B, us a step = fixed + per_row * B: what
+    every step pays (the grid barrier, the staged loads' latency, the
+    reduction) and what a batch row adds (the product)."""
+    rng = np.random.RandomState(11)
+    t = SPLIT_T
+    for hidden in SPLIT_HIDDEN:
+        steps = []
+        for b in SPLIT_BATCH:
+            lim = 1.0 / np.sqrt(hidden)
+            w_hh = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev)
+            xproj, h0, c0, dy = (torch.from_numpy(rng.randn(*shape).astype(np.float32) * 0.5).to(dev)
+                                 for shape in [(b, t, 4 * hidden), (b, hidden), (b, hidden), (b, t, hidden)])
+            out = lstm_ops.lstm_forward_cuda(xproj, w_hh, h0, c0, with_cseq=True, with_gates=True)
+            f_ms = cuda_ms(lambda: lstm_ops.lstm_forward_cuda(xproj, w_hh, h0, c0, with_cseq=True, with_gates=True),
+                           reps=5)
+            f_plan = lstm_ops.last_launch["fwd"][0]
+            b_ms = cuda_ms(lambda: lstm_ops.lstm_backward_cuda(xproj, w_hh, h0, c0, out[0], out[1], dy,
+                                                               gates=out[4]), reps=5)
+            b_plan = lstm_ops.last_launch["bwd"][0]
+            dw_ms = cuda_ms(lambda: lstm_ops.lstm_weight_grad_cuda(out[0], h0, out[4]), reps=5)
+            steps.append((b, f_ms / t * 1e3, (b_ms - dw_ms) / t * 1e3))
+            log(f"lstm step split H={hidden} B={b} T={t}: forward {steps[-1][1]:.3f} us a step (regime "
+                f"{f_plan.regime}, {f_plan.blocks} blocks, {f_plan.rows} rows), backward {steps[-1][2]:.3f} us a "
+                f"step (regime {b_plan.regime}, {b_plan.blocks} blocks, {b_plan.rows} rows)")
+        bs = np.array([s[0] for s in steps], dtype=float)
+        for name, col in (("forward", 1), ("backward", 2)):
+            per_row, fixed = np.polyfit(bs, np.array([s[col] for s in steps]), 1)
+            log(f"lstm step split H={hidden} {name}: {fixed:.3f} us a step + {per_row:.3f} us a batch row "
+                f"(least squares over B in {list(SPLIT_BATCH)})")
 
 
 def synthetic_spmel(root: str, rng: np.random.RandomState, speakers: int = TRAIN_B, utts: int = 4) -> str:
@@ -584,16 +647,17 @@ def train_profile(solver: Solver, x: torch.Tensor, emb: torch.Tensor) -> None:
     if not rows:
         log("train profile: the profiler recorded no device time (not measured)")
         return
-    kinds = {"lstm forward (lstm_step_kernel)": 0.0, "lstm backward (lstm_bwd_step_kernel, lstm_dh_kernel)": 0.0,
+    kinds = {"lstm forward (lstm_fwd_block_kernel, lstm_fwd_grid_kernel)": 0.0,
+             "lstm backward (lstm_bwd_block_kernel, lstm_bwd_grid_kernel)": 0.0,
              "dW (lstm_dw_kernel)": 0.0, "cuDNN convolutions": 0.0, "rest": 0.0}
     rest = []
     for key, count, total in rows:
-        if "lstm_bwd_step_kernel" in key or "lstm_dh_kernel" in key:
-            kind = "lstm backward (lstm_bwd_step_kernel, lstm_dh_kernel)"
+        if "lstm_bwd_block_kernel" in key or "lstm_bwd_grid_kernel" in key:
+            kind = "lstm backward (lstm_bwd_block_kernel, lstm_bwd_grid_kernel)"
         elif "lstm_dw_kernel" in key:
             kind = "dW (lstm_dw_kernel)"
-        elif "lstm_step_kernel" in key:
-            kind = "lstm forward (lstm_step_kernel)"
+        elif "lstm_fwd_block_kernel" in key or "lstm_fwd_grid_kernel" in key:
+            kind = "lstm forward (lstm_fwd_block_kernel, lstm_fwd_grid_kernel)"
         elif any(w in key.lower() for w in ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "fprop")):
             kind = "cuDNN convolutions"
         else:
@@ -1058,6 +1122,7 @@ def main(argv: list[str] | None = None) -> int:
     log(f"phase 3 (wavenet): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     fwd_train, bwd = phase_train_kernels(dev)
+    lstm_step_split(dev)
     train = phase_training(dev)
     log(f"phase 4 (training): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1096,7 +1161,9 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "autovc_tpu/ops/pallas_lstm.py:462 (_chunk_bwd_call: _lstm_bwd_kernel :410) "
                     "and :262 (_split_bwd_rule: _lstm_bwd_kernel_split :169)",
         # per train step (11 sequences at B=7, T=128), dW included; the
-        # library yardstick is cuDNN's LSTM forward+backward at those shapes
+        # library yardstick is cuDNN's LSTM backward alone at those shapes
+        # (its forward+backward beside it), which does more: it also forms
+        # the input projection's gradients (dx through w_ih, dW_ih, biases)
         "launches": train_bwd,
         "max_abs_err": bwd["max_abs_err"],
         "dw_rel_err": bwd["dw_rel_err"],
@@ -1105,6 +1172,7 @@ def main(argv: list[str] | None = None) -> int:
         "bound_ms": bwd_bound,
         "bound_by": bwd_bound_by,
         "library_ms": bwd["library_ms"],
+        "library_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
         "dw_ms": bwd["dw_ms"],
         "dw_library_ms": bwd["dw_library_ms"],
         "train_step_ms_p50": train["step_ms_p50"],

@@ -47,10 +47,13 @@ def _inputs(seed, b, t, hidden):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("b, t, hidden", [(32, 64, 32), (32, 64, 512), (32, 64, 1024), (37, 20, 64), (1, 5, 8)])
+@pytest.mark.parametrize("b, t, hidden", [(32, 64, 32), (32, 64, 512), (32, 64, 1024), (37, 20, 64), (1, 5, 8),
+                                          (7, 24, 256), (64, 16, 768), (7, 1, 1024), (64, 24, 32), (1, 1, 256)])
 def test_lstm_kernel_matches_plain(cuda, b, t, hidden, reverse):
-    """Batch 37 spans two row tiles of the kernel; batch 1 with H=8 is the
-    smallest shape it takes. Tolerance 1e-4: f32 sums in another order."""
+    """Batch 37 spans two row tiles of the kernel (and batch 64 two tiles of
+    regime (b)); batch 1 with H=8 is the smallest shape it takes; H=256 and
+    768 are the d-vector's widths; T=1 is a sequence of one step, with no
+    grid barrier. Tolerance 1e-4: f32 sums in another order."""
     xproj, w_hh = _inputs(4, b, t, hidden)
     x, w = torch.from_numpy(xproj).to(cuda), torch.from_numpy(w_hh).to(cuda)
     before = lstm_ops.launches
@@ -160,20 +163,24 @@ def _train_inputs(seed, b, t, hidden):
     return xproj, w_hh, h0, c0, dy, dhn, dcn
 
 
-TRAIN_SHAPES = [(7, 128, 32), (7, 128, 512), (7, 64, 1024), (37, 20, 64), (1, 5, 8)]
+TRAIN_SHAPES = [(7, 128, 32), (7, 128, 512), (7, 64, 1024), (37, 20, 64), (1, 5, 8),
+                (7, 24, 256), (64, 16, 768), (7, 1, 1024), (64, 12, 256), (1, 1, 32)]
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("b, t, hidden", TRAIN_SHAPES)
 def test_lstm_train_forward_matches_plain(cuda, b, t, hidden, reverse):
-    """The training form (h0, c0 in; h_seq, c_seq, hN, cN out) against the
-    plain loop, within 1e-4: f32 sums in another order."""
+    """The training form as ``LSTMSequenceFn`` runs it (h0, c0 in; h_seq,
+    c_seq, hN, cN and the gate activations out) against the plain loop and
+    ``lstm_gates_ref``, within 1e-4: f32 sums in another order."""
     xproj, w_hh, h0, c0 = (torch.from_numpy(a).to(cuda) for a in _train_inputs(1, b, t, hidden)[:4])
     before = lstm_ops.launches
-    got = lstm_ops.lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True)
+    got = lstm_ops.lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True, with_gates=True)
     torch.cuda.synchronize()
     assert lstm_ops.launches == before + 1
-    for g, w in zip(got, lstm_ops.lstm_sequence_train_ref(xproj, w_hh, h0, c0, reverse)):
+    want = lstm_ops.lstm_sequence_train_ref(xproj, w_hh, h0, c0, reverse)
+    want += (lstm_ops.lstm_gates_ref(xproj, w_hh, h0, want[0], reverse),)
+    for g, w in zip(got, want, strict=True):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
 
 
@@ -188,14 +195,64 @@ def _assert_backward_close(got, want):
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("b, t, hidden", TRAIN_SHAPES)
 def test_lstm_backward_matches_plain(cuda, b, t, hidden, reverse):
+    """The backward on the forward kernel's gate activations, as the main
+    path runs it, against the plain reversed loop."""
     xproj, w_hh, h0, c0, dy, dhn, dcn = (torch.from_numpy(a).to(cuda) for a in _train_inputs(2, b, t, hidden))
     h_seq, c_seq, _, _ = lstm_ops.lstm_sequence_train_ref(xproj, w_hh, h0, c0, reverse)
+    gates = lstm_ops.lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_gates=True)[4]
     before = lstm_ops.bwd_launches, lstm_ops.dw_launches
-    got = lstm_ops.lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, reverse)
+    got = lstm_ops.lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, reverse, gates=gates)
     torch.cuda.synchronize()
     assert (lstm_ops.bwd_launches, lstm_ops.dw_launches) == (before[0] + 1, before[1] + 1)
     _assert_backward_close(got, lstm_ops.lstm_backward_ref(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn,
                                                            reverse))
+
+
+@pytest.fixture
+def grid_plan_at_small_h(monkeypatch):
+    """Launch regime (b), the cooperative kernels with their grid barrier,
+    where regime (a) would serve: one unit a block, 4-row tiles, K chunks
+    of 4 floats, so that every step stages h or dgates from global memory."""
+    def plan(b, hidden, kind, device):
+        return lstm_ops.LaunchPlan(kind, "b", hidden, 1, 4, 4, lstm_ops._smem(kind, "b", hidden, 1, 4, 4))
+    monkeypatch.setattr(lstm_ops, "_plan_on_card", plan)
+
+
+@pytest.mark.parametrize("regime", ["a", "b"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_steps_sharing_a_line(cuda, request, regime, reverse):
+    """B=1, H=8, T=64: four steps of h_seq share a 128-byte line, and in
+    regime (b) each step reads the line another block wrote just before the
+    barrier, so a read through a stale L1 line would show here. Forward
+    (training form) and backward within 1e-4 of the plain loops."""
+    if regime == "b":
+        request.getfixturevalue("grid_plan_at_small_h")
+    xproj, w_hh, h0, c0, dy, dhn, dcn = (torch.from_numpy(a).to(cuda) for a in _train_inputs(5, 1, 64, 8))
+    got = lstm_ops.lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True, with_gates=True)
+    torch.cuda.synchronize()
+    assert lstm_ops.last_launch["fwd"][0].regime == regime
+    want = lstm_ops.lstm_sequence_train_ref(xproj, w_hh, h0, c0, reverse)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+    args = (xproj, w_hh, h0, c0, want[0], want[1], dy, dhn, dcn, reverse)
+    bgot = lstm_ops.lstm_backward_cuda(*args, gates=got[4])
+    torch.cuda.synchronize()
+    assert lstm_ops.last_launch["bwd"][0].regime == regime
+    _assert_backward_close(bgot, lstm_ops.lstm_backward_ref(*args))
+
+
+def test_lstm_grid_launch_is_resident(cuda):
+    """At H=1024 both kernels launch cooperatively: one block a SM holds its
+    slice of w_hh, and the occupancy query counts every block resident."""
+    xproj, w_hh, h0, c0, dy, dhn, dcn = (torch.from_numpy(a).to(cuda) for a in _train_inputs(6, 7, 4, 1024))
+    out = lstm_ops.lstm_forward_cuda(xproj, w_hh, h0, c0, with_cseq=True, with_gates=True)
+    lstm_ops.lstm_backward_cuda(xproj, w_hh, h0, c0, out[0], out[1], dy, dhn, dcn, gates=out[4])
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for kind in ("fwd", "bwd"):
+        plan, per_sm, card_sms = lstm_ops.last_launch[kind]
+        assert plan.regime == "b" and card_sms == sms and plan.blocks <= per_sm * card_sms
+        assert plan.smem > 48 * 1024  # above the default limit: the attribute was set
 
 
 def test_lstm_backward_takes_strided_cotangent(cuda):
@@ -205,7 +262,8 @@ def test_lstm_backward_takes_strided_cotangent(cuda):
     strided = dy.transpose(0, 1).contiguous().transpose(0, 1)
     assert not strided.is_contiguous()
     h_seq, c_seq, _, _ = lstm_ops.lstm_sequence_train_ref(xproj, w_hh)
-    got = lstm_ops.lstm_backward_cuda(xproj, w_hh, None, None, h_seq, c_seq, strided)
+    gates = lstm_ops.lstm_forward_cuda(xproj, w_hh, with_gates=True)[4]
+    got = lstm_ops.lstm_backward_cuda(xproj, w_hh, None, None, h_seq, c_seq, strided, gates=gates)
     _assert_backward_close(got, lstm_ops.lstm_backward_ref(xproj, w_hh, None, None, h_seq, c_seq, dy))
 
 

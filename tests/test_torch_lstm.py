@@ -79,12 +79,68 @@ def test_other_device_raises():
         ((2, 3, 32), (8, 32), torch.float64, TypeError),  # kernel is float32 only
         ((2, 3, 32), (8, 16), torch.float32, ValueError),  # w_hh is not (H, 4H)
         ((2, 3, 24), (6, 24), torch.float32, ValueError),  # H % 8 != 0
+        # w_hh beyond the card's shared memory: the limit's own message, which
+        # the device check (these are CPU tensors) cannot give
+        ((2, 3, 8192), (2048, 8192), torch.float32, (ValueError, "do not fit 132 blocks")),
     ],
 )
 def test_kernel_wrapper_rejects_before_building(xshape, wshape, dtype, error):
     """The wrapper validates its inputs before it builds or launches."""
-    with pytest.raises(error):
+    error, match = error if isinstance(error, tuple) else (error, None)
+    with pytest.raises(error, match=match):
         lstm_ops.lstm_sequence_cuda(torch.zeros(xshape, dtype=dtype), torch.zeros(wshape, dtype=dtype))
+
+
+@pytest.mark.parametrize("batch", [1, 7, 32, 37])
+@pytest.mark.parametrize("hidden", [8, 32, 64, 256, 512, 768, 1024])
+def test_launch_plan(hidden, batch):
+    """Regime (a), one block per batch tile with all of w_hh, up to H=64 of
+    the package's widths; (b), at most one block per SM with a slice of
+    w_hh each, from H=256. Each plan fits a block's shared memory and
+    covers every batch row and unit, in tiles that follow B."""
+    for kind in ("fwd", "bwd"):
+        plan = lstm_ops.launch_plan(batch, hidden, kind)
+        assert plan.kind == kind and plan.regime == ("a" if hidden <= 64 else "b")
+        assert plan.smem <= 232_448 and plan.smem == lstm_ops._smem(kind, plan.regime, hidden, plan.units,
+                                                                    plan.rows, plan.kc)
+        assert plan.rows % 4 == 0 and plan.rows <= -(-batch // 4) * 4
+        if plan.regime == "a":
+            assert plan.units == hidden and plan.blocks * plan.rows >= batch and plan.kc == 0
+        else:
+            assert plan.blocks <= 132 and plan.blocks * plan.units == hidden and plan.rows <= 32
+            assert plan.kc % 32 == 0 and 0 < plan.kc < (hidden if kind == "fwd" else 4 * hidden) + 32
+        # the threads hold every product task and every (row, unit) pair, 4 a thread
+        assert plan.rows // 4 * plan.units <= lstm_ops.THREADS
+
+
+def test_launch_plan_follows_batch_and_card():
+    """B=7 takes 8-row tiles, not 32; regime (a) spreads the batch over the
+    SMs, 4 rows a block; a card with fewer SMs gets more units a block; the
+    widest H the kernels take is refused one step beyond."""
+    assert lstm_ops.launch_plan(7, 1024).rows == 8 and lstm_ops.launch_plan(32, 1024).rows == 32
+    assert lstm_ops.launch_plan(7, 32).blocks == 2 and lstm_ops.launch_plan(64, 64).blocks == 16
+    assert lstm_ops.launch_plan(600, 32).rows == 8 and lstm_ops.launch_plan(600, 32, sms=150).rows == 4
+    assert lstm_ops.launch_plan(7, 512, sms=114).units == 8 and lstm_ops.launch_plan(7, 512).units == 4
+    assert lstm_ops.launch_plan(7, 1024, sms=114) is None  # 16 units a block: 256 KB of w_hh
+    widest = max(h for h in range(8, 1400, 8) if lstm_ops.launch_plan(7, h, "bwd") is not None)
+    assert lstm_ops.launch_plan(7, widest, "fwd") is not None
+    assert lstm_ops.launch_plan(7, widest + 8, "bwd") is None
+    with pytest.raises(ValueError, match=f"the largest H that fits at B=7 is {widest}"):
+        lstm_ops._check(torch.zeros(7, 2, 4 * (widest + 8)), torch.zeros(widest + 8, 4 * (widest + 8)))
+
+
+def test_gates_ref_is_the_forward_cell():
+    """The gate activations the backward takes (i, f, g, o after sigmoid and
+    tanh) rebuild the plain forward's c and h step by step."""
+    xproj, w_hh = _inputs(6, 3, 11, 16)
+    x, w = torch.from_numpy(xproj), torch.from_numpy(w_hh)
+    h0, c0 = torch.randn(3, 16), torch.randn(3, 16)
+    for reverse in (False, True):
+        h_seq, c_seq, _, _ = lstm_ops.lstm_sequence_train_ref(x, w, h0, c0, reverse)
+        si, sf, tg, so = lstm_ops.lstm_gates_ref(x, w, h0, h_seq, reverse).split(16, dim=-1)
+        c_prev = lstm_ops._hprev(c_seq, c0, reverse)
+        torch.testing.assert_close(sf * c_prev + si * tg, c_seq, atol=1e-6, rtol=0)
+        torch.testing.assert_close(so * torch.tanh(c_seq), h_seq, atol=1e-6, rtol=0)
 
 
 def test_library_path_keyed_by_source_and_flags():

@@ -770,6 +770,7 @@ def test_exact_f32_does_nothing_off_the_card():
         (dict(h0=(8, 16)), ValueError),  # h0 is not (B, H)
         (dict(c_seq=(8, 12, 16)), ValueError),  # c_seq is not (B, T, H)
         (dict(w_hh=(24, 96)), ValueError),  # w_hh is not (H, 4H)
+        (dict(gates=(8, 12, 32)), ValueError),  # the gate activations are not (B, T, 4H)
         ({}, ValueError),  # CPU tensors: the kernels take CUDA tensors only
     ],
 )
@@ -778,7 +779,7 @@ def test_backward_wrapper_rejects_before_building(change, error, monkeypatch):
     and device before they build or launch."""
     monkeypatch.setattr(lstm_ops, "_library", lambda name: pytest.fail("built before validating"))
     shapes = dict(xproj=(8, 12, 128), w_hh=(32, 128), h0=(8, 32), c0=(8, 32), h_seq=(8, 12, 32),
-                  c_seq=(8, 12, 32), dy=(8, 12, 32), dhn=(8, 32), dcn=(8, 32))
+                  c_seq=(8, 12, 32), dy=(8, 12, 32), dhn=(8, 32), dcn=(8, 32), gates=(8, 12, 128))
     args = {k: torch.zeros(v) for k, v in shapes.items()}
     for k, v in change.items():
         args[k] = torch.zeros(shapes[k], dtype=v) if isinstance(v, torch.dtype) else torch.zeros(v)
