@@ -49,9 +49,10 @@
 // A thread computes RB batch rows x 4 units over a slice of K = 4H, the
 // slices are added in shared memory, and one thread per (row, unit) applies
 // the cell gradient and updates dc in place (only it reads and writes it).
-// The weight gradient is a 64x64-tile SGEMM whose loader builds hprev's rows
-// from h_seq and h0, so no shifted copy of h_seq is made; the reverse
-// direction is walked left to right in place, never flipped by a copy.
+// The weight gradient is a pipelined, split-K SGEMM (lstm_dw_kernel, its own
+// notes below) whose loader builds hprev's rows from h_seq and h0, so no
+// shifted copy of h_seq is made; the reverse direction is walked left to
+// right in place, never flipped by a copy.
 
 #include "lstm_common.cuh"
 
@@ -288,64 +289,228 @@ size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks) {
   return 4 * (K * nc + staged + (size_t)ks * rows * nc);
 }
 
-constexpr int GM = 64;  // dW rows (k of w_hh) per block
-constexpr int GN = 64;  // dW columns (gate units) per block
-constexpr int GK = 16;  // (b, t) rows staged per tile
-static_assert(GK * GM / 4 == NT && GK * GN / 4 == NT, "one float4 per thread per tile");
+// The weight gradient dW (H, 4H) = hprev^T @ dxproj over the K = B*T rows
+// (b, t): hprev row (b, t) is h_seq[b, t-1] (t+1 for reverse), or h0[b]
+// (zero if null) at the sequence's start. The plan is ops/lstm.py:dw_plan.
+//
+// Bound: 8*B*T*H^2 flops of f32 FMAs (the tensor cores are not taken: every
+// entry point promises exact f32), so it is bound by operations at every
+// width of the package. A block owns a DW_TILE x DW_TILE tile of dW; each of
+// its 8 warps a 32 x 64 part of it, each thread 8 x 8 outputs (two float4
+// of rows by two of columns). It walks its rows of K in tiles of DW_KT rows
+// through a DW_STAGES ring filled by 16-byte cp.async copies, so the next
+// tiles load while the current one is multiplied. Both operands are read as
+// rows of K (row r of hprev is contiguous in m, row r of dxproj in n), so
+// nothing is transposed; a warp's reads of a stage row are 64 contiguous
+// bytes of hprev and 128 of dxproj, one shared-memory wavefront each, so the
+// rows need no padding. A warp whose rows or columns lie past H or 4H skips
+// the product, and a tile of at most 32 rows (H=32) spreads each stage's
+// rows over its warps instead (see `narrow`). Each thread reads the next
+// row's four float4 while it multiplies the current row's (faster at
+// H=1024 on an H100 than reading them just before). Where the tiles alone
+// cannot fill the card (H=32: one tile; H=512: 64), K is split over
+// `splits` blocks a tile: each writes its partial tile to the workspace,
+// and the last of them to finish (an integer counter per tile after a
+// __threadfence, no spin-wait) adds the partials in the order of the split
+// index, reading them through L2, and sets the counter back to zero. No
+// float atomics: dW is the same, bit for bit, on every call.
+constexpr int DW_TILE = 128;         // rows (m) and columns (n) of dW a block
+constexpr int DW_KT = 16;            // rows of K a stage
+constexpr int DW_STAGES = 3;         // stages in the ring: 3 x 16 KB, the static shared limit
+constexpr int DW_BLOCKS_PER_SM = 2;  // resident blocks an SM (ops/lstm.py:dw_plan counts on them)
+constexpr int DW_ZU = 4;             // splits read at once when the partials are added
+constexpr int DW_LOADS = DW_KT * DW_TILE / 4 / NT;  // float4 of each operand a thread copies a stage
+static_assert(DW_LOADS * 4 * NT == DW_KT * DW_TILE && DW_KT % 4 == 0, "whole float4 rows a stage");
+static_assert(2 * 2 * 32 * 64 <= 2 * DW_STAGES * DW_KT * DW_TILE, "a narrow tile's partial sums fit the ring");
 
-// dW (H, 4H) = hprev^T @ dxproj over the K = B*T rows (b, t); hprev row
-// (b, t) is h_seq[b, t-1] (t+1 for reverse), or h0[b] (zero if null) at the
-// sequence's start. Each thread accumulates a 4x4 block of dW.
-__global__ void __launch_bounds__(NT)
-lstm_dw_kernel(const float* __restrict__ h_seq, const float* __restrict__ h0,
-               const float* __restrict__ dxproj, float* __restrict__ dw, int B, int T, int H,
-               int reverse) {
-  __shared__ __align__(16) float as[GK][GM + 4];
-  __shared__ __align__(16) float gs[GK][GN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % (GN / 4), ty = tid / (GN / 4);
-  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
-  const int H4 = 4 * H;
-  const long K = (long)B * T;
-  float acc[4][4] = {};
-  const int lk = tid / (GM / 4), l4 = tid % (GM / 4);  // this thread's tile load
-  for (long k0 = 0; k0 < K; k0 += GK) {
-    const long r = k0 + lk;
-    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    float4 g = a;
-    if (r < K) {
-      const int b = (int)(r / T), t = (int)(r % T);
-      const int tp = reverse ? t + 1 : t - 1;
-      const float* hrow = (tp < 0 || tp >= T) ? (h0 != nullptr ? h0 + (size_t)b * H : nullptr)
-                                              : h_seq + ((size_t)b * T + tp) * H;
-      if (hrow != nullptr && m0 + 4 * l4 < H) a = *reinterpret_cast<const float4*>(hrow + m0 + 4 * l4);
-      if (n0 + 4 * l4 < H4) g = *reinterpret_cast<const float4*>(dxproj + (size_t)r * H4 + n0 + 4 * l4);
+struct DwArgs {
+  const float* h_seq;
+  const float* h0;
+  const float* dxproj;
+  float* dw;
+  float* ws;      // splits x H x 4H partial sums (splits > 1)
+  int* counters;  // one per tile, zero on entry and on exit (splits > 1)
+  int B, T, H, reverse, chunk;
+};
+
+// acc += the stage's rows kk = k0, k0 + STRIDE, ...: this thread's rows
+// am .. am+3 and am+16 .. am+19 of the tile, its columns gn .. gn+3 and
+// gn+32 .. gn+35.
+template <int STRIDE>
+__device__ __forceinline__ void dw_stage(float (&acc)[8][8], const float (*as)[DW_TILE], const float (*gs)[DW_TILE],
+                                         int am, int gn, int k0) {
+  // the next row's four float4 are read while this row's 64 FMAs run
+  float4 a0 = *reinterpret_cast<const float4*>(&as[k0][am]);
+  float4 a1 = *reinterpret_cast<const float4*>(&as[k0][am + 16]);
+  float4 g0 = *reinterpret_cast<const float4*>(&gs[k0][gn]);
+  float4 g1 = *reinterpret_cast<const float4*>(&gs[k0][gn + 32]);
+#pragma unroll
+  for (int kk = 0; kk < DW_KT; kk += STRIDE) {
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    if (kk + STRIDE < DW_KT) {
+      const int k = k0 + kk + STRIDE;
+      a0 = *reinterpret_cast<const float4*>(&as[k][am]);
+      a1 = *reinterpret_cast<const float4*>(&as[k][am + 16]);
+      g0 = *reinterpret_cast<const float4*>(&gs[k][gn]);
+      g1 = *reinterpret_cast<const float4*>(&gs[k][gn + 32]);
     }
-    *reinterpret_cast<float4*>(&as[lk][4 * l4]) = a;
-    *reinterpret_cast<float4*>(&gs[lk][4 * l4]) = g;
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[kk][4 * ty]);
-      const float4 gv = *reinterpret_cast<const float4*>(&gs[kk][4 * tx]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(ar[i], gr[q], acc[i][q]);
-    }
-    __syncthreads();
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], g[j], acc[i][j]);
   }
+}
+
+__global__ void __launch_bounds__(NT, DW_BLOCKS_PER_SM) lstm_dw_kernel(DwArgs a) {
+  // the ring: stage q of hprev is ring[0][q], of dxproj ring[1][q]
+  __shared__ __align__(16) float ring[2][DW_STAGES][DW_KT][DW_TILE];
+  float(*as)[DW_KT][DW_TILE] = ring[0];
+  float(*gs)[DW_KT][DW_TILE] = ring[1];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = a.H, H4 = 4 * H, T = a.T;
+  const int m0 = blockIdx.y * DW_TILE, n0 = blockIdx.x * DW_TILE;
+  // A tile of at most 32 rows (H=32, the last tile of H=160, ...) is narrow:
+  // its warps split the rows of each stage four ways instead of the tile's
+  // rows, so that all of them multiply, and add their sums at the end.
+  const bool narrow = H - m0 <= 32;
+  const int wm = narrow ? 0 : warp % 4, wn = narrow ? warp % 2 : warp / 4, wk = narrow ? warp / 2 : 0;
+  const int am = 32 * wm + 4 * (lane / 8), gn = 64 * wn + 4 * (lane % 8);
+  const bool busy = m0 + 32 * wm < H && n0 + 64 * wn < H4;
+  const int K = a.B * T;
+  const int k_begin = blockIdx.z * a.chunk, k_end = min(K, k_begin + a.chunk);
+  const int n_tiles = (k_end - k_begin + DW_KT - 1) / DW_KT;
+
+  // This thread copies float4 column c of stage rows lr + 8u: rows
+  // r[u] = (b[u], t[u]) of K, advanced DW_KT rows a tile.
+  const int lr = tid / (DW_TILE / 4), c = 4 * (tid % (DW_TILE / 4));
+  int r[DW_LOADS], b[DW_LOADS], t[DW_LOADS];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * ty + i;
-    if (m >= H) continue;
+  for (int u = 0; u < DW_LOADS; ++u) {
+    r[u] = k_begin + lr + 8 * u;
+    b[u] = r[u] / T;
+    t[u] = r[u] % T;
+  }
+  // the next K tile into stage q: zeros past k_end, past H, or for a zero h0
+  auto load = [&](int q) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + 4 * tx + q;
-      if (n < H4) dw[(size_t)m * H4 + n] = acc[i][q];
+    for (int u = 0; u < DW_LOADS; ++u) {
+      const float* hrow = nullptr;
+      if (r[u] < k_end) {
+        const int tp = a.reverse ? t[u] + 1 : t[u] - 1;
+        hrow = (tp < 0 || tp >= T) ? (a.h0 != nullptr ? a.h0 + (size_t)b[u] * H : nullptr)
+                                   : a.h_seq + ((size_t)b[u] * T + tp) * H;
+      }
+      const bool h_ok = hrow != nullptr && m0 + c < H;
+      cp_async16_fill(&as[q][lr + 8 * u][c], h_ok ? hrow + m0 + c : a.dxproj, h_ok);
+      const bool g_ok = r[u] < k_end && n0 + c < H4;
+      cp_async16_fill(&gs[q][lr + 8 * u][c], g_ok ? a.dxproj + (size_t)r[u] * H4 + n0 + c : a.dxproj, g_ok);
+      r[u] += DW_KT;
+      for (t[u] += DW_KT; t[u] >= T; t[u] -= T) ++b[u];
     }
+  };
+
+  float acc[8][8] = {};
+#pragma unroll
+  for (int q = 0; q < DW_STAGES - 1; ++q) {
+    if (q < n_tiles) load(q);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<DW_STAGES - 2>();  // tile kt has landed (this thread's copies)
+    __syncthreads();                 // ... every thread's; stage (kt - 1) % S is free
+    if (kt + DW_STAGES - 1 < n_tiles) load((kt + DW_STAGES - 1) % DW_STAGES);
+    cp_async_commit();
+    const int q = kt % DW_STAGES;
+    if (busy && narrow)
+      dw_stage<4>(acc, as[q], gs[q], am, gn, wk);
+    else if (busy)
+      dw_stage<1>(acc, as[q], gs[q], am, gn, 0);
+  }
+  if (narrow) {  // the four warps of a column half add their sums through the ring: (0 + 2) + (1 + 3)
+    float4* part = reinterpret_cast<float4*>(&ring[0][0][0][0]);
+    cp_async_wait<0>();
+    for (int half = 2; half >= 1; half /= 2) {
+      __syncthreads();
+      if (wk >= half && wk < 2 * half)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          part[(((wk - half) * 2 + wn) * 16 + j) * 32 + lane] =
+              make_float4(acc[j / 2][4 * (j % 2)], acc[j / 2][4 * (j % 2) + 1], acc[j / 2][4 * (j % 2) + 2],
+                          acc[j / 2][4 * (j % 2) + 3]);
+      __syncthreads();
+      if (wk < half)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float4 v = part[((wk * 2 + wn) * 16 + j) * 32 + lane];
+          float* o = &acc[j / 2][4 * (j % 2)];
+          o[0] += v.x;
+          o[1] += v.y;
+          o[2] += v.z;
+          o[3] += v.w;
+        }
+    }
+  }
+
+  // output (i, q) of this thread: row m0 + am + i (+ 12 from i = 4, rows
+  // am + 16 ..), float4 columns n0 + gn + 32 q; H4 % 32 == 0, so a group of
+  // 4 columns is whole or past the end
+  const bool split = gridDim.z > 1;
+  float* out = split ? a.ws + (size_t)blockIdx.z * H * H4 : a.dw;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + am + (i < 4 ? i : 12 + i);
+    if (m >= H || wk > 0) continue;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int n = n0 + gn + 32 * q;
+      if (n < H4)
+        *reinterpret_cast<float4*>(out + (size_t)m * H4 + n) =
+            make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+    }
+  }
+  if (!split) return;
+  // the last block of the tile to finish adds the partials, split 0 first,
+  // each thread up to 16 float4 of the tile at once
+  __threadfence();
+  __syncthreads();
+  int last = 0;
+  int* counter = a.counters + blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0) last = atomicAdd(counter, 1) == (int)gridDim.z - 1;
+  if (!__syncthreads_or(last)) return;
+  __threadfence();
+  if (tid == 0) *counter = 0;  // ready for the next call on this stream
+  const size_t plane = (size_t)H * H4;
+  const int c4s = min(DW_TILE, H4 - n0) / 4, n4 = min(DW_TILE, H - m0) * c4s, Z = gridDim.z;
+  // float4 e = tid + (i0 + j) * NT of the tile, j < 4, for DW_ZU splits at
+  // a time: up to 16 loads in flight, added in the order of the split
+  for (int i0 = 0; i0 < DW_TILE * DW_TILE / 4 / NT && tid + i0 * NT < n4; i0 += 4) {
+    size_t at[4];
+    float4 sum[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = min(tid + (i0 + j) * NT, n4 - 1);
+      at[j] = (size_t)(m0 + e / c4s) * H4 + n0 + 4 * (e % c4s);
+    }
+    for (int z0 = 0; z0 < Z; z0 += DW_ZU) {
+      float4 v[DW_ZU][4];
+#pragma unroll
+      for (int u = 0; u < DW_ZU; ++u)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (z0 + u < Z) v[u][j] = __ldcg(reinterpret_cast<const float4*>(a.ws + (z0 + u) * plane + at[j]));
+#pragma unroll
+      for (int u = 0; u < DW_ZU; ++u)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (z0 + u < Z)
+            sum[j] = z0 + u == 0 ? v[u][j]
+                                 : make_float4(sum[j].x + v[u][j].x, sum[j].y + v[u][j].y, sum[j].z + v[u][j].z,
+                                               sum[j].w + v[u][j].w);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (tid + (i0 + j) * NT < n4) *reinterpret_cast<float4*>(a.dw + at[j]) = sum[j];
   }
 }
 
@@ -373,12 +538,21 @@ int autovc_lstm_bwd(const float* act, const float* w_hh, const float* c0, const 
   return launch(lstm_bwd_block_kernel, lstm_bwd_grid_kernel, a, regime, blocks, smem, info, stream);
 }
 
-// dW (H, 4H) = hprev^T @ dxproj over all (b, t), one launch. h0 may be null.
-int autovc_lstm_dw(const float* h_seq, const float* h0, const float* dxproj, float* dw, int B, int T,
-                   int H, int reverse, cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || H % 8 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((4 * H + GN - 1) / GN, (H + GM - 1) / GM);
-  lstm_dw_kernel<<<grid, NT, 0, stream>>>(h_seq, h0, dxproj, dw, B, T, H, reverse);
+// dW (H, 4H) = hprev^T @ dxproj over all (b, t), one launch of the plan of
+// ops/lstm.py:dw_plan: K split into `splits` chunks of `chunk` rows (a
+// multiple of DW_KT), ws (splits x H x 4H floats) and counters (one int per
+// tile, zero; the kernel leaves them zero, so a stream may keep them for its
+// next call) the caller's scratch when splits > 1. h0 may be null. Returns
+// 0, ERR_PLAN or the CUDA error of the launch.
+int autovc_lstm_dw(const float* h_seq, const float* h0, const float* dxproj, float* dw, float* ws, int* counters,
+                   int B, int T, int H, int reverse, int splits, int chunk, cudaStream_t stream) {
+  const long K = (long)B * T;
+  if (B <= 0 || T <= 0 || H <= 0 || H % 8 != 0 || K > (1L << 30) || chunk <= 0 || chunk % DW_KT != 0 || splits < 1 ||
+      (K + chunk - 1) / chunk != splits || (splits > 1 && (ws == nullptr || counters == nullptr)) || splits > 65535)
+    return ERR_PLAN;
+  const DwArgs a{h_seq, h0, dxproj, dw, ws, counters, B, T, H, reverse, chunk};
+  const dim3 grid((4 * H + DW_TILE - 1) / DW_TILE, (H + DW_TILE - 1) / DW_TILE, splits);
+  lstm_dw_kernel<<<grid, NT, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

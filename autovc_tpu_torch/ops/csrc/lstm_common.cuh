@@ -1,35 +1,20 @@
 // What the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu) share: the block shape,
 // the staged loads, the register-tiled product over a K slice, and the
-// launcher that checks a plan of ops/lstm.py:launch_plan and launches it.
+// launcher that checks a plan of ops/lstm.py:launch_plan and launches it
+// (cooperatively in regime (b), through coop.cuh).
 #pragma once
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-#include <mutex>
-#include <vector>
+#include "coop.cuh"
 
 namespace {
 
 constexpr int NT = 256;           // threads per block
 constexpr int RB = 4;             // batch rows per thread
 constexpr int PAD = 4;            // floats added to each staged row (float4-aligned, spreads banks)
-constexpr int ERR_PLAN = -1;      // the plan does not match the shapes
-constexpr int ERR_RESIDENT = -2;  // the grid cannot be resident (info holds both numbers)
 
 __device__ __forceinline__ float lane(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
-
-// 16 bytes global -> shared, cached in L2 only: a row another block wrote
-// before the grid barrier is read as written, never from a stale L1 line.
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // acc[r][c] += sum over the float4 columns k4 = ks, ks + KS, ... < n4 of
 // A[row0 + r][4 k4 ..] * W[4 k4 .. ][col0 + c], A row stride lda, W row
@@ -71,67 +56,23 @@ inline int check_plan(int B, int T, int H, int regime, int blocks, int units, in
   return 0;
 }
 
-// The resident blocks per SM of `kernel` at `smem` dynamic shared bytes and
-// the current device's SM count, asked of the runtime once per (kernel,
-// device, smem) and kept; the kernel's dynamic shared limit is raised to
-// `smem` when it is the largest asked for so far (above 48 KB a launch is
-// refused without it). Returns 0 or the CUDA error.
-int occupancy(const void* kernel, int smem, int& per_sm, int& sms) {
-  struct Seen {
-    const void* kernel;
-    int dev, smem, per_sm, sms;
-  };
-  static std::mutex mu;
-  static std::vector<Seen> seen;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  std::lock_guard<std::mutex> lock(mu);
-  int raised = 0;
-  for (const Seen& s : seen) {
-    if (s.kernel != kernel || s.dev != dev) continue;
-    if (s.smem == smem) {
-      per_sm = s.per_sm;
-      sms = s.sms;
-      return 0;
-    }
-    raised = s.smem > raised ? s.smem : raised;
-  }
-  if (smem > raised &&
-      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem)) != cudaSuccess)
-    return (int)err;
-  seen.push_back({kernel, dev, smem, per_sm, sms});
-  return 0;
-}
-
 // Launches regime (a)'s kernel, or regime (b)'s cooperatively once the
-// occupancy query shows every block resident; info (2 ints, may be null)
-// receives the resident blocks per SM and the SM count. Returns 0,
+// occupancy query shows every block resident (coop.cuh); info (2 ints, may
+// be null) receives the resident blocks per SM and the SM count. Returns 0,
 // ERR_RESIDENT or the CUDA error.
 template <class Args>
 int launch(void (*block_kernel)(Args), void (*grid_kernel)(Args), Args a, int regime, int blocks, int smem, int* info,
            cudaStream_t stream) {
-  const void* kernel = regime == 0 ? (const void*)block_kernel : (const void*)grid_kernel;
+  if (regime == 1) return launch_cooperative(grid_kernel, a, blocks, NT, smem, info, stream);
   int sms = 0, per_sm = 0;
-  const int err = occupancy(kernel, smem, per_sm, sms);
+  const int err = occupancy((const void*)block_kernel, NT, smem, per_sm, sms);
   if (err != 0) return err;
   if (info != nullptr) {
     info[0] = per_sm;
     info[1] = sms;
   }
-  if (regime == 0) {
-    if (per_sm < 1) return ERR_RESIDENT;
-    block_kernel<<<blocks, NT, smem, stream>>>(a);
-  } else {
-    if ((long)per_sm * sms < blocks) return ERR_RESIDENT;
-    void* params[] = {&a};
-    const cudaError_t launched =
-        cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(NT), params, (size_t)smem, stream);
-    if (launched != cudaSuccess) return (int)launched;
-  }
+  if (per_sm < 1) return ERR_RESIDENT;
+  block_kernel<<<blocks, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-// Autoregressive WaveNet generation, two launches per layer and one per
-// sample for the output head.
+// Autoregressive WaveNet generation: one persistent cooperative launch per
+// call, every sample and layer inside it, one grid barrier a layer.
 //
 // Replaces the Pallas kernels of autovc_tpu/ops/pallas_wavenet.py reached
 // through generate_pallas: _wavenet_kernel (all dilation rings in VMEM) and
@@ -7,296 +7,484 @@
 // DMA), with their helpers _begin_sample, _residual_layer, _emit_sample and
 // _sample_mol. The TPU split the rings only because 504 slots of (B, R) do
 // not fit VMEM at large B; here every ring lives in device memory and one
-// kernel set serves every B.
+// kernel serves every B.
 //
 // For each sample t (in order) and layer l with dilation d, ring slots
 // off_l + (t mod 2d) and off_l + ((t+d) mod 2d) hold x(t-2d) and x(t-d):
-//   (a) gate_kernel:  z = tanh(a) * sigmoid(b), [a | b] = [x(t-2d), x(t-d), h,
-//       cond_t] @ [w3_l; wcond_l] + bg_l                                (B, G/2)
-//   (b) resid_kernel: ring[slot] = h_in;  h = (h_in + z @ wout_l + bo_l) * sqrt(.5)
-//                     skip = (skip + z @ wskip_l + bs_l) * sqrt(.5)
-// At l = 0 both take h_in = x_prev * fk + fb and (b) takes skip = 0. Then
-//   (c) head_kernel:  logits = relu(relu(skip) @ l1k + l1b) @ l2k + l2b, the
-//       Gumbel-argmax mixture choice and logistic sample from the caller's
-//       uniforms (clipped to [1e-5, 1-1e-5]); writes y[:, t], logits[:, t] and
-//       x_prev.
+//   gate:     z = tanh(a) * sigmoid(b), [a | b] = [x(t-2d), x(t-d), h, cond_t]
+//             @ [w3_l; wcond_l] + bg_l                                  (B, G/2)
+//   residual: ring[slot t mod 2d] = h_in;  h = (h_in + z @ wout_l + bo_l) * sqrt(.5)
+//             skip = (skip + z @ wskip_l + bs_l) * sqrt(.5)
+// At l = 0, h_in = x_prev * fk + fb and skip = 0. Then the head:
+//   logits = relu(relu(skip) @ l1k + l1b) @ l2k + l2b, the Gumbel-argmax
+//   mixture choice and logistic sample from the caller's uniforms (clipped
+//   to [1e-5, 1-1e-5]); y[:, t], logits[:, t] and x_prev.
 // Float32 throughout; precise logf/expf/log1pf/tanhf (no fast math).
-//
-// Design. The host loop runs T * (2L + 1) launches on the caller's stream;
-// the kernel boundary is the only synchronisation (no grid barrier,
-// cooperative launch or spin-wait). (a) reads all of h and both ring slots;
-// (b) owns each element of h, skip and the ring slot it writes (one thread
-// reads h_in, stores it into the ring and writes h_out), so h and skip are
-// updated in place and the ring write cannot race a read of the same layer.
-//
-// (a) and (b) are the same tiled vector-matrix product. A block owns 8
-// output columns (32-byte rows of the weight matrix: whole sectors) for up to
-// BT = 8 batch rows; its 256 threads are 2 float4 column groups x 128 slices
-// of the K rows. The input rows (B x K) sit in shared memory; each thread
-// streams its weight rows straight from device memory and keeps BT x 4 (b) or
-// BT x 8 (a: the tanh and the sigmoid column of each pair) sums; warp
-// shuffles and a small shared buffer add the 128 slices. (a) has G/2/8
-// blocks, (b) (R+S)/8, per batch tile of 8 rows. Each thread stages its
-// share of the input rows as float4 loads issued together. (c) is one block
-// of 1024 threads per batch row: last1 as S/4 float4 column groups x 16
-// slices of its rows, last2 one warp per output, the sampling on one thread.
 //
 // Bound. Every sample reads all the layer weights once: 24 x 1,025,280 +
 // 74,526 floats, 98.7 MB at full width, more than the 50 MB L2, so the run is
 // bound by device-memory bytes (29.8 us a sample at 3.35 TB/s); the work is
-// 2*B*24.65 M flops a sample (5.9 us at B=8 on the f32 cores). This design
-// spends 49 launches a sample, puts 32 (a) and 96 (b) blocks on the card at
-// B <= 8 and keeps few loads in flight per SM, so launch gaps and latency,
-// not bandwidth, limit it. A persistent kernel that keeps the weights
-// streaming across samples, bf16 weights and CUDA graphs are later work.
+// 2*B*24.65 M flops a sample (5.9 us at B=8 on the f32 cores). This kernel
+// streams 122 MB a sample (25 phase slots of 38 KB for 128 blocks: the
+// folded rows below and the padding to 4 columns).
+//
+// Design. The TPU kernel is persistent: its grid (T, L) walks the samples
+// and layers in order and double-buffers layer l+1's weights against layer
+// l's compute. So does this kernel, with a grid barrier in place of the
+// TPU's sequential grid. The plan (ops/wavenet.py:generate_plan) puts one
+// block on each of up to `blocks` SMs, launched with
+// cudaLaunchCooperativeKernel after an occupancy check (coop.cuh). Each
+// block owns, for the whole launch, `pairs` tanh/sigmoid column pairs of
+// the gate, `cols` columns of [wout | wskip] and `head_cols` columns of
+// last1; at full width on 128 blocks 2, 6 and 2 (a block past the end owns
+// none, and still meets every barrier).
+//
+// One barrier a layer. Every block needs all of h_l for its gate columns of
+// layer l, and h_l = (h_{l-1} + z_{l-1} @ wout_{l-1} + bo_{l-1}) * sqrt(.5)
+// is spread over the blocks' residual columns, which would cost a barrier
+// between the residual update and the gate. The wrapper folds that update
+// into the gate's weights instead (ops/wavenet.py:kernel_weights, products
+// of weights in float64, rounded once): the gate of layer l takes
+// [x(t-2d), x(t-d), h_{l-1}, z_{l-1}, cond_t], so phase p of a sample runs
+// the residual update of layer p - 1 (its h and skip columns, the layer's
+// input into ring slot t mod 2d) and the gate of layer p from one staged
+// row, and ends at one grid barrier; h and z alternate between two buffers,
+// a phase reading one and writing the other. Phase L runs the last
+// residual update, then last1 is split over the blocks' head columns (one
+// more barrier); last2 and the sampling run in every block on the same
+// inputs in the same order, so each block holds the same x_prev without
+// another barrier, and block 0 writes y and the logits. L + 2 barriers a
+// sample (a gate and a residual barrier a layer would take 2L + 1).
+//
+// Weights. A block's slices of a phase's weights and biases (38 KB at full
+// width), laid out by the wrapper as one contiguous run a (phase, block),
+// stream into a ring of `depth` phase slots in shared memory, one bulk copy
+// (the TMA engine) a slot, awaited on the slot's mbarrier: the copy of
+// phase g - 1 + depth is issued as phase g begins, into phase g - 1's slot,
+// across samples, since the weights do not depend on the data. (Issued just
+// before a grid barrier instead, the copies made that barrier 1.2-1.5 us
+// slower on an H100.) The weight bytes flow behind the barriers, not in the
+// chain of them, and no bias is fetched from device memory after a barrier.
+//
+// Batch. Tiles of 8 batch rows loop inside a phase with the weights already
+// in shared memory, so the weights are read once a sample whatever B is;
+// the next tile's rows are loaded into registers while the current tile is
+// multiplied. Within a phase the block's threads split the K rows of the
+// weight slice, each multiplying a weight row by all the tile's batch rows
+// (tile_dot); the lane sums are added by xor shuffles and the warps' through
+// shared memory, in a fixed order, and no float is added atomically, so a
+// call's waveform is the same on every run.
+//
+// Ordering. Rows that another block wrote during the launch (the rings, h,
+// skip, z and last1's output) are read with ld.global.cg, through L2, never
+// through L1 or the non-coherent path; only the weights (bulk copies,
+// __ldg), cond and the uniforms, which no block writes, take those. A weight
+// slot is awaited with mbarrier.try_wait on its own copy, the hardware's
+// wait for the TMA engine, not on another block. Phase p writes ring slot
+// t mod 2d of layer p - 1, which phase p - 1 read as x(t-2d); at d = 1 the
+// slot x(t-d) of the next sample is the one just written; h and z of phase
+// p are read in phase p + 1: every such order holds across a grid barrier.
 
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "coop.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BT = 8;          // batch rows per block
-constexpr int NT = 256;        // threads per block
-constexpr int KG = NT / 2;     // slices of the K rows (2 column groups of 4)
-constexpr int NW = NT / 32;    // warps
-constexpr int NCOL = 8;        // output columns per block
-constexpr int HEAD_NT = 1024;  // threads of the head kernel's block
+constexpr int NT = 256;       // threads per block
+constexpr int BT = NT / 32;   // batch rows a tile: one per warp
+constexpr int MAXC = 8;       // columns a block owns in one phase, at most
+constexpr int MAX_DEPTH = 4;  // phase slots of the weight ring, at most
+constexpr int MAX_L = 64;     // layers
 constexpr float SQRT_HALF = 0.70710678118654752440f;
 constexpr float U_MIN = 1e-5f;
 constexpr float U_MAX = (float)(1.0 - 1e-5);
 
+struct Args {
+  const float *slices, *fk, *fb, *l1k, *l1b, *l2k, *l2b;
+  const float *cond, *unif;
+  float *y, *logits, *ring, *h, *skip, *z, *o1;
+  int L, B, T, R, G2, S, C, NOUT;
+  int pairs, cols, head_cols, depth;
+  float log_scale_min;
+  int dil[MAX_L], off[MAX_L];
+};
+
+__host__ __device__ inline int r4(int n) { return (n + 3) / 4 * 4; }
+
+// The block's shared layout, in floats, as ops/wavenet.py:_smem lays it out:
+// the weight ring (depth slots of the gate slice (K + 1) x CG, K = 3R + G/2
+// + C, and the residual slice (G/2 + 3) x CR, ops/wavenet.py:kernel_weights), the staged
+// rows (BT x XW), last1's slice (S x CH) and all of last2 with its bias
+// ((S + 1) x NOUT), held for the launch, the tile's logits (BT x NOUT4),
+// x_prev (B, rounded to 4), tile_dot's warp sums (two buffers of NT/32 x
+// BT x MAXC).
+struct Layout {
+  int K, CG, CR, CH, XW, NOUT4, slot, xs, l1, l2, lg, xp, rd, total;
+  __host__ __device__ Layout(int B, int R, int G2, int S, int C, int NOUT, int pairs, int cols, int head_cols,
+                             int depth) {
+    K = 3 * R + G2 + C;
+    CG = r4(2 * pairs);
+    CR = r4(cols);
+    CH = r4(head_cols);
+    XW = r4(K > S ? K : S);
+    NOUT4 = r4(NOUT);
+    slot = (K + 1) * CG + (G2 + 3) * CR;
+    xs = depth * slot;
+    l1 = xs + BT * XW;
+    l2 = l1 + S * CH;
+    lg = l2 + r4((S + 1) * NOUT);
+    xp = lg + BT * NOUT4;
+    rd = xp + r4(B);
+    total = rd + 2 * (NT / 32) * BT * MAXC;
+  }
+};
+
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__device__ __forceinline__ float4 load4(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+// A row that another block may have written during the launch: through L2.
+__device__ __forceinline__ float4 load_cg(const float* p) { return __ldcg(reinterpret_cast<const float4*>(p)); }
+__device__ __forceinline__ float4 load_ro(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
 
-// Copies rows b0 .. b0+BT of a (B, n) array with row stride ld into
-// dst[b * ldd + 0 .. n), zeros for rows past B; n, ld, ldd multiples of 4.
-// Each thread issues its SU float4 loads before it stores any, so the loads
-// are in flight together.
-__device__ __forceinline__ void stage_rows(float* dst, int ldd, const float* __restrict__ src, size_t ld, int n,
-                                           int B, int b0) {
-  constexpr int SU = 4;
-  const int n4 = n / 4, total = BT * n4;
-  for (int e0 = threadIdx.x; e0 < total; e0 += NT * SU) {
-    float4 v[SU];
+__device__ __forceinline__ float4 relu4(float4 v) {
+  return make_float4(fmaxf(v.x, 0.0f), fmaxf(v.y, 0.0f), fmaxf(v.z, 0.0f), fmaxf(v.w, 0.0f));
+}
+
+// This thread's share of a tile's rows: v[b][u] = src(b0 + b, c4) for the
+// float4 columns c4 = column(u, n4) of rows b0 + b < B.
+// Every load is issued before any is used.
+// Each block starts at another column (blockIdx.x * 32 float4 on), so that
+// the blocks, which all read the same rows at once, ask different L2 lines
+// for them at a time.
+__device__ __forceinline__ int column(int u, int n4) {
+  const int c4 = (threadIdx.x + u * NT + blockIdx.x * 32) % (2 * NT);
+  return c4 < n4 ? c4 : -1;
+}
+
+template <class Src>
+__device__ __forceinline__ void fetch(float4 (&v)[BT][2], int n4, int b0, int B, Src src) {
 #pragma unroll
-    for (int u = 0; u < SU; ++u) {
-      const int e = e0 + u * NT, b = e / n4;
-      v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (e < total && b0 + b < B) v[u] = load4(src + (b0 + b) * ld + 4 * (e - b * n4));
+  for (int b = 0; b < BT; ++b)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c4 = column(u, n4);
+      v[b][u] = b0 + b < B && c4 >= 0 ? src(b0 + b, c4) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
+}
+
+__device__ __forceinline__ void put(float* xs, int n, const float4 (&v)[BT][2]) {
 #pragma unroll
-    for (int u = 0; u < SU; ++u) {
-      const int e = e0 + u * NT, b = e / n4;
-      if (e < total) *reinterpret_cast<float4*>(dst + b * ldd + 4 * (e - b * n4)) = v[u];
+  for (int b = 0; b < BT; ++b)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c4 = column(u, n / 4);
+      if (c4 >= 0) *reinterpret_cast<float4*>(xs + b * n + 4 * c4) = v[b][u];
+    }
+}
+
+// One phase over the batch: rows of n floats (n / 4 <= 2 NT) from src staged
+// tile by tile (BT rows a tile) into xs, body(b0) run by every thread on
+// each tile, the next tile's rows in registers meanwhile. Ends with the
+// block synchronised and xs free.
+template <class Src, class Body>
+__device__ __forceinline__ void phase(float* xs, int n, int B, Src src, Body body) {
+  float4 v[BT][2];
+  fetch(v, n / 4, 0, B, src);
+  put(xs, n, v);
+  __syncthreads();
+  for (int b0 = 0; b0 < B; b0 += BT) {
+    const bool next = b0 + BT < B;
+    if (next) fetch(v, n / 4, b0 + BT, B, src);
+    body(b0);
+    __syncthreads();
+    if (next) {
+      put(xs, n, v);
+      __syncthreads();
     }
   }
 }
 
-// Adds acc over the 16 K slices in each warp (lanes of one column group share
-// lane & 1) and writes the warp's sums to red[warp][lane][0..N).
-template <int N>
-__device__ __forceinline__ void warp_sums(float (&acc)[N], float* red) {
+// One step of a warp's reduce-scatter: lanes with bit o set keep the upper
+// H of the 2H values, the others the lower H, each adding its partner's.
+template <int V, int H>
+__device__ __forceinline__ void halve(float (&v)[V], int lane, int o) {
+  const bool up = lane & o;
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float v = acc[i];
-#pragma unroll
-    for (int off = 16; off >= 2; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    acc[i] = v;
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
   }
+}
+
+// The product of a tile's staged rows (ROWS of them, row stride ldx, n
+// floats each; rows past the batch hold stale values whose sums are not
+// read) with a weight slice (n rows of 4 NC4 columns), called by every
+// thread of the block: thread i takes the slice rows k = i, i + NT, ...,
+// and multiplies each weight row it reads by all the tile's rows, so that
+// the slice is read from shared memory once a tile whatever B is (one warp
+// a batch row, each reading the whole slice, was slower at every B on an
+// H100). A warp adds its lanes' V = ROWS x 4 NC4 sums by xor shuffles (a
+// reduce-scatter from V = 32 on: lane l ends with the sums l V/32 ..),
+// writes them to red (NT/32 x V floats) and meets the block; tile_sum then
+// adds a sum over the warps. Every order is fixed.
+template <int NC4, int ROWS>
+__device__ __forceinline__ void tile_dot(const float* xs, int ldx, const float* w, int n, float* red) {
+  constexpr int NC = 4 * NC4, V = ROWS * NC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane < 2) {
+  float v[V];
 #pragma unroll
-    for (int i = 0; i < N; ++i) red[(warp * 2 + lane) * N + i] = acc[i];
-  }
-}
-
-__global__ void __launch_bounds__(NT)
-gate_kernel(const float* __restrict__ w3, const float* __restrict__ wcond, const float* __restrict__ bg,
-            const float* __restrict__ ring_2d, const float* __restrict__ ring_d,
-            const float* __restrict__ h, const float* __restrict__ x_prev,
-            const float* __restrict__ fk, const float* __restrict__ fb, int first,
-            const float* __restrict__ cond_t, float* __restrict__ z,
-            int B, int T, int R, int G, int C) {
-  extern __shared__ __align__(16) float xs[];  // [BT][3R + C]
-  __shared__ float red[NW * 2 * BT * 8];
-  const int K = 3 * R + C, G2 = G / 2;
-  const int b0 = blockIdx.y * BT;
-  const int tid = threadIdx.x;
-
-  stage_rows(xs, K, ring_2d, R, R, B, b0);
-  stage_rows(xs + R, K, ring_d, R, R, B, b0);
-  if (first) {
-    for (int e = tid; e < BT * R; e += NT) {
-      const int b = e / R, k = e - b * R;
-      xs[b * K + 2 * R + k] = b0 + b < B ? x_prev[b0 + b] * fk[k] + fb[k] : 0.0f;
-    }
-  } else {
-    stage_rows(xs + 2 * R, K, h, R, R, B, b0);
-  }
-  stage_rows(xs + 3 * R, K, cond_t, (size_t)T * C, C, B, b0);
-  __syncthreads();
-
-  const int tx = tid & 1, ty = tid >> 1;
-  const int j = blockIdx.x * NCOL + 4 * tx;  // first of this thread's 4 tanh columns
-  float acc[BT * 8];
+  for (int i = 0; i < V; ++i) v[i] = 0.0f;
+#pragma unroll 2
+  for (int k = threadIdx.x; k < n; k += NT) {
+    float4 wv[NC4];
 #pragma unroll
-  for (int i = 0; i < BT * 8; ++i) acc[i] = 0.0f;
-#pragma unroll 8
-  for (int k = ty; k < K; k += KG) {
-    const float* row = k < 3 * R ? w3 + (size_t)k * G : wcond + (size_t)(k - 3 * R) * G;
-    const float4 wa = load4(row + j), wb = load4(row + G2 + j);
+    for (int q = 0; q < NC4; ++q) wv[q] = *reinterpret_cast<const float4*>(w + (size_t)k * NC + 4 * q);
 #pragma unroll
-    for (int b = 0; b < BT; ++b) {
-      const float x = xs[b * K + k];
-      acc[b * 8 + 0] = fmaf(x, wa.x, acc[b * 8 + 0]);
-      acc[b * 8 + 1] = fmaf(x, wa.y, acc[b * 8 + 1]);
-      acc[b * 8 + 2] = fmaf(x, wa.z, acc[b * 8 + 2]);
-      acc[b * 8 + 3] = fmaf(x, wa.w, acc[b * 8 + 3]);
-      acc[b * 8 + 4] = fmaf(x, wb.x, acc[b * 8 + 4]);
-      acc[b * 8 + 5] = fmaf(x, wb.y, acc[b * 8 + 5]);
-      acc[b * 8 + 6] = fmaf(x, wb.z, acc[b * 8 + 6]);
-      acc[b * 8 + 7] = fmaf(x, wb.w, acc[b * 8 + 7]);
-    }
-  }
-  warp_sums(acc, red);
-  __syncthreads();
-
-  if (tid < BT * NCOL) {
-    const int b = tid / NCOL, c = tid % NCOL, bb = b0 + b;
-    const int col = blockIdx.x * NCOL + c, g = c / 4, i = b * 8 + c % 4;
-    float a = 0.0f, s = 0.0f;
-    for (int w = 0; w < NW; ++w) {
-      a += red[(w * 2 + g) * BT * 8 + i];
-      s += red[(w * 2 + g) * BT * 8 + i + 4];
-    }
-    if (bb < B) z[(size_t)bb * G2 + col] = tanhf(a + bg[col]) * sigmoidf_(s + bg[G2 + col]);
-  }
-}
-
-__global__ void __launch_bounds__(NT)
-resid_kernel(const float* __restrict__ z, const float* __restrict__ wout, const float* __restrict__ wskip,
-             const float* __restrict__ bo, const float* __restrict__ bs,
-             float* __restrict__ h, float* __restrict__ skip, float* __restrict__ ring_slot,
-             const float* __restrict__ x_prev, const float* __restrict__ fk, const float* __restrict__ fb,
-             int first, int B, int R, int G2, int S) {
-  extern __shared__ __align__(16) float zs[];  // [BT][G/2]
-  __shared__ float red[NW * 2 * BT * 4];
-  const int b0 = blockIdx.y * BT;
-  const int tid = threadIdx.x;
-  stage_rows(zs, G2, z, G2, G2, B, b0);
-  __syncthreads();
-
-  const int n0 = blockIdx.x * NCOL;
-  const bool is_out = n0 < R;  // R % 8 == 0: a block is all wout or all wskip
-  const float* w = is_out ? wout + n0 : wskip + (n0 - R);
-  const int ld = is_out ? R : S;
-  const int tx = tid & 1, ty = tid >> 1;
-  float acc[BT * 4];
+    for (int r = 0; r < ROWS; ++r) {
+      const float x = xs[r * ldx + k];
 #pragma unroll
-  for (int i = 0; i < BT * 4; ++i) acc[i] = 0.0f;
-#pragma unroll 4
-  for (int k = ty; k < G2; k += KG) {
-    const float4 wv = load4(w + (size_t)k * ld + 4 * tx);
-#pragma unroll
-    for (int b = 0; b < BT; ++b) {
-      const float x = zs[b * G2 + k];
-      acc[b * 4 + 0] = fmaf(x, wv.x, acc[b * 4 + 0]);
-      acc[b * 4 + 1] = fmaf(x, wv.y, acc[b * 4 + 1]);
-      acc[b * 4 + 2] = fmaf(x, wv.z, acc[b * 4 + 2]);
-      acc[b * 4 + 3] = fmaf(x, wv.w, acc[b * 4 + 3]);
-    }
-  }
-  warp_sums(acc, red);
-  __syncthreads();
-
-  if (tid < BT * NCOL) {
-    const int b = tid / NCOL, c = tid % NCOL, bb = b0 + b;
-    const int g = c / 4, i = b * 4 + c % 4;
-    float sum = 0.0f;
-    for (int wp = 0; wp < NW; ++wp) sum += red[(wp * 2 + g) * BT * 4 + i];
-    if (bb >= B) return;
-    const int n = n0 + c;
-    if (is_out) {
-      const size_t e = (size_t)bb * R + n;
-      const float h_in = first ? x_prev[bb] * fk[n] + fb[n] : h[e];
-      ring_slot[e] = h_in;  // the layer input, into the slot x(t-2d) was read from
-      h[e] = (h_in + (sum + bo[n])) * SQRT_HALF;
-    } else {
-      const int sc = n - R;
-      const size_t e = (size_t)bb * S + sc;
-      const float s_in = first ? 0.0f : skip[e];
-      skip[e] = (s_in + (sum + bs[sc])) * SQRT_HALF;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(HEAD_NT)
-head_kernel(const float* __restrict__ skip, const float* __restrict__ l1k, const float* __restrict__ l1b,
-            const float* __restrict__ l2k, const float* __restrict__ l2b, const float* __restrict__ unif_t,
-            float* __restrict__ y_t, float* __restrict__ logits_t, float* __restrict__ x_prev,
-            int T, int S, int NOUT, float log_scale_min) {
-  extern __shared__ float sm[];  // sk[S], o1[S], lg[NOUT]
-  __shared__ __align__(16) float red[4 * HEAD_NT];  // [KS][S] partial sums of last1
-  float* sk = sm;
-  float* o1 = sm + S;
-  float* lg = sm + 2 * S;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-
-  for (int j = tid; j < S; j += HEAD_NT) sk[j] = fmaxf(skip[(size_t)b * S + j], 0.0f);
-  __syncthreads();
-  // last1: S/4 float4 column groups x KS slices of the S rows (S <= 4 * HEAD_NT).
-  const int s4 = S / 4, ks_n = HEAD_NT / s4;
-  const int cg = tid % s4, ks = tid / s4;
-  if (ks < ks_n) {
-    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 8
-    for (int k = ks; k < S; k += ks_n) {
-      const float x = sk[k];
-      const float4 w = load4(l1k + (size_t)k * S + 4 * cg);
-      a.x = fmaf(x, w.x, a.x); a.y = fmaf(x, w.y, a.y); a.z = fmaf(x, w.z, a.z); a.w = fmaf(x, w.w, a.w);
-    }
-    *reinterpret_cast<float4*>(&red[ks * S + 4 * cg]) = a;
-  }
-  __syncthreads();
-  for (int j = tid; j < S; j += HEAD_NT) {
-    float a = 0.0f;
-    for (int q = 0; q < ks_n; ++q) a += red[q * S + j];
-    o1[j] = fmaxf(a + l1b[j], 0.0f);
-  }
-  __syncthreads();
-  for (int j = warp; j < NOUT; j += HEAD_NT / 32) {
-    float a = 0.0f;
-    for (int k = lane; k < S; k += 32) a = fmaf(o1[k], l2k[(size_t)k * NOUT + j], a);
-#pragma unroll
-    for (int off = 16; off >= 1; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-    if (lane == 0) {
-      lg[j] = a + l2b[j];
-      logits_t[(size_t)b * T * NOUT + j] = lg[j];
-    }
-  }
-  __syncthreads();
-
-  if (tid == 0) {
-    const int K = NOUT / 3;
-    const float* u = unif_t + (size_t)b * T * (K + 1);
-    int best = 0;
-    float best_v = 0.0f;
-    for (int i = 0; i < K; ++i) {
-      const float ui = fminf(fmaxf(u[i], U_MIN), U_MAX);
-      const float v = lg[i] - logf(-logf(ui));
-      if (i == 0 || v > best_v) {  // ties keep the first index, as argmax does
-        best = i;
-        best_v = v;
+      for (int q = 0; q < NC4; ++q) {
+        float* o = v + r * NC + 4 * q;
+        o[0] = fmaf(x, wv[q].x, o[0]);
+        o[1] = fmaf(x, wv[q].y, o[1]);
+        o[2] = fmaf(x, wv[q].z, o[2]);
+        o[3] = fmaf(x, wv[q].w, o[3]);
       }
     }
-    const float ux = fminf(fmaxf(u[K], U_MIN), U_MAX);
-    const float log_s = fmaxf(lg[2 * K + best], log_scale_min);
-    float x = lg[K + best] + expf(log_s) * (logf(ux) - log1pf(-ux));
-    x = x < -1.0f ? -1.0f : (x > 1.0f ? 1.0f : x);  // keeps a NaN, as clip does
-    y_t[(size_t)b * T] = x;
-    x_prev[b] = x;
+  }
+  if constexpr (V >= 32) {
+    halve<V, V / 2>(v, lane, 16);
+    halve<V, V / 4>(v, lane, 8);
+    halve<V, V / 8>(v, lane, 4);
+    halve<V, V / 16>(v, lane, 2);
+    halve<V, V / 32>(v, lane, 1);
+#pragma unroll
+    for (int j = 0; j < V / 32; ++j) red[warp * V + lane * (V / 32) + j] = v[j];
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+      if (lane == i) red[warp * V + i] = v[i];
+    }
+  }
+  __syncthreads();
+}
+
+template <int NC4>
+__device__ __forceinline__ int tile_dot(const float* xs, int ldx, const float* w, int n, int rows, float* red) {
+  if (rows <= 1) {
+    tile_dot<NC4, 1>(xs, ldx, w, n, red);
+    return 4 * NC4;
+  }
+  if (rows <= 2) {
+    tile_dot<NC4, 2>(xs, ldx, w, n, red);
+    return 8 * NC4;
+  }
+  if (rows <= 4) {
+    tile_dot<NC4, 4>(xs, ldx, w, n, red);
+    return 16 * NC4;
+  }
+  tile_dot<NC4, BT>(xs, ldx, w, n, red);
+  return 4 * NC4 * BT;
+}
+
+// tile_dot for rows <= BT staged rows and a slice of 4 nc4 columns, nc4 1
+// or 2; returns V, the sums a warp wrote (the tile's rows rounded up to a
+// power of 2, times 4 nc4).
+__device__ __forceinline__ int tile_dot(const float* xs, int ldx, const float* w, int n, int nc4, int rows,
+                                        float* red) {
+  return nc4 == 1 ? tile_dot<1>(xs, ldx, w, n, rows, red) : tile_dot<2>(xs, ldx, w, n, rows, red);
+}
+
+// The tile's sum i (row i / (4 nc4), column i % (4 nc4)) over the warps.
+__device__ __forceinline__ float tile_sum(const float* red, int V, int i) {
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) s += red[w * V + i];
+  return s;
+}
+
+// Issues the bulk copy of phase p's slices of this block (one contiguous run
+// of Y.slot floats, ops/wavenet.py:kernel_weights) into ring slot w,
+// counted on bar. One thread issues it.
+__device__ __forceinline__ void load_slot(const Args& a, const Layout& Y, float* w, int p, unsigned long long* bar) {
+  bulk_load(w, a.slices + ((size_t)p * gridDim.x + blockIdx.x) * Y.slot, 4u * Y.slot, bar);
+}
+
+__global__ void __launch_bounds__(NT, 1) wavenet_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned long long wbar[MAX_DEPTH];  // ring slot q's copy lands on wbar[q]
+  const Layout Y(a.B, a.R, a.G2, a.S, a.C, a.NOUT, a.pairs, a.cols, a.head_cols, a.depth);
+  float* xs = smem + Y.xs;
+  float* l1s = smem + Y.l1;
+  float* l2s = smem + Y.l2;
+  float* lgs = smem + Y.lg;
+  float* xprev = smem + Y.xp;
+  float* red_r = smem + Y.rd;            // tile_dot's sums of the residual product and of last1
+  float* red_g = red_r + NT / 32 * BT * MAXC;  // ... of the gate product
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = a.R, G2 = a.G2, S = a.S, K = Y.K, RS = a.R + a.S;
+  // what this block owns (possibly nothing)
+  const int j0 = blockIdx.x * a.pairs, np = max(0, min(a.pairs, G2 - j0));
+  const int n0 = blockIdx.x * a.cols, nc = max(0, min(a.cols, RS - n0));
+  const int h0 = blockIdx.x * a.head_cols, nh = max(0, min(a.head_cols, S - h0));
+  const size_t slot_elems = (size_t)a.B * R;
+  const int phases = a.L + 1;  // a sample's phases, each with its weight slot
+  const long total = (long)a.T * phases;
+  cg::grid_group grid = cg::this_grid();
+
+  for (int e = tid; e < S * Y.CH; e += NT) {
+    const int k = e / Y.CH, c = e % Y.CH;
+    l1s[e] = c < nh ? __ldg(a.l1k + (size_t)k * S + h0 + c) : 0.0f;
+  }
+  for (int e = tid; e < S * a.NOUT; e += NT) l2s[e] = __ldg(a.l2k + e);
+  for (int e = tid; e < a.NOUT; e += NT) l2s[S * a.NOUT + e] = __ldg(a.l2b + e);
+  float l1b[MAXC];  // last1's bias of this block's head columns
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) l1b[c] = c < nh ? __ldg(a.l1b + h0 + c) : 0.0f;
+  for (int e = tid; e < a.B; e += NT) xprev[e] = 0.0f;
+  if (tid == 0)
+    for (int q = 0; q < a.depth; ++q) mbar_init(&wbar[q]);
+  __syncthreads();
+  if (tid == 32)
+    for (int g = 0; g < a.depth && g < total; ++g) load_slot(a, Y, smem + g * Y.slot, g % phases, &wbar[g]);
+
+  for (int t = 0; t < a.T; ++t) {
+    // phase p: the residual update of layer p - 1 (p >= 1) and the gate of
+    // layer p (p < L), both from one staged row [x(t-2d), x(t-d), h, z, cond]
+    // (layer p's ring slots, h_{p-1} or h_0 = x_prev * fk + fb, z_{p-1})
+    for (int p = 0; p < phases; ++p) {
+      const long g = (long)t * phases + p;
+      // phase g - 1's slot is free since the last barrier: phase g - 1 + depth into it
+      if (tid == 32 && g >= 1 && g - 1 + a.depth < total)
+        load_slot(a, Y, smem + ((g - 1) % a.depth) * Y.slot, (int)((g - 1 + a.depth) % phases),
+                  &wbar[(g - 1) % a.depth]);
+      const int q = (int)(g % a.depth);
+      mbar_wait(&wbar[q], (unsigned)(g / a.depth) & 1u);  // phase g's slices have landed
+      const float* wg = smem + q * Y.slot;   // K rows, then the bias row
+      const float* wr = wg + (K + 1) * Y.CG;  // G/2 rows, then the bias, fk and fb rows
+      const float* bias_g = wg + K * Y.CG;
+      const float* bias_r = wr + G2 * Y.CR;
+      const bool gate = p < a.L, resid = p >= 1;
+      const int dg = gate ? a.dil[p] : 1, dr = resid ? a.dil[p - 1] : 1;
+      const float* ring_2d = a.ring + ((size_t)a.off[gate ? p : 0] + t % (2 * dg)) * slot_elems;
+      const float* ring_d = a.ring + ((size_t)a.off[gate ? p : 0] + (t + dg) % (2 * dg)) * slot_elems;
+      const float* h_in = a.h + (size_t)((p + 1) & 1) * slot_elems;    // h_{p-1} (p >= 2)
+      float* h_out = a.h + (size_t)(p & 1) * slot_elems;               // h_p
+      const float* z_in = a.z + (size_t)((p + 1) & 1) * a.B * G2;      // z_{p-1}
+      float* z_out = a.z + (size_t)(p & 1) * a.B * G2;                 // z_p
+      float* ring_w = resid ? a.ring + ((size_t)a.off[p - 1] + t % (2 * dr)) * slot_elems : nullptr;
+
+      phase(
+          xs, K, a.B,
+          [&](int b, int c4) -> float4 {
+            const int k = 4 * c4;
+            const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (k < R) return gate ? load_cg(ring_2d + (size_t)b * R + k) : zero;
+            if (k < 2 * R) return gate ? load_cg(ring_d + (size_t)b * R + k - R) : zero;
+            if (k < 3 * R) {
+              if (p >= 2) return load_cg(h_in + (size_t)b * R + k - 2 * R);
+              const float x = xprev[b];
+              const float4 f = load_ro(a.fk + k - 2 * R), c = load_ro(a.fb + k - 2 * R);
+              return make_float4(x * f.x + c.x, x * f.y + c.y, x * f.z + c.z, x * f.w + c.w);
+            }
+            if (k < 3 * R + G2) return resid ? load_cg(z_in + (size_t)b * G2 + k - 3 * R) : zero;
+            return gate ? load_ro(a.cond + ((size_t)b * a.T + t) * a.C + k - 3 * R - G2) : zero;
+          },
+          [&](int b0) {
+            const int rows = min(BT, a.B - b0);
+            if (resid && nc > 0) {
+              // thread i < rows * CR updates column n0 + c, c = i % CR, of
+              // h or skip for row r = i / CR, from the layer's input
+              // h_{p-1} (staged) or skip (loaded before the product)
+              const int r = tid / Y.CR, c = tid % Y.CR, n = n0 + c, b = b0 + r;
+              const bool writes = r < rows && c < nc;
+              float prev = 0.0f;
+              if (writes)
+                prev = n < R    ? xs[r * K + 2 * R + n]
+                       : p == 1 ? 0.0f
+                                : __ldcg(a.skip + (size_t)b * S + n - R);
+              const int V = tile_dot(xs + 3 * R, K, wr, G2, Y.CR / 4, rows, red_r);
+              if (writes) {
+                const float out = (prev + (tile_sum(red_r, V, tid) + bias_r[c])) * SQRT_HALF;
+                if (n < R) {
+                  ring_w[(size_t)b * R + n] = prev;  // the layer input, into the slot x(t-2d) was read from
+                  h_out[(size_t)b * R + n] = out;
+                } else {
+                  a.skip[(size_t)b * S + n - R] = out;
+                }
+              }
+            }
+            if (gate && np > 0) {
+              // thread i < rows * CG / 2 forms z of row i / (CG / 2), pair i % (CG / 2)
+              const int V = tile_dot(xs, K, wg, K, Y.CG / 4, rows, red_g);
+              const int r = tid / (Y.CG / 2), j = tid % (Y.CG / 2);
+              if (r < rows && j < np) {
+                const int i = r * Y.CG + 2 * j;
+                z_out[(size_t)(b0 + r) * G2 + j0 + j] = tanhf(tile_sum(red_g, V, i) + bias_g[2 * j]) *
+                                                        sigmoidf_(tile_sum(red_g, V, i + 1) + bias_g[2 * j + 1]);
+              }
+            }
+          });
+      grid.sync();
+    }
+
+    // head: last1 over the blocks' columns, then last2 and the sample in
+    // every block alike
+    phase(
+        xs, S, a.B, [&](int b, int c4) { return relu4(load_cg(a.skip + (size_t)b * S + 4 * c4)); },
+        [&](int b0) {
+          if (nh == 0) return;
+          const int rows = min(BT, a.B - b0);
+          const int V = tile_dot(xs, S, l1s, S, Y.CH / 4, rows, red_r);
+          const int r = tid / Y.CH, c = tid % Y.CH;
+          if (r < rows && c < nh)
+            a.o1[(size_t)(b0 + r) * S + h0 + c] = fmaxf(tile_sum(red_r, V, tid) + l1b[c], 0.0f);
+        });
+    grid.sync();
+    phase(
+        xs, S, a.B, [&](int b, int c4) { return load_cg(a.o1 + (size_t)b * S + 4 * c4); },
+        [&](int b0) {
+          const int b = b0 + warp;
+          if (b >= a.B) return;
+          const float* o = xs + warp * S;
+          float* lg = lgs + warp * Y.NOUT4;
+          for (int j = lane; j < a.NOUT; j += 32) {
+            float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+            for (int k = 0; k < S; k += 4) {  // S % 4 == 0
+              s0 = fmaf(o[k], l2s[k * a.NOUT + j], s0);
+              s1 = fmaf(o[k + 1], l2s[(k + 1) * a.NOUT + j], s1);
+              s2 = fmaf(o[k + 2], l2s[(k + 2) * a.NOUT + j], s2);
+              s3 = fmaf(o[k + 3], l2s[(k + 3) * a.NOUT + j], s3);
+            }
+            lg[j] = ((s0 + s1) + (s2 + s3)) + l2s[S * a.NOUT + j];
+            if (blockIdx.x == 0) a.logits[((size_t)b * a.T + t) * a.NOUT + j] = lg[j];
+          }
+          __syncwarp();
+          if (lane != 0) return;
+          const int K3 = a.NOUT / 3;
+          const float* u = a.unif + ((size_t)b * a.T + t) * (K3 + 1);
+          int best = 0;
+          float best_v = 0.0f;
+          for (int i = 0; i < K3; ++i) {
+            const float ui = fminf(fmaxf(__ldg(u + i), U_MIN), U_MAX);
+            const float v = lg[i] - logf(-logf(ui));
+            if (i == 0 || v > best_v) {  // ties keep the first index, as argmax does
+              best = i;
+              best_v = v;
+            }
+          }
+          const float ux = fminf(fmaxf(__ldg(u + K3), U_MIN), U_MAX);
+          const float log_s = fmaxf(lg[2 * K3 + best], a.log_scale_min);
+          float x = lg[K3 + best] + expf(log_s) * (logf(ux) - log1pf(-ux));
+          x = x < -1.0f ? -1.0f : (x > 1.0f ? 1.0f : x);  // keeps a NaN, as clip does
+          xprev[b] = x;
+          if (blockIdx.x == 0) a.y[(size_t)b * a.T + t] = x;
+        });
   }
 }
 
@@ -304,68 +492,41 @@ head_kernel(const float* __restrict__ skip, const float* __restrict__ l1k, const
 
 extern "C" {
 
-// Generates T samples for B rows: T * (2L + 1) launches on `stream`, none
-// synchronising; *n_launched gets the count. ring (sum 2d, B, R), h (B, R),
-// skip (B, S), z (B, G/2) and x_prev (B,) are the caller's scratch; ring and
-// x_prev must be zero. cond (B, T, C), unif (B, T, K+1), y (B, T) and logits
-// (B, T, 3K) are contiguous; dils is a host array of L dilations.
-// Returns 0, or the first CUDA error (cudaGetLastError after each launch).
-int autovc_wavenet_gen(const float* w3, const float* wcond, const float* wout, const float* wskip,
-                       const float* bg, const float* bo, const float* bs, const float* fk, const float* fb,
-                       const float* l1k, const float* l1b, const float* l2k, const float* l2b,
-                       const float* cond, const float* unif, float* y, float* logits,
-                       float* ring, float* h, float* skip, float* z, float* x_prev,
+// Generates T samples for B rows in one cooperative launch on `stream`,
+// without synchronising, with the plan of ops/wavenet.py:generate_plan
+// (blocks, pairs, cols, head_cols, depth, smem); slices are the weights
+// and biases in the plan's layout (ops/wavenet.py:kernel_weights: (L + 1)
+// x blocks slots, each what the block holds in shared memory for a phase).
+// ring (sum 2d, B, R), h (2, B, R), skip (B, S), z (2, B, G/2), o1 (B, S)
+// are the caller's scratch; ring must be zero. cond (B, T, C), unif (B, T, K+1), y (B, T) and logits (B,
+// T, 3K) are contiguous; dils is a host array of L dilations. info (2 ints,
+// may be null) receives the resident blocks per SM and the SM count.
+// Returns 0, ERR_PLAN, ERR_RESIDENT or the CUDA error of the launch.
+int autovc_wavenet_gen(const float* slices, const float* fk, const float* fb, const float* l1k, const float* l1b,
+                       const float* l2k, const float* l2b, const float* cond, const float* unif, float* y,
+                       float* logits, float* ring, float* h, float* skip, float* z, float* o1,
                        const int* dils, int L, int B, int T, int R, int G, int S, int C, int NOUT,
-                       float log_scale_min, long long* n_launched, cudaStream_t stream) {
-  *n_launched = 0;
-  if (L <= 0 || B <= 0 || T <= 0 || G % 16 || R % 8 || S % 8 || C % 4 || S > 4 * HEAD_NT || NOUT % 3 || NOUT <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int G2 = G / 2, K = NOUT / 3;
-  const size_t gate_smem = sizeof(float) * BT * (3 * R + C);
-  const size_t resid_smem = sizeof(float) * BT * G2;
-  const size_t head_smem = sizeof(float) * (2 * S + NOUT);
-  cudaError_t err;
-  if (gate_smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gate_smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (resid_smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(resid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)resid_smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (L > 256) return (int)cudaErrorInvalidValue;
-  int offsets[256];
+                       float log_scale_min, int blocks, int pairs, int cols, int head_cols, int depth, int smem,
+                       int* info, cudaStream_t stream) {
+  const int G2 = G / 2;
+  if (L <= 0 || L > MAX_L || B <= 0 || T <= 0 || G % 8 || R % 4 || S % 4 || C % 4 || NOUT <= 0 || NOUT % 3 ||
+      (3 * R + G2 + C) / 4 > 2 * NT || S / 4 > 2 * NT)
+    return ERR_PLAN;
+  if (blocks <= 0 || pairs <= 0 || 2 * pairs > MAXC || cols <= 0 || cols > MAXC || head_cols <= 0 ||
+      head_cols > MAXC || depth < 1 || depth > MAX_DEPTH || (long)blocks * pairs < G2 ||
+      (long)blocks * cols < R + S || (long)blocks * head_cols < S)
+    return ERR_PLAN;
+  const Layout Y(B, R, G2, S, C, NOUT, pairs, cols, head_cols, depth);
+  if ((long)Y.total * 4 != smem) return ERR_PLAN;
+  Args a{slices, fk, fb, l1k, l1b, l2k, l2b, cond, unif, y, logits, ring, h, skip, z, o1,
+         L, B, T, R, G2, S, C, NOUT, pairs, cols, head_cols, depth, log_scale_min, {}, {}};
   for (int l = 0, off = 0; l < L; ++l) {
-    if (dils[l] < 1) return (int)cudaErrorInvalidValue;
-    offsets[l] = off;
+    if (dils[l] < 1) return ERR_PLAN;
+    a.dil[l] = dils[l];
+    a.off[l] = off;
     off += 2 * dils[l];
   }
-  const int b_tiles = (B + BT - 1) / BT;
-  const dim3 gate_grid(G2 / NCOL, b_tiles), resid_grid((R + S) / NCOL, b_tiles);
-  const size_t slot_elems = (size_t)B * R;
-  long long count = 0;
-  for (int t = 0; t < T; ++t) {
-    for (int l = 0; l < L; ++l) {
-      const int d = dils[l];
-      const float* ring_2d = ring + (offsets[l] + t % (2 * d)) * slot_elems;
-      const float* ring_d = ring + (offsets[l] + (t + d) % (2 * d)) * slot_elems;
-      gate_kernel<<<gate_grid, NT, gate_smem, stream>>>(
-          w3 + (size_t)l * 3 * R * G, wcond + (size_t)l * C * G, bg + (size_t)l * G, ring_2d, ring_d,
-          h, x_prev, fk, fb, l == 0, cond + (size_t)t * C, z, B, T, R, G, C);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-      resid_kernel<<<resid_grid, NT, resid_smem, stream>>>(
-          z, wout + (size_t)l * G2 * R, wskip + (size_t)l * G2 * S, bo + (size_t)l * R, bs + (size_t)l * S,
-          h, skip, ring + (offsets[l] + t % (2 * d)) * slot_elems, x_prev, fk, fb, l == 0, B, R, G2, S);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-      count += 2;
-    }
-    head_kernel<<<B, HEAD_NT, head_smem, stream>>>(skip, l1k, l1b, l2k, l2b, unif + (size_t)t * (K + 1), y + t,
-                                              logits + (size_t)t * NOUT, x_prev, T, S, NOUT, log_scale_min);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    count += 1;
-    *n_launched = count;
-  }
-  return 0;
+  return launch_cooperative(wavenet_kernel, a, blocks, NT, smem, info, stream);
 }
 
 const char* autovc_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -15,6 +15,8 @@ direction of a BLSTM) and returns the sequence in natural time order.
   keeps the cell sequence and the gate activations; its backward runs
   ``csrc/lstm_bwd.cu`` (the reversed recurrence with dh0, then the dW
   product) on them.
+- ``dw_plan`` chooses, in plain Python from (B, T, H), the dW product's
+  tiles and its split of K over blocks where the tiles alone leave SMs idle.
 - ``launch_plan`` chooses, in plain Python from (B, H), how a sequence is
   launched: one block per batch tile with all of w_hh (regime a), or one
   persistent block per SM, each with its slice of w_hh, meeting at a grid
@@ -220,6 +222,49 @@ def launch_plan(batch: int, hidden: int, kind: str = "fwd", sms: int = SMS) -> L
     return None
 
 
+DW_TILE, DW_K_TILE, DW_BLOCKS_PER_SM = 128, 16, 2  # as in csrc/lstm_bwd.cu (lstm_dw_kernel)
+DW_MIN_K_TILES = 4  # K tiles a split walks at least, so that its ring has work to overlap
+DW_MAX_SPLITS = 32  # the last block of a tile reads every split's partial: keep that tail short
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """How the dW product of one sequence is launched (see the notes of
+    ``lstm_dw_kernel`` in csrc/lstm_bwd.cu): ``tiles_m`` x ``tiles_n`` output
+    tiles of DW_TILE x DW_TILE, each with K = B*T split into ``splits``
+    chunks of ``chunk`` rows (a multiple of DW_K_TILE), one block a (tile,
+    chunk); ``workspace`` floats of partial sums when ``splits`` > 1."""
+
+    tiles_m: int
+    tiles_n: int
+    splits: int
+    chunk: int
+    workspace: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n * self.splits
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(batch: int, time: int, hidden: int, sms: int = SMS) -> DwPlan:
+    """The dW plan at (B, T, H) on a card of ``sms`` SMs: K is split only
+    where the output tiles leave resident blocks (DW_BLOCKS_PER_SM an SM)
+    idle, into as many chunks as fill them, each at least DW_MIN_K_TILES
+    tiles of K rows long and at most DW_MAX_SPLITS of them (B=7, T=128:
+    H=32, 1 tile, K = 896 in 14 chunks; H=512, 64 tiles, 4 chunks; H=1024,
+    256 tiles, no split)."""
+    k = batch * time
+    tiles_m, tiles_n = -(-hidden // DW_TILE), -(-4 * hidden // DW_TILE)
+    k_tiles = -(-k // DW_K_TILE)
+    slots = DW_BLOCKS_PER_SM * sms
+    splits = max(1, min(slots // (tiles_m * tiles_n), k_tiles // DW_MIN_K_TILES, DW_MAX_SPLITS))
+    per_split = -(-k_tiles // splits)
+    splits = -(-k_tiles // per_split)  # no chunk left empty
+    workspace = splits * hidden * 4 * hidden if splits > 1 else 0
+    return DwPlan(tiles_m, tiles_n, splits, per_split * DW_K_TILE, workspace)
+
+
 def _no_plan(batch: int, hidden: int, sms: int) -> ValueError:
     fits = max(h for h in range(8, hidden, 8)
                if launch_plan(batch, h, "fwd", sms) is not None and launch_plan(batch, h, "bwd", sms) is not None)
@@ -241,7 +286,7 @@ def _library(name: str) -> ctypes.CDLL:
         lib.autovc_lstm_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                                         + [ctypes.c_void_p, ctypes.c_void_p])
         lib.autovc_lstm_bwd.restype = ctypes.c_int
-        lib.autovc_lstm_dw.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.autovc_lstm_dw.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.autovc_lstm_dw.restype = ctypes.c_int
     lib.autovc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.autovc_cuda_error_string.restype = ctypes.c_char_p
@@ -296,7 +341,7 @@ def _dense(v: torch.Tensor | None) -> torch.Tensor | None:
     return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str, plan: LaunchPlan | None = None, info=None) -> None:
+def _raise_on(lib: ctypes.CDLL, err: int, what: str, plan: LaunchPlan | DwPlan | None = None, info=None) -> None:
     if err == _ERR_PLAN:
         raise RuntimeError(f"{what}: the kernel refused the launch plan {plan}")
     if err == _ERR_RESIDENT:
@@ -317,6 +362,10 @@ def _card_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 def _plan_on_card(b: int, hidden: int, kind: str, device: torch.device) -> LaunchPlan:
     """The ``kind`` launch plan at the SM count of the card the tensors lie
     on (an H100's, ``SMS``, for tensors elsewhere, which ``_check`` refuses
@@ -326,7 +375,7 @@ def _plan_on_card(b: int, hidden: int, kind: str, device: torch.device) -> Launc
     if device.type != "cuda":
         sms = SMS
     else:
-        sms = _card_sms(device.index if device.index is not None else torch.cuda.current_device())
+        sms = _card_sms(_index(device))
     plan = launch_plan(b, hidden, kind, sms)
     if plan is None or launch_plan(b, hidden, "bwd" if kind == "fwd" else "fwd", sms) is None:
         raise _no_plan(b, hidden, sms)
@@ -369,18 +418,38 @@ def lstm_sequence_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = 
     return lstm_forward_cuda(xproj, w_hh, reverse=reverse)[0]
 
 
+# The split dW's tile counters of each (device, stream): zero, and left zero
+# by every launch, so that calls on one stream, which run in order, share
+# them without a fill kernel a call.
+_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _dw_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device, stream)
+    if key not in _counters or _counters[key].numel() < n:
+        _counters[key] = torch.zeros(max(n, 256), device=device, dtype=torch.int32)
+    return _counters[key]
+
+
 def lstm_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: torch.Tensor,
                           reverse: bool = False) -> torch.Tensor:
-    """Launch the dW kernel: (H, 4H) = sum over (b, t) of hprev^T dxproj."""
+    """Launch the dW kernel: (H, 4H) = sum over (b, t) of hprev^T dxproj,
+    one launch of ``dw_plan`` at the card's SM count."""
     global dw_launches
     b, t, hidden, _ = _check(dxproj, None, h_seq=h_seq, h0=h0)
+    plan = dw_plan(b, t, hidden, _card_sms(_index(dxproj.device)))
     lib = _library("lstm_bwd")
     h_seq, h0, dxproj = _dense(h_seq), _dense(h0), _dense(dxproj)
     dw = torch.empty((hidden, 4 * hidden), device=dxproj.device, dtype=torch.float32)
+    ws = counters = None
     with torch.cuda.device(dxproj.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.autovc_lstm_dw(_ptr(h_seq), _ptr(h0), _ptr(dxproj), _ptr(dw), b, t, hidden, int(reverse), stream)
-    _raise_on(lib, err, "lstm dW kernel")
+        if plan.splits > 1:
+            ws = torch.empty(plan.workspace, device=dxproj.device, dtype=torch.float32)
+            counters = _dw_counters(dxproj.device, stream, plan.tiles_m * plan.tiles_n)
+        err = lib.autovc_lstm_dw(_ptr(h_seq), _ptr(h0), _ptr(dxproj), _ptr(dw), _ptr(ws), _ptr(counters), b, t,
+                                 hidden, int(reverse), plan.splits, plan.chunk, stream)
+    _raise_on(lib, err, "lstm dW kernel", plan)
     dw_launches += 1
     return dw
 

@@ -21,12 +21,16 @@ at zero and x_prev at t=0 is 0.
 
 ``generate`` launches the kernel in ``csrc/wavenet_gen.cu`` for a CUDA tensor
 and runs ``generate_ref`` for a CPU tensor; there is no fallback from one to
-the other.
+the other. The kernel is one persistent cooperative launch per call;
+``generate_plan`` chooses, in plain Python, its blocks, the columns each block
+owns and the depth of its weight ring.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Mapping, Sequence
 
@@ -38,11 +42,14 @@ SQRT_HALF = math.sqrt(0.5)
 LOG_SCALE_MIN = -32.23619130191664
 U_MIN, U_MAX = 1e-5, 1.0 - 1e-5
 
-# Calls of generate that launched the CUDA kernels (one call = one utterance
+# Calls of generate that launched the CUDA kernel (one call = one utterance
 # batch). Callers reset it to 0 and read it back.
 launches = 0
-# CUDA kernel launches made by the last call of generate_cuda: T * (2L + 1).
+# CUDA kernel launches made by the last call of generate_cuda: the plan's
+# (one, for all T samples).
 last_cuda_launches = 0
+# The last launch: (plan, resident blocks per SM, SMs), for chip_smoke.py.
+last_launch: tuple | None = None
 
 PACKED_KEYS = ("w3", "wcond", "wout", "wskip", "bg", "bo", "bs", "fk", "fb", "l1k", "l1b", "l2k", "l2b")
 
@@ -122,11 +129,157 @@ def generate_ref(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], c
     return torch.stack(ys, dim=1), torch.stack(all_logits, dim=1)
 
 
+# ------------------------------------------------------------- launch plan
+
+SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
+SMS = 132  # SMs of an H100 SXM: the default where no card is asked
+THREADS = 256  # as in csrc/wavenet_gen.cu
+TILE_ROWS = THREADS // 32  # batch rows a tile: one per warp
+MAX_COLS = 8  # columns a block owns in a phase (a pair is two)
+MAX_DEPTH = 4  # phase slots of the weight ring
+MAX_LAYERS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneratePlan:
+    """How one call is launched (see the notes of csrc/wavenet_gen.cu):
+    ``blocks`` persistent blocks, at most one an SM, block i owning gate
+    column pairs [i*pairs, (i+1)*pairs) of G/2, residual columns
+    [i*cols, (i+1)*cols) of [wout | wskip] (R + S) and head columns
+    [i*head_cols, (i+1)*head_cols) of last1 (S), each range cut at its
+    width (a block past it owns none); a ring of ``depth`` phase slots of
+    its weight slices (``kernel_weights``); ``smem`` dynamic shared bytes a block; ``launches``
+    CUDA launches a call."""
+
+    blocks: int
+    pairs: int
+    cols: int
+    head_cols: int
+    depth: int
+    smem: int
+    launches: int = 1
+
+
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _smem(batch: int, widths: Sequence[int], pairs: int, cols: int, head_cols: int, depth: int) -> int:
+    """Shared bytes of a block, laid out as the kernel lays them out: the
+    weight ring, the staged rows of a tile, last1's slice and last2, the
+    tile's logits, x_prev, two buffers of the warps' sums."""
+    r, g, s, c, nout = widths
+    k = 3 * r + g // 2 + c
+    slot = (k + 1) * _r4(2 * pairs) + (g // 2 + 3) * _r4(cols)
+    floats = (depth * slot + TILE_ROWS * _r4(max(k, s)) + s * _r4(head_cols) + _r4((s + 1) * nout)
+              + TILE_ROWS * _r4(nout) + _r4(batch) + 2 * (THREADS // 32) * TILE_ROWS * MAX_COLS)
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=None)
+def generate_plan(batch: int, widths: tuple[int, int, int, int, int], sms: int = SMS) -> GeneratePlan:
+    """The plan at B = ``batch`` for ``widths`` = (R, G, S, C, 3K) on a card
+    of ``sms`` SMs: the fewest columns a block that ``sms`` blocks cover,
+    as many blocks as the widest phase needs, and the deepest weight ring
+    (at most MAX_DEPTH phases) that fits SMEM_MAX. Raises where the widths
+    need more SMs or more shared memory than there is. At full width (512,
+    512, 256, 80, 30) on 132 SMs: 128 blocks of 2 pairs, 6 columns and 2
+    head columns, 3 phases deep."""
+    r, g, s, c, nout = widths
+    g2, k = g // 2, 3 * r + g // 2 + c
+    if max(k, s) > 8 * THREADS:
+        raise ValueError(f"wavenet kernel stages rows of at most {8 * THREADS} floats: 3R + G/2 + C = {k}, "
+                         f"S = {s}")
+    pairs, cols, head_cols = -(-g2 // sms), -(-(r + s) // sms), -(-s // sms)
+    if 2 * pairs > MAX_COLS or cols > MAX_COLS or head_cols > MAX_COLS:
+        raise ValueError(f"wavenet kernel needs at least {-(-max(2 * g2, r + s) // MAX_COLS)} SMs for G={g}, "
+                         f"R+S={r + s} ({MAX_COLS} columns a block), the card has {sms}")
+    blocks = max(-(-g2 // pairs), -(-(r + s) // cols), -(-s // head_cols))
+    for depth in range(MAX_DEPTH, 0, -1):
+        smem = _smem(batch, widths, pairs, cols, head_cols, depth)
+        if smem <= SMEM_MAX:
+            return GeneratePlan(blocks, pairs, cols, head_cols, depth, smem)
+    raise ValueError(f"wavenet kernel: one layer's weight slices and the staged rows take "
+                     f"{_smem(batch, widths, pairs, cols, head_cols, 1)} bytes of shared memory, more than "
+                     f"{SMEM_MAX}")
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_on_card(batch: int, widths: tuple[int, int, int, int, int], device: torch.device) -> GeneratePlan:
+    """The plan at the SM count of the card ``device`` names (an H100's,
+    ``SMS``, for a device that is no card, which generate_cuda refuses
+    after this)."""
+    if device.type != "cuda":
+        return generate_plan(batch, widths, SMS)
+    return generate_plan(batch, widths, _card_sms(device.index if device.index is not None
+                                                 else torch.cuda.current_device()))
+
+
+def kernel_weights(packed: Mapping[str, torch.Tensor], plan: GeneratePlan) -> torch.Tensor:
+    """The weights in the kernel's layout for ``plan``: (L + 1, blocks, slot)
+    floats, block i's slot of phase p holding what it keeps in shared memory
+    for that phase, as it lays it out there.
+
+    Phase p runs the residual update of layer p - 1 and the gate of layer p
+    from one staged row [x(t-2d), x(t-d), h_{p-1}, z_{p-1}, cond_t]: the
+    gate's h_p @ w3_p[2R:3R] is taken as sqrt(.5) (h_{p-1} @ w3_p[2R:3R] +
+    z_{p-1} @ (wout_{p-1} @ w3_p[2R:3R]) + bo_{p-1} @ w3_p[2R:3R]), the
+    products of weights formed here in float64 and rounded once, so that
+    one grid barrier a layer serves both (layer 0 takes h_0 = x_prev * fk +
+    fb as it is). The slot is the gate slice ((K + 1) x CG: the K = 3R +
+    G/2 + C rows [w3_p[:2R]; the h rows; the z rows; wcond_p] and the bias
+    row, columns [tanh j, sigmoid j] for each of the block's pairs j, zeros
+    to CG = 2*pairs rounded up to 4; zeros at p = L) then the residual slice
+    ((G/2 + 3) x CR: the G/2 rows of [wout_{p-1} | wskip_{p-1}], the bias
+    row [bo | bs]_{p-1}, the first conv's fk and fb (zero for skip columns),
+    the block's columns, zeros to CR; zeros at p = 0). Made on the weights'
+    device, once a call."""
+    w3, wcond, wout, wskip = (packed[k] for k in ("w3", "wcond", "wout", "wskip"))
+    n_layers, g = w3.shape[0], w3.shape[-1]
+    g2, r, s = g // 2, wout.shape[-1], wskip.shape[-1]
+    dev, f64 = w3.device, torch.float64
+    blk = torch.arange(plan.blocks, device=dev)[:, None]
+
+    # the gate rows of layers 0 .. L-1, then none for phase L
+    w_h = w3[:, 2 * r:].to(f64)
+    h_rows, z_rows, bias = w_h.clone(), torch.zeros((n_layers, g2, g), dtype=f64, device=dev), packed["bg"].to(f64)
+    h_rows[1:] *= SQRT_HALF
+    z_rows[1:] = SQRT_HALF * (wout[:-1].to(f64) @ w_h[1:])
+    bias[1:] += SQRT_HALF * (packed["bo"][:-1].to(f64)[:, None] @ w_h[1:])[:, 0]
+    gate = torch.cat([w3[:, :2 * r].to(f64), h_rows, z_rows, wcond.to(f64), bias[:, None]], dim=1).float()
+    gate = torch.cat([gate, torch.zeros_like(gate[:1])])
+    # the residual rows of phase 0 (none), then of layers 0 .. L-1
+    first = torch.zeros((2, r + s), device=dev)
+    first[:, :r] = torch.stack([packed["fk"], packed["fb"]])
+    res = torch.cat([torch.cat([wout, wskip], dim=2), torch.cat([packed["bo"], packed["bs"]], dim=1)[:, None],
+                     first.expand(n_layers, 2, r + s)], dim=1)
+    res = torch.cat([torch.zeros_like(res[:1]), res])
+
+    def columns(n_cols: int, pad: int, col_of) -> tuple[torch.Tensor, torch.Tensor]:
+        """(blocks, pad) source column of each slot column and whether it is one."""
+        col, owned = col_of(torch.arange(pad, device=dev)[None, :])
+        ok = owned & (col < n_cols)
+        return torch.where(ok, col, 0), ok
+
+    gate_cols, gate_ok = columns(g, _r4(2 * plan.pairs),
+                                 lambda c: ((blk * plan.pairs + c // 2) + (c % 2) * g2,
+                                            (c < 2 * plan.pairs) & (blk * plan.pairs + c // 2 < g2)))
+    res_cols, res_ok = columns(r + s, _r4(plan.cols), lambda c: (blk * plan.cols + c, c < plan.cols))
+    gate = gate[:, :, gate_cols] * gate_ok  # (L+1, K+1, blocks, CG)
+    res = res[:, :, res_cols] * res_ok  # (L+1, G/2+3, blocks, CR)
+    return torch.cat([gate.permute(0, 2, 1, 3).reshape(n_layers + 1, plan.blocks, -1),
+                      res.permute(0, 2, 1, 3).reshape(n_layers + 1, plan.blocks, -1)], dim=2).contiguous()
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("wavenet_gen")
     fn = lib.autovc_wavenet_gen
-    fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_void_p] + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_float]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.autovc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.autovc_cuda_error_string.restype = ctypes.c_char_p
@@ -155,48 +308,64 @@ def _check_layout(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], 
     b, t_len, c_in = cond.shape
     if c_in != c or tuple(uniforms.shape) != (b, t_len, nout // 3 + 1):
         raise ValueError(f"cond {tuple(cond.shape)} / uniforms {tuple(uniforms.shape)} do not match C={c}, 3K={nout}")
-    if g % 16 or r % 8 or s % 8 or c % 4 or s > 4096 or nout % 3:
-        raise ValueError(f"wavenet kernel needs G % 16 == 0, R % 8 == 0, S % 8 == 0, S <= 4096, C % 4 == 0 "
+    if g % 16 or r % 8 or s % 8 or c % 4 or nout % 3:
+        raise ValueError(f"wavenet kernel needs G % 16 == 0, R % 8 == 0, S % 8 == 0, C % 4 == 0 "
                          f"(G={g}, R={r}, S={s}, C={c})")
-    if min(dilations) < 1:
-        raise ValueError(f"dilations must be >= 1, got {tuple(dilations)}")
+    if min(dilations) < 1 or n_layers > MAX_LAYERS:
+        raise ValueError(f"dilations must be >= 1, at most {MAX_LAYERS} layers, got {tuple(dilations)}")
     return n_layers, r, g, s, c, nout
+
+
+_ERR_PLAN, _ERR_RESIDENT = -1, -2  # the launcher's own codes (csrc/coop.cuh)
 
 
 def generate_cuda(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], cond: torch.Tensor,
                   uniforms: torch.Tensor, log_scale_min: float = LOG_SCALE_MIN) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernels on the current stream (no synchronisation):
-    T * (2L + 1) launches from one host call."""
-    global launches, last_cuda_launches
+    """Launch the CUDA kernel on the current stream (no synchronisation):
+    one cooperative launch of ``generate_plan`` for all T samples."""
+    global launches, last_cuda_launches, last_launch
     if cond.dtype != torch.float32 or uniforms.dtype != torch.float32:
         raise TypeError(f"wavenet kernel takes float32, got {cond.dtype} and {uniforms.dtype}")
     if uniforms.device != cond.device:
         raise ValueError(f"cond on {cond.device}, uniforms on {uniforms.device}")
     cond, uniforms = cond.contiguous(), uniforms.contiguous()
     n_layers, r, g, s, c, nout = _check_layout(packed, dilations, cond, uniforms)
-    lib = _library()
     b, t, _ = cond.shape
+    plan = _plan_on_card(b, (r, g, s, c, nout), cond.device)
+    if cond.device.type != "cuda":
+        raise ValueError(f"wavenet kernel takes tensors on a CUDA device, got {cond.device}")
+    lib = _library()
     dev = cond.device
-    zeros = lambda *shape: torch.zeros(shape, device=dev, dtype=torch.float32)
-    y, logits = zeros(b, t), zeros(b, t, nout)
-    # Scratch: the rings (sum 2d slots of (B, R)), h, skip, z and x_prev.
-    ring, h, skip, z, x_prev = zeros(2 * sum(dilations), b, r), zeros(b, r), zeros(b, s), zeros(b, g // 2), zeros(b)
+    empty = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    y, logits = empty(b, t), empty(b, t, nout)
+    # Scratch: the rings (sum 2d slots of (B, R), zero: x(t - d) before t = 0),
+    # h and z (two of each, a layer's in and out), skip and last1's output,
+    # each written before it is read.
+    ring = torch.zeros((2 * sum(dilations), b, r), device=dev, dtype=torch.float32)
+    h, skip, z, o1 = empty(2, b, r), empty(b, s), empty(2, b, g // 2), empty(b, s)
+    slices = kernel_weights(packed, plan)
     dils = (ctypes.c_int * n_layers)(*dilations)
-    n_launched = ctypes.c_longlong(0)
+    info = (ctypes.c_int * 2)(0, 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.autovc_wavenet_gen(
-            *(packed[k].data_ptr() for k in PACKED_KEYS),
+            slices.data_ptr(), *(packed[k].data_ptr() for k in ("fk", "fb", "l1k", "l1b", "l2k", "l2b")),
             cond.data_ptr(), uniforms.data_ptr(), y.data_ptr(), logits.data_ptr(),
-            ring.data_ptr(), h.data_ptr(), skip.data_ptr(), z.data_ptr(), x_prev.data_ptr(),
+            ring.data_ptr(), h.data_ptr(), skip.data_ptr(), z.data_ptr(), o1.data_ptr(),
             ctypes.cast(dils, ctypes.c_void_p),
             n_layers, b, t, r, g, s, c, nout, log_scale_min,
-            ctypes.cast(ctypes.pointer(n_launched), ctypes.c_void_p), stream,
+            plan.blocks, plan.pairs, plan.cols, plan.head_cols, plan.depth, plan.smem, info, stream,
         )
+    last_launch = (plan, info[0], info[1])
+    if err == _ERR_PLAN:
+        raise RuntimeError(f"wavenet kernel refused the launch plan {plan}")
+    if err == _ERR_RESIDENT:
+        raise RuntimeError(f"wavenet kernel: {plan.blocks} blocks must be resident for the grid barrier, but the "
+                           f"card holds {info[0]} per SM on {info[1]} SMs")
     if err:
         raise RuntimeError(f"wavenet kernel launch failed: {lib.autovc_cuda_error_string(err).decode()}")
     launches += 1
-    last_cuda_launches = n_launched.value
+    last_cuda_launches = plan.launches
     return y, logits
 
 

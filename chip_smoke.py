@@ -22,14 +22,23 @@ mels with the full-width WaveNet (24 layers, R=G=512, S=256) through
 teacher-forced forward on its own waveform; (ii) the first 32 samples of
 every row within 1e-4 of ``generate_ref`` on the same uniforms (the first
 divergence per row is printed); (iii) the waveform finite, in [-1, 1] and
-(8, 2048); (iv) T * (2L + 1) kernel launches for the one wrapper call.
+(8, 2048); (iv) the plan's CUDA launches (one persistent cooperative launch)
+for the one wrapper call, and a second identical call giving the same
+waveform bit for bit. It prints the launch plan (blocks, columns a block,
+shared bytes, resident blocks a SM, SMs) and times the kernel at B=1, 8 and
+32 (T=2048): us a sample and us a phase (kernel time / (T x (L + 2)), a
+phase being the work between two of the L + 2 grid barriers a sample),
+beside the bound.
 Phase 4 trains the full-width spmel generator at B=7, T=128 on synthetic
 mels written as a ``train.pkl`` directory in a temporary directory: (a) the
 forward kernel's training form and (b) the backward and dW kernels
 (``csrc/lstm_bwd.cu``) against their plain versions at H in {32, 512, 1024},
 both directions, nonzero initial state (1e-4; dW 1e-4 of its largest
 magnitude), timed beside cuDNN's LSTM forward alone, backward alone and
-forward+backward and ``torch.matmul``, with their launch plans; (a') the
+forward+backward, with their launch plans; the dW kernel's plan (tile,
+split of K) a case, its device time beside its bound and ``torch.matmul``'s
+on the same operands (device time, torch.profiler), the step's sums of the
+three, and two calls giving the same dW bit for bit; (a') the
 time a step of both against B at H in {32, 512, 1024}, split by least
 squares into what every step pays and what a batch row adds;
 (c) one train step with the kernels against the same step with the plain
@@ -124,6 +133,10 @@ KERNELS = ("lstm_fwd", "lstm_bwd", "wavenet_gen", "mel_norm", "sosfilt")
 WN_B, WN_FRAMES = 8, 8  # utterances and mel frames vocoded by WaveNet: T = 2048 samples
 WN_TF_TOL = 1e-3  # kernel logits vs teacher-forced forward on its own waveform, f32
 WN_PREFIX_TOL, WN_MIN_PREFIX = 1e-4, 32  # kernel vs plain loop, same uniforms
+WN_TIME_B = (1, WN_B, 32)  # batches the kernel is timed at
+# us a sample at B=8, T=2048 of the per-layer kernels this one replaced, 49
+# launches a sample (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W)
+PER_LAYER_WN_US = 434.44
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -167,6 +180,30 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds of device activity (kernels and copies) of ``fn``
+    over ``reps`` warm calls, from torch.profiler: the card's time alone,
+    without the host's gaps between launches (CUDA events around a loop of
+    short calls time the host's wrapper instead). CUDA events where the
+    profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA and e.device_time_total > 0
+                and not getattr(e, "is_user_annotation", False) and "#" not in e.key)
+    if total <= 0:
+        log("device_ms: the profiler recorded no device time; CUDA events instead")
+        return cuda_ms(fn, reps)
+    return total / 1e3 / reps
 
 
 def lstm_work(b: int, t: int, h: int) -> tuple[float, float]:
@@ -386,11 +423,15 @@ def phase_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> dict:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches, cuda_launches = wavenet_ops.launches, wavenet_ops.last_cuda_launches
-    log(f"wavenet main path (cold): {cold_s:.3f} s, wrapper launches={launches}, "
-        f"CUDA launches={cuda_launches} (T*(2L+1) = {t * (2 * cfg.layers + 1)})")
-    # (iv) one wrapper call, T * (2L + 1) kernel launches
-    if launches != 1 or cuda_launches != t * (2 * cfg.layers + 1):
-        raise AssertionError(f"wavenet launches: wrapper {launches}, CUDA {cuda_launches}")
+    plan, per_sm, sms = wavenet_ops.last_launch
+    log(f"wavenet main path (cold): {cold_s:.3f} s, wrapper launches={launches}, CUDA launches={cuda_launches} "
+        f"(the plan's {plan.launches}; the per-layer kernels took T*(2L+1) = {t * (2 * cfg.layers + 1)})")
+    log(f"wavenet plan: {plan.blocks} blocks, {per_sm} resident a SM on {sms} SMs; a block owns {plan.pairs} gate "
+        f"column pairs, {plan.cols} residual columns and {plan.head_cols} head columns, a ring of {plan.depth} "
+        f"phases of weights, {plan.smem} shared bytes; {cfg.layers + 2} grid barriers a sample")
+    # (iv) one wrapper call, the plan's kernel launches
+    if launches != 1 or cuda_launches != plan.launches:
+        raise AssertionError(f"wavenet launches: wrapper {launches}, CUDA {cuda_launches}, plan {plan.launches}")
     # (iii) the waveform
     if wav.shape != (WN_B, t) or not bool(torch.isfinite(wav).all()) or float(wav.abs().max()) > 1.0:
         raise AssertionError(f"wavenet waveform {tuple(wav.shape)} finite={bool(torch.isfinite(wav).all())} "
@@ -400,8 +441,10 @@ def phase_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> dict:
         cond = voc.model.upsample_conditioning(mel)
         y, logits = wavenet_ops.generate(voc.packed, dils, cond, u, cfg.log_scale_min)
         torch.cuda.synchronize()
+        # (iv) a second identical call, the same waveform bit for bit
         if not torch.equal(y, wav):
             raise AssertionError("the kernel gave another waveform on the same inputs")
+        log("wavenet (iv) a second call on the same inputs: the same waveform bit for bit")
         # (i) teacher-forced forward on the kernel's own waveform
         tf_err = (logits - voc.logits(y[..., None], mel)).abs().max().item()
         log(f"wavenet (i) kernel logits vs teacher-forced forward: max_abs_err={tf_err:.3e} (tol {WN_TF_TOL})")
@@ -423,6 +466,17 @@ def phase_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> dict:
             raise AssertionError(f"wavenet kernel leaves the plain loop at sample {prefix} < {WN_MIN_PREFIX}")
         ms = cuda_ms(lambda: wavenet_ops.generate(voc.packed, dils, cond, u, cfg.log_scale_min), reps=3)
         torch.cuda.synchronize()
+        phases = cfg.layers + 2  # the grid barriers a sample
+        for rows in WN_TIME_B:
+            mel_b = torch.from_numpy(np.ascontiguousarray(mels[:rows, :WN_FRAMES])).to(dev)
+            cond_b = voc.model.upsample_conditioning(mel_b)
+            u_b = voc.uniforms(rows, t, torch.Generator().manual_seed(5))
+            b_ms = ms if rows == WN_B else cuda_ms(
+                lambda: wavenet_ops.generate(voc.packed, dils, cond_b, u_b, cfg.log_scale_min), reps=2)
+            b_bound, _ = bound_ms(*wavenet_work(cfg, voc.packed, rows, t))
+            log(f"wavenet B={rows}, T={t}: {b_ms:.3f} ms a call, {b_ms / t * 1e3:.2f} us a sample, "
+                f"{b_ms / (t * phases) * 1e3:.3f} us a phase ({phases} phases a sample); bound {b_bound / t * 1e3:.2f} "
+                f"us a sample; the per-layer kernels: {PER_LAYER_WN_US:.2f} us a sample at B=8 (card: {card_line()})")
         t0 = time.perf_counter()
         voc.generate(mel, uniforms=u)
         torch.cuda.synchronize()
@@ -454,6 +508,12 @@ def lstm_bwd_work(b: int, t: int, h: int) -> tuple[float, float]:
     xproj, hprev, cprev, c and dy read once, w_hh read once, dxproj and dW
     written once."""
     return 3 * 2.0 * b * t * h * 4 * h, 4.0 * (2 * b * t * 4 * h + 4 * b * t * h + 2 * h * 4 * h)
+
+
+def dw_work(b: int, t: int, h: int) -> tuple[float, float]:
+    """(flops, bytes) of one dW product: 2*(B*T)*H*4H, hprev and dxproj
+    read once, dW written once, float32."""
+    return 2.0 * b * t * h * 4 * h, 4.0 * (b * t * h + b * t * 4 * h + h * 4 * h)
 
 
 def cudnn_train_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.Tensor, dy: torch.Tensor) -> float:
@@ -522,10 +582,25 @@ def phase_train_kernels(dev: torch.device) -> tuple[dict, dict]:
         f_plain = cuda_ms(lambda: lstm_ops.lstm_sequence_train_ref(*fargs), reps=1)
         b_ms = cuda_ms(lambda: lstm_ops.lstm_backward_cuda(*bargs, gates=got[4]), reps=3)
         b_plain = cuda_ms(lambda: lstm_ops.lstm_backward_ref(*bargs), reps=1)
-        dw_ms = cuda_ms(lambda: lstm_ops.lstm_weight_grad_cuda(want[0], h0, bgot[0], reverse), reps=5)
+        # the dW kernel alone: two calls the same bit for bit, its device time
+        # beside torch.matmul's on the same operands (yardstick only) and its
+        # bound; the wrapper's call time with CUDA events beside them
+        dw_once = lstm_ops.lstm_weight_grad_cuda(want[0], h0, bgot[0], reverse)
+        dw_same = torch.equal(dw_once, lstm_ops.lstm_weight_grad_cuda(want[0], h0, bgot[0], reverse))
+        dw_plan = lstm_ops.dw_plan(b, t, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
+        dw_call_ms = cuda_ms(lambda: lstm_ops.lstm_weight_grad_cuda(want[0], h0, bgot[0], reverse), reps=5)
+        dw_ms = device_ms(lambda: lstm_ops.lstm_weight_grad_cuda(want[0], h0, bgot[0], reverse), reps=20)
         hprev = lstm_ops._hprev(want[0], h0, reverse).reshape(-1, hidden)
         dgates = bgot[0].reshape(-1, 4 * hidden)
-        dw_lib = cuda_ms(lambda: hprev.T @ dgates, reps=5)
+        dw_lib = device_ms(lambda: hprev.T @ dgates, reps=20)
+        dw_bound, dw_by = bound_ms(*dw_work(b, t, hidden))
+        log(f"lstm dW H={hidden} {'reverse' if reverse else 'forward'}: plan {dw_plan.tiles_m} x {dw_plan.tiles_n} "
+            f"tiles of {lstm_ops.DW_TILE} x {lstm_ops.DW_TILE}, K={b * t} split {dw_plan.splits} ways "
+            f"({dw_plan.chunk} rows each), {dw_plan.blocks} blocks; device ms={dw_ms:.4f} torch.matmul={dw_lib:.4f} "
+            f"bound_ms={dw_bound:.4f} ({dw_by}); wrapper call {dw_call_ms:.4f} ms (CUDA events); two calls "
+            f"bit-identical: {dw_same}")
+        if not dw_same:
+            raise AssertionError(f"lstm dW kernel H={hidden}: two calls on the same inputs differ")
         lib_ms = cudnn_train_ms(dev, hidden, h0, c0, dy)
         lib_fwd_ms, lib_bwd_ms = cudnn_train_parts_ms(dev, hidden, h0, c0, dy)
         ff, fb = lstm_train_work(b, t, hidden)
@@ -537,7 +612,7 @@ def phase_train_kernels(dev: torch.device) -> tuple[dict, dict]:
             f"({f_ms / t * 1e3:.2f} us a step) plain_ms={f_plain:.4f} bound_ms={fbound:.4f} ({fby}) "
             f"cudnn_fwd_ms={lib_fwd_ms:.4f} seqs_per_step={n}; {f_plan}")
         log(f"lstm_bwd H={hidden} {direction}: max_abs_err={b_err:.3e} dW_rel_err={dw_rel:.3e} ms={b_ms:.4f} "
-            f"(dW {dw_ms:.4f}, torch.matmul {dw_lib:.4f}; recurrence {(b_ms - dw_ms) / t * 1e3:.2f} us a step) "
+            f"(dW {dw_call_ms:.4f}; recurrence {(b_ms - dw_call_ms) / t * 1e3:.2f} us a step) "
             f"plain_ms={b_plain:.4f} bound_ms={bbound:.4f} ({bby}) cudnn_bwd_ms={lib_bwd_ms:.4f} "
             f"cudnn_fwd_bwd_ms={lib_ms:.4f} seqs_per_step={n}; {b_plan}")
         if not (f_err <= LSTM_TOL and b_err <= LSTM_TOL and dw_rel <= LSTM_TOL):
@@ -548,9 +623,13 @@ def phase_train_kernels(dev: torch.device) -> tuple[dict, dict]:
         bwd["dw_rel_err"] = max(bwd["dw_rel_err"], dw_rel)
         for rec, vals in ((fwd, dict(ms=f_ms, plain_ms=f_plain, library_ms=lib_fwd_ms, flops=ff, bytes=fb)),
                           (bwd, dict(ms=b_ms, plain_ms=b_plain, dw_ms=dw_ms, dw_library_ms=dw_lib,
-                                     library_ms=lib_bwd_ms, library_fwd_bwd_ms=lib_ms, flops=bf, bytes=bb))):
+                                     dw_bound_ms=dw_bound, dw_call_ms=dw_call_ms, library_ms=lib_bwd_ms,
+                                     library_fwd_bwd_ms=lib_ms, flops=bf, bytes=bb))):
             for k, v in vals.items():
-                rec[k] += n * v
+                rec[k] = rec.get(k, 0.0) + n * v
+    log(f"lstm dW a train step ({SEQS_PER_STEP} sequences): kernel {bwd['dw_ms']:.4f} ms (device), torch.matmul "
+        f"{bwd['dw_library_ms']:.4f} ms (device), bound {bwd['dw_bound_ms']:.4f} ms; wrapper calls "
+        f"{bwd['dw_call_ms']:.4f} ms (CUDA events) (card: {card_line()})")
     return fwd, bwd
 
 
@@ -1173,8 +1252,11 @@ def main(argv: list[str] | None = None) -> int:
         "bound_by": bwd_bound_by,
         "library_ms": bwd["library_ms"],
         "library_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
+        # the dW kernel a train step: device time (torch.profiler) beside
+        # torch.matmul's on the same operands and the bound
         "dw_ms": bwd["dw_ms"],
         "dw_library_ms": bwd["dw_library_ms"],
+        "dw_bound_ms": bwd["dw_bound_ms"],
         "train_step_ms_p50": train["step_ms_p50"],
     }, {
         "name": "wavenet_gen",

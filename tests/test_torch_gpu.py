@@ -125,11 +125,59 @@ def test_wavenet_kernel_matches_plain(cuda, width, b):
     y, logits = wavenet_ops.generate(voc.packed, cfg.dilations(), cond, u, cfg.log_scale_min)
     torch.cuda.synchronize()
     assert wavenet_ops.launches == before + 1
-    assert wavenet_ops.last_cuda_launches == cond.shape[1] * (2 * cfg.layers + 1)
+    # one persistent cooperative launch for all T samples (the plan's count)
+    assert wavenet_ops.last_cuda_launches == wavenet_ops.last_launch[0].launches == 1
     assert y.shape == (b, frames * 256) and bool(torch.isfinite(y).all()) and float(y.abs().max()) <= 1.0
     y_ref, _ = wavenet_ops.generate_ref(voc.packed, cfg.dilations(), cond, u, cfg.log_scale_min)
     assert min(_first_apart(y, y_ref, 1e-4)) >= 32
     torch.testing.assert_close(logits, voc.logits(y[..., None], mel), atol=1e-3, rtol=0)
+
+
+def test_wavenet_kernel_full_width_batch_32(cuda):
+    """B=32 at full width (the batch of the JAX package's hybrid kernel): 4
+    batch tiles inside each phase. Teacher-forced logits within 1e-3, the
+    first 32 samples of every row within 1e-4 of the plain loop (run over
+    the first 64), and a second call the same waveform bit for bit."""
+    cfg = WaveNetConfig()
+    voc, mel, cond, u = _wavenet_case(cuda, cfg, 32, 2, seed=12)
+    y, logits = wavenet_ops.generate(voc.packed, cfg.dilations(), cond, u, cfg.log_scale_min)
+    y2, _ = wavenet_ops.generate(voc.packed, cfg.dilations(), cond, u, cfg.log_scale_min)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    assert y.shape == (32, 512) and bool(torch.isfinite(y).all()) and float(y.abs().max()) <= 1.0
+    y_ref, _ = wavenet_ops.generate_ref(voc.packed, cfg.dilations(), cond[:, :64].contiguous(),
+                                        u[:, :64].contiguous(), cfg.log_scale_min)
+    assert min(_first_apart(y[:, :64], y_ref, 1e-4)) >= 32
+    torch.testing.assert_close(logits, voc.logits(y[..., None], mel), atol=1e-3, rtol=0)
+
+
+def test_wavenet_kernel_with_blocks_that_own_nothing(cuda, monkeypatch):
+    """A forced plan of 100 blocks at the tiny width (G/2 = 8 gate pairs,
+    R+S = 24 residual and S = 8 head columns, one a block): 76 blocks own
+    no column of any phase and still meet every grid barrier. A ring of 2
+    layers, so that slots are reused within a sample."""
+    widths = (16, 16, 8, 80, 12)
+    plan = wavenet_ops.GeneratePlan(100, 1, 1, 1, 2, wavenet_ops._smem(3, widths, 1, 1, 1, 2))
+    monkeypatch.setattr(wavenet_ops, "_plan_on_card", lambda b, w, device: plan)
+    voc, mel, cond, u = _wavenet_case(cuda, WAVENET_TINY, 3, 2, seed=13)
+    y, logits = wavenet_ops.generate(voc.packed, WAVENET_TINY.dilations(), cond, u, WAVENET_TINY.log_scale_min)
+    torch.cuda.synchronize()
+    assert wavenet_ops.last_launch[0] == plan
+    y_ref, _ = wavenet_ops.generate_ref(voc.packed, WAVENET_TINY.dilations(), cond, u, WAVENET_TINY.log_scale_min)
+    assert min(_first_apart(y, y_ref, 1e-4)) >= 32
+    torch.testing.assert_close(logits, voc.logits(y[..., None], mel), atol=1e-3, rtol=0)
+
+
+def test_wavenet_plan_that_cannot_be_resident_raises(cuda, monkeypatch):
+    """A grid larger than the card holds at once is refused before launch,
+    with the blocks asked for and the card's resident blocks a SM and SMs."""
+    widths = (16, 16, 8, 80, 12)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = wavenet_ops.GeneratePlan(8 * sms, 1, 1, 1, 2, wavenet_ops._smem(1, widths, 1, 1, 1, 2))
+    monkeypatch.setattr(wavenet_ops, "_plan_on_card", lambda b, w, device: plan)
+    voc, _, cond, u = _wavenet_case(cuda, WAVENET_TINY, 1, 1, seed=14)
+    with pytest.raises(RuntimeError, match=rf"{8 * sms} blocks must be resident .* holds \d+ per SM on {sms} SMs"):
+        wavenet_ops.generate(voc.packed, WAVENET_TINY.dilations(), cond, u)
 
 
 def test_wavenet_kernel_takes_strided_cond(cuda):
@@ -182,6 +230,30 @@ def test_lstm_train_forward_matches_plain(cuda, b, t, hidden, reverse):
     want += (lstm_ops.lstm_gates_ref(xproj, w_hh, h0, want[0], reverse),)
     for g, w in zip(got, want, strict=True):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("h0_kind", ["zero", "nonzero"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t", [(1, 1), (3, 37), (7, 128), (1, 8192)])
+@pytest.mark.parametrize("hidden", [8, 32, 512, 1024])
+def test_lstm_weight_grad_matches_plain(cuda, hidden, b, t, reverse, h0_kind):
+    """The dW kernel against lstm_weight_grad_ref at every split of K its
+    plan takes (none at K = 1 or H=1024, 14 at H=32, B*T=896, up to 32 at
+    B*T=8192), within 1e-4 of the largest magnitude (a sum of B*T products
+    an element, in another order); two calls give the same bits; one
+    wrapper launch a call."""
+    rng = np.random.RandomState(hidden + b * t)
+    h_seq = torch.from_numpy(rng.randn(b, t, hidden).astype(np.float32)).to(cuda)
+    dx = torch.from_numpy(rng.randn(b, t, 4 * hidden).astype(np.float32)).to(cuda)
+    h0 = None if h0_kind == "zero" else torch.from_numpy(rng.randn(b, hidden).astype(np.float32)).to(cuda)
+    before = lstm_ops.dw_launches
+    got = lstm_ops.lstm_weight_grad_cuda(h_seq, h0, dx, reverse)
+    again = lstm_ops.lstm_weight_grad_cuda(h_seq, h0, dx, reverse)
+    torch.cuda.synchronize()
+    assert lstm_ops.dw_launches == before + 2
+    assert torch.equal(got, again)
+    want = lstm_ops.lstm_weight_grad_ref(h_seq, h0, dx, reverse)
+    torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=0)
 
 
 def _assert_backward_close(got, want):

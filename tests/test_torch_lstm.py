@@ -179,3 +179,46 @@ def test_build_starts_one_compiler_per_source(monkeypatch, tmp_path):
     assert len(log.read_text().splitlines()) == 2
     assert sorted(p.name for p in (tmp_path / "kernels").iterdir()) == sorted(
         _build.library_path(n).name for n in ("lstm_fwd", "wavenet_gen"))
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("batch, time", [(1, 1), (1, 5), (7, 128), (3, 37), (32, 512), (1, 8192)])
+@pytest.mark.parametrize("hidden", [8, 32, 64, 256, 512, 768, 1024])
+def test_dw_plan_covers_k_once(hidden, batch, time, sms):
+    """The dW plan's chunks are whole K tiles and cover the B*T rows exactly
+    once, none empty; K is split only where the output tiles leave resident
+    blocks idle, and then at most DW_MAX_SPLITS ways, each chunk at least
+    DW_MIN_K_TILES tiles unless K is shorter; the workspace holds one
+    partial dW a split."""
+    plan = lstm_ops.dw_plan(batch, time, hidden, sms)
+    k = batch * time
+    tiles = plan.tiles_m * plan.tiles_n
+    assert (plan.tiles_m, plan.tiles_n) == (-(-hidden // 128), -(-4 * hidden // 128))
+    assert plan.chunk % lstm_ops.DW_K_TILE == 0 and plan.chunk > 0
+    assert (plan.splits - 1) * plan.chunk < k <= plan.splits * plan.chunk
+    assert 1 <= plan.splits <= lstm_ops.DW_MAX_SPLITS
+    if plan.splits > 1:
+        assert tiles * plan.splits <= lstm_ops.DW_BLOCKS_PER_SM * sms
+        assert plan.chunk >= lstm_ops.DW_MIN_K_TILES * lstm_ops.DW_K_TILE
+        assert plan.workspace == plan.splits * hidden * 4 * hidden
+    else:
+        assert plan.workspace == 0
+    assert plan.blocks == tiles * plan.splits
+
+
+def test_dw_plan_at_the_training_shapes():
+    """B=7, T=128 (K = 896): H=32 one tile, K in 14 chunks of 64 rows;
+    H=512 64 tiles, 4 chunks; H=1024 256 tiles, no split."""
+    got = [(p.splits, p.chunk) for p in (lstm_ops.dw_plan(7, 128, h) for h in (32, 512, 1024))]
+    assert got == [(14, 64), (4, 224), (1, 896)]
+
+
+def test_dw_wrapper_refuses_before_building(monkeypatch):
+    """lstm_weight_grad_cuda checks its inputs (CPU tensors here) before it
+    builds or plans on a card."""
+    monkeypatch.setattr(lstm_ops._build, "load", lambda name: pytest.fail("built the kernel"))
+    h_seq, dx = torch.zeros(2, 3, 32), torch.zeros(2, 3, 128)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        lstm_ops.lstm_weight_grad_cuda(h_seq, None, dx)
+    with pytest.raises(ValueError, match="h_seq is"):
+        lstm_ops.lstm_weight_grad_cuda(torch.zeros(2, 4, 32), None, dx)

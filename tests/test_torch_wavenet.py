@@ -267,3 +267,110 @@ def test_kernel_wrapper_rejects_before_building(tiny, case):
         packed = dict(packed, bo=packed["bo"][:, :8].contiguous())
     with pytest.raises(error):
         wavenet_ops.generate_cuda(packed, dils, cond, u)
+
+
+# ------------------------------------------------- the kernel's launch plan
+
+FULL_WIDTHS = (512, 512, 256, 80, 30)  # (R, G, S, C, 3K) of the default WaveNetConfig
+TINY_WIDTHS = (16, 16, 8, 80, 12)
+EIGHT_WIDTHS = (64, 64, 32, 80, 30)
+
+
+def _owned(blocks, per_block, width):
+    """Each block's range of a phase's columns, cut at the width."""
+    return [range(min(i * per_block, width), min((i + 1) * per_block, width)) for i in range(blocks)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 96])
+@pytest.mark.parametrize("batch", [1, 3, 8, 32, 37])
+@pytest.mark.parametrize("widths", [FULL_WIDTHS, TINY_WIDTHS, EIGHT_WIDTHS])
+def test_generate_plan_covers_every_column_once(widths, batch, sms):
+    """Every gate pair, residual column and head column is owned by exactly
+    one block, at most one block an SM; the shared bytes are the layout's
+    and fit 227 KB; one launch a call."""
+    r, g, s, _, _ = widths
+    plan = wavenet_ops.generate_plan(batch, widths, sms)
+    assert plan.blocks <= sms and plan.launches == 1 and 1 <= plan.depth <= wavenet_ops.MAX_DEPTH
+    assert plan.smem <= 232_448
+    assert plan.smem == wavenet_ops._smem(batch, widths, plan.pairs, plan.cols, plan.head_cols, plan.depth)
+    for per_block, width in ((plan.pairs, g // 2), (plan.cols, r + s), (plan.head_cols, s)):
+        owned = [c for cols in _owned(plan.blocks, per_block, width) for c in cols]
+        assert sorted(owned) == list(range(width)) and len(set(owned)) == width
+    assert 2 * plan.pairs <= wavenet_ops.MAX_COLS and plan.cols <= wavenet_ops.MAX_COLS
+
+
+def test_generate_plan_at_full_width():
+    """128 blocks of 2 pairs, 6 residual and 2 head columns, three phases
+    of weights in flight; a tiny width leaves blocks that own no gate pair."""
+    plan = wavenet_ops.generate_plan(8, FULL_WIDTHS)
+    assert (plan.blocks, plan.pairs, plan.cols, plan.head_cols, plan.depth) == (128, 2, 6, 2, 3)
+    tiny = wavenet_ops.generate_plan(1, TINY_WIDTHS)
+    assert tiny.blocks == 24 and tiny.blocks * tiny.pairs > TINY_WIDTHS[1] // 2
+
+
+def test_generate_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="needs at least 96 SMs"):
+        wavenet_ops.generate_plan(8, FULL_WIDTHS, sms=64)
+    with pytest.raises(ValueError, match="rows of at most"):
+        wavenet_ops.generate_plan(8, (1024, 512, 256, 80, 30))
+    with pytest.raises(ValueError, match="shared memory"):
+        wavenet_ops.generate_plan(8, (32, 1024, 1024, 80, 60))
+
+
+def test_kernel_refuses_before_building(tiny, monkeypatch):
+    """generate_cuda refuses a plan that cannot be made, and tensors off the
+    card, before it builds anything."""
+    _, _, model = tiny
+    packed = wavenet_ops.pack_weights(model.state_dict(), model.cfg.layers)
+    monkeypatch.setattr(wavenet_ops._build, "load", lambda name: pytest.fail("built the kernel"))
+    cond, u = torch.zeros((2, 4, 80)), torch.zeros((2, 4, 5))
+    with pytest.raises(ValueError, match="CUDA device"):
+        wavenet_ops.generate_cuda(packed, model.cfg.dilations(), cond, u)
+    monkeypatch.setattr(wavenet_ops, "SMS", 2)
+    with pytest.raises(ValueError, match="SMs"):
+        wavenet_ops.generate_cuda(packed, model.cfg.dilations(), cond, u)
+
+
+@pytest.mark.parametrize("sms", [132, 5])
+def test_kernel_weights_hold_each_blocks_slices(tiny, sms):
+    """Block i's slot of phase p is its gate slice of layer p (rows [w3_p[:2R];
+    the h rows; the z rows; wcond_p; the bias], columns [tanh j, sigmoid j]
+    of its pairs, zero-padded to 4; zero at p = L) then its residual slice
+    of layer p - 1 (rows of [wout | wskip], [bo | bs], fk and fb; zero at
+    p = 0), as the kernel lays them out in shared memory. Layer 0's h rows
+    are w3_0[2R:3R] and its z rows zero; layer p >= 1's fold the residual
+    update of layer p - 1 into the gate: sqrt(.5) w3_p[2R:3R] on h_{p-1},
+    sqrt(.5) wout_{p-1} @ w3_p[2R:3R] on z_{p-1}, and bo_{p-1} @ w3_p[2R:3R]
+    into the bias (float64 products, rounded once)."""
+    _, _, model = tiny
+    packed = wavenet_ops.pack_weights(model.state_dict(), model.cfg.layers)
+    r, g, s, c, _ = TINY_WIDTHS
+    n_layers, g2, k = model.cfg.layers, g // 2, 3 * r + g // 2 + c
+    plan = wavenet_ops.generate_plan(1, TINY_WIDTHS, sms)
+    slices = wavenet_ops.kernel_weights(packed, plan)
+    cg, cr = -(-2 * plan.pairs // 4) * 4, -(-plan.cols // 4) * 4
+    assert slices.shape == (n_layers + 1, plan.blocks, (k + 1) * cg + (g2 + 3) * cr)
+    half = np.sqrt(0.5)
+    w_h = packed["w3"][:, 2 * r:].double()
+    res_rows = torch.cat([torch.cat([packed["wout"], packed["wskip"]], dim=2),
+                          torch.cat([packed["bo"], packed["bs"]], dim=1)[:, None],
+                          torch.cat([torch.stack([packed["fk"], packed["fb"]]), torch.zeros(2, s)], dim=1)
+                          .expand(n_layers, 2, r + s)], dim=1)
+    for p in range(n_layers + 1):
+        if p < n_layers:
+            z_rows = (half * packed["wout"][p - 1].double() @ w_h[p] if p else torch.zeros(g2, g, dtype=torch.float64))
+            bias = packed["bg"][p].double() + (half * packed["bo"][p - 1].double() @ w_h[p] if p else 0.0)
+            gate_rows = torch.cat([packed["w3"][p, :2 * r].double(), (half if p else 1.0) * w_h[p], z_rows,
+                                   packed["wcond"][p].double(), bias[None]]).float()
+        for i in range(plan.blocks):
+            gate = slices[p, i, : (k + 1) * cg].reshape(k + 1, cg)
+            res = slices[p, i, (k + 1) * cg:].reshape(g2 + 3, cr)
+            pairs = _owned(plan.blocks, plan.pairs, g2)[i] if p < n_layers else []
+            for q, j in enumerate(pairs):
+                assert torch.equal(gate[:, 2 * q], gate_rows[:, j])
+                assert torch.equal(gate[:, 2 * q + 1], gate_rows[:, g2 + j])
+            assert not gate[:, 2 * len(pairs):].any()
+            cols = _owned(plan.blocks, plan.cols, r + s)[i] if p > 0 else []
+            for q, n in enumerate(cols):
+                assert torch.equal(res[:, q], res_rows[p - 1, :, n])
+            assert not res[:, len(cols):].any()
