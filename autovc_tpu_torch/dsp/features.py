@@ -4,10 +4,11 @@
 On the card, in float32, the chain is: the biquad highpass
 (``ops/csrc/sosfilt.cu``, two passes), x 0.96 + dither, the framed rFFT
 (cuFFT), and for 'spmel' the fused mel projection + dB normalization
-(``ops/csrc/mel_norm.cu``). For 'stft' and 'legacy' the dB normalization,
-and for 'wav' the robust scaling, are plain torch on the card, as they are
-plain XLA in the JAX package. float64 is the parity path: the
-transfer-function ``filtfilt`` of scipy's arithmetic, on the CPU only.
+(``ops/csrc/mel_norm.cu``, over each filter's own bins). For 'stft' and
+'legacy' the dB normalization, and for 'wav' the robust scaling, are plain
+torch on the card, as they are plain XLA in the JAX package. float64 is
+the parity path: the transfer-function ``filtfilt`` of scipy's arithmetic,
+on the CPU only.
 Host-side pieces (filter design, mel basis, the per-speaker dither stream)
 are NumPy/SciPy, as in the reference.
 """
@@ -122,44 +123,42 @@ class MelFrontend:
     def _db(self, mag: torch.Tensor) -> torch.Tensor:
         return normalize_db(mag, self.audio.ref_level_db, self.audio.min_level_db)
 
-    def mel_features(self, wav, noise=None) -> torch.Tensor:
-        """wav (..., L) -> normalized mel (..., T, 80) — the 'spmel' variant:
-        one ``ops.mel`` launch over every frame of the batch."""
-        w = self.highpass_dither(wav, noise)
+    def from_filtered(self, model_type: str, w) -> torch.Tensor:
+        """The ``model_type`` features of a waveform that ``highpass_dither``
+        has already filtered and dithered."""
+        w = self._tensor(w)
         with exact_f32(self.device):
-            mag = stft_magnitude(w, self.audio.n_fft, self.audio.hop_length)
-            lead, n_bins = mag.shape[:-1], mag.shape[-1]
-            out = mel_normalize(mag.reshape(-1, n_bins), self._mel_basis_dev, self.audio.ref_level_db,
-                                self.audio.min_level_db)
-            return out.reshape(*lead, out.shape[-1])
+            if model_type == "spmel":  # one ops.mel launch over every frame of the batch
+                mag = stft_magnitude(w, self.audio.n_fft, self.audio.hop_length)
+                lead, n_bins = mag.shape[:-1], mag.shape[-1]
+                out = mel_normalize(mag.reshape(-1, n_bins), self._mel_basis_dev, self.audio.ref_level_db,
+                                    self.audio.min_level_db)
+                return out.reshape(*lead, out.shape[-1])
+            if model_type == "stft":
+                return self._db(stft_magnitude(w, self.audio.n_fft, self.audio.hop_length))
+            if model_type == "legacy":
+                return self._db(stft_magnitude(w, self.audio.legacy_n_fft, self.audio.hop_length))
+            if model_type == "wav":
+                return robust_scale(w, *self.audio.robust_quantile_range)[..., None]
+        raise ValueError(f"unknown model_type {model_type!r}")
+
+    def mel_features(self, wav, noise=None) -> torch.Tensor:
+        """wav (..., L) -> normalized mel (..., T, 80) — the 'spmel' variant."""
+        return self.extract("spmel", wav, noise)
 
     def stft_features(self, wav, noise=None) -> torch.Tensor:
         """wav (..., L) -> normalized |STFT| (..., T, 513) — the 'stft' variant."""
-        w = self.highpass_dither(wav, noise)
-        with exact_f32(self.device):
-            return self._db(stft_magnitude(w, self.audio.n_fft, self.audio.hop_length))
+        return self.extract("stft", wav, noise)
 
     def legacy_stft_features(self, wav, noise=None) -> torch.Tensor:
         """wav (..., L) -> normalized |STFT| (..., T, 257) — the legacy 512-pt
         variant ("old code/make_spect_old.py":19-66: same highpass/dither/dB
         chain)."""
-        w = self.highpass_dither(wav, noise)
-        with exact_f32(self.device):
-            return self._db(stft_magnitude(w, self.audio.legacy_n_fft, self.audio.hop_length))
+        return self.extract("legacy", wav, noise)
 
     def wav_features(self, wav, noise=None) -> torch.Tensor:
         """wav (..., L) -> robust-scaled waveform (..., L, 1) — the 'wav' variant."""
-        w = self.highpass_dither(wav, noise)
-        with exact_f32(self.device):
-            return robust_scale(w, *self.audio.robust_quantile_range)[..., None]
+        return self.extract("wav", wav, noise)
 
     def extract(self, model_type: str, wav, noise=None) -> torch.Tensor:
-        if model_type == "spmel":
-            return self.mel_features(wav, noise)
-        if model_type == "stft":
-            return self.stft_features(wav, noise)
-        if model_type == "wav":
-            return self.wav_features(wav, noise)
-        if model_type == "legacy":
-            return self.legacy_stft_features(wav, noise)
-        raise ValueError(f"unknown model_type {model_type!r}")
+        return self.from_filtered(model_type, self.highpass_dither(wav, noise))

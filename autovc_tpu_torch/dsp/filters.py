@@ -19,10 +19,13 @@ comes in two forms:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from scipy import signal as _scipy_signal
 
+from autovc_tpu_torch.ops.sosfilt import note_host_copy
 from autovc_tpu_torch.ops.sosfilt import sosfilt as _sosfilt
 
 
@@ -141,18 +144,30 @@ def butter_highpass_sos(
     )
 
 
+@functools.lru_cache(maxsize=16)
+def _sos_tensors(sos_bytes: bytes, shape: tuple[int, ...], dtype: torch.dtype,
+                 device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sections (S, 6) and their unit steady state ``sosfilt_zi`` (S, 2)
+    on ``device``, made once per filter: a file adds no host->device copy,
+    and ``ops.sosfilt`` makes its scan tables from the sections' host copy."""
+    sos = np.frombuffer(sos_bytes, np.float64).reshape(shape).copy()
+    host = torch.as_tensor(sos, dtype=dtype)
+    sos_t = host.to(device)
+    note_host_copy(sos_t, host.double().numpy())
+    return sos_t, torch.as_tensor(_scipy_signal.sosfilt_zi(sos), dtype=dtype, device=device)
+
+
 def sos_filtfilt(sos: np.ndarray, x: torch.Tensor, padlen: int | None = None) -> torch.Tensor:
     """Zero-phase filtering via second-order sections (scipy.sosfiltfilt
     semantics: odd padding, steady-state zi scaled by the edge sample) of a
     float32 x (..., L) on its device: two ``ops.sosfilt`` passes over (B, L)."""
-    sos = np.asarray(sos, np.float64)
+    sos = np.ascontiguousarray(sos, np.float64)
     if padlen is None:
         padlen = 3 * (2 * len(sos) + 1 - min((sos[:, 2] == 0).sum(), (sos[:, 5] == 0).sum()))
     padlen = int(padlen)
     x = torch.as_tensor(x)
     _check_length(x, padlen)
-    sos_t = torch.as_tensor(sos, dtype=x.dtype, device=x.device)
-    zi = torch.as_tensor(_scipy_signal.sosfilt_zi(sos), dtype=x.dtype, device=x.device)  # (S, 2)
+    sos_t, zi = _sos_tensors(sos.tobytes(), sos.shape, x.dtype, x.device)
     ext = _odd_ext(x, padlen).reshape(-1, x.shape[-1] + 2 * padlen)
     y = _sosfilt(sos_t, ext, zi * ext[:, :1, None]).flip(-1)
     y = _sosfilt(sos_t, y, zi * y[:, :1, None]).flip(-1)

@@ -7,4 +7,5 @@
             csrc/mel_norm.cu)
     sosfilt one pass of a biquad cascade over time (CUDA, csrc/sosfilt.cu)
     _build  nvcc + ctypes build of csrc/*.cu into build/kernels/
+    _cache  what a wrapper derives from a tensor, kept by the tensor's identity
 """

@@ -1,6 +1,7 @@
-// What the persistent kernels (lstm_fwd.cu, lstm_bwd.cu, wavenet_gen.cu)
-// share: the launchers' error codes, the asynchronous copies, the occupancy
-// query and the cooperative launch that a grid barrier needs.
+// What the kernels share: the launchers' error codes, the asynchronous
+// copies and the occupancy query (all of them), and the cooperative launch
+// that a grid barrier needs (the persistent kernels: lstm_fwd.cu,
+// lstm_bwd.cu, wavenet_gen.cu).
 //
 // A grid barrier (cooperative_groups::this_grid().sync()) is safe only when
 // every block of the grid is resident at once. The launcher raises the
@@ -28,11 +29,21 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
-// The same with the source's bytes counted: 0 fills the 16 bytes with zeros
-// and reads nothing (gmem must still be a valid address).
-__device__ __forceinline__ void cp_async16_fill(float* smem, const float* gmem, bool valid) {
+// The same with `bytes` (0..16) of the source read and the rest of the 16
+// zero-filled; 0 reads nothing (gmem must still be a valid address).
+__device__ __forceinline__ void cp_async16_part(void* smem, const void* gmem, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(valid ? 16 : 0));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+// All 16 bytes, or zeros.
+__device__ __forceinline__ void cp_async16_fill(float* smem, const float* gmem, bool valid) {
+  cp_async16_part(smem, gmem, valid ? 16 : 0);
+}
+// 4 bytes global -> shared through L1, 0 source bytes filling a zero (gmem
+// must still be a valid address): for rows that are not 16-byte aligned.
+__device__ __forceinline__ void cp_async4_fill(float* smem, const float* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>

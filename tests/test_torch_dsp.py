@@ -328,6 +328,57 @@ def test_mel_normalize_ref_matches_jax_features(n_bins, n_mels, t):
                                rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("n_fft, nnz, widest", [(1024, 941, 34), (512, 471, 17)])
+def test_filter_spans_cover_each_filter_and_keep_the_product(n_fft, nnz, widest):
+    """The spans of the spmel (513-bin) and legacy (257-bin) bases: each
+    column's first and last nonzero, at most 34 bins wide. A float64 chain
+    over each filter's span in increasing bin order equals the chain over
+    all bins exactly (the skipped products are exact zeros)."""
+    basis = jdsp.mel_filterbank(16_000, n_fft, 80, dtype=np.float64)
+    spans = _np(mel_ops.filter_spans(torch.from_numpy(basis)))
+    assert spans.dtype == np.int32 and spans.shape == (80, 2)
+    nz = basis != 0
+    assert nz.sum() == nnz and (spans[:, 1] - spans[:, 0]).max() == widest
+    for j in range(80):
+        rows = np.flatnonzero(nz[:, j])
+        assert tuple(spans[j]) == (rows[0], rows[-1] + 1), j
+    mag = np.random.RandomState(n_fft).rand(20, basis.shape[0]) ** 4 * 200.0
+    dense = np.zeros((20, 80))
+    for k in range(basis.shape[0]):
+        dense = dense + mag[:, k : k + 1] * basis[k]
+    span = np.zeros((20, 80))
+    for j, (lo, hi) in enumerate(spans):
+        for k in range(lo, hi):
+            span[:, j] = span[:, j] + mag[:, k] * basis[k, j]
+    np.testing.assert_array_equal(span, dense)
+
+
+def test_filter_spans_of_dense_empty_and_gapped_columns():
+    """Any basis: a dense column spans every bin, a column of zeros gets
+    (0, 0), zeros between two nonzeros stay inside the span."""
+    basis = np.zeros((10, 4), np.float32)
+    basis[:, 0] = 1.0 + np.arange(10)
+    basis[[3, 7], 2] = 0.5
+    basis[9, 3] = 2.0
+    spans = _np(mel_ops.filter_spans(torch.from_numpy(basis)))
+    np.testing.assert_array_equal(spans, [[0, 10], [0, 0], [3, 8], [9, 10]])
+
+
+@pytest.mark.parametrize("t, n_bins, n_mels, blocks, weights, smem", [
+    (311, 513, 80, 10, 1024, 81_104), (16_416, 513, 80, 513, 1024, 81_104), (1, 257, 80, 1, 1024, 48_336),
+    (70, 1025, 80, 3, 1025, 4 * (32 * 1025 + 1025 + 32 * 81 + 241) + 8)])
+def test_mel_tile_plan(t, n_bins, n_mels, blocks, weights, smem):
+    """32 frames a block (a 4.97-s file's 311 frames: 10 blocks), every mel,
+    the packed weights at least one dense column, shared memory as the
+    kernel lays it out."""
+    plan = mel_ops.tile_plan(t, n_bins, n_mels)
+    assert (plan.frames, plan.threads) == (mel_ops.TILE_FRAMES, mel_ops.THREADS) == (32, 640)
+    assert (plan.blocks, plan.weights, plan.smem) == (blocks, weights, smem)
+    assert plan.smem <= mel_ops.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        mel_ops.tile_plan(t, 513, 2048)
+
+
 def test_normalize_and_denormalize_db_match_jax():
     s = np.random.RandomState(8).rand(50, 80).astype(np.float32)
     m = np.asarray(jdsp.denormalize_db(jnp.asarray(s)))

@@ -11,12 +11,14 @@ import os
 
 import numpy as np
 import pytest
+import scipy.signal
 import torch
 
 from autovc_tpu_torch.cli import make_spect
-from autovc_tpu_torch.config import Config, TrainConfig, WaveNetConfig
+from autovc_tpu_torch.config import AudioConfig, Config, TrainConfig, WaveNetConfig
 from autovc_tpu_torch.convert import Converter
-from autovc_tpu_torch.dsp import MelFrontend, butter_highpass_sos, mel_filterbank, write_wav
+from autovc_tpu_torch.dsp import (MelFrontend, butter_highpass, butter_highpass_sos, mel_filterbank, sos_filtfilt,
+                                  write_wav)
 from autovc_tpu_torch.models import build_generator
 from autovc_tpu_torch.ops import lstm as lstm_ops
 from autovc_tpu_torch.ops import mel as mel_ops
@@ -479,6 +481,32 @@ def test_mel_kernel_matches_plain(cuda, t, n_bins):
     torch.testing.assert_close(got, mel_ops.mel_normalize_ref(mag, basis), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("kind", ["mel", "dense", "gaps"])
+def test_mel_kernel_walks_each_filters_span(cuda, kind):
+    """The spans the wrapper derives on the card, once per basis, are
+    ``filter_spans``'s; a dense basis (513 x 80 weights, staged in groups of
+    filters) and one with an empty column and zeros inside a span match the
+    plain version (1e-5), and so does a basis edited in place after a call
+    (its spans derived anew)."""
+    rng = np.random.RandomState(11)
+    mag = torch.from_numpy(_mags(12, 300, 513)).to(cuda)
+    basis = np.ascontiguousarray(mel_filterbank())
+    if kind == "dense":
+        basis = rng.rand(513, 80).astype(np.float32) / 40.0
+    elif kind == "gaps":
+        basis[:, 7] = 0.0
+        basis[np.flatnonzero(basis[:, 9])[1:-1], 9] = 0.0
+        basis[200:300, 3] = 1e-3
+    basis = torch.from_numpy(basis).to(cuda)
+    got = mel_ops.mel_normalize(mag, basis)
+    assert torch.equal(mel_ops._prepare(basis)[1], mel_ops.filter_spans(basis))
+    torch.testing.assert_close(got, mel_ops.mel_normalize_ref(mag, basis), atol=1e-5, rtol=0)
+    basis[:, 0] = 0.0
+    basis[100:140, 0] = 0.05
+    torch.testing.assert_close(mel_ops.mel_normalize(mag, basis), mel_ops.mel_normalize_ref(mag, basis),
+                               atol=1e-5, rtol=0)
+
+
 def test_mel_kernel_refuses_what_it_does_not_take(cuda):
     mag = torch.from_numpy(_mags(1, 40, 513)).to(cuda)
     basis = torch.from_numpy(np.ascontiguousarray(mel_filterbank())).to(cuda)
@@ -490,12 +518,32 @@ def test_mel_kernel_refuses_what_it_does_not_take(cuda):
         mel_ops.mel_normalize(mag, basis.cpu())
 
 
-@pytest.mark.parametrize("length", [19, 4096])
+def _sosfilt_f64(sos, x, zi):
+    """scipy's float64 filter of each row, on the float32 inputs as given."""
+    sos64 = sos.double().cpu().numpy()
+    return np.stack([scipy.signal.sosfilt(sos64, r, zi=z)[0]
+                     for r, z in zip(x.double().cpu().numpy(), zi.double().cpu().numpy())])
+
+
+def assert_sosfilt_gate(got, want, exact, chunk):
+    """The kernel's gate, row by row: its first ``chunk`` samples are the
+    plain version's bit for bit, and it is no farther from the float64
+    filter than twice the plain version's distance plus 1e-6 of the row's
+    max-abs (the chunked scan rounds otherwise than the sequential pass)."""
+    got, want = got.cpu(), want.cpu()
+    assert torch.equal(got[:, :chunk], want[:, :chunk])
+    far = np.abs(got.double().numpy() - exact).max(axis=1)
+    plain = np.abs(want.double().numpy() - exact).max(axis=1)
+    gate = 2 * plain + 1e-6 * np.abs(exact).max(axis=1)
+    assert (far <= gate).all(), (far.tolist(), gate.tolist())
+
+
+@pytest.mark.parametrize("length", [19, 4096, 80_000])
 @pytest.mark.parametrize("b", [1, 3, 33])
 def test_sosfilt_kernel_matches_plain(cuda, b, length):
-    """One pass from a random state; 33 rows span two blocks. Tolerance
-    1e-5 of each row's max-abs: the kernel and the plain version round
-    alike (one rounding per fused multiply-add)."""
+    """One pass from a random state; 33 rows take 33 blocks; 19 samples are
+    one chunk (the sequential pass), 4096 take 128 chunks of 32 and 80,000
+    (a 5-s file) 500 chunks of 160. Held to ``assert_sosfilt_gate``."""
     rng = np.random.RandomState(b * length)
     sos = torch.from_numpy(butter_highpass_sos().astype(np.float32)).to(cuda)
     x = torch.from_numpy(rng.randn(b, length).astype(np.float32)).to(cuda)
@@ -506,8 +554,42 @@ def test_sosfilt_kernel_matches_plain(cuda, b, length):
     assert sosfilt_ops.launches == before + 1
     want = sosfilt_ops.sosfilt_ref(sos, x, zi)
     assert want.device == got.device
-    scale = want.abs().amax(dim=1, keepdim=True)
-    assert bool(((got - want).abs() <= 1e-5 * scale).all()), float(((got - want).abs() / scale).max())
+    assert_sosfilt_gate(got, want, _sosfilt_f64(sos, x, zi), sosfilt_ops.scan_plan(length).chunk)
+    if length == 19:
+        assert torch.equal(got, want)
+
+
+def test_sosfilt_kernel_reuses_its_tables(cuda):
+    """A second call with the same sos values and chunk length makes no new
+    tables (no host->device copy), from the same tensor or a fresh one;
+    another length makes one entry."""
+    sos = torch.from_numpy(butter_highpass_sos().astype(np.float32)).to(cuda)
+    x = torch.from_numpy(np.random.RandomState(7).randn(2, 50_000).astype(np.float32)).to(cuda)
+    zi = torch.zeros(2, 3, 2, device=cuda)
+    sosfilt_ops.sosfilt(sos, x, zi)
+    n = len(sosfilt_ops._tables)
+    first = sosfilt_ops.sosfilt(sos, x, zi)
+    assert len(sosfilt_ops._tables) == n
+    sosfilt_ops.sosfilt(sos, x[:, :30_000].contiguous(), zi)
+    assert len(sosfilt_ops._tables) == n + 1
+    assert torch.equal(sosfilt_ops.sosfilt(sos, x, zi), first)
+    assert torch.equal(sosfilt_ops.sosfilt(sos.clone(), x, zi), first)
+    assert len(sosfilt_ops._tables) == n + 1
+
+
+def test_sosfilt_tables_of_a_new_length_need_no_synchronisation(cuda):
+    """The front end's sections on the card come with their host copy, so a
+    row whose chunk length is met for the first time has its tables made on
+    the host and copied to the card without a synchronisation."""
+    x = torch.from_numpy(np.random.RandomState(8).randn(1, 61_234).astype(np.float32)).to(cuda)
+    sos_filtfilt(butter_highpass_sos(), x[:, :5_000])  # the sections put on the card, once
+    n = len(sosfilt_ops._tables)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sos_filtfilt(butter_highpass_sos(), x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(sosfilt_ops._tables) <= n + 1 and torch.isfinite(got).all()
 
 
 def test_sosfilt_kernel_refuses_float64(cuda):
@@ -529,28 +611,45 @@ def _voiced(seed, n):
     return x.astype(np.float32)
 
 
+def _exact_chain(wav, noise, model_type):
+    """make_spect's float64 host chain (``--exact``) of each row."""
+    b, a = butter_highpass()
+    basis = mel_filterbank(dtype=np.float64)
+    return np.stack([make_spect.exact_features(x, n.astype(np.float64), model_type, AudioConfig(), b, a, basis)
+                     for x, n in zip(wav, noise)])
+
+
 @pytest.mark.parametrize("model_type", ["spmel", "stft", "legacy", "wav"])
 def test_mel_frontend_on_card_matches_cpu(cuda, model_type):
     """The float32 front end on the card (both kernels, cuFFT) against the
-    CPU (their plain versions, pocketfft) on two 1.5-s rows with dither:
+    CPU (their plain versions, pocketfft) on two 1.5-s rows with dither.
+    After the highpass, the card's filtered rows through the CPU's stages:
     1e-4; 'stft' and 'legacy' 1e-4 in bins within 40 dB of their frame's
     loudest and 10x more for each further 20 dB (two FFTs' rounding,
     relative to the frame's peak, as tests/test_torch_dsp.py holds the port
-    to JAX). The mel kernel launches once and the filter twice a call."""
+    to JAX). The whole chain, whose highpass rounds otherwise on the two
+    sides (the chunked scan against the sequential pass): the card no
+    farther from the float64 chain than the CPU is, plus that tolerance.
+    The mel kernel launches once and the filter twice a call."""
     wav = np.stack([_voiced(1, 24_000), _voiced(2, 24_000)])
     noise = ((np.random.RandomState(3).rand(*wav.shape) - 0.5) * 1e-6).astype(np.float32)
-    on_card = MelFrontend(device=cuda)
+    on_card, on_cpu = MelFrontend(device=cuda), MelFrontend(device="cpu")
     before = mel_ops.launches, sosfilt_ops.launches
     got = on_card.extract(model_type, wav, noise)
     torch.cuda.synchronize()
     assert (mel_ops.launches - before[0], sosfilt_ops.launches - before[1]) == (int(model_type == "spmel"), 2)
     assert got.device.type == "cuda" and got.dtype == torch.float32
-    want = MelFrontend(device="cpu").extract(model_type, wav, noise)
-    err = (got.cpu() - want).abs()
-    tol = 1e-4
+    got = got.cpu()
+    after = on_cpu.from_filtered(model_type, on_card.highpass_dither(wav, noise).cpu())
+    tol = torch.full_like(after, 1e-4)
     if model_type in ("stft", "legacy"):
-        tol = 1e-4 * 10.0 ** (5.0 * (want.amax(dim=-1, keepdim=True) - want - 0.4).clamp(min=0.0))
+        tol = 1e-4 * 10.0 ** (5.0 * (after.amax(dim=-1, keepdim=True) - after - 0.4).clamp(min=0.0))
+    err = (got - after).abs()
     assert bool((err <= tol).all()), (float(err.max()), float((err / tol).max()))
+    exact = torch.from_numpy(_exact_chain(wav, noise, model_type)).float()
+    cpu = on_cpu.extract(model_type, wav, noise)
+    card_far, cpu_far = ((got - exact).abs() / tol).max().item(), ((cpu - exact).abs() / tol).max().item()
+    assert card_far <= cpu_far + 1.0, (card_far, cpu_far)
 
 
 def test_mel_frontend_float64_on_card_raises(cuda):
