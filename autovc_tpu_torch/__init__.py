@@ -11,7 +11,11 @@ vocoding, mel (B, Tc, 80) -> conditioning upsampler -> 24-layer generation ->
 waveform (B, Tc*256), training of the spmel generator (``train.Solver``,
 ``python -m autovc_tpu_torch.cli.train``), and feature extraction, wav ->
 highpass + dither -> STFT -> mel + dB -> spmel/stft/legacy/wav features
-(``dsp.MelFrontend``, ``python -m autovc_tpu_torch.cli.make_spect``).
+(``dsp.MelFrontend``, ``python -m autovc_tpu_torch.cli.make_spect``), and the
+GE2E d-vector speaker encoder: speaker embeddings and manifests
+(``python -m autovc_tpu_torch.cli.make_metadata``), its verification EER
+(``cli.evaluate_speaker_encoder``), the similarity and MCD metrics (``eval``)
+and the ``lambda_spk`` training auxiliary.
 
     config     AudioConfig / ModelConfig / TrainConfig / Config / WaveNetConfig /
                HiFiGANConfig
@@ -20,14 +24,18 @@ highpass + dither -> STFT -> mel + dB -> spmel/stft/legacy/wav features
                front end, WAV I/O
     ops        kernels with their plain versions (ops.lstm, ops.wavenet,
                ops.mel, ops.sosfilt)
-    models     layers and the AutoVC generator
+    models     layers, the AutoVC generator and the GE2E d-vector
     losses     mse and l1
-    data       train.pkl manifests, the utterance dataset and batch iterator,
-               the device prefetcher
-    train      schedules, EMA, the train step, metrics, profiling, the Solver
+    data       train.pkl and metadata.pkl manifests, the metadata builder, the
+               utterance dataset and batch iterator, the device prefetcher
+    train      schedules, EMA, the train step (with the lambda_spk
+               auxiliary), metrics, profiling, the Solver, GE2E checkpoints
+    eval       the windowed speaker embedder, centroids, similarity, EER,
+               mel-cepstral distortion
     vocoder    HiFi-GAN and WaveNet
     convert    pad_seq and the Converter entry point
-    cli        python -m autovc_tpu_torch.cli.train, cli.make_spect
+    cli        python -m autovc_tpu_torch.cli.train, cli.make_spect,
+               cli.make_metadata, cli.evaluate_speaker_encoder
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card they
 raise. Pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.

@@ -5,13 +5,16 @@
         [--lambda_cd W] [--lr_scheduler Cosine|CosineDecay|Plateau]
         [--ema DECAY] [--resume] [--log_step N] [--checkpoint_step N]
         [--watch_step N] [--seed S] [--export OUT.npz] [--device cuda|cpu]
+        [--lambda_spk W --spk_ckpt GE2E.npz [--spk_protocol windowed|crop]
+         [--spk_margin M]]
 
 The flags of ``autovc_tpu/cli/train.py`` for this slice, plus ``--device``
 (default ``cuda``); the generator has the published widths. It reads
 ``<main_dir>/spmel/train.pkl`` and the ``.npy`` features it names:
-``autovc_tpu_torch.cli.make_spect`` writes the features, but the manifest
-comes from the JAX package's ``cli.make_metadata`` (the metadata builder is
-not ported: ROADMAP Queue 1 #4). ``--export`` writes the final parameters and
+``autovc_tpu_torch.cli.make_spect`` writes the features and
+``autovc_tpu_torch.cli.make_metadata`` the manifest. ``--lambda_spk``
+above 0 adds the speaker-consistency auxiliary on the frozen GE2E encoder
+of ``--spk_ckpt`` (``train.step.loss_fn``). ``--export`` writes the final parameters and
 BatchNorm statistics as the JAX CLI does: a flat ``.npz`` of
 ``params/...`` and ``batch_stats/...`` in the JAX layouts, plus
 ``__step__``, which ``autovc_tpu`` and ``build_generator(artifact=...)``
@@ -33,7 +36,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--lambda_cd", type=float, default=1.0)
     ap.add_argument("--lambda_spk", type=float, default=0.0,
-                    help="speaker-consistency weight; above 0 is not ported (ROADMAP Queue 1 #4)")
+                    help="speaker-consistency weight (0 = the reference objective); needs --spk_ckpt")
+    ap.add_argument("--spk_ckpt", default=None, help="frozen GE2E encoder .npz for --lambda_spk")
+    ap.add_argument("--spk_protocol", default="windowed", choices=["windowed", "crop"],
+                    help="windowed: a hinge on the evaluation's margin to the speaker centroids; crop: a "
+                         "single-window cosine pull toward the target embedding")
+    ap.add_argument("--spk_margin", type=float, default=1.5, help="the windowed protocol's hinge margin")
     ap.add_argument("--dim_neck", type=int, default=32)
     ap.add_argument("--dim_emb", type=int, default=256)
     ap.add_argument("--dim_pre", type=int, default=512)
@@ -54,8 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data_parallel", type=int, default=1)
     ap.add_argument("--model_parallel", type=int, default=1)
-    ap.add_argument("--multihost", action="store_true", help="not ported (ROADMAP Queue 1 #10)")
-    ap.add_argument("--bf16", action="store_true", help="not ported (ROADMAP Queue 1 #9)")
+    ap.add_argument("--multihost", action="store_true", help="not ported (ROADMAP Queue 1 #8)")
+    ap.add_argument("--bf16", action="store_true", help="not ported (ROADMAP Queue 1 #6)")
     ap.add_argument("--watch_step", type=int, default=0)
     ap.add_argument("--export", default=None, help="after training, write the final parameters to this .npz")
     ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (the plain versions)")
@@ -65,22 +73,23 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     if args.bf16:
-        raise SystemExit("--bf16: bf16 compute is not ported yet (ROADMAP Queue 1 #9)")
+        raise SystemExit("--bf16: bf16 compute is not ported yet (ROADMAP Queue 1 #6)")
     if args.multihost:
-        raise SystemExit("--multihost: multi-process training is not ported yet (ROADMAP Queue 1 #10)")
-    if args.lambda_spk > 0:
-        raise SystemExit("--lambda_spk > 0 needs the speaker encoder, not ported yet (ROADMAP Queue 1 #4)")
+        raise SystemExit("--multihost: multi-process training is not ported yet (ROADMAP Queue 1 #8)")
+    if args.lambda_spk > 0 and not args.spk_ckpt:
+        raise SystemExit("--lambda_spk > 0 requires --spk_ckpt (a frozen GE2E encoder .npz)")
     if args.model_type != "spmel":
-        raise SystemExit(f"--model_type {args.model_type}: only spmel is ported (ROADMAP Queue 1 #5, #6)")
+        raise SystemExit(f"--model_type {args.model_type}: only spmel is ported (ROADMAP Queue 1 #3, #4)")
     manifest = os.path.join(args.main_dir, "spmel", "train.pkl")
     if not os.path.exists(manifest):
         raise SystemExit(f"{manifest} not found: make the spmel features with autovc_tpu_torch.cli.make_spect "
-                         f"and train.pkl with the JAX package's cli.make_metadata (not ported: ROADMAP Queue 1 #4)")
+                         f"and train.pkl with autovc_tpu_torch.cli.make_metadata")
 
     run_name = args.run_name if args.resume else args.run_name + datetime.now().strftime("_%y%B%d_%H%M_%S")
     cfg = Config(
         model=ModelConfig(dim_neck=args.dim_neck, dim_emb=args.dim_emb, dim_pre=args.dim_pre, freq=args.freq),
-        train=TrainConfig(lambda_cd=args.lambda_cd, lambda_spk=args.lambda_spk, batch_size=args.batch_size,
+        train=TrainConfig(lambda_cd=args.lambda_cd, lambda_spk=args.lambda_spk, spk_ckpt=args.spk_ckpt,
+                          spk_protocol=args.spk_protocol, spk_margin=args.spk_margin, batch_size=args.batch_size,
                           num_iters=args.num_iters, len_crop=args.len_crop, lr=args.lr,
                           lr_scheduler=args.lr_scheduler, ema_decay=args.ema, log_step=args.log_step,
                           checkpoint_step=args.checkpoint_step, watch_step=args.watch_step, seed=args.seed,

@@ -1,10 +1,11 @@
 """Hyperparameters of the ported paths.
 
 A copy of the fields this package reads from the JAX package's
-``autovc_tpu/config.py`` (``AudioConfig``, ``ModelConfig``, ``TrainConfig``,
-``Config``, ``WaveNetConfig`` and ``HiFiGANConfig``), with the same defaults:
-the feature contract of the reference's make_spect.py, the published AutoVC
-generator and its training contract, the r9y9 WaveNet vocoder and the
+``autovc_tpu/config.py`` (``AudioConfig``, ``ModelConfig``,
+``SpeakerEncoderConfig``, ``TrainConfig``, ``Config``, ``WaveNetConfig`` and
+``HiFiGANConfig``), with the same defaults: the feature contract of the
+reference's make_spect.py, the published AutoVC generator and its training
+contract, the GE2E d-vector speaker encoder, the r9y9 WaveNet vocoder and the
 HiFi-GAN V1 vocoder.
 """
 
@@ -111,10 +112,25 @@ class WaveNetConfig:
 
 
 @dataclass(frozen=True)
+class SpeakerEncoderConfig:
+    """GE2E d-vector encoder (reference model_bl.py:5-11, make_metadata.py:41).
+
+    The Solver reads ``num_uttrs`` from ``Config.speaker``; the other fields
+    are the one home of the defaults that ``DVector``, ``dvector_for_params``,
+    ``embed_speaker``, ``eval.SpeakerEmbedder`` and ``train.step.windowed_embed``
+    take (a checkpoint's own widths override the dims where one is loaded)."""
+
+    dim_input: int = 80
+    dim_cell: int = 768
+    dim_emb: int = 256
+    num_layers: int = 3
+    num_uttrs: int = 10  # utterances averaged per speaker (make_metadata.py:21)
+    len_crop: int = 128  # crop length fed to the encoder (make_metadata.py:23)
+
+
+@dataclass(frozen=True)
 class TrainConfig:
-    """The training contract of the JAX ``TrainConfig``, with its defaults.
-    ``lambda_spk`` (the speaker-consistency auxiliary) is kept so that a
-    config can name it; the port raises when it is above 0."""
+    """The training contract of the JAX ``TrainConfig``, with its defaults."""
 
     lambda_cd: float = 1.0
     batch_size: int = 2
@@ -126,7 +142,16 @@ class TrainConfig:
     cosine_eta_min_ratio: float = 0.01  # CosineDecay: anneal to this fraction of lr
     plateau_factor: float = 0.1
     plateau_patience: int = 10
+    # speaker-consistency auxiliary: within-batch cross-conversions are
+    # re-embedded by a frozen GE2E encoder (spk_ckpt); 0.0 is the reference
+    # objective. 'windowed' embeds the converted crop with the evaluation's
+    # windowed protocol and puts a hinge at spk_margin on cos(e, target
+    # centroid) - cos(e, source centroid); 'crop' is the single-window cosine
+    # pull toward the conditioning embedding
     lambda_spk: float = 0.0
+    spk_ckpt: str | None = None
+    spk_protocol: str = "windowed"  # 'windowed' | 'crop'
+    spk_margin: float = 1.5
     ema_decay: float = 0.9999  # a real per-step EMA
     log_step: int = 100
     checkpoint_step: int = 100
@@ -141,6 +166,7 @@ class Config:
     """Top-level config tree of the training path."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
+    speaker: SpeakerEncoderConfig = field(default_factory=SpeakerEncoderConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     main_dir: str = "."
     run_name: str = "run"

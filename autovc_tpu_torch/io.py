@@ -11,7 +11,9 @@ a ``Generator`` state dict back into the JAX tree, which
 ``save_generator_artifact`` writes in the JAX artifact schema (what
 ``cli/train.py --export`` writes); ``wavenet_state_from_jax`` turns the
 flat WaveNet artifact (no ``params/`` level) into the state dict of
-``autovc_tpu_torch.vocoder.wavenet.WaveNet``.
+``autovc_tpu_torch.vocoder.wavenet.WaveNet``; ``dvector_state_from_jax``
+and ``dvector_state_to_jax`` map a GE2E d-vector tree to the state dict of
+``autovc_tpu_torch.models.DVector`` and back.
 
 Layouts (JAX -> this package):
 
@@ -146,11 +148,43 @@ def hifigan_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return dict(_leaf_to_torch(path, value) for path, value in flatten_params(params).items())
 
 
-def wavenet_state_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
-    """The JAX WaveNet parameter tree (``first_conv``, ``layers/<i>``,
-    ``last1``, ``last2``, ``upsample/<j>``) -> state dict of
-    ``autovc_tpu_torch.vocoder.wavenet.WaveNet``, layouts unchanged."""
+def _flat_state(tree: Mapping) -> dict[str, torch.Tensor]:
+    """A nested numpy tree -> a state dict of float32 C-order tensors, its
+    names the tree's paths with '.' for '/', layouts unchanged."""
     return {
         path.replace("/", "."): torch.from_numpy(np.array(value, np.float32, order="C"))
         for path, value in flatten_params(tree).items()
     }
+
+
+def wavenet_state_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX WaveNet parameter tree (``first_conv``, ``layers/<i>``,
+    ``last1``, ``last2``, ``upsample/<j>``) -> state dict of
+    ``autovc_tpu_torch.vocoder.wavenet.WaveNet``, layouts unchanged."""
+    return _flat_state(tree)
+
+
+def dvector_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """A GE2E tree (``{'dvector', 'w', 'b'}``, the layout of
+    ``artifacts/ge2e*.npz``) or bare ``DVector`` params -> state dict of
+    ``autovc_tpu_torch.models.DVector``, names and layouts unchanged (the
+    LSTM leaves as ``layers.LSTM`` keeps them, the dense kernel (in, out))."""
+    return _flat_state(params.get("dvector", params))
+
+
+def dvector_state_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
+    """State dict of ``autovc_tpu_torch.models.DVector`` -> bare ``DVector``
+    params of the JAX package (float32 numpy): the inverse of
+    ``dvector_state_from_jax``. ``{'dvector': ...}`` of it, flattened, is a
+    GE2E ``.npz`` that both packages load."""
+    return unflatten_params({key.replace(".", "/"): value.detach().cpu().numpy().astype(np.float32)
+                             for key, value in state.items()})
+
+
+def save_dvector_artifact(state: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write a ``DVector`` state dict as a GE2E checkpoint ``.npz``: the flat
+    ``dvector/...`` leaves in the JAX layouts, which ``train.ge2e.load_params``
+    (and the JAX package's ``GE2ETrainer.load_params``) read back. The GE2E
+    loss's scale and offset (``w``, ``b``), which only training reads, are
+    not written."""
+    np.savez(path, **flatten_params({"dvector": dvector_state_to_jax(state)}))

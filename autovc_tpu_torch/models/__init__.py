@@ -1,4 +1,4 @@
-"""AutoVC generator and its layers."""
+"""AutoVC generator, the GE2E d-vector speaker encoder and their layers."""
 
 from __future__ import annotations
 
@@ -6,8 +6,9 @@ import torch
 
 from autovc_tpu_torch import resolve_device
 from autovc_tpu_torch.config import ModelConfig
-from autovc_tpu_torch.io import generator_state_from_jax, load_artifact
+from autovc_tpu_torch.io import dvector_state_from_jax, generator_state_from_jax, load_artifact
 from autovc_tpu_torch.models.autovc import Decoder, Encoder, Generator, Postnet
+from autovc_tpu_torch.models.dvector import DVector, dvector_for_params
 from autovc_tpu_torch.models.layers import LSTM, BatchNorm, ConvNorm, LinearNorm, reset_parameters
 
 
@@ -29,14 +30,33 @@ def build_generator(cfg: ModelConfig = ModelConfig(), *, artifact: str | None = 
     return model.train() if trainable else model.eval().requires_grad_(False)
 
 
+def build_dvector(params=None, *, device: str | torch.device = "cuda", seed: int = 0,
+                  **dims: int) -> DVector:
+    """A frozen d-vector encoder in eval mode on ``device``: sized to and
+    loaded from a GE2E parameter tree (numpy; ``train.ge2e.load_params``),
+    or, when ``params`` is None, drawn from ``seed`` at ``dims`` (the
+    ``DVector`` arguments; the reference's 80/768/256 x3 by default)."""
+    dev = resolve_device(device)
+    if params is None:
+        model = DVector(**dims)
+        model.reset_parameters(seed)
+    else:
+        model = dvector_for_params(params)
+        model.load_state_dict(dvector_state_from_jax(params))
+    return model.to(dev).eval().requires_grad_(False)
+
+
 __all__ = [
     "BatchNorm",
     "ConvNorm",
+    "DVector",
     "Decoder",
     "Encoder",
     "Generator",
     "LSTM",
     "LinearNorm",
     "Postnet",
+    "build_dvector",
     "build_generator",
+    "dvector_for_params",
 ]

@@ -14,7 +14,8 @@ direction of a BLSTM) and returns the sequence in natural time order.
   (h_seq, hN, cN): its forward runs the kernel's training form, which also
   keeps the cell sequence and the gate activations; its backward runs
   ``csrc/lstm_bwd.cu`` (the reversed recurrence with dh0, then the dW
-  product) on them.
+  product, left out where w_hh does not require grad, as in a frozen
+  encoder) on them.
 - ``dw_plan`` chooses, in plain Python from (B, T, H), the dW product's
   tiles and its split of K over blocks where the tiles alone leave SMs idle.
 - ``launch_plan`` chooses, in plain Python from (B, H), how a sequence is
@@ -99,9 +100,11 @@ def lstm_weight_grad_ref(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: t
     return hprev.reshape(-1, hprev.shape[-1]).T @ dxproj.reshape(-1, dxproj.shape[-1]).to(dt)
 
 
-def lstm_backward_ref(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None, reverse: bool = False):
+def lstm_backward_ref(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None, reverse: bool = False, *,
+                      need_dw: bool = True):
     """The plain backward: the reversed loop of ``pallas_lstm.py:438-453``,
-    gates recomputed from (xproj, hprev) -> (dxproj, dW_hh, dh0, dc0)."""
+    gates recomputed from (xproj, hprev) -> (dxproj, dW_hh, dh0, dc0); dW_hh
+    is None unless ``need_dw`` (a frozen w_hh)."""
     b, t, h4 = xproj.shape
     hidden = h4 // 4
     dt = _compute_dtype(xproj)
@@ -126,7 +129,7 @@ def lstm_backward_ref(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None,
         dx[:, step] = dgates
         dh_carry = dgates @ w.T
         dc = dc * sf
-    return dx, lstm_weight_grad_ref(h_seq, h0, dx, reverse), dh_carry, dc
+    return dx, lstm_weight_grad_ref(h_seq, h0, dx, reverse) if need_dw else None, dh_carry, dc
 
 
 def lstm_gates_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None, h_seq: torch.Tensor,
@@ -455,9 +458,10 @@ def lstm_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: 
 
 
 def lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None, reverse: bool = False, *,
-                       gates):
+                       gates, need_dw: bool = True):
     """Launch the backward kernels on the current stream -> (dxproj, dW_hh,
-    dh0, dc0): the reversed recurrence with dh0 in one launch, then dW.
+    dh0, dc0): the reversed recurrence with dh0 in one launch, then dW, or,
+    when not ``need_dw`` (a frozen w_hh), no dW launch and None for it.
     ``gates`` are the forward kernel's gate activations (its ``with_gates``
     output), which the backward reads in place of recomputing them."""
     global bwd_launches
@@ -474,7 +478,7 @@ def lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None
         _launch(lib, lib.autovc_lstm_bwd, plan, [_ptr(v) for v in (gates, w_hh, c0, c_seq, dy, dhn, dx, dc, dh0)],
                 (b, t, hidden, int(reverse)), "lstm backward kernel")
     bwd_launches += 1
-    return dx, lstm_weight_grad_cuda(h_seq, h0, dx, reverse), dh0, dc
+    return dx, lstm_weight_grad_cuda(h_seq, h0, dx, reverse) if need_dw else None, dh0, dc
 
 
 def _device_kind(xproj: torch.Tensor) -> str:
@@ -504,10 +508,11 @@ class LSTMSequenceFn(torch.autograd.Function):
     def backward(ctx, dy, dhn, dcn):
         xproj, w_hh, h0, c0, h_seq, c_seq, gates = ctx.saved_tensors
         args = (xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, ctx.reverse)
+        need_dw = ctx.needs_input_grad[1]  # no dW for a frozen w_hh
         if _device_kind(xproj) == "cuda":
-            dx, dw, dh0, dc0 = lstm_backward_cuda(*args, gates=gates)
+            dx, dw, dh0, dc0 = lstm_backward_cuda(*args, gates=gates, need_dw=need_dw)
         else:
-            dx, dw, dh0, dc0 = lstm_backward_ref(*args)
+            dx, dw, dh0, dc0 = lstm_backward_ref(*args, need_dw=need_dw)
         return dx, dw, None if h0 is None else dh0, None if c0 is None else dc0, None
 
 

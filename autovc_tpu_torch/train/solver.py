@@ -14,7 +14,13 @@ the state on the device (the step updates it in place) and writes it from
 one background thread, under a temporary name then renamed; a periodic save
 that finds the previous one still in flight is skipped, and the last three
 are kept. There is no mesh and no multi-process path here: data and model
-parallelism other than 1 raise (ROADMAP Queue 1 #10).
+parallelism other than 1 raise (ROADMAP Queue 1 #8).
+
+With ``lambda_spk > 0`` the frozen GE2E encoder of ``spk_ckpt`` and, for the
+'windowed' protocol, its tables (the unit-norm train.pkl embeddings and the
+evaluation's speaker centroids, computed once with ``eval.SpeakerEmbedder``
+on the Solver's device) are built once and shared by the train step and
+``eval_loss``.
 """
 
 from __future__ import annotations
@@ -37,12 +43,22 @@ from autovc_tpu_torch.train.metrics import MetricsLogger
 from autovc_tpu_torch.train.profiler import StepTimer
 from autovc_tpu_torch.train.schedule import ReduceLROnPlateau
 from autovc_tpu_torch.train.state import TrainState, init_ema
-from autovc_tpu_torch.train.step import make_eval_loss, make_optimizer, make_train_step
+from autovc_tpu_torch.train.step import SpeakerAux, make_eval_loss, make_optimizer, make_train_step
 from autovc_tpu_torch.train.watch import watch_histograms
 
 MAX_TO_KEEP = 3
 _CKPT = re.compile(r"^step_(\d+)\.pt$")
-LOG_KEYS = ["g_loss_id", "g_loss_id_psnt", "g_loss_cd"]
+
+
+def log_keys(cfg: Config) -> list[str]:
+    """The console's loss terms: the speaker auxiliary's among them when it
+    is on (and its mean margin under the 'windowed' protocol)."""
+    keys = ["g_loss_id", "g_loss_id_psnt", "g_loss_cd"]
+    if cfg.train.lambda_spk > 0:
+        keys.append("g_loss_spk")
+        if cfg.train.spk_protocol == "windowed":
+            keys.append("g_spk_margin")
+    return keys
 
 
 def _tree_map(fn, tree):
@@ -58,7 +74,7 @@ class Solver:
                  device: str | torch.device = "cuda"):
         if cfg.train.data_parallel != 1 or cfg.train.model_parallel != 1:
             raise NotImplementedError("data_parallel/model_parallel other than 1 are not ported yet "
-                                      "(ROADMAP Queue 1 #10)")
+                                      "(ROADMAP Queue 1 #8)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.data_iter = data_iter
@@ -82,12 +98,56 @@ class Solver:
         model = build_generator(cfg.model, device=self.device, seed=cfg.train.seed, trainable=True)
         self.state = TrainState(step=0, model=model, optimizer=make_optimizer(model, cfg),
                                 ema_params=init_ema(model))
-        self._step_fn = make_train_step(cfg)
-        self._eval_fn = make_eval_loss(model, cfg)
+        self.spk_aux = self._build_spk_aux()
+        self._step_fn = make_train_step(cfg, spk=self.spk_aux)
+        self._eval_fn = make_eval_loss(model, cfg, spk=self.spk_aux)
         latest = self.latest_step()
         if latest is not None:
             self.restore(latest)
             print(f"Continue from iteration: {self.state.step}")
+
+    # ------------------------------------------------------- speaker encoder
+
+    def _speaker_aux_windowed(self, dvec_params: dict) -> SpeakerAux:
+        """The 'windowed' protocol's tables: the unit-norm train.pkl
+        conditioning rows (the speaker lookup) and the evaluation's speaker
+        centroids (the targets), computed once with the same
+        ``eval.SpeakerEmbedder`` the similarity evaluation uses."""
+        from autovc_tpu_torch.data.manifest import load_train_manifest
+        from autovc_tpu_torch.eval import SpeakerEmbedder, load_speaker_mels, speaker_centroids
+
+        mel_dir = os.path.join(self.cfg.main_dir, "spmel")
+        entries = load_train_manifest(os.path.join(mel_dir, "train.pkl"))
+        embedder = SpeakerEmbedder(dvec_params, device=self.device)
+        mels = load_speaker_mels(mel_dir, entries, self.cfg.speaker.num_uttrs)
+        cents = speaker_centroids(embedder, mels)
+        table = np.stack([e.embedding for e in entries]).astype(np.float32)
+        table /= np.linalg.norm(table, axis=-1, keepdims=True) + 1e-8
+        print(f"[solver] lambda_spk windowed protocol: eval centroids for {len(entries)} speakers "
+              f"(margin {self.cfg.train.spk_margin})")
+        centroids = np.stack([cents[e.speaker_id] for e in entries]).astype(np.float32)
+        return SpeakerAux(embedder.model, emb_table=torch.from_numpy(table).to(self.device),
+                          centroids=torch.from_numpy(centroids).to(self.device))
+
+    def _build_spk_aux(self) -> SpeakerAux | None:
+        """The lambda_spk auxiliary's frozen encoder (and tables), or None
+        when lambda_spk is 0."""
+        tc = self.cfg.train
+        if tc.lambda_spk <= 0:
+            return None
+        if not tc.spk_ckpt:
+            raise ValueError("lambda_spk > 0 requires spk_ckpt (a GE2E checkpoint .npz)")
+        from autovc_tpu_torch.models import build_dvector
+        from autovc_tpu_torch.train.ge2e import load_params
+
+        dvec_params = load_params(tc.spk_ckpt)
+        if tc.spk_protocol == "windowed":
+            spk = self._speaker_aux_windowed(dvec_params)
+        else:
+            spk = SpeakerAux(build_dvector(dvec_params, device=self.device))
+        print(f"[solver] speaker-consistency aux on (lambda_spk={tc.lambda_spk}, protocol={tc.spk_protocol}, "
+              f"frozen encoder: {tc.spk_ckpt})")
+        return spk
 
     # ----------------------------------------------------------------- train
 
@@ -158,7 +218,7 @@ class Solver:
                     last_metrics = {k: float(v) for k, v in m.items()}
                     self.history.append(dict(last_metrics, step=i))
                     self.metrics.log(i, last_metrics)
-                    self.metrics.console(i, num_iters, last_metrics, keys=LOG_KEYS)
+                    self.metrics.console(i, num_iters, last_metrics, keys=log_keys(cfg))
                 self.timer.tick()
                 if cfg.train.watch_step and i % cfg.train.watch_step == 0:
                     self.metrics.log_histograms(i, watch_histograms(self.state.model))

@@ -97,8 +97,14 @@ class HiFiGANVocoder:
         self.model = model.to(self.device).eval().requires_grad_(False)
 
     @classmethod
-    def from_checkpoint(cls, path: str, cfg: HiFiGANConfig = HiFiGANConfig(),
+    def from_checkpoint(cls, cfg: HiFiGANConfig, path: str | None, *,
                         device: str | torch.device = "cuda") -> "HiFiGANVocoder":
+        """The JAX ``from_checkpoint(cfg, path)``: an exported ``.npz``
+        artifact, or weights drawn from seed 0 when ``path`` is None. A torch
+        checkpoint raises: its importer is not ported yet (ROADMAP Queue 1 #9)."""
+        if path is not None and path.endswith((".pt", ".pth", ".ckpt")):
+            raise ValueError(f"{path}: torch HiFi-GAN checkpoints do not load yet (ROADMAP Queue 1 #9); "
+                             f"export an .npz artifact")
         return cls(cfg, artifact=path, device=device)
 
     @torch.inference_mode()

@@ -151,11 +151,15 @@ class WaveNetVocoder:
         self.packed = wavenet_ops.pack_weights(self.model.state_dict(), cfg.layers)
 
     @classmethod
-    def from_checkpoint(cls, path: str, cfg: WaveNetConfig = WaveNetConfig(),
+    def from_checkpoint(cls, cfg: WaveNetConfig, path: str | None, *,
                         device: str | torch.device = "cuda") -> "WaveNetVocoder":
-        """An exported ``.npz`` artifact (f16 storage is upcast to f32)."""
-        if not path.endswith(".npz"):
-            raise ValueError(f"only exported .npz artifacts load here, not {path!r}")
+        """The JAX ``from_checkpoint(cfg, path)``: an exported ``.npz``
+        artifact (f16 storage is upcast to f32), or weights drawn from seed 0
+        when ``path`` is None. A torch checkpoint raises: its importer is not
+        ported yet (ROADMAP Queue 1 #9)."""
+        if path is not None and not path.endswith(".npz"):
+            raise ValueError(f"only exported .npz artifacts load here, not {path!r}: the torch WaveNet importer "
+                             f"is not ported yet (ROADMAP Queue 1 #9)")
         return cls(cfg, artifact=path, device=device)
 
     def uniforms(self, batch: int, length: int, generator: torch.Generator | None = None) -> torch.Tensor:

@@ -19,13 +19,16 @@ from autovc_tpu_torch.config import AudioConfig, Config, TrainConfig, WaveNetCon
 from autovc_tpu_torch.convert import Converter
 from autovc_tpu_torch.dsp import (MelFrontend, butter_highpass, butter_highpass_sos, mel_filterbank, sos_filtfilt,
                                   write_wav)
-from autovc_tpu_torch.models import build_generator
+from autovc_tpu_torch.eval import SpeakerEmbedder
+from autovc_tpu_torch.io import dvector_state_to_jax
+from autovc_tpu_torch.models import build_dvector, build_generator
 from autovc_tpu_torch.ops import lstm as lstm_ops
 from autovc_tpu_torch.ops import mel as mel_ops
 from autovc_tpu_torch.ops import sosfilt as sosfilt_ops
 from autovc_tpu_torch.ops import wavenet as wavenet_ops
-from autovc_tpu_torch.train import TrainState, init_ema, make_eval_loss, make_optimizer, make_train_step
+from autovc_tpu_torch.train import TrainState, init_ema, loss_fn, make_eval_loss, make_optimizer, make_train_step
 from autovc_tpu_torch.train.compare import KinkTape, grad_scale
+from autovc_tpu_torch.train.step import SpeakerAux
 from autovc_tpu_torch.vocoder import HiFiGANVocoder, WaveNetVocoder
 
 pytestmark = pytest.mark.gpu
@@ -695,3 +698,92 @@ def test_make_spect_on_card_matches_exact(cuda, tmp_path):
         assert got.dtype == np.float32 and got.shape == want.shape and got.shape[1] == 80
         assert 0.0 <= got.min() and got.max() <= 1.0
         np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
+# ------------------------------------------------------- the speaker encoder
+
+# the d-vector's shapes: make_metadata's single crops (B=1), the evaluation's
+# padded window batches (B=8) and the training auxiliary's batch (B=7), at
+# the published width (H=768) and the independent judge's (H=256)
+DVECTOR_SHAPES = [(1, 128, 768), (8, 128, 768), (7, 128, 768), (8, 128, 256)]
+
+
+@pytest.mark.parametrize("b, t, hidden", DVECTOR_SHAPES)
+def test_lstm_kernels_at_the_dvector_shapes(cuda, b, t, hidden):
+    """The forward kernel (inference form) and the backward kernel without
+    dW (a frozen w_hh) against the plain versions, within 1e-4 (f32 sums in
+    another order); the backward launches no dW."""
+    xproj, w_hh, h0, c0, dy, dhn, dcn = (torch.from_numpy(a).to(cuda) for a in _train_inputs(8, b, t, hidden))
+    torch.testing.assert_close(lstm_ops.lstm_sequence(xproj, w_hh), lstm_ops.lstm_sequence_ref(xproj, w_hh),
+                               atol=1e-4, rtol=0)
+    h_seq, c_seq, _, _ = lstm_ops.lstm_sequence_train_ref(xproj, w_hh, h0, c0)
+    gates = lstm_ops.lstm_forward_cuda(xproj, w_hh, h0, c0, with_gates=True)[4]
+    before = lstm_ops.bwd_launches, lstm_ops.dw_launches
+    got = lstm_ops.lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, gates=gates, need_dw=False)
+    torch.cuda.synchronize()
+    assert (lstm_ops.bwd_launches, lstm_ops.dw_launches) == (before[0] + 1, before[1])
+    want = lstm_ops.lstm_backward_ref(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, need_dw=False)
+    assert got[1] is None and want[1] is None
+    for name, g, w in zip(("dxproj", "dh0", "dc0"), (got[0], got[2], got[3]), (want[0], want[2], want[3])):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("dim_cell", [768, 256])
+def test_dvector_and_embedder_on_card_match_cpu(cuda, dim_cell):
+    """The seeded d-vector (80/dim_cell/256 x3) on the card (the kernels)
+    against the CPU (the plain recurrence): unit embeddings at B=1, 7 and 8
+    within 1e-4, three launches a forward; the SpeakerEmbedder's embedding
+    of a 317-frame utterance (4 windows, padded to 8) within 1e-4."""
+    card = build_dvector(device=cuda, seed=4, dim_cell=dim_cell)
+    cpu = build_dvector(device="cpu", seed=4, dim_cell=dim_cell)
+    rng = np.random.RandomState(dim_cell)
+    for b in (1, 7, 8):
+        x = torch.from_numpy(rng.rand(b, 128, 80).astype(np.float32))
+        before = lstm_ops.launches
+        with torch.no_grad():
+            got = card(x.to(cuda))
+            torch.cuda.synchronize()
+            assert lstm_ops.launches == before + 3
+            torch.testing.assert_close(got.cpu(), cpu(x), atol=1e-4, rtol=0)
+    params = dvector_state_to_jax(cpu.state_dict())
+    mel = rng.rand(317, 80).astype(np.float32)
+    got = SpeakerEmbedder(params, device=cuda).embed(mel)
+    np.testing.assert_allclose(got, SpeakerEmbedder(params, device="cpu").embed(mel), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("protocol", ["windowed", "crop"])
+def test_speaker_loss_on_card_matches_cpu(cuda, protocol):
+    """The full-width generator's loss with the lambda_spk auxiliary (B=2,
+    T=160: two windows a row; the 80/256/256 x3 d-vector): the card (the
+    kernels) against the CPU on the CPU's side of every kink, the hinge's
+    ReLU among them. The loss within 1e-5 relative, each gradient leaf
+    within 1e-3 of its ``grad_scale`` (as the full-width train step); the
+    frozen d-vector's three backward sequences launch no dW."""
+    cfg = Config(train=TrainConfig(batch_size=2, len_crop=160, lambda_spk=1.0, spk_protocol=protocol))
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.rand(2, 160, 80).astype(np.float32))
+    emb = torch.from_numpy(rng.randn(2, 256).astype(np.float32))
+    table = emb / emb.norm(dim=-1, keepdim=True)
+    cents = torch.from_numpy(rng.randn(2, 256).astype(np.float32))
+    cents = cents / cents.norm(dim=-1, keepdim=True)
+    grads, totals = {}, {}
+    tape = KinkTape()
+    for dev in ("cpu", cuda):
+        model = build_generator(cfg.model, device=dev, seed=3, trainable=True)
+        dvec = build_dvector(device=dev, seed=5, dim_cell=256)
+        tables = (table.to(dev), cents.to(dev)) if protocol == "windowed" else ()
+        before = lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches
+        with tape.record() if dev == "cpu" else tape.replay():
+            total, _ = loss_fn(model, cfg, x.to(dev), emb.to(dev), spk=SpeakerAux(dvec, *tables))
+            total.backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            # 7 eval-mode sequences for the conversion, 11 in training form, 3 of the d-vector
+            assert (lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches) == (
+                before[0] + 21, before[1] + 21, before[2] + 18)
+        totals[str(dev)] = float(total)
+        grads[str(dev)] = {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+    assert abs(totals["cuda"] - totals["cpu"]) <= 1e-5 * abs(totals["cpu"])
+    for n, g in grads["cuda"].items():
+        apart = float((g - grads["cpu"][n]).abs().max()) / grad_scale(n, grads["cpu"])
+        assert apart <= 1e-3, f"{n}: the card's gradient {apart:.3e} of its scale from the CPU's"

@@ -32,7 +32,7 @@ def _params(variables):
 @pytest.fixture(scope="module")
 def vocoders():
     jax_voc = JaxHiFiGANVocoder.from_checkpoint(JaxHiFiGANConfig(), VOC_ARTIFACT)
-    torch_voc = HiFiGANVocoder.from_checkpoint(VOC_ARTIFACT, device="cpu")
+    torch_voc = HiFiGANVocoder.from_checkpoint(HiFiGANConfig(), VOC_ARTIFACT, device="cpu")
     return jax_voc, torch_voc
 
 
@@ -113,4 +113,25 @@ def test_seeded_vocoder_is_reproducible_and_bounded():
 def test_vocoder_defaults_to_cuda_and_raises_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        HiFiGANVocoder.from_checkpoint(VOC_ARTIFACT)
+        HiFiGANVocoder.from_checkpoint(HiFiGANConfig(), VOC_ARTIFACT)
+
+
+@pytest.mark.parametrize("path", [None, VOC_ARTIFACT])
+def test_from_checkpoint_takes_the_jax_arguments(path):
+    """``from_checkpoint(cfg, path)`` as JAX's takes them, on a narrow
+    config for None (seeded weights, compared for shape and finiteness
+    only: the two packages' seeds draw differently) and the committed
+    artifact (JAX's weights exactly); a torch checkpoint raises and names
+    the ROADMAP item of its importer."""
+    kw = dict(upsample_initial_channel=32) if path is None else {}
+    jax_voc = JaxHiFiGANVocoder.from_checkpoint(JaxHiFiGANConfig(**kw), path)
+    port = HiFiGANVocoder.from_checkpoint(HiFiGANConfig(**kw), path, device="cpu")
+    want = io.hifigan_state_from_jax(_params({"params": jax_voc.params}))
+    got = port.model.state_dict()
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k].shape == v.shape and bool(torch.isfinite(got[k]).all()), k
+        if path is not None:
+            assert torch.equal(got[k], v), k
+    with pytest.raises(ValueError, match="Queue 1 #9"):
+        HiFiGANVocoder.from_checkpoint(HiFiGANConfig(), "generator_v1.pt", device="cpu")

@@ -154,6 +154,27 @@ def test_function_state_gradients_match_autograd():
             torch.testing.assert_close(va.grad, vr.grad, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+def test_function_computes_no_weight_gradient_for_a_frozen_w_hh(reverse):
+    """With w_hh frozen (a frozen encoder), the backward leaves dW out (None,
+    ``need_dw``) and gives the same dx as with dW; the plain backward's dW
+    is None when not asked for."""
+    xproj, w_hh, _, _, dy = _lstm_inputs(6)[:5]
+    grads = []
+    for frozen in (False, True):
+        x = torch.from_numpy(xproj).requires_grad_()
+        w = torch.from_numpy(w_hh).requires_grad_(not frozen)
+        (lstm_ops.lstm_sequence(x, w, reverse) * torch.from_numpy(dy)).sum().backward()
+        grads.append((x.grad, w.grad))
+    assert grads[0][1] is not None and grads[1][1] is None
+    assert torch.equal(grads[0][0], grads[1][0])
+    t_ = [torch.from_numpy(a) for a in _lstm_inputs(7)[:4]]
+    h_seq, c_seq, _, _ = lstm_ops.lstm_sequence_train_ref(*t_, reverse=reverse)
+    args = (*t_, h_seq, c_seq, torch.from_numpy(dy), None, None, reverse)
+    full, frozen = lstm_ops.lstm_backward_ref(*args), lstm_ops.lstm_backward_ref(*args, need_dw=False)
+    assert frozen[1] is None and all(torch.equal(full[i], frozen[i]) for i in (0, 2, 3))
+
+
 def test_lstm_sequence_without_grad_stays_plain():
     """Under no_grad (inference) the Function is not entered: no graph."""
     xproj, w_hh = (torch.from_numpy(a).requires_grad_() for a in _lstm_inputs(4)[:2])
@@ -265,7 +286,9 @@ def test_loss_and_gradients_match_jax():
 
 def test_loss_composition_and_eval_mode():
     """total = id + id_psnt + lambda_cd * cd; eval mode leaves the running
-    statistics as they were; lambda_spk > 0 raises and names the ROADMAP."""
+    statistics as they were; lambda_spk > 0 without a speaker encoder is the
+    reference objective, as in the JAX loss (the auxiliary itself:
+    tests/test_torch_speaker.py)."""
     cfg = Config(model=PORT_CFG.model, train=TrainConfig(lambda_cd=2.5))
     model = build_generator(cfg.model, device="cpu", seed=1, trainable=True)
     x, emb = map(torch.from_numpy, _batch(2))
@@ -277,8 +300,11 @@ def test_loss_composition_and_eval_mode():
         loss_fn(model, cfg, x, emb, train=False)
     assert all(torch.equal(before[k], v) for k, v in model.state_dict().items())
     assert model.training
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        loss_fn(model, Config(model=PORT_CFG.model, train=TrainConfig(lambda_spk=0.5)), x, emb)
+    cfg_spk = Config(model=PORT_CFG.model, train=TrainConfig(lambda_cd=2.5, lambda_spk=0.5))
+    with torch.no_grad():
+        total_spk, m_spk = loss_fn(model, cfg_spk, x, emb, train=False)
+        total_ref, m_ref = loss_fn(model, cfg, x, emb, train=False)
+    assert "g_loss_spk" not in m_spk and torch.equal(total_spk, total_ref)
 
 
 def test_kink_tape_replays_a_step_exactly():
@@ -637,7 +663,7 @@ def test_periodic_saves_skip_while_previous_in_flight(tmp_path):
 
 
 def test_solver_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
         _solver(tmp_path, _solver_cfg(tmp_path, data_parallel=2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -713,9 +739,9 @@ def test_cli_trains_published_widths_and_exports(tmp_path, monkeypatch):
     assert got.keys() == want.keys() and all(np.array_equal(got[k], v) for k, v in want.items())
 
 
-@pytest.mark.parametrize("flag, item", [(["--bf16"], "Queue 1 #9"), (["--multihost"], "Queue 1 #10"),
-                                        (["--lambda_spk", "0.5"], "Queue 1 #4"),
-                                        (["--model_type", "wav"], "Queue 1 #5, #6"), ([], "train.pkl")])
+@pytest.mark.parametrize("flag, item", [(["--bf16"], "Queue 1 #6"), (["--multihost"], "Queue 1 #8"),
+                                        (["--lambda_spk", "0.5"], "requires --spk_ckpt"),
+                                        (["--model_type", "wav"], "Queue 1 #3, #4"), ([], "train.pkl")])
 def test_cli_refuses_what_is_not_ported(tmp_path, flag, item):
     from autovc_tpu_torch.cli.train import main
 

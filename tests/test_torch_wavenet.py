@@ -178,7 +178,7 @@ def test_full_width_slice_matches_jax_on_committed_weights():
     forward on the JAX trajectory gives the JAX generation's logits."""
     path = os.path.join(ARTIFACTS, "wavenet_f16.npz")
     jax_voc = jax_wavenet.WaveNetVocoder.from_checkpoint(JaxWaveNetConfig(), path)
-    port = WaveNetVocoder.from_checkpoint(path, device="cpu")
+    port = WaveNetVocoder.from_checkpoint(WaveNetConfig(), path, device="cpu")
     mel = np.random.RandomState(5).rand(1, 80).astype(np.float32)
     key = jax.random.PRNGKey(0)
     cond = jax_wavenet.upsample_conditioning(jax_voc.params, jax_voc.cfg, jnp.asarray(mel)[None])
@@ -239,7 +239,7 @@ def test_vocoder_defaults_to_cuda_and_raises_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         WaveNetVocoder(WaveNetConfig(**TINY_KW))
     with pytest.raises(ValueError, match=r"\.npz"):
-        WaveNetVocoder.from_checkpoint("wavenet.pth", device="cpu")
+        WaveNetVocoder.from_checkpoint(WaveNetConfig(), "wavenet.pth", device="cpu")
 
 
 def test_generate_takes_cpu_or_cuda_only(tiny):
@@ -374,3 +374,21 @@ def test_kernel_weights_hold_each_blocks_slices(tiny, sms):
             for q, n in enumerate(cols):
                 assert torch.equal(res[:, q], res_rows[p - 1, :, n])
             assert not res[:, len(cols):].any()
+
+
+@pytest.mark.parametrize("path", [None, "wavenet_f16.npz"])
+def test_from_checkpoint_takes_the_jax_arguments(path):
+    """``from_checkpoint(cfg, path)`` as JAX's takes them: an artifact gives
+    JAX's weights exactly; None gives seeded weights, compared for shape and
+    finiteness only (the two packages' seeds draw differently)."""
+    full = None if path is None else os.path.join(ARTIFACTS, path)
+    kw = TINY_KW if path is None else {}
+    jax_voc = jax_wavenet.WaveNetVocoder.from_checkpoint(JaxWaveNetConfig(**kw), full)
+    port = WaveNetVocoder.from_checkpoint(WaveNetConfig(**kw), full, device="cpu")
+    want = io.wavenet_state_from_jax(jax.tree_util.tree_map(np.asarray, jax_voc.params))
+    got = port.model.state_dict()
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k].shape == v.shape and bool(torch.isfinite(got[k]).all()), k
+        if path is not None:
+            assert torch.equal(got[k], v), k
