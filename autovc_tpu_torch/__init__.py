@@ -15,7 +15,11 @@ highpass + dither -> STFT -> mel + dB -> spmel/stft/legacy/wav features
 GE2E d-vector speaker encoder: speaker embeddings and manifests
 (``python -m autovc_tpu_torch.cli.make_metadata``), its verification EER
 (``cli.evaluate_speaker_encoder``), the similarity and MCD metrics (``eval``)
-and the ``lambda_spk`` training auxiliary.
+and the ``lambda_spk`` training auxiliary; and bfloat16 inference (the
+Generator with ``ModelConfig(compute_dtype="bfloat16")``, HiFi-GAN and
+WaveNet with bfloat16 weights) and vocoding of a results pkl
+(``python -m autovc_tpu_torch.cli.synthesize``: Griffin-Lim, WaveNet or
+HiFi-GAN).
 
     config     AudioConfig / ModelConfig / TrainConfig / Config / WaveNetConfig /
                HiFiGANConfig
@@ -26,16 +30,17 @@ and the ``lambda_spk`` training auxiliary.
                ops.mel, ops.sosfilt)
     models     layers, the AutoVC generator and the GE2E d-vector
     losses     mse and l1
-    data       train.pkl and metadata.pkl manifests, the metadata builder, the
+    data       train.pkl, metadata.pkl and results manifests, the metadata builder, the
                utterance dataset and batch iterator, the device prefetcher
     train      schedules, EMA, the train step (with the lambda_spk
                auxiliary), metrics, profiling, the Solver, GE2E checkpoints
     eval       the windowed speaker embedder, centroids, similarity, EER,
                mel-cepstral distortion
-    vocoder    HiFi-GAN and WaveNet
+    vocoder    HiFi-GAN, WaveNet and Griffin-Lim
     convert    pad_seq and the Converter entry point
     cli        python -m autovc_tpu_torch.cli.train, cli.make_spect,
-               cli.make_metadata, cli.evaluate_speaker_encoder
+               cli.make_metadata, cli.evaluate_speaker_encoder,
+               cli.synthesize
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card they
 raise. Pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.
@@ -68,14 +73,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 def exact_f32(device: str | torch.device) -> Iterator[None]:
     """Full float32 products and convolutions on a CUDA ``device`` for the
     duration: TF32 off for cuDNN and for matmuls (torch's default runs cuDNN
-    convolutions in TF32), the caller's flags restored on exit. Does nothing
-    for another device."""
+    convolutions in TF32), and bfloat16 matmuls summed in float32 to the end
+    (torch's default lets cuBLAS reduce partial sums in bfloat16), the
+    caller's flags restored on exit. Does nothing for another device."""
     if torch.device(device).type != "cuda":
         yield
         return
-    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    matmul = torch.backends.cuda.matmul
+    flags = torch.backends.cudnn.allow_tf32, matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cudnn.allow_tf32 = matmul.allow_tf32 = matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        torch.backends.cudnn.allow_tf32, matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = flags

@@ -13,6 +13,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import torch
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 
 @dataclass(frozen=True)
 class AudioConfig:
@@ -51,7 +55,16 @@ class AudioConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """AutoVC generator widths. Only ``model_type='spmel'`` (80 mel bins) is
-    ported so far."""
+    ported so far.
+
+    ``compute_dtype`` is ``"float32"`` or ``"bfloat16"``, as in
+    ``autovc_tpu/config.py``: in bfloat16 the products and convolutions run
+    on bfloat16 operands while the parameters stay float32, cast at compute
+    time (inference only; training in bfloat16 raises). There is no
+    ``use_pallas_lstm``: the port has one LSTM engine, the CUDA kernel, and
+    in bfloat16 it rounds as the JAX package's Pallas kernel does (a float32
+    carry, the hidden sequence stored in bfloat16), not as its
+    ``lax.scan`` (which carries h and c in bfloat16)."""
 
     model_type: str = "spmel"
     dim_neck: int = 32
@@ -61,6 +74,11 @@ class ModelConfig:
     enc_channels: int = 512
     dec_lstm_dim: int = 1024
     postnet_channels: int = 512
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype is one of {sorted(COMPUTE_DTYPES)}, not {self.compute_dtype!r}")
 
     @property
     def n_bins(self) -> int:

@@ -5,6 +5,11 @@ multiple of ``freq``, run the generator with the source and target speaker
 embeddings, strip the padding. A spec is any object with ``src_features``
 (T, n_bins), ``src_embedding`` (dim_emb,) and ``trg_embedding`` (dim_emb,),
 such as the JAX package's ``ConversionSpec``.
+
+A generator built with ``compute_dtype="bfloat16"`` converts in bfloat16;
+the results are float32 NumPy arrays holding the bfloat16 values exactly
+(NumPy has no bfloat16: the JAX package returns ml_dtypes bfloat16 arrays
+of the same values).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ class Converter:
 
         with exact_f32(self.device):
             _, x_psnt, _ = self.generator(dev(x), dev(emb_org), dev(emb_trg))
-        return x_psnt
+        return x_psnt.float()
 
     def convert(self, spec: Any) -> np.ndarray:
         """One conversion -> output features (T, n_bins), padding stripped."""

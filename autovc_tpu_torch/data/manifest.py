@@ -9,10 +9,12 @@ metadata.pkl (make_metadata.py:125-128): a pickled list where each row is
      [src_name: str, src_emb (256,), src_features (T, F)],
      [trg_speaker: str, trg_emb (256,)]]
 
+results_<id>.pkl (conversion.py:117-121): a pickled list of
+    (name: str, mel: np.ndarray (T, F))
+
 They are read and written as these exact structures, with typed wrappers
 for use inside the package. Unpickle only files this program or the JAX
-package wrote. (The results files come with the rest of conversion, ROADMAP
-Queue 1 #3.)
+package wrote.
 """
 
 from __future__ import annotations
@@ -80,3 +82,14 @@ def save_conversion_metadata(path: str, specs: list[ConversionSpec]) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         pickle.dump(raw, f)
+
+
+def save_results(path: str, results: list[tuple[str, np.ndarray]]) -> None:
+    """results_<id>.pkl contract (conversion.py:117-121): list of (name, mel)."""
+    with open(path, "wb") as f:
+        pickle.dump(results, f)
+
+
+def load_results(path: str) -> list[tuple[str, np.ndarray]]:
+    with open(path, "rb") as f:
+        return pickle.load(f)

@@ -36,6 +36,11 @@ did, and ``/`` becomes ``.``.
 
 Flax wraps each conv, dense and BatchNorm in a child named ``Conv_0``,
 ``Dense_0`` or ``BatchNorm_0``; those path segments are dropped.
+
+bfloat16 is a compute dtype here, not a weight format: every mapping keeps
+the float32 parameters, and the bfloat16 paths (``ModelConfig.compute_dtype``,
+``HiFiGANVocoder(dtype=...)``, ``WaveNetVocoder.generate(dtype=...)``) cast
+them at compute time, as the JAX package does.
 """
 
 from __future__ import annotations

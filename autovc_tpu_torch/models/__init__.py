@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from autovc_tpu_torch import resolve_device
-from autovc_tpu_torch.config import ModelConfig
+from autovc_tpu_torch.config import COMPUTE_DTYPES, ModelConfig
 from autovc_tpu_torch.io import dvector_state_from_jax, generator_state_from_jax, load_artifact
 from autovc_tpu_torch.models.autovc import Decoder, Encoder, Generator, Postnet
 from autovc_tpu_torch.models.dvector import DVector, dvector_for_params
@@ -18,10 +18,16 @@ def build_generator(cfg: ModelConfig = ModelConfig(), *, artifact: str | None = 
     """The generator for ``cfg`` on ``device``: weights from an exported JAX
     artifact (``artifacts/generator_spmel_f16.npz``), or drawn from ``seed``
     when ``artifact`` is None. Frozen in eval mode, or, with ``trainable``,
-    in train mode with gradients on."""
+    in train mode with gradients on. ``cfg.compute_dtype`` sets the compute
+    dtype; the weights stay float32 (bfloat16 is inference only: training in
+    bfloat16 is the next slice, ROADMAP Queue 2 #1)."""
+    if trainable and cfg.compute_dtype != "float32":
+        raise NotImplementedError(f"training in {cfg.compute_dtype} is not ported yet: the bfloat16 backward "
+                                  f"kernels are the next slice (ROADMAP Queue 2 #1, bf16 training)")
     dev = resolve_device(device)
     model = Generator(cfg.dim_neck, cfg.dim_emb, cfg.dim_pre, cfg.freq, cfg.n_bins,
-                      cfg.enc_channels, cfg.dec_lstm_dim, cfg.postnet_channels)
+                      cfg.enc_channels, cfg.dec_lstm_dim, cfg.postnet_channels,
+                      COMPUTE_DTYPES[cfg.compute_dtype])
     if artifact is None:
         reset_parameters(model, seed)
     else:

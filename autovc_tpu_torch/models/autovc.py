@@ -6,6 +6,13 @@ mode is the JAX ``train=True``: BatchNorm normalises with the batch's
 statistics and updates its running ones, also in ``encode``, the content
 re-encoding of the training loss; ``eval()`` mode uses the running
 statistics.
+
+``dtype`` is the compute dtype of every layer (``models.layers``); in
+bfloat16 the outputs are bfloat16, as the JAX Generator's with
+``dtype=jnp.bfloat16``. Where JAX concatenates a bfloat16 tensor with a
+float32 embedding the result is float32 (its type promotion); ``_cat``
+gives ``torch.cat`` the promoted dtype explicitly. The next layer rounds
+the embedding to bfloat16 either way.
 """
 
 from __future__ import annotations
@@ -16,26 +23,34 @@ from torch import nn
 from autovc_tpu_torch.models.layers import BatchNorm, ConvNorm, LinearNorm, LSTM
 
 
+def _cat(seq: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """(B, T, C) and an embedding (B, E) broadcast over T, concatenated in
+    their promoted dtype."""
+    b, t, _ = seq.shape
+    dt = torch.promote_types(seq.dtype, emb.dtype)
+    return torch.cat([seq.to(dt), emb.to(dt)[:, None, :].expand(b, t, emb.shape[-1])], dim=-1)
+
+
 class Encoder(nn.Module):
     """(B, T, n_bins) + speaker embedding (B, dim_emb) -> codes
     (B, T // freq, 2 * dim_neck)."""
 
     def __init__(self, dim_neck: int = 32, freq: int = 32, n_bins: int = 80,
-                 dim_emb: int = 256, channels: int = 512):
+                 dim_emb: int = 256, channels: int = 512, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim_neck = dim_neck
         self.freq = freq
         for i in range(3):
             self.add_module(f"conv{i}", ConvNorm(n_bins + dim_emb if i == 0 else channels,
-                                                 channels, 5, w_init_gain="relu"))
-            self.add_module(f"bn{i}", BatchNorm(channels))
-        self.blstm = LSTM(channels, dim_neck, num_layers=2, bidirectional=True)
+                                                 channels, 5, w_init_gain="relu", dtype=dtype))
+            self.add_module(f"bn{i}", BatchNorm(channels, dtype=dtype))
+        self.blstm = LSTM(channels, dim_neck, num_layers=2, bidirectional=True, dtype=dtype)
 
     def forward(self, x: torch.Tensor, c_org: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
         if t % self.freq:
             raise ValueError(f"sequence length {t} is not a multiple of freq {self.freq}")
-        h = torch.cat([x, c_org[:, None, :].expand(b, t, c_org.shape[-1])], dim=-1)
+        h = _cat(x, c_org)
         for i in range(3):
             h = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(h)))
         out = self.blstm(h)
@@ -50,14 +65,15 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     """(B, T, 2 * dim_neck + dim_emb) -> (B, T, n_bins)."""
 
-    def __init__(self, in_dim: int = 320, n_bins: int = 80, dim_pre: int = 512, lstm_dim: int = 1024):
+    def __init__(self, in_dim: int = 320, n_bins: int = 80, dim_pre: int = 512, lstm_dim: int = 1024,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.lstm1 = LSTM(in_dim, dim_pre, num_layers=1)
+        self.lstm1 = LSTM(in_dim, dim_pre, num_layers=1, dtype=dtype)
         for i in range(3):
-            self.add_module(f"conv{i}", ConvNorm(dim_pre, dim_pre, 5, w_init_gain="relu"))
-            self.add_module(f"bn{i}", BatchNorm(dim_pre))
-        self.lstm2 = LSTM(dim_pre, lstm_dim, num_layers=2)
-        self.proj = LinearNorm(lstm_dim, n_bins)
+            self.add_module(f"conv{i}", ConvNorm(dim_pre, dim_pre, 5, w_init_gain="relu", dtype=dtype))
+            self.add_module(f"bn{i}", BatchNorm(dim_pre, dtype=dtype))
+        self.lstm2 = LSTM(dim_pre, lstm_dim, num_layers=2, dtype=dtype)
+        self.proj = LinearNorm(lstm_dim, n_bins, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.lstm1(x)
@@ -69,13 +85,13 @@ class Decoder(nn.Module):
 class Postnet(nn.Module):
     """Five convs: tanh after the first four BatchNormed ones, the last linear."""
 
-    def __init__(self, n_bins: int = 80, channels: int = 512):
+    def __init__(self, n_bins: int = 80, channels: int = 512, dtype: torch.dtype = torch.float32):
         super().__init__()
         for i in range(5):
             self.add_module(f"conv{i}", ConvNorm(n_bins if i == 0 else channels,
                                                  n_bins if i == 4 else channels, 5,
-                                                 w_init_gain="linear" if i == 4 else "tanh"))
-            self.add_module(f"bn{i}", BatchNorm(n_bins if i == 4 else channels))
+                                                 w_init_gain="linear" if i == 4 else "tanh", dtype=dtype))
+            self.add_module(f"bn{i}", BatchNorm(n_bins if i == 4 else channels, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
@@ -93,11 +109,12 @@ class Generator(nn.Module):
 
     def __init__(self, dim_neck: int = 32, dim_emb: int = 256, dim_pre: int = 512,
                  freq: int = 32, n_bins: int = 80, enc_channels: int = 512,
-                 dec_lstm_dim: int = 1024, postnet_channels: int = 512):
+                 dec_lstm_dim: int = 1024, postnet_channels: int = 512, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.encoder = Encoder(dim_neck, freq, n_bins, dim_emb, enc_channels)
-        self.decoder = Decoder(2 * dim_neck + dim_emb, n_bins, dim_pre, dec_lstm_dim)
-        self.postnet = Postnet(n_bins, postnet_channels)
+        self.dtype = dtype
+        self.encoder = Encoder(dim_neck, freq, n_bins, dim_emb, enc_channels, dtype)
+        self.decoder = Decoder(2 * dim_neck + dim_emb, n_bins, dim_pre, dec_lstm_dim, dtype)
+        self.postnet = Postnet(n_bins, postnet_channels, dtype)
 
     def encode(self, x: torch.Tensor, c_org: torch.Tensor) -> torch.Tensor:
         codes = self.encoder(x, c_org)
@@ -105,9 +122,8 @@ class Generator(nn.Module):
 
     def decode(self, codes: torch.Tensor, c_trg: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
         """codes (B, nb, 2 * dim_neck) + target embedding -> (x_identic, x_identic_psnt)."""
-        b, nb, _ = codes.shape
-        code_exp = codes.repeat_interleave(t // nb, dim=1)
-        dec_in = torch.cat([code_exp, c_trg[:, None, :].expand(b, t, c_trg.shape[-1])], dim=-1)
+        nb = codes.shape[1]
+        dec_in = _cat(codes.repeat_interleave(t // nb, dim=1), c_trg)
         x_identic = self.decoder(dec_in)
         return x_identic, x_identic + self.postnet(x_identic)
 

@@ -8,6 +8,14 @@ package's channels-last (B, T, C); convolutions transpose to PyTorch's
 Every layer creates its parameters uninitialised; ``reset_parameters(gen)``
 draws them from a ``torch.Generator`` (the JAX package's initialisers, for
 seeded random weights), or a state dict is loaded over them.
+
+``dtype`` is the compute dtype (float32 by default). The parameters stay
+float32; in bfloat16 a layer casts its input, weights and bias at compute
+time and rounds where the flax layer with ``dtype=jnp.bfloat16`` rounds:
+the product (or convolution) once, then the bias added in bfloat16 (flax's
+``Dense``/``Conv``, ``layers.LSTM``'s ``x @ w_ih + b``); BatchNorm
+normalises in float32 and rounds its output. The bfloat16 forms are
+inference only.
 """
 
 from __future__ import annotations
@@ -23,11 +31,18 @@ from autovc_tpu_torch.ops import lstm as lstm_ops
 GAINS = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0}
 
 
+def _bf16(dtype: torch.dtype) -> bool:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype is float32 or bfloat16, not {dtype}")
+    return dtype == torch.bfloat16
+
+
 class LinearNorm(nn.Module):
     """Dense layer, weight (out, in), xavier-uniform init."""
 
-    def __init__(self, in_dim: int, out_dim: int, w_init_gain: str = "linear"):
+    def __init__(self, in_dim: int, out_dim: int, w_init_gain: str = "linear", dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.bf16 = _bf16(dtype)
         self.gain = GAINS[w_init_gain]
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
         self.bias = nn.Parameter(torch.empty(out_dim))
@@ -37,6 +52,9 @@ class LinearNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bf16:
+            bf = torch.bfloat16
+            return F.linear(x.to(bf), self.weight.to(bf)) + self.bias.to(bf)
         return F.linear(x, self.weight, self.bias)
 
 
@@ -45,8 +63,9 @@ class ConvNorm(nn.Module):
     ``dilation * (k - 1) / 2`` each side. Weight (out, in, k)."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int, dilation: int = 1,
-                 w_init_gain: str = "linear"):
+                 w_init_gain: str = "linear", dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.bf16 = _bf16(dtype)
         if kernel_size % 2 != 1:
             raise ValueError(f"ConvNorm needs an odd kernel, got {kernel_size}")
         self.gain = GAINS[w_init_gain]
@@ -58,6 +77,11 @@ class ConvNorm(nn.Module):
     reset_parameters = LinearNorm.reset_parameters
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bf16:
+            bf = torch.bfloat16
+            y = F.conv1d(x.to(bf).transpose(1, 2), self.weight.to(bf), padding=self.padding,
+                         dilation=self.dilation)
+            return y.transpose(1, 2) + self.bias.to(bf)
         y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
                      padding=self.padding, dilation=self.dilation)
         return y.transpose(1, 2)
@@ -71,12 +95,14 @@ class BatchNorm(nn.Module):
     and moves the running statistics by momentum 0.1 toward the batch mean
     and the same biased variance, as flax does (``F.batch_norm`` would move
     the running variance toward the unbiased one). In eval form it uses the
-    running statistics."""
+    running statistics. In bfloat16 (eval form only) it normalises in
+    float32 and rounds the output, as flax's ``_normalize`` does."""
 
     momentum = 0.1
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.bf16 = _bf16(dtype)
         self.eps = eps
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
@@ -91,6 +117,12 @@ class BatchNorm(nn.Module):
         nn.init.ones_(self.running_var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bf16:
+            if self.training:
+                raise NotImplementedError("BatchNorm in bfloat16 is inference only (bfloat16 training is the "
+                                          "next slice, ROADMAP Queue 2 #1)")
+            y = (x.float() - self.running_mean) * (self.weight * torch.rsqrt(self.running_var + self.eps))
+            return (y + self.bias).to(torch.bfloat16)
         if self.training:
             mean = x.mean(dim=(0, 1))
             var = ((x - mean) ** 2).mean(dim=(0, 1))
@@ -110,10 +142,15 @@ class LSTM(nn.Module):
     (in, 4H), ``w_hh_l{k}_{d}`` (H, 4H), ``b_l{k}_{d}`` (4H,). The input product
     ``x @ w_ih + b`` is one matmul over all steps; the recurrence is
     ``ops.lstm.lstm_sequence``. Returns (B, T, H), or (B, T, 2H) with the
-    forward features first."""
+    forward features first. In bfloat16 the input product is rounded, then
+    the bias added in bfloat16, and the recurrence takes bfloat16 xproj and
+    w_hh, carries (h, c) in float32 and returns the sequence in bfloat16
+    (``layers.LSTM`` with ``use_pallas=True`` in the JAX package)."""
 
-    def __init__(self, in_dim: int, hidden: int, num_layers: int = 1, bidirectional: bool = False):
+    def __init__(self, in_dim: int, hidden: int, num_layers: int = 1, bidirectional: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.bf16 = _bf16(dtype)
         self.hidden = hidden
         self.num_layers = num_layers
         self.directions = ("fwd", "bwd") if bidirectional else ("fwd",)
@@ -137,7 +174,12 @@ class LSTM(nn.Module):
                 w_ih = getattr(self, f"w_ih_l{layer}_{d}")
                 w_hh = getattr(self, f"w_hh_l{layer}_{d}")
                 b = getattr(self, f"b_l{layer}_{d}")
-                xproj = torch.matmul(h, w_ih) + b
+                if self.bf16:
+                    bf = torch.bfloat16
+                    xproj = torch.matmul(h.to(bf), w_ih.to(bf)) + b.to(bf)
+                    w_hh = w_hh.to(bf)
+                else:
+                    xproj = torch.matmul(h, w_ih) + b
                 outs.append(lstm_ops.lstm_sequence(xproj, w_hh, reverse=(d == "bwd")))
             h = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
         return h

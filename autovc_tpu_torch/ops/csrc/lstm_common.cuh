@@ -4,6 +4,8 @@
 // (cooperatively in regime (b), through coop.cuh).
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include "coop.cuh"
 
 namespace {
@@ -16,10 +18,31 @@ __device__ __forceinline__ float lane(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
+// Four consecutive weights as floats: a float4, or four bfloat16 (8 bytes,
+// exactly widened).
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// One value of device memory that no block writes during the launch, as a
+// float, and a float stored as TW (bfloat16: rounded to nearest even).
+__device__ __forceinline__ float load_ro1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_ro1(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // acc[r][c] += sum over the float4 columns k4 = ks, ks + KS, ... < n4 of
 // A[row0 + r][4 k4 ..] * W[4 k4 .. ][col0 + c], A row stride lda, W row
-// stride ldw (floats).
-__device__ __forceinline__ void gemm_slice(float (&acc)[RB][4], const float* A, int lda, const float* W, int ldw,
+// stride ldw (elements). W is float32 or bfloat16, widened exactly: the
+// products and sums are float32 FMAs either way.
+template <class TW>
+__device__ __forceinline__ void gemm_slice(float (&acc)[RB][4], const float* A, int lda, const TW* W, int ldw,
                                            int row0, int col0, int n4, int ks, int KS) {
   for (int k4 = ks; k4 < n4; k4 += KS) {
     float4 a[RB];
@@ -27,7 +50,7 @@ __device__ __forceinline__ void gemm_slice(float (&acc)[RB][4], const float* A, 
     for (int r = 0; r < RB; ++r) a[r] = *reinterpret_cast<const float4*>(A + (row0 + r) * lda + 4 * k4);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const float4 w = *reinterpret_cast<const float4*>(W + (4 * k4 + kk) * ldw + col0);
+      const float4 w = load4(W + (4 * k4 + kk) * ldw + col0);
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
         const float x = lane(a[r], kk);

@@ -50,6 +50,27 @@
 // thread per (row, unit) updates the cell; c stays in place in c_state
 // (one thread reads and writes each element). Batch rows are tiled by the
 // plan's `rows`, which follows B (8 rows at B=7).
+//
+// bfloat16 form (inference; autovc_lstm_fwd_bf16). The Pallas kernel's
+// bfloat16 path (_cell_step on bf16 xproj and w_hh; layers.LSTM with
+// compute_dtype bfloat16) computes gates = f32(xproj_t) + h_{t-1} @
+// f32(w_hh) with h_{t-1} and c in float32 scratch, and rounds only the
+// stored h to bfloat16 (pallas_lstm.py:41-75). So does this form: the same
+// kernels instantiated with bfloat16 xproj, w_hh and h_seq. w_hh sits in
+// shared memory as bfloat16 (half the bytes, so regime (a) holds a larger H:
+// ops/lstm.py:launch_plan derives it), each weight widened exactly before
+// its float32 FMA (a bfloat16 tensor-core product would round h, which the
+// reference keeps in float32); the carry stays float32. Regime (a) keeps
+// h_{t-1} in shared memory in float32 already. Regime (b) cannot read
+// h_{t-1} back from the bfloat16 h_seq, which would round the carry every
+// step: the blocks exchange h through a float32 double buffer hbuf (2, B,
+// H), step s writing hbuf[s % 2] beside the rounded h_seq and reading
+// hbuf[(s - 1) % 2] after the grid barrier (cp.async.cg, through L2); step
+// s + 1 overwrites what step s - 1 wrote only after the barrier that ends
+// step s, when every block has read it. Bound: the same operations as in
+// float32 (4.62 ms a Generator forward on the CUDA cores), half the bytes.
+
+#include <type_traits>
 
 #include "lstm_common.cuh"
 
@@ -57,11 +78,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+// E is the element type of xproj, w_hh and h_seq: float, or __nv_bfloat16
+// (inference only: h0, c_seq and gates null, hbuf given in regime (b)).
+template <class E>
 struct Args {
-  const float* xproj;
-  const float* w_hh;
+  const E* xproj;
+  const E* w_hh;
   const float* h0;
-  float* h_seq;
+  E* h_seq;
+  float* hbuf;  // (2, B, H) float32 exchange of h between regime (b)'s steps, or null: read h_seq
   float* c_state;
   float* c_seq;
   float* gates;
@@ -75,12 +100,15 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-
 // (row group, unit) pairs, each split KS ways over K.
 struct Layout {
   int TJ, BT, NC, RG, tasks, KS;
-  __device__ Layout(const Args& a, int tj) : TJ(tj), BT(a.rows), NC(4 * tj), RG(a.rows / RB), tasks(RG * tj), KS(a.ks) {}
+  template <class E>
+  __device__ Layout(const Args<E>& a, int tj)
+      : TJ(tj), BT(a.rows), NC(4 * tj), RG(a.rows / RB), tasks(RG * tj), KS(a.ks) {}
 };
 
 // Loads the block's gate columns of w_hh: W[k][4u + g] = w_hh[k, g*H + j0 + u]
 // (read in runs of TJ consecutive units).
-__device__ void load_w(float* W, const Args& a, const Layout& L, int j0) {
+template <class E>
+__device__ void load_w(E* W, const Args<E>& a, const Layout& L, int j0) {
   const int n = a.H * L.NC;
   for (int e = threadIdx.x; e < n; e += NT) {
     const int u = e % L.TJ, g = (e / L.TJ) % 4, k = e / L.NC;
@@ -94,15 +122,16 @@ struct Pairs {
   float xp[RB][4];
 };
 
-__device__ __forceinline__ void prefetch_x(Pairs& p, const Args& a, const Layout& L, int b0, int j0, int t) {
+template <class E>
+__device__ __forceinline__ void prefetch_x(Pairs& p, const Args<E>& a, const Layout& L, int b0, int j0, int t) {
 #pragma unroll
   for (int i = 0; i < RB; ++i) {
     const int q = threadIdx.x + i * NT;
     const int b = q / L.TJ, u = q % L.TJ;
     if (q < L.BT * L.TJ && b0 + b < a.B) {
-      const float* xp = a.xproj + ((size_t)(b0 + b) * a.T + t) * 4 * a.H + j0 + u;
+      const E* xp = a.xproj + ((size_t)(b0 + b) * a.T + t) * 4 * a.H + j0 + u;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) p.xp[i][g] = __ldg(xp + (size_t)g * a.H);
+      for (int g = 0; g < 4; ++g) p.xp[i][g] = load_ro1(xp + (size_t)g * a.H);
     }
   }
 }
@@ -126,9 +155,12 @@ __device__ __forceinline__ void store_partial(float* red, const Layout& L, const
 }
 
 // Adds the KS partial sums of each (row, unit) of the tile and updates the
-// cell; writes h_t to h_seq (and to hs, row stride ldh, when hs is not null).
-__device__ void cell_update(const Args& a, const Layout& L, const float* red, const Pairs& p, int b0, int j0, int t,
-                            float* hs, int ldh) {
+// cell; writes h_t to h_seq (and to hs, row stride ldh, when hs is not null,
+// and to hnext, row stride H, when hnext is not null), in float32 but for
+// h_seq, which rounds to E.
+template <class E>
+__device__ void cell_update(const Args<E>& a, const Layout& L, const float* red, const Pairs& p, int b0, int j0,
+                            int t, float* hs, int ldh, float* hnext) {
 #pragma unroll
   for (int i = 0; i < RB; ++i) {
     const int q = threadIdx.x + i * NT;
@@ -151,7 +183,8 @@ __device__ void cell_update(const Args& a, const Layout& L, const float* red, co
     const float h = so * tanhf(c);
     a.c_state[bb * a.H + j] = c;
     const size_t row = bb * a.T + t;
-    a.h_seq[row * a.H + j] = h;
+    store1(a.h_seq + row * a.H + j, h);
+    if (hnext != nullptr) hnext[bb * a.H + j] = h;
     if (a.c_seq != nullptr) a.c_seq[row * a.H + j] = c;
     if (a.gates != nullptr) {
       float* gt = a.gates + row * 4 * a.H + j;
@@ -166,12 +199,13 @@ __device__ void cell_update(const Args& a, const Layout& L, const float* red, co
 
 // Regime (a): block y owns batch rows [y*rows, y*rows + rows) and all H
 // units. Shared memory: W (H x 4H), hs (rows x (H + PAD)), red.
-__global__ void __launch_bounds__(NT) lstm_fwd_block_kernel(Args a) {
+template <class E>
+__global__ void __launch_bounds__(NT) lstm_fwd_block_kernel(Args<E> a) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(a, a.H);
   const int ldh = a.H + PAD;
-  float* W = smem;
-  float* hs = W + (size_t)a.H * L.NC;
+  E* W = reinterpret_cast<E*>(smem);
+  float* hs = reinterpret_cast<float*>(W + (size_t)a.H * L.NC);
   float* red = hs + (size_t)L.BT * ldh;
   const int b0 = blockIdx.x * L.BT;
 
@@ -196,7 +230,7 @@ __global__ void __launch_bounds__(NT) lstm_fwd_block_kernel(Args a) {
     if (ks >= 0 && (s > 0 || a.h0 != nullptr)) gemm_slice(acc, hs, ldh, W, L.NC, rg * RB, 4 * u, a.H / 4, ks, L.KS);
     store_partial(red, L, acc, rg, u, ks);
     __syncthreads();  // partials complete; hs (h_{t-1}) no longer read
-    cell_update(a, L, red, p, b0, 0, t, hs, ldh);
+    cell_update(a, L, red, p, b0, 0, t, hs, ldh, nullptr);
     __syncthreads();  // h_t in hs before the next product
   }
 }
@@ -204,12 +238,13 @@ __global__ void __launch_bounds__(NT) lstm_fwd_block_kernel(Args a) {
 // Regime (b): block x owns units [x*units, x*units + units) for every batch
 // row. Shared memory: W (H x 4 units), two staging buffers
 // (rows x (kc + PAD)), red. Launched cooperatively only.
-__global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args a) {
+template <class E>
+__global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args<E> a) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(a, a.units);
   const int lds = a.kc + PAD;
-  float* W = smem;
-  float* stage = W + (size_t)a.H * L.NC;
+  E* W = reinterpret_cast<E*>(smem);
+  float* stage = reinterpret_cast<float*>(W + (size_t)a.H * L.NC);
   float* red = stage + 2 * (size_t)L.BT * lds;
   const int j0 = blockIdx.x * L.TJ;
   const int ntiles = (a.B + L.BT - 1) / L.BT;
@@ -226,9 +261,19 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args a) {
   for (int s = 0; s < a.T; ++s) {
     const int t = a.reverse ? a.T - 1 - s : s;
     const int t_prev = a.reverse ? t + 1 : t - 1;
-    // h_{t-1}: row b at src + b * stride (h0, or the previous slice of h_seq)
-    const float* src = s == 0 ? a.h0 : a.h_seq + (size_t)t_prev * a.H;
-    const size_t stride = s == 0 ? (size_t)a.H : (size_t)a.T * a.H;
+    // h_{t-1}: row b at src + b * stride (h0, or the previous step's half
+    // of hbuf, or the previous slice of h_seq when that is float32)
+    const float* src = a.h0;
+    size_t stride = a.H;
+    float* hnext = a.hbuf != nullptr ? a.hbuf + (size_t)(s & 1) * a.B * a.H : nullptr;
+    if (s > 0 && a.hbuf != nullptr) {
+      src = a.hbuf + (size_t)((s - 1) & 1) * a.B * a.H;
+    } else if (s > 0) {
+      if constexpr (std::is_same_v<E, float>) {
+        src = a.h_seq + (size_t)t_prev * a.H;
+        stride = (size_t)a.T * a.H;
+      }
+    }
     const int nst = src != nullptr ? ntiles * nch : 0;
     auto stage_in = [&](int q) {  // stage q = (tile, chunk) into buffer q % 2
       const int b0 = (q / nch) * L.BT, k0 = (q % nch) * a.kc;
@@ -262,19 +307,25 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args a) {
       }
       store_partial(red, L, acc, rg, u, ks);
       __syncthreads();
-      cell_update(a, L, red, p, b0, j0, t, nullptr, 0);
+      cell_update(a, L, red, p, b0, j0, t, nullptr, 0, hnext);
       __syncthreads();  // red free for the next tile
     }
     if (s + 1 < a.T) grid.sync();  // every h_t written before any block reads it
   }
 }
 
-// Shared bytes of a plan, computed as the kernels lay them out.
-size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks) {
+// Shared bytes of a plan, computed as the kernels lay them out: w_hh's
+// slice in elements of `wbytes` bytes, the rest float32.
+size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks, int wbytes) {
   const size_t nc = 4 * (size_t)units;
   const size_t w = (size_t)H * nc;
   const size_t staged = regime == 0 ? (size_t)rows * (H + PAD) : 2 * (size_t)rows * (kc + PAD);
-  return 4 * (w + staged + (size_t)ks * rows * nc);
+  return wbytes * w + 4 * (staged + (size_t)ks * rows * nc);
+}
+
+template <class E>
+int run(const Args<E>& a, int regime, int blocks, int smem, int* info, cudaStream_t stream) {
+  return launch(lstm_fwd_block_kernel<E>, lstm_fwd_grid_kernel<E>, a, regime, blocks, smem, info, stream);
 }
 
 }  // namespace
@@ -294,10 +345,29 @@ int autovc_lstm_fwd(const float* xproj, const float* w_hh, const float* h0, floa
   const int tasks = rows / RB * (regime == 0 ? H : units);  // (row group, unit)
   int ks = 0;
   if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
-      smem_bytes(regime, H, units, rows, kc, ks) != (size_t)smem)
+      smem_bytes(regime, H, units, rows, kc, ks, 4) != (size_t)smem)
     return ERR_PLAN;
-  const Args a{xproj, w_hh, h0, h_seq, c_state, c_seq, gates, B, T, H, reverse, units, rows, kc, ks};
-  return launch(lstm_fwd_block_kernel, lstm_fwd_grid_kernel, a, regime, blocks, smem, info, stream);
+  const Args<float> a{xproj, w_hh, h0, h_seq, nullptr, c_state, c_seq, gates, B, T, H, reverse, units, rows, kc, ks};
+  return run(a, regime, blocks, smem, info, stream);
+}
+
+// The bfloat16 inference form: xproj (B, T, 4H), w_hh (H, 4H) and h_seq
+// (B, T, H) in bfloat16, zero initial state; c_state (B, H) float32 zero on
+// entry, cN on exit; hbuf the float32 (2, B, H) exchange buffer of regime
+// (b) (scratch, no initial value; may be null in regime (a)). Returns as
+// autovc_lstm_fwd.
+int autovc_lstm_fwd_bf16(const void* xproj, const void* w_hh, void* h_seq, float* hbuf, float* c_state, int B,
+                         int T, int H, int reverse, int regime, int blocks, int units, int rows, int kc, int smem,
+                         int* info, cudaStream_t stream) {
+  const int tasks = rows / RB * (regime == 0 ? H : units);
+  int ks = 0;
+  if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
+      smem_bytes(regime, H, units, rows, kc, ks, 2) != (size_t)smem || (regime == 1 && hbuf == nullptr))
+    return ERR_PLAN;
+  const Args<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(xproj), static_cast<const __nv_bfloat16*>(w_hh),
+                              nullptr, static_cast<__nv_bfloat16*>(h_seq), regime == 1 ? hbuf : nullptr, c_state,
+                              nullptr, nullptr, B, T, H, reverse, units, rows, kc, ks};
+  return run(a, regime, blocks, smem, info, stream);
 }
 
 const char* autovc_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

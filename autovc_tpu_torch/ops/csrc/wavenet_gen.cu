@@ -85,6 +85,7 @@
 // slot x(t-d) of the next sample is the one just written; h and z of phase
 // p are read in phase p + 1: every such order holds across a grid barrier.
 
+#include <cuda_bf16.h>
 #include <math.h>
 
 #include "coop.cuh"
@@ -114,6 +115,8 @@ struct Args {
 
 __host__ __device__ inline int r4(int n) { return (n + 3) / 4 * 4; }
 
+__host__ __device__ inline int r16(int n) { return (n + 15) / 16 * 16; }
+
 // The block's shared layout, in floats, as ops/wavenet.py:_smem lays it out:
 // the weight ring (depth slots of the gate slice (K + 1) x CG, K = 3R + G/2
 // + C, and the residual slice (G/2 + 3) x CR, ops/wavenet.py:kernel_weights), the staged
@@ -121,17 +124,33 @@ __host__ __device__ inline int r4(int n) { return (n + 3) / 4 * 4; }
 // ((S + 1) x NOUT), held for the launch, the tile's logits (BT x NOUT4),
 // x_prev (B, rounded to 4), tile_dot's warp sums (two buffers of NT/32 x
 // BT x MAXC).
+// bfloat16 form (wavenet_kernel_bf16): K = 3R + C, the gate's staged row; a
+// slot holds one phase's slice, the gate's (K x CG bfloat16, then CG
+// float32 biases at the next 16 bytes: gate_bytes) or the residual's (G/2 x
+// CR bfloat16, then CR float32 biases: resid_bytes), so it is the larger of
+// the two; the staged rows hold K or G/2 bfloat16 values, or S floats.
 struct Layout {
   int K, CG, CR, CH, XW, NOUT4, slot, xs, l1, l2, lg, xp, rd, total;
+  int gate_bytes, resid_bytes;  // bfloat16 form only
   __host__ __device__ Layout(int B, int R, int G2, int S, int C, int NOUT, int pairs, int cols, int head_cols,
-                             int depth) {
-    K = 3 * R + G2 + C;
+                             int depth, bool bf16 = false) {
     CG = r4(2 * pairs);
     CR = r4(cols);
     CH = r4(head_cols);
-    XW = r4(K > S ? K : S);
     NOUT4 = r4(NOUT);
-    slot = (K + 1) * CG + (G2 + 3) * CR;
+    if (bf16) {
+      K = 3 * R + C;
+      gate_bytes = r16(2 * K * CG) + 4 * CG;
+      resid_bytes = r16(2 * G2 * CR) + 4 * CR;
+      slot = (gate_bytes > resid_bytes ? gate_bytes : resid_bytes) / 4;
+      const int row = (K > G2 ? K : G2) / 2;
+      XW = r4(row > S ? row : S);
+    } else {
+      K = 3 * R + G2 + C;
+      gate_bytes = resid_bytes = 0;
+      slot = (K + 1) * CG + (G2 + 3) * CR;
+      XW = r4(K > S ? K : S);
+    }
     xs = depth * slot;
     l1 = xs + BT * XW;
     l2 = l1 + S * CH;
@@ -219,9 +238,22 @@ __device__ __forceinline__ void halve(float (&v)[V], int lane, int o) {
   }
 }
 
+// Four consecutive weights as floats (bfloat16 widened exactly), and one
+// staged value as a float.
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 // The product of a tile's staged rows (ROWS of them, row stride ldx, n
-// floats each; rows past the batch hold stale values whose sums are not
-// read) with a weight slice (n rows of 4 NC4 columns), called by every
+// values each, float32 or bfloat16; rows past the batch hold stale values
+// whose sums are not read) with a weight slice (n rows of 4 NC4 columns,
+// float32 or bfloat16; every product and sum a float32 FMA), called by every
 // thread of the block: thread i takes the slice rows k = i, i + NT, ...,
 // and multiplies each weight row it reads by all the tile's rows, so that
 // the slice is read from shared memory once a tile whatever B is (one warp
@@ -230,8 +262,8 @@ __device__ __forceinline__ void halve(float (&v)[V], int lane, int o) {
 // reduce-scatter from V = 32 on: lane l ends with the sums l V/32 ..),
 // writes them to red (NT/32 x V floats) and meets the block; tile_sum then
 // adds a sum over the warps. Every order is fixed.
-template <int NC4, int ROWS>
-__device__ __forceinline__ void tile_dot(const float* xs, int ldx, const float* w, int n, float* red) {
+template <int NC4, int ROWS, class TX, class TW>
+__device__ __forceinline__ void tile_dot(const TX* xs, int ldx, const TW* w, int n, float* red) {
   constexpr int NC = 4 * NC4, V = ROWS * NC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float v[V];
@@ -241,10 +273,10 @@ __device__ __forceinline__ void tile_dot(const float* xs, int ldx, const float* 
   for (int k = threadIdx.x; k < n; k += NT) {
     float4 wv[NC4];
 #pragma unroll
-    for (int q = 0; q < NC4; ++q) wv[q] = *reinterpret_cast<const float4*>(w + (size_t)k * NC + 4 * q);
+    for (int q = 0; q < NC4; ++q) wv[q] = load4(w + (size_t)k * NC + 4 * q);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      const float x = xs[r * ldx + k];
+      const float x = to_f(xs[r * ldx + k]);
 #pragma unroll
       for (int q = 0; q < NC4; ++q) {
         float* o = v + r * NC + 4 * q;
@@ -274,8 +306,8 @@ __device__ __forceinline__ void tile_dot(const float* xs, int ldx, const float* 
   __syncthreads();
 }
 
-template <int NC4>
-__device__ __forceinline__ int tile_dot(const float* xs, int ldx, const float* w, int n, int rows, float* red) {
+template <int NC4, class TX, class TW>
+__device__ __forceinline__ int tile_dot(const TX* xs, int ldx, const TW* w, int n, int rows, float* red) {
   if (rows <= 1) {
     tile_dot<NC4, 1>(xs, ldx, w, n, red);
     return 4 * NC4;
@@ -295,8 +327,8 @@ __device__ __forceinline__ int tile_dot(const float* xs, int ldx, const float* w
 // tile_dot for rows <= BT staged rows and a slice of 4 nc4 columns, nc4 1
 // or 2; returns V, the sums a warp wrote (the tile's rows rounded up to a
 // power of 2, times 4 nc4).
-__device__ __forceinline__ int tile_dot(const float* xs, int ldx, const float* w, int n, int nc4, int rows,
-                                        float* red) {
+template <class TX, class TW>
+__device__ __forceinline__ int tile_dot(const TX* xs, int ldx, const TW* w, int n, int nc4, int rows, float* red) {
   return nc4 == 1 ? tile_dot<1>(xs, ldx, w, n, rows, red) : tile_dot<2>(xs, ldx, w, n, rows, red);
 }
 
@@ -315,6 +347,69 @@ __device__ __forceinline__ void load_slot(const Args& a, const Layout& Y, float*
   bulk_load(w, a.slices + ((size_t)p * gridDim.x + blockIdx.x) * Y.slot, 4u * Y.slot, bar);
 }
 
+// The head after a sample's last layer (either form): last1 over the
+// blocks' head columns from relu(skip), a grid barrier, then last2 and the
+// MoL sample in every block alike from the same inputs in the same order,
+// so every block holds the same x_prev; block 0 writes y and the logits.
+template <class A>
+__device__ __forceinline__ void emit_sample(const A& a, const Layout& Y, int t, float* xs, const float* l1s,
+                                            const float* l2s, float* lgs, float* xprev, float* red_r,
+                                            const float (&l1b)[MAXC], int h0, int nh, cg::grid_group& grid) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, S = a.S;
+  // head: last1 over the blocks' columns, then last2 and the sample in
+  // every block alike
+  phase(
+      xs, S, a.B, [&](int b, int c4) { return relu4(load_cg(a.skip + (size_t)b * S + 4 * c4)); },
+      [&](int b0) {
+        if (nh == 0) return;
+        const int rows = min(BT, a.B - b0);
+        const int V = tile_dot(xs, S, l1s, S, Y.CH / 4, rows, red_r);
+        const int r = tid / Y.CH, c = tid % Y.CH;
+        if (r < rows && c < nh)
+          a.o1[(size_t)(b0 + r) * S + h0 + c] = fmaxf(tile_sum(red_r, V, tid) + l1b[c], 0.0f);
+      });
+  grid.sync();
+  phase(
+      xs, S, a.B, [&](int b, int c4) { return load_cg(a.o1 + (size_t)b * S + 4 * c4); },
+      [&](int b0) {
+        const int b = b0 + warp;
+        if (b >= a.B) return;
+        const float* o = xs + warp * S;
+        float* lg = lgs + warp * Y.NOUT4;
+        for (int j = lane; j < a.NOUT; j += 32) {
+          float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+          for (int k = 0; k < S; k += 4) {  // S % 4 == 0
+            s0 = fmaf(o[k], l2s[k * a.NOUT + j], s0);
+            s1 = fmaf(o[k + 1], l2s[(k + 1) * a.NOUT + j], s1);
+            s2 = fmaf(o[k + 2], l2s[(k + 2) * a.NOUT + j], s2);
+            s3 = fmaf(o[k + 3], l2s[(k + 3) * a.NOUT + j], s3);
+          }
+          lg[j] = ((s0 + s1) + (s2 + s3)) + l2s[S * a.NOUT + j];
+          if (blockIdx.x == 0) a.logits[((size_t)b * a.T + t) * a.NOUT + j] = lg[j];
+        }
+        __syncwarp();
+        if (lane != 0) return;
+        const int K3 = a.NOUT / 3;
+        const float* u = a.unif + ((size_t)b * a.T + t) * (K3 + 1);
+        int best = 0;
+        float best_v = 0.0f;
+        for (int i = 0; i < K3; ++i) {
+          const float ui = fminf(fmaxf(__ldg(u + i), U_MIN), U_MAX);
+          const float v = lg[i] - logf(-logf(ui));
+          if (i == 0 || v > best_v) {  // ties keep the first index, as argmax does
+            best = i;
+            best_v = v;
+          }
+        }
+        const float ux = fminf(fmaxf(__ldg(u + K3), U_MIN), U_MAX);
+        const float log_s = fmaxf(lg[2 * K3 + best], a.log_scale_min);
+        float x = lg[K3 + best] + expf(log_s) * (logf(ux) - log1pf(-ux));
+        x = x < -1.0f ? -1.0f : (x > 1.0f ? 1.0f : x);  // keeps a NaN, as clip does
+        xprev[b] = x;
+        if (blockIdx.x == 0) a.y[(size_t)b * a.T + t] = x;
+      });
+}
+
 __global__ void __launch_bounds__(NT, 1) wavenet_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ unsigned long long wbar[MAX_DEPTH];  // ring slot q's copy lands on wbar[q]
@@ -326,7 +421,7 @@ __global__ void __launch_bounds__(NT, 1) wavenet_kernel(Args a) {
   float* xprev = smem + Y.xp;
   float* red_r = smem + Y.rd;            // tile_dot's sums of the residual product and of last1
   float* red_g = red_r + NT / 32 * BT * MAXC;  // ... of the gate product
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int R = a.R, G2 = a.G2, S = a.S, K = Y.K, RS = a.R + a.S;
   // what this block owns (possibly nothing)
   const int j0 = blockIdx.x * a.pairs, np = max(0, min(a.pairs, G2 - j0));
@@ -433,58 +528,204 @@ __global__ void __launch_bounds__(NT, 1) wavenet_kernel(Args a) {
       grid.sync();
     }
 
-    // head: last1 over the blocks' columns, then last2 and the sample in
-    // every block alike
-    phase(
-        xs, S, a.B, [&](int b, int c4) { return relu4(load_cg(a.skip + (size_t)b * S + 4 * c4)); },
-        [&](int b0) {
-          if (nh == 0) return;
-          const int rows = min(BT, a.B - b0);
-          const int V = tile_dot(xs, S, l1s, S, Y.CH / 4, rows, red_r);
-          const int r = tid / Y.CH, c = tid % Y.CH;
-          if (r < rows && c < nh)
-            a.o1[(size_t)(b0 + r) * S + h0 + c] = fmaxf(tile_sum(red_r, V, tid) + l1b[c], 0.0f);
-        });
-    grid.sync();
-    phase(
-        xs, S, a.B, [&](int b, int c4) { return load_cg(a.o1 + (size_t)b * S + 4 * c4); },
-        [&](int b0) {
-          const int b = b0 + warp;
-          if (b >= a.B) return;
-          const float* o = xs + warp * S;
-          float* lg = lgs + warp * Y.NOUT4;
-          for (int j = lane; j < a.NOUT; j += 32) {
-            float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-            for (int k = 0; k < S; k += 4) {  // S % 4 == 0
-              s0 = fmaf(o[k], l2s[k * a.NOUT + j], s0);
-              s1 = fmaf(o[k + 1], l2s[(k + 1) * a.NOUT + j], s1);
-              s2 = fmaf(o[k + 2], l2s[(k + 2) * a.NOUT + j], s2);
-              s3 = fmaf(o[k + 3], l2s[(k + 3) * a.NOUT + j], s3);
-            }
-            lg[j] = ((s0 + s1) + (s2 + s3)) + l2s[S * a.NOUT + j];
-            if (blockIdx.x == 0) a.logits[((size_t)b * a.T + t) * a.NOUT + j] = lg[j];
-          }
-          __syncwarp();
-          if (lane != 0) return;
-          const int K3 = a.NOUT / 3;
-          const float* u = a.unif + ((size_t)b * a.T + t) * (K3 + 1);
-          int best = 0;
-          float best_v = 0.0f;
-          for (int i = 0; i < K3; ++i) {
-            const float ui = fminf(fmaxf(__ldg(u + i), U_MIN), U_MAX);
-            const float v = lg[i] - logf(-logf(ui));
-            if (i == 0 || v > best_v) {  // ties keep the first index, as argmax does
-              best = i;
-              best_v = v;
-            }
-          }
-          const float ux = fminf(fmaxf(__ldg(u + K3), U_MIN), U_MAX);
-          const float log_s = fmaxf(lg[2 * K3 + best], a.log_scale_min);
-          float x = lg[K3 + best] + expf(log_s) * (logf(ux) - log1pf(-ux));
-          x = x < -1.0f ? -1.0f : (x > 1.0f ? 1.0f : x);  // keeps a NaN, as clip does
-          xprev[b] = x;
-          if (blockIdx.x == 0) a.y[(size_t)b * a.T + t] = x;
-        });
+    emit_sample(a, Y, t, xs, l1s, l2s, lgs, xprev, red_r, l1b, h0, nh, grid);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 weights (wavenet_kernel_bf16). What generate_pallas computes from
+// pack_weights(..., dtype=bfloat16) (pallas_wavenet.py:74-127): for layer l
+// of sample t,
+//   x_all = [ring(t-2d), ring(t-d), bf16(h_l)]              bfloat16 (B, 3R)
+//   gates = x_all @ w3_l + bf16(cond_t) @ wcond_l + bg_l    float32 sums
+//   z     = bf16(tanh(a) * sigmoid(b))
+//   skip  = (skip + z @ wskip_l + bs_l) * sqrt(.5)          float32
+//   h_l+1 = (h_l + z @ wout_l + bo_l) * sqrt(.5)            float32, unrounded
+// and the ring slot t mod 2d takes bf16(h_l). w3, wcond, wout and wskip are
+// bfloat16; the biases, the first conv, the head and the (h, skip)
+// accumulators float32; every product is a bfloat16 value widened exactly
+// into a float32 FMA.
+//
+// The float32 kernel's fold (the residual update of layer l - 1 taken into
+// the gate of layer l through products of weights) cannot give bf16(h_l):
+// the gate needs h_l rounded, which needs h_l whole, which is spread over
+// the blocks' residual columns. So each layer takes two phases, each ending
+// at a grid barrier: the gate phase stages [ring(t-2d), ring(t-d), bf16(h_l),
+// bf16(cond_t)] (K = 3R + C bfloat16 values a row, 3.2 KB at full width,
+// against the float32 kernel's 7.5 KB) and writes z_l; the residual phase
+// stages z_l (G/2 values) and updates the block's h and skip columns from
+// h_l (float32, hf) and skip, writing h_l+1 to hf and bf16(h_l+1) to hb for
+// the next gate, and bf16(h_l) into the ring slot the gate read x(t-2d)
+// from. 2L + 1 barriers a sample (with the head's), against L + 2. The
+// weights (about 49 MB a sample at full width, half the float32 kernel's)
+// stream through the same ring of phase slots, one bulk copy a phase of
+// the phase's own bytes.
+//
+// Ordering. The gate of layer l reads hb[l % 2] and ring slots of layer l;
+// the residual phase of layer l writes hf and hb [(l + 1) % 2], ring slot
+// t mod 2d of layer l and skip, and reads hf[l % 2], z and skip: every
+// write is separated from every read of another block by a grid barrier,
+// and z, written by the gate of layer l + 1, was last read by the residual
+// phase of layer l, before the barrier that ends it.
+struct ArgsBF {
+  const float* slices;  // (2L, blocks, slot) phase slices: bfloat16 weights, float32 biases
+  const float *fk, *fb, *l1k, *l1b, *l2k, *l2b;
+  const __nv_bfloat16* cond;  // (B, T, C), rounded by the wrapper as the reference rounds it
+  const float* unif;
+  float *y, *logits;
+  __nv_bfloat16* ring;  // (sum 2d, B, R)
+  float* hf;            // (2, B, R) float32 h
+  __nv_bfloat16* hb;    // (2, B, R) bf16(h)
+  float* skip;          // (B, S)
+  __nv_bfloat16* z;     // (B, G/2)
+  float* o1;            // (B, S)
+  int L, B, T, R, G2, S, C, NOUT;
+  int pairs, cols, head_cols, depth;
+  float log_scale_min;
+  int dil[MAX_L], off[MAX_L];
+};
+
+// 16 bytes (eight bfloat16 values) of a row another block may have written,
+// through L2; of a row no block writes, through the read-only path.
+__device__ __forceinline__ float4 load_cg8(const __nv_bfloat16* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load_ro8(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// h_0 = x_prev * fk + fb (float32, rounded as the plain version rounds it:
+// no fused multiply-add) for the eight columns at k.
+__device__ __forceinline__ float first_conv(const ArgsBF& a, float x, int k) {
+  return __fadd_rn(__fmul_rn(x, __ldg(a.fk + k)), __ldg(a.fb + k));
+}
+__device__ __forceinline__ float first_conv2(const ArgsBF& a, float x, int k) {  // two, rounded, as one float's bits
+  const __nv_bfloat162 v = __floats2bfloat162_rn(first_conv(a, x, k), first_conv(a, x, k + 1));
+  return __uint_as_float(*reinterpret_cast<const unsigned*>(&v));
+}
+__device__ __forceinline__ float4 first_conv8(const ArgsBF& a, float x, int k) {
+  return make_float4(first_conv2(a, x, k), first_conv2(a, x, k + 2), first_conv2(a, x, k + 4),
+                     first_conv2(a, x, k + 6));
+}
+
+__global__ void __launch_bounds__(NT, 1) wavenet_kernel_bf16(ArgsBF a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned long long wbar[MAX_DEPTH];
+  const Layout Y(a.B, a.R, a.G2, a.S, a.C, a.NOUT, a.pairs, a.cols, a.head_cols, a.depth, true);
+  float* xs = smem + Y.xs;
+  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(xs);  // the staged rows as bfloat16
+  float* l1s = smem + Y.l1;
+  float* l2s = smem + Y.l2;
+  float* lgs = smem + Y.lg;
+  float* xprev = smem + Y.xp;
+  float* red_r = smem + Y.rd;
+  float* red_g = red_r + NT / 32 * BT * MAXC;
+  const int tid = threadIdx.x;
+  const int R = a.R, G2 = a.G2, S = a.S, K = Y.K, RS = a.R + a.S;
+  const int j0 = blockIdx.x * a.pairs, np = max(0, min(a.pairs, G2 - j0));
+  const int n0 = blockIdx.x * a.cols, nc = max(0, min(a.cols, RS - n0));
+  const int h0 = blockIdx.x * a.head_cols, nh = max(0, min(a.head_cols, S - h0));
+  const size_t slot_elems = (size_t)a.B * R;
+  const int phases = 2 * a.L;  // a sample's weight phases: gate and residual of each layer
+  const long total = (long)a.T * phases;
+  const int slot_floats = Y.slot;
+  cg::grid_group grid = cg::this_grid();
+
+  for (int e = tid; e < S * Y.CH; e += NT) {
+    const int k = e / Y.CH, c = e % Y.CH;
+    l1s[e] = c < nh ? __ldg(a.l1k + (size_t)k * S + h0 + c) : 0.0f;
+  }
+  for (int e = tid; e < S * a.NOUT; e += NT) l2s[e] = __ldg(a.l2k + e);
+  for (int e = tid; e < a.NOUT; e += NT) l2s[S * a.NOUT + e] = __ldg(a.l2b + e);
+  float l1b[MAXC];
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) l1b[c] = c < nh ? __ldg(a.l1b + h0 + c) : 0.0f;
+  for (int e = tid; e < a.B; e += NT) xprev[e] = 0.0f;
+  if (tid == 0)
+    for (int q = 0; q < a.depth; ++q) mbar_init(&wbar[q]);
+  __syncthreads();
+  // phase p's slices of this block into ring slot q: the gate's (p even) or
+  // the residual's (p odd) own bytes
+  auto load = [&](int q, int p) {
+    bulk_load(smem + (size_t)q * slot_floats, a.slices + ((size_t)p * gridDim.x + blockIdx.x) * slot_floats,
+              (unsigned)((p & 1) ? Y.resid_bytes : Y.gate_bytes), &wbar[q]);
+  };
+  if (tid == 32)
+    for (int g = 0; g < a.depth && g < total; ++g) load(g, g % phases);
+
+  for (int t = 0; t < a.T; ++t) {
+    for (int p = 0; p < phases; ++p) {
+      const long g = (long)t * phases + p;
+      if (tid == 32 && g >= 1 && g - 1 + a.depth < total)
+        load((int)((g - 1) % a.depth), (int)((g - 1 + a.depth) % phases));
+      const int q = (int)(g % a.depth);
+      mbar_wait(&wbar[q], (unsigned)(g / a.depth) & 1u);
+      const float* slot = smem + (size_t)q * slot_floats;
+      const __nv_bfloat16* w = reinterpret_cast<const __nv_bfloat16*>(slot);
+      const int l = p >> 1, d = a.dil[l];
+      const size_t par_in = (size_t)(l & 1) * slot_elems, par_out = (size_t)((l + 1) & 1) * slot_elems;
+      if ((p & 1) == 0) {
+        // the gate of layer l from [ring(t-2d), ring(t-d), bf16(h_l), bf16(cond_t)]
+        const float* bias = reinterpret_cast<const float*>(reinterpret_cast<const char*>(slot) +
+                                                           r16(2 * K * Y.CG));
+        const __nv_bfloat16* ring_2d = a.ring + ((size_t)a.off[l] + t % (2 * d)) * slot_elems;
+        const __nv_bfloat16* ring_d = a.ring + ((size_t)a.off[l] + (t + d) % (2 * d)) * slot_elems;
+        const __nv_bfloat16* h_in = a.hb + par_in;
+        phase(
+            xs, K / 2, a.B,
+            [&](int b, int c4) -> float4 {
+              const int k = 8 * c4;  // eight bfloat16 values a 16-byte unit
+              if (k < R) return load_cg8(ring_2d + (size_t)b * R + k);
+              if (k < 2 * R) return load_cg8(ring_d + (size_t)b * R + k - R);
+              if (k < 3 * R) return l == 0 ? first_conv8(a, xprev[b], k - 2 * R)
+                                           : load_cg8(h_in + (size_t)b * R + k - 2 * R);
+              return load_ro8(a.cond + ((size_t)b * a.T + t) * a.C + k - 3 * R);
+            },
+            [&](int b0) {
+              if (np == 0) return;
+              const int rows = min(BT, a.B - b0);
+              const int V = tile_dot(xb, K, w, K, Y.CG / 4, rows, red_g);
+              const int r = tid / (Y.CG / 2), j = tid % (Y.CG / 2);
+              if (r < rows && j < np) {
+                const int i = r * Y.CG + 2 * j;
+                const float zv = tanhf(tile_sum(red_g, V, i) + bias[2 * j]) *
+                                 sigmoidf_(tile_sum(red_g, V, i + 1) + bias[2 * j + 1]);
+                a.z[(size_t)(b0 + r) * G2 + j0 + j] = __float2bfloat16_rn(zv);
+              }
+            });
+      } else {
+        // the residual update of layer l from z_l: the block's columns of h and skip
+        const float* bias = reinterpret_cast<const float*>(reinterpret_cast<const char*>(slot) +
+                                                           r16(2 * G2 * Y.CR));
+        __nv_bfloat16* ring_w = a.ring + ((size_t)a.off[l] + t % (2 * d)) * slot_elems;
+        phase(
+            xs, G2 / 2, a.B, [&](int b, int c4) { return load_cg8(a.z + (size_t)b * G2 + 8 * c4); },
+            [&](int b0) {
+              if (nc == 0) return;
+              const int rows = min(BT, a.B - b0);
+              const int r = tid / Y.CR, c = tid % Y.CR, n = n0 + c, b = b0 + r;
+              const bool writes = r < rows && c < nc;
+              float prev = 0.0f;  // the layer's input h_l (float32) or skip, loaded before the product
+              if (writes)
+                prev = n < R    ? (l == 0 ? first_conv(a, xprev[b], n) : __ldcg(a.hf + par_in + (size_t)b * R + n))
+                       : l == 0 ? 0.0f
+                                : __ldcg(a.skip + (size_t)b * S + n - R);
+              const int V = tile_dot(xb, G2, w, G2, Y.CR / 4, rows, red_r);
+              if (writes) {
+                const float out = (prev + (tile_sum(red_r, V, tid) + bias[c])) * SQRT_HALF;
+                if (n < R) {
+                  ring_w[(size_t)b * R + n] = __float2bfloat16_rn(prev);
+                  a.hf[par_out + (size_t)b * R + n] = out;
+                  a.hb[par_out + (size_t)b * R + n] = __float2bfloat16_rn(out);
+                } else {
+                  a.skip[(size_t)b * S + n - R] = out;
+                }
+              }
+            });
+      }
+      grid.sync();
+    }
+    emit_sample(a, Y, t, xs, l1s, l2s, lgs, xprev, red_r, l1b, h0, nh, grid);
   }
 }
 
@@ -527,6 +768,41 @@ int autovc_wavenet_gen(const float* slices, const float* fk, const float* fb, co
     off += 2 * dils[l];
   }
   return launch_cooperative(wavenet_kernel, a, blocks, NT, smem, info, stream);
+}
+
+// The bfloat16 form: as autovc_wavenet_gen, with slices in the bfloat16
+// layout of ops/wavenet.py:kernel_weights_bf16 ((2L) x blocks phase slots),
+// cond (B, T, C) in bfloat16, and the scratch ring (sum 2d, B, R) bfloat16
+// (zero), hf (2, B, R) float32, hb (2, B, R) bfloat16, skip (B, S), z (B,
+// G/2) bfloat16 and o1 (B, S). Needs R, G/2 and C multiples of 8 (16-byte
+// units of bfloat16 rows).
+int autovc_wavenet_gen_bf16(const float* slices, const float* fk, const float* fb, const float* l1k,
+                            const float* l1b, const float* l2k, const float* l2b, const void* cond, const float* unif,
+                            float* y, float* logits, void* ring, float* hf, void* hb, float* skip, void* z, float* o1,
+                            const int* dils, int L, int B, int T, int R, int G, int S, int C, int NOUT,
+                            float log_scale_min, int blocks, int pairs, int cols, int head_cols, int depth, int smem,
+                            int* info, cudaStream_t stream) {
+  const int G2 = G / 2;
+  if (L <= 0 || L > MAX_L || B <= 0 || T <= 0 || G % 16 || R % 8 || S % 4 || C % 8 || NOUT <= 0 || NOUT % 3 ||
+      (3 * R + C) / 8 > 2 * NT || S / 4 > 2 * NT)
+    return ERR_PLAN;
+  if (blocks <= 0 || pairs <= 0 || 2 * pairs > MAXC || cols <= 0 || cols > MAXC || head_cols <= 0 ||
+      head_cols > MAXC || depth < 1 || depth > MAX_DEPTH || (long)blocks * pairs < G2 ||
+      (long)blocks * cols < R + S || (long)blocks * head_cols < S)
+    return ERR_PLAN;
+  const Layout Y(B, R, G2, S, C, NOUT, pairs, cols, head_cols, depth, true);
+  if ((long)Y.total * 4 != smem) return ERR_PLAN;
+  ArgsBF a{slices, fk, fb, l1k, l1b, l2k, l2b, static_cast<const __nv_bfloat16*>(cond), unif, y, logits,
+           static_cast<__nv_bfloat16*>(ring), hf, static_cast<__nv_bfloat16*>(hb), skip,
+           static_cast<__nv_bfloat16*>(z), o1, L, B, T, R, G2, S, C, NOUT, pairs, cols, head_cols, depth,
+           log_scale_min, {}, {}};
+  for (int l = 0, off = 0; l < L; ++l) {
+    if (dils[l] < 1) return ERR_PLAN;
+    a.dil[l] = dils[l];
+    a.off[l] = off;
+    off += 2 * dils[l];
+  }
+  return launch_cooperative(wavenet_kernel_bf16, a, blocks, NT, smem, info, stream);
 }
 
 const char* autovc_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -27,6 +27,15 @@ direction of a BLSTM) and returns the sequence in natural time order.
   ``lstm_weight_grad_ref`` are the plain versions: loops of the same formulas,
   not autograd, in float32 (float64 for float64 inputs, a reference of
   higher precision).
+
+bfloat16 (inference): the forward takes bfloat16 xproj and w_hh together
+(``layers.LSTM`` in ``compute_dtype="bfloat16"``) and rounds as the Pallas
+kernel does (``pallas_lstm.py:41-75``): gates = f32(xproj_t) + h_{t-1} @
+f32(w_hh) in float32, the (h, c) carry in float32 for the whole sequence,
+only the stored sequence rounded to bfloat16. The kernel and
+``lstm_sequence_ref`` both do so. Mixed dtypes raise; so do the training
+forms, an initial state and the backward kernels in bfloat16, which are
+the next slice (ROADMAP Queue 2 #1).
 """
 
 from __future__ import annotations
@@ -41,9 +50,11 @@ from autovc_tpu_torch import exact_f32
 from autovc_tpu_torch.ops import _build
 
 # Sequences launched on the card by each wrapper: a forward, a backward
-# (the reversed recurrence with dh0), a dW product, one kernel launch each.
-# Callers reset them to 0 and read them back.
+# (the reversed recurrence with dh0), a dW product, one kernel launch each;
+# a forward in bfloat16 counts in launches and in bf16_launches. Callers
+# reset them to 0 and read them back.
 launches = 0
+bf16_launches = 0
 bwd_launches = 0
 dw_launches = 0
 
@@ -80,8 +91,11 @@ def lstm_sequence_train_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.T
 
 
 def lstm_sequence_ref(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """The plain inference forward from a zero state: the hidden sequence."""
-    return lstm_sequence_train_ref(xproj, w_hh, reverse=reverse)[0]
+    """The plain inference forward from a zero state: the hidden sequence,
+    in xproj's dtype where that is bfloat16 (computed with a float32 carry)."""
+    _check_dtypes(xproj, w_hh)
+    h_seq = lstm_sequence_train_ref(xproj, w_hh, reverse=reverse)[0]
+    return h_seq.to(torch.bfloat16) if xproj.dtype == torch.bfloat16 else h_seq
 
 
 def _hprev(h_seq: torch.Tensor, h0: torch.Tensor | None, reverse: bool) -> torch.Tensor:
@@ -173,25 +187,30 @@ class LaunchPlan:
     smem: int
 
 
-def _smem(kind: str, regime: str, hidden: int, units: int, rows: int, kc: int) -> int:
+def _smem(kind: str, regime: str, hidden: int, units: int, rows: int, kc: int, wbytes: int = 4) -> int:
     """Shared bytes of a block, laid out as the kernels lay them out: w_hh's
-    slice (K x NC), the staged rows, the partial sums of the K split."""
+    slice (K x NC, elements of ``wbytes`` bytes), the staged rows and the
+    partial sums of the K split (float32)."""
     k = hidden if kind == "fwd" else 4 * hidden
     nc = 4 * units if kind == "fwd" else -(-units // 4) * 4
     tasks = rows // ROWS_PER_THREAD * (nc // 4)
     staged = rows * (k + PAD) if regime == "a" else 2 * rows * (kc + PAD)
-    return 4 * (k * nc + staged + THREADS // tasks * rows * nc)
+    return wbytes * k * nc + 4 * (staged + THREADS // tasks * rows * nc)
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(batch: int, hidden: int, kind: str = "fwd", sms: int = SMS) -> LaunchPlan | None:
+def launch_plan(batch: int, hidden: int, kind: str = "fwd", sms: int = SMS, wbytes: int = 4) -> LaunchPlan | None:
     """The launch plan of one forward (``kind="fwd"``) or backward ("bwd")
-    sequence at (B, H), or None when w_hh does not fit the shared memory of
-    ``sms`` blocks. Regime (a) where w_hh and the staged rows fit one block,
-    else (b) with the fewest units per block (the most blocks, at most one
-    per SM). Batch rows per block follow B, in steps of 4."""
+    sequence at (B, H) with w_hh in elements of ``wbytes`` bytes (4 float32,
+    2 bfloat16: the forward's bfloat16 form), or None when w_hh does not fit
+    the shared memory of ``sms`` blocks. Regime (a) where w_hh and the staged
+    rows fit one block (float32 up to H=112, bfloat16 up to H=160), else (b)
+    with the fewest units per block (the most blocks, at most one per SM).
+    Batch rows per block follow B, in steps of 4."""
     if kind not in ("fwd", "bwd"):
         raise ValueError(f"kind is 'fwd' or 'bwd', not {kind!r}")
+    if wbytes not in (2, 4) or (kind == "bwd" and wbytes != 4):
+        raise ValueError(f"w_hh elements are 4 bytes, or 2 (the forward's bfloat16 form), not {wbytes}")
     k = hidden if kind == "fwd" else 4 * hidden
     row_groups = -(-batch // ROWS_PER_THREAD)
 
@@ -202,7 +221,7 @@ def launch_plan(batch: int, hidden: int, kind: str = "fwd", sms: int = SMS) -> L
     if hidden <= THREADS:
         for rg in range(min(-(-row_groups // sms), THREADS // hidden), 0, -1):
             rows = rg * ROWS_PER_THREAD
-            smem = _smem(kind, "a", hidden, hidden, rows, 0)
+            smem = _smem(kind, "a", hidden, hidden, rows, 0, wbytes)
             if smem <= SMEM_MAX:
                 return LaunchPlan(kind, "a", -(-batch // rows), hidden, rows, 0, smem)
     for units in range(1, hidden + 1):
@@ -214,14 +233,14 @@ def launch_plan(batch: int, hidden: int, kind: str = "fwd", sms: int = SMS) -> L
             # what is left for the two staging buffers' rows of kc floats; a
             # chunk is a multiple of 32 floats, so that rows staged kc + PAD
             # apart fall in other banks
-            room = SMEM_MAX - _smem(kind, "b", hidden, units, rows, 0)
+            room = SMEM_MAX - _smem(kind, "b", hidden, units, rows, 0, wbytes)
             kc_max = room // (4 * 2 * rows) // 32 * 32
             if kc_max < 32:
                 continue
             chunks = -(-k // kc_max)
             kc = (-(-k // chunks) + 31) // 32 * 32
             return LaunchPlan(kind, "b", hidden // units, units, rows, kc,
-                              _smem(kind, "b", hidden, units, rows, kc))
+                              _smem(kind, "b", hidden, units, rows, kc, wbytes))
     return None
 
 
@@ -268,13 +287,15 @@ def dw_plan(batch: int, time: int, hidden: int, sms: int = SMS) -> DwPlan:
     return DwPlan(tiles_m, tiles_n, splits, per_split * DW_K_TILE, workspace)
 
 
-def _no_plan(batch: int, hidden: int, sms: int) -> ValueError:
-    fits = max(h for h in range(8, hidden, 8)
-               if launch_plan(batch, h, "fwd", sms) is not None and launch_plan(batch, h, "bwd", sms) is not None)
+def _no_plan(batch: int, hidden: int, sms: int, wbytes: int = 4) -> ValueError:
+    def fits(h: int) -> bool:
+        return launch_plan(batch, h, "fwd", sms, wbytes) is not None and (
+            wbytes != 4 or launch_plan(batch, h, "bwd", sms) is not None)
+
     return ValueError(
         f"lstm kernels hold w_hh in shared memory for the whole sequence: at H={hidden} its "
-        f"{16 * hidden * hidden} bytes do not fit {sms} blocks of at most {SMEM_MAX} bytes of shared memory "
-        f"each; the largest H that fits at B={batch} is {fits}")
+        f"{4 * wbytes * hidden * hidden} bytes do not fit {sms} blocks of at most {SMEM_MAX} bytes of shared "
+        f"memory each; the largest H that fits at B={batch} is {max(h for h in range(8, hidden, 8) if fits(h))}")
 
 
 # ------------------------------------------------------------- the kernels
@@ -285,6 +306,9 @@ def _library(name: str) -> ctypes.CDLL:
         lib.autovc_lstm_fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                                         + [ctypes.c_void_p, ctypes.c_void_p])
         lib.autovc_lstm_fwd.restype = ctypes.c_int
+        lib.autovc_lstm_fwd_bf16.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                                             + [ctypes.c_void_p, ctypes.c_void_p])
+        lib.autovc_lstm_fwd_bf16.restype = ctypes.c_int
     else:
         lib.autovc_lstm_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                                         + [ctypes.c_void_p, ctypes.c_void_p])
@@ -296,26 +320,43 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+NEXT_SLICE = "the bfloat16 backward and training forms are the next slice (ROADMAP Queue 2 #1, bf16 training)"
+
+
+def _check_dtypes(xproj: torch.Tensor, w_hh: torch.Tensor) -> None:
+    """bfloat16 xproj and w_hh come together or not at all."""
+    if (xproj.dtype == torch.bfloat16) != (w_hh.dtype == torch.bfloat16):
+        raise TypeError(f"mixed dtypes: xproj {xproj.dtype} and w_hh {w_hh.dtype} (bfloat16 takes both)")
+
+
 def _check(xproj: torch.Tensor, w_hh: torch.Tensor | None, kind: str = "fwd",
            **others: torch.Tensor | None) -> tuple[int, int, int, LaunchPlan | None]:
     """Validate what a kernel takes, before it is built: float32 throughout,
-    (B, T, 4H) and w_hh (H, 4H) with H % 8 == 0 and a w_hh that fits the
-    card's shared memory, the named (B, H) and (B, T, H) tensors of matching
-    shape, all on one CUDA device. Returns (B, T, H) and, when w_hh is
-    given, the ``kind`` launch plan at the card's SM count."""
+    or, for the forward's inference form, bfloat16 xproj and w_hh; (B, T, 4H)
+    and w_hh (H, 4H) with H % 8 == 0 and a w_hh that fits the card's shared
+    memory, the named (B, H) and (B, T, H) tensors of matching shape, all on
+    one CUDA device. Returns (B, T, H) and, when w_hh is given, the ``kind``
+    launch plan at the card's SM count."""
     b, t, h4 = xproj.shape
     hidden = h4 // 4
     given = {"xproj": xproj, "w_hh": w_hh, **others}
     given = {k: v for k, v in given.items() if v is not None}
+    bf16 = any(v.dtype == torch.bfloat16 for v in given.values())
+    if bf16 and (kind != "fwd" or w_hh is None):
+        raise NotImplementedError(f"lstm kernels take no bfloat16 in the backward or dW: {NEXT_SLICE}")
+    if w_hh is not None:
+        _check_dtypes(xproj, w_hh)
+    if bf16 and any(v is not None for v in others.values()):
+        raise NotImplementedError(f"the bfloat16 forward runs from a zero state without residuals: {NEXT_SLICE}")
     for name, v in given.items():
-        if v.dtype != torch.float32:
-            raise TypeError(f"lstm kernels take float32, got {name} {v.dtype}")
+        if v.dtype != (torch.bfloat16 if bf16 else torch.float32):
+            raise TypeError(f"lstm kernels take float32, or bfloat16 xproj and w_hh, got {name} {v.dtype}")
     if h4 % 4 or (w_hh is not None and w_hh.shape != (hidden, h4)):
         raise ValueError(f"shapes do not match: xproj {tuple(xproj.shape)}, "
                          f"w_hh {None if w_hh is None else tuple(w_hh.shape)}")
     if hidden % 8:
         raise ValueError(f"lstm kernels need H % 8 == 0, got H={hidden}")
-    plan = None if w_hh is None else _plan_on_card(b, hidden, kind, xproj.device)
+    plan = None if w_hh is None else _plan_on_card(b, hidden, kind, xproj.device, 2 if bf16 else 4)
     for name, v in others.items():
         want = (b, hidden) if name in ("h0", "c0", "dhn", "dcn") else (b, t, hidden) if name != "gates" else (b, t, h4)
         if v is not None and tuple(v.shape) != want:
@@ -369,19 +410,20 @@ def _index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
-def _plan_on_card(b: int, hidden: int, kind: str, device: torch.device) -> LaunchPlan:
+def _plan_on_card(b: int, hidden: int, kind: str, device: torch.device, wbytes: int = 4) -> LaunchPlan:
     """The ``kind`` launch plan at the SM count of the card the tensors lie
     on (an H100's, ``SMS``, for tensors elsewhere, which ``_check`` refuses
     after this). Raises with the limit unless the forward's and the
     backward's w_hh both fit, so that no forward trains into a backward
-    that cannot launch."""
+    that cannot launch (the bfloat16 forward, ``wbytes`` 2, has no
+    backward)."""
     if device.type != "cuda":
         sms = SMS
     else:
         sms = _card_sms(_index(device))
-    plan = launch_plan(b, hidden, kind, sms)
-    if plan is None or launch_plan(b, hidden, "bwd" if kind == "fwd" else "fwd", sms) is None:
-        raise _no_plan(b, hidden, sms)
+    plan = launch_plan(b, hidden, kind, sms, wbytes)
+    if plan is None or (wbytes == 4 and launch_plan(b, hidden, "bwd" if kind == "fwd" else "fwd", sms) is None):
+        raise _no_plan(b, hidden, sms, wbytes)
     return plan
 
 
@@ -399,9 +441,15 @@ def lstm_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor 
                       with_gates: bool = False):
     """Launch the forward kernel on the current stream (no synchronisation),
     one launch for the sequence -> (h_seq, c_seq or None, hN, cN), and the
-    gate activations (B, T, 4H) after them when ``with_gates``."""
+    gate activations (B, T, 4H) after them when ``with_gates``. hN is
+    h_seq's last step, in h_seq's dtype. bfloat16 xproj and w_hh launch the
+    bfloat16 form: a zero initial state, neither residual."""
     global launches
+    if xproj.dtype == torch.bfloat16 and (with_cseq or with_gates):
+        raise NotImplementedError(f"the bfloat16 forward keeps no residuals for a backward: {NEXT_SLICE}")
     b, t, hidden, plan = _check(xproj, w_hh, "fwd", h0=h0, c0=c0)
+    if xproj.dtype == torch.bfloat16:
+        return _forward_bf16(xproj, w_hh, reverse, b, t, hidden, plan)
     lib = _library("lstm_fwd")
     xproj, w_hh, h0 = _dense(xproj), _dense(w_hh), _dense(h0)
     h_seq = torch.empty((b, t, hidden), device=xproj.device, dtype=torch.float32)
@@ -414,6 +462,24 @@ def lstm_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor 
     launches += 1
     out = (h_seq, c_seq, h_seq[:, 0 if reverse else -1].clone(), c)
     return out + (gates,) if with_gates else out
+
+
+def _forward_bf16(xproj, w_hh, reverse, b, t, hidden, plan):
+    """The bfloat16 form's launch: h_seq in bfloat16, (h, c) carried in
+    float32, exchanged in regime (b) through a float32 (2, B, H) buffer."""
+    global launches, bf16_launches
+    lib = _library("lstm_fwd")
+    xproj, w_hh = _dense(xproj), _dense(w_hh)
+    dev = xproj.device
+    h_seq = torch.empty((b, t, hidden), device=dev, dtype=torch.bfloat16)
+    c = torch.zeros((b, hidden), device=dev, dtype=torch.float32)
+    hbuf = torch.empty((2, b, hidden), device=dev, dtype=torch.float32) if plan.regime == "b" else None
+    with torch.cuda.device(dev):
+        _launch(lib, lib.autovc_lstm_fwd_bf16, plan, [_ptr(v) for v in (xproj, w_hh, h_seq, hbuf, c)],
+                (b, t, hidden, int(reverse)), "lstm forward kernel (bfloat16)")
+    launches += 1
+    bf16_launches += 1
+    return h_seq, None, h_seq[:, 0 if reverse else -1].clone(), c
 
 
 def lstm_sequence_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -494,6 +560,8 @@ class LSTMSequenceFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xproj, w_hh, h0, c0, reverse):
+        if torch.bfloat16 in (xproj.dtype, w_hh.dtype):
+            raise NotImplementedError(f"no gradient through a bfloat16 LSTM: {NEXT_SLICE}")
         if _device_kind(xproj) == "cuda":
             h_seq, c_seq, hn, cn, gates = lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True,
                                                             with_gates=True)

@@ -24,6 +24,16 @@ and runs ``generate_ref`` for a CPU tensor; there is no fallback from one to
 the other. The kernel is one persistent cooperative launch per call;
 ``generate_plan`` chooses, in plain Python, its blocks, the columns each block
 owns and the depth of its weight ring.
+
+bfloat16 weights (``pack_weights(..., dtype=torch.bfloat16)``, what
+``pallas_wavenet.pack_weights`` makes by default and the JAX CLI's Pallas
+engine always runs): w3, wcond, wout and wskip in bfloat16, the biases, the
+first conv and the head in float32, and the rounding points of
+``pallas_wavenet.py:74-127``: the layer input h is rounded to bfloat16 for
+the gate and the ring, cond is rounded, z is rounded; the products are
+exact products of bfloat16 values summed in float32; the (h, skip)
+accumulators stay float32 (h unrounded). The kernel's bfloat16 form and
+``generate_ref`` both follow them.
 """
 
 from __future__ import annotations
@@ -43,8 +53,10 @@ LOG_SCALE_MIN = -32.23619130191664
 U_MIN, U_MAX = 1e-5, 1.0 - 1e-5
 
 # Calls of generate that launched the CUDA kernel (one call = one utterance
-# batch). Callers reset it to 0 and read it back.
+# batch); those with bfloat16 weights count in bf16_launches too. Callers
+# reset them to 0 and read them back.
 launches = 0
+bf16_launches = 0
 # CUDA kernel launches made by the last call of generate_cuda: the plan's
 # (one, for all T samples).
 last_cuda_launches = 0
@@ -54,22 +66,27 @@ last_launch: tuple | None = None
 PACKED_KEYS = ("w3", "wcond", "wout", "wskip", "bg", "bo", "bs", "fk", "fb", "l1k", "l1b", "l2k", "l2b")
 
 
-def pack_weights(state: Mapping[str, torch.Tensor], n_layers: int) -> dict[str, torch.Tensor]:
+def pack_weights(state: Mapping[str, torch.Tensor], n_layers: int,
+                 dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     """The WaveNet state dict (JAX names, ``layers.<i>.w_prev2`` ...) ->
-    the kernel's float32 layout, counterpart of ``pallas_wavenet.pack_weights``:
+    the kernel's layout, counterpart of ``pallas_wavenet.pack_weights``:
     w3 (L, 3R, G) = [w_prev2; w_prev1; w_cur], wcond (L, C, G), wout (L, G/2, R),
-    wskip (L, G/2, S), biases bg (L, G), bo (L, R), bs (L, S), first conv fk,
-    fb (R,), head l1k (S, S), l1b (S,), l2k (S, 3K), l2b (3K,)."""
+    wskip (L, G/2, S) in ``dtype`` (float32 here by default; the JAX
+    function's default is bfloat16), biases bg (L, G), bo (L, R), bs (L, S),
+    first conv fk, fb (R,), head l1k (S, S), l1b (S,), l2k (S, 3K), l2b (3K,)
+    in float32."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"wavenet weights are float32 or bfloat16, not {dtype}")
     f32 = lambda key: state[key].detach().float()
     layer = lambda i, name: f32(f"layers.{i}.{name}")
     stack = lambda name: torch.stack([layer(i, name) for i in range(n_layers)]).contiguous()
     return {
         "w3": torch.stack([
             torch.cat([layer(i, "w_prev2"), layer(i, "w_prev1"), layer(i, "w_cur")]) for i in range(n_layers)
-        ]).contiguous(),
-        "wcond": stack("w_cond"),
-        "wout": stack("w_out"),
-        "wskip": stack("w_skip"),
+        ]).to(dtype).contiguous(),
+        "wcond": stack("w_cond").to(dtype),
+        "wout": stack("w_out").to(dtype),
+        "wskip": stack("w_skip").to(dtype),
         "bg": stack("bias"),
         "bo": stack("b_out"),
         "bs": stack("b_skip"),
@@ -100,12 +117,17 @@ def sample_from_mol_uniforms(logits: torch.Tensor, uniforms: torch.Tensor, log_s
 
 def generate_ref(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], cond: torch.Tensor,
                  uniforms: torch.Tensor, log_scale_min: float = LOG_SCALE_MIN) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version: a Python loop over samples and layers in float32.
-    cond (B, T, C), uniforms (B, T, K+1) -> samples (B, T), logits (B, T, 3K)."""
+    """The plain version: a Python loop over samples and layers in float32,
+    with the bfloat16 rounding points where the packed weights are bfloat16
+    (the layer input, cond and z rounded; products of the bfloat16 values
+    summed in float32). cond (B, T, C), uniforms (B, T, K+1) -> samples
+    (B, T), logits (B, T, 3K)."""
     b, t, _ = cond.shape
-    cond, uniforms = cond.float(), uniforms.float()
-    r, g2, s = packed["fk"].shape[0], packed["wout"].shape[1], packed["wskip"].shape[-1]
-    rings = [cond.new_zeros((b, 2 * d, r)) for d in dilations]
+    dt = packed["w3"].dtype
+    cond, uniforms = cond.float().to(dt).float(), uniforms.float()
+    w3, wcond, wout, wskip = (packed[k].float() for k in ("w3", "wcond", "wout", "wskip"))
+    r, g2, s = packed["fk"].shape[0], wout.shape[1], wskip.shape[-1]
+    rings = [cond.new_zeros((b, 2 * d, r), dtype=dt) for d in dilations]
     x_prev = cond.new_zeros(b)
     ys, all_logits = [], []
     for step in range(t):
@@ -114,12 +136,13 @@ def generate_ref(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], c
         c_t = cond[:, step]
         for i, d in enumerate(dilations):
             slot, slot_d = step % (2 * d), (step + d) % (2 * d)
-            x_all = torch.cat([rings[i][:, slot], rings[i][:, slot_d], h], dim=-1)
-            gates = x_all @ packed["w3"][i] + c_t @ packed["wcond"][i] + packed["bg"][i]
-            z = torch.tanh(gates[:, :g2]) * torch.sigmoid(gates[:, g2:])
-            skip = (skip + (z @ packed["wskip"][i] + packed["bs"][i])) * SQRT_HALF
-            new_h = (h + (z @ packed["wout"][i] + packed["bo"][i])) * SQRT_HALF
-            rings[i][:, slot] = h
+            h_in = h.to(dt)
+            x_all = torch.cat([rings[i][:, slot], rings[i][:, slot_d], h_in], dim=-1).float()
+            gates = x_all @ w3[i] + c_t @ wcond[i] + packed["bg"][i]
+            z = (torch.tanh(gates[:, :g2]) * torch.sigmoid(gates[:, g2:])).to(dt).float()
+            skip = (skip + (z @ wskip[i] + packed["bs"][i])) * SQRT_HALF
+            new_h = (h + (z @ wout[i] + packed["bo"][i])) * SQRT_HALF
+            rings[i][:, slot] = h_in
             h = new_h
         out = torch.relu(torch.relu(skip) @ packed["l1k"] + packed["l1b"])
         logits = out @ packed["l2k"] + packed["l2b"]
@@ -164,43 +187,72 @@ def _r4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def _smem(batch: int, widths: Sequence[int], pairs: int, cols: int, head_cols: int, depth: int) -> int:
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def slot_bytes(widths: Sequence[int], pairs: int, cols: int) -> tuple[int, int]:
+    """The bfloat16 form's (gate, residual) bytes of one block's phase
+    slice: K = 3R + C rows of CG bfloat16 gate weights, then CG float32
+    biases at the next 16 bytes; G/2 rows of CR bfloat16 residual weights,
+    then CR float32 biases."""
+    r, g, s, c, nout = widths
+    cg, cr = _r4(2 * pairs), _r4(cols)
+    return _r16(2 * (3 * r + c) * cg) + 4 * cg, _r16(g * cr) + 4 * cr
+
+
+def _smem(batch: int, widths: Sequence[int], pairs: int, cols: int, head_cols: int, depth: int,
+          esize: int = 4) -> int:
     """Shared bytes of a block, laid out as the kernel lays them out: the
     weight ring, the staged rows of a tile, last1's slice and last2, the
-    tile's logits, x_prev, two buffers of the warps' sums."""
+    tile's logits, x_prev, two buffers of the warps' sums. ``esize`` 2 is
+    the bfloat16 form: a slot holds the larger of a layer's two phase
+    slices and a staged row K = 3R + C or G/2 bfloat16 values (or S
+    floats)."""
     r, g, s, c, nout = widths
-    k = 3 * r + g // 2 + c
-    slot = (k + 1) * _r4(2 * pairs) + (g // 2 + 3) * _r4(cols)
-    floats = (depth * slot + TILE_ROWS * _r4(max(k, s)) + s * _r4(head_cols) + _r4((s + 1) * nout)
+    if esize == 2:
+        slot = max(slot_bytes(widths, pairs, cols)) // 4
+        row = _r4(max(max(3 * r + c, g // 2) // 2, s))
+    else:
+        k = 3 * r + g // 2 + c
+        slot = (k + 1) * _r4(2 * pairs) + (g // 2 + 3) * _r4(cols)
+        row = _r4(max(k, s))
+    floats = (depth * slot + TILE_ROWS * row + s * _r4(head_cols) + _r4((s + 1) * nout)
               + TILE_ROWS * _r4(nout) + _r4(batch) + 2 * (THREADS // 32) * TILE_ROWS * MAX_COLS)
     return 4 * floats
 
 
 @functools.lru_cache(maxsize=None)
-def generate_plan(batch: int, widths: tuple[int, int, int, int, int], sms: int = SMS) -> GeneratePlan:
+def generate_plan(batch: int, widths: tuple[int, int, int, int, int], sms: int = SMS,
+                  esize: int = 4) -> GeneratePlan:
     """The plan at B = ``batch`` for ``widths`` = (R, G, S, C, 3K) on a card
-    of ``sms`` SMs: the fewest columns a block that ``sms`` blocks cover,
+    of ``sms`` SMs with weights of ``esize`` bytes (4 float32, 2 the
+    bfloat16 form): the fewest columns a block that ``sms`` blocks cover,
     as many blocks as the widest phase needs, and the deepest weight ring
     (at most MAX_DEPTH phases) that fits SMEM_MAX. Raises where the widths
     need more SMs or more shared memory than there is. At full width (512,
     512, 256, 80, 30) on 132 SMs: 128 blocks of 2 pairs, 6 columns and 2
-    head columns, 3 phases deep."""
+    head columns, 3 phases deep in float32, 4 in bfloat16."""
     r, g, s, c, nout = widths
-    g2, k = g // 2, 3 * r + g // 2 + c
-    if max(k, s) > 8 * THREADS:
-        raise ValueError(f"wavenet kernel stages rows of at most {8 * THREADS} floats: 3R + G/2 + C = {k}, "
-                         f"S = {s}")
+    if esize not in (2, 4):
+        raise ValueError(f"wavenet weights are 4 or 2 bytes, not {esize}")
+    g2 = g // 2
+    # a staged row, in 16-byte units: 4 floats or 8 bfloat16 values
+    k = 3 * r + g // 2 + c if esize == 4 else 3 * r + c
+    if max(k * esize, 4 * s) > 32 * THREADS:
+        raise ValueError(f"wavenet kernel stages rows of at most {32 * THREADS} bytes: {k} weights of {esize} "
+                         f"bytes (3R + C{'' if esize == 2 else ' + G/2'}), S = {s}")
     pairs, cols, head_cols = -(-g2 // sms), -(-(r + s) // sms), -(-s // sms)
     if 2 * pairs > MAX_COLS or cols > MAX_COLS or head_cols > MAX_COLS:
         raise ValueError(f"wavenet kernel needs at least {-(-max(2 * g2, r + s) // MAX_COLS)} SMs for G={g}, "
                          f"R+S={r + s} ({MAX_COLS} columns a block), the card has {sms}")
     blocks = max(-(-g2 // pairs), -(-(r + s) // cols), -(-s // head_cols))
     for depth in range(MAX_DEPTH, 0, -1):
-        smem = _smem(batch, widths, pairs, cols, head_cols, depth)
+        smem = _smem(batch, widths, pairs, cols, head_cols, depth, esize)
         if smem <= SMEM_MAX:
             return GeneratePlan(blocks, pairs, cols, head_cols, depth, smem)
     raise ValueError(f"wavenet kernel: one layer's weight slices and the staged rows take "
-                     f"{_smem(batch, widths, pairs, cols, head_cols, 1)} bytes of shared memory, more than "
+                     f"{_smem(batch, widths, pairs, cols, head_cols, 1, esize)} bytes of shared memory, more than "
                      f"{SMEM_MAX}")
 
 
@@ -209,14 +261,15 @@ def _card_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _plan_on_card(batch: int, widths: tuple[int, int, int, int, int], device: torch.device) -> GeneratePlan:
+def _plan_on_card(batch: int, widths: tuple[int, int, int, int, int], device: torch.device,
+                  esize: int = 4) -> GeneratePlan:
     """The plan at the SM count of the card ``device`` names (an H100's,
     ``SMS``, for a device that is no card, which generate_cuda refuses
     after this)."""
     if device.type != "cuda":
-        return generate_plan(batch, widths, SMS)
+        return generate_plan(batch, widths, SMS, esize)
     return generate_plan(batch, widths, _card_sms(device.index if device.index is not None
-                                                 else torch.cuda.current_device()))
+                                                 else torch.cuda.current_device()), esize)
 
 
 def kernel_weights(packed: Mapping[str, torch.Tensor], plan: GeneratePlan) -> torch.Tensor:
@@ -275,10 +328,58 @@ def kernel_weights(packed: Mapping[str, torch.Tensor], plan: GeneratePlan) -> to
                       res.permute(0, 2, 1, 3).reshape(n_layers + 1, plan.blocks, -1)], dim=2).contiguous()
 
 
+def kernel_weights_bf16(packed: Mapping[str, torch.Tensor], plan: GeneratePlan) -> torch.Tensor:
+    """The bfloat16 form's weights in its layout for ``plan``: (2L, blocks,
+    slot) floats' worth of bytes, phase 2l the gate of layer l and phase
+    2l + 1 its residual update, block i's slot of a phase holding what it
+    keeps in shared memory for it: the gate slice, the K = 3R + C rows
+    [w3_l; wcond_l] in bfloat16, columns [tanh j, sigmoid j] for each of
+    the block's pairs j, zeros to CG = 2*pairs rounded up to 4, then at the
+    next 16 bytes the CG float32 biases of bg_l; or the residual slice, the
+    G/2 rows of [wout_l | wskip_l] in bfloat16 at the block's CR columns,
+    then the CR float32 biases of [bo_l | bs_l]. No fold: the gate takes
+    bf16(h_l), which the float32 form's fold cannot give. Made on the
+    weights' device, once a call."""
+    w3, wcond, wout, wskip = (packed[k] for k in ("w3", "wcond", "wout", "wskip"))
+    n_layers, g = w3.shape[0], w3.shape[-1]
+    g2, r, s, c = g // 2, wout.shape[-1], wskip.shape[-1], wcond.shape[1]
+    dev = w3.device
+    blk = torch.arange(plan.blocks, device=dev)[:, None]
+    cg, cr = _r4(2 * plan.pairs), _r4(plan.cols)
+    slot = max(slot_bytes((r, g, s, c, packed["l2b"].shape[0]), plan.pairs, plan.cols))
+
+    def cut(w: torch.Tensor, bias: torch.Tensor, cols: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+        """(L, blocks, slot) bytes: the bfloat16 rows of w at each block's
+        columns, the float32 bias row at the next 16 bytes, zeros after."""
+        rows = torch.where(ok, w[:, :, cols], torch.zeros((), dtype=w.dtype, device=dev))  # (L, K, blocks, n)
+        rows = rows.permute(0, 2, 1, 3).reshape(n_layers, plan.blocks, -1).contiguous().view(torch.uint8)
+        b = torch.where(ok, bias[:, cols], torch.zeros((), device=dev)).contiguous().view(torch.uint8)
+        out = torch.zeros((n_layers, plan.blocks, slot), dtype=torch.uint8, device=dev)
+        at = _r16(rows.shape[-1])
+        out[..., :rows.shape[-1]] = rows
+        out[..., at:at + b.shape[-1]] = b
+        return out
+
+    c_ar = torch.arange(cg, device=dev)[None, :]
+    gate_cols = (blk * plan.pairs + c_ar // 2) + (c_ar % 2) * g2
+    gate_ok = (c_ar < 2 * plan.pairs) & (blk * plan.pairs + c_ar // 2 < g2)
+    r_ar = torch.arange(cr, device=dev)[None, :]
+    res_cols = blk * plan.cols + r_ar
+    res_ok = (r_ar < plan.cols) & (res_cols < r + s)
+    gate = cut(torch.cat([w3, wcond], dim=1), packed["bg"], torch.where(gate_ok, gate_cols, 0), gate_ok)
+    res = cut(torch.cat([wout, wskip], dim=2), torch.cat([packed["bo"], packed["bs"]], dim=1),
+              torch.where(res_ok, res_cols, 0), res_ok)
+    return torch.stack([gate, res], dim=1).reshape(2 * n_layers, plan.blocks, slot).view(torch.float32)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("wavenet_gen")
     fn = lib.autovc_wavenet_gen
     fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_float]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.autovc_wavenet_gen_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_float]
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.autovc_cuda_error_string.argtypes = [ctypes.c_int]
@@ -288,8 +389,10 @@ def _library() -> ctypes.CDLL:
 
 def _check_layout(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], cond: torch.Tensor,
                   uniforms: torch.Tensor) -> tuple[int, int, int, int, int, int]:
-    """(L, R, G, S, C, 3K) after checking what the kernel takes."""
+    """(L, R, G, S, C, 3K) after checking what the kernel takes: w3, wcond,
+    wout and wskip all float32 or all bfloat16, the rest float32."""
     n_layers = len(dilations)
+    wdt = packed["w3"].dtype
     g = packed["w3"].shape[-1]
     r, s, c, nout = packed["fk"].shape[0], packed["wskip"].shape[-1], packed["wcond"].shape[1], packed["l2b"].shape[0]
     want = {
@@ -301,15 +404,19 @@ def _check_layout(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], 
         t = packed[key]
         if tuple(t.shape) != shape:
             raise ValueError(f"packed[{key!r}] has shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != torch.float32 or t.device != cond.device or not t.is_contiguous():
-            raise ValueError(f"packed[{key!r}] must be contiguous float32 on {cond.device}")
+        want_dt = wdt if key in ("w3", "wcond", "wout", "wskip") else torch.float32
+        if wdt not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"packed weights are float32 or bfloat16, not {wdt}")
+        if t.dtype != want_dt or t.device != cond.device or not t.is_contiguous():
+            raise ValueError(f"packed[{key!r}] must be contiguous {want_dt} on {cond.device}, got {t.dtype}")
         if t.data_ptr() % 16:
             raise ValueError(f"packed[{key!r}] is not 16-byte aligned")
     b, t_len, c_in = cond.shape
     if c_in != c or tuple(uniforms.shape) != (b, t_len, nout // 3 + 1):
         raise ValueError(f"cond {tuple(cond.shape)} / uniforms {tuple(uniforms.shape)} do not match C={c}, 3K={nout}")
-    if g % 16 or r % 8 or s % 8 or c % 4 or nout % 3:
-        raise ValueError(f"wavenet kernel needs G % 16 == 0, R % 8 == 0, S % 8 == 0, C % 4 == 0 "
+    c_unit = 8 if wdt == torch.bfloat16 else 4  # C in 16-byte units of the staged row
+    if g % 16 or r % 8 or s % 8 or c % c_unit or nout % 3:
+        raise ValueError(f"wavenet kernel needs G % 16 == 0, R % 8 == 0, S % 8 == 0, C % {c_unit} == 0 "
                          f"(G={g}, R={r}, S={s}, C={c})")
     if min(dilations) < 1 or n_layers > MAX_LAYERS:
         raise ValueError(f"dilations must be >= 1, at most {MAX_LAYERS} layers, got {tuple(dilations)}")
@@ -322,40 +429,53 @@ _ERR_PLAN, _ERR_RESIDENT = -1, -2  # the launcher's own codes (csrc/coop.cuh)
 def generate_cuda(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], cond: torch.Tensor,
                   uniforms: torch.Tensor, log_scale_min: float = LOG_SCALE_MIN) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on the current stream (no synchronisation):
-    one cooperative launch of ``generate_plan`` for all T samples."""
-    global launches, last_cuda_launches, last_launch
+    one cooperative launch of ``generate_plan`` for all T samples, the
+    bfloat16 form where the packed weights are bfloat16."""
+    global launches, bf16_launches, last_cuda_launches, last_launch
     if cond.dtype != torch.float32 or uniforms.dtype != torch.float32:
-        raise TypeError(f"wavenet kernel takes float32, got {cond.dtype} and {uniforms.dtype}")
+        raise TypeError(f"wavenet kernel takes float32 cond and uniforms, got {cond.dtype} and {uniforms.dtype}")
     if uniforms.device != cond.device:
         raise ValueError(f"cond on {cond.device}, uniforms on {uniforms.device}")
     cond, uniforms = cond.contiguous(), uniforms.contiguous()
     n_layers, r, g, s, c, nout = _check_layout(packed, dilations, cond, uniforms)
+    bf16 = packed["w3"].dtype == torch.bfloat16
     b, t, _ = cond.shape
-    plan = _plan_on_card(b, (r, g, s, c, nout), cond.device)
+    plan = _plan_on_card(b, (r, g, s, c, nout), cond.device, 2 if bf16 else 4)
     if cond.device.type != "cuda":
         raise ValueError(f"wavenet kernel takes tensors on a CUDA device, got {cond.device}")
     lib = _library()
     dev = cond.device
-    empty = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    empty = lambda *shape, dtype=torch.float32: torch.empty(shape, device=dev, dtype=dtype)
     y, logits = empty(b, t), empty(b, t, nout)
     # Scratch: the rings (sum 2d slots of (B, R), zero: x(t - d) before t = 0),
-    # h and z (two of each, a layer's in and out), skip and last1's output,
+    # h and z (two of each, a layer's in and out; the bfloat16 form keeps
+    # one z and h twice, in float32 and rounded), skip and last1's output,
     # each written before it is read.
-    ring = torch.zeros((2 * sum(dilations), b, r), device=dev, dtype=torch.float32)
-    h, skip, z, o1 = empty(2, b, r), empty(b, s), empty(2, b, g // 2), empty(b, s)
-    slices = kernel_weights(packed, plan)
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    ring = torch.zeros((2 * sum(dilations), b, r), device=dev, dtype=wdt)
+    skip, o1 = empty(b, s), empty(b, s)
     dils = (ctypes.c_int * n_layers)(*dilations)
     info = (ctypes.c_int * 2)(0, 0)
+    head = [packed[k].data_ptr() for k in ("fk", "fb", "l1k", "l1b", "l2k", "l2b")]
+    shape = (n_layers, b, t, r, g, s, c, nout, log_scale_min,
+             plan.blocks, plan.pairs, plan.cols, plan.head_cols, plan.depth, plan.smem)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.autovc_wavenet_gen(
-            slices.data_ptr(), *(packed[k].data_ptr() for k in ("fk", "fb", "l1k", "l1b", "l2k", "l2b")),
-            cond.data_ptr(), uniforms.data_ptr(), y.data_ptr(), logits.data_ptr(),
-            ring.data_ptr(), h.data_ptr(), skip.data_ptr(), z.data_ptr(), o1.data_ptr(),
-            ctypes.cast(dils, ctypes.c_void_p),
-            n_layers, b, t, r, g, s, c, nout, log_scale_min,
-            plan.blocks, plan.pairs, plan.cols, plan.head_cols, plan.depth, plan.smem, info, stream,
-        )
+        if bf16:
+            slices = kernel_weights_bf16(packed, plan)
+            cond_b = cond.to(torch.bfloat16)
+            hf, hb, z = empty(2, b, r), empty(2, b, r, dtype=wdt), empty(b, g // 2, dtype=wdt)
+            err = lib.autovc_wavenet_gen_bf16(
+                slices.data_ptr(), *head, cond_b.data_ptr(), uniforms.data_ptr(), y.data_ptr(), logits.data_ptr(),
+                ring.data_ptr(), hf.data_ptr(), hb.data_ptr(), skip.data_ptr(), z.data_ptr(), o1.data_ptr(),
+                ctypes.cast(dils, ctypes.c_void_p), *shape, info, stream)
+        else:
+            slices = kernel_weights(packed, plan)
+            h, z = empty(2, b, r), empty(2, b, g // 2)
+            err = lib.autovc_wavenet_gen(
+                slices.data_ptr(), *head, cond.data_ptr(), uniforms.data_ptr(), y.data_ptr(), logits.data_ptr(),
+                ring.data_ptr(), h.data_ptr(), skip.data_ptr(), z.data_ptr(), o1.data_ptr(),
+                ctypes.cast(dils, ctypes.c_void_p), *shape, info, stream)
     last_launch = (plan, info[0], info[1])
     if err == _ERR_PLAN:
         raise RuntimeError(f"wavenet kernel refused the launch plan {plan}")
@@ -365,6 +485,7 @@ def generate_cuda(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], 
     if err:
         raise RuntimeError(f"wavenet kernel launch failed: {lib.autovc_cuda_error_string(err).decode()}")
     launches += 1
+    bf16_launches += int(bf16)
     last_cuda_launches = plan.launches
     return y, logits
 

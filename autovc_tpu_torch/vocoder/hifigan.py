@@ -6,6 +6,14 @@ leaky ReLU -> Conv(k7) -> tanh; leaky ReLU slope 0.1. The public layout is
 the JAX package's (B, T, C); inside, the network runs PyTorch's (B, C, T), so
 the waveform needs no transposes. Submodule names follow the JAX parameter
 tree (``pre``, ``up{i}``, ``res{i}_{j}.conv{1,2}_{k}``, ``post``).
+
+In bfloat16 (``HiFiGANVocoder(dtype=torch.bfloat16)``) the parameters and
+the mel are cast to bfloat16 and the waveform back to float32, as
+``bench.py:107-118`` and ``serve.py`` run the JAX generator; every
+operation then rounds where flax's does on bfloat16 operands: each
+(transposed) convolution once, then its bias added in bfloat16, and the
+leaky ReLU's slope is bfloat16's 0.1. There is no Pallas kernel here: the
+convolutions run on cuDNN (on the CPU, PyTorch's own).
 """
 
 from __future__ import annotations
@@ -20,6 +28,25 @@ from torch import nn
 from autovc_tpu_torch import exact_f32, resolve_device
 from autovc_tpu_torch.config import HiFiGANConfig
 from autovc_tpu_torch.io import hifigan_state_from_jax, load_artifact
+
+
+def _conv(conv: nn.Conv1d | nn.ConvTranspose1d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``; in bfloat16 the convolution rounded, then the bias
+    added in bfloat16 (flax's two roundings; a fused bias rounds once)."""
+    if x.dtype != torch.bfloat16:
+        return conv(x)
+    if isinstance(conv, nn.ConvTranspose1d):
+        y = F.conv_transpose1d(x, conv.weight, None, conv.stride, conv.padding, conv.output_padding, conv.groups,
+                               conv.dilation)
+    else:
+        y = conv._conv_forward(x, conv.weight, None)
+    return y + conv.bias[:, None]
+
+
+def _leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """Leaky ReLU with the slope in x's dtype, as ``jax.nn.leaky_relu``
+    takes a Python slope (0.1 is 0.10009765625 in bfloat16)."""
+    return F.leaky_relu(x, float(torch.tensor(slope, dtype=x.dtype)))
 
 
 class ResBlock1(nn.Module):
@@ -37,8 +64,8 @@ class ResBlock1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
-            h = getattr(self, f"conv1_{i}")(F.leaky_relu(x, self.slope))
-            x = x + getattr(self, f"conv2_{i}")(F.leaky_relu(h, self.slope))
+            h = _conv(getattr(self, f"conv1_{i}"), _leaky(x, self.slope))
+            x = x + _conv(getattr(self, f"conv2_{i}"), _leaky(h, self.slope))
         return x
 
 
@@ -70,49 +97,54 @@ class HiFiGANGenerator(nn.Module):
         """mel (B, T, 80) -> waveform (B, T * prod(upsample_rates))."""
         c = self.cfg
         nres = len(c.resblock_kernel_sizes)
-        h = self.pre(mel.transpose(1, 2))
+        h = _conv(self.pre, mel.transpose(1, 2))
         for i in range(len(c.upsample_rates)):
-            h = getattr(self, f"up{i}")(F.leaky_relu(h, c.leaky_relu_slope))
+            h = _conv(getattr(self, f"up{i}"), _leaky(h, c.leaky_relu_slope))
             acc = getattr(self, f"res{i}_0")(h)
             for j in range(1, nres):
                 acc = acc + getattr(self, f"res{i}_{j}")(h)
             h = acc / nres
-        h = self.post(F.leaky_relu(h, c.leaky_relu_slope))
+        h = _conv(self.post, _leaky(h, c.leaky_relu_slope))
         return torch.tanh(h)[:, 0]
 
 
 class HiFiGANVocoder:
     """The vocoder entry point: weights from an exported JAX artifact
-    (``artifacts/hifigan.npz``) or drawn from ``seed``, on ``device``."""
+    (``artifacts/hifigan.npz``) or drawn from ``seed``, on ``device``, run in
+    ``dtype`` (float32, or bfloat16: the parameters cast once here)."""
 
     def __init__(self, cfg: HiFiGANConfig = HiFiGANConfig(), *, artifact: str | None = None,
-                 device: str | torch.device = "cuda", seed: int = 0):
+                 device: str | torch.device = "cuda", seed: int = 0, dtype: torch.dtype = torch.float32):
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"HiFi-GAN runs in float32 or bfloat16, not {dtype}")
         self.cfg = cfg
+        self.dtype = dtype
         self.device = resolve_device(device)
         model = HiFiGANGenerator(cfg)
         if artifact is None:
             model.reset_parameters(seed)
         else:
             model.load_state_dict(hifigan_state_from_jax(load_artifact(artifact)[0]))
-        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.model = model.to(self.device, dtype).eval().requires_grad_(False)
 
     @classmethod
     def from_checkpoint(cls, cfg: HiFiGANConfig, path: str | None, *,
-                        device: str | torch.device = "cuda") -> "HiFiGANVocoder":
+                        device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32) -> "HiFiGANVocoder":
         """The JAX ``from_checkpoint(cfg, path)``: an exported ``.npz``
         artifact, or weights drawn from seed 0 when ``path`` is None. A torch
         checkpoint raises: its importer is not ported yet (ROADMAP Queue 1 #9)."""
         if path is not None and path.endswith((".pt", ".pth", ".ckpt")):
             raise ValueError(f"{path}: torch HiFi-GAN checkpoints do not load yet (ROADMAP Queue 1 #9); "
                              f"export an .npz artifact")
-        return cls(cfg, artifact=path, device=device)
+        return cls(cfg, artifact=path, device=device, dtype=dtype)
 
     @torch.inference_mode()
     def generate(self, mel: np.ndarray | torch.Tensor) -> torch.Tensor:
         """mel (T, 80) or (B, T, 80) -> waveform (T * 256,) or (B, T * 256),
-        float32 on the vocoder's device."""
-        mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
+        float32 on the vocoder's device (in bfloat16, the mel is rounded to
+        bfloat16 first and the waveform's bfloat16 values returned)."""
+        mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device).to(self.dtype)
         squeeze = mel.ndim == 2
         with exact_f32(self.device):
-            wav = self.model(mel[None] if squeeze else mel)
+            wav = self.model(mel[None] if squeeze else mel).float()
         return wav[0] if squeeze else wav

@@ -15,7 +15,12 @@ Two paths, as in the JAX package:
   shifted matrix products over the whole sequence (plain PyTorch);
 - ``WaveNetVocoder.generate``: autoregressive generation through
   ``ops.wavenet.generate`` (the CUDA kernel on a card, the plain loop on the
-  CPU).
+  CPU), with float32 weights or, ``dtype=torch.bfloat16``, the bfloat16
+  weights and rounding points of the JAX package's Pallas engine
+  (``pack_weights(..., dtype=jnp.bfloat16)``). Both JAX engine names map to
+  this one generator; the JAX scan in bfloat16 also keeps h, the skip sum,
+  the biases and the first conv in bfloat16, which this does not (ROADMAP
+  Queue 3).
 
 Randomness stays outside the network: generation consumes a (B, T, K+1)
 stream of uniforms, given by the caller or drawn from a seeded
@@ -108,10 +113,15 @@ class WaveNet(nn.Module):
             h = F.conv_transpose2d(h, k[None, None], stride=(1, scale), padding=(k.shape[0] // 2, scale // 2))
         return h[:, 0].transpose(1, 2)[:, : tc * math.prod(self.cfg.upsample_scales)]
 
-    def apply(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def apply(self, x: torch.Tensor, c: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Teacher-forced forward: x (B, T, 1) in [-1, 1], mel c (B, Tc, 80)
         with Tc * 256 >= T -> MoL logits (B, T, 3K); sample t is predicted
-        from x[:t] (the input is shifted right by one inside)."""
+        from x[:t] (the input is shifted right by one inside). With
+        ``dtype=torch.bfloat16``, at the rounding points of bfloat16
+        generation (``ops.wavenet``): the layer weights, cond, each layer's
+        input and z rounded to bfloat16, the products summed in float32 (no
+        JAX counterpart: it checks the bfloat16 generation on its own
+        waveform)."""
         cond = self.upsample_conditioning(c)[:, : x.shape[1]]
         x_in = F.pad(x[:, :-1], (0, 0, 1, 0))
         h = x_in @ self.first_conv.kernel + self.first_conv.bias
@@ -119,15 +129,20 @@ class WaveNet(nn.Module):
         def shift(a: torch.Tensor, n: int) -> torch.Tensor:
             return F.pad(a[:, : a.shape[1] - n], (0, 0, n, 0)) if n else a
 
+        def rd(a: torch.Tensor) -> torch.Tensor:  # rounded to dtype, computed on in float32
+            return a.to(dtype).float()
+
+        cond = rd(cond)
         skip = h.new_zeros(h.shape[:2] + (self.cfg.skip_channels,))
         for i, d in enumerate(self.cfg.dilations()):
             lp = self.layers[str(i)]
-            gates = (shift(h, 2 * d) @ lp.w_prev2 + shift(h, d) @ lp.w_prev1 + h @ lp.w_cur
-                     + lp.bias + cond @ lp.w_cond)
+            h_in = rd(h)
+            gates = (shift(h_in, 2 * d) @ rd(lp.w_prev2) + shift(h_in, d) @ rd(lp.w_prev1) + h_in @ rd(lp.w_cur)
+                     + lp.bias + cond @ rd(lp.w_cond))
             a, b = gates.chunk(2, dim=-1)
-            z = torch.tanh(a) * torch.sigmoid(b)
-            skip = (skip + (z @ lp.w_skip + lp.b_skip)) * SQRT_HALF
-            h = (h + (z @ lp.w_out + lp.b_out)) * SQRT_HALF
+            z = rd(torch.tanh(a) * torch.sigmoid(b))
+            skip = (skip + (z @ rd(lp.w_skip) + lp.b_skip)) * SQRT_HALF
+            h = (h + (z @ rd(lp.w_out) + lp.b_out)) * SQRT_HALF
         out = torch.relu(torch.relu(skip) @ self.last1.kernel + self.last1.bias)
         return out @ self.last2.kernel + self.last2.bias
 
@@ -136,7 +151,8 @@ class WaveNetVocoder:
     """The WaveNet entry point: weights from an exported JAX artifact
     (``artifacts/wavenet_105k.npz``, ``artifacts/wavenet_f16.npz``) or drawn
     from ``seed``, on ``device``. The kernel's weight layout is packed once
-    here."""
+    here in float32 (``packed``), and once in bfloat16 at the first bfloat16
+    call."""
 
     def __init__(self, cfg: WaveNetConfig = WaveNetConfig(), *, artifact: str | None = None,
                  device: str | torch.device = "cuda", seed: int = 0):
@@ -149,6 +165,13 @@ class WaveNetVocoder:
             model.load_state_dict(wavenet_state_from_jax(load_artifact(artifact)[0]))
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.packed = wavenet_ops.pack_weights(self.model.state_dict(), cfg.layers)
+        self._packs = {torch.float32: self.packed}
+
+    def packed_for(self, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+        """The packed weights in ``dtype`` (float32 or bfloat16), made once."""
+        if dtype not in self._packs:
+            self._packs[dtype] = wavenet_ops.pack_weights(self.model.state_dict(), self.cfg.layers, dtype)
+        return self._packs[dtype]
 
     @classmethod
     def from_checkpoint(cls, cfg: WaveNetConfig, path: str | None, *,
@@ -171,11 +194,13 @@ class WaveNetVocoder:
 
     @torch.inference_mode()
     def generate(self, mel: np.ndarray | torch.Tensor, uniforms: torch.Tensor | None = None,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+                 generator: torch.Generator | None = None, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """mel (Tc, 80) or (B, Tc, 80), normalized -> waveform (Tc*256,) or
         (B, Tc*256), float32 on the vocoder's device. ``uniforms`` (B, T,
         K+1) is the random stream; without it one is drawn from
-        ``generator``."""
+        ``generator``. ``dtype`` is the layer weights' (float32 or
+        bfloat16, ``autovc_tpu/vocoder/wavenet.py:409-470``); the same
+        uniforms give the same stream as the JAX Pallas engine's."""
         mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
         squeeze = mel.ndim == 2
         if squeeze:
@@ -188,13 +213,14 @@ class WaveNetVocoder:
         uniforms = torch.as_tensor(uniforms, dtype=torch.float32, device=self.device)
         with exact_f32(self.device):
             cond = self.model.upsample_conditioning(mel)[:, :length]
-            wav, _ = wavenet_ops.generate(self.packed, self.cfg.dilations(), cond, uniforms,
+            wav, _ = wavenet_ops.generate(self.packed_for(dtype), self.cfg.dilations(), cond, uniforms,
                                           self.cfg.log_scale_min)
         return wav[0] if squeeze else wav
 
     def generate_bucketed(self, mel: np.ndarray | torch.Tensor, bucket: int = 64,
                           uniforms: torch.Tensor | None = None,
-                          generator: torch.Generator | None = None) -> torch.Tensor:
+                          generator: torch.Generator | None = None,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """``generate`` on one (Tc, 80) mel padded (edge replication) to a
         multiple of ``bucket`` frames, the waveform trimmed back to Tc*256
         samples. ``uniforms`` covers the padded length; bucket=0 pads
@@ -206,10 +232,11 @@ class WaveNetVocoder:
         pad = (-t) % bucket if bucket else 0
         if pad:
             mel = torch.cat([mel, mel[-1:].expand(pad, -1)])
-        return self.generate(mel, uniforms, generator)[: t * self.cfg.hop_size]
+        return self.generate(mel, uniforms, generator, dtype)[: t * self.cfg.hop_size]
 
     @torch.inference_mode()
-    def logits(self, x: torch.Tensor, mel: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced MoL logits (B, T, 3K) of waveform x (B, T, 1)."""
+    def logits(self, x: torch.Tensor, mel: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Teacher-forced MoL logits (B, T, 3K) of waveform x (B, T, 1), at
+        the rounding points of generation in ``dtype``."""
         with exact_f32(self.device):
-            return self.model.apply(x, mel)
+            return self.model.apply(x, mel, dtype)

@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels, holds
 each against its plain version, and drives spmel conversion, WaveNet
-vocoding, spmel generator training, feature extraction and the GE2E speaker
+vocoding, spmel generator training, feature extraction, the GE2E speaker
 encoder (speaker embeddings, its evaluation, the lambda_spk training
-auxiliary) end to end.
+auxiliary) and bfloat16 conversion and vocoding (``cli.synthesize``) end to
+end.
 
     python3 chip_smoke.py            # seeded random weights at full width
     python3 chip_smoke.py --trained  # the committed artifacts/*.npz weights
@@ -106,6 +107,33 @@ among them; loss 1e-5 relative, leaves 1e-4 of their scale), 21 forward, 21
 backward and 18 dW sequences a step (none for the frozen d-vector), 12
 steps with and 12 without the auxiliary (p50, p95), the device-time split
 of one warm step and of the d-vector's forward and backward.
+Phase 7 runs the bfloat16 inference paths: (a) the LSTM forward kernel's
+bfloat16 form against ``lstm_sequence_ref`` in bfloat16 (a float32 carry,
+the sequence rounded) at B=32, T=512, H in {32, 512, 1024}, both
+directions: every element within 1 bfloat16 ulp (of 2^-16 of the sequence's
+largest magnitude where the element is smaller), at least 99% bit-equal;
+its time beside the float32 kernel's, the plain loop's, cuDNN's LSTM in
+bfloat16 and the bound, with the plan; (b) the bench program in bfloat16
+(``bench.py:107-118``): phase 2's 32 mels through ``Converter.convert_batch``
+on the same seeded Generator with ``compute_dtype="bfloat16"`` (7 bfloat16
+LSTM launches) and the same HiFi-GAN in bfloat16, the waveform in float32:
+the warm iteration, its realtime factor, the Generator / HiFi-GAN / LSTM
+split, and ``bench.py``'s parity dict against phase 2's float32 run
+(recorded, not a gate: seeded weights on synthetic mels); (c) phase 3's
+WaveNet with bfloat16 weights through ``WaveNetVocoder.generate(dtype=
+torch.bfloat16)`` (one launch; B=8, T=2048): the kernel's logits against the
+teacher-forced bfloat16 forward on its own waveform, and the first 32
+samples of every row against the plain bfloat16 loop (over its first
+WN_BF16_PLAIN_T samples), each within WN_BF16_SPREAD times the plain loop's
+own spread (its logits against the teacher-forced forward of its own
+waveform; its samples against the same loop on the WaveNet with its
+channels relabelled, which sums in another order) and no tighter than
+phase 3's float32 gates; a second call the same waveform; its time at B=1, 8
+and 32 beside the float32 kernel's and the bytes bound, and the profiler's
+split; (d) ``cli.synthesize`` on the card on a results pkl of 8 of phase
+2's converted mels (4-11 frames) in a temporary directory, ``--vocoder
+wavenet --wavenet_engine pallas --batch 8`` (one bfloat16 launch) and
+``--vocoder hifigan``: every wav finite, Tc*256 samples, and readme.md.
 
 The kernels are built first, one ``nvcc`` each, started together.
 
@@ -142,12 +170,13 @@ import torch  # noqa: E402
 
 from scipy import signal as scipy_signal  # noqa: E402
 
-from autovc_tpu_torch.cli import evaluate_speaker_encoder, make_metadata, make_spect  # noqa: E402
+from autovc_tpu_torch.cli import evaluate_speaker_encoder, make_metadata, make_spect, synthesize  # noqa: E402
 from autovc_tpu_torch.config import AudioConfig, Config, ModelConfig, TrainConfig, WaveNetConfig  # noqa: E402
 from autovc_tpu_torch.convert import Converter  # noqa: E402
 from autovc_tpu_torch.dsp import (MelFrontend, butter_highpass, butter_highpass_sos, mel_filterbank,  # noqa: E402
                                   read_wav, stft_magnitude, write_wav)
-from autovc_tpu_torch.data import BatchIterator, SpeakerEntry, UtteranceDataset, save_train_manifest  # noqa: E402
+from autovc_tpu_torch.data import (BatchIterator, SpeakerEntry, UtteranceDataset, save_results,  # noqa: E402
+                                   save_train_manifest)
 from autovc_tpu_torch.data.metadata_builder import embed_speaker  # noqa: E402
 from autovc_tpu_torch.io import save_dvector_artifact  # noqa: E402
 from autovc_tpu_torch.models import build_dvector, build_generator  # noqa: E402
@@ -308,23 +337,27 @@ def plan_line(kind: str) -> str:
             f"{per_sm} resident a SM on {sms} SMs")
 
 
-def cudnn_lstm_ms(dev: torch.device, rng: np.random.RandomState) -> float:
+def cudnn_lstm_ms(dev: torch.device, rng: np.random.RandomState, dtype: torch.dtype = torch.float32) -> float:
     """Yardstick only: torch.nn.LSTM (cuDNN) over the generator's three LSTM
-    stacks at B=32, T=512, input product included."""
+    stacks at B=32, T=512, input product included, in ``dtype`` (in
+    bfloat16 cuDNN rounds otherwise than the kernel: a yardstick, never a
+    gate)."""
     total = 0.0
     for in_dim, hidden, layers, bidir in [(512, 32, 2, True), (320, 512, 1, False), (512, 1024, 2, False)]:
-        net = torch.nn.LSTM(in_dim, hidden, layers, batch_first=True, bidirectional=bidir).to(dev)
-        x = torch.from_numpy(rng.randn(B, T, in_dim).astype(np.float32)).to(dev)
+        net = torch.nn.LSTM(in_dim, hidden, layers, batch_first=True, bidirectional=bidir).to(dev, dtype)
+        x = torch.from_numpy(rng.randn(B, T, in_dim).astype(np.float32)).to(dev, dtype)
         with torch.inference_mode():
             ms = cuda_ms(lambda: net(x), reps=5)
-        log(f"cudnn nn.LSTM in={in_dim} H={hidden} layers={layers} bidirectional={bidir}: ms={ms:.4f}")
+        log(f"cudnn nn.LSTM {str(dtype).removeprefix('torch.')} in={in_dim} H={hidden} layers={layers} "
+            f"bidirectional={bidir}: ms={ms:.4f}")
         total += ms
     return total
 
 
-def phase_end_to_end(dev: torch.device, trained: bool) -> tuple[int, np.ndarray]:
+def phase_end_to_end(dev: torch.device, trained: bool) -> tuple[int, np.ndarray, tuple]:
     """Converter.convert_batch + HiFi-GAN on (32, 512, 80) mels; returns the
-    kernel launches of the main-path run and the converted mels."""
+    kernel launches of the main-path run, the converted mels and (the specs,
+    the waveform) for phase 7b."""
     cfg = ModelConfig()
     art = ROOT / "artifacts"
     gen = build_generator(cfg, artifact=str(art / "generator_spmel_f16.npz") if trained else None,
@@ -390,7 +423,7 @@ def phase_end_to_end(dev: torch.device, trained: bool) -> tuple[int, np.ndarray]
     log(f"warm iteration: {warm_s * 1e3:.1f} ms wall for {audio_s:.1f} s of audio "
         f"({audio_s / warm_s:.1f}x realtime); generator {gen_ms:.1f} ms, vocoder {voc_ms:.1f} ms "
         f"(card: {card_line()})")
-    return launches, mels
+    return launches, mels, (specs, wav)
 
 
 def wavenet_work(cfg: WaveNetConfig, packed: dict, b: int, t: int) -> tuple[float, float]:
@@ -402,8 +435,9 @@ def wavenet_work(cfg: WaveNetConfig, packed: dict, b: int, t: int) -> tuple[floa
     r, g, s, c, nout = (cfg.residual_channels, cfg.gate_channels, cfg.skip_channels,
                         cfg.cin_channels, cfg.out_channels)
     macs = cfg.layers * ((3 * r + c) * g + g // 2 * (r + s)) + s * s + s * nout
-    weight_bytes = sum(v.numel() for v in packed.values()) * 4
-    step_bytes = weight_bytes + 4 * b * (3 * cfg.layers * r + c + nout // 3 + 1 + 1 + nout)
+    weight_bytes = sum(v.numel() * v.element_size() for v in packed.values())
+    ring = packed["w3"].element_size()  # the rings' and cond's element: 4, or 2 in bfloat16
+    step_bytes = weight_bytes + b * (ring * (3 * cfg.layers * r + c) + 4 * (nout // 3 + 1 + 1 + nout))
     return 2.0 * b * macs * t, float(step_bytes) * t
 
 
@@ -413,17 +447,19 @@ def first_apart(a: torch.Tensor, b: torch.Tensor, tol: float) -> list[int]:
     return torch.where((a - b).abs() > tol, idx, a.shape[1]).min(dim=1).values.tolist()
 
 
-def wavenet_profile(voc: WaveNetVocoder, cond: torch.Tensor, u: torch.Tensor, samples: int) -> None:
+def wavenet_profile(voc: WaveNetVocoder, cond: torch.Tensor, u: torch.Tensor, samples: int,
+                    dtype: torch.dtype = torch.float32) -> None:
     """Device time by kernel over one generate call of ``samples`` samples
     (torch.profiler), and the device's busy share of that call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     cond, u = cond[:, :samples].contiguous(), u[:, :samples].contiguous()
-    wavenet_ops.generate(voc.packed, voc.cfg.dilations(), cond, u)  # warm
+    packed = voc.packed_for(dtype)
+    wavenet_ops.generate(packed, voc.cfg.dilations(), cond, u)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        wavenet_ops.generate(voc.packed, voc.cfg.dilations(), cond, u)
+        wavenet_ops.generate(packed, voc.cfg.dilations(), cond, u)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(e.key, e.count, getattr(e, "device_time_total", 0.0)) for e in prof.key_averages()
@@ -433,7 +469,7 @@ def wavenet_profile(voc: WaveNetVocoder, cond: torch.Tensor, u: torch.Tensor, sa
         return
     busy = sum(r[2] for r in rows)
     for key, count, total in sorted(rows, key=lambda r: -r[2]):
-        name = re.search(r"(\w+_kernel)", key)
+        name = re.search(r"(\w+_kernel\w*)", key)
         log(f"wavenet profile: {name.group(1) if name else key[:40]}: {count} launches, {total / count:.2f} us each, "
             f"{total / samples:.1f} us per sample")
     log(f"wavenet profile: B={cond.shape[0]}, {samples} samples, device busy {busy:.0f} us of {wall_us:.0f} us wall "
@@ -1767,6 +1803,284 @@ def phase_speaker_training(dev: torch.device, ckpt: str) -> dict:
             "dvector_counts": dv_counts}
 
 
+# ---------------------------------------------------------------- phase 7
+# bfloat16 inference: the LSTM forward kernel's and WaveNet's bfloat16
+# forms, the bench program in bfloat16 and cli.synthesize
+
+BF16 = torch.bfloat16
+LSTM_BF16_ULPS, LSTM_BF16_EQUAL = 1.0, 0.99  # the same rounding points, float32 sums in another order
+BENCH_MEL_DELTA = 0.06  # bench.py:151-158's bound on the bf16-vs-f32 mel (recorded here, not a gate)
+WN_BF16_PLAIN_T = 256  # samples of the plain bfloat16 loop (it and its reordered twin: ~10 s on the card)
+# the bfloat16 kernel's gates: this many times the plain loop's own spread
+# in this run, and no tighter than phase 3's float32 gates
+WN_BF16_SPREAD = 4.0
+SYN_UTTS = 8  # phase 7d: converted mels of 4 .. 11 frames
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(the largest |got - want| in bfloat16 ulps of want, or of 2^-16 of
+    want's largest magnitude where want is smaller, the share of elements
+    bit-equal)."""
+    g, w = got.double(), want.double()
+    scale = torch.clamp(w.abs(), min=2.0 ** -16 * w.abs().max().item())
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return ((g - w).abs() / ulp).max().item(), (g == w).double().mean().item()
+
+
+def phase_bf16_lstm(dev: torch.device) -> dict:
+    """7a: the LSTM forward kernel's bfloat16 form against the plain version
+    at the Generator's shapes, timed beside the float32 kernel."""
+    rng = np.random.RandomState(7)
+    record = {"max_abs_err": 0.0, "max_ulps": 0.0, "min_equal_share": 1.0, "ms": 0.0, "f32_ms": 0.0,
+              "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    for hidden, reverse, calls in LSTM_CASES:
+        x = torch.from_numpy((rng.randn(B, T, 4 * hidden) * 0.5).astype(np.float32)).to(dev)
+        bound = 1.0 / np.sqrt(hidden)
+        w = torch.from_numpy(rng.uniform(-bound, bound, (hidden, 4 * hidden)).astype(np.float32)).to(dev)
+        xb, wb = x.to(BF16), w.to(BF16)
+        got = lstm_ops.lstm_sequence(xb, wb, reverse)
+        want = lstm_ops.lstm_sequence_ref(xb, wb, reverse)
+        torch.cuda.synchronize()
+        if got.dtype != BF16:
+            raise AssertionError(f"the bfloat16 lstm returned {got.dtype}")
+        ulps, equal = bf16_ulps(got.float(), want.float())
+        err = (got.float() - want.float()).abs().max().item()
+        plan = plan_line("fwd")
+        ms = cuda_ms(lambda: lstm_ops.lstm_sequence(xb, wb, reverse), reps=5)
+        f32_ms = cuda_ms(lambda: lstm_ops.lstm_sequence(xb.float(), wb.float(), reverse), reps=5)
+        plain_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_ref(xb, wb, reverse), reps=1)
+        flops, nbytes = lstm_work(B, T, hidden)
+        nbytes /= 2  # xproj, w_hh and h_seq in bfloat16
+        case_bound, bound_by = bound_ms(flops, nbytes)
+        log(f"lstm_fwd bf16 H={hidden} {'reverse' if reverse else 'forward'}: max {ulps:.2f} bf16 ulps, "
+            f"{equal:.5f} bit-equal, max_abs_err={err:.3e}; ms={ms:.4f} ({ms / T * 1e3:.2f} us a step), f32 kernel "
+            f"{f32_ms:.4f}, plain_ms={plain_ms:.4f}, bound_ms={case_bound:.4f} ({bound_by}); {plan}")
+        if not (ulps <= LSTM_BF16_ULPS and equal >= LSTM_BF16_EQUAL):
+            raise AssertionError(f"bf16 lstm kernel H={hidden} reverse={reverse}: {ulps} ulps, {equal} bit-equal "
+                                 f"(gate {LSTM_BF16_ULPS}, {LSTM_BF16_EQUAL})")
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        record["max_ulps"] = max(record["max_ulps"], ulps)
+        record["min_equal_share"] = min(record["min_equal_share"], equal)
+        for key, v in (("ms", ms), ("f32_ms", f32_ms), ("plain_ms", plain_ms), ("flops", flops), ("bytes", nbytes)):
+            record[key] += calls * v
+    record["bound_ms"], record["bound_by"] = bound_ms(record.pop("flops"), record.pop("bytes"))
+    record["library_ms"] = cudnn_lstm_ms(dev, rng, BF16)
+    log(f"lstm_fwd bf16 per Generator forward (7 sequences): {record['ms']:.3f} ms (f32 kernel "
+        f"{record['f32_ms']:.3f}), plain {record['plain_ms']:.1f}, bound {record['bound_ms']:.3f} "
+        f"({record['bound_by']}), cuDNN bf16 {record['library_ms']:.3f} (card: {card_line()})")
+    return record
+
+
+def phase_bf16_bench(dev: torch.device, trained: bool, mels32: np.ndarray, f32_run: tuple,
+                     lstm_rec: dict) -> dict:
+    """7b: phase 2's program in bfloat16, as bench.py runs it: the same
+    seeded Generator with compute_dtype bfloat16 and the same HiFi-GAN with
+    bfloat16 parameters, the mel cast to bfloat16 on its way in and the
+    waveform to float32 on its way out."""
+    specs, wav32 = f32_run
+    art = ROOT / "artifacts"
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    gen = build_generator(cfg, artifact=str(art / "generator_spmel_f16.npz") if trained else None,
+                          device=dev, seed=1)
+    voc = HiFiGANVocoder(artifact=str(art / "hifigan.npz") if trained else None, device=dev, seed=2, dtype=BF16)
+    converter = Converter(gen, cfg)
+
+    def run():
+        mels = np.stack(converter.convert_batch(specs, batch_size=B))
+        return mels, voc.generate(mels)
+
+    torch.cuda.synchronize()
+    lstm_ops.launches = lstm_ops.bf16_launches = 0
+    t0 = time.perf_counter()
+    mels, wav = run()
+    torch.cuda.synchronize()
+    launches, bf16_launches = lstm_ops.launches, lstm_ops.bf16_launches
+    log(f"bf16 main path (cold): {time.perf_counter() - t0:.3f} s, lstm kernel launches={launches} "
+        f"(bfloat16 form {bf16_launches})")
+    if launches != 7 or bf16_launches != 7:
+        raise AssertionError(f"expected 7 bfloat16 lstm launches per Generator forward, got {launches} "
+                             f"({bf16_launches} bfloat16)")
+    if wav.dtype != torch.float32 or wav.shape != (B, T * HOP) or not bool(torch.isfinite(wav).all()):
+        raise AssertionError(f"bf16 waveform {wav.dtype} {tuple(wav.shape)} finite={bool(torch.isfinite(wav).all())}")
+    if mels.shape != (B, T, N_MELS) or not np.isfinite(mels).all():
+        raise AssertionError(f"bf16 mel {mels.shape} finite={np.isfinite(mels).all()}")
+    parity = {"mel_maxabs_delta": float(np.abs(mels - mels32).max()),
+              "mel_meanabs_delta": float(np.abs(mels - mels32).mean()),
+              "wav_maxabs_delta": float((wav - wav32).abs().max())}
+    parity["ok"] = parity["mel_maxabs_delta"] <= BENCH_MEL_DELTA
+    log(f"bf16 parity against phase 2's f32 run (bench.py's dict; recorded, not a gate): {json.dumps(parity)}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    audio_s = B * T * HOP / 16000
+    x = torch.from_numpy(np.stack([s.src_features for s in specs])).to(dev)
+    e_src = torch.from_numpy(np.stack([s.src_embedding for s in specs])).to(dev)
+    e_trg = torch.from_numpy(np.stack([s.trg_embedding for s in specs])).to(dev)
+    with torch.inference_mode():
+        gen_ms = cuda_ms(lambda: gen(x, e_src, e_trg), reps=3)
+        voc_ms = cuda_ms(lambda: voc.model(x.to(BF16)), reps=3)
+    log(f"bf16 warm iteration: {warm_s * 1e3:.1f} ms wall for {audio_s:.1f} s of audio ({audio_s / warm_s:.1f}x "
+        f"realtime); generator {gen_ms:.1f} ms (of it the bf16 LSTM kernel {lstm_rec['ms']:.1f}), HiFi-GAN "
+        f"{voc_ms:.1f} ms (card: {card_line()})")
+    return {"launches": launches, "iteration_ms": warm_s * 1e3, "realtime": audio_s / warm_s,
+            "generator_ms": gen_ms, "hifigan_ms": voc_ms, "parity": parity}
+
+
+def permuted_wavenet(packed: dict, cfg: WaveNetConfig, seed: int) -> tuple[dict, torch.Tensor]:
+    """The same WaveNet with its residual, gate, skip and cond channels
+    relabelled (and the cond permutation to apply to cond): the same
+    function in exact arithmetic, its products summed in another order."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = packed["w3"].device
+    r, g2, s, c = cfg.residual_channels, cfg.gate_channels // 2, cfg.skip_channels, cfg.cin_channels
+    pr, pg, ps, pc = (torch.randperm(n, generator=gen).to(dev) for n in (r, g2, s, c))
+    gcols = torch.cat([pg, pg + g2])
+    p = dict(packed)
+    p["w3"] = packed["w3"][:, torch.cat([pr, pr + r, pr + 2 * r])][:, :, gcols].contiguous()
+    p["wcond"] = packed["wcond"][:, pc][:, :, gcols].contiguous()
+    p["bg"] = packed["bg"][:, gcols].contiguous()
+    p["wout"] = packed["wout"][:, pg][:, :, pr].contiguous()
+    p["wskip"] = packed["wskip"][:, pg][:, :, ps].contiguous()
+    p["bo"], p["bs"] = packed["bo"][:, pr].contiguous(), packed["bs"][:, ps].contiguous()
+    p["fk"], p["fb"] = packed["fk"][pr].contiguous(), packed["fb"][pr].contiguous()
+    p["l1k"] = packed["l1k"][ps].contiguous()
+    return p, pc
+
+
+def phase_bf16_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> dict:
+    """7c: phase 3's WaveNet with bfloat16 weights, its gates derived from
+    the plain loop's own spread, timings beside the float32 kernel."""
+    cfg = WaveNetConfig()
+    art = ROOT / "artifacts" / "wavenet_105k.npz"
+    voc = WaveNetVocoder(cfg, artifact=str(art) if trained else None, device=dev, seed=3)
+    mel = torch.from_numpy(np.ascontiguousarray(mels[:WN_B, :WN_FRAMES])).to(dev)
+    t = WN_FRAMES * cfg.hop_size
+    u = voc.uniforms(WN_B, t, torch.Generator().manual_seed(4))
+    dils = cfg.dilations()
+
+    torch.cuda.synchronize()
+    wavenet_ops.launches = wavenet_ops.bf16_launches = 0
+    t0 = time.perf_counter()
+    wav = voc.generate(mel, uniforms=u, dtype=BF16)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches, bf16_launches = wavenet_ops.launches, wavenet_ops.bf16_launches
+    plan, per_sm, sms = wavenet_ops.last_launch
+    log(f"wavenet bf16 main path (cold): {cold_s:.3f} s, wrapper launches={launches} (bfloat16 {bf16_launches}), "
+        f"CUDA launches={wavenet_ops.last_cuda_launches}; plan: {plan.blocks} blocks, {per_sm} resident a SM on "
+        f"{sms} SMs, {plan.pairs} pairs / {plan.cols} columns / {plan.head_cols} head columns a block, a ring "
+        f"of {plan.depth} phases, {plan.smem} shared bytes; {2 * cfg.layers + 1} grid barriers a sample")
+    if launches != 1 or bf16_launches != 1 or wavenet_ops.last_cuda_launches != plan.launches:
+        raise AssertionError(f"wavenet bf16 launches: wrapper {launches} ({bf16_launches} bfloat16), CUDA "
+                             f"{wavenet_ops.last_cuda_launches}, plan {plan.launches}")
+    if wav.shape != (WN_B, t) or not bool(torch.isfinite(wav).all()) or float(wav.abs().max()) > 1.0:
+        raise AssertionError(f"wavenet bf16 waveform {tuple(wav.shape)} finite={bool(torch.isfinite(wav).all())}")
+
+    packed = voc.packed_for(BF16)
+    n = WN_BF16_PLAIN_T
+    with torch.inference_mode():
+        cond = voc.model.upsample_conditioning(mel)
+        y, logits = wavenet_ops.generate(packed, dils, cond, u, cfg.log_scale_min)
+        torch.cuda.synchronize()
+        if not torch.equal(y, wav):
+            raise AssertionError("the bf16 kernel gave another waveform on the same inputs")
+        tf_err = (logits - voc.logits(y[..., None], mel, BF16)).abs().max().item()
+        cond_n, u_n = cond[:, :n].contiguous(), u[:, :n].contiguous()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y_ref, logits_ref = wavenet_ops.generate_ref(packed, dils, cond_n, u_n, cfg.log_scale_min)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        # the plain loop's own spread: its logits against the teacher-forced
+        # forward on its own waveform; its samples against the same loop on
+        # the relabelled WaveNet
+        spread_tf = (logits_ref - voc.logits(y_ref[..., None], mel, BF16)).abs().max().item()
+        twin, pc = permuted_wavenet(packed, cfg, seed=11)
+        y_twin, _ = wavenet_ops.generate_ref(twin, dils, cond_n[..., pc].contiguous(), u_n, cfg.log_scale_min)
+        spread_prefix = (y_ref[:, :WN_MIN_PREFIX] - y_twin[:, :WN_MIN_PREFIX]).abs().max().item()
+        tf_tol = max(WN_TF_TOL, WN_BF16_SPREAD * spread_tf)
+        prefix_tol = max(WN_PREFIX_TOL, WN_BF16_SPREAD * spread_prefix)
+        apart = first_apart(y[:, :n], y_ref, prefix_tol)
+        prefix = min(apart)
+        prefix_err = (y[:, :prefix] - y_ref[:, :prefix]).abs().max().item() if prefix else float("inf")
+        log(f"wavenet bf16 plain loop's spread: teacher-forced logits {spread_tf:.3e}, first {WN_MIN_PREFIX} samples "
+            f"against its relabelled twin {spread_prefix:.3e} (twin first apart by > {WN_PREFIX_TOL}: "
+            f"{first_apart(y_ref, y_twin, WN_PREFIX_TOL)})")
+        log(f"wavenet bf16 (i) kernel logits vs teacher-forced bf16 forward: max_abs_err={tf_err:.3e} "
+            f"(tol {tf_tol:.3e}); (ii) vs plain loop over {n} samples: first apart by > {prefix_tol:.3e} per row "
+            f"{apart}, max_abs_err over the common prefix {prefix_err:.3e}")
+        if not tf_err <= tf_tol:
+            raise AssertionError(f"wavenet bf16 teacher-forced check: {tf_err} > {tf_tol}")
+        if prefix < WN_MIN_PREFIX:
+            raise AssertionError(f"wavenet bf16 kernel leaves the plain loop at sample {prefix} < {WN_MIN_PREFIX}")
+        times = {}
+        for rows in WN_TIME_B:
+            mel_b = torch.from_numpy(np.ascontiguousarray(mels[:rows, :WN_FRAMES])).to(dev)
+            cond_b = voc.model.upsample_conditioning(mel_b)
+            u_b = voc.uniforms(rows, t, torch.Generator().manual_seed(5))
+            reps = 3 if rows == WN_B else 2
+            call = lambda pk: (lambda: wavenet_ops.generate(pk, dils, cond_b, u_b, cfg.log_scale_min))
+            f32_a = cuda_ms(call(voc.packed), reps)
+            bf_ms = cuda_ms(call(packed), reps)
+            f32_b = cuda_ms(call(voc.packed), reps)
+            b_bound, _ = bound_ms(*wavenet_work(cfg, packed, rows, t))
+            f32_bound, _ = bound_ms(*wavenet_work(cfg, voc.packed, rows, t))
+            times[rows] = (bf_ms / t * 1e3, (f32_a + f32_b) / 2 / t * 1e3)
+            log(f"wavenet bf16 B={rows}, T={t}: {bf_ms:.3f} ms a call, {times[rows][0]:.2f} us a sample "
+                f"({bf_ms / (t * (2 * cfg.layers + 1)) * 1e3:.3f} us a phase); f32 kernel in turn "
+                f"{f32_a / t * 1e3:.2f}, {f32_b / t * 1e3:.2f} us a sample; bound {b_bound / t * 1e3:.2f} us a "
+                f"sample (bytes; f32 {f32_bound / t * 1e3:.2f}) (card: {card_line()})")
+            if rows == WN_B:
+                ms = bf_ms
+        for rows in (1, WN_B):
+            wavenet_profile(voc, cond[:rows], u[:rows], samples=64, dtype=BF16)
+    w_bound_ms, w_bound_by = bound_ms(*wavenet_work(cfg, packed, WN_B, t))
+    log(f"wavenet bf16 kernel: {ms:.3f} ms per call (B={WN_B}, T={t}), bound {w_bound_ms:.3f} ms ({w_bound_by}), "
+        f"plain {plain_ms:.1f} ms over {n} samples")
+    return {"launches": launches, "max_abs_err": max(tf_err, prefix_err), "ms": ms, "plain_ms": plain_ms,
+            "plain_samples": n, "bound_ms": w_bound_ms, "bound_by": w_bound_by, "library_ms": None,
+            "tf_tol": tf_tol, "prefix_tol": prefix_tol,
+            "us_per_sample": {str(rows): {"bf16": v[0], "f32": v[1]} for rows, v in times.items()}}
+
+
+def phase_synthesize(mels: np.ndarray, tmp: str) -> dict:
+    """7d: cli.synthesize on the card on a results pkl of 8 converted mels
+    of 4 .. 11 frames: WaveNet through the pallas engine (bfloat16) in one
+    batch of 8, and HiFi-GAN one at a time."""
+    results = [(f"conv{i:02d}", np.ascontiguousarray(mels[i, :4 + i])) for i in range(SYN_UTTS)]
+    pkl = os.path.join(tmp, "results_0.pkl")
+    save_results(pkl, results)
+    out = {}
+    for vocoder, extra in (("wavenet", ["--wavenet_engine", "pallas", "--batch", str(SYN_UTTS)]), ("hifigan", [])):
+        out_dir = os.path.join(tmp, vocoder)
+        torch.cuda.synchronize()
+        wavenet_ops.launches = wavenet_ops.bf16_launches = 0
+        t0 = time.perf_counter()
+        synthesize.main(["--results", pkl, "--out_dir", out_dir, "--vocoder", vocoder, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name, mel in results:
+            x, sr = read_wav(os.path.join(out_dir, f"{name}.wav"))
+            if sr != SR or x.shape != (mel.shape[0] * HOP,) or not np.isfinite(x).all():
+                raise AssertionError(f"synthesize {vocoder}: {name}.wav {x.shape} at {sr} Hz, expected "
+                                     f"({mel.shape[0] * HOP},) at {SR}")
+        readme = open(os.path.join(out_dir, "readme.md")).read().splitlines()
+        listed = [line.split()[1] for line in readme if line.startswith("- ")]
+        if readme[0] != "# Synthesized conversions" or listed != [f"{name}.wav" for name, _ in results]:
+            raise AssertionError(f"synthesize {vocoder}: readme.md lists {listed}")
+        launched = (wavenet_ops.launches, wavenet_ops.bf16_launches)
+        if vocoder == "wavenet" and launched != (1, 1):
+            raise AssertionError(f"synthesize wavenet --batch {SYN_UTTS}: {launched} (kernel, bfloat16) launches")
+        log(f"cli.synthesize --vocoder {vocoder} {' '.join(extra)}: {len(results)} wavs of 4-11 frames, "
+            f"{wall:.2f} s wall; wavenet kernel launches (all, bfloat16) {launched} (card: {card_line()})")
+        out[vocoder] = {"wall_s": wall, "wavenet_launches": launched[0]}
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1778,12 +2092,13 @@ def main(argv: list[str] | None = None) -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     phase_build()
     record = phase_kernel(dev)
-    launches, mels = phase_end_to_end(dev, args.trained)
+    launches, mels, f32_run = phase_end_to_end(dev, args.trained)
     t0 = time.perf_counter()
     wn = phase_wavenet(dev, args.trained, mels)
     log(f"phase 3 (wavenet): {time.perf_counter() - t0:.1f} s")
@@ -1807,6 +2122,18 @@ def main(argv: list[str] | None = None) -> int:
         shutil.rmtree(corpus, ignore_errors=True)
     if os.path.exists(corpus):
         raise AssertionError(f"{corpus} was not removed")
+    t0 = time.perf_counter()
+    bf_lstm = phase_bf16_lstm(dev)
+    bf_bench = phase_bf16_bench(dev, args.trained, mels, f32_run, bf_lstm)
+    bf_wn = phase_bf16_wavenet(dev, args.trained, mels)
+    syn_dir = tempfile.mkdtemp(prefix="chip_smoke_synthesize_")
+    try:
+        syn = phase_synthesize(mels, syn_dir)
+    finally:
+        shutil.rmtree(syn_dir, ignore_errors=True)
+    if os.path.exists(syn_dir):
+        raise AssertionError(f"{syn_dir} was not removed")
+    log(f"phase 7 (bfloat16): {time.perf_counter() - t0:.1f} s")
     lstm_bound, lstm_bound_by = bound_ms(record["flops"], record["bytes"])
     fwd_train_bound, _ = bound_ms(fwd_train["flops"], fwd_train["bytes"])
     bwd_bound, bwd_bound_by = bound_ms(bwd["flops"], bwd["bytes"])
@@ -1841,6 +2168,9 @@ def main(argv: list[str] | None = None) -> int:
         "train_bound_ms": fwd_train_bound,
         "train_library_ms": fwd_train["library_ms"],
         "dvector": spk_fwd,
+        # the bfloat16 form (phase 7a-b): launches on the bench program's
+        # bfloat16 conversion; times per Generator forward (7 sequences)
+        "bf16": {"launches": bf_bench["launches"], **bf_lstm, "bench": bf_bench},
     }, {
         "name": "lstm_bwd",
         "route": "cuda",
@@ -1884,6 +2214,9 @@ def main(argv: list[str] | None = None) -> int:
         # no single PyTorch call computes autoregressive generation
         "library_ms": None,
         **wn,
+        # bfloat16 weights (phase 7c-d): launches of 7c's main path, and of
+        # cli.synthesize's wavenet run beside it
+        "bf16": {**bf_wn, "cli_launches": syn["wavenet"]["wavenet_launches"]},
     }, {
         "name": "mel_norm",
         "route": "cuda",

@@ -86,8 +86,8 @@ def test_convert_batch_groups_and_keeps_order(converters):
 
 def test_port_and_chip_smoke_import_without_jax():
     """With jax, flax, pandas and autovc_tpu blocked, every module of the
-    port (the WaveNet, training, feature-extraction and speaker-encoder
-    modules among them) and chip_smoke still import."""
+    port (the WaveNet, training, feature-extraction, speaker-encoder and
+    synthesis modules among them) and chip_smoke still import."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'pandas', 'autovc_tpu'):\n"
@@ -105,7 +105,8 @@ def test_port_and_chip_smoke_import_without_jax():
         "        'autovc_tpu_torch.cli.make_spect', 'autovc_tpu_torch.models.dvector', 'autovc_tpu_torch.eval',\n"
         "        'autovc_tpu_torch.eval.fidelity', 'autovc_tpu_torch.data.metadata_builder',\n"
         "        'autovc_tpu_torch.train.ge2e', 'autovc_tpu_torch.cli.make_metadata',\n"
-        "        'autovc_tpu_torch.cli.evaluate_speaker_encoder'} <= set(mods), mods\n"
+        "        'autovc_tpu_torch.cli.evaluate_speaker_encoder', 'autovc_tpu_torch.cli.synthesize',\n"
+        "        'autovc_tpu_torch.vocoder.griffinlim'} <= set(mods), mods\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "from autovc_tpu_torch.vocoder import WaveNetVocoder\n"

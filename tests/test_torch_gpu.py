@@ -163,7 +163,7 @@ def test_wavenet_kernel_with_blocks_that_own_nothing(cuda, monkeypatch):
     layers, so that slots are reused within a sample."""
     widths = (16, 16, 8, 80, 12)
     plan = wavenet_ops.GeneratePlan(100, 1, 1, 1, 2, wavenet_ops._smem(3, widths, 1, 1, 1, 2))
-    monkeypatch.setattr(wavenet_ops, "_plan_on_card", lambda b, w, device: plan)
+    monkeypatch.setattr(wavenet_ops, "_plan_on_card", lambda b, w, device, esize=4: plan)
     voc, mel, cond, u = _wavenet_case(cuda, WAVENET_TINY, 3, 2, seed=13)
     y, logits = wavenet_ops.generate(voc.packed, WAVENET_TINY.dilations(), cond, u, WAVENET_TINY.log_scale_min)
     torch.cuda.synchronize()
@@ -179,7 +179,7 @@ def test_wavenet_plan_that_cannot_be_resident_raises(cuda, monkeypatch):
     widths = (16, 16, 8, 80, 12)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     plan = wavenet_ops.GeneratePlan(8 * sms, 1, 1, 1, 2, wavenet_ops._smem(1, widths, 1, 1, 1, 2))
-    monkeypatch.setattr(wavenet_ops, "_plan_on_card", lambda b, w, device: plan)
+    monkeypatch.setattr(wavenet_ops, "_plan_on_card", lambda b, w, device, esize=4: plan)
     voc, _, cond, u = _wavenet_case(cuda, WAVENET_TINY, 1, 1, seed=14)
     with pytest.raises(RuntimeError, match=rf"{8 * sms} blocks must be resident .* holds \d+ per SM on {sms} SMs"):
         wavenet_ops.generate(voc.packed, WAVENET_TINY.dilations(), cond, u)
@@ -290,8 +290,8 @@ def grid_plan_at_small_h(monkeypatch):
     """Launch regime (b), the cooperative kernels with their grid barrier,
     where regime (a) would serve: one unit a block, 4-row tiles, K chunks
     of 4 floats, so that every step stages h or dgates from global memory."""
-    def plan(b, hidden, kind, device):
-        return lstm_ops.LaunchPlan(kind, "b", hidden, 1, 4, 4, lstm_ops._smem(kind, "b", hidden, 1, 4, 4))
+    def plan(b, hidden, kind, device, wbytes=4):
+        return lstm_ops.LaunchPlan(kind, "b", hidden, 1, 4, 4, lstm_ops._smem(kind, "b", hidden, 1, 4, 4, wbytes))
     monkeypatch.setattr(lstm_ops, "_plan_on_card", plan)
 
 
@@ -787,3 +787,251 @@ def test_speaker_loss_on_card_matches_cpu(cuda, protocol):
     for n, g in grads["cuda"].items():
         apart = float((g - grads["cpu"][n]).abs().max()) / grad_scale(n, grads["cpu"])
         assert apart <= 1e-3, f"{n}: the card's gradient {apart:.3e} of its scale from the CPU's"
+
+
+# -------------------------------------------------- bfloat16 inference paths
+
+BF = torch.bfloat16
+
+
+def _bf16_close(got, want, max_ulps=1.0, equal_share=0.99):
+    """The bfloat16 kernels against their plain versions (the same rounding
+    points, float32 sums in another order): every element within 1
+    bfloat16 ulp of the plain one (of 2^-16 of its largest magnitude where
+    it is smaller: two float32 sums that cancel differ by more than the
+    element's own ulp), and at least 99% bit-equal."""
+    assert got.dtype == want.dtype == BF
+    g, w = got.double(), want.double()
+    scale = torch.clamp(w.abs(), min=2.0 ** -16 * w.abs().max().item())
+    ulps = ((g - w).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)).max().item()
+    equal = (g == w).double().mean().item()
+    assert ulps <= max_ulps and equal >= equal_share, (ulps, equal)
+
+
+def _bf16_inputs(seed, b, t, hidden, device):
+    x, w = (torch.from_numpy(a).to(device).to(BF) for a in _inputs(seed, b, t, hidden))
+    return x, w
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t, hidden, regime", [(32, 64, 32, "a"), (1, 5, 8, "a"), (37, 20, 64, "a"),
+                                                  (7, 24, 160, "a"), (7, 24, 168, "b"), (32, 64, 512, "b"),
+                                                  (32, 64, 1024, "b"), (64, 16, 768, "b"), (7, 1, 1024, "b"),
+                                                  (1, 1, 256, "b")])
+def test_lstm_bf16_kernel_matches_plain(cuda, b, t, hidden, regime, reverse):
+    """The forward kernel's bfloat16 form against the plain loop in
+    bfloat16 (float32 carry, the sequence rounded): regime (a) up to H=160
+    (w_hh in bfloat16 halves its shared bytes), regime (b) above, one launch
+    a sequence, counted as a bfloat16 launch."""
+    x, w = _bf16_inputs(21, b, t, hidden, cuda)
+    before = lstm_ops.launches, lstm_ops.bf16_launches
+    got = lstm_ops.lstm_sequence(x, w, reverse)
+    torch.cuda.synchronize()
+    assert (lstm_ops.launches, lstm_ops.bf16_launches) == (before[0] + 1, before[1] + 1)
+    assert lstm_ops.last_launch["fwd"][0].regime == regime
+    _bf16_close(got, lstm_ops.lstm_sequence_ref(x, w, reverse))
+
+
+def test_lstm_bf16_regime_b_carries_h_in_float32(cuda):
+    """H=1024 (regime b, 128 blocks meeting at a grid barrier each step),
+    T=1024: the kernel holds to the plain loop's float32 carry, and a loop
+    that rounds the carry to bfloat16 each step, as reading h back from the
+    bfloat16 h_seq would, fails the same check."""
+    x, w = _bf16_inputs(22, 8, 1024, 1024, cuda)
+    got = lstm_ops.lstm_sequence(x, w)
+    torch.cuda.synchronize()
+    assert lstm_ops.last_launch["fwd"][0].regime == "b"
+    _bf16_close(got, lstm_ops.lstm_sequence_ref(x, w))
+    wf = w.float()
+    h = c = torch.zeros((8, 1024), device=cuda)
+    rounded = []
+    for step in range(1024):
+        i, f, g, o = (x[:, step].float() + h @ wf).split(1024, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = (torch.sigmoid(o) * torch.tanh(c)).to(BF).float()
+        rounded.append(h)
+    with pytest.raises(AssertionError):
+        _bf16_close(got, torch.stack(rounded, dim=1).to(BF))
+
+
+def test_lstm_bf16_steps_sharing_a_line(cuda, grid_plan_at_small_h):
+    """B=1, H=8, T=64 in regime (b) at one unit a block and K chunks of 4
+    floats: every step stages h_{t-1} from the float32 exchange buffer that
+    other blocks wrote just before the barrier."""
+    x, w = _bf16_inputs(23, 1, 64, 8, cuda)
+    for reverse in (False, True):
+        got = lstm_ops.lstm_sequence(x, w, reverse)
+        torch.cuda.synchronize()
+        assert lstm_ops.last_launch["fwd"][0].regime == "b"
+        _bf16_close(got, lstm_ops.lstm_sequence_ref(x, w, reverse))
+
+
+def test_lstm_bf16_refuses_what_it_does_not_take(cuda):
+    """Mixed dtypes raise a TypeError; the training form, an initial state
+    and the backward in bfloat16 (the next slice) raise, before a launch."""
+    x, w = _bf16_inputs(24, 2, 3, 8, cuda)
+    before = lstm_ops.launches
+    with pytest.raises(TypeError, match="mixed"):
+        lstm_ops.lstm_sequence(x, w.float())
+    with pytest.raises(TypeError, match="mixed"):
+        lstm_ops.lstm_sequence(x.float(), w)
+    with pytest.raises(NotImplementedError):
+        lstm_ops.lstm_forward_cuda(x, w, with_cseq=True, with_gates=True)
+    with pytest.raises(NotImplementedError):
+        lstm_ops.lstm_forward_cuda(x, w, h0=torch.zeros((2, 8), device=cuda))
+    h = torch.zeros((2, 3, 8), device=cuda, dtype=BF)
+    with pytest.raises(NotImplementedError):
+        lstm_ops.lstm_backward_cuda(x, w, None, None, h, h, h, gates=x)
+    with pytest.raises(NotImplementedError):
+        lstm_ops.lstm_weight_grad_cuda(h, None, x)
+    assert lstm_ops.launches == before
+
+
+# the bfloat16 WaveNet kernel's gates: 4x the plain bfloat16 loop's own
+# spread measured on an H100 (its teacher-forced logits 2.6e-4 at full
+# width, 5.7e-4 at the tiny width; its first 32 samples against the same
+# loop summing in another order 1.2e-4), and no tighter than the float32
+# gates
+WN_BF16_TF_TOL, WN_BF16_PREFIX_TOL = 2.5e-3, 5e-4
+
+
+def _wavenet_bf16_check(voc, mel, cond, u, cfg, plain_t=None):
+    """One bfloat16 generate call against the plain loop (over its first
+    ``plain_t`` samples) and the teacher-forced bfloat16 forward; returns
+    the waveform."""
+    packed = voc.packed_for(BF)
+    assert packed["w3"].dtype == BF and packed["bg"].dtype == torch.float32
+    before = wavenet_ops.launches, wavenet_ops.bf16_launches
+    y, logits = wavenet_ops.generate(packed, cfg.dilations(), cond, u, cfg.log_scale_min)
+    torch.cuda.synchronize()
+    assert (wavenet_ops.launches, wavenet_ops.bf16_launches) == (before[0] + 1, before[1] + 1)
+    assert wavenet_ops.last_cuda_launches == 1
+    assert bool(torch.isfinite(y).all()) and float(y.abs().max()) <= 1.0
+    n = plain_t or y.shape[1]
+    y_ref, _ = wavenet_ops.generate_ref(packed, cfg.dilations(), cond[:, :n].contiguous(), u[:, :n].contiguous(),
+                                        cfg.log_scale_min)
+    assert min(_first_apart(y[:, :n], y_ref, WN_BF16_PREFIX_TOL)) >= 32
+    torch.testing.assert_close(logits, voc.logits(y[..., None], mel, BF), atol=WN_BF16_TF_TOL, rtol=0)
+    return y
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("width", ["tiny", "full"])
+def test_wavenet_bf16_kernel_matches_plain(cuda, width, b):
+    """The bfloat16 form (bfloat16 weights and rings, float32 biases,
+    accumulators and head; two grid barriers a layer) against the plain
+    bfloat16 loop on the same uniforms: the first 32 samples within 5e-4,
+    the logits within 2.5e-3 of the teacher-forced bfloat16 forward on the
+    kernel's own waveform; a second call the same waveform bit for bit."""
+    cfg, frames = (WAVENET_TINY, 4) if width == "tiny" else (WaveNetConfig(), 2)
+    voc, mel, cond, u = _wavenet_case(cuda, cfg, b, frames, seed=30 + b)
+    with torch.inference_mode():
+        y = _wavenet_bf16_check(voc, mel, cond, u, cfg)
+        y2, _ = wavenet_ops.generate(voc.packed_for(BF), cfg.dilations(), cond, u, cfg.log_scale_min)
+    assert torch.equal(y, y2)
+    assert wavenet_ops.last_launch[0] == wavenet_ops.generate_plan(b, (cfg.residual_channels, cfg.gate_channels,
+                                                                       cfg.skip_channels, cfg.cin_channels,
+                                                                       cfg.out_channels),
+                                                                  wavenet_ops._card_sms(0), 2)
+
+
+def test_wavenet_bf16_kernel_full_width_batch_32(cuda):
+    """B=32 at full width: 4 batch tiles inside each phase; the plain loop
+    over the first 64 samples."""
+    cfg = WaveNetConfig()
+    voc, mel, cond, u = _wavenet_case(cuda, cfg, 32, 2, seed=40)
+    with torch.inference_mode():
+        _wavenet_bf16_check(voc, mel, cond, u, cfg, plain_t=64)
+
+
+def test_wavenet_bf16_kernel_with_blocks_that_own_nothing(cuda, monkeypatch):
+    """A forced plan of 100 blocks at the tiny width, 76 of them owning no
+    column, with a ring of 2 phase slots, so that each slot takes gate and
+    residual slices in turn."""
+    widths = (16, 16, 8, 80, 12)
+    plan = wavenet_ops.GeneratePlan(100, 1, 1, 1, 2, wavenet_ops._smem(3, widths, 1, 1, 1, 2, esize=2))
+    monkeypatch.setattr(wavenet_ops, "_plan_on_card", lambda b, w, device, esize=4: plan)
+    voc, mel, cond, u = _wavenet_case(cuda, WAVENET_TINY, 3, 2, seed=41)
+    with torch.inference_mode():
+        _wavenet_bf16_check(voc, mel, cond, u, WAVENET_TINY)
+    assert wavenet_ops.last_launch[0] == plan
+
+
+def test_wavenet_bf16_vocoder_on_card_matches_cpu(cuda):
+    """generate(dtype=bfloat16) on the card and on the CPU, the seeded
+    vocoder's default stream: the same waveform over 32 samples."""
+    mel = np.random.RandomState(42).rand(2, 1, 80).astype(np.float32)
+    on_card = WaveNetVocoder(WAVENET_TINY, device=cuda, seed=4).generate(mel, dtype=BF)
+    on_cpu = WaveNetVocoder(WAVENET_TINY, device="cpu", seed=4).generate(mel, dtype=BF)
+    assert min(_first_apart(on_card.cpu(), on_cpu, WN_BF16_PREFIX_TOL)) >= 32
+
+
+def _deltas(a, b):
+    d = (a.double().cpu() - b.double().cpu()).abs()
+    return d.max().item(), d.mean().item()
+
+
+def test_bf16_generator_and_hifigan_on_card_match_cpu(cuda):
+    """The seeded full-width Generator with compute_dtype bfloat16 (7
+    bfloat16 kernel launches) and HiFi-GAN with bfloat16 parameters, on the
+    card: no farther from the CPU's float32 outputs than 1.25x the CPU's
+    own bfloat16 outputs are, in max and mean (the rule the CPU tests hold
+    the port to against JAX)."""
+    from autovc_tpu_torch.config import ModelConfig
+
+    rng = np.random.RandomState(43)
+    x = torch.from_numpy(rng.rand(2, 64, 80).astype(np.float32))
+    e = torch.from_numpy(rng.randn(2, 256).astype(np.float32))
+    outs = {}
+    for dev, dtype in (("cpu", "float32"), ("cpu", "bfloat16"), (cuda, "bfloat16")):
+        gen = build_generator(ModelConfig(compute_dtype=dtype), device=dev, seed=8)
+        voc = HiFiGANVocoder(device=dev, seed=9, dtype=BF if dtype == "bfloat16" else torch.float32)
+        before = lstm_ops.bf16_launches
+        with torch.inference_mode():
+            mel = gen(x.to(dev), e.to(dev), e.to(dev))[1]
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert lstm_ops.bf16_launches == before + 7 and mel.dtype == BF
+        outs[(str(dev), dtype)] = (mel.float(), voc.generate(x[:, :8].numpy()))
+    ref, cpu_bf, card_bf = outs[("cpu", "float32")], outs[("cpu", "bfloat16")], outs[("cuda", "bfloat16")]
+    for i in range(2):
+        cpu_max, cpu_mean = _deltas(cpu_bf[i], ref[i])
+        card_max, card_mean = _deltas(card_bf[i], ref[i])
+        assert card_max <= 1.25 * cpu_max and card_mean <= 1.25 * cpu_mean, (i, card_max, cpu_max, card_mean,
+                                                                             cpu_mean)
+
+
+def test_bf16_entry_points_ignore_default_flags(cuda, torch_default_flags):
+    """The bfloat16 conversion, HiFi-GAN and WaveNet called under torch's
+    default flags (TF32 convolutions, bfloat16 reductions in cuBLAS) give
+    the same outputs bit for bit as under exact flags: the entry points
+    set their own, and restore the caller's."""
+    from autovc_tpu_torch.config import ModelConfig
+
+    rng = np.random.RandomState(44)
+    mel = rng.rand(2, 64, 80).astype(np.float32)
+    emb = rng.randn(2, 256).astype(np.float32)
+    specs = [type("Spec", (), dict(src_features=mel[i], src_embedding=emb[i], trg_embedding=emb[1 - i]))
+             for i in range(2)]
+    converter = Converter(build_generator(ModelConfig(compute_dtype="bfloat16"), device=cuda, seed=5))
+    hifigan = HiFiGANVocoder(device=cuda, seed=6, dtype=BF)
+    wavenet = WaveNetVocoder(WAVENET_TINY, device=cuda, seed=7)
+    u = wavenet.uniforms(2, 512, torch.Generator().manual_seed(9))
+    matmul = torch.backends.cuda.matmul
+
+    def run():
+        return (np.stack(converter.convert_batch(specs, batch_size=2)), hifigan.generate(mel[:, :8]),
+                wavenet.generate(mel[:, :2], uniforms=u, dtype=BF))
+
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        got = run()
+        assert _flags() == torch_default_flags and matmul.allow_bf16_reduced_precision_reduction
+        torch.backends.cudnn.allow_tf32 = matmul.allow_tf32 = matmul.allow_bf16_reduced_precision_reduction = False
+        want = run()
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+    np.testing.assert_array_equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
