@@ -4,7 +4,7 @@
         [--num_iters N] [--batch_size B] [--len_crop T] [--lr LR]
         [--lambda_cd W] [--lr_scheduler Cosine|CosineDecay|Plateau]
         [--ema DECAY] [--resume] [--log_step N] [--checkpoint_step N]
-        [--watch_step N] [--seed S] [--export OUT.npz] [--device cuda|cpu]
+        [--watch_step N] [--seed S] [--bf16] [--export OUT.npz] [--device cuda|cpu]
         [--lambda_spk W --spk_ckpt GE2E.npz [--spk_protocol windowed|crop]
          [--spk_margin M]]
 
@@ -14,7 +14,10 @@ The flags of ``autovc_tpu/cli/train.py`` for this slice, plus ``--device``
 ``autovc_tpu_torch.cli.make_spect`` writes the features and
 ``autovc_tpu_torch.cli.make_metadata`` the manifest. ``--lambda_spk``
 above 0 adds the speaker-consistency auxiliary on the frozen GE2E encoder
-of ``--spk_ckpt`` (``train.step.loss_fn``). ``--export`` writes the final parameters and
+of ``--spk_ckpt`` (``train.step.loss_fn``). ``--bf16`` computes in bfloat16
+with float32 parameters, Adam state and losses, rounding as the JAX CLI's
+``--bf16 --pallas`` (the port has one LSTM engine, so no ``--pallas``).
+``--export`` writes the final parameters and
 BatchNorm statistics as the JAX CLI does: a flat ``.npz`` of
 ``params/...`` and ``batch_stats/...`` in the JAX layouts, plus
 ``__step__``, which ``autovc_tpu`` and ``build_generator(artifact=...)``
@@ -63,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--data_parallel", type=int, default=1)
     ap.add_argument("--model_parallel", type=int, default=1)
     ap.add_argument("--multihost", action="store_true", help="not ported (ROADMAP Queue 1 #8)")
-    ap.add_argument("--bf16", action="store_true", help="not ported (ROADMAP Queue 1 #6)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bfloat16 compute, float32 parameters, Adam state and losses: rounds as the JAX CLI's "
+                         "--bf16 --pallas (the port's LSTM kernels round as the Pallas kernels)")
     ap.add_argument("--watch_step", type=int, default=0)
     ap.add_argument("--export", default=None, help="after training, write the final parameters to this .npz")
     ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (the plain versions)")
@@ -72,8 +77,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.bf16:
-        raise SystemExit("--bf16: bf16 compute is not ported yet (ROADMAP Queue 1 #6)")
     if args.multihost:
         raise SystemExit("--multihost: multi-process training is not ported yet (ROADMAP Queue 1 #8)")
     if args.lambda_spk > 0 and not args.spk_ckpt:
@@ -87,7 +90,8 @@ def main(argv: list[str] | None = None) -> None:
 
     run_name = args.run_name if args.resume else args.run_name + datetime.now().strftime("_%y%B%d_%H%M_%S")
     cfg = Config(
-        model=ModelConfig(dim_neck=args.dim_neck, dim_emb=args.dim_emb, dim_pre=args.dim_pre, freq=args.freq),
+        model=ModelConfig(dim_neck=args.dim_neck, dim_emb=args.dim_emb, dim_pre=args.dim_pre, freq=args.freq,
+                          compute_dtype="bfloat16" if args.bf16 else "float32"),
         train=TrainConfig(lambda_cd=args.lambda_cd, lambda_spk=args.lambda_spk, spk_ckpt=args.spk_ckpt,
                           spk_protocol=args.spk_protocol, spk_margin=args.spk_margin, batch_size=args.batch_size,
                           num_iters=args.num_iters, len_crop=args.len_crop, lr=args.lr,

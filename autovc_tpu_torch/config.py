@@ -60,11 +60,12 @@ class ModelConfig:
     ``compute_dtype`` is ``"float32"`` or ``"bfloat16"``, as in
     ``autovc_tpu/config.py``: in bfloat16 the products and convolutions run
     on bfloat16 operands while the parameters stay float32, cast at compute
-    time (inference only; training in bfloat16 raises). There is no
-    ``use_pallas_lstm``: the port has one LSTM engine, the CUDA kernel, and
-    in bfloat16 it rounds as the JAX package's Pallas kernel does (a float32
-    carry, the hidden sequence stored in bfloat16), not as its
-    ``lax.scan`` (which carries h and c in bfloat16)."""
+    time, in inference and in training (the parameters, Adam's state and
+    the losses float32). There is no ``use_pallas_lstm``: the port has one
+    LSTM engine, the CUDA kernels, and in bfloat16 they round as the JAX
+    package's Pallas kernels do, forward and backward (a float32 carry, the
+    hidden sequence stored in bfloat16), not as its ``lax.scan`` (which
+    carries h and c in bfloat16)."""
 
     model_type: str = "spmel"
     dim_neck: int = 32

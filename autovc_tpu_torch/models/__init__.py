@@ -19,11 +19,8 @@ def build_generator(cfg: ModelConfig = ModelConfig(), *, artifact: str | None = 
     artifact (``artifacts/generator_spmel_f16.npz``), or drawn from ``seed``
     when ``artifact`` is None. Frozen in eval mode, or, with ``trainable``,
     in train mode with gradients on. ``cfg.compute_dtype`` sets the compute
-    dtype; the weights stay float32 (bfloat16 is inference only: training in
-    bfloat16 is the next slice, ROADMAP Queue 2 #1)."""
-    if trainable and cfg.compute_dtype != "float32":
-        raise NotImplementedError(f"training in {cfg.compute_dtype} is not ported yet: the bfloat16 backward "
-                                  f"kernels are the next slice (ROADMAP Queue 2 #1, bf16 training)")
+    dtype; the weights, their gradients and the BatchNorm statistics stay
+    float32 in bfloat16 too."""
     dev = resolve_device(device)
     model = Generator(cfg.dim_neck, cfg.dim_emb, cfg.dim_pre, cfg.freq, cfg.n_bins,
                       cfg.enc_channels, cfg.dec_lstm_dim, cfg.postnet_channels,

@@ -13,9 +13,10 @@ seeded random weights), or a state dict is loaded over them.
 float32; in bfloat16 a layer casts its input, weights and bias at compute
 time and rounds where the flax layer with ``dtype=jnp.bfloat16`` rounds:
 the product (or convolution) once, then the bias added in bfloat16 (flax's
-``Dense``/``Conv``, ``layers.LSTM``'s ``x @ w_ih + b``); BatchNorm
-normalises in float32 and rounds its output. The bfloat16 forms are
-inference only.
+``Dense``/``Conv``, ``layers.LSTM``'s ``x @ w_ih + b``); BatchNorm takes
+its statistics and normalises in float32 and rounds its output. The
+gradients flow back through the same casts, so a parameter's gradient is
+float32, summed from its bfloat16 products' gradients.
 """
 
 from __future__ import annotations
@@ -95,8 +96,11 @@ class BatchNorm(nn.Module):
     and moves the running statistics by momentum 0.1 toward the batch mean
     and the same biased variance, as flax does (``F.batch_norm`` would move
     the running variance toward the unbiased one). In eval form it uses the
-    running statistics. In bfloat16 (eval form only) it normalises in
-    float32 and rounds the output, as flax's ``_normalize`` does."""
+    running statistics. In bfloat16 it computes the batch statistics from
+    the input widened to float32 (the same two-pass variance; flax's
+    ``_compute_stats`` with ``force_float32_reductions``), normalises in
+    float32 and rounds the output (flax's ``_normalize``); the running
+    statistics stay float32."""
 
     momentum = 0.1
 
@@ -118,11 +122,10 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bf16:
-            if self.training:
-                raise NotImplementedError("BatchNorm in bfloat16 is inference only (bfloat16 training is the "
-                                          "next slice, ROADMAP Queue 2 #1)")
-            y = (x.float() - self.running_mean) * (self.weight * torch.rsqrt(self.running_var + self.eps))
-            return (y + self.bias).to(torch.bfloat16)
+            return self._normalize(x.float()).to(torch.bfloat16)
+        return self._normalize(x)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             mean = x.mean(dim=(0, 1))
             var = ((x - mean) ** 2).mean(dim=(0, 1))

@@ -1,7 +1,8 @@
 """Kernels of the port, each beside its plain PyTorch version.
 
     lstm    LSTM recurrence, forward and backward (CUDA, csrc/lstm_fwd.cu,
-            csrc/lstm_bwd.cu)
+            csrc/lstm_bwd.cu; csrc/lstm_gates.cu, the bfloat16 backward's
+            gate activations)
     wavenet autoregressive WaveNet generation (CUDA, csrc/wavenet_gen.cu)
     mel     mel projection fused with the dB normalization (CUDA,
             csrc/mel_norm.cu)

@@ -53,6 +53,27 @@
 // notes below) whose loader builds hprev's rows from h_seq and h0, so no
 // shifted copy of h_seq is made; the reverse direction is walked left to
 // right in place, never flipped by a copy.
+//
+// bfloat16 form (autovc_lstm_bwd_bf16, autovc_lstm_dw with bf16 = 1), the
+// Pallas backward on a bfloat16 xproj and w_hh (_lstm_bwd_kernel on the
+// _lstm_kernel_train residuals, pallas_lstm.py:410-453, 514-525). The gate
+// activations come from lstm_gates.cu, which recomputes them from the
+// bfloat16 h_seq as the Pallas backward does (pallas_lstm.py:431, 465),
+// not from the forward's float32 carry. Every sum stays float32: dy is read
+// as bfloat16 and widened, w_hh's rows sit in shared memory as bfloat16 (half
+// the bytes) and are widened before each float32 FMA, the gate gradients are
+// written in float32 to `dgates` (B, T, 4H) and, rounded, to the bfloat16
+// dxproj from the same registers (pallas_lstm.py:446). dh's carry, dgates_t
+// @ w_hh^T, takes the float32 dgates (pallas_lstm.py:450): regime (a) keeps
+// them in shared memory, regime (b) stages them from the float32 dgates,
+// never from the rounded dxproj (the same trap as the forward's h
+// exchange). dW sums hprev (the bfloat16 h_seq widened; h0 in float32) times
+// the float32 dgates in float32 and rounds once to bfloat16
+// (dw.astype(w_hh.dtype), pallas_lstm.py:525). dh0 and dc0 stay float32.
+// Bound: the float32 form's operations (the products stay FMAs on the CUDA
+// cores), fewer bytes.
+
+#include <type_traits>
 
 #include "lstm_common.cuh"
 
@@ -60,14 +81,18 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+// E is the element type of w_hh, dy and dxproj: float (dxproj null: the
+// float32 dgates are the result), or __nv_bfloat16.
+template <class E>
 struct Args {
   const float* act;
-  const float* w_hh;
+  const E* w_hh;
   const float* c0;
   const float* c_seq;
-  const float* dy;
+  const E* dy;
   const float* dhn;
-  float* dxproj;
+  float* dgates;  // (B, T, 4H) float32 gate gradients: exchanged between regime (b)'s steps, read by dW
+  E* dxproj;      // the same rounded to E, or null
   float* dc_state;
   float* dh0;
   int B, T, H, reverse;
@@ -79,17 +104,19 @@ struct Args {
 // split KS ways over K = 4H.
 struct Layout {
   int TJ, BT, NC, RG, tasks, KS;
-  __device__ Layout(const Args& a, int tj)
+  template <class E>
+  __device__ Layout(const Args<E>& a, int tj)
       : TJ(tj), BT(a.rows), NC((tj + 3) / 4 * 4), RG(a.rows / RB), tasks(RG * NC / 4), KS(a.ks) {}
 };
 
 // Loads the block's rows of w_hh, transposed: W[k][u] = w_hh[j0 + u, k] for
 // k < 4H (zero for u >= TJ), read along the rows.
-__device__ void load_w(float* W, const Args& a, const Layout& L, int j0) {
+template <class E>
+__device__ void load_w(E* W, const Args<E>& a, const Layout& L, int j0) {
   const int K = 4 * a.H, n = K * L.NC;
   for (int e = threadIdx.x; e < n; e += NT) {
     const int k = e % K, u = e / K;
-    W[k * L.NC + u] = u < L.TJ ? a.w_hh[(size_t)(j0 + u) * K + k] : 0.0f;
+    W[k * L.NC + u] = u < L.TJ ? a.w_hh[(size_t)(j0 + u) * K + k] : static_cast<E>(0.0f);
   }
 }
 
@@ -111,7 +138,10 @@ __device__ __forceinline__ void store_partial(float* red, const Layout& L, const
 
 // The forward's step t: the time step taken s steps into the backward, and
 // the step the forward took before it (-1 or T at the sequence's start).
-__device__ __forceinline__ int step_t(const Args& a, int s) { return a.reverse ? s : a.T - 1 - s; }
+template <class E>
+__device__ __forceinline__ int step_t(const Args<E>& a, int s) {
+  return a.reverse ? s : a.T - 1 - s;
+}
 
 // One thread's residuals for its (row, unit) pairs of a tile at step t,
 // loaded before the dh product so that they are in flight during it.
@@ -119,7 +149,8 @@ struct Pairs {
   float act[RB][4], c[RB], cprev[RB], dy[RB];
 };
 
-__device__ __forceinline__ void prefetch(Pairs& p, const Args& a, const Layout& L, int b0, int j0, int t) {
+template <class E>
+__device__ __forceinline__ void prefetch(Pairs& p, const Args<E>& a, const Layout& L, int b0, int j0, int t) {
   const int t_prev = a.reverse ? t + 1 : t - 1;
 #pragma unroll
   for (int i = 0; i < RB; ++i) {
@@ -131,7 +162,7 @@ __device__ __forceinline__ void prefetch(Pairs& p, const Args& a, const Layout& 
 #pragma unroll
       for (int k = 0; k < 4; ++k) p.act[i][k] = __ldg(g + (size_t)k * a.H);
       p.c[i] = __ldg(a.c_seq + row * a.H + j);
-      p.dy[i] = __ldg(a.dy + row * a.H + j);
+      p.dy[i] = load_ro1(a.dy + row * a.H + j);
       p.cprev[i] = (t_prev < 0 || t_prev >= a.T) ? (a.c0 != nullptr ? __ldg(a.c0 + bb * a.H + j) : 0.0f)
                                                   : __ldg(a.c_seq + (bb * a.T + t_prev) * a.H + j);
     }
@@ -140,10 +171,12 @@ __device__ __forceinline__ void prefetch(Pairs& p, const Args& a, const Layout& 
 
 // Adds the KS partial sums of dh's carry for each (row, unit) of the tile.
 // At s == T writes them to dh0; at s == 0 takes dhN as the carry instead;
-// otherwise applies the cell gradient at step t, writing dxproj[:, t] (and
-// dgs, row stride ldg, when dgs is not null).
-__device__ void cell_backward(const Args& a, const Layout& L, const float* red, const Pairs& p, int b0, int j0, int s,
-                              float* dgs, int ldg) {
+// otherwise applies the cell gradient at step t, writing dgates[:, t], and
+// dxproj[:, t] rounded to E when it is not null (and dgs, row stride ldg,
+// when dgs is not null).
+template <class E>
+__device__ void cell_backward(const Args<E>& a, const Layout& L, const float* red, const Pairs& p, int b0, int j0,
+                              int s, float* dgs, int ldg) {
   const int t = s < a.T ? step_t(a, s) : 0;
 #pragma unroll
   for (int i = 0; i < RB; ++i) {
@@ -168,11 +201,19 @@ __device__ void cell_backward(const Args& a, const Layout& L, const float* red, 
     const float di = dc * tg * si * (1.0f - si);
     const float dg = dc * si * (1.0f - tg * tg);
     const float df = dc * p.cprev[i] * sf * (1.0f - sf);
-    float* dx = a.dxproj + (bb * a.T + t) * 4 * a.H + j;
+    const size_t at = (bb * a.T + t) * 4 * a.H + j;
+    float* dx = a.dgates + at;
     dx[0] = di;
     dx[(size_t)a.H] = df;
     dx[2 * (size_t)a.H] = dg;
     dx[3 * (size_t)a.H] = d_o;
+    if (a.dxproj != nullptr) {
+      E* dr = a.dxproj + at;
+      store1(dr, di);
+      store1(dr + a.H, df);
+      store1(dr + 2 * (size_t)a.H, dg);
+      store1(dr + 3 * (size_t)a.H, d_o);
+    }
     a.dc_state[bb * a.H + j] = dc * sf;
     if (dgs != nullptr) {
       float* d = dgs + b * ldg + j;
@@ -186,12 +227,13 @@ __device__ void cell_backward(const Args& a, const Layout& L, const float* red, 
 
 // Regime (a): block x owns batch rows [x*rows, x*rows + rows) and all H
 // units. Shared memory: W (4H x H), dgs (rows x (4H + PAD)), red.
-__global__ void __launch_bounds__(NT) lstm_bwd_block_kernel(Args a) {
+template <class E>
+__global__ void __launch_bounds__(NT) lstm_bwd_block_kernel(Args<E> a) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(a, a.H);
   const int K = 4 * a.H, ldg = K + PAD;
-  float* W = smem;
-  float* dgs = W + (size_t)K * L.NC;
+  E* W = reinterpret_cast<E*>(smem);
+  float* dgs = reinterpret_cast<float*>(W + (size_t)K * L.NC);
   float* red = dgs + (size_t)L.BT * ldg;
   const int b0 = blockIdx.x * L.BT;
 
@@ -219,12 +261,13 @@ __global__ void __launch_bounds__(NT) lstm_bwd_block_kernel(Args a) {
 // Regime (b): block x owns units [x*units, x*units + units) for every batch
 // row. Shared memory: W (4H x NC), two staging buffers (rows x (kc + PAD)),
 // red. Launched cooperatively only.
-__global__ void __launch_bounds__(NT, 1) lstm_bwd_grid_kernel(Args a) {
+template <class E>
+__global__ void __launch_bounds__(NT, 1) lstm_bwd_grid_kernel(Args<E> a) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(a, a.units);
   const int K = 4 * a.H, lds = a.kc + PAD;
-  float* W = smem;
-  float* stage = W + (size_t)K * L.NC;
+  E* W = reinterpret_cast<E*>(smem);
+  float* stage = reinterpret_cast<float*>(W + (size_t)K * L.NC);
   float* red = stage + 2 * (size_t)L.BT * lds;
   const int j0 = blockIdx.x * L.TJ;
   const int ntiles = (a.B + L.BT - 1) / L.BT;
@@ -240,7 +283,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_bwd_grid_kernel(Args a) {
   Pairs p;
   for (int s = 0; s <= a.T; ++s) {  // s == T: the dh0 step
     // dgates of the step taken before: row b at src + b * T * 4H
-    const float* src = s == 0 ? nullptr : a.dxproj + (size_t)step_t(a, s - 1) * K;
+    const float* src = s == 0 ? nullptr : a.dgates + (size_t)step_t(a, s - 1) * K;
     const size_t stride = (size_t)a.T * K;
     const int nst = src != nullptr ? ntiles * nch : 0;
     auto stage_in = [&](int q) {  // stage q = (tile, chunk) into buffer q % 2
@@ -282,11 +325,17 @@ __global__ void __launch_bounds__(NT, 1) lstm_bwd_grid_kernel(Args a) {
   }
 }
 
-// Shared bytes of a plan, computed as the kernels lay them out.
-size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks) {
+// Shared bytes of a plan, computed as the kernels lay them out: w_hh's rows
+// in elements of `wbytes` bytes, the rest float32.
+size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks, int wbytes) {
   const size_t K = 4 * (size_t)H, nc = (size_t)(units + 3) / 4 * 4;
   const size_t staged = regime == 0 ? (size_t)rows * (K + PAD) : 2 * (size_t)rows * (kc + PAD);
-  return 4 * (K * nc + staged + (size_t)ks * rows * nc);
+  return wbytes * K * nc + 4 * (staged + (size_t)ks * rows * nc);
+}
+
+template <class E>
+int run(const Args<E>& a, int regime, int blocks, int smem, int* info, cudaStream_t stream) {
+  return launch(lstm_bwd_block_kernel<E>, lstm_bwd_grid_kernel<E>, a, regime, blocks, smem, info, stream);
 }
 
 // The weight gradient dW (H, 4H) = hprev^T @ dxproj over the K = B*T rows
@@ -313,7 +362,11 @@ size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks) {
 // and the last of them to finish (an integer counter per tile after a
 // __threadfence, no spin-wait) adds the partials in the order of the split
 // index, reading them through L2, and sets the counter back to zero. No
-// float atomics: dW is the same, bit for bit, on every call.
+// float atomics: dW is the same, bit for bit, on every call. In the
+// bfloat16 form (TH = __nv_bfloat16) hprev's rows come from the bfloat16
+// h_seq, read 8 bytes a thread and widened into the stage by the thread (a
+// plain load and store in place of the copy; h0's rows stay float32
+// copies), and the result is rounded once to bfloat16 where it is written.
 constexpr int DW_TILE = 128;         // rows (m) and columns (n) of dW a block
 constexpr int DW_KT = 16;            // rows of K a stage
 constexpr int DW_STAGES = 3;         // stages in the ring: 3 x 16 KB, the static shared limit
@@ -323,11 +376,13 @@ constexpr int DW_LOADS = DW_KT * DW_TILE / 4 / NT;  // float4 of each operand a 
 static_assert(DW_LOADS * 4 * NT == DW_KT * DW_TILE && DW_KT % 4 == 0, "whole float4 rows a stage");
 static_assert(2 * 2 * 32 * 64 <= 2 * DW_STAGES * DW_KT * DW_TILE, "a narrow tile's partial sums fit the ring");
 
+// TH is the element type of h_seq and dw: float, or __nv_bfloat16.
+template <class TH>
 struct DwArgs {
-  const float* h_seq;
+  const TH* h_seq;
   const float* h0;
-  const float* dxproj;
-  float* dw;
+  const float* dxproj;  // the float32 gate gradients
+  TH* dw;
   float* ws;      // splits x H x 4H partial sums (splits > 1)
   int* counters;  // one per tile, zero on entry and on exit (splits > 1)
   int B, T, H, reverse, chunk;
@@ -362,7 +417,16 @@ __device__ __forceinline__ void dw_stage(float (&acc)[8][8], const float (*as)[D
   }
 }
 
-__global__ void __launch_bounds__(NT, DW_BLOCKS_PER_SM) lstm_dw_kernel(DwArgs a) {
+// Four floats stored as float32, or rounded to four bfloat16 (8 bytes).
+__device__ __forceinline__ void store4(float* p, const float4& v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+}
+
+template <class TH>
+__global__ void __launch_bounds__(NT, DW_BLOCKS_PER_SM) lstm_dw_kernel(DwArgs<TH> a) {
   // the ring: stage q of hprev is ring[0][q], of dxproj ring[1][q]
   __shared__ __align__(16) float ring[2][DW_STAGES][DW_KT][DW_TILE];
   float(*as)[DW_KT][DW_TILE] = ring[0];
@@ -395,14 +459,25 @@ __global__ void __launch_bounds__(NT, DW_BLOCKS_PER_SM) lstm_dw_kernel(DwArgs a)
   auto load = [&](int q) {
 #pragma unroll
     for (int u = 0; u < DW_LOADS; ++u) {
-      const float* hrow = nullptr;
+      const float* hrow = nullptr;  // h0's row, or h_seq's when TH is float
+      const TH* hseq = nullptr;     // h_seq's row when TH is bfloat16
       if (r[u] < k_end) {
         const int tp = a.reverse ? t[u] + 1 : t[u] - 1;
-        hrow = (tp < 0 || tp >= T) ? (a.h0 != nullptr ? a.h0 + (size_t)b[u] * H : nullptr)
-                                   : a.h_seq + ((size_t)b[u] * T + tp) * H;
+        if (tp < 0 || tp >= T) {
+          hrow = a.h0 != nullptr ? a.h0 + (size_t)b[u] * H : nullptr;
+        } else if constexpr (std::is_same_v<TH, float>) {
+          hrow = a.h_seq + ((size_t)b[u] * T + tp) * H;
+        } else {
+          hseq = a.h_seq + ((size_t)b[u] * T + tp) * H;
+        }
       }
-      const bool h_ok = hrow != nullptr && m0 + c < H;
-      cp_async16_fill(&as[q][lr + 8 * u][c], h_ok ? hrow + m0 + c : a.dxproj, h_ok);
+      if (hseq != nullptr) {
+        *reinterpret_cast<float4*>(&as[q][lr + 8 * u][c]) =
+            m0 + c < H ? load4(hseq + m0 + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else {
+        const bool h_ok = hrow != nullptr && m0 + c < H;
+        cp_async16_fill(&as[q][lr + 8 * u][c], h_ok ? hrow + m0 + c : a.dxproj, h_ok);
+      }
       const bool g_ok = r[u] < k_end && n0 + c < H4;
       cp_async16_fill(&gs[q][lr + 8 * u][c], g_ok ? a.dxproj + (size_t)r[u] * H4 + n0 + c : a.dxproj, g_ok);
       r[u] += DW_KT;
@@ -456,7 +531,7 @@ __global__ void __launch_bounds__(NT, DW_BLOCKS_PER_SM) lstm_dw_kernel(DwArgs a)
   // am + 16 ..), float4 columns n0 + gn + 32 q; H4 % 32 == 0, so a group of
   // 4 columns is whole or past the end
   const bool split = gridDim.z > 1;
-  float* out = split ? a.ws + (size_t)blockIdx.z * H * H4 : a.dw;
+  float* partial = split ? a.ws + (size_t)blockIdx.z * H * H4 : nullptr;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + am + (i < 4 ? i : 12 + i);
@@ -464,9 +539,11 @@ __global__ void __launch_bounds__(NT, DW_BLOCKS_PER_SM) lstm_dw_kernel(DwArgs a)
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int n = n0 + gn + 32 * q;
-      if (n < H4)
-        *reinterpret_cast<float4*>(out + (size_t)m * H4 + n) =
-            make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+      const float4 v = make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+      if (n < H4 && split)
+        store4(partial + (size_t)m * H4 + n, v);
+      else if (n < H4)
+        store4(a.dw + (size_t)m * H4 + n, v);
     }
   }
   if (!split) return;
@@ -510,7 +587,7 @@ __global__ void __launch_bounds__(NT, DW_BLOCKS_PER_SM) lstm_dw_kernel(DwArgs a)
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (tid + (i0 + j) * NT < n4) *reinterpret_cast<float4*>(a.dw + at[j]) = sum[j];
+      if (tid + (i0 + j) * NT < n4) store4(a.dw + at[j], sum[j]);
   }
 }
 
@@ -532,27 +609,55 @@ int autovc_lstm_bwd(const float* act, const float* w_hh, const float* c0, const 
   const int tasks = rows / RB * (((regime == 0 ? H : units) + 3) / 4);  // (row group, 4 units)
   int ks = 0;
   if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
-      smem_bytes(regime, H, units, rows, kc, ks) != (size_t)smem)
+      smem_bytes(regime, H, units, rows, kc, ks, 4) != (size_t)smem)
     return ERR_PLAN;
-  const Args a{act, w_hh, c0, c_seq, dy, dhn, dxproj, dc_state, dh0, B, T, H, reverse, units, rows, kc, ks};
-  return launch(lstm_bwd_block_kernel, lstm_bwd_grid_kernel, a, regime, blocks, smem, info, stream);
+  const Args<float> a{act, w_hh, c0, c_seq, dy, dhn, dxproj, nullptr, dc_state, dh0,
+                      B, T, H, reverse, units, rows, kc, ks};
+  return run(a, regime, blocks, smem, info, stream);
+}
+
+// The bfloat16 form: w_hh (H, 4H), dy (B, T, H) and dxproj (B, T, 4H) in
+// bfloat16, dgates (B, T, 4H) float32 (both written: the gate gradients,
+// rounded and not); the rest as autovc_lstm_bwd. Returns as autovc_lstm_bwd.
+int autovc_lstm_bwd_bf16(const float* act, const void* w_hh, const float* c0, const float* c_seq, const void* dy,
+                         const float* dhn, float* dgates, void* dxproj, float* dc_state, float* dh0, int B, int T,
+                         int H, int reverse, int regime, int blocks, int units, int rows, int kc, int smem, int* info,
+                         cudaStream_t stream) {
+  const int tasks = rows / RB * (((regime == 0 ? H : units) + 3) / 4);
+  int ks = 0;
+  if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
+      smem_bytes(regime, H, units, rows, kc, ks, 2) != (size_t)smem || dgates == nullptr || dxproj == nullptr)
+    return ERR_PLAN;
+  using bf16 = __nv_bfloat16;
+  const Args<bf16> a{act, static_cast<const bf16*>(w_hh), c0, c_seq, static_cast<const bf16*>(dy), dhn, dgates,
+                     static_cast<bf16*>(dxproj), dc_state, dh0, B, T, H, reverse, units, rows, kc, ks};
+  return run(a, regime, blocks, smem, info, stream);
 }
 
 // dW (H, 4H) = hprev^T @ dxproj over all (b, t), one launch of the plan of
 // ops/lstm.py:dw_plan: K split into `splits` chunks of `chunk` rows (a
 // multiple of DW_KT), ws (splits x H x 4H floats) and counters (one int per
 // tile, zero; the kernel leaves them zero, so a stream may keep them for its
-// next call) the caller's scratch when splits > 1. h0 may be null. Returns
-// 0, ERR_PLAN or the CUDA error of the launch.
-int autovc_lstm_dw(const float* h_seq, const float* h0, const float* dxproj, float* dw, float* ws, int* counters,
-                   int B, int T, int H, int reverse, int splits, int chunk, cudaStream_t stream) {
+// next call) the caller's scratch when splits > 1. dxproj is float32; with
+// bf16 = 1, h_seq and dw are bfloat16 (h0 stays float32). h0 may be null.
+// Returns 0, ERR_PLAN or the CUDA error of the launch.
+int autovc_lstm_dw(const void* h_seq, const float* h0, const float* dxproj, void* dw, float* ws, int* counters, int B,
+                   int T, int H, int reverse, int splits, int chunk, int bf16, cudaStream_t stream) {
   const long K = (long)B * T;
   if (B <= 0 || T <= 0 || H <= 0 || H % 8 != 0 || K > (1L << 30) || chunk <= 0 || chunk % DW_KT != 0 || splits < 1 ||
       (K + chunk - 1) / chunk != splits || (splits > 1 && (ws == nullptr || counters == nullptr)) || splits > 65535)
     return ERR_PLAN;
-  const DwArgs a{h_seq, h0, dxproj, dw, ws, counters, B, T, H, reverse, chunk};
   const dim3 grid((4 * H + DW_TILE - 1) / DW_TILE, (H + DW_TILE - 1) / DW_TILE, splits);
-  lstm_dw_kernel<<<grid, NT, 0, stream>>>(a);
+  if (bf16) {
+    using bf = __nv_bfloat16;
+    const DwArgs<bf> a{static_cast<const bf*>(h_seq), h0, dxproj, static_cast<bf*>(dw), ws, counters,
+                       B, T, H, reverse, chunk};
+    lstm_dw_kernel<bf><<<grid, NT, 0, stream>>>(a);
+  } else {
+    const DwArgs<float> a{static_cast<const float*>(h_seq), h0, dxproj, static_cast<float*>(dw), ws, counters,
+                          B, T, H, reverse, chunk};
+    lstm_dw_kernel<float><<<grid, NT, 0, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -51,7 +51,7 @@
 // (one thread reads and writes each element). Batch rows are tiled by the
 // plan's `rows`, which follows B (8 rows at B=7).
 //
-// bfloat16 form (inference; autovc_lstm_fwd_bf16). The Pallas kernel's
+// bfloat16 form (autovc_lstm_fwd_bf16). The Pallas kernel's
 // bfloat16 path (_cell_step on bf16 xproj and w_hh; layers.LSTM with
 // compute_dtype bfloat16) computes gates = f32(xproj_t) + h_{t-1} @
 // f32(w_hh) with h_{t-1} and c in float32 scratch, and rounds only the
@@ -69,6 +69,11 @@
 // s + 1 overwrites what step s - 1 wrote only after the barrier that ends
 // step s, when every block has read it. Bound: the same operations as in
 // float32 (4.62 ms a Generator forward on the CUDA cores), half the bytes.
+// Its training form (_lstm_kernel_train on bf16 xproj) adds a float32
+// initial state (h0, c0), the float32 c_seq and the float32 hN (h_last, the
+// carry at the last step, which h_seq holds only rounded); the backward
+// recomputes the gate activations from the rounded h_seq (lstm_gates.cu),
+// as the Pallas backward does, so no gates are written here.
 
 #include <type_traits>
 
@@ -79,7 +84,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 // E is the element type of xproj, w_hh and h_seq: float, or __nv_bfloat16
-// (inference only: h0, c_seq and gates null, hbuf given in regime (b)).
+// (gates null, hbuf given in regime (b)).
 template <class E>
 struct Args {
   const E* xproj;
@@ -90,6 +95,7 @@ struct Args {
   float* c_state;
   float* c_seq;
   float* gates;
+  float* h_last;  // (B, H) float32 h of the last step, or null
   int B, T, H, reverse;
   int units, rows, kc, ks;  // the plan; ks = NT / tasks, derived here
 };
@@ -156,11 +162,11 @@ __device__ __forceinline__ void store_partial(float* red, const Layout& L, const
 
 // Adds the KS partial sums of each (row, unit) of the tile and updates the
 // cell; writes h_t to h_seq (and to hs, row stride ldh, when hs is not null,
-// and to hnext, row stride H, when hnext is not null), in float32 but for
-// h_seq, which rounds to E.
+// to hnext, row stride H, when hnext is not null, and at the `last` step to
+// h_last when that is not null), in float32 but for h_seq, which rounds to E.
 template <class E>
 __device__ void cell_update(const Args<E>& a, const Layout& L, const float* red, const Pairs& p, int b0, int j0,
-                            int t, float* hs, int ldh, float* hnext) {
+                            int t, bool last, float* hs, int ldh, float* hnext) {
 #pragma unroll
   for (int i = 0; i < RB; ++i) {
     const int q = threadIdx.x + i * NT;
@@ -185,6 +191,7 @@ __device__ void cell_update(const Args<E>& a, const Layout& L, const float* red,
     const size_t row = bb * a.T + t;
     store1(a.h_seq + row * a.H + j, h);
     if (hnext != nullptr) hnext[bb * a.H + j] = h;
+    if (last && a.h_last != nullptr) a.h_last[bb * a.H + j] = h;
     if (a.c_seq != nullptr) a.c_seq[row * a.H + j] = c;
     if (a.gates != nullptr) {
       float* gt = a.gates + row * 4 * a.H + j;
@@ -230,7 +237,7 @@ __global__ void __launch_bounds__(NT) lstm_fwd_block_kernel(Args<E> a) {
     if (ks >= 0 && (s > 0 || a.h0 != nullptr)) gemm_slice(acc, hs, ldh, W, L.NC, rg * RB, 4 * u, a.H / 4, ks, L.KS);
     store_partial(red, L, acc, rg, u, ks);
     __syncthreads();  // partials complete; hs (h_{t-1}) no longer read
-    cell_update(a, L, red, p, b0, 0, t, hs, ldh, nullptr);
+    cell_update(a, L, red, p, b0, 0, t, s == a.T - 1, hs, ldh, nullptr);
     __syncthreads();  // h_t in hs before the next product
   }
 }
@@ -307,7 +314,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args<E> a) {
       }
       store_partial(red, L, acc, rg, u, ks);
       __syncthreads();
-      cell_update(a, L, red, p, b0, j0, t, nullptr, 0, hnext);
+      cell_update(a, L, red, p, b0, j0, t, s == a.T - 1, nullptr, 0, hnext);
       __syncthreads();  // red free for the next tile
     }
     if (s + 1 < a.T) grid.sync();  // every h_t written before any block reads it
@@ -347,26 +354,29 @@ int autovc_lstm_fwd(const float* xproj, const float* w_hh, const float* h0, floa
   if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
       smem_bytes(regime, H, units, rows, kc, ks, 4) != (size_t)smem)
     return ERR_PLAN;
-  const Args<float> a{xproj, w_hh, h0, h_seq, nullptr, c_state, c_seq, gates, B, T, H, reverse, units, rows, kc, ks};
+  const Args<float> a{xproj, w_hh, h0, h_seq, nullptr, c_state, c_seq, gates, nullptr,
+                      B, T, H, reverse, units, rows, kc, ks};
   return run(a, regime, blocks, smem, info, stream);
 }
 
-// The bfloat16 inference form: xproj (B, T, 4H), w_hh (H, 4H) and h_seq
-// (B, T, H) in bfloat16, zero initial state; c_state (B, H) float32 zero on
-// entry, cN on exit; hbuf the float32 (2, B, H) exchange buffer of regime
-// (b) (scratch, no initial value; may be null in regime (a)). Returns as
+// The bfloat16 form: xproj (B, T, 4H), w_hh (H, 4H) and h_seq (B, T, H) in
+// bfloat16; h0 (B, H) float32 or null (zero); c_state (B, H) float32, c0 on
+// entry (the caller zeroes it for a zero state), cN on exit; hbuf the
+// float32 (2, B, H) exchange buffer of regime (b) (scratch, no initial
+// value; may be null in regime (a)); the training form's c_seq (B, T, H)
+// and h_last (B, H), float32, may be null (inference). Returns as
 // autovc_lstm_fwd.
-int autovc_lstm_fwd_bf16(const void* xproj, const void* w_hh, void* h_seq, float* hbuf, float* c_state, int B,
-                         int T, int H, int reverse, int regime, int blocks, int units, int rows, int kc, int smem,
-                         int* info, cudaStream_t stream) {
+int autovc_lstm_fwd_bf16(const void* xproj, const void* w_hh, const float* h0, void* h_seq, float* hbuf,
+                         float* c_state, float* c_seq, float* h_last, int B, int T, int H, int reverse, int regime,
+                         int blocks, int units, int rows, int kc, int smem, int* info, cudaStream_t stream) {
   const int tasks = rows / RB * (regime == 0 ? H : units);
   int ks = 0;
   if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
       smem_bytes(regime, H, units, rows, kc, ks, 2) != (size_t)smem || (regime == 1 && hbuf == nullptr))
     return ERR_PLAN;
-  const Args<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(xproj), static_cast<const __nv_bfloat16*>(w_hh),
-                              nullptr, static_cast<__nv_bfloat16*>(h_seq), regime == 1 ? hbuf : nullptr, c_state,
-                              nullptr, nullptr, B, T, H, reverse, units, rows, kc, ks};
+  const Args<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(xproj), static_cast<const __nv_bfloat16*>(w_hh), h0,
+                              static_cast<__nv_bfloat16*>(h_seq), regime == 1 ? hbuf : nullptr, c_state, c_seq,
+                              nullptr, h_last, B, T, H, reverse, units, rows, kc, ks};
   return run(a, regime, blocks, smem, info, stream);
 }
 

@@ -28,14 +28,20 @@ direction of a BLSTM) and returns the sequence in natural time order.
   not autograd, in float32 (float64 for float64 inputs, a reference of
   higher precision).
 
-bfloat16 (inference): the forward takes bfloat16 xproj and w_hh together
+bfloat16: the forward takes bfloat16 xproj and w_hh together
 (``layers.LSTM`` in ``compute_dtype="bfloat16"``) and rounds as the Pallas
 kernel does (``pallas_lstm.py:41-75``): gates = f32(xproj_t) + h_{t-1} @
 f32(w_hh) in float32, the (h, c) carry in float32 for the whole sequence,
-only the stored sequence rounded to bfloat16. The kernel and
-``lstm_sequence_ref`` both do so. Mixed dtypes raise; so do the training
-forms, an initial state and the backward kernels in bfloat16, which are
-the next slice (ROADMAP Queue 2 #1).
+only the stored sequence rounded to bfloat16; a float32 initial state, and
+in the training form the float32 c_seq, hN and cN (``_lstm_kernel_train``).
+The backward rounds as the Pallas backward on those residuals does
+(``pallas_lstm.py:410-453``, ``_lstm_chunk_bwd_rule`` :514-525): the gate
+activations recomputed from the ROUNDED h_seq (``lstm_gates_cuda``, the
+``csrc/lstm_gates.cu`` kernel; ``lstm_gates_ref``), dy read in bfloat16,
+every sum in float32 and dh's carry over the float32 gate gradients, dxproj
+rounded to bfloat16 from them, dW summed in float32 over the float32 gate
+gradients and rounded once to bfloat16, dh0 and dc0 float32. The plain
+versions do the same. Mixed xproj and w_hh dtypes raise a TypeError.
 """
 
 from __future__ import annotations
@@ -50,13 +56,16 @@ from autovc_tpu_torch import exact_f32
 from autovc_tpu_torch.ops import _build
 
 # Sequences launched on the card by each wrapper: a forward, a backward
-# (the reversed recurrence with dh0), a dW product, one kernel launch each;
-# a forward in bfloat16 counts in launches and in bf16_launches. Callers
-# reset them to 0 and read them back.
+# (the reversed recurrence with dh0), a dW product, the bfloat16 backward's
+# gate activations, one kernel launch each; a forward in bfloat16 counts in
+# launches and in bf16_launches, a backward in bfloat16 in bwd_launches and
+# in bf16_bwd_launches. Callers reset them to 0 and read them back.
 launches = 0
 bf16_launches = 0
 bwd_launches = 0
+bf16_bwd_launches = 0
 dw_launches = 0
+gates_launches = 0
 
 
 def _compute_dtype(xproj: torch.Tensor) -> torch.dtype:
@@ -72,7 +81,8 @@ def lstm_sequence_train_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.T
                             c0: torch.Tensor | None = None, reverse: bool = False):
     """The plain forward: a Python loop of the cell update in float32 (float64
     for float64 inputs) -> (h_seq, c_seq, hN, cN), the sequences (B, T, H)
-    in natural time order."""
+    in natural time order; for bfloat16 xproj h_seq is rounded to bfloat16
+    (the carry, c_seq, hN and cN stay float32)."""
     b, t, h4 = xproj.shape
     hidden = h4 // 4
     dt = _compute_dtype(xproj)
@@ -87,15 +97,15 @@ def lstm_sequence_train_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.T
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs[step], cs[step] = h, c
-    return torch.stack(hs, dim=1), torch.stack(cs, dim=1), h, c
+    h_seq = torch.stack(hs, dim=1)
+    return h_seq.to(torch.bfloat16) if xproj.dtype == torch.bfloat16 else h_seq, torch.stack(cs, dim=1), h, c
 
 
 def lstm_sequence_ref(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """The plain inference forward from a zero state: the hidden sequence,
     in xproj's dtype where that is bfloat16 (computed with a float32 carry)."""
     _check_dtypes(xproj, w_hh)
-    h_seq = lstm_sequence_train_ref(xproj, w_hh, reverse=reverse)[0]
-    return h_seq.to(torch.bfloat16) if xproj.dtype == torch.bfloat16 else h_seq
+    return lstm_sequence_train_ref(xproj, w_hh, reverse=reverse)[0]
 
 
 def _hprev(h_seq: torch.Tensor, h0: torch.Tensor | None, reverse: bool) -> torch.Tensor:
@@ -108,17 +118,24 @@ def _hprev(h_seq: torch.Tensor, h0: torch.Tensor | None, reverse: bool) -> torch
 
 def lstm_weight_grad_ref(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: torch.Tensor,
                          reverse: bool = False) -> torch.Tensor:
-    """dW_hh (H, 4H) = sum over (b, t) of hprev[b, t]^T dxproj[b, t]."""
+    """dW_hh (H, 4H) = sum over (b, t) of hprev[b, t]^T dxproj[b, t], in
+    float32 (float64 for float64 inputs); rounded once to bfloat16 when h_seq
+    is bfloat16 (the bfloat16 form, whose dxproj are the float32 gate
+    gradients)."""
     dt = _compute_dtype(dxproj)
     hprev = _hprev(h_seq.to(dt), h0, reverse)
-    return hprev.reshape(-1, hprev.shape[-1]).T @ dxproj.reshape(-1, dxproj.shape[-1]).to(dt)
+    dw = hprev.reshape(-1, hprev.shape[-1]).T @ dxproj.reshape(-1, dxproj.shape[-1]).to(dt)
+    return dw.to(torch.bfloat16) if h_seq.dtype == torch.bfloat16 else dw
 
 
 def lstm_backward_ref(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None, reverse: bool = False, *,
                       need_dw: bool = True):
     """The plain backward: the reversed loop of ``pallas_lstm.py:438-453``,
     gates recomputed from (xproj, hprev) -> (dxproj, dW_hh, dh0, dc0); dW_hh
-    is None unless ``need_dw`` (a frozen w_hh)."""
+    is None unless ``need_dw`` (a frozen w_hh). In bfloat16 (xproj, w_hh,
+    h_seq and dy) it computes in float32 from the rounded h_seq, carries the
+    float32 gate gradients and returns dxproj and dW_hh rounded to bfloat16,
+    dh0 and dc0 in float32."""
     b, t, h4 = xproj.shape
     hidden = h4 // 4
     dt = _compute_dtype(xproj)
@@ -143,14 +160,17 @@ def lstm_backward_ref(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None,
         dx[:, step] = dgates
         dh_carry = dgates @ w.T
         dc = dc * sf
-    return dx, lstm_weight_grad_ref(h_seq, h0, dx, reverse) if need_dw else None, dh_carry, dc
+    dw = lstm_weight_grad_ref(h_seq, h0, dx, reverse) if need_dw else None
+    return dx.to(torch.bfloat16) if xproj.dtype == torch.bfloat16 else dx, dw, dh_carry, dc
 
 
 def lstm_gates_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None, h_seq: torch.Tensor,
                    reverse: bool = False) -> torch.Tensor:
     """(B, T, 4H): the gate activations [sigmoid(i), sigmoid(f), tanh(g),
     sigmoid(o)] of every step, from the state each step started from. Not a
-    recurrence: one product over all (b, t), in exact float32."""
+    recurrence: one product over all (b, t), in exact float32 (the plain
+    version of ``csrc/lstm_gates.cu`` for bfloat16 xproj, w_hh and h_seq,
+    widened)."""
     dt = _compute_dtype(xproj)
     hidden = w_hh.shape[0]
     with exact_f32(xproj.device):
@@ -202,15 +222,15 @@ def _smem(kind: str, regime: str, hidden: int, units: int, rows: int, kc: int, w
 def launch_plan(batch: int, hidden: int, kind: str = "fwd", sms: int = SMS, wbytes: int = 4) -> LaunchPlan | None:
     """The launch plan of one forward (``kind="fwd"``) or backward ("bwd")
     sequence at (B, H) with w_hh in elements of ``wbytes`` bytes (4 float32,
-    2 bfloat16: the forward's bfloat16 form), or None when w_hh does not fit
-    the shared memory of ``sms`` blocks. Regime (a) where w_hh and the staged
-    rows fit one block (float32 up to H=112, bfloat16 up to H=160), else (b)
-    with the fewest units per block (the most blocks, at most one per SM).
-    Batch rows per block follow B, in steps of 4."""
+    2 bfloat16: the bfloat16 forms), or None when w_hh does not fit the
+    shared memory of ``sms`` blocks. Regime (a) where w_hh and the staged
+    rows fit one block (the forward in float32 up to H=112, in bfloat16 up to
+    H=160), else (b) with the fewest units per block (the most blocks, at
+    most one per SM). Batch rows per block follow B, in steps of 4."""
     if kind not in ("fwd", "bwd"):
         raise ValueError(f"kind is 'fwd' or 'bwd', not {kind!r}")
-    if wbytes not in (2, 4) or (kind == "bwd" and wbytes != 4):
-        raise ValueError(f"w_hh elements are 4 bytes, or 2 (the forward's bfloat16 form), not {wbytes}")
+    if wbytes not in (2, 4):
+        raise ValueError(f"w_hh elements are 4 bytes (float32) or 2 (bfloat16), not {wbytes}")
     k = hidden if kind == "fwd" else 4 * hidden
     row_groups = -(-batch // ROWS_PER_THREAD)
 
@@ -289,8 +309,7 @@ def dw_plan(batch: int, time: int, hidden: int, sms: int = SMS) -> DwPlan:
 
 def _no_plan(batch: int, hidden: int, sms: int, wbytes: int = 4) -> ValueError:
     def fits(h: int) -> bool:
-        return launch_plan(batch, h, "fwd", sms, wbytes) is not None and (
-            wbytes != 4 or launch_plan(batch, h, "bwd", sms) is not None)
+        return all(launch_plan(batch, h, kind, sms, wbytes) is not None for kind in ("fwd", "bwd"))
 
     return ValueError(
         f"lstm kernels hold w_hh in shared memory for the whole sequence: at H={hidden} its "
@@ -302,25 +321,24 @@ def _no_plan(batch: int, hidden: int, sms: int, wbytes: int = 4) -> ValueError:
 
 def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
+    pointers, ints, tail = ctypes.c_void_p, ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]
     if name == "lstm_fwd":
-        lib.autovc_lstm_fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
-                                        + [ctypes.c_void_p, ctypes.c_void_p])
-        lib.autovc_lstm_fwd.restype = ctypes.c_int
-        lib.autovc_lstm_fwd_bf16.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-                                             + [ctypes.c_void_p, ctypes.c_void_p])
-        lib.autovc_lstm_fwd_bf16.restype = ctypes.c_int
+        lib.autovc_lstm_fwd.argtypes = [pointers] * 7 + [ints] * 10 + tail
+        lib.autovc_lstm_fwd_bf16.argtypes = [pointers] * 8 + [ints] * 10 + tail
+        entries = (lib.autovc_lstm_fwd, lib.autovc_lstm_fwd_bf16)
+    elif name == "lstm_gates":
+        lib.autovc_lstm_gates.argtypes = [pointers] * 5 + [ints] * 4 + [pointers]
+        entries = (lib.autovc_lstm_gates,)
     else:
-        lib.autovc_lstm_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-                                        + [ctypes.c_void_p, ctypes.c_void_p])
-        lib.autovc_lstm_bwd.restype = ctypes.c_int
-        lib.autovc_lstm_dw.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.autovc_lstm_dw.restype = ctypes.c_int
+        lib.autovc_lstm_bwd.argtypes = [pointers] * 9 + [ints] * 10 + tail
+        lib.autovc_lstm_bwd_bf16.argtypes = [pointers] * 10 + [ints] * 10 + tail
+        lib.autovc_lstm_dw.argtypes = [pointers] * 6 + [ints] * 7 + [pointers]
+        entries = (lib.autovc_lstm_bwd, lib.autovc_lstm_bwd_bf16, lib.autovc_lstm_dw)
+    for fn in entries:
+        fn.restype = ctypes.c_int
     lib.autovc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.autovc_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-NEXT_SLICE = "the bfloat16 backward and training forms are the next slice (ROADMAP Queue 2 #1, bf16 training)"
 
 
 def _check_dtypes(xproj: torch.Tensor, w_hh: torch.Tensor) -> None:
@@ -329,36 +347,40 @@ def _check_dtypes(xproj: torch.Tensor, w_hh: torch.Tensor) -> None:
         raise TypeError(f"mixed dtypes: xproj {xproj.dtype} and w_hh {w_hh.dtype} (bfloat16 takes both)")
 
 
-def _check(xproj: torch.Tensor, w_hh: torch.Tensor | None, kind: str = "fwd",
+# The tensors the bfloat16 forms take in bfloat16; the rest (the state, c_seq,
+# the gate activations and gradients, the cotangents of hN and cN) float32.
+_BF16_OPERANDS = ("xproj", "w_hh", "h_seq", "dy")
+
+
+def _check(xproj: torch.Tensor, w_hh: torch.Tensor | None, kind: str = "fwd", first: str = "xproj",
            **others: torch.Tensor | None) -> tuple[int, int, int, LaunchPlan | None]:
     """Validate what a kernel takes, before it is built: float32 throughout,
-    or, for the forward's inference form, bfloat16 xproj and w_hh; (B, T, 4H)
-    and w_hh (H, 4H) with H % 8 == 0 and a w_hh that fits the card's shared
-    memory, the named (B, H) and (B, T, H) tensors of matching shape, all on
-    one CUDA device. Returns (B, T, H) and, when w_hh is given, the ``kind``
+    or the bfloat16 form (``_BF16_OPERANDS`` in bfloat16, the rest float32);
+    the first tensor, named ``first``, (B, T, 4H) and w_hh (H, 4H) with
+    H % 8 == 0 and a w_hh that fits the card's shared memory, the named
+    (B, H), (B, T, H) and (B, T, 4H) tensors of matching shape, all on one
+    CUDA device. Returns (B, T, H) and, when w_hh is given, the ``kind``
     launch plan at the card's SM count."""
     b, t, h4 = xproj.shape
     hidden = h4 // 4
-    given = {"xproj": xproj, "w_hh": w_hh, **others}
+    given = {first: xproj, "w_hh": w_hh, **others}
     given = {k: v for k, v in given.items() if v is not None}
     bf16 = any(v.dtype == torch.bfloat16 for v in given.values())
-    if bf16 and (kind != "fwd" or w_hh is None):
-        raise NotImplementedError(f"lstm kernels take no bfloat16 in the backward or dW: {NEXT_SLICE}")
     if w_hh is not None:
         _check_dtypes(xproj, w_hh)
-    if bf16 and any(v is not None for v in others.values()):
-        raise NotImplementedError(f"the bfloat16 forward runs from a zero state without residuals: {NEXT_SLICE}")
     for name, v in given.items():
-        if v.dtype != (torch.bfloat16 if bf16 else torch.float32):
-            raise TypeError(f"lstm kernels take float32, or bfloat16 xproj and w_hh, got {name} {v.dtype}")
+        if v.dtype != (torch.bfloat16 if bf16 and name in _BF16_OPERANDS else torch.float32):
+            raise TypeError(f"lstm kernels take float32, or {', '.join(_BF16_OPERANDS)} in bfloat16 and the rest "
+                            f"in float32, got {name} {v.dtype}")
     if h4 % 4 or (w_hh is not None and w_hh.shape != (hidden, h4)):
-        raise ValueError(f"shapes do not match: xproj {tuple(xproj.shape)}, "
+        raise ValueError(f"shapes do not match: {first} {tuple(xproj.shape)}, "
                          f"w_hh {None if w_hh is None else tuple(w_hh.shape)}")
     if hidden % 8:
         raise ValueError(f"lstm kernels need H % 8 == 0, got H={hidden}")
     plan = None if w_hh is None else _plan_on_card(b, hidden, kind, xproj.device, 2 if bf16 else 4)
     for name, v in others.items():
-        want = (b, hidden) if name in ("h0", "c0", "dhn", "dcn") else (b, t, hidden) if name != "gates" else (b, t, h4)
+        want = ((b, hidden) if name in ("h0", "c0", "dhn", "dcn")
+                else (b, t, h4) if name in ("gates", "dgates") else (b, t, hidden))
         if v is not None and tuple(v.shape) != want:
             raise ValueError(f"{name} is {tuple(v.shape)}, expected {want}")
     devices = {v.device for v in given.values()}
@@ -415,14 +437,13 @@ def _plan_on_card(b: int, hidden: int, kind: str, device: torch.device, wbytes: 
     on (an H100's, ``SMS``, for tensors elsewhere, which ``_check`` refuses
     after this). Raises with the limit unless the forward's and the
     backward's w_hh both fit, so that no forward trains into a backward
-    that cannot launch (the bfloat16 forward, ``wbytes`` 2, has no
-    backward)."""
+    that cannot launch."""
     if device.type != "cuda":
         sms = SMS
     else:
         sms = _card_sms(_index(device))
     plan = launch_plan(b, hidden, kind, sms, wbytes)
-    if plan is None or (wbytes == 4 and launch_plan(b, hidden, "bwd" if kind == "fwd" else "fwd", sms) is None):
+    if plan is None or launch_plan(b, hidden, "bwd" if kind == "fwd" else "fwd", sms, wbytes) is None:
         raise _no_plan(b, hidden, sms, wbytes)
     return plan
 
@@ -442,14 +463,17 @@ def lstm_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor 
     """Launch the forward kernel on the current stream (no synchronisation),
     one launch for the sequence -> (h_seq, c_seq or None, hN, cN), and the
     gate activations (B, T, 4H) after them when ``with_gates``. hN is
-    h_seq's last step, in h_seq's dtype. bfloat16 xproj and w_hh launch the
-    bfloat16 form: a zero initial state, neither residual."""
+    h_seq's last step. bfloat16 xproj and w_hh launch the bfloat16 form:
+    h_seq in bfloat16, the state (h0, c0 in; c_seq, hN, cN out) in float32,
+    and no gate activations (its backward recomputes them from the rounded
+    h_seq: ``lstm_gates_cuda``)."""
     global launches
-    if xproj.dtype == torch.bfloat16 and (with_cseq or with_gates):
-        raise NotImplementedError(f"the bfloat16 forward keeps no residuals for a backward: {NEXT_SLICE}")
+    if xproj.dtype == torch.bfloat16 and with_gates:
+        raise ValueError("the bfloat16 forward keeps no gate activations: its backward recomputes them from the "
+                         "rounded h_seq (lstm_gates_cuda)")
     b, t, hidden, plan = _check(xproj, w_hh, "fwd", h0=h0, c0=c0)
     if xproj.dtype == torch.bfloat16:
-        return _forward_bf16(xproj, w_hh, reverse, b, t, hidden, plan)
+        return _forward_bf16(xproj, w_hh, h0, c0, reverse, with_cseq, b, t, hidden, plan)
     lib = _library("lstm_fwd")
     xproj, w_hh, h0 = _dense(xproj), _dense(w_hh), _dense(h0)
     h_seq = torch.empty((b, t, hidden), device=xproj.device, dtype=torch.float32)
@@ -464,22 +488,25 @@ def lstm_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor 
     return out + (gates,) if with_gates else out
 
 
-def _forward_bf16(xproj, w_hh, reverse, b, t, hidden, plan):
+def _forward_bf16(xproj, w_hh, h0, c0, reverse, with_cseq, b, t, hidden, plan):
     """The bfloat16 form's launch: h_seq in bfloat16, (h, c) carried in
-    float32, exchanged in regime (b) through a float32 (2, B, H) buffer."""
+    float32 from (h0, c0), exchanged in regime (b) through a float32 (2, B, H)
+    buffer; c_seq (the training form) and hN, cN in float32."""
     global launches, bf16_launches
     lib = _library("lstm_fwd")
-    xproj, w_hh = _dense(xproj), _dense(w_hh)
+    xproj, w_hh, h0 = _dense(xproj), _dense(w_hh), _dense(h0)
     dev = xproj.device
     h_seq = torch.empty((b, t, hidden), device=dev, dtype=torch.bfloat16)
-    c = torch.zeros((b, hidden), device=dev, dtype=torch.float32)
+    c_seq = torch.empty((b, t, hidden), device=dev, dtype=torch.float32) if with_cseq else None
+    c = torch.zeros((b, hidden), device=dev, dtype=torch.float32) if c0 is None else _dense(c0).clone()
+    hn = torch.empty((b, hidden), device=dev, dtype=torch.float32)
     hbuf = torch.empty((2, b, hidden), device=dev, dtype=torch.float32) if plan.regime == "b" else None
     with torch.cuda.device(dev):
-        _launch(lib, lib.autovc_lstm_fwd_bf16, plan, [_ptr(v) for v in (xproj, w_hh, h_seq, hbuf, c)],
+        _launch(lib, lib.autovc_lstm_fwd_bf16, plan, [_ptr(v) for v in (xproj, w_hh, h0, h_seq, hbuf, c, c_seq, hn)],
                 (b, t, hidden, int(reverse)), "lstm forward kernel (bfloat16)")
     launches += 1
     bf16_launches += 1
-    return h_seq, None, h_seq[:, 0 if reverse else -1].clone(), c
+    return h_seq, c_seq, hn, c
 
 
 def lstm_sequence_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -503,13 +530,15 @@ def _dw_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 def lstm_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: torch.Tensor,
                           reverse: bool = False) -> torch.Tensor:
     """Launch the dW kernel: (H, 4H) = sum over (b, t) of hprev^T dxproj,
-    one launch of ``dw_plan`` at the card's SM count."""
+    one launch of ``dw_plan`` at the card's SM count. dxproj is float32 (in
+    the bfloat16 form the float32 gate gradients); a bfloat16 h_seq gives
+    dW rounded once to bfloat16."""
     global dw_launches
-    b, t, hidden, _ = _check(dxproj, None, h_seq=h_seq, h0=h0)
+    b, t, hidden, _ = _check(dxproj, None, first="dgates", h_seq=h_seq, h0=h0)
     plan = dw_plan(b, t, hidden, _card_sms(_index(dxproj.device)))
     lib = _library("lstm_bwd")
     h_seq, h0, dxproj = _dense(h_seq), _dense(h0), _dense(dxproj)
-    dw = torch.empty((hidden, 4 * hidden), device=dxproj.device, dtype=torch.float32)
+    dw = torch.empty((hidden, 4 * hidden), device=dxproj.device, dtype=h_seq.dtype)
     ws = counters = None
     with torch.cuda.device(dxproj.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -517,10 +546,33 @@ def lstm_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: 
             ws = torch.empty(plan.workspace, device=dxproj.device, dtype=torch.float32)
             counters = _dw_counters(dxproj.device, stream, plan.tiles_m * plan.tiles_n)
         err = lib.autovc_lstm_dw(_ptr(h_seq), _ptr(h0), _ptr(dxproj), _ptr(dw), _ptr(ws), _ptr(counters), b, t,
-                                 hidden, int(reverse), plan.splits, plan.chunk, stream)
+                                 hidden, int(reverse), plan.splits, plan.chunk, int(h_seq.dtype == torch.bfloat16),
+                                 stream)
     _raise_on(lib, err, "lstm dW kernel", plan)
     dw_launches += 1
     return dw
+
+
+def lstm_gates_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None, h_seq: torch.Tensor,
+                    reverse: bool = False) -> torch.Tensor:
+    """Launch ``csrc/lstm_gates.cu``: the gate activations (B, T, 4H),
+    float32, of a bfloat16 sequence, recomputed from its rounded h_seq (and
+    the float32 h0, or zero) as the Pallas backward recomputes them; one
+    launch. The float32 backward reads the forward's own (``with_gates``)."""
+    global gates_launches
+    if xproj.dtype != torch.bfloat16:
+        raise TypeError("the gates kernel takes the bfloat16 form; the float32 forward keeps its gate "
+                        "activations (with_gates=True)")
+    b, t, hidden, _ = _check(xproj, w_hh, "bwd", h0=h0, h_seq=h_seq)
+    lib = _library("lstm_gates")
+    xproj, w_hh, h0, h_seq = map(_dense, (xproj, w_hh, h0, h_seq))
+    act = torch.empty((b, t, 4 * hidden), device=xproj.device, dtype=torch.float32)
+    with torch.cuda.device(xproj.device):
+        err = lib.autovc_lstm_gates(_ptr(xproj), _ptr(w_hh), _ptr(h0), _ptr(h_seq), _ptr(act), b, t, hidden,
+                                    int(reverse), torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "lstm gates kernel")
+    gates_launches += 1
+    return act
 
 
 def lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None, reverse: bool = False, *,
@@ -528,23 +580,36 @@ def lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None
     """Launch the backward kernels on the current stream -> (dxproj, dW_hh,
     dh0, dc0): the reversed recurrence with dh0 in one launch, then dW, or,
     when not ``need_dw`` (a frozen w_hh), no dW launch and None for it.
-    ``gates`` are the forward kernel's gate activations (its ``with_gates``
-    output), which the backward reads in place of recomputing them."""
-    global bwd_launches
+    ``gates`` are the gate activations: the float32 forward kernel's own
+    (its ``with_gates`` output), or, in the bfloat16 form, those
+    ``lstm_gates_cuda`` recomputes from the rounded h_seq. In the bfloat16
+    form dxproj and dW_hh come back in bfloat16 (dW summed over the float32
+    gate gradients), dh0 and dc0 in float32."""
+    global bwd_launches, bf16_bwd_launches
     if gates is None:
-        raise ValueError("lstm_backward_cuda takes the forward kernel's gate activations (with_gates=True)")
+        raise ValueError("lstm_backward_cuda takes the gate activations (the float32 forward's with_gates=True, "
+                         "or lstm_gates_cuda)")
     b, t, hidden, plan = _check(xproj, w_hh, "bwd", h0=h0, c0=c0, h_seq=h_seq, c_seq=c_seq, dy=dy, dhn=dhn,
                                 dcn=dcn, gates=gates)
+    bf16 = xproj.dtype == torch.bfloat16
     lib = _library("lstm_bwd")
     w_hh, c0, h_seq, c_seq, dy, dhn, gates = map(_dense, (w_hh, c0, h_seq, c_seq, dy, dhn, gates))
-    dx = torch.empty((b, t, 4 * hidden), device=xproj.device, dtype=torch.float32)
-    dc = torch.zeros((b, hidden), device=xproj.device, dtype=torch.float32) if dcn is None else _dense(dcn).clone()
-    dh0 = torch.empty((b, hidden), device=xproj.device, dtype=torch.float32)
-    with torch.cuda.device(xproj.device):
-        _launch(lib, lib.autovc_lstm_bwd, plan, [_ptr(v) for v in (gates, w_hh, c0, c_seq, dy, dhn, dx, dc, dh0)],
-                (b, t, hidden, int(reverse)), "lstm backward kernel")
+    dev = xproj.device
+    dgates = torch.empty((b, t, 4 * hidden), device=dev, dtype=torch.float32)
+    dx = torch.empty((b, t, 4 * hidden), device=dev, dtype=torch.bfloat16) if bf16 else dgates
+    dc = torch.zeros((b, hidden), device=dev, dtype=torch.float32) if dcn is None else _dense(dcn).clone()
+    dh0 = torch.empty((b, hidden), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        if bf16:
+            _launch(lib, lib.autovc_lstm_bwd_bf16, plan,
+                    [_ptr(v) for v in (gates, w_hh, c0, c_seq, dy, dhn, dgates, dx, dc, dh0)],
+                    (b, t, hidden, int(reverse)), "lstm backward kernel (bfloat16)")
+        else:
+            _launch(lib, lib.autovc_lstm_bwd, plan, [_ptr(v) for v in (gates, w_hh, c0, c_seq, dy, dhn, dx, dc, dh0)],
+                    (b, t, hidden, int(reverse)), "lstm backward kernel")
     bwd_launches += 1
-    return dx, lstm_weight_grad_cuda(h_seq, h0, dx, reverse) if need_dw else None, dh0, dc
+    bf16_bwd_launches += bf16
+    return dx, lstm_weight_grad_cuda(h_seq, h0, dgates, reverse) if need_dw else None, dh0, dc
 
 
 def _device_kind(xproj: torch.Tensor) -> str:
@@ -556,15 +621,20 @@ def _device_kind(xproj: torch.Tensor) -> str:
 class LSTMSequenceFn(torch.autograd.Function):
     """(xproj, w_hh, h0, c0, reverse) -> (h_seq, hN, cN), differentiable in
     the four tensors (h0 and c0 may be None: zero). The kernels for CUDA
-    tensors, the plain versions for CPU tensors."""
+    tensors, the plain versions for CPU tensors. In bfloat16 (xproj and
+    w_hh; h0 and c0 float32) h_seq is bfloat16 and the gradients of xproj
+    and w_hh come back in bfloat16, as ``_lstm_chunk``'s custom VJP returns
+    them; the backward on the card first recomputes the gate activations
+    from the rounded h_seq (``lstm_gates_cuda``)."""
 
     @staticmethod
     def forward(ctx, xproj, w_hh, h0, c0, reverse):
-        if torch.bfloat16 in (xproj.dtype, w_hh.dtype):
-            raise NotImplementedError(f"no gradient through a bfloat16 LSTM: {NEXT_SLICE}")
+        _check_dtypes(xproj, w_hh)
+        bf16 = xproj.dtype == torch.bfloat16
         if _device_kind(xproj) == "cuda":
-            h_seq, c_seq, hn, cn, gates = lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True,
-                                                            with_gates=True)
+            out = lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True, with_gates=not bf16)
+            h_seq, c_seq, hn, cn = out[:4]
+            gates = None if bf16 else out[4]
         else:
             h_seq, c_seq, hn, cn = lstm_sequence_train_ref(xproj, w_hh, h0, c0, reverse)
             gates = None
@@ -578,6 +648,8 @@ class LSTMSequenceFn(torch.autograd.Function):
         args = (xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, ctx.reverse)
         need_dw = ctx.needs_input_grad[1]  # no dW for a frozen w_hh
         if _device_kind(xproj) == "cuda":
+            if gates is None:  # the bfloat16 form
+                gates = lstm_gates_cuda(xproj, w_hh, h0, h_seq, ctx.reverse)
             dx, dw, dh0, dc0 = lstm_backward_cuda(*args, gates=gates, need_dw=need_dw)
         else:
             dx, dw, dh0, dc0 = lstm_backward_ref(*args, need_dw=need_dw)

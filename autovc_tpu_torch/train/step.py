@@ -7,7 +7,11 @@ the encoder's BatchNorm statistics again as the JAX second forward does;
 Adam with optax's defaults; the learning rate set from the step before its
 increment; a real per-step EMA. On a CUDA device the step runs in exact
 float32 (``exact_f32``) and its LSTMs forward and backward through the
-hand-written kernels (``ops.lstm.LSTMSequenceFn``).
+hand-written kernels (``ops.lstm.LSTMSequenceFn``). With
+``cfg.model.compute_dtype="bfloat16"`` the generator computes in bfloat16
+(its kernels' bfloat16 forms) while the parameters, their gradients, Adam's
+state, the EMA, the BatchNorm statistics and the losses (which widen their
+inputs) stay float32, as the JAX step with ``--bf16 --pallas``.
 
 With ``cfg.train.lambda_spk > 0`` and a ``SpeakerAux``, the loss adds the
 speaker-consistency auxiliary: the batch is converted within itself (the
@@ -16,7 +20,10 @@ re-embedded by the frozen d-vector encoder, and either a hinge on the
 evaluation's own margin (protocol 'windowed') or a cosine pull toward the
 target embedding (protocol 'crop') is added. The encoder's weights do not
 require grad, so the gradient reaches the generator through the LSTM
-kernels' backward without a weight gradient of the encoder.
+kernels' backward without a weight gradient of the encoder. A bfloat16
+generator's output is widened to float32 for the float32 encoder (JAX's
+encoder, whose dtype follows its input, runs its LSTMs in bfloat16 on it:
+an open divergence, ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -132,7 +139,7 @@ def loss_fn(model: Generator, cfg: Config, x: torch.Tensor, emb: torch.Tensor, t
     total = g_loss_id + g_loss_id_psnt + cfg.train.lambda_cd * g_loss_cd
     metrics = {"g_loss_id": g_loss_id, "g_loss_id_psnt": g_loss_id_psnt, "g_loss_cd": g_loss_cd}
     if use_spk:
-        g_loss_spk, extra = speaker_loss(spk, cfg, x_conv, emb)
+        g_loss_spk, extra = speaker_loss(spk, cfg, x_conv.float(), emb)
         total = total + cfg.train.lambda_spk * g_loss_spk
         metrics.update(extra, g_loss_spk=g_loss_spk)
     return total, {k: v.detach() for k, v in dict(metrics, g_loss=total).items()}

@@ -2,8 +2,8 @@
 each against its plain version, and drives spmel conversion, WaveNet
 vocoding, spmel generator training, feature extraction, the GE2E speaker
 encoder (speaker embeddings, its evaluation, the lambda_spk training
-auxiliary) and bfloat16 conversion and vocoding (``cli.synthesize``) end to
-end.
+auxiliary), bfloat16 conversion and vocoding (``cli.synthesize``) and
+bfloat16 generator training (``cli.train --bf16``) end to end.
 
     python3 chip_smoke.py            # seeded random weights at full width
     python3 chip_smoke.py --trained  # the committed artifacts/*.npz weights
@@ -134,6 +134,30 @@ split; (d) ``cli.synthesize`` on the card on a results pkl of 8 of phase
 2's converted mels (4-11 frames) in a temporary directory, ``--vocoder
 wavenet --wavenet_engine pallas --batch 8`` (one bfloat16 launch) and
 ``--vocoder hifigan``: every wav finite, Tc*256 samples, and readme.md.
+Phase 8 runs bfloat16 training at phase 4's shapes (B=7, T=128, the
+published widths, seeded weights): (a) the LSTM kernels' bfloat16 training
+forms against their plain versions at H in {32, 512, 1024}, both
+directions: the forward from a float32 state (h_seq within 1 bfloat16 ulp,
+floored at 2^-16 of its peak, and 99% bit-equal; c_seq, hN, cN 1e-4), the
+gate activations recomputed from the rounded h_seq by ``csrc/lstm_gates.cu``
+(1e-5), the backward and dW (dxproj and dW within 1 bfloat16 ulp, floored at
+2^-8 of the peak, 99% bit-equal; dh0, dc0 1e-4); each timed (CUDA events
+and device time) beside the float32 kernels on the same inputs, the plain
+versions, the bound (the recurrences' FMAs at 67 TFLOP/s, the gates product
+at the bfloat16 tensor cores' 989, bytes at 3.35 TB/s) and cuDNN's bfloat16
+LSTM (forward alone, backward alone, forward+backward); (b) one ``Solver``-config step with
+``compute_dtype="bfloat16"`` with the kernels against the same step on the
+plain engine (``LSTMSequenceFn``'s plain loops) on the card, on its kinks
+(``KinkTape``), every gradient leaf no farther from the plain step's, of
+its scale, than the plain step's own bfloat16 spread (the median over the
+leaves of its distance from the float32 step on the same kinks), the loss
+within twice its spread, beside the float32 step's; 11 forward, 11 gates,
+11 backward and 11 dW
+launches a step; 20 ``Solver`` steps (finite, going down; p50, p95) and the
+device-time split and idle share of a warm step; (c) ``cli.train --bf16``
+for 3 steps in a temporary directory, once with ``--lambda_spk`` on a seeded
+GE2E .npz, each exported and converted with through ``Converter`` in
+bfloat16 and in float32.
 
 The kernels are built first, one ``nvcc`` each, started together.
 
@@ -141,7 +165,7 @@ The output ends with the card's name and power limit, one JSON line of
 kernel records, and ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; a watchdog ends a hung run with a stack dump. Without a CUDA
 device it exits non-zero before doing anything. It writes nothing outside
-the kernel build directory but the temporary directories of phases 4-6,
+the kernel build directory but the temporary directories of phases 4-8,
 which it removes.
 """
 
@@ -153,6 +177,7 @@ sys.dont_write_bytecode = True  # keep the checkout free of __pycache__
 
 import argparse  # noqa: E402
 import faulthandler  # noqa: E402
+import functools  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
 import tempfile  # noqa: E402
@@ -197,7 +222,7 @@ ROOT = Path(__file__).resolve().parent
 B, T, N_MELS, HOP = 32, 512, 80, 256
 LSTM_TOL = 1e-4  # f32 kernel vs f32 plain loop: summation order only
 MEL_TOL = 1e-3  # on the whole generator, after 7 recurrences and 11 convs
-KERNELS = ("lstm_fwd", "lstm_bwd", "wavenet_gen", "mel_norm", "sosfilt")
+KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_gates", "wavenet_gen", "mel_norm", "sosfilt")
 WN_B, WN_FRAMES = 8, 8  # utterances and mel frames vocoded by WaveNet: T = 2048 samples
 WN_TF_TOL = 1e-3  # kernel logits vs teacher-forced forward on its own waveform, f32
 WN_PREFIX_TOL, WN_MIN_PREFIX = 1e-4, 32  # kernel vs plain loop, same uniforms
@@ -256,13 +281,21 @@ def device_ms(fn, reps: int) -> float:
     without the host's gaps between launches (CUDA events around a loop of
     short calls time the host's wrapper instead). CUDA events where the
     profiler records no device time. An LSTM launch whose record the
-    profiler dropped counts at its kind's mean (``lstm_records``)."""
-    rows, _, launched = device_activity(fn, reps)
-    total = sum(t for _, _, t in rows) + lstm_records(rows, launched)[0]
-    if total <= 0:
-        log("device_ms: the profiler recorded no device time; CUDA events instead")
+    profiler dropped counts at its kind's mean (``lstm_records``, the gates
+    kernel's among them). torch.profiler drops records of other kernels too,
+    more often after many profiles in one process, and a dropped record only
+    lowers the total: so two profiles are taken and the larger total kept,
+    of those that recorded every LSTM kind that was launched."""
+    totals = []
+    for _ in range(2):
+        rows, _, launched = device_activity(fn, reps, profile_counts)
+        missing, kinds = lstm_records(rows, launched, BF16_KINDS)
+        if all(recorded or not made for _, recorded, made in kinds.values()):
+            totals.append(sum(t for _, _, t in rows) + missing)
+    if max(totals, default=0.0) <= 0:
+        log("device_ms: the profiler recorded no device time of a launched kind; CUDA events instead")
         return cuda_ms(fn, reps)
-    return total / 1e3 / reps
+    return max(totals) / 1e3 / reps
 
 
 def lstm_work(b: int, t: int, h: int) -> tuple[float, float]:
@@ -588,11 +621,14 @@ def dw_work(b: int, t: int, h: int) -> tuple[float, float]:
     return 2.0 * b * t * h * 4 * h, 4.0 * (b * t * h + b * t * 4 * h + h * 4 * h)
 
 
-def cudnn_train_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.Tensor, dy: torch.Tensor) -> float:
-    """Yardstick only: torch.nn.LSTM (cuDNN), one layer of H units on a
-    (B, T, H) input, forward and backward from (h0, c0) with cotangent dy."""
-    net = torch.nn.LSTM(hidden, hidden, batch_first=True).to(dev)
-    x = torch.randn(dy.shape, device=dev, requires_grad=True)
+def cudnn_train_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.Tensor, dy: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> float:
+    """Yardstick only: torch.nn.LSTM (cuDNN) in ``dtype``, one layer of H
+    units on a (B, T, H) input, forward and backward from (h0, c0) with
+    cotangent dy."""
+    net = torch.nn.LSTM(hidden, hidden, batch_first=True).to(dev, dtype)
+    x = torch.randn(dy.shape, device=dev, dtype=dtype, requires_grad=True)
+    h0, c0, dy = h0.to(dtype), c0.to(dtype), dy.to(dtype)
 
     def run():
         out, _ = net(x, (h0[None], c0[None]))
@@ -601,15 +637,17 @@ def cudnn_train_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.T
     return cuda_ms(run, reps=3)
 
 
-def cudnn_train_parts_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.Tensor,
-                         dy: torch.Tensor) -> tuple[float, float]:
-    """Yardstick only: torch.nn.LSTM (cuDNN), one layer of H units on a
-    (B, T, H) input that requires grad, from (h0, c0): the forward alone (its
-    training form, which keeps what the backward needs) and the backward
-    alone (data and weight gradients, over one retained graph; the input
-    projection's included, which the port's kernels leave to other code)."""
-    net = torch.nn.LSTM(hidden, hidden, batch_first=True).to(dev)
-    x = torch.randn(dy.shape, device=dev, requires_grad=True)
+def cudnn_train_parts_ms(dev: torch.device, hidden: int, h0: torch.Tensor, c0: torch.Tensor, dy: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> tuple[float, float]:
+    """Yardstick only: torch.nn.LSTM (cuDNN) in ``dtype``, one layer of H
+    units on a (B, T, H) input that requires grad, from (h0, c0): the forward
+    alone (its training form, which keeps what the backward needs) and the
+    backward alone (data and weight gradients, over one retained graph; the
+    input projection's included, which the port's kernels leave to other
+    code)."""
+    net = torch.nn.LSTM(hidden, hidden, batch_first=True).to(dev, dtype)
+    x = torch.randn(dy.shape, device=dev, dtype=dtype, requires_grad=True)
+    h0, c0, dy = h0.to(dtype), c0.to(dtype), dy.to(dtype)
     fwd_ms = cuda_ms(lambda: net(x, (h0[None], c0[None])), reps=3)
     out, _ = net(x, (h0[None], c0[None]))
     bwd_ms = cuda_ms(lambda: out.backward(dy, retain_graph=True), reps=3)
@@ -770,17 +808,17 @@ def zero_counts() -> None:
     lstm_ops.launches = lstm_ops.bwd_launches = lstm_ops.dw_launches = 0
 
 
-def device_activity(fn, reps: int = 1) -> tuple[list[tuple[str, int, float]], float, tuple[int, int, int]]:
+def device_activity(fn, reps: int = 1, counter=counts) -> tuple[list[tuple[str, int, float]], float, tuple[int, ...]]:
     """``reps`` warm calls of ``fn`` under torch.profiler: (key, launches,
     device us) of every kernel and copy over them, the wall us a call, and
-    the LSTM launches (forward, backward, dW) the wrappers counted over the
-    ``reps`` calls."""
+    the LSTM launches the wrappers counted over the ``reps`` calls (by
+    ``counter``: forward, backward, dW)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
     torch.cuda.synchronize()
-    before = counts()
+    before = counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -792,7 +830,7 @@ def device_activity(fn, reps: int = 1) -> tuple[list[tuple[str, int, float]], fl
     rows = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA and e.device_time_total > 0
             and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
-    return rows, wall_us, tuple(a - b for a, b in zip(counts(), before))
+    return rows, wall_us, tuple(a - b for a, b in zip(counter(), before))
 
 
 # the LSTM kernels' name stems (lstm_fwd_block_kernel, lstm_fwd_grid_kernel,
@@ -800,14 +838,25 @@ def device_activity(fn, reps: int = 1) -> tuple[list[tuple[str, int, float]], fl
 LSTM_KINDS = {"lstm_fwd": 0, "lstm_bwd": 1, "lstm_dw": 2}
 
 
-def lstm_records(rows, launched: tuple[int, int, int]) -> tuple[float, dict[str, tuple[float, int, int]]]:
+# device_ms's and 8b's profiles: the wrappers' launch counts in this order,
+# and the kernels' name stems (the gates kernel's included)
+BF16_KINDS = {"lstm_fwd": 0, "lstm_bwd": 1, "lstm_dw": 2, "lstm_gates": 3}
+
+
+def profile_counts() -> tuple[int, int, int, int]:
+    """The launches in BF16_KINDS' order: forward, backward, dW, gates."""
+    return lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches, lstm_ops.gates_launches
+
+
+def lstm_records(rows, launched: tuple[int, ...], kinds_of: dict[str, int] = LSTM_KINDS
+                 ) -> tuple[float, dict[str, tuple[float, int, int]]]:
     """The device us of the LSTM launches whose records torch.profiler
     dropped (it drops some records of the cooperative kernels), each counted
     at its kind's mean over the records kept; and for each kind (mean us of a
     recorded launch, launches recorded, launches its wrapper counted).
     Raises where the profiler recorded more launches than were made."""
     missing, kinds = 0.0, {}
-    for stem, i in LSTM_KINDS.items():
+    for stem, i in kinds_of.items():
         total = sum(t for key, _, t in rows if stem + "_" in key)
         recorded = sum(c for key, c, _ in rows if stem + "_" in key)
         if recorded > launched[i]:
@@ -1817,13 +1866,16 @@ WN_BF16_SPREAD = 4.0
 SYN_UTTS = 8  # phase 7d: converted mels of 4 .. 11 frames
 
 
-def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    """(the largest |got - want| in bfloat16 ulps of want, or of 2^-16 of
-    want's largest magnitude where want is smaller, the share of elements
-    bit-equal)."""
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor, floor: float = 2.0 ** -16) -> tuple[float, float]:
+    """(the largest |got - want| in bfloat16 ulps of want, or of ``floor``
+    times want's largest magnitude where want is smaller, the share of
+    elements bit-equal); an all-zero want is met only exactly."""
     g, w = got.double(), want.double()
-    scale = torch.clamp(w.abs(), min=2.0 ** -16 * w.abs().max().item())
-    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    peak = w.abs().max().item()
+    if peak == 0:
+        return (0.0 if torch.equal(g, w) else float("inf")), (g == w).double().mean().item()
+    scale = torch.clamp(w.abs(), min=floor * peak)
+    ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)  # exact, where log2 may round 2^k down
     return ((g - w).abs() / ulp).max().item(), (g == w).double().mean().item()
 
 
@@ -2081,6 +2133,363 @@ def phase_synthesize(mels: np.ndarray, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+# bfloat16 training: the LSTM kernels' bfloat16 training forms (the forward
+# with its state and c_seq, the gates recomputed from the rounded h_seq, the
+# backward and dW), the Solver and cli.train --bf16
+
+BF16_TC_FLOPS = 989e12  # H100 SXM bfloat16 tensor cores, dense (NVIDIA data sheet)
+GATES_TOL = 1e-5  # float32 activations of a sum of H exact bfloat16 products, in another order
+# the ulp floor of the backward's bfloat16 outputs: float32 sums over 4H (dx)
+# and B*T (dW) terms in another order (tests/test_torch_gpu.py)
+BWD_FLOOR = 2.0 ** -8
+# 8b: every gradient leaf of the kernel step no farther from the plain
+# bfloat16 step than this many times the plain step's own bfloat16 spread,
+# the median over the leaves of its distance from the float32 step on the
+# same kinks (a flip in a bfloat16 sum moves a BatchNorm channel, so two
+# bfloat16 engines can land as far apart as bfloat16 from float32; a
+# convolution's bias, zero in exact arithmetic, is all rounding, so a leaf's
+# own spread is no gate); the loss within twice its spread
+BF16_SPREAD = 1.0
+BF16_COUNTERS = ("bf16_launches", "gates_launches", "bf16_bwd_launches", "dw_launches")
+
+
+def bf16_counts() -> tuple[int, int, int, int]:
+    """The bfloat16 training launches: forward, gates, backward, dW."""
+    return tuple(getattr(lstm_ops, c) for c in BF16_COUNTERS)
+
+
+def plain_engine():
+    """Every LSTM of the models on the plain versions, on the card too: the
+    forward and backward loops of ``LSTMSequenceFn``'s CPU path, with their
+    rounding points (torch autograd through the plain loop would carry h in
+    float32 in the backward, where the Pallas backward reads the rounded h)."""
+    return mock.patch.object(lstm_ops, "_device_kind", lambda x: "cpu")
+
+
+def bf16_fwd_work(b: int, t: int, h: int) -> tuple[float, float]:
+    """(flops, bytes) of one bfloat16 training forward: the recurrent product
+    on the CUDA cores; xproj, w_hh and h_seq in bfloat16, h0, c0, c_seq, hN
+    and cN in float32."""
+    return 2.0 * b * t * h * 4 * h, 2.0 * (b * t * 4 * h + h * 4 * h + b * t * h) + 4.0 * (b * t * h + 4 * b * h)
+
+
+def gates_work(b: int, t: int, h: int) -> tuple[float, float]:
+    """(flops, bytes) of the gates kernel: hprev @ w_hh over all (b, t);
+    xproj, w_hh and h_seq read in bfloat16, the activations written in
+    float32."""
+    return 2.0 * b * t * h * 4 * h, 2.0 * (b * t * 4 * h + h * 4 * h + b * t * h) + 4.0 * b * t * 4 * h
+
+
+def bf16_bwd_work(b: int, t: int, h: int) -> tuple[float, float]:
+    """(flops, bytes) of one bfloat16 backward with its dW: the dh
+    contraction and dW, 2 * 2*B*T*H*4H on the CUDA cores; the activations,
+    c_seq (float32), dy, w_hh, h_seq (bfloat16) read, dxproj (bfloat16) and
+    the float32 gate gradients written, dW (bfloat16) written."""
+    return (2 * 2.0 * b * t * h * 4 * h,
+            4.0 * (b * t * 4 * h + b * t * h + b * t * 4 * h) + 2.0 * (2 * b * t * h + h * 4 * h + b * t * 4 * h
+                                                                      + h * 4 * h))
+
+
+def phase_bf16_train_kernels(dev: torch.device) -> tuple[dict, dict, dict]:
+    """8a: the bfloat16 training forward, the gates, the backward and dW
+    kernels against their plain versions at the training shapes (B=7, T=128,
+    the generator's H both directions), timed (CUDA events and device time)
+    beside the float32 kernels on the same inputs, the plain versions, the
+    bound and cuDNN's bfloat16 LSTM (the forward alone beside the forward,
+    the backward alone and forward+backward beside the backward); sums a
+    train step."""
+    rng = np.random.RandomState(80)
+    b, t = TRAIN_B, TRAIN_T
+    fwd = {"max_ulps": 0.0, "min_equal_share": 1.0, "max_abs_err": 0.0}
+    gates_rec = {"max_abs_err": 0.0}
+    bwd = {"max_ulps": 0.0, "min_equal_share": 1.0, "max_abs_err": 0.0}
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    for hidden, reverse, n in TRAIN_CASES:
+        lim = 1.0 / np.sqrt(hidden)
+        x = arr(b, t, 4 * hidden, scale=0.5).to(BF16)
+        w = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev).to(BF16)
+        h0, c0 = arr(b, hidden, scale=0.5), arr(b, hidden, scale=0.5)
+        dy, dhn, dcn = arr(b, t, hidden).to(BF16), arr(b, hidden), arr(b, hidden)
+        direction = "reverse" if reverse else "forward"
+        # forward: h_seq rounded, the float32 state
+        got = lstm_ops.lstm_forward_cuda(x, w, h0, c0, reverse, with_cseq=True)
+        f_plan = plan_line("fwd")
+        want = lstm_ops.lstm_sequence_train_ref(x, w, h0, c0, reverse)
+        torch.cuda.synchronize()
+        f_ulps, f_equal = bf16_ulps(got[0].float(), want[0].float())
+        f_err = max((g - wv).abs().max().item() for g, wv in zip(got[1:], want[1:]))
+        # gates from the rounded h_seq
+        act = lstm_ops.lstm_gates_cuda(x, w, h0, want[0], reverse)
+        g_err = (act - lstm_ops.lstm_gates_ref(x, w, h0, want[0], reverse)).abs().max().item()
+        # backward and dW on the kernel's activations
+        bargs = (x, w, h0, c0, want[0], want[1], dy, dhn, dcn, reverse)
+        bgot = lstm_ops.lstm_backward_cuda(*bargs, gates=act)
+        b_plan = plan_line("bwd")
+        bwant = lstm_ops.lstm_backward_ref(*bargs)
+        torch.cuda.synchronize()
+        dx_ulps, dx_equal = bf16_ulps(bgot[0].float(), bwant[0].float(), BWD_FLOOR)
+        dw_ulps, dw_equal = bf16_ulps(bgot[1].float(), bwant[1].float(), BWD_FLOOR)
+        b_err = max((bgot[i] - bwant[i]).abs().max().item() for i in (2, 3))
+        log(f"lstm bf16 train H={hidden} {direction}: forward h_seq {f_ulps:.2f} ulps {f_equal:.5f} bit-equal, "
+            f"state {f_err:.3e}; gates {g_err:.3e}; dx {dx_ulps:.2f} ulps {dx_equal:.5f} bit-equal, dW "
+            f"{dw_ulps:.2f} ulps {dw_equal:.5f} bit-equal, dh0/dc0 {b_err:.3e}; fwd {f_plan}; bwd {b_plan}")
+        if not (f_ulps <= LSTM_BF16_ULPS and f_equal >= LSTM_BF16_EQUAL and f_err <= LSTM_TOL and g_err <= GATES_TOL
+                and max(dx_ulps, dw_ulps) <= LSTM_BF16_ULPS and min(dx_equal, dw_equal) >= LSTM_BF16_EQUAL
+                and b_err <= LSTM_TOL):
+            raise AssertionError(f"bf16 training kernels H={hidden} reverse={reverse}: forward {f_ulps} ulps "
+                                 f"{f_equal} equal, state {f_err}; gates {g_err} (tolerance {GATES_TOL}); dx "
+                                 f"{dx_ulps} ulps {dx_equal}, dW {dw_ulps} ulps {dw_equal}; dh0/dc0 {b_err}")
+        # times: the bfloat16 kernels, the float32 ones on the same (widened) inputs
+        xf, wf = x.float(), w.float()
+        f32 = lstm_ops.lstm_forward_cuda(xf, wf, h0, c0, reverse, with_cseq=True, with_gates=True)
+        bargs32 = (xf, wf, h0, c0, f32[0], f32[1], dy.float(), dhn, dcn, reverse)
+        hprev = lstm_ops._hprev(want[0], h0, reverse).to(BF16).reshape(-1, hidden)
+        fwd_fn = functools.partial(lstm_ops.lstm_forward_cuda, x, w, h0, c0, reverse, with_cseq=True)
+        fwd32_fn = functools.partial(lstm_ops.lstm_forward_cuda, xf, wf, h0, c0, reverse, with_cseq=True,
+                                     with_gates=True)
+        gates_fn = functools.partial(lstm_ops.lstm_gates_cuda, x, w, h0, want[0], reverse)
+        bwd_fn = functools.partial(lstm_ops.lstm_backward_cuda, *bargs, gates=act)
+        bwd32_fn = functools.partial(lstm_ops.lstm_backward_cuda, *bargs32, gates=f32[4])
+        dw_fn = functools.partial(lstm_ops.lstm_weight_grad_cuda, want[0], h0, bgot[0].float(), reverse)
+        lib_fwd_ms, lib_bwd_ms = cudnn_train_parts_ms(dev, hidden, h0, c0, dy, BF16)
+        vals = {
+            "fwd": dict(ms=cuda_ms(fwd_fn, 3), device_ms=device_ms(fwd_fn, 5), f32_ms=cuda_ms(fwd32_fn, 3),
+                        f32_device_ms=device_ms(fwd32_fn, 5),
+                        plain_ms=cuda_ms(lambda: lstm_ops.lstm_sequence_train_ref(x, w, h0, c0, reverse), 1),
+                        library_ms=lib_fwd_ms),
+            "gates": dict(ms=cuda_ms(gates_fn, 5), device_ms=device_ms(gates_fn, 10),
+                          plain_ms=cuda_ms(lambda: lstm_ops.lstm_gates_ref(x, w, h0, want[0], reverse), 3),
+                          matmul_ms=device_ms(lambda: hprev @ w, 10)),
+            "bwd": dict(ms=cuda_ms(bwd_fn, 3), device_ms=device_ms(bwd_fn, 5), f32_ms=cuda_ms(bwd32_fn, 3),
+                        f32_device_ms=device_ms(bwd32_fn, 5), dw_ms=cuda_ms(dw_fn, 5),
+                        dw_device_ms=device_ms(dw_fn, 10),
+                        plain_ms=cuda_ms(lambda: lstm_ops.lstm_backward_ref(*bargs), 1),
+                        library_ms=lib_bwd_ms, library_fwd_bwd_ms=cudnn_train_ms(dev, hidden, h0, c0, dy, BF16)),
+        }
+        for rec, work, key in ((fwd, bf16_fwd_work, "fwd"), (gates_rec, gates_work, "gates"),
+                               (bwd, bf16_bwd_work, "bwd")):
+            flops, nbytes = work(b, t, hidden)
+            for k, v in dict(vals[key], flops=flops, bytes=nbytes).items():
+                rec[k] = rec.get(k, 0.0) + n * v
+        v = vals
+        log(f"lstm bf16 train H={hidden} {direction} times (ms; device ms): forward {v['fwd']['ms']:.4f}; "
+            f"{v['fwd']['device_ms']:.4f} (f32 kernel {v['fwd']['f32_ms']:.4f}; {v['fwd']['f32_device_ms']:.4f}), "
+            f"gates {v['gates']['ms']:.4f}; {v['gates']['device_ms']:.4f} (torch.matmul of the product alone "
+            f"{v['gates']['matmul_ms']:.4f}), backward with dW {v['bwd']['ms']:.4f}; {v['bwd']['device_ms']:.4f} "
+            f"(f32 kernels {v['bwd']['f32_ms']:.4f}; {v['bwd']['f32_device_ms']:.4f}), of it dW "
+            f"{v['bwd']['dw_ms']:.4f}; {v['bwd']['dw_device_ms']:.4f}; cuDNN bf16 fwd {v['fwd']['library_ms']:.4f} "
+            f"bwd {v['bwd']['library_ms']:.4f} fwd+bwd {v['bwd']['library_fwd_bwd_ms']:.4f}; seqs_per_step={n}")
+        fwd.update(max_ulps=max(fwd["max_ulps"], f_ulps), min_equal_share=min(fwd["min_equal_share"], f_equal),
+                   max_abs_err=max(fwd["max_abs_err"], (got[0].float() - want[0].float()).abs().max().item(), f_err))
+        gates_rec["max_abs_err"] = max(gates_rec["max_abs_err"], g_err)
+        bwd.update(max_ulps=max(bwd["max_ulps"], dx_ulps, dw_ulps),
+                   min_equal_share=min(bwd["min_equal_share"], dx_equal, dw_equal),
+                   max_abs_err=max(bwd["max_abs_err"], b_err, *((bgot[i].float() - bwant[i].float()).abs().max().item()
+                                                                 for i in (0, 1))))
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(fwd.pop("flops"), fwd.pop("bytes"))
+    g_flops, g_bytes = gates_rec.pop("flops"), gates_rec.pop("bytes")
+    g_ops_ms, g_bytes_ms = g_flops / BF16_TC_FLOPS * 1e3, g_bytes / HBM_BYTES_PER_S * 1e3
+    gates_rec["bound_ms"], gates_rec["bound_by"] = ((g_ops_ms, "operations") if g_ops_ms >= g_bytes_ms
+                                                    else (g_bytes_ms, "bytes"))
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(bwd.pop("flops"), bwd.pop("bytes"))
+    log(f"lstm bf16 train per step ({SEQS_PER_STEP} sequences, B={b}, T={t}): forward {fwd['ms']:.3f} ms "
+        f"({fwd['device_ms']:.3f} device; f32 kernel {fwd['f32_ms']:.3f}, {fwd['f32_device_ms']:.3f}), gates "
+        f"{gates_rec['ms']:.3f} ({gates_rec['device_ms']:.3f} device; bound {gates_rec['bound_ms']:.4f} "
+        f"{gates_rec['bound_by']}), backward with dW {bwd['ms']:.3f} ({bwd['device_ms']:.3f} device; f32 kernels "
+        f"{bwd['f32_ms']:.3f}, {bwd['f32_device_ms']:.3f}); bounds fwd {fwd['bound_ms']:.4f} bwd "
+        f"{bwd['bound_ms']:.4f}; cuDNN bf16 fwd {fwd['library_ms']:.3f} bwd {bwd['library_ms']:.3f} fwd+bwd "
+        f"{bwd['library_fwd_bwd_ms']:.3f} (card: {card_line()})")
+    return fwd, gates_rec, bwd
+
+
+def bf16_train_profile(solver: Solver, x: torch.Tensor, emb: torch.Tensor) -> dict:
+    """Device time by kind over one warm bfloat16 train step
+    (torch.profiler), its idle share, and each LSTM kind's launches recorded
+    against the wrappers' (a dropped record counted at its kind's mean,
+    ``lstm_records``); raises unless the wrappers counted 11 of each."""
+    rows, wall_us, launched = device_activity(lambda: solver._step_fn(solver.state, x, emb), counter=profile_counts)
+    if launched != (SEQS_PER_STEP,) * 4:
+        raise AssertionError(f"the profiled bf16 step launched {launched} (forward, backward, dW, gates)")
+    if not rows:
+        log("bf16 train profile: the profiler recorded no device time (not measured)")
+        return {"device_ms": None, "idle_share": None}
+    missing, kinds = lstm_records(rows, launched, BF16_KINDS)
+    busy = sum(t for _, _, t in rows) + missing
+    for stem, (mean, recorded, made) in kinds.items():
+        log(f"bf16 train profile: {stem}: {mean * made / 1e3:.3f} ms ({recorded} of {made} launches recorded, the "
+            f"rest at their mean)")
+    convs = sum(t for key, _, t in rows if any(w in key.lower() for w in ("conv", "cudnn", "xmma", "implicit",
+                                                                             "wgrad", "dgrad", "fprop")))
+    log(f"bf16 train profile: cuDNN convolutions {convs / 1e3:.3f} ms; one step at B={TRAIN_B}, T={TRAIN_T}: device "
+        f"busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall (idle share {1 - busy / wall_us:.3f})")
+    return {"device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+            "lstm_ms": {k: mean * made / 1e3 for k, (mean, _, made) in kinds.items()}}
+
+
+def phase_bf16_training(dev: torch.device) -> dict:
+    """8b: phase 4's Solver with compute_dtype bfloat16: one step with the
+    kernels against the same step on the plain engine on the card (on the
+    kernel step's kinks), the plain engine's own spread from the float32
+    step on the same kinks; 20 Solver steps; the profile of a warm step."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_bf16_")
+    try:
+        mel_dir = synthetic_spmel(tmp, np.random.RandomState(20))
+        cfg = Config(model=ModelConfig(compute_dtype="bfloat16"),
+                     train=TrainConfig(batch_size=TRAIN_B, len_crop=TRAIN_T, num_iters=TRAIN_STEPS, log_step=1,
+                                       checkpoint_step=TRAIN_STEPS), main_dir=tmp, run_name="smoke_bf16")
+        data = UtteranceDataset(mel_dir)
+        x, emb = (torch.from_numpy(a).to(dev) for a in next(BatchIterator(data, TRAIN_B, TRAIN_T, seed=1)))
+
+        def fresh(model_cfg: ModelConfig) -> TrainState:
+            model = build_generator(model_cfg, device=dev, seed=7, trainable=True)
+            return TrainState(0, model, make_optimizer(model, cfg), init_ema(model))
+
+        states = {"kernels": fresh(cfg.model), "plain": fresh(cfg.model), "f32": fresh(ModelConfig())}
+        step, step32 = make_train_step(cfg), make_train_step(Config(train=cfg.train))
+        tape = KinkTape()
+        torch.cuda.synchronize()
+        before = bf16_counts()
+        t0 = time.perf_counter()
+        with tape.record():
+            mk = step(states["kernels"], x, emb)
+            torch.cuda.synchronize()
+        k_s = time.perf_counter() - t0
+        k_counts = tuple(a - b for a, b in zip(bf16_counts(), before))
+        if k_counts != (SEQS_PER_STEP,) * 4:
+            raise AssertionError(f"one bf16 train step launched {k_counts} (forward, gates, backward, dW)")
+        with plain_engine():
+            t0 = time.perf_counter()
+            with tape.replay():
+                mp = step(states["plain"], x, emb)
+                torch.cuda.synchronize()
+            p_s = time.perf_counter() - t0
+            bf_flips = tape.flips
+            with tape.replay():
+                m32 = step32(states["f32"], x, emb)
+        if tuple(a - b for a, b in zip(bf16_counts(), before)) != k_counts:
+            raise AssertionError("the plain steps launched kernels")
+        loss_k, loss_p, loss32 = (float(m["g_loss"]) for m in (mk, mp, m32))
+        grads = {k: {n: p.grad.double() for n, p in st.model.named_parameters()} for k, st in states.items()}
+        model = states["kernels"].model
+        dtypes = {p.dtype for p in model.parameters()} | {p.grad.dtype for p in model.parameters()} | {
+            b.dtype for b in model.buffers()}
+        rows = []
+        for n, g in grads["kernels"].items():
+            scale = grad_scale(n, grads["plain"])
+            rows.append(((g - grads["plain"][n]).abs().max().item() / scale,
+                         (grads["f32"][n] - grads["plain"][n]).abs().max().item() / scale, n))
+        grad_tol = BF16_SPREAD * float(np.median([r[1] for r in rows]))
+        over = [r for r in rows if r[0] > grad_tol]
+        worst = max(rows)
+        loss_tol = min(1e-3 * abs(loss_p), 2 * abs(loss_p - loss32) + 1e-5 * abs(loss_p))
+        rel_plain, rel_f32 = abs(loss_k - loss_p) / abs(loss_p), abs(loss_k - loss32) / abs(loss32)
+        log(f"train bf16 (b) step with kernels vs the plain engine (bf16, on the card): loss {loss_k!r} vs {loss_p!r} "
+            f"({rel_plain:.3e} relative, tolerance {loss_tol / abs(loss_p):.3e}); the f32 step on the same batch and "
+            f"kinks {loss32!r} (the bf16 kernel step {rel_f32:.3e} relative from it); launches (fwd, gates, bwd, "
+            f"dW) {k_counts}; first step {k_s * 1e3:.1f} ms, plain {p_s * 1e3:.1f} ms; kinks {tape.elements} "
+            f"elements, the f32 step on the other side of {tape.flips}, the plain bf16 step of {bf_flips}")
+        log(f"train bf16 (b) gradient gate {grad_tol:.3e} of a leaf's scale: {BF16_SPREAD}x the plain engine's own "
+            f"bf16 spread (the median over leaves of its distance from the f32 step; max "
+            f"{max(r[1] for r in rows):.3e}); kernel vs plain median {float(np.median([r[0] for r in rows])):.3e}, "
+            f"worst {worst[2]} at {worst[0]:.3e}")
+        if over or abs(loss_k - loss_p) > loss_tol or dtypes != {torch.float32}:
+            raise AssertionError(f"bf16 train step with the kernels: leaves over their gate {over}; loss "
+                                 f"{loss_k} vs {loss_p} (tolerance {loss_tol}); dtypes {dtypes}")
+        del states, grads
+
+        # 20 Solver steps through the entry point
+        solver = Solver(cfg, BatchIterator(data, TRAIN_B, TRAIN_T, seed=2), run_dir=os.path.join(tmp, "run"),
+                        device=dev)
+        torch.cuda.synchronize()
+        before = bf16_counts()
+        t0 = time.perf_counter()
+        solver.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_counts = tuple(a - b for a, b in zip(bf16_counts(), before))
+        losses = [h["g_loss"] for h in solver.history]
+        timing = solver.timer.summary()
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        log(f"train bf16 (b) {TRAIN_STEPS} Solver steps in {train_s:.2f} s wall (checkpoint included): g_loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, mean of first 5 {first:.4f}, last 5 {last:.4f}; launches (fwd, "
+            f"gates, bwd, dW) {train_counts}; step p50 {timing['step_ms_p50']:.2f} ms, p95 "
+            f"{timing['step_ms_p95']:.2f} ms, {timing['steps_per_sec']:.2f} steps/s (card: {card_line()})")
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or not last < first:
+            raise AssertionError(f"bf16 training did not go down finitely: {losses}")
+        if train_counts != (TRAIN_STEPS * SEQS_PER_STEP,) * 4:
+            raise AssertionError(f"{TRAIN_STEPS} bf16 steps launched {train_counts} (forward, gates, backward, dW)")
+        if {p.dtype for p in solver.state.model.parameters()} != {torch.float32}:
+            raise AssertionError("the bf16 Solver's parameters are not float32")
+        prof = bf16_train_profile(solver, x, emb)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        raise AssertionError(f"{tmp} was not removed")
+    return {"launches": train_counts, "step_ms_p50": timing["step_ms_p50"], "step_ms_p95": timing["step_ms_p95"],
+            "loss_rel_to_plain": rel_plain, "loss_rel_to_f32": rel_f32,
+            "grad_tol": grad_tol, "grad_worst": worst[0], **prof}
+
+
+def phase_bf16_cli(dev: torch.device) -> dict:
+    """8c: ``python -m autovc_tpu_torch.cli.train --bf16`` for 3 steps on a
+    synthetic spmel tree in a temporary directory, once with ``--lambda_spk``
+    on a seeded GE2E .npz; each exported, and converted with through
+    ``Converter`` in bfloat16 and in float32."""
+    from autovc_tpu_torch.cli import train as cli_train
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_bf16_")
+    out = {}
+    try:
+        synthetic_spmel(tmp, np.random.RandomState(90))
+        ckpt = os.path.join(tmp, "ge2e_seeded.npz")
+        save_dvector_artifact(speaker_encoder(torch.device("cpu"), False, 768).state_dict(), ckpt)
+        rng = np.random.RandomState(91)
+        specs = [types.SimpleNamespace(src_features=rng.rand(TRAIN_T, N_MELS).astype(np.float32),
+                                       src_embedding=rng.randn(256).astype(np.float32),
+                                       trg_embedding=rng.randn(256).astype(np.float32)) for _ in range(4)]
+        for name, extra in (("base", []), ("lambda_spk", ["--lambda_spk", "1.0", "--spk_ckpt", ckpt])):
+            export = os.path.join(tmp, f"{name}.npz")
+            torch.cuda.synchronize()
+            before = bf16_counts()
+            t0 = time.perf_counter()
+            cli_train.main(["--main_dir", tmp, "--run_name", name, "--bf16", "--num_iters", "3", "--batch_size",
+                            str(TRAIN_B), "--len_crop", str(TRAIN_T), "--log_step", "1", "--checkpoint_step", "3",
+                            "--export", export, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = tuple(a - b for a, b in zip(bf16_counts(), before))
+            # the generator's 11 sequences a step, each forward, gates, backward
+            # and dW; with lambda_spk 7 more, the eval-mode conversion's, whose
+            # gradient reaches the generator (the float32 d-vector's are not
+            # bfloat16 launches)
+            want = (3 * (SEQS_PER_STEP + 7 * bool(extra)),) * 4
+            mels = {}
+            for dtype in ("bfloat16", "float32"):
+                model_cfg = ModelConfig(compute_dtype=dtype)
+                gen = build_generator(model_cfg, artifact=export, device=dev)
+                mels[dtype] = np.stack(Converter(gen, model_cfg).convert_batch(specs, batch_size=4))
+            delta = float(np.abs(mels["bfloat16"] - mels["float32"]).max())
+            log(f"cli.train --bf16 {' '.join(extra[:2])}: 3 steps in {wall:.2f} s wall, launches (bf16 fwd, gates, "
+                f"bf16 bwd, dW) {launched}; exported {os.path.getsize(export)} bytes; converted 4 mels of {TRAIN_T} "
+                f"frames in bf16 and f32: max-abs {delta:.4f} apart")
+            if launched != want:
+                raise AssertionError(f"cli.train --bf16 {extra[:2]} launched {launched}, expected {want}")
+            for dtype, m in mels.items():
+                if m.shape != (4, TRAIN_T, N_MELS) or not np.isfinite(m).all():
+                    raise AssertionError(f"conversion in {dtype} with the exported generator: {m.shape}")
+            out[name] = {"wall_s": wall, "launches": launched, "bf16_f32_mel_delta": delta}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        raise AssertionError(f"{tmp} was not removed")
+    return out
+
+
+
 def main(argv: list[str] | None = None) -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2134,12 +2543,19 @@ def main(argv: list[str] | None = None) -> int:
     if os.path.exists(syn_dir):
         raise AssertionError(f"{syn_dir} was not removed")
     log(f"phase 7 (bfloat16): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bf_fwd_train, bf_gates, bf_bwd_train = phase_bf16_train_kernels(dev)
+    bf_train = phase_bf16_training(dev)
+    bf_cli = phase_bf16_cli(dev)
+    log(f"phase 8 (bfloat16 training): {time.perf_counter() - t0:.1f} s")
     lstm_bound, lstm_bound_by = bound_ms(record["flops"], record["bytes"])
     fwd_train_bound, _ = bound_ms(fwd_train["flops"], fwd_train["bytes"])
     bwd_bound, bwd_bound_by = bound_ms(bwd["flops"], bwd["bytes"])
     train_fwd, train_bwd, train_dw = train["launches"]
     speaker_fwd = speaker["launches"][0]
     spk_fwd_n, spk_bwd_n, spk_dw_n = spk_train["launches"]
+    bf_train_fwd, bf_train_gates, bf_train_bwd, bf_train_dw = bf_train["launches"]
+    cli_launches = [sum(r["launches"][i] for r in bf_cli.values()) for i in range(4)]
 
     kernels = [{
         "name": "lstm_fwd",
@@ -2153,9 +2569,9 @@ def main(argv: list[str] | None = None) -> int:
         # lambda_spk (SPK_STEPS steps); the times are per Generator forward
         # in inference, the train_* ones per train step, the dvector ones
         # per d-vector forward (three sequences) at each width and batch
-        "launches": launches + train_fwd + speaker_fwd + spk_fwd_n,
+        "launches": launches + train_fwd + speaker_fwd + spk_fwd_n + bf_train_fwd,
         "launches_by_path": {"convert": launches, "train": train_fwd, "speaker": speaker_fwd,
-                             "train_spk": spk_fwd_n},
+                             "train_spk": spk_fwd_n, "train_bf16": bf_train_fwd},
         "max_abs_err": max(record["max_abs_err"], fwd_train["max_abs_err"], speaker["max_abs_err"],
                            *(r["max_abs_err"] for r in spk_fwd)),
         "ms": record["ms"],
@@ -2171,6 +2587,14 @@ def main(argv: list[str] | None = None) -> int:
         # the bfloat16 form (phase 7a-b): launches on the bench program's
         # bfloat16 conversion; times per Generator forward (7 sequences)
         "bf16": {"launches": bf_bench["launches"], **bf_lstm, "bench": bf_bench},
+        # the bfloat16 training form (phase 8a-c): launches of 8b's 20 Solver
+        # steps and of 8c's cli.train runs; times per train step (11
+        # sequences at B=7, T=128), the float32 kernel's on the same inputs
+        # beside them; the library yardstick cuDNN's bfloat16 LSTM forward
+        # alone (its training form)
+        "bf16_train": {"launches": bf_train_fwd, "launches_by_path": {"train_bf16": bf_train_fwd,
+                                                                      "cli_train_bf16": cli_launches[0]},
+                       **bf_fwd_train},
     }, {
         "name": "lstm_bwd",
         "route": "cuda",
@@ -2183,9 +2607,9 @@ def main(argv: list[str] | None = None) -> int:
         # the input projection's gradients (dx through w_ih, dW_ih, biases)
         # backward sequences of the two training paths; the dW launches
         # beside them: none for the frozen d-vector's three a step
-        "launches": train_bwd + spk_bwd_n,
-        "launches_by_path": {"train": train_bwd, "train_spk": spk_bwd_n},
-        "dw_launches_by_path": {"train": train_dw, "train_spk": spk_dw_n},
+        "launches": train_bwd + spk_bwd_n + bf_train_bwd,
+        "launches_by_path": {"train": train_bwd, "train_spk": spk_bwd_n, "train_bf16": bf_train_bwd},
+        "dw_launches_by_path": {"train": train_dw, "train_spk": spk_dw_n, "train_bf16": bf_train_dw},
         "dvector_fwd_bwd_launches": spk_train["dvector_counts"],
         "max_abs_err": max(bwd["max_abs_err"], *(r["max_abs_err"] for r in spk_bwd)),
         "dw_rel_err": bwd["dw_rel_err"],
@@ -2205,6 +2629,29 @@ def main(argv: list[str] | None = None) -> int:
         "train_spk_grad_err": spk_train["grad_err"],
         # the backward without dW at the lambda_spk step's d-vector batch
         "dvector_bwd": spk_bwd,
+        # the bfloat16 form (phase 8): the recurrence and dW a train step;
+        # launches of 8b's 20 Solver steps and of 8c's cli.train runs; the
+        # library yardstick cuDNN's bfloat16 LSTM backward alone (its
+        # forward+backward beside it), as the float32 row's; 8b's step, its
+        # device time and idle share
+        "bf16_train": {"launches": bf_train_bwd, "dw_launches": bf_train_dw,
+                       "launches_by_path": {"train_bf16": bf_train_bwd, "cli_train_bf16": cli_launches[2]},
+                       **bf_bwd_train, "step": bf_train, "cli": bf_cli},
+    }, {
+        "name": "lstm_gates",
+        "route": "cuda",
+        "source": "autovc_tpu_torch/ops/csrc/lstm_gates.cu",
+        "replaces": "autovc_tpu/ops/pallas_lstm.py:431 (the gate recompute of _lstm_bwd_kernel :410, run by "
+                    "_chunk_bwd_call :462) and :214 (of _lstm_bwd_kernel_split :169, run by _split_bwd_rule :262)",
+        # launches of 8b's 20 bfloat16 Solver steps (and 8c's beside them);
+        # times per train step (11 sequences at B=7, T=128); the bound at the
+        # bfloat16 tensor cores' peak; no single PyTorch call computes the
+        # product and the activations, so library_ms is null and matmul_ms
+        # the product alone (torch.matmul, bfloat16, device time)
+        "launches": bf_train_gates,
+        "launches_by_path": {"train_bf16": bf_train_gates, "cli_train_bf16": cli_launches[1]},
+        "library_ms": None,
+        **bf_gates,
     }, {
         "name": "wavenet_gen",
         "route": "cuda",

@@ -116,7 +116,9 @@ def test_lstm_bf16_launch_plans():
     """w_hh in bfloat16 halves each block's slice: regime (a) holds H up to
     160 (float32: 112); the Generator's H=512 and 1024 stay in regime (b)
     at 128 blocks, H=1024 staging 512-float K chunks (float32: 256). The
-    float32 plans are as before."""
+    float32 plans are as before. The backward's bfloat16 form keeps the
+    float32 one's blocks and units, staging chunks twice as long; a w_hh
+    element of another size is refused."""
     def top_a(wbytes):
         return max(h for h in range(8, 400, 8)
                    if (p := lstm_ops.launch_plan(32, h, "fwd", 132, wbytes)) is not None and p.regime == "a")
@@ -126,8 +128,10 @@ def test_lstm_bf16_launch_plans():
     assert lstm_ops.launch_plan(32, 1024, "fwd", 132) == lstm_ops.LaunchPlan("fwd", "b", 128, 8, 32, 256, 214016)
     assert lstm_ops.launch_plan(32, 512, "fwd", 132, 2) == lstm_ops.LaunchPlan("fwd", "b", 128, 4, 32, 512, 164864)
     assert lstm_ops.launch_plan(32, 32, "fwd", 132, 2).smem == 25152
+    assert lstm_ops.launch_plan(7, 1024, "bwd", 132, 2) == lstm_ops.LaunchPlan("bwd", "b", 128, 8, 8, 2048, 213248)
+    assert lstm_ops.launch_plan(7, 1024, "bwd", 132) == lstm_ops.LaunchPlan("bwd", "b", 128, 8, 8, 1024, 213248)
     with pytest.raises(ValueError):
-        lstm_ops.launch_plan(32, 512, "bwd", 132, 2)
+        lstm_ops.launch_plan(32, 512, "bwd", 132, 3)
 
 
 # ---------------------------------------------------------------- (b) layers
@@ -588,31 +592,33 @@ def test_results_round_trip_with_jax(tmp_path):
 # ---------------------------------------------------- (h) what stays refused
 
 def test_bf16_training_forms_raise():
-    """The bfloat16 backward and training forms are the next slice: the
-    differentiable LSTM, the backward and dW kernels' checks, the training
-    forward, an initial state, BatchNorm's training form and a trainable
-    bfloat16 Generator raise; mixed dtypes raise as a TypeError."""
+    """What the bfloat16 forms still refuse: mixed xproj and w_hh dtypes (a
+    TypeError, through the autograd Function too), a float32 operand where
+    the bfloat16 form takes bfloat16 and a bfloat16 one where it takes
+    float32 (TypeError), gate activations from the bfloat16 forward (its
+    backward recomputes them from the rounded h_seq), and a compute dtype
+    other than float32 and bfloat16. Each raises before a kernel is built."""
     x = torch.zeros((2, 3, 32), dtype=BF, requires_grad=True)
     w = torch.zeros((8, 32), dtype=BF)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        lstm_ops.lstm_sequence(x, w)
-    x = x.detach()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        lstm_ops.lstm_forward_cuda(x, w, with_cseq=True, with_gates=True)
-    h = torch.zeros((2, 3, 8), dtype=BF)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        lstm_ops.lstm_backward_cuda(x, w, None, None, h, h.float(), h, gates=x)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        lstm_ops.lstm_weight_grad_cuda(h, None, x)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        lstm_ops.lstm_forward_cuda(x, w, h0=torch.zeros((2, 8)))
     with pytest.raises(TypeError, match="mixed"):
         lstm_ops.lstm_sequence(x, w.float())
     with pytest.raises(TypeError, match="mixed"):
+        lstm_ops.LSTMSequenceFn.apply(x.float(), w, None, None, False)
+    x = x.detach()
+    with pytest.raises(TypeError, match="mixed"):
         lstm_ops.lstm_forward_cuda(x.float(), w)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        BatchNorm(4, dtype=BF).train()(torch.zeros((1, 2, 4), dtype=BF))
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        build_generator(ModelConfig(compute_dtype="bfloat16"), device="cpu", trainable=True)
+    with pytest.raises(ValueError, match="gate activations"):
+        lstm_ops.lstm_forward_cuda(x, w, with_cseq=True, with_gates=True)
+    h = torch.zeros((2, 3, 8), dtype=BF)
+    with pytest.raises(TypeError, match="h0"):
+        lstm_ops.lstm_forward_cuda(x, w, h0=torch.zeros((2, 8), dtype=BF))
+    with pytest.raises(TypeError, match="dy"):
+        lstm_ops.lstm_backward_cuda(x, w, None, None, h, h.float(), h.float(), gates=x.float())
+    with pytest.raises(TypeError, match="dgates"):
+        lstm_ops.lstm_weight_grad_cuda(h, None, x)
+    with pytest.raises(TypeError, match="bfloat16 form"):
+        lstm_ops.lstm_gates_cuda(x.float(), w.float(), None, h.float())
     with pytest.raises(ValueError):
         ModelConfig(compute_dtype="float16")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        BatchNorm(4, dtype=torch.float16)

@@ -794,16 +794,22 @@ def test_speaker_loss_on_card_matches_cpu(cuda, protocol):
 BF = torch.bfloat16
 
 
-def _bf16_close(got, want, max_ulps=1.0, equal_share=0.99):
+def _bf16_close(got, want, max_ulps=1.0, equal_share=0.99, floor=2.0 ** -16):
     """The bfloat16 kernels against their plain versions (the same rounding
     points, float32 sums in another order): every element within 1
-    bfloat16 ulp of the plain one (of 2^-16 of its largest magnitude where
-    it is smaller: two float32 sums that cancel differ by more than the
-    element's own ulp), and at least 99% bit-equal."""
+    bfloat16 ulp of the plain one (of ``floor`` times its largest magnitude
+    where it is smaller: two float32 sums that cancel differ by more than the
+    element's own ulp; an all-zero want met exactly), and at least 99%
+    bit-equal."""
     assert got.dtype == want.dtype == BF
     g, w = got.double(), want.double()
-    scale = torch.clamp(w.abs(), min=2.0 ** -16 * w.abs().max().item())
-    ulps = ((g - w).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)).max().item()
+    peak = w.abs().max().item()
+    if peak == 0:
+        assert torch.equal(g, w)
+        return
+    scale = torch.clamp(w.abs(), min=floor * peak)
+    # the exponent by frexp, exact (log2 on the card may round 2^k below k)
+    ulps = ((g - w).abs() / torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)).max().item()
     equal = (g == w).double().mean().item()
     assert ulps <= max_ulps and equal >= equal_share, (ulps, equal)
 
@@ -867,24 +873,30 @@ def test_lstm_bf16_steps_sharing_a_line(cuda, grid_plan_at_small_h):
 
 
 def test_lstm_bf16_refuses_what_it_does_not_take(cuda):
-    """Mixed dtypes raise a TypeError; the training form, an initial state
-    and the backward in bfloat16 (the next slice) raise, before a launch."""
+    """Mixed xproj and w_hh dtypes raise a TypeError, as does a float32
+    operand where the bfloat16 form takes bfloat16 (dy) or a bfloat16 one
+    where it takes float32 (the gate gradients of dW, the initial state);
+    the bfloat16 forward keeps no gate activations; the gates kernel takes
+    only the bfloat16 form. Nothing is launched."""
     x, w = _bf16_inputs(24, 2, 3, 8, cuda)
-    before = lstm_ops.launches
+    before = lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches, lstm_ops.gates_launches
     with pytest.raises(TypeError, match="mixed"):
         lstm_ops.lstm_sequence(x, w.float())
     with pytest.raises(TypeError, match="mixed"):
         lstm_ops.lstm_sequence(x.float(), w)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="gate activations"):
         lstm_ops.lstm_forward_cuda(x, w, with_cseq=True, with_gates=True)
-    with pytest.raises(NotImplementedError):
-        lstm_ops.lstm_forward_cuda(x, w, h0=torch.zeros((2, 8), device=cuda))
+    with pytest.raises(TypeError, match="h0"):
+        lstm_ops.lstm_forward_cuda(x, w, h0=torch.zeros((2, 8), device=cuda, dtype=BF))
     h = torch.zeros((2, 3, 8), device=cuda, dtype=BF)
-    with pytest.raises(NotImplementedError):
-        lstm_ops.lstm_backward_cuda(x, w, None, None, h, h, h, gates=x)
-    with pytest.raises(NotImplementedError):
+    act = torch.zeros((2, 3, 32), device=cuda)
+    with pytest.raises(TypeError, match="dy"):
+        lstm_ops.lstm_backward_cuda(x, w, None, None, h, h.float(), h.float(), gates=act)
+    with pytest.raises(TypeError, match="dgates"):
         lstm_ops.lstm_weight_grad_cuda(h, None, x)
-    assert lstm_ops.launches == before
+    with pytest.raises(TypeError, match="bfloat16 form"):
+        lstm_ops.lstm_gates_cuda(x.float(), w.float(), None, h.float())
+    assert (lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches, lstm_ops.gates_launches) == before
 
 
 # the bfloat16 WaveNet kernel's gates: 4x the plain bfloat16 loop's own
@@ -1035,3 +1047,220 @@ def test_bf16_entry_points_ignore_default_flags(cuda, torch_default_flags):
     np.testing.assert_array_equal(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
         assert torch.equal(g, w)
+
+
+# --------------------------------------------------- bfloat16 training paths
+
+BF16_TRAIN_SHAPES = [(7, 128, 32), (7, 128, 512), (7, 64, 1024), (37, 20, 64), (1, 5, 8), (7, 24, 160),
+                     (7, 24, 168), (64, 16, 768), (7, 1, 1024), (1, 1, 32)]
+GATES_TOL = 1e-5  # float32 activations of a sum of H exact bfloat16 products, in another order
+# The backward's float32 sums (dh's carry over 4H terms, dW over K = B*T
+# rows) in another order differ by about sqrt(K) * 2^-24 of the peak (2^-17.5
+# at K = 8192, a bfloat16 ulp of an element at 2^-10 of the peak; measured
+# on an H100: 2 ulps of 2^-10 of the peak, 12 of 2^-16): the ulp of an
+# element below 2^-8 of the peak is that of 2^-8 of the peak
+# (tests/test_torch_bf16_train.py's BWD_FLOOR).
+BWD_FLOOR = 2.0 ** -8
+
+
+def _bf16_train_inputs(seed, b, t, hidden, device):
+    """The training inputs of the bfloat16 form: xproj, w_hh and dy in
+    bfloat16; the state and the cotangents of hN and cN in float32."""
+    xproj, w_hh, h0, c0, dy, dhn, dcn = (torch.from_numpy(a).to(device) for a in _train_inputs(seed, b, t, hidden))
+    return xproj.to(BF), w_hh.to(BF), h0, c0, dy.to(BF), dhn, dcn
+
+
+def _assert_bf16_backward_close(got, want):
+    """dxproj and dW in bfloat16 within 1 ulp (floor BWD_FLOOR), 99%
+    bit-equal (``_bf16_close``); dh0 and dc0 in float32 at the float32
+    kernels' 1e-4."""
+    _bf16_close(got[0], want[0], floor=BWD_FLOOR)
+    if want[1] is not None:
+        _bf16_close(got[1], want[1], floor=BWD_FLOOR)
+    for g, w in zip(got[2:], want[2:]):
+        assert g.dtype == w.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t, hidden", BF16_TRAIN_SHAPES)
+def test_lstm_bf16_train_forward_matches_plain(cuda, b, t, hidden, reverse):
+    """The forward's bfloat16 training form (a float32 h0 and c0 in; the
+    bfloat16 h_seq, the float32 c_seq, hN and cN out) against the plain
+    loop: h_seq by ``_bf16_close``, the float32 state within 1e-4; regime
+    (a) up to H=160, (b) above; one launch, counted as a bfloat16 one."""
+    x, w, h0, c0 = _bf16_train_inputs(31, b, t, hidden, cuda)[:4]
+    before = lstm_ops.launches, lstm_ops.bf16_launches
+    got = lstm_ops.lstm_forward_cuda(x, w, h0, c0, reverse, with_cseq=True)
+    torch.cuda.synchronize()
+    assert (lstm_ops.launches, lstm_ops.bf16_launches) == (before[0] + 1, before[1] + 1)
+    want = lstm_ops.lstm_sequence_train_ref(x, w, h0, c0, reverse)
+    _bf16_close(got[0], want[0])
+    for g, wv in zip(got[1:], want[1:], strict=True):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, wv, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("h0_kind", ["zero", "nonzero"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t, hidden", [(7, 128, 32), (7, 128, 512), (7, 128, 1024), (37, 20, 64), (1, 5, 8),
+                                          (3, 70, 104), (1, 1, 32)])
+def test_lstm_gates_kernel_matches_plain(cuda, b, t, hidden, reverse, h0_kind):
+    """The gate activations recomputed from a bfloat16 h_seq (the tensor
+    cores' product of exact bfloat16 operands, summed in float32) against
+    ``lstm_gates_ref`` within GATES_TOL; a float32 h0 at the sequence's
+    first step (added in float32 FMAs); tiles past M = B*T and past 4H (H=104:
+    4H = 416 is 6.5 tiles of 64, K = 104 three chunks of 32 and a part)."""
+    x, w, h0 = _bf16_train_inputs(32, b, t, hidden, cuda)[:3]
+    h0 = None if h0_kind == "zero" else h0
+    h_seq = lstm_ops.lstm_sequence_train_ref(x, w, h0, None, reverse)[0]
+    before = lstm_ops.gates_launches
+    got = lstm_ops.lstm_gates_cuda(x, w, h0, h_seq, reverse)
+    torch.cuda.synchronize()
+    assert lstm_ops.gates_launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, lstm_ops.lstm_gates_ref(x, w, h0, h_seq, reverse), atol=GATES_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t, hidden", BF16_TRAIN_SHAPES)
+def test_lstm_bf16_backward_matches_plain(cuda, b, t, hidden, reverse):
+    """The bfloat16 backward on the gates kernel's activations, as the main
+    path runs it, against the plain reversed loop (gates from the rounded
+    h_seq, float32 sums, dxproj and dW rounded at the end): one backward
+    launch (a bfloat16 one) and one dW launch."""
+    x, w, h0, c0, dy, dhn, dcn = _bf16_train_inputs(33, b, t, hidden, cuda)
+    h_seq, c_seq, _, _ = lstm_ops.lstm_sequence_train_ref(x, w, h0, c0, reverse)
+    gates = lstm_ops.lstm_gates_cuda(x, w, h0, h_seq, reverse)
+    before = lstm_ops.bwd_launches, lstm_ops.bf16_bwd_launches, lstm_ops.dw_launches
+    args = (x, w, h0, c0, h_seq, c_seq, dy, dhn, dcn, reverse)
+    got = lstm_ops.lstm_backward_cuda(*args, gates=gates)
+    torch.cuda.synchronize()
+    assert (lstm_ops.bwd_launches, lstm_ops.bf16_bwd_launches, lstm_ops.dw_launches) == tuple(n + 1 for n in before)
+    _assert_bf16_backward_close(got, lstm_ops.lstm_backward_ref(*args))
+
+
+@pytest.mark.parametrize("h0_kind", ["zero", "nonzero"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t", [(1, 1), (3, 37), (7, 128), (1, 8192)])
+@pytest.mark.parametrize("hidden", [8, 32, 512, 1024])
+def test_lstm_bf16_weight_grad_matches_plain(cuda, hidden, b, t, reverse, h0_kind):
+    """The dW kernel on a bfloat16 h_seq (a float32 h0) and float32 gate
+    gradients, at every split of K its plan takes, against
+    ``lstm_weight_grad_ref``: rounded once to bfloat16, by ``_bf16_close``
+    (floor BWD_FLOOR; K = 1 from a zero state is all zeros, met exactly);
+    two calls the same bits."""
+    rng = np.random.RandomState(hidden + b * t + 1)
+    h_seq = torch.from_numpy(rng.randn(b, t, hidden).astype(np.float32)).to(cuda).to(BF)
+    dg = torch.from_numpy(rng.randn(b, t, 4 * hidden).astype(np.float32)).to(cuda)
+    h0 = None if h0_kind == "zero" else torch.from_numpy(rng.randn(b, hidden).astype(np.float32)).to(cuda)
+    got = lstm_ops.lstm_weight_grad_cuda(h_seq, h0, dg, reverse)
+    again = lstm_ops.lstm_weight_grad_cuda(h_seq, h0, dg, reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _bf16_close(got, lstm_ops.lstm_weight_grad_ref(h_seq, h0, dg, reverse), floor=BWD_FLOOR)
+
+
+@pytest.mark.parametrize("regime", ["a", "b"])
+def test_lstm_bf16_train_steps_sharing_a_line(cuda, request, regime):
+    """B=1, H=8, T=64, both directions: the bfloat16 training forward and
+    backward where regime (b) stages h from the float32 exchange buffer and
+    the float32 gate gradients that other blocks wrote just before the
+    barrier, never the rounded sequences."""
+    if regime == "b":
+        request.getfixturevalue("grid_plan_at_small_h")
+    x, w, h0, c0, dy, dhn, dcn = _bf16_train_inputs(34, 1, 64, 8, cuda)
+    for reverse in (False, True):
+        got = lstm_ops.lstm_forward_cuda(x, w, h0, c0, reverse, with_cseq=True)
+        torch.cuda.synchronize()
+        assert lstm_ops.last_launch["fwd"][0].regime == regime
+        want = lstm_ops.lstm_sequence_train_ref(x, w, h0, c0, reverse)
+        _bf16_close(got[0], want[0])
+        args = (x, w, h0, c0, want[0], want[1], dy, dhn, dcn, reverse)
+        bgot = lstm_ops.lstm_backward_cuda(*args, gates=lstm_ops.lstm_gates_cuda(x, w, h0, want[0], reverse))
+        torch.cuda.synchronize()
+        assert lstm_ops.last_launch["bwd"][0].regime == regime
+        _assert_bf16_backward_close(bgot, lstm_ops.lstm_backward_ref(*args))
+
+
+def test_lstm_bf16_function_gradients_on_card_match_plain(cuda):
+    """LSTMSequenceFn in bfloat16 on the card (forward, gates, backward and
+    dW kernels, one launch each) against the plain forward and backward on
+    the same inputs, both directions, gradients in all four inputs: dxproj
+    and dW_hh in bfloat16, dh0 and dc0 in float32."""
+    for reverse in (False, True):
+        x, w, h0, c0, dy, dhn, dcn = _bf16_train_inputs(35, 6, 40, 32, cuda)
+        ins = [v.clone().requires_grad_() for v in (x, w, h0, c0)]
+        before = (lstm_ops.bf16_launches, lstm_ops.gates_launches, lstm_ops.bf16_bwd_launches,
+                  lstm_ops.dw_launches)
+        h_seq, hn, cn = lstm_ops.LSTMSequenceFn.apply(*ins, reverse)
+        assert h_seq.dtype == BF and hn.dtype == cn.dtype == torch.float32
+        torch.autograd.backward((h_seq, hn, cn), (dy, dhn, dcn))
+        torch.cuda.synchronize()
+        assert (lstm_ops.bf16_launches, lstm_ops.gates_launches, lstm_ops.bf16_bwd_launches,
+                lstm_ops.dw_launches) == tuple(n + 1 for n in before)
+        r_seq, r_c, _, _ = lstm_ops.lstm_sequence_train_ref(x, w, h0, c0, reverse)
+        want = lstm_ops.lstm_backward_ref(x, w, h0, c0, r_seq, r_c, dy, dhn, dcn, reverse)
+        _assert_bf16_backward_close([v.grad for v in ins], want)
+
+
+def _plain_engine():
+    """Every LSTM of the models on the plain versions, on the card too: the
+    forward and backward loops of ``LSTMSequenceFn``'s CPU path, with their
+    rounding points (not torch autograd through the loop)."""
+    from unittest import mock
+
+    return mock.patch.object(lstm_ops, "_device_kind", lambda x: "cpu")
+
+
+def test_bf16_train_step_on_card_matches_plain(cuda):
+    """One train step of the seeded full-width generator in bfloat16 (B=2,
+    T=64) with the kernels against the same step on the plain engine, both
+    on the card, the plain step on the kernel step's side of every kink
+    (``KinkTape``); and the plain step in float32 on the same kinks, whose
+    distance from the bfloat16 one is bfloat16's own spread. 11 bfloat16
+    LSTM sequences forward, 11 gate recomputes, backwards and dW launches.
+    A flip in a bfloat16 sum moves a BatchNorm channel, so two bfloat16
+    engines that sum in another order can land as far apart as bfloat16
+    lands from float32 (tests/test_torch_bf16_train.py): the loss within
+    1e-3 relative of the plain engine's and within twice its spread plus
+    1e-5 relative; every gradient leaf no farther from the plain engine's
+    (of its ``grad_scale``) than bfloat16 moves the median leaf from float32
+    (a convolution's bias, zero in exact arithmetic, is all rounding, so a
+    leaf's own spread is no gate); the parameters, their gradients and the
+    BatchNorm statistics float32."""
+    from autovc_tpu_torch.config import ModelConfig
+
+    cfg = Config(model=ModelConfig(compute_dtype="bfloat16"), train=TrainConfig(batch_size=2, len_crop=64))
+    x, emb = (v.to(cuda) for v in _small_batch(8))
+    states = {}
+    for name, model_cfg in (("kernels", cfg.model), ("plain", cfg.model), ("f32", ModelConfig())):
+        model = build_generator(model_cfg, device=cuda, seed=3, trainable=True)
+        states[name] = TrainState(0, model, make_optimizer(model, cfg), init_ema(model))
+    step = make_train_step(cfg)
+    step32 = make_train_step(Config(train=cfg.train))
+    tape = KinkTape()
+    counters = ("bf16_launches", "gates_launches", "bf16_bwd_launches", "dw_launches")
+    before = [getattr(lstm_ops, c) for c in counters]
+    with tape.record():
+        got = step(states["kernels"], x, emb)
+        torch.cuda.synchronize()
+    assert [getattr(lstm_ops, c) - n for c, n in zip(counters, before)] == [11] * 4
+    with _plain_engine():
+        with tape.replay():
+            want = step(states["plain"], x, emb)
+        with tape.replay():
+            want32 = step32(states["f32"], x, emb)
+    loss, loss_plain, loss32 = (float(m["g_loss"]) for m in (got, want, want32))
+    loss_tol = min(1e-3 * abs(loss_plain), 2 * abs(loss_plain - loss32) + 1e-5 * abs(loss_plain))
+    assert abs(loss - loss_plain) <= loss_tol, (loss, loss_plain, loss32)
+    model = states["kernels"].model
+    assert {p.dtype for p in model.parameters()} == {p.grad.dtype for p in model.parameters()} == {torch.float32}
+    assert {b.dtype for b in model.buffers()} == {torch.float32}
+    grads = {k: {n: p.grad.double() for n, p in st.model.named_parameters()} for k, st in states.items()}
+
+    def apart(a, b):
+        return {n: float((grads[a][n] - grads[b][n]).abs().max()) / grad_scale(n, grads["plain"]) for n in grads[a]}
+
+    tol = float(np.median(list(apart("f32", "plain").values())))
+    worst = max(apart("kernels", "plain").items(), key=lambda kv: kv[1])
+    assert worst[1] <= tol, (worst, tol)

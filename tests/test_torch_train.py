@@ -739,7 +739,7 @@ def test_cli_trains_published_widths_and_exports(tmp_path, monkeypatch):
     assert got.keys() == want.keys() and all(np.array_equal(got[k], v) for k, v in want.items())
 
 
-@pytest.mark.parametrize("flag, item", [(["--bf16"], "Queue 1 #6"), (["--multihost"], "Queue 1 #8"),
+@pytest.mark.parametrize("flag, item", [(["--multihost"], "Queue 1 #8"),
                                         (["--lambda_spk", "0.5"], "requires --spk_ckpt"),
                                         (["--model_type", "wav"], "Queue 1 #3, #4"), ([], "train.pkl")])
 def test_cli_refuses_what_is_not_ported(tmp_path, flag, item):
