@@ -3,7 +3,11 @@
 Counterpart of ``autovc_tpu/models/dvector.py``: a unidirectional LSTM of
 ``num_layers`` layers over mel frames (``layers.LSTM``, so the recurrence is
 the CUDA kernel on a card and the plain loop on the CPU), a dense layer on
-the last step's hidden state, and ``e / ||e||`` with no epsilon. Used frozen
+the last step's hidden state, and ``e / ||e||`` with no epsilon. Its dtype
+follows its input, as JAX's ``DVector(dtype=None)``: a bfloat16 input (the
+bfloat16 generator's conversion in the lambda_spk auxiliary) runs the LSTMs
+in bfloat16 with the scan rounding (``layers.LSTM(scan=True)``: JAX runs
+``_lstm_scan``, never Pallas, here) and the dense layer in float32. Used frozen
 to build speaker embeddings and to score conversions; embeddings are always
 computed from mel features, whatever the generator's model type.
 
@@ -27,7 +31,10 @@ from autovc_tpu_torch.models.layers import LSTM
 
 
 class Dense(nn.Module):
-    """``x @ kernel + bias`` with the kernel (in, out), as flax's Dense."""
+    """``x @ kernel + bias`` with the kernel (in, out), as flax's Dense with
+    ``dtype=None``: input and parameters promoted to their common dtype
+    (``promote_dtype``; float32 for a bfloat16 input and float32
+    parameters) before the product."""
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
@@ -42,7 +49,8 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.kernel) + self.bias
+        dt = torch.promote_types(x.dtype, self.kernel.dtype)
+        return torch.matmul(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)
 
 
 class DVector(nn.Module):
@@ -50,7 +58,7 @@ class DVector(nn.Module):
                  dim_emb: int = SpeakerEncoderConfig.dim_emb, num_layers: int = SpeakerEncoderConfig.num_layers):
         super().__init__()
         self.dim_input, self.dim_cell, self.dim_emb, self.num_layers = dim_input, dim_cell, dim_emb, num_layers
-        self.lstm = LSTM(dim_input, dim_cell, num_layers)
+        self.lstm = LSTM(dim_input, dim_cell, num_layers, dtype=None, scan=True)
         self.embedding = Dense(dim_cell, dim_emb)
 
     def reset_parameters(self, seed: int) -> None:

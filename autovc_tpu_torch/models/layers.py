@@ -148,12 +148,18 @@ class LSTM(nn.Module):
     forward features first. In bfloat16 the input product is rounded, then
     the bias added in bfloat16, and the recurrence takes bfloat16 xproj and
     w_hh, carries (h, c) in float32 and returns the sequence in bfloat16
-    (``layers.LSTM`` with ``use_pallas=True`` in the JAX package)."""
+    (``layers.LSTM`` with ``use_pallas=True`` in the JAX package); with
+    ``scan=True`` it carries (h, c) in bfloat16 and rounds each gate op
+    instead (``use_pallas=False``: ``_lstm_scan`` under ``jit``,
+    ``ops.lstm.lstm_scan_bf16_train_ref``). ``dtype=None`` follows the
+    input's dtype, as flax's ``dtype=None`` does: bfloat16 for a bfloat16
+    input, float32 otherwise."""
 
     def __init__(self, in_dim: int, hidden: int, num_layers: int = 1, bidirectional: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype | None = torch.float32, scan: bool = False):
         super().__init__()
-        self.bf16 = _bf16(dtype)
+        self.bf16 = None if dtype is None else _bf16(dtype)
+        self.scan = scan
         self.hidden = hidden
         self.num_layers = num_layers
         self.directions = ("fwd", "bwd") if bidirectional else ("fwd",)
@@ -170,6 +176,7 @@ class LSTM(nn.Module):
             nn.init.uniform_(p, -bound, bound, generator=gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bf16 = x.dtype == torch.bfloat16 if self.bf16 is None else self.bf16
         h = x
         for layer in range(self.num_layers):
             outs = []
@@ -177,13 +184,16 @@ class LSTM(nn.Module):
                 w_ih = getattr(self, f"w_ih_l{layer}_{d}")
                 w_hh = getattr(self, f"w_hh_l{layer}_{d}")
                 b = getattr(self, f"b_l{layer}_{d}")
-                if self.bf16:
+                if bf16:
                     bf = torch.bfloat16
                     xproj = torch.matmul(h.to(bf), w_ih.to(bf)) + b.to(bf)
                     w_hh = w_hh.to(bf)
                 else:
                     xproj = torch.matmul(h, w_ih) + b
-                outs.append(lstm_ops.lstm_sequence(xproj, w_hh, reverse=(d == "bwd")))
+                if self.scan and bf16:
+                    outs.append(lstm_ops.lstm_sequence(xproj, w_hh, reverse=(d == "bwd"), scan=True))
+                else:
+                    outs.append(lstm_ops.lstm_sequence(xproj, w_hh, reverse=(d == "bwd")))
             h = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
         return h
 

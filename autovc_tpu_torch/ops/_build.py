@@ -22,7 +22,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# sm_90a, the Hopper-specific target (wgmma), as SASS only: "-arch=sm_90a"
+# alone also emits compute_90 PTX, which ptxas refuses for wgmma
+NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 300
 
 _loaded: dict[str, ctypes.CDLL] = {}

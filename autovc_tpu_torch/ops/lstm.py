@@ -41,7 +41,17 @@ activations recomputed from the ROUNDED h_seq (``lstm_gates_cuda``, the
 every sum in float32 and dh's carry over the float32 gate gradients, dxproj
 rounded to bfloat16 from them, dW summed in float32 over the float32 gate
 gradients and rounded once to bfloat16, dh0 and dc0 float32. The plain
-versions do the same. Mixed xproj and w_hh dtypes raise a TypeError.
+versions do the same. Mixed xproj and w_hh dtypes raise a TypeError. The
+gates kernel tiles (B*T, 4H) as ``gates_plan`` says (TMA loads, wgmma).
+
+The scan rounding (``scan=True``; bfloat16 only): JAX's other bfloat16
+LSTM, ``_lstm_scan`` under ``jit``, which the d-vector runs on a bfloat16
+input: a bfloat16 carry and every op rounded (``lstm_scan_bf16_train_ref``,
+``lstm_scan_bf16_backward_ref``; on the card the scan forms of
+``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu``, ``lstm_scan_forward_cuda``
+and ``lstm_scan_backward_cuda``). Its forward keeps the residuals of the
+scan's VJP, so its backward recomputes nothing; it has no dW (the d-vector
+is frozen).
 """
 
 from __future__ import annotations
@@ -59,11 +69,15 @@ from autovc_tpu_torch.ops import _build
 # (the reversed recurrence with dh0), a dW product, the bfloat16 backward's
 # gate activations, one kernel launch each; a forward in bfloat16 counts in
 # launches and in bf16_launches, a backward in bfloat16 in bwd_launches and
-# in bf16_bwd_launches. Callers reset them to 0 and read them back.
+# in bf16_bwd_launches; one in the scan rounding counts in launches and
+# scan_launches, or in bwd_launches and scan_bwd_launches. Callers reset
+# them to 0 and read them back.
 launches = 0
 bf16_launches = 0
+scan_launches = 0
 bwd_launches = 0
 bf16_bwd_launches = 0
+scan_bwd_launches = 0
 dw_launches = 0
 gates_launches = 0
 
@@ -101,10 +115,14 @@ def lstm_sequence_train_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.T
     return h_seq.to(torch.bfloat16) if xproj.dtype == torch.bfloat16 else h_seq, torch.stack(cs, dim=1), h, c
 
 
-def lstm_sequence_ref(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+def lstm_sequence_ref(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False, scan: bool = False
+                      ) -> torch.Tensor:
     """The plain inference forward from a zero state: the hidden sequence,
-    in xproj's dtype where that is bfloat16 (computed with a float32 carry)."""
+    in xproj's dtype where that is bfloat16 (computed with a float32 carry,
+    or with ``scan`` the scan rounding's: ``lstm_scan_bf16_ref``)."""
     _check_dtypes(xproj, w_hh)
+    if scan:
+        return lstm_scan_bf16_ref(xproj, w_hh, reverse=reverse)
     return lstm_sequence_train_ref(xproj, w_hh, reverse=reverse)[0]
 
 
@@ -177,6 +195,124 @@ def lstm_gates_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | N
         pre = xproj.to(dt) + _hprev(h_seq.to(dt), h0, reverse) @ w_hh.to(dt)
     i, f, g, o = pre.split(hidden, dim=-1)
     return torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)], dim=-1)
+
+
+# ------------------------------------------- the scan rounding (bf16 carry)
+
+def _rb(v: torch.Tensor) -> torch.Tensor:
+    """A float32 value rounded to bfloat16 (nearest even) and widened back."""
+    return v.to(torch.bfloat16).float()
+
+
+def _sigmoid_scan(x: torch.Tensor) -> torch.Tensor:
+    """XLA's logistic on bfloat16: 1 / (1 + exp(-x)), each op rounded."""
+    return _rb(1.0 / _rb(1.0 + _rb(torch.exp(-x))))
+
+
+def _dsigmoid_scan(s: torch.Tensor) -> torch.Tensor:
+    """The residual of logistic's VJP, s * (1 - s), each op rounded."""
+    return _rb(s * _rb(1.0 - s))
+
+
+def lstm_scan_bf16_train_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None = None,
+                             c0: torch.Tensor | None = None, reverse: bool = False):
+    """The plain forward of the scan rounding -> (h_seq, c_seq, act, hN, cN),
+    all bfloat16: ``_lstm_scan`` (``autovc_tpu/models/layers.py:123-144``) on
+    bfloat16 xproj, w_hh and state, as XLA runs it under ``jit`` (each
+    primitive rounds its result to bfloat16; on the CPU it keeps no excess
+    precision across a fusion):
+
+        d = rb(h @ w_hh)                       (float32 sums of exact products)
+        i, f, g, o = rb(xproj_t + d)
+        sigmoid(x) = rb(1 / rb(1 + rb(exp(-x))))     tanh(x) = rb(tanh(x))
+        c = rb(rb(sf * c) + rb(si * tg))     h = rb(so * rb(tanh(c)))
+
+    ``act`` (B, T, 4H) = [si, sf, tg, so] and ``c_seq`` are the residuals
+    the backward (``lstm_scan_bf16_backward_ref``) reads. These points were
+    chosen by measurement on the CPU against ``jax.jit`` of ``_lstm_scan``,
+    both directions: bit-equal at B=8, T=24, H=32; at B=7, T=128, H=256
+    99.1-99.9% bit-equal (its float32 sums in another order, carried by a
+    bfloat16 state). The loop with the sigmoid rounded once
+    (``rb(torch.sigmoid(x))``) is 40% bit-equal and up to 7.8e-3 away; with
+    only the carries rounded (every gate op in float32), 29%."""
+    _check_dtypes(xproj, w_hh)
+    b, t, h4 = xproj.shape
+    hidden = h4 // 4
+    w = w_hh.float()
+    h = torch.zeros(b, hidden) if h0 is None else _rb(h0.float())
+    c = torch.zeros(b, hidden) if c0 is None else _rb(c0.float())
+    h, c = h.to(xproj.device), c.to(xproj.device)
+    hs: list[torch.Tensor] = [h] * t
+    cs: list[torch.Tensor] = [c] * t
+    acts: list[torch.Tensor] = [c] * t
+    with exact_f32(xproj.device):
+        for step in (range(t - 1, -1, -1) if reverse else range(t)):
+            gates = _rb(xproj[:, step].float() + _rb(h @ w))
+            i, f, g, o = gates.split(hidden, dim=-1)
+            si, sf, tg, so = _sigmoid_scan(i), _sigmoid_scan(f), _rb(torch.tanh(g)), _sigmoid_scan(o)
+            c = _rb(_rb(sf * c) + _rb(si * tg))
+            h = _rb(so * _rb(torch.tanh(c)))
+            hs[step], cs[step], acts[step] = h, c, torch.cat([si, sf, tg, so], dim=-1)
+    bf = torch.bfloat16
+    return (torch.stack(hs, dim=1).to(bf), torch.stack(cs, dim=1).to(bf), torch.stack(acts, dim=1).to(bf),
+            h.to(bf), c.to(bf))
+
+
+def lstm_scan_bf16_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None = None,
+                       c0: torch.Tensor | None = None, reverse: bool = False) -> torch.Tensor:
+    """The hidden sequence (B, T, H), bfloat16, of ``lstm_scan_bf16_train_ref``."""
+    return lstm_scan_bf16_train_ref(xproj, w_hh, h0, c0, reverse)[0]
+
+
+def lstm_scan_bf16_backward_ref(w_hh: torch.Tensor, act: torch.Tensor, c_seq: torch.Tensor, c0: torch.Tensor | None,
+                                dy: torch.Tensor, dhn: torch.Tensor | None = None, dcn: torch.Tensor | None = None,
+                                reverse: bool = False):
+    """The plain backward of the scan rounding -> (dxproj, dh0, dc0), all
+    bfloat16, from the forward's residuals: the VJP ``jax.vjp`` builds for
+    ``_lstm_scan`` in bfloat16 (logistic's rule g * s(1 - s), tanh's
+    (g + g t)(1 - t) expanded as JAX's jaxpr has it), each op rounded as XLA
+    rounds it, the carries dh and dc in bfloat16. Walking the steps in the
+    reverse of the forward's order, with tc = rb(tanh(c_t)):
+
+        dh = rb(dy_t + carry)                carry = rb(dgates_{t_next} @ w_hh^T)
+        p = rb(rb(so dh) rb(1 - tc))         dc = rb(rb(dc + p) + rb(p tc))
+        do = rb(rb(dh tc) rb(so (1 - so)))   di = rb(rb(dc tg) rb(si (1 - si)))
+        q = rb(rb(si dc) rb(1 - tg))         dg = rb(q + rb(q tg))
+        df = rb(rb(dc cprev) rb(sf (1 - sf)))  dc <- rb(sf dc)
+
+    dxproj_t = [di, df, dg, do]. No dW: the scan form serves a frozen
+    w_hh (the d-vector). Measured on the CPU against ``jax.vjp`` under
+    ``jax.jit``: bit-equal at B=8, T=24, H=32; 97.2-97.5% bit-equal at B=7,
+    T=128, H=256 (float32 sums of another order), up to 1.6e-2 where the
+    cotangents peak at 2.0. Torch autograd through the forward loop on
+    bfloat16 tensors instead is 25% bit-equal, up to 3.1e-2 (its sigmoid and
+    tanh backward round once, not at each op)."""
+    b, t, h4 = act.shape
+    hidden = h4 // 4
+    w = w_hh.float()
+    act, c_seq = act.float(), c_seq.float()
+    cprev_seq = _hprev(c_seq, None if c0 is None else _rb(c0.float()), reverse)
+    carry = torch.zeros(b, hidden, device=act.device) if dhn is None else _rb(dhn.float())
+    dc = torch.zeros(b, hidden, device=act.device) if dcn is None else _rb(dcn.float())
+    dx = torch.empty((b, t, h4), device=act.device)
+    with exact_f32(act.device):
+        for step in (range(t) if reverse else range(t - 1, -1, -1)):
+            si, sf, tg, so = act[:, step].split(hidden, dim=-1)
+            tc = _rb(torch.tanh(c_seq[:, step]))
+            dh = _rb(dy[:, step].float() + carry)
+            p = _rb(_rb(so * dh) * _rb(1.0 - tc))
+            dc = _rb(_rb(dc + p) + _rb(p * tc))
+            d_o = _rb(_rb(dh * tc) * _dsigmoid_scan(so))
+            di = _rb(_rb(dc * tg) * _dsigmoid_scan(si))
+            q = _rb(_rb(si * dc) * _rb(1.0 - tg))
+            dg = _rb(q + _rb(q * tg))
+            df = _rb(_rb(dc * cprev_seq[:, step]) * _dsigmoid_scan(sf))
+            dgates = torch.cat([di, df, dg, d_o], dim=-1)
+            dx[:, step] = dgates
+            carry = _rb(dgates @ w.T)
+            dc = _rb(sf * dc)
+    bf = torch.bfloat16
+    return dx.to(bf), carry.to(bf), dc.to(bf)
 
 
 # ------------------------------------------------------------- launch plans
@@ -307,6 +443,32 @@ def dw_plan(batch: int, time: int, hidden: int, sms: int = SMS) -> DwPlan:
     return DwPlan(tiles_m, tiles_n, splits, per_split * DW_K_TILE, workspace)
 
 
+GATES_ROWS, GATES_COLS = 128, 128  # as in csrc/lstm_gates.cu: rows a block, columns a wgmma
+GATES_WIDE_BLOCKS = 100  # the blocks 128 x 256 tiles must still make (of the card's 132 SMs)
+
+
+@dataclasses.dataclass(frozen=True)
+class GatesPlan:
+    """How the gates kernel tiles (B*T, 4H): blocks of GATES_ROWS steps of
+    one batch row by ``nsub`` x GATES_COLS columns, ``blocks`` of them."""
+
+    nsub: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def gates_plan(batch: int, time: int, hidden: int) -> GatesPlan:
+    """The gates kernel's tile at (B, T, H): 128 x 256 where those tiles
+    still number GATES_WIDE_BLOCKS (fewer L2 reads of each operand), else
+    128 x 128 (B=7, T=128: H=1024 wide, 112 blocks; H=512 128 x 128, 112;
+    H=32, 7)."""
+    rows = batch * -(-time // GATES_ROWS)
+    wide = rows * -(-4 * hidden // (2 * GATES_COLS))
+    if wide >= GATES_WIDE_BLOCKS:
+        return GatesPlan(2, wide)
+    return GatesPlan(1, rows * -(-4 * hidden // GATES_COLS))
+
+
 def _no_plan(batch: int, hidden: int, sms: int, wbytes: int = 4) -> ValueError:
     def fits(h: int) -> bool:
         return all(launch_plan(batch, h, kind, sms, wbytes) is not None for kind in ("fwd", "bwd"))
@@ -325,15 +487,17 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "lstm_fwd":
         lib.autovc_lstm_fwd.argtypes = [pointers] * 7 + [ints] * 10 + tail
         lib.autovc_lstm_fwd_bf16.argtypes = [pointers] * 8 + [ints] * 10 + tail
-        entries = (lib.autovc_lstm_fwd, lib.autovc_lstm_fwd_bf16)
+        lib.autovc_lstm_fwd_scan.argtypes = [pointers] * 8 + [ints] * 10 + tail
+        entries = (lib.autovc_lstm_fwd, lib.autovc_lstm_fwd_bf16, lib.autovc_lstm_fwd_scan)
     elif name == "lstm_gates":
-        lib.autovc_lstm_gates.argtypes = [pointers] * 5 + [ints] * 4 + [pointers]
+        lib.autovc_lstm_gates.argtypes = [pointers] * 5 + [ints] * 5 + [pointers]
         entries = (lib.autovc_lstm_gates,)
     else:
         lib.autovc_lstm_bwd.argtypes = [pointers] * 9 + [ints] * 10 + tail
         lib.autovc_lstm_bwd_bf16.argtypes = [pointers] * 10 + [ints] * 10 + tail
+        lib.autovc_lstm_bwd_scan.argtypes = [pointers] * 10 + [ints] * 10 + tail
         lib.autovc_lstm_dw.argtypes = [pointers] * 6 + [ints] * 7 + [pointers]
-        entries = (lib.autovc_lstm_bwd, lib.autovc_lstm_bwd_bf16, lib.autovc_lstm_dw)
+        entries = (lib.autovc_lstm_bwd, lib.autovc_lstm_bwd_bf16, lib.autovc_lstm_bwd_scan, lib.autovc_lstm_dw)
     for fn in entries:
         fn.restype = ctypes.c_int
     lib.autovc_cuda_error_string.argtypes = [ctypes.c_int]
@@ -366,7 +530,7 @@ def _check(xproj: torch.Tensor, w_hh: torch.Tensor | None, kind: str = "fwd", fi
     given = {first: xproj, "w_hh": w_hh, **others}
     given = {k: v for k, v in given.items() if v is not None}
     bf16 = any(v.dtype == torch.bfloat16 for v in given.values())
-    if w_hh is not None:
+    if w_hh is not None and first == "xproj":
         _check_dtypes(xproj, w_hh)
     for name, v in given.items():
         if v.dtype != (torch.bfloat16 if bf16 and name in _BF16_OPERANDS else torch.float32):
@@ -407,9 +571,12 @@ def _dense(v: torch.Tensor | None) -> torch.Tensor | None:
     return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str, plan: LaunchPlan | DwPlan | None = None, info=None) -> None:
+def _raise_on(lib: ctypes.CDLL, err: int, what: str, plan: LaunchPlan | DwPlan | GatesPlan | None = None,
+              info=None) -> None:
     if err == _ERR_PLAN:
         raise RuntimeError(f"{what}: the kernel refused the launch plan {plan}")
+    if err == _ERR_TMA:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled (found in the loaded libcuda.so.1) refused the tensor maps")
     if err == _ERR_RESIDENT:
         raise RuntimeError(f"{what}: {plan.blocks} blocks must be resident for the grid barrier, but the card "
                            f"holds {info[0]} per SM on {info[1]} SMs")
@@ -417,7 +584,7 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str, plan: LaunchPlan | DwPlan |
         raise RuntimeError(f"{what} launch failed: {lib.autovc_cuda_error_string(err).decode()}")
 
 
-_ERR_PLAN, _ERR_RESIDENT = -1, -2  # the launchers' own codes
+_ERR_PLAN, _ERR_RESIDENT, _ERR_TMA = -1, -2, -3  # the launchers' own codes
 # The last launch of each kind: (plan, resident blocks per SM, SMs), for
 # chip_smoke.py's report.
 last_launch: dict[str, tuple[LaunchPlan, int, int]] = {}
@@ -509,9 +676,80 @@ def _forward_bf16(xproj, w_hh, h0, c0, reverse, with_cseq, b, t, hidden, plan):
     return h_seq, c_seq, hn, c
 
 
-def lstm_sequence_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """The inference form from a zero state: the hidden sequence only."""
+def lstm_sequence_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
+                       scan: bool = False) -> torch.Tensor:
+    """The inference form from a zero state: the hidden sequence only
+    (``scan``: the scan rounding's form)."""
+    if scan:
+        return lstm_scan_forward_cuda(xproj, w_hh, reverse=reverse)[0]
     return lstm_forward_cuda(xproj, w_hh, reverse=reverse)[0]
+
+
+def _scan_state(v: torch.Tensor | None, name: str) -> torch.Tensor | None:
+    """A bfloat16 state of the scan form as the float32 the kernels read."""
+    if v is not None and v.dtype != torch.bfloat16:
+        raise TypeError(f"the scan form's {name} is bfloat16, got {v.dtype}")
+    return None if v is None else v.float()
+
+
+def lstm_scan_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None = None,
+                           c0: torch.Tensor | None = None, reverse: bool = False, with_residuals: bool = False):
+    """Launch the forward kernel's scan-rounding form (``autovc_lstm_fwd_scan``,
+    the rounding of ``lstm_scan_bf16_train_ref``) on the current stream, one
+    launch for the sequence -> (h_seq, c_seq, act, hN, cN): bfloat16 xproj,
+    w_hh and state (h0, c0, zero when None), h_seq, hN and cN in bfloat16;
+    with ``with_residuals`` the backward's residuals c_seq (B, T, H) and act
+    (B, T, 4H) = [si, sf, tg, so], float32 tensors that hold bfloat16
+    values, else None for both."""
+    global launches, scan_launches
+    if xproj.dtype != torch.bfloat16:
+        raise TypeError(f"the scan form takes bfloat16 xproj and w_hh, got {xproj.dtype}")
+    h0, c0 = _scan_state(h0, "h0"), _scan_state(c0, "c0")
+    b, t, hidden, plan = _check(xproj, w_hh, "fwd", h0=h0, c0=c0)
+    lib = _library("lstm_fwd")
+    xproj, w_hh, h0 = _dense(xproj), _dense(w_hh), _dense(h0)
+    dev = xproj.device
+    h_seq = torch.empty((b, t, hidden), device=dev, dtype=torch.bfloat16)
+    c_seq = torch.empty((b, t, hidden), device=dev, dtype=torch.float32) if with_residuals else None
+    act = torch.empty((b, t, 4 * hidden), device=dev, dtype=torch.float32) if with_residuals else None
+    c = torch.zeros((b, hidden), device=dev, dtype=torch.float32) if c0 is None else _dense(c0).clone()
+    hbuf = torch.empty((2, b, hidden), device=dev, dtype=torch.float32) if plan.regime == "b" else None
+    with torch.cuda.device(dev):
+        _launch(lib, lib.autovc_lstm_fwd_scan, plan, [_ptr(v) for v in (xproj, w_hh, h0, h_seq, hbuf, c, c_seq, act)],
+                (b, t, hidden, int(reverse)), "lstm forward kernel (scan rounding)")
+    launches += 1
+    scan_launches += 1
+    return h_seq, c_seq, act, h_seq[:, 0 if reverse else -1].clone(), c.to(torch.bfloat16)
+
+
+def lstm_scan_backward_cuda(w_hh: torch.Tensor, act: torch.Tensor, c_seq: torch.Tensor, c0: torch.Tensor | None,
+                            dy: torch.Tensor, dhn: torch.Tensor | None = None, dcn: torch.Tensor | None = None,
+                            reverse: bool = False):
+    """Launch the backward kernel's scan-rounding form (``autovc_lstm_bwd_scan``,
+    the rounding of ``lstm_scan_bf16_backward_ref``) on the current stream:
+    the reversed recurrence and dh0 in one launch, no dW (the scan form
+    serves a frozen w_hh) -> (dxproj, dh0, dc0), bfloat16. ``act`` and
+    ``c_seq`` are ``lstm_scan_forward_cuda``'s residuals; w_hh, dy and the
+    state's cotangents (zero when None) bfloat16."""
+    global bwd_launches, scan_bwd_launches
+    if act.dtype != torch.float32 or c_seq.dtype != torch.float32:
+        raise TypeError("the scan backward reads the scan forward's residuals (float32 tensors of bfloat16 values)")
+    c0, dhn, dcn = _scan_state(c0, "c0"), _scan_state(dhn, "dhN"), _scan_state(dcn, "dcN")
+    b, t, hidden, plan = _check(act, w_hh, "bwd", first="gates", c0=c0, c_seq=c_seq, dy=dy, dhn=dhn, dcn=dcn)
+    lib = _library("lstm_bwd")
+    w_hh, act, c0, c_seq, dy, dhn = map(_dense, (w_hh, act, c0, c_seq, dy, dhn))
+    dev = act.device
+    dgates = torch.empty((b, t, 4 * hidden), device=dev, dtype=torch.float32)
+    dx = torch.empty((b, t, 4 * hidden), device=dev, dtype=torch.bfloat16)
+    dc = torch.zeros((b, hidden), device=dev, dtype=torch.float32) if dcn is None else _dense(dcn).clone()
+    dh0 = torch.empty((b, hidden), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        _launch(lib, lib.autovc_lstm_bwd_scan, plan,
+                [_ptr(v) for v in (act, w_hh, c0, c_seq, dy, dhn, dgates, dx, dc, dh0)],
+                (b, t, hidden, int(reverse)), "lstm backward kernel (scan rounding)")
+    bwd_launches += 1
+    scan_bwd_launches += 1
+    return dx, dh0.to(torch.bfloat16), dc.to(torch.bfloat16)
 
 
 # The split dW's tile counters of each (device, stream): zero, and left zero
@@ -558,19 +796,23 @@ def lstm_gates_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | 
     """Launch ``csrc/lstm_gates.cu``: the gate activations (B, T, 4H),
     float32, of a bfloat16 sequence, recomputed from its rounded h_seq (and
     the float32 h0, or zero) as the Pallas backward recomputes them; one
-    launch. The float32 backward reads the forward's own (``with_gates``)."""
+    launch of ``gates_plan``'s tiles (TMA loads, wgmma). The float32
+    backward reads the forward's own (``with_gates``). Raises for what TMA
+    does not take: H % 8 != 0 (its 16-byte strides) or an operand that is
+    not contiguous and 16-byte aligned."""
     global gates_launches
     if xproj.dtype != torch.bfloat16:
         raise TypeError("the gates kernel takes the bfloat16 form; the float32 forward keeps its gate "
                         "activations (with_gates=True)")
     b, t, hidden, _ = _check(xproj, w_hh, "bwd", h0=h0, h_seq=h_seq)
+    plan = gates_plan(b, t, hidden)
     lib = _library("lstm_gates")
     xproj, w_hh, h0, h_seq = map(_dense, (xproj, w_hh, h0, h_seq))
     act = torch.empty((b, t, 4 * hidden), device=xproj.device, dtype=torch.float32)
     with torch.cuda.device(xproj.device):
         err = lib.autovc_lstm_gates(_ptr(xproj), _ptr(w_hh), _ptr(h0), _ptr(h_seq), _ptr(act), b, t, hidden,
-                                    int(reverse), torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "lstm gates kernel")
+                                    int(reverse), plan.nsub, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "lstm gates kernel", plan)
     gates_launches += 1
     return act
 
@@ -619,17 +861,30 @@ def _device_kind(xproj: torch.Tensor) -> str:
 
 
 class LSTMSequenceFn(torch.autograd.Function):
-    """(xproj, w_hh, h0, c0, reverse) -> (h_seq, hN, cN), differentiable in
-    the four tensors (h0 and c0 may be None: zero). The kernels for CUDA
+    """(xproj, w_hh, h0, c0, reverse, scan) -> (h_seq, hN, cN), differentiable
+    in the four tensors (h0 and c0 may be None: zero). The kernels for CUDA
     tensors, the plain versions for CPU tensors. In bfloat16 (xproj and
     w_hh; h0 and c0 float32) h_seq is bfloat16 and the gradients of xproj
     and w_hh come back in bfloat16, as ``_lstm_chunk``'s custom VJP returns
     them; the backward on the card first recomputes the gate activations
-    from the rounded h_seq (``lstm_gates_cuda``)."""
+    from the rounded h_seq (``lstm_gates_cuda``). With ``scan`` (bfloat16
+    only) the scan rounding: a bfloat16 state (h0, c0, hN, cN), the forward's
+    bfloat16 residuals read by the backward, which computes no dW and raises
+    where w_hh requires grad."""
 
     @staticmethod
-    def forward(ctx, xproj, w_hh, h0, c0, reverse):
+    def forward(ctx, xproj, w_hh, h0, c0, reverse, scan=False):
         _check_dtypes(xproj, w_hh)
+        ctx.reverse, ctx.scan = reverse, scan
+        if scan:
+            if xproj.dtype != torch.bfloat16:
+                raise TypeError(f"the scan rounding is a bfloat16 form, got {xproj.dtype}")
+            if _device_kind(xproj) == "cuda":
+                h_seq, c_seq, act, hn, cn = lstm_scan_forward_cuda(xproj, w_hh, h0, c0, reverse, with_residuals=True)
+            else:
+                h_seq, c_seq, act, hn, cn = lstm_scan_bf16_train_ref(xproj, w_hh, h0, c0, reverse)
+            ctx.save_for_backward(w_hh, c0, c_seq, act)
+            return h_seq, hn, cn
         bf16 = xproj.dtype == torch.bfloat16
         if _device_kind(xproj) == "cuda":
             out = lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True, with_gates=not bf16)
@@ -639,11 +894,12 @@ class LSTMSequenceFn(torch.autograd.Function):
             h_seq, c_seq, hn, cn = lstm_sequence_train_ref(xproj, w_hh, h0, c0, reverse)
             gates = None
         ctx.save_for_backward(xproj, w_hh, h0, c0, h_seq, c_seq, gates)
-        ctx.reverse = reverse
         return h_seq, hn, cn
 
     @staticmethod
     def backward(ctx, dy, dhn, dcn):
+        if ctx.scan:
+            return LSTMSequenceFn._scan_backward(ctx, dy, dhn, dcn)
         xproj, w_hh, h0, c0, h_seq, c_seq, gates = ctx.saved_tensors
         args = (xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, ctx.reverse)
         need_dw = ctx.needs_input_grad[1]  # no dW for a frozen w_hh
@@ -653,16 +909,33 @@ class LSTMSequenceFn(torch.autograd.Function):
             dx, dw, dh0, dc0 = lstm_backward_cuda(*args, gates=gates, need_dw=need_dw)
         else:
             dx, dw, dh0, dc0 = lstm_backward_ref(*args, need_dw=need_dw)
-        return dx, dw, None if h0 is None else dh0, None if c0 is None else dc0, None
+        return dx, dw, None if h0 is None else dh0, None if c0 is None else dc0, None, None
+
+    @staticmethod
+    def _scan_backward(ctx, dy, dhn, dcn):
+        w_hh, c0, c_seq, act = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            raise ValueError("the scan rounding's backward computes no dW: it serves a frozen w_hh (the d-vector)")
+        dy = dy.to(torch.bfloat16) if dy is not None else torch.zeros(act.shape[:2] + (w_hh.shape[0],),
+                                                                    dtype=torch.bfloat16, device=act.device)
+        args = (w_hh, act, c_seq, c0, dy, dhn, dcn, ctx.reverse)
+        if _device_kind(act) == "cuda":
+            dx, dh0, dc0 = lstm_scan_backward_cuda(*args)
+        else:
+            dx, dh0, dc0 = lstm_scan_bf16_backward_ref(*args)
+        h0_grad, c0_grad = ctx.needs_input_grad[2:4]
+        return dx, None, dh0 if h0_grad else None, dc0 if c0_grad else None, None, None
 
 
-def lstm_sequence(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+def lstm_sequence(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False, scan: bool = False
+                  ) -> torch.Tensor:
     """(B, T, 4H), (H, 4H) -> (B, T, H) from a zero state: the kernel for a
     CUDA tensor, the plain version for a CPU tensor; through
-    ``LSTMSequenceFn`` when grad is on and an input requires it."""
+    ``LSTMSequenceFn`` when grad is on and an input requires it. ``scan``
+    (bfloat16): the scan rounding (``lstm_scan_bf16_train_ref``)."""
     kind = _device_kind(xproj)
     if torch.is_grad_enabled() and (xproj.requires_grad or w_hh.requires_grad):
-        return LSTMSequenceFn.apply(xproj, w_hh, None, None, reverse)[0]
+        return LSTMSequenceFn.apply(xproj, w_hh, None, None, reverse, scan)[0]
     if kind == "cuda":
-        return lstm_sequence_cuda(xproj, w_hh, reverse)
-    return lstm_sequence_ref(xproj, w_hh, reverse)
+        return lstm_sequence_cuda(xproj, w_hh, reverse, scan)
+    return lstm_sequence_ref(xproj, w_hh, reverse, scan)

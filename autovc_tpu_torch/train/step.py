@@ -21,9 +21,10 @@ evaluation's own margin (protocol 'windowed') or a cosine pull toward the
 target embedding (protocol 'crop') is added. The encoder's weights do not
 require grad, so the gradient reaches the generator through the LSTM
 kernels' backward without a weight gradient of the encoder. A bfloat16
-generator's output is widened to float32 for the float32 encoder (JAX's
-encoder, whose dtype follows its input, runs its LSTMs in bfloat16 on it:
-an open divergence, ROADMAP Queue 3).
+generator's conversion goes to the encoder in bfloat16, whose dtype follows
+its input as JAX's does: its LSTMs run in bfloat16 with the scan rounding
+(a bfloat16 carry, each gate op rounded), its dense layer and the loss in
+float32.
 """
 
 from __future__ import annotations
@@ -139,7 +140,7 @@ def loss_fn(model: Generator, cfg: Config, x: torch.Tensor, emb: torch.Tensor, t
     total = g_loss_id + g_loss_id_psnt + cfg.train.lambda_cd * g_loss_cd
     metrics = {"g_loss_id": g_loss_id, "g_loss_id_psnt": g_loss_id_psnt, "g_loss_cd": g_loss_cd}
     if use_spk:
-        g_loss_spk, extra = speaker_loss(spk, cfg, x_conv.float(), emb)
+        g_loss_spk, extra = speaker_loss(spk, cfg, x_conv, emb)
         total = total + cfg.train.lambda_spk * g_loss_spk
         metrics.update(extra, g_loss_spk=g_loss_spk)
     return total, {k: v.detach() for k, v in dict(metrics, g_loss=total).items()}

@@ -140,11 +140,14 @@ forms against their plain versions at H in {32, 512, 1024}, both
 directions: the forward from a float32 state (h_seq within 1 bfloat16 ulp,
 floored at 2^-16 of its peak, and 99% bit-equal; c_seq, hN, cN 1e-4), the
 gate activations recomputed from the rounded h_seq by ``csrc/lstm_gates.cu``
-(1e-5), the backward and dW (dxproj and dW within 1 bfloat16 ulp, floored at
+(1e-5; its time a sequence beside its bound, ``torch.matmul`` of its
+product and the wrapper's host microseconds a call), the backward and dW
+(dxproj and dW within 1 bfloat16 ulp, floored at
 2^-8 of the peak, 99% bit-equal; dh0, dc0 1e-4); each timed (CUDA events
 and device time) beside the float32 kernels on the same inputs, the plain
-versions, the bound (the recurrences' FMAs at 67 TFLOP/s, the gates product
-at the bfloat16 tensor cores' 989, bytes at 3.35 TB/s) and cuDNN's bfloat16
+versions, the bound (products with a float32 operand at 67 TFLOP/s, those
+of two bfloat16 operands, the gates', at the bfloat16 tensor cores' 989,
+bytes at 3.35 TB/s) and cuDNN's bfloat16
 LSTM (forward alone, backward alone, forward+backward); (b) one ``Solver``-config step with
 ``compute_dtype="bfloat16"`` with the kernels against the same step on the
 plain engine (``LSTMSequenceFn``'s plain loops) on the card, on its kinks
@@ -156,8 +159,19 @@ within twice its spread, beside the float32 step's; 11 forward, 11 gates,
 launches a step; 20 ``Solver`` steps (finite, going down; p50, p95) and the
 device-time split and idle share of a warm step; (c) ``cli.train --bf16``
 for 3 steps in a temporary directory, once with ``--lambda_spk`` on a seeded
-GE2E .npz, each exported and converted with through ``Converter`` in
-bfloat16 and in float32.
+GE2E .npz (the bfloat16 d-vector's scan forms launched: 3 a step each way),
+each exported and converted through ``Converter`` in bfloat16 and in
+float32; (d) the scan forms of the LSTM kernels (the d-vector in bfloat16:
+each op rounded, a bfloat16 carry) at the d-vector's widths (768, 256) and
+batches (1, 8, 7), T=128, both directions, against their plain loops (the
+first 16 steps >= 99% bit-equal and within 1 ulp or the plain loop's own
+ulps there, the sequence within twice the plain loop's own spread with its
+hidden units relabelled), timed beside the plain loops, the bound and
+cuDNN's bfloat16 LSTM, the bfloat16 d-vector's forward beside the float32
+one and cuDNN's bfloat16 3-layer LSTM; (e) 12 ``Solver`` steps in bfloat16
+with lambda_spk=1.0 ('windowed') and 12 without (p50, p95), the launches a
+step asserted (21 forward: 18 bfloat16, 3 scan; 21 backward; 18 dW and
+gates), the device time and idle share of a warm step.
 
 The kernels are built first, one ``nvcc`` each, started together.
 
@@ -230,8 +244,10 @@ WN_TIME_B = (1, WN_B, 32)  # batches the kernel is timed at
 # us a sample at B=8, T=2048 of the per-layer kernels this one replaced, 49
 # launches a sample (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W)
 PER_LAYER_WN_US = 434.44
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, bfloat16
+# on the tensor cores (dense), HBM3.
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # (hidden, reverse, calls per Generator forward)
 LSTM_CASES = [
@@ -275,6 +291,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(fn, reps: int) -> float:
+    """Mean microseconds of the host's time a call of ``fn`` (the wrapper's
+    checks, allocation and launch), calls queued back to back without a
+    synchronisation, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
+
+
 def device_ms(fn, reps: int) -> float:
     """Mean milliseconds of device activity (kernels and copies) of ``fn``
     over ``reps`` warm calls, from torch.profiler: the card's time alone,
@@ -309,6 +339,15 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     """The least time for the work: flops at the f32 peak or bytes at the HBM
     rate, whichever is larger, and which one it is."""
     ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def bf16_bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time for work whose products take bfloat16 operands and sum
+    in float32: flops at the bfloat16 tensor cores' peak (the card's peak
+    for that operand type, whatever units a kernel uses) or bytes at the HBM
+    rate, whichever is larger, and which one it is."""
+    ops_ms, bytes_ms = flops / BF16_TC_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -804,8 +843,18 @@ def counts() -> tuple[int, int, int]:
     return lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches
 
 
+# every LSTM wrapper's launch count (ops.lstm), in the order 8e reads them
+LSTM_COUNTERS = ("launches", "bf16_launches", "scan_launches", "bwd_launches", "bf16_bwd_launches",
+                 "scan_bwd_launches", "dw_launches", "gates_launches")
+
+
 def zero_counts() -> None:
-    lstm_ops.launches = lstm_ops.bwd_launches = lstm_ops.dw_launches = 0
+    for c in LSTM_COUNTERS:
+        setattr(lstm_ops, c, 0)
+
+
+def all_counts() -> tuple[int, ...]:
+    return tuple(getattr(lstm_ops, c) for c in LSTM_COUNTERS)
 
 
 def device_activity(fn, reps: int = 1, counter=counts) -> tuple[list[tuple[str, int, float]], float, tuple[int, ...]]:
@@ -2138,7 +2187,6 @@ def phase_synthesize(mels: np.ndarray, tmp: str) -> dict:
 # with its state and c_seq, the gates recomputed from the rounded h_seq, the
 # backward and dW), the Solver and cli.train --bf16
 
-BF16_TC_FLOPS = 989e12  # H100 SXM bfloat16 tensor cores, dense (NVIDIA data sheet)
 GATES_TOL = 1e-5  # float32 activations of a sum of H exact bfloat16 products, in another order
 # the ulp floor of the backward's bfloat16 outputs: float32 sums over 4H (dx)
 # and B*T (dW) terms in another order (tests/test_torch_gpu.py)
@@ -2168,9 +2216,10 @@ def plain_engine():
 
 
 def bf16_fwd_work(b: int, t: int, h: int) -> tuple[float, float]:
-    """(flops, bytes) of one bfloat16 training forward: the recurrent product
-    on the CUDA cores; xproj, w_hh and h_seq in bfloat16, h0, c0, c_seq, hN
-    and cN in float32."""
+    """(flops, bytes) of one bfloat16 training forward: the recurrent product,
+    whose h operand is the float32 carry (so priced at the float32 peak);
+    xproj, w_hh and h_seq in bfloat16, h0, c0, c_seq, hN and cN in
+    float32."""
     return 2.0 * b * t * h * 4 * h, 2.0 * (b * t * 4 * h + h * 4 * h + b * t * h) + 4.0 * (b * t * h + 4 * b * h)
 
 
@@ -2183,7 +2232,8 @@ def gates_work(b: int, t: int, h: int) -> tuple[float, float]:
 
 def bf16_bwd_work(b: int, t: int, h: int) -> tuple[float, float]:
     """(flops, bytes) of one bfloat16 backward with its dW: the dh
-    contraction and dW, 2 * 2*B*T*H*4H on the CUDA cores; the activations,
+    contraction and dW, 2 * 2*B*T*H*4H, each with the float32 gate
+    gradients as an operand (so priced at the float32 peak); the activations,
     c_seq (float32), dy, w_hh, h_seq (bfloat16) read, dxproj (bfloat16) and
     the float32 gate gradients written, dW (bfloat16) written."""
     return (2 * 2.0 * b * t * h * 4 * h,
@@ -2252,6 +2302,7 @@ def phase_bf16_train_kernels(dev: torch.device) -> tuple[dict, dict, dict]:
         fwd32_fn = functools.partial(lstm_ops.lstm_forward_cuda, xf, wf, h0, c0, reverse, with_cseq=True,
                                      with_gates=True)
         gates_fn = functools.partial(lstm_ops.lstm_gates_cuda, x, w, h0, want[0], reverse)
+        gates0_fn = functools.partial(lstm_ops.lstm_gates_cuda, x, w, None, want[0], reverse)
         bwd_fn = functools.partial(lstm_ops.lstm_backward_cuda, *bargs, gates=act)
         bwd32_fn = functools.partial(lstm_ops.lstm_backward_cuda, *bargs32, gates=f32[4])
         dw_fn = functools.partial(lstm_ops.lstm_weight_grad_cuda, want[0], h0, bgot[0].float(), reverse)
@@ -2261,9 +2312,11 @@ def phase_bf16_train_kernels(dev: torch.device) -> tuple[dict, dict, dict]:
                         f32_device_ms=device_ms(fwd32_fn, 5),
                         plain_ms=cuda_ms(lambda: lstm_ops.lstm_sequence_train_ref(x, w, h0, c0, reverse), 1),
                         library_ms=lib_fwd_ms),
-            "gates": dict(ms=cuda_ms(gates_fn, 5), device_ms=device_ms(gates_fn, 10),
-                          plain_ms=cuda_ms(lambda: lstm_ops.lstm_gates_ref(x, w, h0, want[0], reverse), 3),
-                          matmul_ms=device_ms(lambda: hprev @ w, 10)),
+            # the main path's gates (a zero initial state: h0 None), and 8a's with its float32 h0
+            "gates": dict(ms=cuda_ms(gates0_fn, 5), device_ms=device_ms(gates0_fn, 10),
+                          h0_device_ms=device_ms(gates_fn, 10),
+                          plain_ms=cuda_ms(lambda: lstm_ops.lstm_gates_ref(x, w, None, want[0], reverse), 3),
+                          matmul_ms=device_ms(lambda: hprev @ w, 10), host_us=host_us(gates0_fn, 50)),
             "bwd": dict(ms=cuda_ms(bwd_fn, 3), device_ms=device_ms(bwd_fn, 5), f32_ms=cuda_ms(bwd32_fn, 3),
                         f32_device_ms=device_ms(bwd32_fn, 5), dw_ms=cuda_ms(dw_fn, 5),
                         dw_device_ms=device_ms(dw_fn, 10),
@@ -2276,6 +2329,17 @@ def phase_bf16_train_kernels(dev: torch.device) -> tuple[dict, dict, dict]:
             for k, v in dict(vals[key], flops=flops, bytes=nbytes).items():
                 rec[k] = rec.get(k, 0.0) + n * v
         v = vals
+        g_bound, g_by = bf16_bound(*gates_work(b, t, hidden))
+        gates_rec.setdefault("by_sequence", {})[f"H={hidden} {direction}"] = dict(
+            device_ms=v["gates"]["device_ms"], h0_device_ms=v["gates"]["h0_device_ms"], ms=v["gates"]["ms"],
+            bound_ms=g_bound, bound_by=g_by, matmul_ms=v["gates"]["matmul_ms"], host_us=v["gates"]["host_us"],
+            plan=str(lstm_ops.gates_plan(b, t, hidden)))
+        log(f"lstm gates H={hidden} {direction} a sequence (B={b}, T={t}, h0 None): {v['gates']['device_ms']:.4f} ms "
+            f"of device time ({v['gates']['ms']:.4f} by CUDA events; with a float32 h0 "
+            f"{v['gates']['h0_device_ms']:.4f}), bound {g_bound:.4f} ms ({g_by}; "
+            f"{g_bound / v['gates']['device_ms']:.2f} of it reached), torch.matmul of the product alone "
+            f"{v['gates']['matmul_ms']:.4f} ms, the wrapper's host {v['gates']['host_us']:.1f} us a call; "
+            f"{lstm_ops.gates_plan(b, t, hidden)}")
         log(f"lstm bf16 train H={hidden} {direction} times (ms; device ms): forward {v['fwd']['ms']:.4f}; "
             f"{v['fwd']['device_ms']:.4f} (f32 kernel {v['fwd']['f32_ms']:.4f}; {v['fwd']['f32_device_ms']:.4f}), "
             f"gates {v['gates']['ms']:.4f}; {v['gates']['device_ms']:.4f} (torch.matmul of the product alone "
@@ -2291,15 +2355,15 @@ def phase_bf16_train_kernels(dev: torch.device) -> tuple[dict, dict, dict]:
                    max_abs_err=max(bwd["max_abs_err"], b_err, *((bgot[i].float() - bwant[i].float()).abs().max().item()
                                                                  for i in (0, 1))))
     fwd["bound_ms"], fwd["bound_by"] = bound_ms(fwd.pop("flops"), fwd.pop("bytes"))
-    g_flops, g_bytes = gates_rec.pop("flops"), gates_rec.pop("bytes")
-    g_ops_ms, g_bytes_ms = g_flops / BF16_TC_FLOPS * 1e3, g_bytes / HBM_BYTES_PER_S * 1e3
-    gates_rec["bound_ms"], gates_rec["bound_by"] = ((g_ops_ms, "operations") if g_ops_ms >= g_bytes_ms
-                                                    else (g_bytes_ms, "bytes"))
+    gates_rec["bound_ms"], gates_rec["bound_by"] = bf16_bound(gates_rec.pop("flops"), gates_rec.pop("bytes"))
+    gates_rec["host_us"] /= SEQS_PER_STEP  # a call's mean over the step's calls
     bwd["bound_ms"], bwd["bound_by"] = bound_ms(bwd.pop("flops"), bwd.pop("bytes"))
     log(f"lstm bf16 train per step ({SEQS_PER_STEP} sequences, B={b}, T={t}): forward {fwd['ms']:.3f} ms "
         f"({fwd['device_ms']:.3f} device; f32 kernel {fwd['f32_ms']:.3f}, {fwd['f32_device_ms']:.3f}), gates "
-        f"{gates_rec['ms']:.3f} ({gates_rec['device_ms']:.3f} device; bound {gates_rec['bound_ms']:.4f} "
-        f"{gates_rec['bound_by']}), backward with dW {bwd['ms']:.3f} ({bwd['device_ms']:.3f} device; f32 kernels "
+        f"{gates_rec['ms']:.3f} ({gates_rec['device_ms']:.3f} device, h0 None; with h0 {gates_rec['h0_device_ms']:.3f}; "
+        f"bound {gates_rec['bound_ms']:.4f} "
+        f"{gates_rec['bound_by']}; torch.matmul of the product {gates_rec['matmul_ms']:.4f}; host "
+        f"{gates_rec['host_us']:.1f} us a call), backward with dW {bwd['ms']:.3f} ({bwd['device_ms']:.3f} device; f32 kernels "
         f"{bwd['f32_ms']:.3f}, {bwd['f32_device_ms']:.3f}); bounds fwd {fwd['bound_ms']:.4f} bwd "
         f"{bwd['bound_ms']:.4f}; cuDNN bf16 fwd {fwd['library_ms']:.3f} bwd {bwd['library_ms']:.3f} fwd+bwd "
         f"{bwd['library_fwd_bwd_ms']:.3f} (card: {card_line()})")
@@ -2437,8 +2501,9 @@ def phase_bf16_training(dev: torch.device) -> dict:
 def phase_bf16_cli(dev: torch.device) -> dict:
     """8c: ``python -m autovc_tpu_torch.cli.train --bf16`` for 3 steps on a
     synthetic spmel tree in a temporary directory, once with ``--lambda_spk``
-    on a seeded GE2E .npz; each exported, and converted with through
-    ``Converter`` in bfloat16 and in float32."""
+    on a seeded GE2E .npz (the d-vector in the scan forms), the launch
+    counts set to 0 before each run and read after it; each exported, and
+    converted through ``Converter`` in bfloat16 and in float32."""
     from autovc_tpu_torch.cli import train as cli_train
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_bf16_")
@@ -2454,19 +2519,20 @@ def phase_bf16_cli(dev: torch.device) -> dict:
         for name, extra in (("base", []), ("lambda_spk", ["--lambda_spk", "1.0", "--spk_ckpt", ckpt])):
             export = os.path.join(tmp, f"{name}.npz")
             torch.cuda.synchronize()
-            before = bf16_counts()
+            zero_counts()
             t0 = time.perf_counter()
             cli_train.main(["--main_dir", tmp, "--run_name", name, "--bf16", "--num_iters", "3", "--batch_size",
                             str(TRAIN_B), "--len_crop", str(TRAIN_T), "--log_step", "1", "--checkpoint_step", "3",
                             "--export", export, *extra])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launched = tuple(a - b for a, b in zip(bf16_counts(), before))
+            launched, scan = bf16_counts(), (lstm_ops.scan_launches, lstm_ops.scan_bwd_launches)
             # the generator's 11 sequences a step, each forward, gates, backward
             # and dW; with lambda_spk 7 more, the eval-mode conversion's, whose
-            # gradient reaches the generator (the float32 d-vector's are not
-            # bfloat16 launches)
+            # gradient reaches the generator, and the bfloat16 d-vector's 3 a
+            # step in the scan forms, forward and backward (no dW)
             want = (3 * (SEQS_PER_STEP + 7 * bool(extra)),) * 4
+            want_scan = (3 * 3 * bool(extra),) * 2
             mels = {}
             for dtype in ("bfloat16", "float32"):
                 model_cfg = ModelConfig(compute_dtype=dtype)
@@ -2474,20 +2540,254 @@ def phase_bf16_cli(dev: torch.device) -> dict:
                 mels[dtype] = np.stack(Converter(gen, model_cfg).convert_batch(specs, batch_size=4))
             delta = float(np.abs(mels["bfloat16"] - mels["float32"]).max())
             log(f"cli.train --bf16 {' '.join(extra[:2])}: 3 steps in {wall:.2f} s wall, launches (bf16 fwd, gates, "
-                f"bf16 bwd, dW) {launched}; exported {os.path.getsize(export)} bytes; converted 4 mels of {TRAIN_T} "
-                f"frames in bf16 and f32: max-abs {delta:.4f} apart")
-            if launched != want:
-                raise AssertionError(f"cli.train --bf16 {extra[:2]} launched {launched}, expected {want}")
+                f"bf16 bwd, dW) {launched}, scan forms (fwd, bwd) {scan}; exported {os.path.getsize(export)} bytes; "
+                f"converted 4 mels of {TRAIN_T} frames in bf16 and f32: max-abs {delta:.4f} apart")
+            if launched != want or scan != want_scan:
+                raise AssertionError(f"cli.train --bf16 {extra[:2]} launched {launched}, scan forms {scan}, expected "
+                                     f"{want}, {want_scan}")
             for dtype, m in mels.items():
                 if m.shape != (4, TRAIN_T, N_MELS) or not np.isfinite(m).all():
                     raise AssertionError(f"conversion in {dtype} with the exported generator: {m.shape}")
-            out[name] = {"wall_s": wall, "launches": launched, "bf16_f32_mel_delta": delta}
+            out[name] = {"wall_s": wall, "launches": launched, "scan_launches": scan, "bf16_f32_mel_delta": delta}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if os.path.exists(tmp):
         raise AssertionError(f"{tmp} was not removed")
     return out
 
+
+
+# 8d: the scan rounding's forms (the d-vector in bfloat16: JAX's DVector
+# follows its input's dtype and runs _lstm_scan, every op rounded to
+# bfloat16, on the bfloat16 generator's conversion) at the d-vector's shapes,
+# each against its plain loop: the first SCAN_STEPS steps each direction
+# takes >= 99% bit-equal and within 1 bfloat16 ulp or the plain loop's own
+# largest ulps there (floored at 2^-16 of the peak forward, BWD_FLOOR
+# backward), the sequence within SCAN_SPREAD times the plain loop's own
+# spread (its largest distance from itself with the hidden units relabelled
+# in SCAN_RELABELLINGS ways: tests/test_torch_gpu.py's rule). At B=1 a flip
+# in a bfloat16 carry happens in few orders of the sums (H100, 700 W: 1 in
+# 32 at H=768 reverse), so the spread takes 32; h_seq, c_seq and act (the
+# residuals the backward reads), the backward on the plain residuals and
+# on the kernel's own (the two composed, as LSTMSequenceFn runs them; its
+# first steps are not held bit-equal: the residuals carry the forward's
+# flips); then the bfloat16 lambda_spk step
+SCAN_STEPS, SCAN_SPREAD, SCAN_RELABELLINGS = 16, 2.0, 32
+# LSTM launches of one bfloat16 lambda_spk step, in LSTM_COUNTERS' order: the
+# generator's 18 sequences in the bfloat16 forms (7 for the conversion, 11 in
+# training form), the frozen d-vector's 3 in the scan forms, no dW for them
+BF16_SPK_STEP_COUNTS = (21, 18, 3, 21, 18, 3, 18, 18)
+
+
+def scan_fwd_work(b: int, t: int, h: int) -> tuple[float, float]:
+    """(flops, bytes) of one scan-form training forward: the recurrent
+    product (bfloat16 h and w_hh, float32 sums); xproj, w_hh and h_seq in
+    bfloat16, the residuals c_seq and act written as float32."""
+    return 2.0 * b * t * h * 4 * h, 2.0 * (b * t * 4 * h + h * 4 * h + b * t * h) + 4.0 * (b * t * h + b * t * 4 * h)
+
+
+def scan_bwd_work(b: int, t: int, h: int) -> tuple[float, float]:
+    """(flops, bytes) of one scan-form backward (no dW): the dh contraction
+    (bfloat16 operands, float32 sums); act and c_seq read as float32, dy and
+    w_hh in bfloat16, dxproj written in bfloat16 and the gate gradients it
+    exchanges in float32."""
+    return (2.0 * b * t * 4 * h * h,
+            4.0 * (b * t * 4 * h + b * t * h + b * t * 4 * h) + 2.0 * (b * t * h + h * 4 * h + b * t * 4 * h))
+
+
+def scan_plain(x, w, dy, reverse, perm=None):
+    """The plain scan forward's (h_seq, c_seq, act) and its backward's
+    dxproj, the hidden units relabelled by ``perm`` (and back) when given."""
+    if perm is not None:
+        cols = torch.cat([perm + g * len(perm) for g in range(4)])
+        x, w, dy = x[..., cols], w[perm][:, cols], dy[..., perm]
+    h_seq, c_seq, act, _, _ = lstm_ops.lstm_scan_bf16_train_ref(x, w, reverse=reverse)
+    dx = lstm_ops.lstm_scan_bf16_backward_ref(w, act, c_seq, None, dy, reverse=reverse)[0]
+    if perm is not None:
+        inv = torch.argsort(perm)
+        inv4 = torch.cat([inv + g * len(inv) for g in range(4)])
+        h_seq, c_seq, act, dx = h_seq[..., inv], c_seq[..., inv], act[..., inv4], dx[..., inv4]
+    return h_seq, c_seq, act, dx
+
+
+def scan_gate(got, want, others, first, floor, equal_gated=True) -> dict:
+    """The scan rule of one output: its first steps' ulps against the plain
+    loop's own (``others``: the relabelled plain loops), its bit-equal share
+    there (not gated with ``equal_gated`` False), its distance against the
+    plain loop's own spread; ``ok``."""
+    ulps, equal = bf16_ulps(got[:, first].float(), want[:, first].float(), floor)
+    own_ulps = max(bf16_ulps(o[:, first].float(), want[:, first].float(), floor)[0] for o in others)
+    spread = max((o.float() - want.float()).abs().max().item() for o in others)
+    apart = (got.float() - want.float()).abs().max().item()
+    ok = bool(ulps <= max(LSTM_BF16_ULPS, own_ulps) and (equal >= LSTM_BF16_EQUAL or not equal_gated)
+              and apart <= SCAN_SPREAD * spread)
+    return {"ulps": ulps, "own_ulps": own_ulps, "equal": equal, "apart": apart, "spread": float(spread), "ok": ok}
+
+
+def phase_scan_kernels(dev: torch.device, trained: bool) -> tuple[dict, dict]:
+    """8d: the scan forms at the d-vector's widths and batches (T=128), each
+    against its plain loop on the card by the scan rule, timed (CUDA events,
+    device time) beside the plain loops, the bound and cuDNN's bfloat16
+    LSTM (one layer: the forward alone, the backward alone); the bfloat16
+    d-vector's forward (three scan sequences) beside the float32 one and
+    cuDNN's bfloat16 3-layer LSTM."""
+    rng = np.random.RandomState(85)
+    fwd, bwd = {"max_abs_err": 0.0, "shapes": []}, {"max_abs_err": 0.0, "shapes": []}
+    for hidden in SPK_WIDTHS:
+        dvec = speaker_encoder(dev, trained, hidden)
+        lim = 1.0 / np.sqrt(hidden)
+        w = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev).to(BF16)
+        for b in SPK_BATCHES:
+            x = torch.from_numpy((rng.randn(b, SPK_T, 4 * hidden) * 0.5).astype(np.float32)).to(dev).to(BF16)
+            dy = torch.from_numpy(rng.randn(b, SPK_T, hidden).astype(np.float32)).to(dev).to(BF16)
+            cases = {}
+            for reverse in (False, True):
+                got = lstm_ops.lstm_scan_forward_cuda(x, w, reverse=reverse, with_residuals=True)
+                plan = plan_line("fwd")
+                want = scan_plain(x, w, dy, reverse)
+                dx = lstm_ops.lstm_scan_backward_cuda(w, want[2].float(), want[1].float(), None, dy, reverse=reverse)[0]
+                b_plan = plan_line("bwd")
+                # the two kernels composed as LSTMSequenceFn runs them: the
+                # forward's own residuals into the backward
+                dx_both = lstm_ops.lstm_scan_backward_cuda(w, got[2], got[1], None, dy, reverse=reverse)[0]
+                torch.cuda.synchronize()
+                for res in got[1:3]:
+                    if res.dtype != torch.float32 or not torch.equal(res, res.to(BF16).float()):
+                        raise AssertionError(f"scan forward H={hidden} B={b}: a residual not bfloat16 values in "
+                                             f"float32 ({res.dtype})")
+                others = [scan_plain(x, w, dy, reverse,
+                                     torch.from_numpy(np.random.RandomState(k).permutation(hidden)).to(dev))
+                          for k in range(SCAN_RELABELLINGS)]
+                early, late = slice(0, SCAN_STEPS), slice(SPK_T - SCAN_STEPS, SPK_T)
+                f_first, b_first = (late, early) if reverse else (early, late)
+                held = {name: scan_gate(v, want[i], [o[i] for o in others], f_first, 2.0 ** -16)
+                        for i, (name, v) in enumerate((("h_seq", got[0]), ("c_seq", got[1].to(BF16)),
+                                                       ("act", got[2].to(BF16))))}
+                held["dxproj"] = scan_gate(dx, want[3], [o[3] for o in others], b_first, BWD_FLOOR)
+                # its first steps read residuals that carry the forward's flips,
+                # so only their ulps and the spread are held
+                held["dxproj composed"] = scan_gate(dx_both, want[3], [o[3] for o in others], b_first, BWD_FLOOR,
+                                                    equal_gated=False)
+                cases[reverse] = held
+                log(f"lstm scan H={hidden} B={b} {'reverse' if reverse else 'forward'}: "
+                    + "; ".join(f"{k} {json.dumps(v)}" for k, v in held.items()) + f"; fwd {plan}; bwd {b_plan}")
+                if not all(v["ok"] for v in held.values()):
+                    raise AssertionError(f"scan forms H={hidden} B={b} reverse={reverse}: {held}")
+            # times of the forward direction, the d-vector's
+            act, c_seq = want[2].float(), want[1].float()
+            fwd_fn = functools.partial(lstm_ops.lstm_scan_forward_cuda, x, w, with_residuals=True)
+            bwd_fn = functools.partial(lstm_ops.lstm_scan_backward_cuda, w, act, c_seq, None, dy)
+            h0 = torch.zeros(b, hidden, device=dev)
+            lib_fwd_ms, lib_bwd_ms = cudnn_train_parts_ms(dev, hidden, h0, h0, dy, BF16)
+            f = dict(ms=cuda_ms(fwd_fn, 5), device_ms=device_ms(fwd_fn, 5),
+                     plain_ms=cuda_ms(lambda: lstm_ops.lstm_scan_bf16_train_ref(x, w), 1), library_ms=lib_fwd_ms)
+            bk = dict(ms=cuda_ms(bwd_fn, 5), device_ms=device_ms(bwd_fn, 5),
+                      plain_ms=cuda_ms(lambda: lstm_ops.lstm_scan_bf16_backward_ref(w, want[2], want[1], None, dy), 1),
+                      library_ms=lib_bwd_ms)
+            f["bound_ms"], f["bound_by"] = bf16_bound(*scan_fwd_work(b, SPK_T, hidden))
+            bk["bound_ms"], bk["bound_by"] = bf16_bound(*scan_bwd_work(b, SPK_T, hidden))
+            # the bfloat16 d-vector's forward: three scan sequences
+            mel = torch.from_numpy(rng.rand(b, SPK_T, N_MELS).astype(np.float32)).to(dev)
+            with torch.inference_mode():
+                net = torch.nn.LSTM(N_MELS, hidden, 3, batch_first=True).to(dev, BF16)
+                mel_bf = mel.to(BF16)
+                dvec_bf_ms = cuda_ms(lambda: dvec(mel_bf), reps=SPK_REPS)
+                dvec_f32_ms = cuda_ms(lambda: dvec(mel), reps=SPK_REPS)
+                lib3_ms = cuda_ms(lambda: net(mel_bf), reps=SPK_REPS)
+                e = dvec(mel_bf)
+            if e.dtype != torch.float32 or not torch.isfinite(e).all():
+                raise AssertionError(f"the bfloat16 d-vector's embeddings: {e.dtype}")
+            err_f = max(c[k]["apart"] for c in cases.values() for k in ("h_seq", "c_seq", "act"))
+            err_b = max(c[k]["apart"] for c in cases.values() for k in ("dxproj", "dxproj composed"))
+            for rec, vals, err in ((fwd, f, err_f), (bwd, bk, err_b)):
+                rec["shapes"].append(dict(hidden=hidden, batch=b, max_abs_err=err, **vals))
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            fwd["shapes"][-1].update(dvector_bf16_ms=dvec_bf_ms, dvector_f32_ms=dvec_f32_ms,
+                                     cudnn_bf16_3layer_ms=lib3_ms)
+            log(f"lstm scan H={hidden} B={b} T={SPK_T} times (ms): forward {f['ms']:.4f} ({f['device_ms']:.4f} device; "
+                f"plain {f['plain_ms']:.2f}; bound {f['bound_ms']:.4f} {f['bound_by']}; cuDNN bf16 1-layer forward "
+                f"{lib_fwd_ms:.4f}), backward without dW {bk['ms']:.4f} ({bk['device_ms']:.4f} device; plain "
+                f"{bk['plain_ms']:.2f}; bound {bk['bound_ms']:.4f} {bk['bound_by']}; cuDNN bf16 backward "
+                f"{lib_bwd_ms:.4f}); the bf16 d-vector forward {dvec_bf_ms:.4f} (f32 {dvec_f32_ms:.4f}; cuDNN bf16 "
+                f"3-layer LSTM {lib3_ms:.4f}) (card: {card_line()})")
+    return fwd, bwd
+
+
+def phase_bf16_speaker_training(dev: torch.device) -> dict:
+    """8e: phase 6d's Solver with compute_dtype bfloat16 and lambda_spk=1.0
+    ('windowed') on a seeded 80/768/256 encoder: one step's launches (the
+    generator's bfloat16 forms, the d-vector's scan forms), SPK_STEPS steps
+    with the auxiliary and as many without (p50, p95), the device split of a
+    warm step."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_bf16_spk_")
+    try:
+        mel_dir = synthetic_spmel(tmp, np.random.RandomState(71))
+        ckpt = os.path.join(tmp, "ge2e_seeded.npz")
+        save_dvector_artifact(speaker_encoder(torch.device("cpu"), False, 768).state_dict(), ckpt)
+        base = dict(batch_size=TRAIN_B, len_crop=TRAIN_T, num_iters=SPK_STEPS, log_step=1, checkpoint_step=10_000)
+        model_cfg = ModelConfig(compute_dtype="bfloat16")
+        cfg = Config(model=model_cfg, train=TrainConfig(**base, lambda_spk=1.0, spk_protocol="windowed",
+                                                        spk_ckpt=ckpt), main_dir=tmp, run_name="spk")
+        data = UtteranceDataset(mel_dir)
+        solver = Solver(cfg, BatchIterator(data, TRAIN_B, TRAIN_T, seed=2), run_dir=os.path.join(tmp, "run"),
+                        device=dev)
+        x, emb = (torch.from_numpy(a).to(dev) for a in next(BatchIterator(data, TRAIN_B, TRAIN_T, seed=1)))
+        torch.cuda.synchronize()
+        zero_counts()
+        solver.train()
+        torch.cuda.synchronize()
+        got = all_counts()
+        hist = solver.history
+        want = tuple(SPK_STEPS * n for n in BF16_SPK_STEP_COUNTS)
+        if got != want or len(hist) != SPK_STEPS or not all(np.isfinite(h["g_loss_spk"]) for h in hist):
+            raise AssertionError(f"{SPK_STEPS} bf16 lambda_spk steps launched {dict(zip(LSTM_COUNTERS, got))}, "
+                                 f"expected {dict(zip(LSTM_COUNTERS, want))}; history {hist[-1:]}")
+        timing = solver.timer.summary()
+        ref = Solver(Config(model=model_cfg, train=TrainConfig(**base), main_dir=tmp, run_name="base"),
+                     BatchIterator(data, TRAIN_B, TRAIN_T, seed=2), run_dir=os.path.join(tmp, "run0"), device=dev)
+        ref.train()
+        ref_timing = ref.timer.summary()
+        rows, wall_us, launched = device_activity(lambda: solver._step_fn(solver.state, x, emb), counter=all_counts)
+        if launched != BF16_SPK_STEP_COUNTS:
+            raise AssertionError(f"the profiled bf16 lambda_spk step launched {launched}")
+        missing, kinds = lstm_records(rows, (launched[0], launched[3], launched[6], launched[7]), BF16_KINDS)
+        busy = sum(t for _, _, t in rows) + missing
+        log(f"bf16 lambda_spk (e) {SPK_STEPS} Solver steps (windowed, B={TRAIN_B}, T={TRAIN_T}): launches "
+            f"{dict(zip(LSTM_COUNTERS, got))}; g_loss_spk {hist[0]['g_loss_spk']:.4f} -> "
+            f"{hist[-1]['g_loss_spk']:.4f}; step p50 {timing['step_ms_p50']:.2f} ms, p95 {timing['step_ms_p95']:.2f} "
+            f"ms; without lambda_spk p50 {ref_timing['step_ms_p50']:.2f} ms, p95 {ref_timing['step_ms_p95']:.2f} ms; "
+            f"one warm step: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall (idle share "
+            f"{1 - busy / wall_us:.3f}); "
+            + ", ".join(f"{k} {m * n / 1e3:.3f} ms ({r} of {n} recorded)" for k, (m, r, n) in kinds.items())
+            + f" (card: {card_line()})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        raise AssertionError(f"{tmp} was not removed")
+    return {"launches": dict(zip(LSTM_COUNTERS, got)), "step_ms_p50": timing["step_ms_p50"],
+            "step_ms_p95": timing["step_ms_p95"], "base_step_ms_p50": ref_timing["step_ms_p50"],
+            "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us}
+
+
+def scan_entries(fwd: dict, bwd: dict, cli_launches: tuple[int, int], spk: dict) -> list[dict]:
+    """The scan forms' lines of the kernels JSON: launches on 8c's main path
+    (``cli.train --bf16 --lambda_spk``), the times a sequence at the
+    lambda_spk step's d-vector shape (H=768, B=7, T=128), every shape of 8d
+    beside them, 8e's step."""
+    entries = []
+    for name, rec, launched, source in (
+            ("lstm_fwd_scan", fwd, cli_launches[0], "lstm_fwd.cu"), ("lstm_bwd_scan", bwd, cli_launches[1],
+                                                                       "lstm_bwd.cu")):
+        head = next(r for r in rec["shapes"] if (r["hidden"], r["batch"]) == (768, TRAIN_B))
+        entries.append({
+            "name": name, "route": "cuda", "source": f"autovc_tpu_torch/ops/csrc/{source}",
+            "replaces": "autovc_tpu/models/layers.py:123 (_lstm_scan, the lax.scan JAX's DVector runs in bfloat16; "
+                        "no Pallas kernel)",
+            "launches": launched, "max_abs_err": rec["max_abs_err"], "ms": head["device_ms"],
+            "events_ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shapes": rec["shapes"],
+            "bf16_spk_step": spk})
+    return entries
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2547,6 +2847,8 @@ def main(argv: list[str] | None = None) -> int:
     bf_fwd_train, bf_gates, bf_bwd_train = phase_bf16_train_kernels(dev)
     bf_train = phase_bf16_training(dev)
     bf_cli = phase_bf16_cli(dev)
+    scan_fwd, scan_bwd = phase_scan_kernels(dev, args.trained)
+    bf_spk = phase_bf16_speaker_training(dev)
     log(f"phase 8 (bfloat16 training): {time.perf_counter() - t0:.1f} s")
     lstm_bound, lstm_bound_by = bound_ms(record["flops"], record["bytes"])
     fwd_train_bound, _ = bound_ms(fwd_train["flops"], fwd_train["bytes"])
@@ -2652,7 +2954,7 @@ def main(argv: list[str] | None = None) -> int:
         "launches_by_path": {"train_bf16": bf_train_gates, "cli_train_bf16": cli_launches[1]},
         "library_ms": None,
         **bf_gates,
-    }, {
+    }, *scan_entries(scan_fwd, scan_bwd, bf_cli["lambda_spk"]["scan_launches"], bf_spk), {
         "name": "wavenet_gen",
         "route": "cuda",
         "source": "autovc_tpu_torch/ops/csrc/wavenet_gen.cu",

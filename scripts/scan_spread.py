@@ -1,0 +1,117 @@
+"""How far the LSTM kernels' scan forms (``ops.lstm.lstm_scan_forward_cuda``,
+``lstm_scan_backward_cuda``: the d-vector in bfloat16) and their plain loop
+can lie apart by rounding alone, on the card, at B=1, T=128 and the
+d-vector's widths (H=768, 256), both directions:
+
+    python3 scripts/scan_spread.py [--seeds 1001 1002] [--relabellings 32]
+
+For each case, of h_seq and of dxproj (the backward on the plain forward's
+residuals): the kernel's largest distance from the plain loop; the plain
+loop's own distances with its hidden units relabelled (the same network,
+its sums in another order), how many of them are 0 and the largest; the
+kernel's distances on the relabelled inputs; and where each first departs
+from the plain loop in its order of steps (the step, its largest ulps
+there, floored as in ``chip_smoke.py`` 8d, and how many elements differ).
+A kernel that computes another function departs at its first step by more
+than a rounding flip; one that sums in another order departs by a flip.
+One JSON line per case, after the card's name and power limit. Needs a
+CUDA card and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from autovc_tpu_torch.ops import lstm as lstm_ops  # noqa: E402
+from chip_smoke import BWD_FLOOR, bf16_ulps, scan_plain  # noqa: E402
+
+T, WIDTHS = 128, (768, 256)
+
+
+def kernels(x, w, dy, reverse, perm=None):
+    """The scan forward's h_seq and the scan backward's dxproj on the plain
+    forward's residuals, on inputs relabelled by ``perm`` (and back)."""
+    if perm is not None:
+        cols = torch.cat([perm + g * len(perm) for g in range(4)])
+        x, w, dy = x[..., cols], w[perm][:, cols], dy[..., perm]
+    h_seq = lstm_ops.lstm_scan_forward_cuda(x, w, reverse=reverse)[0]
+    _, c_seq, act, _, _ = lstm_ops.lstm_scan_bf16_train_ref(x, w, reverse=reverse)
+    dx = lstm_ops.lstm_scan_backward_cuda(w, act.float(), c_seq.float(), None, dy, reverse=reverse)[0]
+    if perm is not None:
+        inv = torch.argsort(perm)
+        h_seq, dx = h_seq[..., inv], dx[..., torch.cat([inv + g * len(inv) for g in range(4)])]
+    return h_seq, dx
+
+
+def departure(got, want, steps, floor) -> list:
+    """[step, ulps, elements differing] of the first step in ``steps`` where
+    ``got`` leaves ``want``, or None."""
+    for s in steps:
+        g, v = got[:, s].float(), want[:, s].float()
+        if not torch.equal(g, v):
+            return [s, bf16_ulps(g, v, floor)[0], int((g != v).sum())]
+    return None
+
+
+def case(tag: str, x, w, dy, reverse: bool, relabellings: int) -> dict:
+    hidden = w.shape[0]
+    want = scan_plain(x, w, dy, reverse)
+    got = kernels(x, w, dy, reverse)
+    fwd_steps = range(T - 1, -1, -1) if reverse else range(T)
+    bwd_steps = range(T) if reverse else range(T - 1, -1, -1)
+    outs = (("h_seq", 0, 0, fwd_steps, 2.0 ** -16), ("dxproj", 3, 1, bwd_steps, BWD_FLOOR))
+    rec = {"case": tag, "H": hidden, "reverse": reverse}
+    own = {name: [] for name, *_ in outs}
+    relabelled = {name: [] for name, *_ in outs}
+    for k in range(relabellings):
+        perm = torch.from_numpy(np.random.RandomState(k).permutation(hidden)).to(x.device)
+        plain_k, kern_k = scan_plain(x, w, dy, reverse, perm), kernels(x, w, dy, reverse, perm)
+        for name, i, j, steps, floor in outs:
+            own[name].append((float((plain_k[i].float() - want[i].float()).abs().max()),
+                              departure(plain_k[i], want[i], steps, floor)))
+            relabelled[name].append(float((kern_k[j].float() - want[i].float()).abs().max()))
+    for name, i, j, steps, floor in outs:
+        dists = [d for d, _ in own[name]]
+        rec[name] = {"kernel": float((got[j].float() - want[i].float()).abs().max()),
+                     "kernel_departs": departure(got[j], want[i], steps, floor),
+                     "own_zero": sum(d == 0 for d in dists), "own_max": max(dists),
+                     "own_departs": [p for _, p in own[name] if p is not None],
+                     "kernel_relabelled": sorted(relabelled[name])}
+    return rec
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--seeds", type=int, nargs="+", default=[1001, 1002])
+    ap.add_argument("--relabellings", type=int, default=32)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("scan_spread: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0], flush=True)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    for seed in args.seeds:
+        rng = np.random.RandomState(seed)
+        for hidden in WIDTHS:
+            lim = 1.0 / np.sqrt(hidden)
+            w = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev).to(bf16)
+            x = torch.from_numpy((rng.randn(1, T, 4 * hidden) * 0.5).astype(np.float32)).to(dev).to(bf16)
+            dy = torch.from_numpy(rng.randn(1, T, hidden).astype(np.float32)).to(dev).to(bf16)
+            for reverse in (False, True):
+                print(json.dumps(case(f"seed {seed}", x, w, dy, reverse, args.relabellings)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -803,15 +803,21 @@ def _bf16_close(got, want, max_ulps=1.0, equal_share=0.99, floor=2.0 ** -16):
     bit-equal."""
     assert got.dtype == want.dtype == BF
     g, w = got.double(), want.double()
-    peak = w.abs().max().item()
-    if peak == 0:
+    if w.abs().max().item() == 0:
         assert torch.equal(g, w)
         return
-    scale = torch.clamp(w.abs(), min=floor * peak)
-    # the exponent by frexp, exact (log2 on the card may round 2^k below k)
-    ulps = ((g - w).abs() / torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)).max().item()
+    ulps = _bf16_ulps(got, want, floor)
     equal = (g == w).double().mean().item()
     assert ulps <= max_ulps and equal >= equal_share, (ulps, equal)
+
+
+def _bf16_ulps(got, want, floor=2.0 ** -16) -> float:
+    """The largest |got - want| in bfloat16 ulps of want (of ``floor``
+    times want's largest magnitude where want is smaller)."""
+    g, w = got.double(), want.double()
+    scale = torch.clamp(w.abs(), min=floor * w.abs().max().item())
+    # the exponent by frexp, exact (log2 on the card may round 2^k below k)
+    return ((g - w).abs() / torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)).max().item()
 
 
 def _bf16_inputs(seed, b, t, hidden, device):
@@ -1119,6 +1125,190 @@ def test_lstm_gates_kernel_matches_plain(cuda, b, t, hidden, reverse, h0_kind):
     torch.cuda.synchronize()
     assert lstm_ops.gates_launches == before + 1 and got.dtype == torch.float32
     torch.testing.assert_close(got, lstm_ops.lstm_gates_ref(x, w, h0, h_seq, reverse), atol=GATES_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("h0_kind", ["zero", "nonzero"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t", [1, 127, 128, 200])
+@pytest.mark.parametrize("b", [1, 7])
+@pytest.mark.parametrize("hidden", [32, 256, 512, 768, 1024])
+def test_lstm_gates_kernel_tiles(cuda, hidden, b, t, reverse, h0_kind):
+    """The gates kernel's TMA boxes and wgmma tiles (``ops.lstm.gates_plan``:
+    128 steps of one batch row by 128 or 256 columns) against
+    ``lstm_gates_ref`` within GATES_TOL: a sequence shorter than a tile
+    (T=1, 127), exactly one (128), a tile and a part (200); one batch row
+    and seven; the box one step off zero-filled at either end; both tile
+    widths (H=1024 at B=7 is 128 x 256)."""
+    x, w, h0 = _bf16_train_inputs(33, b, t, hidden, cuda)[:3]
+    h0 = None if h0_kind == "zero" else h0
+    h_seq = lstm_ops.lstm_sequence_train_ref(x, w, h0, None, reverse)[0]
+    before = lstm_ops.gates_launches
+    got = lstm_ops.lstm_gates_cuda(x, w, h0, h_seq, reverse)
+    torch.cuda.synchronize()
+    assert lstm_ops.gates_launches == before + 1
+    torch.testing.assert_close(got, lstm_ops.lstm_gates_ref(x, w, h0, h_seq, reverse), atol=GATES_TOL, rtol=0)
+
+
+def test_lstm_gates_kernel_raises_for_what_tma_refuses(cuda):
+    """H % 8 != 0 (TMA's 16-byte strides) raises before a launch; a
+    misaligned view is copied to an aligned one first (``_dense``), and the
+    kernel itself refuses misaligned pointers and a tile width it has no
+    form for."""
+    x, w = _bf16_inputs(34, 2, 6, 12, cuda)
+    h_seq = torch.zeros((2, 6, 12), device=cuda, dtype=BF)
+    before = lstm_ops.gates_launches
+    with pytest.raises(ValueError, match="H % 8"):
+        lstm_ops.lstm_gates_cuda(x, w, None, h_seq)
+    assert lstm_ops.gates_launches == before
+    x, w = _bf16_inputs(35, 2, 6, 16, cuda)
+    h_seq = lstm_ops.lstm_sequence_ref(x, w)
+    shifted = torch.empty(x.numel() + 1, device=cuda, dtype=BF)[1:].view_as(x)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    torch.testing.assert_close(lstm_ops.lstm_gates_cuda(shifted, w, None, h_seq),
+                               lstm_ops.lstm_gates_ref(x, w, None, h_seq), atol=GATES_TOL, rtol=0)
+    lib = lstm_ops._library("lstm_gates")
+    act = torch.empty((2, 6, 64), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for nsub, hp in ((1, h_seq.data_ptr() + 2), (3, h_seq.data_ptr())):
+        err = lib.autovc_lstm_gates(x.data_ptr(), w.data_ptr(), None, hp, act.data_ptr(), 2, 6, 16, 0, nsub, stream)
+        assert err == lstm_ops._ERR_PLAN
+
+
+# The scan rounding's kernels (the d-vector's bfloat16 form) against their
+# plain loops on the card. The plain loop's own spread is its distance from
+# itself with the hidden units relabelled in RELABELLINGS ways (the same
+# network, its sums in another order). The first SCAN_STEPS steps each
+# direction takes: >= 99% bit-equal and within 1 bfloat16 ulp (floored at
+# 2^-16 of the peak for the forward, at BWD_FLOOR for the backward), or
+# within the plain loop's own largest ulps there where those are more: a
+# bfloat16 carry keeps a flip, and each op after it rounds again, so an
+# element near zero inherits its inputs' absolute error (H100, 700 W: the
+# forward 21.5 ulps at H=768 reverse, 1.3e-6 of an element near zero; the
+# backward 2 ulps). The whole sequence within SPREAD_MULT times the plain
+# loop's own spread: at B=1 a flip in the carry happens in few orders of the
+# sums (H100, 700 W: 1 in 32 at H=768 reverse), so the spread takes 32.
+SCAN_STEPS, SPREAD_MULT, RELABELLINGS = 16, 2.0, 32
+SCAN_SHAPES = [(7, 128, 32), (1, 128, 256), (7, 128, 256), (8, 128, 768), (7, 128, 768)]
+
+
+def _scan_plain(x, w, dy, reverse, perm=None):
+    """The plain scan forward (h_seq, c_seq, act) and backward (dxproj), with
+    the hidden units relabelled by ``perm`` (and back) when given."""
+    if perm is not None:
+        cols = torch.cat([perm + g * len(perm) for g in range(4)])
+        x, w, dy = x[..., cols], w[perm][:, cols], dy[..., perm]
+    h_seq, c_seq, act, _, _ = lstm_ops.lstm_scan_bf16_train_ref(x, w, reverse=reverse)
+    dx = lstm_ops.lstm_scan_bf16_backward_ref(w, act, c_seq, None, dy, reverse=reverse)[0]
+    if perm is not None:
+        inv = torch.argsort(perm)
+        inv4 = torch.cat([inv + g * len(inv) for g in range(4)])
+        h_seq, c_seq, act, dx = h_seq[..., inv], c_seq[..., inv], act[..., inv4], dx[..., inv4]
+    return h_seq, c_seq, act, dx
+
+
+def _scan_inputs(seed, b, t, hidden, device):
+    x, w = _bf16_inputs(seed, b, t, hidden, device)
+    dy = torch.from_numpy(np.random.RandomState(seed + 1).randn(b, t, hidden).astype(np.float32)).to(device).to(BF)
+    return x, w, dy
+
+
+def _hold_scan(got, want, others, first, floor):
+    """The first steps within 1 ulp, or the relabelled plain loops' (``others``)
+    largest ulps there, and 99% bit-equal; the sequence within SPREAD_MULT
+    times their largest distance from ``want``."""
+    own_ulps = max(_bf16_ulps(o[:, first], want[:, first], floor) for o in others)
+    _bf16_close(got[:, first], want[:, first], max_ulps=max(1.0, own_ulps), floor=floor)
+    spread = max(float((o.float() - want.float()).abs().max()) for o in others)
+    apart = float((got.float() - want.float()).abs().max())
+    assert apart <= SPREAD_MULT * spread, (apart, spread)
+    return apart, spread, own_ulps
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t, hidden", SCAN_SHAPES)
+def test_lstm_scan_kernels_match_plain(cuda, b, t, hidden, reverse):
+    """The forward's scan form (regime (a) at H=32, (b) at the d-vector's
+    256 and 768) and the backward's (no dW) against
+    ``lstm_scan_bf16_train_ref`` and ``lstm_scan_bf16_backward_ref``; the
+    backward on the plain forward's residuals, so that each kernel is held
+    alone. The residuals c_seq and act within the same rule."""
+    x, w, dy = _scan_inputs(36, b, t, hidden, cuda)
+    plan = lstm_ops.launch_plan(b, hidden, "fwd", lstm_ops._card_sms(0), 2)
+    assert plan.regime == ("a" if hidden == 32 else "b")
+    before = [lstm_ops.launches, lstm_ops.scan_launches, lstm_ops.bwd_launches, lstm_ops.scan_bwd_launches,
+              lstm_ops.bf16_launches, lstm_ops.dw_launches]
+    h_seq, c_seq, act, hn, cn = lstm_ops.lstm_scan_forward_cuda(x, w, reverse=reverse, with_residuals=True)
+    want = _scan_plain(x, w, dy, reverse)
+    dx = lstm_ops.lstm_scan_backward_cuda(w, want[2].float(), want[1].float(), None, dy, reverse=reverse)[0]
+    torch.cuda.synchronize()
+    after = [lstm_ops.launches, lstm_ops.scan_launches, lstm_ops.bwd_launches, lstm_ops.scan_bwd_launches,
+             lstm_ops.bf16_launches, lstm_ops.dw_launches]
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 1, 0, 0]
+    others = [_scan_plain(x, w, dy, reverse, torch.from_numpy(np.random.RandomState(k).permutation(hidden)).to(cuda))
+              for k in range(RELABELLINGS)]
+    early, late = slice(0, SCAN_STEPS), slice(t - SCAN_STEPS, t)
+    fwd_first, bwd_first = (late, early) if reverse else (early, late)
+    fwd = _hold_scan(h_seq, want[0], [o[0] for o in others], fwd_first, 2.0 ** -16)
+    for i, got in ((1, c_seq), (2, act)):
+        assert got.dtype == torch.float32 and torch.equal(got, got.to(BF).float())
+        _hold_scan(got.to(BF), want[i], [o[i] for o in others], fwd_first, 2.0 ** -16)
+    torch.testing.assert_close(hn, h_seq[:, 0 if reverse else -1], atol=0, rtol=0)
+    assert hn.dtype == cn.dtype == BF
+    bwd = _hold_scan(dx, want[3], [o[3] for o in others], bwd_first, BWD_FLOOR)
+    print(f"scan B={b} T={t} H={hidden} reverse={reverse}: h_seq {fwd[0]:.2e} (own spread {fwd[1]:.2e}; first "
+          f"steps {_bf16_ulps(h_seq[:, fwd_first], want[0][:, fwd_first]):.1f} ulps, own {fwd[2]:.1f}), dxproj "
+          f"{bwd[0]:.2e} ({bwd[1]:.2e}; {_bf16_ulps(dx[:, bwd_first], want[3][:, bwd_first], BWD_FLOOR):.1f}, "
+          f"own {bwd[2]:.1f})")
+
+
+def test_lstm_scan_function_on_card_runs_the_scan_kernels(cuda):
+    """``LSTMSequenceFn`` in the scan rounding on the card is the two scan
+    kernels, bit for bit: a bfloat16 h0 and c0 in, h_seq out, and the
+    gradients of xproj, h0 and c0, bfloat16; a w_hh that requires grad is
+    refused (the form computes no dW)."""
+    x, w, dy = _scan_inputs(37, 7, 40, 256, cuda)
+    h0, c0 = (torch.from_numpy(np.random.RandomState(s).randn(7, 256).astype(np.float32) * 0.5).to(cuda).to(BF)
+              for s in (38, 39))
+    leaves = [v.clone().requires_grad_() for v in (x, h0, c0)]
+    h_seq, hn, cn = lstm_ops.LSTMSequenceFn.apply(leaves[0], w, leaves[1], leaves[2], False, True)
+    (h_seq.float() * dy.float()).sum().backward()
+    fwd = lstm_ops.lstm_scan_forward_cuda(x, w, h0, c0, with_residuals=True)
+    bwd = lstm_ops.lstm_scan_backward_cuda(w, fwd[2], fwd[1], c0, dy)
+    torch.cuda.synchronize()
+    for got, want in zip([h_seq, hn, cn] + [v.grad for v in leaves], [fwd[0], fwd[3], fwd[4], *bwd]):
+        assert got.dtype == want.dtype == BF and torch.equal(got, want)
+    with pytest.raises(ValueError, match="no dW"):
+        lstm_ops.LSTMSequenceFn.apply(x.clone().requires_grad_(), w.clone().requires_grad_(), None, None, False,
+                                      True)[0].float().sum().backward()
+
+
+@pytest.mark.parametrize("protocol", ["windowed", "crop"])
+def test_bf16_speaker_step_launches_the_scan_forms(cuda, protocol):
+    """A bfloat16 generator's loss with the lambda_spk auxiliary on the card
+    (B=2, T=160, the 80/256/256 x3 d-vector): the generator's 18 sequences
+    (7 for the conversion, 11 in training form) in the bfloat16 forms with
+    their gates, backwards and dW; the d-vector's 3 in the scan forms,
+    forward and backward, and no dW; the auxiliary's loss finite."""
+    from autovc_tpu_torch.config import ModelConfig
+
+    cfg = Config(model=ModelConfig(compute_dtype="bfloat16"),
+                 train=TrainConfig(batch_size=2, len_crop=160, lambda_spk=1.0, spk_protocol=protocol))
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.rand(2, 160, 80).astype(np.float32)).to(cuda)
+    emb = torch.from_numpy(rng.randn(2, 256).astype(np.float32)).to(cuda)
+    table = emb / emb.norm(dim=-1, keepdim=True)
+    model = build_generator(cfg.model, device=cuda, seed=3, trainable=True)
+    dvec = build_dvector(device=cuda, seed=5, dim_cell=256)
+    counters = ("launches", "bf16_launches", "scan_launches", "bwd_launches", "bf16_bwd_launches",
+                "scan_bwd_launches", "dw_launches", "gates_launches")
+    before = [getattr(lstm_ops, c) for c in counters]
+    total, metrics = loss_fn(model, cfg, x, emb, spk=SpeakerAux(dvec, *((table, table) if protocol == "windowed"
+                                                                         else ())))
+    total.backward()
+    torch.cuda.synchronize()
+    assert [getattr(lstm_ops, c) - n for c, n in zip(counters, before)] == [21, 18, 3, 21, 18, 3, 18, 18]
+    assert np.isfinite(float(metrics["g_loss_spk"]))
 
 
 @pytest.mark.parametrize("reverse", [False, True])

@@ -147,7 +147,7 @@ def test_library_path_keyed_by_source_and_flags():
     path = _build.library_path("lstm_fwd")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("lstm_fwd-") and path.suffix == ".so"
-    assert "-arch=sm_90a" in _build.NVCC_FLAGS and "-shared" in _build.NVCC_FLAGS
+    assert "-gencode=arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS and "-shared" in _build.NVCC_FLAGS
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -222,3 +222,71 @@ def test_dw_wrapper_refuses_before_building(monkeypatch):
         lstm_ops.lstm_weight_grad_cuda(h_seq, None, dx)
     with pytest.raises(ValueError, match="h_seq is"):
         lstm_ops.lstm_weight_grad_cuda(torch.zeros(2, 4, 32), None, dx)
+
+
+@pytest.mark.parametrize("batch, time", [(1, 1), (7, 128), (1, 200), (7, 127), (64, 512)])
+@pytest.mark.parametrize("hidden", [8, 32, 256, 512, 768, 1024])
+def test_gates_plan_tiles_cover_the_product(hidden, batch, time):
+    """The gates kernel's blocks: one a (batch row, 128 steps, 128 x nsub
+    columns) tile, every (b, t) and column of 4H covered once; 128 x 256
+    tiles only where they still make GATES_WIDE_BLOCKS blocks."""
+    plan = lstm_ops.gates_plan(batch, time, hidden)
+    rows = batch * -(-time // lstm_ops.GATES_ROWS)
+    cols = -(-4 * hidden // (plan.nsub * lstm_ops.GATES_COLS))
+    assert plan.nsub in (1, 2) and plan.blocks == rows * cols
+    assert (plan.nsub == 2) == (rows * -(-4 * hidden // (2 * lstm_ops.GATES_COLS)) >= lstm_ops.GATES_WIDE_BLOCKS)
+
+
+def test_gates_plan_at_the_training_shapes():
+    """B=7, T=128: H=32 seven 128 x 128 tiles; H=512 112; H=1024 112 of
+    128 x 256."""
+    got = [lstm_ops.gates_plan(7, 128, h) for h in (32, 512, 1024)]
+    assert [(p.nsub, p.blocks) for p in got] == [(1, 7), (1, 112), (2, 112)]
+
+
+def test_scan_wrappers_refuse_before_building(monkeypatch):
+    """The scan forms' wrappers check their inputs (CPU tensors here, a
+    float32 form, a float32 state) before they build anything; the
+    autograd Function refuses the scan rounding in float32."""
+    monkeypatch.setattr(lstm_ops._build, "load", lambda name: pytest.fail("built the kernel"))
+    bf = torch.bfloat16
+    x, w = torch.zeros(2, 3, 128, dtype=bf), torch.zeros(32, 128, dtype=bf)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        lstm_ops.lstm_scan_forward_cuda(x, w)
+    with pytest.raises(TypeError, match="bfloat16 xproj"):
+        lstm_ops.lstm_scan_forward_cuda(x.float(), w.float())
+    with pytest.raises(TypeError, match="h0 is bfloat16"):
+        lstm_ops.lstm_scan_forward_cuda(x, w, h0=torch.zeros(2, 32))
+    act, c_seq, dy = torch.zeros(2, 3, 128), torch.zeros(2, 3, 32), torch.zeros(2, 3, 32, dtype=bf)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        lstm_ops.lstm_scan_backward_cuda(w, act, c_seq, None, dy)
+    with pytest.raises(TypeError, match="residuals"):
+        lstm_ops.lstm_scan_backward_cuda(w, act.to(bf), c_seq, None, dy)
+    with pytest.raises(TypeError, match="bfloat16 form"):
+        lstm_ops.LSTMSequenceFn.apply(x.float(), w.float(), None, None, False, True)
+
+
+def test_scan_function_on_the_cpu_is_the_plain_pair():
+    """``LSTMSequenceFn`` with ``scan`` on CPU tensors runs the scan
+    rounding's plain forward and backward: its outputs and gradients equal
+    ``lstm_scan_bf16_train_ref`` and ``lstm_scan_bf16_backward_ref`` bit for
+    bit, bfloat16, with a bfloat16 h0 and c0; a w_hh that requires grad is
+    refused (no dW)."""
+    bf = torch.bfloat16
+    rng = np.random.RandomState(7)
+    x, h0, c0 = (torch.from_numpy((rng.randn(*s) * 0.5).astype(np.float32)).to(bf)
+                 for s in [(3, 9, 64), (3, 16), (3, 16)])
+    w = torch.from_numpy(rng.uniform(-0.25, 0.25, (16, 64)).astype(np.float32)).to(bf)
+    dy = torch.from_numpy(rng.randn(3, 9, 16).astype(np.float32)).to(bf)
+    for reverse in (False, True):
+        leaves = [v.clone().requires_grad_() for v in (x, h0, c0)]
+        h_seq, hn, cn = lstm_ops.LSTMSequenceFn.apply(leaves[0], w, leaves[1], leaves[2], reverse, True)
+        h_seq.backward(dy)
+        fwd = lstm_ops.lstm_scan_bf16_train_ref(x, w, h0, c0, reverse)
+        bwd = lstm_ops.lstm_scan_bf16_backward_ref(w, fwd[2], fwd[1], c0, dy, torch.zeros_like(h0),
+                                                   torch.zeros_like(c0), reverse)
+        for got, want in zip([h_seq, hn, cn] + [v.grad for v in leaves], [fwd[0], fwd[3], fwd[4], *bwd]):
+            assert got.dtype == want.dtype == bf and torch.equal(got, want)
+    with pytest.raises(ValueError, match="no dW"):
+        lstm_ops.LSTMSequenceFn.apply(x.clone().requires_grad_(), w.clone().requires_grad_(), None, None, False,
+                                      True)[0].float().sum().backward()

@@ -28,6 +28,7 @@ from autovc_tpu.config import TrainConfig as JaxTrainConfig
 from autovc_tpu.data import metadata_builder as jax_builder
 from autovc_tpu.eval import fidelity as jax_fidelity
 from autovc_tpu.models.autovc import Decoder, Encoder, Generator as JaxGenerator, Postnet
+from autovc_tpu.models.layers import _lstm_scan
 from autovc_tpu.models.dvector import DVector as JaxDVector
 from autovc_tpu.models.dvector import dvector_for_params as jax_dvector_for_params
 from autovc_tpu.train import step as jax_step
@@ -43,10 +44,13 @@ from autovc_tpu_torch.eval import fidelity
 from autovc_tpu_torch.io import (dvector_state_from_jax, dvector_state_to_jax, flatten_params,
                                  generator_state_from_jax, save_dvector_artifact)
 from autovc_tpu_torch.models import DVector, build_dvector, build_generator, dvector_for_params
+from autovc_tpu_torch.ops import lstm as lstm_ops
 from autovc_tpu_torch.train import Solver, loss_fn
 from autovc_tpu_torch.train.compare import grad_scale
 from autovc_tpu_torch.train.ge2e import load_params
 from autovc_tpu_torch.train.step import SpeakerAux, windowed_embed
+
+from test_torch_bf16_train import _ulps
 
 torch.set_num_threads(1)
 
@@ -126,6 +130,152 @@ def test_dvector_state_round_trips_the_jax_tree(tmp_path):
         got = build_dvector(tree, device="cpu")(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(jmodel.apply({"params": jparams}, jnp.asarray(x))),
                                atol=DVEC_TOL, rtol=0)
+
+
+# -------------------------------------------------- the d-vector in bfloat16
+
+BF = torch.bfloat16
+# The scan rounding against JAX's: where both round the same float32 value
+# they agree bit for bit; a float32 sum of another order (h @ w_hh over H
+# terms, dgates @ w_hh^T over 4H) lands a value a hair from a rounding
+# boundary on the neighbouring bfloat16 value, and the bfloat16 carry keeps
+# it. So the forward's first SCAN_STEPS steps are held to 1 ulp (floored at
+# 2^-16 of the peak) and >= 99% bit-equal, and both whole sequences to
+# SPREAD_MULT times the plain loop's own spread (the backward starts from the
+# forward's last steps, where the two forwards have parted, and each of its
+# steps rounds dh's sum over 4H to bfloat16, so one flip moves the next steps'
+# small elements by tens of their ulps, on either side):
+# its largest distance from itself with the hidden units relabelled in
+# RELABELLINGS ways (the same network, its sums in another order). Measured
+# at B=7, T=128, H=256 on two seeds: JAX's distance 0-0.016 of h_seq's and
+# dxproj's, 0.00-0.67 of that spread.
+SCAN_STEPS = 16
+SPREAD_MULT = 2.0
+RELABELLINGS = 4
+
+
+def _scan_inputs(seed, b, t, hidden):
+    """bfloat16 xproj, w_hh and dy as float32 numpy arrays, from a seed."""
+    rng = np.random.RandomState(seed)
+    bound = 1.0 / np.sqrt(hidden)
+    arrays = ((rng.randn(b, t, 4 * hidden) * 0.5), rng.uniform(-bound, bound, (hidden, 4 * hidden)),
+              rng.randn(b, t, hidden))
+    return [torch.from_numpy(a.astype(np.float32)).to(BF).float().numpy() for a in arrays]
+
+
+def _port_scan(xproj, w_hh, dy, reverse, perm=None):
+    """The plain forward's h_seq and the backward's dxproj, with the hidden
+    units relabelled by ``perm`` (and relabelled back) when given."""
+    x, w, d = (torch.from_numpy(a).to(BF) for a in (xproj, w_hh, dy))
+    if perm is not None:
+        p = torch.from_numpy(perm)
+        cols = torch.cat([p + g * len(p) for g in range(4)])
+        x, w, d = x[..., cols], w[p][:, cols], d[..., p]
+    h_seq, c_seq, act, _, _ = lstm_ops.lstm_scan_bf16_train_ref(x, w, reverse=reverse)
+    dx = lstm_ops.lstm_scan_bf16_backward_ref(w, act, c_seq, None, d, reverse=reverse)[0]
+    h_seq, dx = h_seq.float().numpy(), dx.float().numpy()
+    if perm is not None:
+        inv = np.argsort(perm)
+        h_seq, dx = h_seq[..., inv], dx[..., np.concatenate([inv + g * len(inv) for g in range(4)])]
+    return h_seq, dx
+
+
+def _jax_scan(xproj, w_hh, dy, reverse):
+    def run(x, w, d):
+        zero = jnp.zeros((x.shape[0], w.shape[0]), x.dtype)
+        y, vjp = jax.vjp(lambda x: _lstm_scan(x, w, zero, zero, reverse), x)
+        return y, vjp(d)[0]
+
+    y, dx = jax.jit(run)(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (xproj, w_hh, dy)))
+    return np.asarray(y.astype(jnp.float32)), np.asarray(dx.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t, hidden", [(8, 24, NARROW_CELL), (7, 128, 256)])
+def test_scan_rounding_matches_jax_lstm_scan(b, t, hidden, reverse):
+    """``lstm_scan_bf16_train_ref`` and ``lstm_scan_bf16_backward_ref``
+    against ``jax.jit`` of ``_lstm_scan`` and its ``jax.vjp`` in bfloat16, at
+    the narrow GE2E width and at the independent encoder's: the forward's
+    first SCAN_STEPS steps within 1 ulp and >= 99% bit-equal, h_seq and
+    dxproj within SPREAD_MULT times the plain loop's own spread (bit-equal
+    where that spread is zero)."""
+    xproj, w_hh, dy = _scan_inputs(b + t + hidden, b, t, hidden)
+    want_h, want_dx = _jax_scan(xproj, w_hh, dy, reverse)
+    got_h, got_dx = _port_scan(xproj, w_hh, dy, reverse)
+    relabelled = [_port_scan(xproj, w_hh, dy, reverse, np.random.RandomState(k).permutation(hidden))
+                  for k in range(RELABELLINGS)]
+    spread_h = max(np.abs(got_h - h).max() for h, _ in relabelled)
+    spread_dx = max(np.abs(got_dx - dx).max() for _, dx in relabelled)
+    first = slice(t - SCAN_STEPS, t) if reverse else slice(0, SCAN_STEPS)
+    g, w = got_h[:, first], want_h[:, first]
+    assert _ulps(g, w).max() <= 1.0 and (g == w).mean() >= 0.99
+    apart_h, apart_dx = np.abs(got_h - want_h).max(), np.abs(got_dx - want_dx).max()
+    print(f"B={b} T={t} H={hidden} reverse={reverse}: h_seq {apart_h:.2e} (own spread {spread_h:.2e}), "
+          f"{(got_h == want_h).mean():.5f} bit-equal; dxproj {apart_dx:.2e} ({spread_dx:.2e}), "
+          f"{(got_dx == want_dx).mean():.5f}")
+    assert apart_h <= SPREAD_MULT * spread_h and apart_dx <= SPREAD_MULT * spread_dx
+
+
+def test_scan_rounding_layer_follows_its_input():
+    """``layers.LSTM(dtype=None, scan=True)`` runs float32 for a float32
+    input and the scan rounding for a bfloat16 one: its bfloat16 sequence
+    equals JAX's ``LSTM(dtype=None)`` (``_lstm_scan`` under ``jit``) on the
+    same input bit for bit (B=3, T=20, two layers of H=32), its float32
+    one within the d-vector's float32 tolerance."""
+    from autovc_tpu.models import layers as jax_layers
+    from autovc_tpu_torch.models import LSTM
+
+    x = np.random.RandomState(5).rand(3, 20, 24).astype(np.float32)
+    jm = jax_layers.LSTM(NARROW_CELL, num_layers=2)
+    params = jm.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
+    layer = LSTM(24, NARROW_CELL, num_layers=2, dtype=None, scan=True)
+    layer.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in params.items()})
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(jax.jit(lambda v: jm.apply({"params": params}, v))(xb).astype(jnp.float32))
+    with torch.no_grad():
+        got = layer(torch.from_numpy(x).to(BF))
+        got32 = layer(torch.from_numpy(x))
+    assert got.dtype == BF and got32.dtype == torch.float32
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    np.testing.assert_allclose(got32.numpy(), np.asarray(jm.apply({"params": params}, jnp.asarray(x))),
+                               atol=DVEC_TOL, rtol=0)
+
+
+# The bfloat16 d-vector against JAX's: its embeddings are float32 (the dense
+# layer promotes its bfloat16 input, as flax's does) from the last step's
+# bfloat16 h. At the narrow width the two agree to float32 noise (1.2e-7);
+# at H=256 a bfloat16 flip from a sum of another order, carried through
+# three layers of 128 steps, moves them 3.1e-4, where the float32 d-vector on
+# the input widened (the control) lies 3.9e-3 away. Held: within
+# DVEC_BF16_TOL, or at H=256 within DVEC_BF16_SHARE of the control's
+# distance, which the control fails.
+DVEC_BF16_TOL = 1e-5
+DVEC_BF16_SHARE = 0.25
+
+
+@pytest.mark.parametrize("which", ["narrow", "indep"])
+def test_bf16_dvector_matches_jax(which):
+    """The port's ``DVector`` on a bfloat16 input against JAX's ``DVector``
+    (``dtype=None``, so bfloat16 LSTMs by ``lax.scan``) under ``jit`` on the
+    same input, B=3, T=128: float32 unit embeddings within DVEC_BF16_TOL
+    (the seeded narrow encoder) or DVEC_BF16_SHARE of the widened float32
+    control's distance (the committed independent one, H=256)."""
+    if which == "narrow":
+        port, jmodel, jparams = _narrow_pair(4)
+    else:
+        port = build_dvector(load_params(ARTIFACTS["indep"]), device="cpu")
+        jmodel, jparams = _jax_dvector(GE2ETrainer.load_params(ARTIFACTS["indep"]))
+    x = np.random.RandomState(2).rand(3, 128, 80).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(jax.jit(lambda v: jmodel.apply({"params": jparams}, v))(xb))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x).to(BF))
+        control = port(torch.from_numpy(x).to(BF).float())
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    apart, control_apart = np.abs(got.numpy() - want).max(), np.abs(control.numpy() - want).max()
+    print(f"{which}: the bfloat16 d-vector {apart:.2e} from JAX's (the widened float32 one {control_apart:.2e})")
+    gate = DVEC_BF16_TOL if which == "narrow" else DVEC_BF16_SHARE * control_apart
+    assert apart <= gate < control_apart
 
 
 # ------------------------------------------------------------ SpeakerEmbedder
