@@ -19,7 +19,11 @@ and the ``lambda_spk`` training auxiliary; and bfloat16 inference (the
 Generator with ``ModelConfig(compute_dtype="bfloat16")``, HiFi-GAN and
 WaveNet with bfloat16 weights) and vocoding of a results pkl
 (``python -m autovc_tpu_torch.cli.synthesize``: Griffin-Lim, WaveNet or
-HiFi-GAN).
+HiFi-GAN); and the generator family's other two variants, stft (513 bins)
+and wav (``models.GeneratorWav``, a ConvTasNet front and back end around
+the core), trained and converted in float32 and bfloat16, with the
+conversion and evaluation CLIs (``cli.convert``, ``cli.evaluate``,
+``cli.evaluate_conversion``).
 
     config     AudioConfig / ModelConfig / TrainConfig / Config / WaveNetConfig /
                HiFiGANConfig
@@ -28,8 +32,9 @@ HiFi-GAN).
                front end, WAV I/O
     ops        kernels with their plain versions (ops.lstm, ops.wavenet,
                ops.mel, ops.sosfilt)
-    models     layers, the AutoVC generator and the GE2E d-vector
-    losses     mse and l1
+    models     layers, the AutoVC generators (spmel/stft, wav) and the GE2E
+               d-vector
+    losses     mse, l1 and the SDR family (the wav variant's SI-SNR)
     data       train.pkl, metadata.pkl and results manifests, the metadata builder, the
                utterance dataset and batch iterator, the device prefetcher
     train      schedules, EMA, the train step (with the lambda_spk
@@ -37,10 +42,12 @@ HiFi-GAN).
     eval       the windowed speaker embedder, centroids, similarity, EER,
                mel-cepstral distortion
     vocoder    HiFi-GAN, WaveNet and Griffin-Lim
-    convert    pad_seq and the Converter entry point
+    convert    Converter (spmel, stft: the mel projection, buckets),
+               WavConverter, run_conversions, all_pairs_specs
     cli        python -m autovc_tpu_torch.cli.train, cli.make_spect,
                cli.make_metadata, cli.evaluate_speaker_encoder,
-               cli.synthesize
+               cli.synthesize, cli.convert, cli.evaluate,
+               cli.evaluate_conversion
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card they
 raise. Pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.

@@ -1,24 +1,29 @@
-"""Train the spmel generator on one device.
+"""Train the AutoVC generator (spmel, stft or wav) on one device.
 
     python -m autovc_tpu_torch.cli.train --main_dir DIR --run_name NAME
-        [--num_iters N] [--batch_size B] [--len_crop T] [--lr LR]
-        [--lambda_cd W] [--lr_scheduler Cosine|CosineDecay|Plateau]
+        [--model_type spmel|stft|wav] [--num_iters N] [--batch_size B]
+        [--len_crop T] [--lr LR] [--lambda_cd W] [--lambda_SISNR W]
+        [--lr_scheduler Cosine|CosineDecay|Plateau] [--depth D]
         [--ema DECAY] [--resume] [--log_step N] [--checkpoint_step N]
         [--watch_step N] [--seed S] [--bf16] [--export OUT.npz] [--device cuda|cpu]
         [--lambda_spk W --spk_ckpt GE2E.npz [--spk_protocol windowed|crop]
          [--spk_margin M]]
 
 The flags of ``autovc_tpu/cli/train.py`` for this slice, plus ``--device``
-(default ``cuda``); the generator has the published widths. It reads
-``<main_dir>/spmel/train.pkl`` and the ``.npy`` features it names:
+(default ``cuda``); the generator has the published widths (--depth sets
+the wav variant's ConvTasNet depth). It reads
+``<main_dir>/<model_type>/train.pkl`` and the ``.npy`` features it names:
 ``autovc_tpu_torch.cli.make_spect`` writes the features and
-``autovc_tpu_torch.cli.make_metadata`` the manifest. ``--lambda_spk``
-above 0 adds the speaker-consistency auxiliary on the frozen GE2E encoder
-of ``--spk_ckpt`` (``train.step.loss_fn``). ``--bf16`` computes in bfloat16
-with float32 parameters, Adam state and losses, rounding as the JAX CLI's
-``--bf16 --pallas`` (the port has one LSTM engine, so no ``--pallas``).
-``--export`` writes the final parameters and
-BatchNorm statistics as the JAX CLI does: a flat ``.npz`` of
+``autovc_tpu_torch.cli.make_metadata`` the manifest. ``--len_crop``
+defaults to 128 frames, and for wav to 33536 samples (128 latent frames).
+The wav loss adds ``--lambda_SISNR`` times the SI-SNR of the waveform.
+``--lambda_spk`` above 0 adds the speaker-consistency auxiliary on the
+frozen GE2E encoder of ``--spk_ckpt`` (``train.step.loss_fn``; spmel only:
+stft raises, as the JAX loss asserts, and the wav loss ignores it).
+``--bf16`` computes in bfloat16 with float32 parameters, Adam state and
+losses, rounding as the JAX CLI's ``--bf16 --pallas`` (the port has one
+LSTM engine, so no ``--pallas``). ``--export`` writes the final parameters
+and BatchNorm statistics as the JAX CLI does: a flat ``.npz`` of
 ``params/...`` and ``batch_stats/...`` in the JAX layouts, plus
 ``__step__``, which ``autovc_tpu`` and ``build_generator(artifact=...)``
 both load.
@@ -30,7 +35,7 @@ import argparse
 import os
 from datetime import datetime
 
-from autovc_tpu_torch.config import Config, ModelConfig, TrainConfig
+from autovc_tpu_torch.config import AudioConfig, Config, ModelConfig, TrainConfig, wav_len_crop
 from autovc_tpu_torch.data import BatchIterator, UtteranceDataset
 from autovc_tpu_torch.io import save_generator_artifact
 
@@ -38,6 +43,7 @@ from autovc_tpu_torch.io import save_generator_artifact
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--lambda_cd", type=float, default=1.0)
+    ap.add_argument("--lambda_SISNR", type=float, default=1.0, help="the wav loss's SI-SNR weight")
     ap.add_argument("--lambda_spk", type=float, default=0.0,
                     help="speaker-consistency weight (0 = the reference objective); needs --spk_ckpt")
     ap.add_argument("--spk_ckpt", default=None, help="frozen GE2E encoder .npz for --lambda_spk")
@@ -49,10 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dim_emb", type=int, default=256)
     ap.add_argument("--dim_pre", type=int, default=512)
     ap.add_argument("--freq", type=int, default=32)
+    ap.add_argument("--depth", type=int, default=1, help="ConvTasNet depth (wav model)")
     ap.add_argument("--main_dir", required=True)
     ap.add_argument("--batch_size", type=int, default=2)
     ap.add_argument("--num_iters", type=int, default=10_000_000)
-    ap.add_argument("--len_crop", type=int, default=128)
+    ap.add_argument("--len_crop", type=int, default=None,
+                    help="the crop: 128 frames for spmel/stft (default); 33536 samples for wav (default)")
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--model_type", default="spmel", choices=["spmel", "stft", "wav"])
     ap.add_argument("--run_name", required=True)
@@ -81,19 +89,23 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit("--multihost: multi-process training is not ported yet (ROADMAP Queue 1 #8)")
     if args.lambda_spk > 0 and not args.spk_ckpt:
         raise SystemExit("--lambda_spk > 0 requires --spk_ckpt (a frozen GE2E encoder .npz)")
-    if args.model_type != "spmel":
-        raise SystemExit(f"--model_type {args.model_type}: only spmel is ported (ROADMAP Queue 1 #3, #4)")
-    manifest = os.path.join(args.main_dir, "spmel", "train.pkl")
+    if args.lambda_spk > 0 and args.model_type == "stft":
+        raise SystemExit("--lambda_spk requires mel-domain outputs (model_type spmel), not stft")
+    manifest = os.path.join(args.main_dir, args.model_type, "train.pkl")
     if not os.path.exists(manifest):
-        raise SystemExit(f"{manifest} not found: make the spmel features with autovc_tpu_torch.cli.make_spect "
-                         f"and train.pkl with autovc_tpu_torch.cli.make_metadata")
+        raise SystemExit(f"{manifest} not found: make the {args.model_type} features with "
+                         f"autovc_tpu_torch.cli.make_spect and train.pkl with autovc_tpu_torch.cli.make_metadata")
+    if args.len_crop is None:
+        args.len_crop = wav_len_crop(AudioConfig()) if args.model_type == "wav" else 128
 
     run_name = args.run_name if args.resume else args.run_name + datetime.now().strftime("_%y%B%d_%H%M_%S")
     cfg = Config(
-        model=ModelConfig(dim_neck=args.dim_neck, dim_emb=args.dim_emb, dim_pre=args.dim_pre, freq=args.freq,
+        model=ModelConfig(model_type=args.model_type, dim_neck=args.dim_neck, dim_emb=args.dim_emb,
+                          dim_pre=args.dim_pre, freq=args.freq, convtas_depth=args.depth,
                           compute_dtype="bfloat16" if args.bf16 else "float32"),
-        train=TrainConfig(lambda_cd=args.lambda_cd, lambda_spk=args.lambda_spk, spk_ckpt=args.spk_ckpt,
-                          spk_protocol=args.spk_protocol, spk_margin=args.spk_margin, batch_size=args.batch_size,
+        train=TrainConfig(lambda_cd=args.lambda_cd, lambda_sisnr=args.lambda_SISNR, lambda_spk=args.lambda_spk,
+                          spk_ckpt=args.spk_ckpt, spk_protocol=args.spk_protocol, spk_margin=args.spk_margin,
+                          batch_size=args.batch_size,
                           num_iters=args.num_iters, len_crop=args.len_crop, lr=args.lr,
                           lr_scheduler=args.lr_scheduler, ema_decay=args.ema, log_step=args.log_step,
                           checkpoint_step=args.checkpoint_step, watch_step=args.watch_step, seed=args.seed,

@@ -54,8 +54,14 @@ class AudioConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """AutoVC generator widths. Only ``model_type='spmel'`` (80 mel bins) is
-    ported so far.
+    """AutoVC generator family widths. ``model_type`` selects the variant:
+    'spmel' (80-bin mel autoencoder), 'stft' (513-bin magnitude-STFT
+    autoencoder, the same generator at ``n_bins`` 513) or 'wav' (the
+    raw-waveform generator: the AutoVC core between a ConvTasNet front end,
+    a strided convolution of ``convtas_kernel`` samples at
+    ``convtas_stride`` to ``convtas_channels`` channels and ``convtas_depth``
+    conv + PReLU + BatchNorm blocks, and the mirrored transposed-convolution
+    back end).
 
     ``compute_dtype`` is ``"float32"`` or ``"bfloat16"``, as in
     ``autovc_tpu/config.py``: in bfloat16 the products and convolutions run
@@ -72,6 +78,11 @@ class ModelConfig:
     dim_emb: int = 256
     dim_pre: int = 512
     freq: int = 32  # bottleneck time-downsampling factor
+    # ConvTasNet front/back end of the wav variant (model_vc_wav.py:21,44)
+    convtas_depth: int = 1
+    convtas_channels: int = 512
+    convtas_kernel: int = 1024
+    convtas_stride: int = 256
     enc_channels: int = 512
     dec_lstm_dim: int = 1024
     postnet_channels: int = 512
@@ -83,9 +94,14 @@ class ModelConfig:
 
     @property
     def n_bins(self) -> int:
+        """Feature width entering and leaving the AutoVC core."""
         if self.model_type == "spmel":
             return 80
-        raise ValueError(f"model_type {self.model_type!r} is not ported yet")
+        if self.model_type == "stft":
+            return 513
+        if self.model_type == "wav":
+            return self.convtas_channels
+        raise ValueError(f"unknown model_type: {self.model_type!r}")
 
 
 @dataclass(frozen=True)
@@ -152,9 +168,10 @@ class TrainConfig:
     """The training contract of the JAX ``TrainConfig``, with its defaults."""
 
     lambda_cd: float = 1.0
+    lambda_sisnr: float = 1.0  # the wav variant's SI-SNR term
     batch_size: int = 2
     num_iters: int = 10_000_000
-    len_crop: int = 128  # frames
+    len_crop: int = 128  # 128 frames for spmel/stft; 33536 samples for wav
     lr: float = 1e-4
     lr_scheduler: str | None = None  # None | 'Cosine' | 'CosineDecay' | 'Plateau'
     cosine_t_max: int = 10_000
@@ -190,3 +207,9 @@ class Config:
     main_dir: str = "."
     run_name: str = "run"
     run_id: str | None = None
+
+
+def wav_len_crop(audio: AudioConfig, frames: int = 128) -> int:
+    """The waveform crop whose ConvTasNet latent has ``frames`` frames:
+    (frames - 1) * hop + win, 33536 for the defaults (reference main.py:59)."""
+    return (frames - 1) * audio.hop_length + audio.win_length

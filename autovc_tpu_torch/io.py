@@ -19,7 +19,7 @@ Layouts (JAX -> this package):
 
 - conv kernel ``(k, in, out)`` -> ``(out, in, k)`` (``F.conv1d``);
 - transposed-conv kernel ``(k, out, in)`` -> ``(in, out, k)``
-  (``F.conv_transpose1d``): the same axis reversal;
+  (``F.conv_transpose1d``): the same axis reversal, no flip along k;
 - dense kernel ``(in, out)`` -> ``(out, in)`` (``F.linear``);
 - BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
   ``running_mean``/``running_var``;
@@ -35,7 +35,9 @@ CUDA generation kernel reads the layer matrices row-major as the Pallas kernel
 did, and ``/`` becomes ``.``.
 
 Flax wraps each conv, dense and BatchNorm in a child named ``Conv_0``,
-``Dense_0`` or ``BatchNorm_0``; those path segments are dropped.
+``Dense_0`` or ``BatchNorm_0``; those path segments are dropped. The wav
+variant's ConvTasNet convolutions have no wrapper, and its PReLU slopes
+(``prelu{i}/alpha``) keep their names.
 
 bfloat16 is a compute dtype here, not a weight format: every mapping keeps
 the float32 parameters, and the bfloat16 paths (``ModelConfig.compute_dtype``,
@@ -99,8 +101,9 @@ def _leaf_to_torch(path: str, value: np.ndarray) -> tuple[str, torch.Tensor]:
 
 
 def generator_state_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
-    """``{'params': ..., 'batch_stats': ...}`` of the JAX ``Generator`` ->
-    state dict of ``autovc_tpu_torch.models.Generator``."""
+    """``{'params': ..., 'batch_stats': ...}`` of the JAX ``Generator`` or
+    ``GeneratorWav`` -> state dict of ``autovc_tpu_torch.models.Generator``
+    or ``GeneratorWav``."""
     state: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in flatten_params(variables[collection]).items():
@@ -113,14 +116,27 @@ _WRAPPER_BY_NDIM = {3: "Conv_0", 2: "Dense_0", 1: "BatchNorm_0"}
 _JAX_LEAF = {"running_mean": "mean", "running_var": "var"}
 
 
+_BARE_CONVS = ("tas_encoder.", "tas_decoder.")
+
+
+def _wrapper(key: str, weight: torch.Tensor) -> str | None:
+    """The flax wrapper of the module owning ``weight``: 3-D a conv, 2-D a
+    dense layer, 1-D a BatchNorm, but for the ConvTasNet front and back end,
+    whose convolutions (a bare ``nn.Conv`` and ``layers.ConvTranspose1d``)
+    hold their kernel directly."""
+    if weight.ndim == 3 and key.startswith(_BARE_CONVS):
+        return None
+    return _WRAPPER_BY_NDIM[weight.ndim]
+
+
 def generator_state_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
-    """State dict of ``autovc_tpu_torch.models.Generator`` -> ``{'params':
-    ..., 'batch_stats': ...}`` of the JAX ``Generator``, float32 numpy in JAX
-    layouts: the inverse of ``generator_state_from_jax``. A module's flax
-    wrapper follows from its ``weight``: 3-D a conv, 2-D a dense layer, 1-D a
-    BatchNorm; the LSTM leaves have none."""
-    wrappers = {key.rsplit(".", 1)[0]: _WRAPPER_BY_NDIM[v.ndim]
-                for key, v in state.items() if key.endswith(".weight")}
+    """State dict of ``autovc_tpu_torch.models.Generator`` or
+    ``GeneratorWav`` -> ``{'params': ..., 'batch_stats': ...}`` of the JAX
+    ``Generator`` or ``GeneratorWav``, float32 numpy in JAX layouts: the
+    inverse of ``generator_state_from_jax``. A module's flax wrapper follows
+    from its ``weight`` (``_wrapper``); the LSTM leaves and the PReLU slopes
+    (``alpha``) have none."""
+    wrappers = {key.rsplit(".", 1)[0]: _wrapper(key, v) for key, v in state.items() if key.endswith(".weight")}
     flat: dict[str, np.ndarray] = {}
     for key, value in state.items():
         module, leaf = key.rsplit(".", 1)
@@ -128,7 +144,7 @@ def generator_state_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
         wrapper = wrappers.get(module)
         collection = "batch_stats" if leaf in _JAX_LEAF else "params"
         if leaf == "weight":
-            leaf = {"Conv_0": "kernel", "Dense_0": "kernel", "BatchNorm_0": "scale"}[wrapper]
+            leaf = "scale" if wrapper == "BatchNorm_0" else "kernel"
             arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
         leaf = _JAX_LEAF.get(leaf, leaf)
         parts = [collection, *module.split("."), *([wrapper] if wrapper else []), leaf]
@@ -137,10 +153,10 @@ def generator_state_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
 
 
 def save_generator_artifact(state: Mapping[str, torch.Tensor], step: int, path: str) -> None:
-    """Write a ``Generator`` state dict as the JAX CLI's ``--export`` does:
-    a flat ``.npz`` of ``params/...`` and ``batch_stats/...`` in the JAX
-    layouts plus ``__step__``, which ``load_artifact`` (and the JAX
-    package's) reads back."""
+    """Write a ``Generator`` or ``GeneratorWav`` state dict as the JAX CLI's
+    ``--export`` does: a flat ``.npz`` of ``params/...`` and
+    ``batch_stats/...`` in the JAX layouts plus ``__step__``, which
+    ``load_artifact`` (and the JAX package's) reads back."""
     tree = generator_state_to_jax(state)
     flat = {**flatten_params(tree["params"], "params"), **flatten_params(tree["batch_stats"], "batch_stats")}
     np.savez(path, **flat, __step__=np.asarray(step, np.int64))

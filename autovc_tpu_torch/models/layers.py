@@ -59,33 +59,110 @@ class LinearNorm(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class ConvNorm(nn.Module):
-    """1-D conv over (B, T, C) with "same" padding for an odd kernel:
-    ``dilation * (k - 1) / 2`` each side. Weight (out, in, k)."""
+class Conv(nn.Module):
+    """flax's ``nn.Conv`` over (B, T, C) with explicit ``padding`` each side,
+    ``stride`` and ``dilation``, and its default initialisers (the
+    ConvTasNet front end's convolutions): a lecun-normal weight (a normal
+    truncated at two standard deviations, variance 1 / fan_in) and a zero
+    bias. Weight (out, in, k)."""
 
-    def __init__(self, in_dim: int, out_dim: int, kernel_size: int, dilation: int = 1,
-                 w_init_gain: str = "linear", dtype: torch.dtype = torch.float32):
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int, stride: int = 1, padding: int = 0,
+                 dilation: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.bf16 = _bf16(dtype)
-        if kernel_size % 2 != 1:
-            raise ValueError(f"ConvNorm needs an odd kernel, got {kernel_size}")
-        self.gain = GAINS[w_init_gain]
+        self.stride = stride
+        self.padding = padding
         self.dilation = dilation
-        self.padding = dilation * (kernel_size - 1) // 2
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_dim))
 
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        fan_in = self.weight.shape[1] * self.weight.shape[2]
+        # the standard deviation of flax's truncated normal before its truncation
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kw = dict(stride=self.stride, padding=self.padding, dilation=self.dilation)
+        if self.bf16:
+            bf = torch.bfloat16
+            y = F.conv1d(x.to(bf).transpose(1, 2), self.weight.to(bf), **kw)
+            return y.transpose(1, 2) + self.bias.to(bf)
+        return F.conv1d(x.transpose(1, 2), self.weight, self.bias, **kw).transpose(1, 2)
+
+
+class ConvNorm(Conv):
+    """1-D conv over (B, T, C) with "same" padding for an odd kernel:
+    ``dilation * (k - 1) / 2`` each side. Weight (out, in, k), xavier-uniform
+    init."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int, dilation: int = 1,
+                 w_init_gain: str = "linear", dtype: torch.dtype = torch.float32):
+        if kernel_size % 2 != 1:
+            raise ValueError(f"ConvNorm needs an odd kernel, got {kernel_size}")
+        super().__init__(in_dim, out_dim, kernel_size, padding=dilation * (kernel_size - 1) // 2, dilation=dilation,
+                         dtype=dtype)
+        self.gain = GAINS[w_init_gain]
+
     reset_parameters = LinearNorm.reset_parameters
+
+
+class ConvTranspose1d(nn.Module):
+    """Transposed 1-D conv over (B, T, C) with ``stride`` and ``padding``
+    (``autovc_tpu/models/layers.py::ConvTranspose1d``, torch's
+    ConvTranspose1d): output length (T - 1) * stride - 2 * padding + k.
+    Weight (in, out, k) (``F.conv_transpose1d``; the JAX kernel is
+    (k, out, in)); weight and bias uniform in +-1/sqrt(in * k)."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int, stride: int = 1, padding: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.bf16 = _bf16(dtype)
+        self.stride = stride
+        self.padding = padding
+        self.weight = nn.Parameter(torch.empty(in_dim, out_dim, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_dim))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[0] * self.weight.shape[2])
+        nn.init.uniform_(self.weight, -bound, bound, generator=gen)
+        nn.init.uniform_(self.bias, -bound, bound, generator=gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bf16:
             bf = torch.bfloat16
-            y = F.conv1d(x.to(bf).transpose(1, 2), self.weight.to(bf), padding=self.padding,
-                         dilation=self.dilation)
+            y = F.conv_transpose1d(x.to(bf).transpose(1, 2), self.weight.to(bf), stride=self.stride,
+                                   padding=self.padding)
             return y.transpose(1, 2) + self.bias.to(bf)
-        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
-                     padding=self.padding, dilation=self.dilation)
+        y = F.conv_transpose1d(x.transpose(1, 2), self.weight, self.bias, stride=self.stride, padding=self.padding)
         return y.transpose(1, 2)
+
+
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """``x`` where ``x >= 0``, else ``alpha * x`` (the JAX layer's
+    ``jnp.where``: the gradient at 0 is that of the identity). A bfloat16
+    ``x`` with the float32 slope gives float32, as JAX's type promotion
+    does. ``train.compare.KinkTape`` replaces this function to record and
+    replay the side of each element."""
+    x = x.to(torch.promote_types(x.dtype, alpha.dtype))
+    return torch.where(x >= 0, x, alpha * x)
+
+
+class PReLU(nn.Module):
+    """PReLU with one slope shared by every channel, initialised to 0.25
+    (torch's ``nn.PReLU()``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.empty(1))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        del gen
+        nn.init.constant_(self.alpha, 0.25)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return prelu(x, self.alpha)
 
 
 class BatchNorm(nn.Module):
@@ -203,5 +280,5 @@ def reset_parameters(module: nn.Module, seed: int) -> None:
     one seeded generator, in module order (on the CPU: move afterwards)."""
     gen = torch.Generator().manual_seed(seed)
     for m in module.modules():
-        if isinstance(m, (LinearNorm, ConvNorm, BatchNorm, LSTM)):
+        if isinstance(m, (LinearNorm, ConvNorm, Conv, ConvTranspose1d, PReLU, BatchNorm, LSTM)):
             m.reset_parameters(gen)

@@ -127,11 +127,12 @@ def lstm_sequence_ref(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = F
 
 
 def _hprev(h_seq: torch.Tensor, h0: torch.Tensor | None, reverse: bool) -> torch.Tensor:
-    """(B, T, H): the state each step started from (h0, or zero, at the start)."""
-    first = torch.zeros_like(h_seq[:, :1]) if h0 is None else h0[:, None].to(h_seq.dtype)
+    """(..., B, T, H): the state each step started from (h0, or zero, at the
+    start)."""
+    first = torch.zeros_like(h_seq[..., :1, :]) if h0 is None else h0[..., None, :].to(h_seq.dtype)
     if reverse:
-        return torch.cat([h_seq[:, 1:], first], dim=1)
-    return torch.cat([first, h_seq[:, :-1]], dim=1)
+        return torch.cat([h_seq[..., 1:, :], first], dim=-2)
+    return torch.cat([first, h_seq[..., :-1, :]], dim=-2)
 
 
 def lstm_weight_grad_ref(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: torch.Tensor,
@@ -204,6 +205,14 @@ def _rb(v: torch.Tensor) -> torch.Tensor:
     return v.to(torch.bfloat16).float()
 
 
+def _products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b, one matrix product for each stacked problem (the leading dim
+    of b, if any): the product each would make alone, not a batched one."""
+    if b.dim() == 2:
+        return a @ b
+    return torch.stack([x @ y for x, y in zip(a, b)])
+
+
 def _sigmoid_scan(x: torch.Tensor) -> torch.Tensor:
     """XLA's logistic on bfloat16: 1 / (1 + exp(-x)), each op rounded."""
     return _rb(1.0 / _rb(1.0 + _rb(torch.exp(-x))))
@@ -228,7 +237,10 @@ def lstm_scan_bf16_train_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.
         c = rb(rb(sf * c) + rb(si * tg))     h = rb(so * rb(tanh(c)))
 
     ``act`` (B, T, 4H) = [si, sf, tg, so] and ``c_seq`` are the residuals
-    the backward (``lstm_scan_bf16_backward_ref``) reads. These points were
+    the backward (``lstm_scan_bf16_backward_ref``) reads. Leading dims
+    (..., B, T, 4H) and (..., H, 4H), on every argument, stack problems
+    (relabellings of the hidden units, say): each makes its own (B, H) x
+    (H, 4H) product and rounds as it would alone. These points were
     chosen by measurement on the CPU against ``jax.jit`` of ``_lstm_scan``,
     both directions: bit-equal at B=8, T=24, H=32; at B=7, T=128, H=256
     99.1-99.9% bit-equal (its float32 sums in another order, carried by a
@@ -236,25 +248,25 @@ def lstm_scan_bf16_train_ref(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.
     (``rb(torch.sigmoid(x))``) is 40% bit-equal and up to 7.8e-3 away; with
     only the carries rounded (every gate op in float32), 29%."""
     _check_dtypes(xproj, w_hh)
-    b, t, h4 = xproj.shape
+    *lead, b, t, h4 = xproj.shape
     hidden = h4 // 4
     w = w_hh.float()
-    h = torch.zeros(b, hidden) if h0 is None else _rb(h0.float())
-    c = torch.zeros(b, hidden) if c0 is None else _rb(c0.float())
+    h = torch.zeros(*lead, b, hidden) if h0 is None else _rb(h0.float())
+    c = torch.zeros(*lead, b, hidden) if c0 is None else _rb(c0.float())
     h, c = h.to(xproj.device), c.to(xproj.device)
     hs: list[torch.Tensor] = [h] * t
     cs: list[torch.Tensor] = [c] * t
     acts: list[torch.Tensor] = [c] * t
     with exact_f32(xproj.device):
         for step in (range(t - 1, -1, -1) if reverse else range(t)):
-            gates = _rb(xproj[:, step].float() + _rb(h @ w))
+            gates = _rb(xproj[..., step, :].float() + _rb(_products(h, w)))
             i, f, g, o = gates.split(hidden, dim=-1)
             si, sf, tg, so = _sigmoid_scan(i), _sigmoid_scan(f), _rb(torch.tanh(g)), _sigmoid_scan(o)
             c = _rb(_rb(sf * c) + _rb(si * tg))
             h = _rb(so * _rb(torch.tanh(c)))
             hs[step], cs[step], acts[step] = h, c, torch.cat([si, sf, tg, so], dim=-1)
     bf = torch.bfloat16
-    return (torch.stack(hs, dim=1).to(bf), torch.stack(cs, dim=1).to(bf), torch.stack(acts, dim=1).to(bf),
+    return (torch.stack(hs, dim=-2).to(bf), torch.stack(cs, dim=-2).to(bf), torch.stack(acts, dim=-2).to(bf),
             h.to(bf), c.to(bf))
 
 
@@ -286,30 +298,31 @@ def lstm_scan_bf16_backward_ref(w_hh: torch.Tensor, act: torch.Tensor, c_seq: to
     T=128, H=256 (float32 sums of another order), up to 1.6e-2 where the
     cotangents peak at 2.0. Torch autograd through the forward loop on
     bfloat16 tensors instead is 25% bit-equal, up to 3.1e-2 (its sigmoid and
-    tanh backward round once, not at each op)."""
-    b, t, h4 = act.shape
+    tanh backward round once, not at each op). Leading dims stack problems
+    as in ``lstm_scan_bf16_train_ref``."""
+    *lead, b, t, h4 = act.shape
     hidden = h4 // 4
     w = w_hh.float()
     act, c_seq = act.float(), c_seq.float()
     cprev_seq = _hprev(c_seq, None if c0 is None else _rb(c0.float()), reverse)
-    carry = torch.zeros(b, hidden, device=act.device) if dhn is None else _rb(dhn.float())
-    dc = torch.zeros(b, hidden, device=act.device) if dcn is None else _rb(dcn.float())
-    dx = torch.empty((b, t, h4), device=act.device)
+    carry = torch.zeros(*lead, b, hidden, device=act.device) if dhn is None else _rb(dhn.float())
+    dc = torch.zeros(*lead, b, hidden, device=act.device) if dcn is None else _rb(dcn.float())
+    dx = torch.empty((*lead, b, t, h4), device=act.device)
     with exact_f32(act.device):
         for step in (range(t) if reverse else range(t - 1, -1, -1)):
-            si, sf, tg, so = act[:, step].split(hidden, dim=-1)
-            tc = _rb(torch.tanh(c_seq[:, step]))
-            dh = _rb(dy[:, step].float() + carry)
+            si, sf, tg, so = act[..., step, :].split(hidden, dim=-1)
+            tc = _rb(torch.tanh(c_seq[..., step, :]))
+            dh = _rb(dy[..., step, :].float() + carry)
             p = _rb(_rb(so * dh) * _rb(1.0 - tc))
             dc = _rb(_rb(dc + p) + _rb(p * tc))
             d_o = _rb(_rb(dh * tc) * _dsigmoid_scan(so))
             di = _rb(_rb(dc * tg) * _dsigmoid_scan(si))
             q = _rb(_rb(si * dc) * _rb(1.0 - tg))
             dg = _rb(q + _rb(q * tg))
-            df = _rb(_rb(dc * cprev_seq[:, step]) * _dsigmoid_scan(sf))
+            df = _rb(_rb(dc * cprev_seq[..., step, :]) * _dsigmoid_scan(sf))
             dgates = torch.cat([di, df, dg, d_o], dim=-1)
-            dx[:, step] = dgates
-            carry = _rb(dgates @ w.T)
+            dx[..., step, :] = dgates
+            carry = _rb(_products(dgates, w.transpose(-1, -2)))
             dc = _rb(sf * dc)
     bf = torch.bfloat16
     return dx.to(bf), carry.to(bf), dc.to(bf)

@@ -1,4 +1,5 @@
-"""Training orchestration of the spmel generator on one device.
+"""Training orchestration of the generator family (spmel, stft, wav) on one
+device.
 
 Counterpart of ``autovc_tpu/train/solver.py``: weights drawn from
 ``cfg.train.seed``, Adam, the Cosine/CosineDecay/Plateau schedules, a
@@ -50,9 +51,22 @@ MAX_TO_KEEP = 3
 _CKPT = re.compile(r"^step_(\d+)\.pt$")
 
 
+def checkpoint_file(ckpt_dir: str, step: int) -> str:
+    """The path of the step's checkpoint under ``ckpt_dir``."""
+    return os.path.join(ckpt_dir, f"step_{step:09d}.pt")
+
+
+def saved_steps(ckpt_dir: str) -> list[int]:
+    """The steps of the checkpoints under ``ckpt_dir``, ascending."""
+    return sorted(int(mt.group(1)) for f in os.listdir(ckpt_dir) if (mt := _CKPT.match(f)))
+
+
 def log_keys(cfg: Config) -> list[str]:
-    """The console's loss terms: the speaker auxiliary's among them when it
-    is on (and its mean margin under the 'windowed' protocol)."""
+    """The console's loss terms of the variant: the speaker auxiliary's
+    among them when it is on (and its mean margin under the 'windowed'
+    protocol); the wav loss has no auxiliary."""
+    if cfg.model.model_type == "wav":
+        return ["g_loss_id", "g_loss_gen", "g_loss_cd", "g_loss_sisnr"]
     keys = ["g_loss_id", "g_loss_id_psnt", "g_loss_cd"]
     if cfg.train.lambda_spk > 0:
         keys.append("g_loss_spk")
@@ -131,12 +145,15 @@ class Solver:
 
     def _build_spk_aux(self) -> SpeakerAux | None:
         """The lambda_spk auxiliary's frozen encoder (and tables), or None
-        when lambda_spk is 0."""
+        when lambda_spk is 0. stft raises, as the JAX loss asserts spmel; for
+        wav it is built and the wav loss ignores it, as in the JAX Solver."""
         tc = self.cfg.train
         if tc.lambda_spk <= 0:
             return None
         if not tc.spk_ckpt:
             raise ValueError("lambda_spk > 0 requires spk_ckpt (a GE2E checkpoint .npz)")
+        if self.cfg.model.model_type == "stft":
+            raise ValueError("lambda_spk requires mel-domain outputs (model_type spmel), not stft")
         from autovc_tpu_torch.models import build_dvector
         from autovc_tpu_torch.train.ge2e import load_params
 
@@ -244,10 +261,10 @@ class Solver:
     # ------------------------------------------------------------ checkpoint
 
     def checkpoint_path(self, step: int) -> str:
-        return os.path.join(self.ckpt_dir, f"step_{step:09d}.pt")
+        return checkpoint_file(self.ckpt_dir, step)
 
     def checkpoint_steps(self) -> list[int]:
-        return sorted(int(mt.group(1)) for f in os.listdir(self.ckpt_dir) if (mt := _CKPT.match(f)))
+        return saved_steps(self.ckpt_dir)
 
     def latest_step(self) -> int | None:
         steps = self.checkpoint_steps()

@@ -1,9 +1,11 @@
-"""The train step of the spmel generator.
+"""The train step of the generator family (spmel, stft and wav).
 
 Counterpart of ``autovc_tpu/train/step.py``: the loss is the reference's
-``g_loss_id + g_loss_id_psnt + lambda_cd * g_loss_cd``, with the content
-re-encoding run on the postnet output in training mode, so that it updates
-the encoder's BatchNorm statistics again as the JAX second forward does;
+``g_loss_id + g_loss_id_psnt + lambda_cd * g_loss_cd`` for spmel and stft,
+with the content re-encoding run on the postnet output in training mode, so
+that it updates the encoder's BatchNorm statistics again as the JAX second
+forward does (for wav, the reconstructed waveform re-encoded, and the
+latent and SI-SNR terms added: ``loss_fn``);
 Adam with optax's defaults; the learning rate set from the step before its
 increment; a real per-step EMA. On a CUDA device the step runs in exact
 float32 (``exact_f32``) and its LSTMs forward and backward through the
@@ -36,8 +38,8 @@ import torch
 from autovc_tpu_torch import exact_f32
 from autovc_tpu_torch.config import Config, SpeakerEncoderConfig
 from autovc_tpu_torch.eval import WINDOW_STRIDE
-from autovc_tpu_torch.losses import l1, mse
-from autovc_tpu_torch.models import DVector, Generator
+from autovc_tpu_torch.losses import l1, mse, si_snr_loss
+from autovc_tpu_torch.models import DVector, Generator, GeneratorWav
 from autovc_tpu_torch.train import schedule as sched
 from autovc_tpu_torch.train.state import TrainState, ema_update
 
@@ -106,24 +108,37 @@ def speaker_loss(spk: SpeakerAux, cfg: Config, x_conv: torch.Tensor, emb: torch.
     return torch.mean(1.0 - torch.sum(e_conv * e_trg, dim=-1)), {}
 
 
-def make_optimizer(model: Generator, cfg: Config) -> torch.optim.Adam:
+def make_optimizer(model: Generator | GeneratorWav, cfg: Config) -> torch.optim.Adam:
     """Adam over every parameter with optax's defaults: betas (0.9, 0.999),
     eps 1e-8, learning rate ``cfg.train.lr`` (the step sets it each time)."""
     return torch.optim.Adam(model.parameters(), lr=cfg.train.lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def loss_fn(model: Generator, cfg: Config, x: torch.Tensor, emb: torch.Tensor, train: bool = True,
+def loss_fn(model: Generator | GeneratorWav, cfg: Config, x: torch.Tensor, emb: torch.Tensor, train: bool = True,
             spk: SpeakerAux | None = None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(total, metrics) of one batch; ``train`` runs the generator in train
     mode (batch statistics, running statistics updated), else in eval mode.
-    The model's mode is restored afterwards. ``spk`` enables the
-    lambda_spk auxiliary (when ``cfg.train.lambda_spk > 0``): its
-    conversion runs in eval mode on the running statistics as they were
+    The model's mode is restored afterwards.
+
+    spmel and stft: ``g_loss_id + g_loss_id_psnt + lambda_cd * g_loss_cd``,
+    the content re-encoded from the postnet output. ``spk`` enables the
+    lambda_spk auxiliary (when ``cfg.train.lambda_spk > 0``, spmel only):
+    its conversion runs in eval mode on the running statistics as they were
     before this batch, as the JAX loss runs it on the step's input
-    statistics."""
-    if cfg.model.model_type != "spmel":
-        raise ValueError(f"model_type {cfg.model.model_type!r} is not ported (ROADMAP Queue 1 #3, #4)")
-    use_spk = spk is not None and cfg.train.lambda_spk > 0
+    statistics.
+
+    wav: ``g_loss_id + lambda_sisnr * g_loss_sisnr + g_loss_gen + lambda_cd
+    * g_loss_cd``: the waveform MSE, the SI-SNR of the waveform (float32),
+    the MSE between the front end's latent and the core decoder's output
+    (a gradient into both), and the content L1 against the codes of the
+    reconstructed waveform, re-encoded with the statistics the first pass
+    updated. ``spk`` is ignored, as the JAX wav loss ignores it."""
+    mt = cfg.model.model_type
+    if mt not in ("spmel", "stft", "wav"):
+        raise ValueError(f"unknown model_type {mt!r}")
+    use_spk = spk is not None and cfg.train.lambda_spk > 0 and mt != "wav"
+    if use_spk and mt != "spmel":
+        raise ValueError("lambda_spk requires mel-domain outputs (model_type spmel)")
     was_training = model.training
     try:
         x_conv = None
@@ -131,14 +146,22 @@ def loss_fn(model: Generator, cfg: Config, x: torch.Tensor, emb: torch.Tensor, t
             model.eval()
             x_conv = model(x, emb, torch.roll(emb, 1, dims=0))[1]  # within-batch cross-pairs
         model.train(train)
-        x_identic, x_psnt, codes = model(x, emb, emb)
-        g_loss_id = mse(x, x_identic)
-        g_loss_id_psnt = mse(x, x_psnt)
-        g_loss_cd = l1(codes, model.encode(x_psnt, emb))
+        if mt == "wav":
+            lat, x_identic, x_dec, codes = model(x, emb, emb)
+            metrics = {"g_loss_id": mse(x, x_identic), "g_loss_gen": mse(lat, x_dec),
+                       "g_loss_cd": l1(codes, model.encode(x_identic, emb)),
+                       "g_loss_sisnr": si_snr_loss(x_identic[..., 0], x[..., 0])}
+        else:
+            x_identic, x_psnt, codes = model(x, emb, emb)
+            metrics = {"g_loss_id": mse(x, x_identic), "g_loss_id_psnt": mse(x, x_psnt),
+                       "g_loss_cd": l1(codes, model.encode(x_psnt, emb))}
     finally:
         model.train(was_training)
-    total = g_loss_id + g_loss_id_psnt + cfg.train.lambda_cd * g_loss_cd
-    metrics = {"g_loss_id": g_loss_id, "g_loss_id_psnt": g_loss_id_psnt, "g_loss_cd": g_loss_cd}
+    if mt == "wav":
+        total = (metrics["g_loss_id"] + cfg.train.lambda_sisnr * metrics["g_loss_sisnr"] + metrics["g_loss_gen"]
+                 + cfg.train.lambda_cd * metrics["g_loss_cd"])
+    else:
+        total = metrics["g_loss_id"] + metrics["g_loss_id_psnt"] + cfg.train.lambda_cd * metrics["g_loss_cd"]
     if use_spk:
         g_loss_spk, extra = speaker_loss(spk, cfg, x_conv, emb)
         total = total + cfg.train.lambda_spk * g_loss_spk
@@ -183,7 +206,7 @@ def make_train_step(cfg: Config, spk: SpeakerAux | None = None) -> Callable[...,
     return step_fn
 
 
-def make_eval_loss(model: Generator, cfg: Config, spk: SpeakerAux | None = None
+def make_eval_loss(model: Generator | GeneratorWav, cfg: Config, spk: SpeakerAux | None = None
                    ) -> Callable[[torch.Tensor, torch.Tensor], dict]:
     """The eval-mode loss: running statistics, no gradient, nothing mutated.
     ``spk`` is the train step's, so that with lambda_spk > 0 the eval

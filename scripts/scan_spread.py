@@ -33,7 +33,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from autovc_tpu_torch.ops import lstm as lstm_ops  # noqa: E402
-from chip_smoke import BWD_FLOOR, bf16_ulps, scan_plain  # noqa: E402
+from chip_smoke import BWD_FLOOR, bf16_ulps, gate_columns, labelled_back, relabelled, scan_plain  # noqa: E402
 
 T, WIDTHS = 128, (768, 256)
 
@@ -42,14 +42,13 @@ def kernels(x, w, dy, reverse, perm=None):
     """The scan forward's h_seq and the scan backward's dxproj on the plain
     forward's residuals, on inputs relabelled by ``perm`` (and back)."""
     if perm is not None:
-        cols = torch.cat([perm + g * len(perm) for g in range(4)])
-        x, w, dy = x[..., cols], w[perm][:, cols], dy[..., perm]
+        x, w, dy = relabelled(x, w, dy, perm)
     h_seq = lstm_ops.lstm_scan_forward_cuda(x, w, reverse=reverse)[0]
     _, c_seq, act, _, _ = lstm_ops.lstm_scan_bf16_train_ref(x, w, reverse=reverse)
     dx = lstm_ops.lstm_scan_backward_cuda(w, act.float(), c_seq.float(), None, dy, reverse=reverse)[0]
     if perm is not None:
         inv = torch.argsort(perm)
-        h_seq, dx = h_seq[..., inv], dx[..., torch.cat([inv + g * len(inv) for g in range(4)])]
+        h_seq, dx = h_seq[..., inv], dx[..., gate_columns(inv)]
     return h_seq, dx
 
 
@@ -72,21 +71,22 @@ def case(tag: str, x, w, dy, reverse: bool, relabellings: int) -> dict:
     outs = (("h_seq", 0, 0, fwd_steps, 2.0 ** -16), ("dxproj", 3, 1, bwd_steps, BWD_FLOOR))
     rec = {"case": tag, "H": hidden, "reverse": reverse}
     own = {name: [] for name, *_ in outs}
-    relabelled = {name: [] for name, *_ in outs}
+    kernel_far = {name: [] for name, *_ in outs}
     for k in range(relabellings):
         perm = torch.from_numpy(np.random.RandomState(k).permutation(hidden)).to(x.device)
-        plain_k, kern_k = scan_plain(x, w, dy, reverse, perm), kernels(x, w, dy, reverse, perm)
+        plain_k = labelled_back(scan_plain(*relabelled(x, w, dy, perm), reverse), perm)
+        kern_k = kernels(x, w, dy, reverse, perm)
         for name, i, j, steps, floor in outs:
             own[name].append((float((plain_k[i].float() - want[i].float()).abs().max()),
                               departure(plain_k[i], want[i], steps, floor)))
-            relabelled[name].append(float((kern_k[j].float() - want[i].float()).abs().max()))
+            kernel_far[name].append(float((kern_k[j].float() - want[i].float()).abs().max()))
     for name, i, j, steps, floor in outs:
         dists = [d for d, _ in own[name]]
         rec[name] = {"kernel": float((got[j].float() - want[i].float()).abs().max()),
                      "kernel_departs": departure(got[j], want[i], steps, floor),
                      "own_zero": sum(d == 0 for d in dists), "own_max": max(dists),
                      "own_departs": [p for _, p in own[name] if p is not None],
-                     "kernel_relabelled": sorted(relabelled[name])}
+                     "kernel_relabelled": sorted(kernel_far[name])}
     return rec
 
 

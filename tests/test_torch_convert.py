@@ -86,8 +86,9 @@ def test_convert_batch_groups_and_keeps_order(converters):
 
 def test_port_and_chip_smoke_import_without_jax():
     """With jax, flax, pandas and autovc_tpu blocked, every module of the
-    port (the WaveNet, training, feature-extraction, speaker-encoder and
-    synthesis modules among them) and chip_smoke still import."""
+    port (the WaveNet, training, feature-extraction, speaker-encoder,
+    synthesis, wav-variant, conversion and evaluation modules among them)
+    and chip_smoke still import."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'pandas', 'autovc_tpu'):\n"
@@ -106,7 +107,9 @@ def test_port_and_chip_smoke_import_without_jax():
         "        'autovc_tpu_torch.eval.fidelity', 'autovc_tpu_torch.data.metadata_builder',\n"
         "        'autovc_tpu_torch.train.ge2e', 'autovc_tpu_torch.cli.make_metadata',\n"
         "        'autovc_tpu_torch.cli.evaluate_speaker_encoder', 'autovc_tpu_torch.cli.synthesize',\n"
-        "        'autovc_tpu_torch.vocoder.griffinlim'} <= set(mods), mods\n"
+        "        'autovc_tpu_torch.vocoder.griffinlim', 'autovc_tpu_torch.models.convtas',\n"
+        "        'autovc_tpu_torch.cli.convert', 'autovc_tpu_torch.cli.evaluate',\n"
+        "        'autovc_tpu_torch.cli.evaluate_conversion'} <= set(mods), mods\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "from autovc_tpu_torch.vocoder import WaveNetVocoder\n"
@@ -118,4 +121,4 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 45
+    assert int(proc.stdout.split()[-1]) >= 49

@@ -1454,3 +1454,75 @@ def test_bf16_train_step_on_card_matches_plain(cuda):
     tol = float(np.median(list(apart("f32", "plain").values())))
     worst = max(apart("kernels", "plain").items(), key=lambda kv: kv[1])
     assert worst[1] <= tol, (worst, tol)
+
+
+# ------------------------------------------------------- the stft and wav variants
+
+
+def _variant_batch(model_type, seed, b=2, frames=64):
+    """(x, emb) of the variant: a (B, frames, 513) stft batch, or waveforms
+    of (frames - 1) * 256 + 1024 samples (frames latent frames)."""
+    rng = np.random.RandomState(seed)
+    if model_type == "wav":
+        n = (frames - 1) * 256 + 1024
+        x = np.sin(np.arange(n)[None] * rng.uniform(0.02, 0.1, (b, 1))) + 0.1 * rng.randn(b, n)
+        x = x.astype(np.float32)[..., None]
+    else:
+        x = rng.rand(b, frames, 513).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(rng.randn(b, 256).astype(np.float32))
+
+
+@pytest.mark.parametrize("model_type", ["stft", "wav"])
+def test_variant_generator_on_card_matches_cpu(cuda, model_type):
+    """The seeded full-width stft Generator and GeneratorWav (ConvTasNet
+    depth 1, 512 channels): the card (7 LSTM kernel launches a forward,
+    cuDNN convolutions without TF32) against the CPU (the plain recurrence),
+    every output within 1e-3 of it (the waveform's and the latent's too)."""
+    from autovc_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(model_type=model_type)
+    cpu_gen = build_generator(cfg, device="cpu", seed=0)
+    card_gen = build_generator(cfg, device=cuda, seed=0)
+    x, e = _variant_batch(model_type, 6)
+    with torch.inference_mode():
+        want = cpu_gen(x, e, e)
+        before = lstm_ops.launches
+        got = card_gen(x.to(cuda), e.to(cuda), e.to(cuda))
+        torch.cuda.synchronize()
+    assert lstm_ops.launches == before + 7
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("model_type", ["stft", "wav"])
+def test_variant_train_step_on_card_matches_cpu(cuda, model_type):
+    """One train step of the seeded full-width stft and wav generators
+    (B=2, 64 frames; the wav loss's four terms): the card against the CPU,
+    on the CPU step's side of every ReLU, PReLU and abs kink (``KinkTape``);
+    the loss within 1e-5 relative, 11 LSTM sequences forward, backward and
+    dW, every gradient leaf within 1e-3 of its ``grad_scale``."""
+    from autovc_tpu_torch.config import ModelConfig
+
+    frames = 64
+    crop = (frames - 1) * 256 + 1024 if model_type == "wav" else frames
+    cfg = Config(model=ModelConfig(model_type=model_type), train=TrainConfig(batch_size=2, len_crop=crop))
+    x, emb = _variant_batch(model_type, 7)
+    states = {}
+    for name, dev in (("cpu", "cpu"), ("cuda", cuda)):
+        model = build_generator(cfg.model, device=dev, seed=3, trainable=True)
+        states[name] = TrainState(0, model, make_optimizer(model, cfg), init_ema(model))
+    step = make_train_step(cfg)
+    tape = KinkTape()
+    with tape.record():
+        want = step(states["cpu"], x, emb)
+    before = lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches
+    with tape.replay():
+        got = step(states["cuda"], x.to(cuda), emb.to(cuda))
+        torch.cuda.synchronize()
+    assert (lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches) == tuple(n + 11 for n in before)
+    assert ("prelu" in {k for k, _ in tape.sides}) == (model_type == "wav")
+    assert abs(float(got["g_loss"]) - float(want["g_loss"])) <= 1e-5 * abs(float(want["g_loss"]))
+    grads = {k: {n: p.grad.double().cpu() for n, p in st.model.named_parameters()} for k, st in states.items()}
+    for n, g in grads["cuda"].items():
+        apart = float((g - grads["cpu"][n]).abs().max()) / grad_scale(n, grads["cpu"])
+        assert apart <= 1e-3, f"{n}: the card's step {apart:.3e} of its scale from the CPU step"

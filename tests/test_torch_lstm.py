@@ -290,3 +290,22 @@ def test_scan_function_on_the_cpu_is_the_plain_pair():
     with pytest.raises(ValueError, match="no dW"):
         lstm_ops.LSTMSequenceFn.apply(x.clone().requires_grad_(), w.clone().requires_grad_(), None, None, False,
                                       True)[0].float().sum().backward()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_refs_stack_problems_as_each_alone(reverse):
+    """The scan rounding's plain forward and backward on stacked problems
+    (leading dims on every argument, h0 and c0 too) give each problem's
+    outputs bit for bit as the unstacked call does."""
+    bf = torch.bfloat16
+    rng = np.random.RandomState(8)
+    x, dy = (torch.from_numpy((rng.randn(*s) * 0.5).astype(np.float32)).to(bf) for s in [(3, 2, 9, 64), (3, 2, 9, 16)])
+    w = torch.from_numpy(rng.uniform(-0.25, 0.25, (3, 16, 64)).astype(np.float32)).to(bf)
+    h0, c0 = (torch.from_numpy((rng.randn(3, 2, 16) * 0.5).astype(np.float32)).to(bf) for _ in range(2))
+    fwd = lstm_ops.lstm_scan_bf16_train_ref(x, w, h0, c0, reverse)
+    bwd = lstm_ops.lstm_scan_bf16_backward_ref(w, fwd[2], fwd[1], c0, dy, reverse=reverse)
+    for r in range(3):
+        alone = lstm_ops.lstm_scan_bf16_train_ref(x[r], w[r], h0[r], c0[r], reverse)
+        alone_bwd = lstm_ops.lstm_scan_bf16_backward_ref(w[r], alone[2], alone[1], c0[r], dy[r], reverse=reverse)
+        for got, want in zip([o[r] for o in fwd + bwd], alone + alone_bwd):
+            assert got.dtype == want.dtype == bf and torch.equal(got, want)

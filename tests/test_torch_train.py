@@ -741,7 +741,8 @@ def test_cli_trains_published_widths_and_exports(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag, item", [(["--multihost"], "Queue 1 #8"),
                                         (["--lambda_spk", "0.5"], "requires --spk_ckpt"),
-                                        (["--model_type", "wav"], "Queue 1 #3, #4"), ([], "train.pkl")])
+                                        (["--model_type", "stft", "--lambda_spk", "0.5", "--spk_ckpt", "ge2e.npz"],
+                                         "mel-domain"), ([], "train.pkl")])
 def test_cli_refuses_what_is_not_ported(tmp_path, flag, item):
     from autovc_tpu_torch.cli.train import main
 
