@@ -15,9 +15,10 @@ from ``<main_dir>/<model_type>/metadata.pkl``, or, with --all_pairs, the
 N x N matrix of ``train.pkl``'s speakers (batched 8 a call for spmel and
 stft). stft outputs are projected onto the mel bands, unless --raw keeps
 the model's own domain; wav outputs are waveforms whose mel is re-extracted
-on --device (``convert.WavConverter``). --pallas is accepted and changes
-nothing (the port has one LSTM engine, the CUDA kernels); --seq_devices
-above 1 raises (ROADMAP Queue 1 #8). --pdf needs matplotlib.
+on --device (``convert.WavConverter``). --pallas sets
+``ModelConfig.use_pallas_lstm`` as the JAX CLI does; conversion here runs in
+float32, where both LSTM roundings are the same float32 kernels, so it
+changes no number. --seq_devices above 1 raises (ROADMAP Queue 1 #8). --pdf needs matplotlib.
 
 Everything runs on --device (default cuda, in exact float32 there; cpu runs
 the plain PyTorch versions).
@@ -70,7 +71,7 @@ def load_weights(args: argparse.Namespace) -> tuple[dict | None, int]:
 def build_converter(args: argparse.Namespace, device: torch.device) -> tuple[Converter | WavConverter, int]:
     """The variant's converter on the generator that --artifact or --run_dir
     holds, and its step."""
-    cfg = ModelConfig(model_type=args.model_type, convtas_depth=args.depth)
+    cfg = ModelConfig(model_type=args.model_type, convtas_depth=args.depth, use_pallas_lstm=args.pallas)
     state, step = load_weights(args)
     gen = build_generator(cfg, artifact=args.artifact, device=device)
     if state is not None:
@@ -112,7 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument("--artifact", default=None, help="an exported generator .npz")
     ap.add_argument("--model_type", default="spmel", choices=["spmel", "stft", "wav"])
     ap.add_argument("--pallas", action="store_true",
-                    help="accepted for the JAX CLI's sake; changes nothing (the port has one LSTM engine)")
+                    help="ModelConfig.use_pallas_lstm, as the JAX CLI; the same numbers in float32")
     ap.add_argument("--use_ema", action="store_true", help="convert with the run's EMA weights")
     ap.add_argument("--pdf", action="store_true", help="save spectrogram PDFs (needs matplotlib)")
     ap.add_argument("--out", default=None, help="results pickle path")

@@ -9,8 +9,9 @@ reconstructed in eval mode (source embedding = target embedding) through
 ``Converter.convert_batch(to_mel=False)``, 8 a call, 64 utterances loaded
 at a time, and the mean and median MSE and L1 against the source features
 are printed as one JSON line. --run_dir is a run of the port's Solver
-(``cli.convert.load_solver_checkpoint``); --pallas is accepted and changes
-nothing. Runs on --device (default cuda, in exact float32 there).
+(``cli.convert.load_solver_checkpoint``); --pallas sets
+``ModelConfig.use_pallas_lstm`` as the JAX CLI does, which changes no number
+in float32, where this runs. Runs on --device (default cuda, in exact float32 there).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--run_dir", required=True)
     ap.add_argument("--model_type", default="spmel", choices=["spmel", "stft"])
     ap.add_argument("--pallas", action="store_true",
-                    help="accepted for the JAX CLI's sake; changes nothing (the port has one LSTM engine)")
+                    help="ModelConfig.use_pallas_lstm, as the JAX CLI; the same numbers in float32")
     ap.add_argument("--use_ema", action="store_true")
     ap.add_argument("--max_utts", type=int, default=0, help="0 = all")
     ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (the plain versions)")
@@ -48,7 +49,7 @@ def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     tree, step = load_solver_checkpoint(args.run_dir)
-    cfg = ModelConfig(model_type=args.model_type)
+    cfg = ModelConfig(model_type=args.model_type, use_pallas_lstm=args.pallas)
     gen = build_generator(cfg, device=device)
     gen.load_state_dict({**tree["ema_params" if args.use_ema else "params"], **tree["batch_stats"]})
     conv = Converter(gen, cfg, AudioConfig())

@@ -20,8 +20,10 @@ Identity pairs also give the reconstruction L1 against the source's mel.
   --through mel    embed the converted mel (the generator alone)
   --through audio  converted mel -> vocoder -> waveform -> re-extracted mel
                    -> embedding (the whole production path); WaveNet runs
-                   bucketed, in bfloat16 with --wavenet_engine pallas
---vocoder hybrid is not ported (ROADMAP Queue 1 #5). Prints the summary as
+                   bucketed, in bfloat16 with --wavenet_engine pallas;
+                   hybrid is HiFi-GAN refined by 2 Griffin-Lim iterations
+                   on the mel's magnitude (``vocoder.hybrid``)
+Prints the summary as
 one JSON line; --out writes it with every record. Runs on --device
 (default cuda, in exact float32 there).
 """
@@ -36,7 +38,7 @@ import numpy as np
 
 from autovc_tpu_torch import exact_f32, resolve_device
 from autovc_tpu_torch.cli.synthesize import make_synth
-from autovc_tpu_torch.config import AudioConfig, ModelConfig
+from autovc_tpu_torch.config import AudioConfig, HiFiGANConfig, ModelConfig
 from autovc_tpu_torch.convert import Converter, all_pairs_specs
 from autovc_tpu_torch.data.manifest import load_train_manifest
 from autovc_tpu_torch.dsp.features import MelFrontend
@@ -72,8 +74,6 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
     if args.through == "audio" and args.vocoder in ("hifigan", "hybrid", "wavenet") and not args.vocoder_ckpt:
         ap.error(f"--through audio with --vocoder {args.vocoder} requires --vocoder_ckpt")
-    if args.through == "audio" and args.vocoder == "hybrid":
-        raise SystemExit("--vocoder hybrid: the hybrid vocoder is not ported yet (ROADMAP Queue 1 #5)")
     device = resolve_device(args.device)
     audio = AudioConfig()
     feature_dir = os.path.join(args.main_dir, args.model_type)
@@ -94,7 +94,14 @@ def main(argv: list[str] | None = None) -> dict:
 
         if args.through == "audio":
             args.bf16, args.batch = False, 1  # cli.synthesize's one-at-a-time path (WaveNet bucketed)
-            synth = make_synth(args, audio, device)
+            if args.vocoder == "hybrid":
+                from autovc_tpu_torch.vocoder.hifigan import HiFiGANVocoder
+                from autovc_tpu_torch.vocoder.hybrid import HybridVocoder
+
+                synth = HybridVocoder(HiFiGANVocoder.from_checkpoint(HiFiGANConfig(), args.vocoder_ckpt,
+                                                                     device=device), audio).generate
+            else:
+                synth = make_synth(args, audio, device)
             frontend = MelFrontend(audio, device=device)
             print(f"[evaluate_conversion] audio path via {args.vocoder}")
             converted = [frontend.mel_features(synth(m)).cpu().numpy() for m in converted]

@@ -5,7 +5,7 @@
         [--len_crop T] [--lr LR] [--lambda_cd W] [--lambda_SISNR W]
         [--lr_scheduler Cosine|CosineDecay|Plateau] [--depth D]
         [--ema DECAY] [--resume] [--log_step N] [--checkpoint_step N]
-        [--watch_step N] [--seed S] [--bf16] [--export OUT.npz] [--device cuda|cpu]
+        [--watch_step N] [--seed S] [--bf16 [--pallas]] [--export OUT.npz] [--device cuda|cpu]
         [--lambda_spk W --spk_ckpt GE2E.npz [--spk_protocol windowed|crop]
          [--spk_margin M]]
 
@@ -21,8 +21,10 @@ The wav loss adds ``--lambda_SISNR`` times the SI-SNR of the waveform.
 frozen GE2E encoder of ``--spk_ckpt`` (``train.step.loss_fn``; spmel only:
 stft raises, as the JAX loss asserts, and the wav loss ignores it).
 ``--bf16`` computes in bfloat16 with float32 parameters, Adam state and
-losses, rounding as the JAX CLI's ``--bf16 --pallas`` (the port has one
-LSTM engine, so no ``--pallas``). ``--export`` writes the final parameters
+losses; its LSTMs round as the JAX CLI's ``--bf16`` does (``lax.scan``: h
+and c carried in bfloat16, the CUDA kernels' scan forms), or, with
+``--pallas``, as its ``--bf16 --pallas`` (a float32 carry, the kernels'
+bfloat16 forms). In float32 ``--pallas`` changes no number. ``--export`` writes the final parameters
 and BatchNorm statistics as the JAX CLI does: a flat ``.npz`` of
 ``params/...`` and ``batch_stats/...`` in the JAX layouts, plus
 ``__step__``, which ``autovc_tpu`` and ``build_generator(artifact=...)``
@@ -75,8 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model_parallel", type=int, default=1)
     ap.add_argument("--multihost", action="store_true", help="not ported (ROADMAP Queue 1 #8)")
     ap.add_argument("--bf16", action="store_true",
-                    help="bfloat16 compute, float32 parameters, Adam state and losses: rounds as the JAX CLI's "
-                         "--bf16 --pallas (the port's LSTM kernels round as the Pallas kernels)")
+                    help="bfloat16 compute, float32 parameters, Adam state and losses; the LSTMs round as the JAX "
+                         "CLI's lax.scan (a bfloat16 carry)")
+    ap.add_argument("--pallas", action="store_true",
+                    help="with --bf16, the LSTMs round as the JAX CLI's Pallas kernels (a float32 carry); in float32 "
+                         "the same numbers")
     ap.add_argument("--watch_step", type=int, default=0)
     ap.add_argument("--export", default=None, help="after training, write the final parameters to this .npz")
     ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (the plain versions)")
@@ -102,7 +107,7 @@ def main(argv: list[str] | None = None) -> None:
     cfg = Config(
         model=ModelConfig(model_type=args.model_type, dim_neck=args.dim_neck, dim_emb=args.dim_emb,
                           dim_pre=args.dim_pre, freq=args.freq, convtas_depth=args.depth,
-                          compute_dtype="bfloat16" if args.bf16 else "float32"),
+                          compute_dtype="bfloat16" if args.bf16 else "float32", use_pallas_lstm=args.pallas),
         train=TrainConfig(lambda_cd=args.lambda_cd, lambda_sisnr=args.lambda_SISNR, lambda_spk=args.lambda_spk,
                           spk_ckpt=args.spk_ckpt, spk_protocol=args.spk_protocol, spk_margin=args.spk_margin,
                           batch_size=args.batch_size,

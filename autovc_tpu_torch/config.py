@@ -67,11 +67,14 @@ class ModelConfig:
     ``autovc_tpu/config.py``: in bfloat16 the products and convolutions run
     on bfloat16 operands while the parameters stay float32, cast at compute
     time, in inference and in training (the parameters, Adam's state and
-    the losses float32). There is no ``use_pallas_lstm``: the port has one
-    LSTM engine, the CUDA kernels, and in bfloat16 they round as the JAX
-    package's Pallas kernels do, forward and backward (a float32 carry, the
-    hidden sequence stored in bfloat16), not as its ``lax.scan`` (which
-    carries h and c in bfloat16)."""
+    the losses float32). ``use_pallas_lstm`` picks which of the JAX
+    package's two bfloat16 LSTMs the Generator's recurrences round as, with
+    JAX's field name and default: False (the default), its ``lax.scan``
+    (``_lstm_scan``: h and c carried in bfloat16, every gate op rounded; the
+    CUDA kernels' scan forms), or True, its Pallas kernels (a float32 carry,
+    the hidden sequence stored in bfloat16; the CUDA kernels' bfloat16
+    forms). In float32 both run the same float32 kernels, as JAX's float32
+    scan and Pallas kernel compute the same arithmetic."""
 
     model_type: str = "spmel"
     dim_neck: int = 32
@@ -87,6 +90,7 @@ class ModelConfig:
     dec_lstm_dim: int = 1024
     postnet_channels: int = 512
     compute_dtype: str = "float32"
+    use_pallas_lstm: bool = False
 
     def __post_init__(self):
         if self.compute_dtype not in COMPUTE_DTYPES:

@@ -13,11 +13,17 @@ a ``Generator`` state dict back into the JAX tree, which
 flat WaveNet artifact (no ``params/`` level) into the state dict of
 ``autovc_tpu_torch.vocoder.wavenet.WaveNet``; ``dvector_state_from_jax``
 and ``dvector_state_to_jax`` map a GE2E d-vector tree to the state dict of
-``autovc_tpu_torch.models.DVector`` and back.
+``autovc_tpu_torch.models.DVector`` and back. ``hifigan_state_from_jax`` and
+``conv_state_to_jax`` carry the HiFiGAN generator and its discriminators
+both ways (the trainers' checkpoints), ``state_to_flat`` the
+WaveNet and the d-vector back, and ``jax_leaf_order`` gives the order of a
+JAX tree's leaves, in which the trainers' ``.npz`` train states store their
+optimizer states.
 
 Layouts (JAX -> this package):
 
-- conv kernel ``(k, in, out)`` -> ``(out, in, k)`` (``F.conv1d``);
+- conv kernel ``(k, in, out)`` -> ``(out, in, k)`` (``F.conv1d``), a 2-D
+  conv's ``(kh, kw, in, out)`` -> ``(out, in, kh, kw)`` (``F.conv2d``);
 - transposed-conv kernel ``(k, out, in)`` -> ``(in, out, k)``
   (``F.conv_transpose1d``): the same axis reversal, no flip along k;
 - dense kernel ``(in, out)`` -> ``(out, in)`` (``F.linear``);
@@ -90,12 +96,28 @@ def load_artifact(path: str) -> tuple[dict, int]:
     return unflatten_params(flat), step
 
 
+def _kernel_to_torch(arr: np.ndarray) -> np.ndarray:
+    """A flax kernel in the PyTorch layout: a 2-D conv's ``(kh, kw, in,
+    out)`` -> ``(out, in, kh, kw)``, a 1-D conv's ``(k, in, out)`` -> ``(out,
+    in, k)``, a dense ``(in, out)`` -> ``(out, in)``."""
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    return arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
+
+
+def _kernel_to_jax(arr: np.ndarray) -> np.ndarray:
+    """The inverse of ``_kernel_to_torch``."""
+    if arr.ndim == 4:
+        return arr.transpose(2, 3, 1, 0)
+    return arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
+
+
 def _leaf_to_torch(path: str, value: np.ndarray) -> tuple[str, torch.Tensor]:
     parts = [p for p in path.split("/") if p not in _WRAPPERS]
     leaf = parts[-1]
     arr = np.asarray(value, np.float32)
     if leaf == "kernel":
-        arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
+        arr = _kernel_to_torch(arr)
     parts[-1] = _LEAF_NAMES.get(leaf, leaf)
     return ".".join(parts), torch.from_numpy(np.array(arr, order="C"))  # a writable copy
 
@@ -165,8 +187,33 @@ def save_generator_artifact(state: Mapping[str, torch.Tensor], step: int, path: 
 def hifigan_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     """The JAX ``HiFiGANGenerator`` params (no collection level, as the
     vocoder artifact stores them) -> state dict of
-    ``autovc_tpu_torch.vocoder.hifigan.HiFiGANGenerator``."""
+    ``autovc_tpu_torch.vocoder.hifigan.HiFiGANGenerator``; the same for the
+    JAX ``HiFiGANDiscriminators`` params (``mpd{p}/conv{i}``, 2-D kernels
+    ``(kh, kw, in, out)``; ``msd{i}/conv{i}``) and the port's
+    ``vocoder.discriminators.HiFiGANDiscriminators``."""
     return dict(_leaf_to_torch(path, value) for path, value in flatten_params(params).items())
+
+
+def conv_state_to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """State dict of ``HiFiGANGenerator`` or ``vocoder.discriminators
+    .HiFiGANDiscriminators`` -> the flat JAX parameters (``'pre/kernel'``,
+    ``'mpd2/conv0/kernel'``, ...), float32 numpy in the flax layouts (the
+    inverse of ``hifigan_state_from_jax``). ``np.savez(path, **it)`` is the
+    ``.npz`` the JAX package's ``HiFiGANVocoder.from_checkpoint`` reads."""
+    flat = {}
+    for key, value in state.items():
+        module, leaf = key.rsplit(".", 1)
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            leaf, arr = "kernel", _kernel_to_jax(arr)
+        flat[f"{module.replace('.', '/')}/{leaf}"] = np.ascontiguousarray(arr)
+    return flat
+
+
+def jax_leaf_order(paths) -> list[str]:
+    """The order ``jax.tree_util.tree_leaves`` gives the leaves of a tree of
+    nested dicts with these ``/`` paths: each level's keys sorted."""
+    return sorted(paths, key=lambda p: p.split("/"))
 
 
 def _flat_state(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -183,6 +230,15 @@ def wavenet_state_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     ``last1``, ``last2``, ``upsample/<j>``) -> state dict of
     ``autovc_tpu_torch.vocoder.wavenet.WaveNet``, layouts unchanged."""
     return _flat_state(tree)
+
+
+def state_to_flat(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """A state dict whose leaves keep the JAX layouts (``WaveNet``,
+    ``DVector``) -> the flat JAX parameters, ``.`` becoming ``/``: the
+    inverse of ``wavenet_state_from_jax``. ``np.savez(path, **it)`` is the
+    ``.npz`` the JAX package's ``WaveNetVocoder.from_checkpoint`` reads."""
+    return {key.replace(".", "/"): np.ascontiguousarray(value.detach().cpu().numpy().astype(np.float32))
+            for key, value in state.items()}
 
 
 def dvector_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:

@@ -25,16 +25,18 @@ def build_generator(cfg: ModelConfig = ModelConfig(), *, artifact: str | None = 
     ``artifact`` is None. Frozen in eval mode, or, with ``trainable``, in
     train mode with gradients on. ``cfg.compute_dtype`` sets the compute
     dtype; the weights, their gradients and the BatchNorm statistics stay
-    float32 in bfloat16 too."""
+    float32 in bfloat16 too; ``cfg.use_pallas_lstm`` picks the LSTMs'
+    bfloat16 rounding (False: the scan's, True: the Pallas kernels')."""
     dev = resolve_device(device)
     dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+    scan = not cfg.use_pallas_lstm
     if cfg.model_type in ("spmel", "stft"):
         model = Generator(cfg.dim_neck, cfg.dim_emb, cfg.dim_pre, cfg.freq, cfg.n_bins,
-                          cfg.enc_channels, cfg.dec_lstm_dim, cfg.postnet_channels, dtype)
+                          cfg.enc_channels, cfg.dec_lstm_dim, cfg.postnet_channels, dtype, scan=scan)
     elif cfg.model_type == "wav":
         model = GeneratorWav(cfg.dim_neck, cfg.dim_emb, cfg.dim_pre, cfg.freq, cfg.convtas_depth,
                              cfg.convtas_channels, cfg.convtas_kernel, cfg.convtas_stride,
-                             cfg.enc_channels, cfg.dec_lstm_dim, dtype)
+                             cfg.enc_channels, cfg.dec_lstm_dim, dtype, scan=scan)
     else:
         raise ValueError(f"unknown model_type {cfg.model_type!r}")
     if artifact is None:

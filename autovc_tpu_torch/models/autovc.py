@@ -9,7 +9,9 @@ statistics.
 
 ``dtype`` is the compute dtype of every layer (``models.layers``); in
 bfloat16 the outputs are bfloat16, as the JAX Generator's with
-``dtype=jnp.bfloat16``. Where JAX concatenates a bfloat16 tensor with a
+``dtype=jnp.bfloat16``, and ``scan`` picks the LSTMs' bfloat16 rounding:
+True (``ModelConfig.use_pallas_lstm=False``) JAX's ``lax.scan``'s, False its
+Pallas kernels' (``layers.LSTM``). Where JAX concatenates a bfloat16 tensor with a
 float32 embedding the result is float32 (its type promotion); ``_cat``
 gives ``torch.cat`` the promoted dtype explicitly. The next layer rounds
 the embedding to bfloat16 either way.
@@ -36,7 +38,7 @@ class Encoder(nn.Module):
     (B, T // freq, 2 * dim_neck)."""
 
     def __init__(self, dim_neck: int = 32, freq: int = 32, n_bins: int = 80,
-                 dim_emb: int = 256, channels: int = 512, dtype: torch.dtype = torch.float32):
+                 dim_emb: int = 256, channels: int = 512, dtype: torch.dtype = torch.float32, *, scan: bool):
         super().__init__()
         self.dim_neck = dim_neck
         self.freq = freq
@@ -44,7 +46,7 @@ class Encoder(nn.Module):
             self.add_module(f"conv{i}", ConvNorm(n_bins + dim_emb if i == 0 else channels,
                                                  channels, 5, w_init_gain="relu", dtype=dtype))
             self.add_module(f"bn{i}", BatchNorm(channels, dtype=dtype))
-        self.blstm = LSTM(channels, dim_neck, num_layers=2, bidirectional=True, dtype=dtype)
+        self.blstm = LSTM(channels, dim_neck, num_layers=2, bidirectional=True, dtype=dtype, scan=scan)
 
     def forward(self, x: torch.Tensor, c_org: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
@@ -66,13 +68,13 @@ class Decoder(nn.Module):
     """(B, T, 2 * dim_neck + dim_emb) -> (B, T, n_bins)."""
 
     def __init__(self, in_dim: int = 320, n_bins: int = 80, dim_pre: int = 512, lstm_dim: int = 1024,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, *, scan: bool):
         super().__init__()
-        self.lstm1 = LSTM(in_dim, dim_pre, num_layers=1, dtype=dtype)
+        self.lstm1 = LSTM(in_dim, dim_pre, num_layers=1, dtype=dtype, scan=scan)
         for i in range(3):
             self.add_module(f"conv{i}", ConvNorm(dim_pre, dim_pre, 5, w_init_gain="relu", dtype=dtype))
             self.add_module(f"bn{i}", BatchNorm(dim_pre, dtype=dtype))
-        self.lstm2 = LSTM(dim_pre, lstm_dim, num_layers=2, dtype=dtype)
+        self.lstm2 = LSTM(dim_pre, lstm_dim, num_layers=2, dtype=dtype, scan=scan)
         self.proj = LinearNorm(lstm_dim, n_bins, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -109,11 +111,12 @@ class Generator(nn.Module):
 
     def __init__(self, dim_neck: int = 32, dim_emb: int = 256, dim_pre: int = 512,
                  freq: int = 32, n_bins: int = 80, enc_channels: int = 512,
-                 dec_lstm_dim: int = 1024, postnet_channels: int = 512, dtype: torch.dtype = torch.float32):
+                 dec_lstm_dim: int = 1024, postnet_channels: int = 512, dtype: torch.dtype = torch.float32, *,
+                 scan: bool):
         super().__init__()
         self.dtype = dtype
-        self.encoder = Encoder(dim_neck, freq, n_bins, dim_emb, enc_channels, dtype)
-        self.decoder = Decoder(2 * dim_neck + dim_emb, n_bins, dim_pre, dec_lstm_dim, dtype)
+        self.encoder = Encoder(dim_neck, freq, n_bins, dim_emb, enc_channels, dtype, scan=scan)
+        self.decoder = Decoder(2 * dim_neck + dim_emb, n_bins, dim_pre, dec_lstm_dim, dtype, scan=scan)
         self.postnet = Postnet(n_bins, postnet_channels, dtype)
 
     def encode(self, x: torch.Tensor, c_org: torch.Tensor) -> torch.Tensor:

@@ -78,12 +78,13 @@ class GeneratorWav(nn.Module):
 
     def __init__(self, dim_neck: int = 32, dim_emb: int = 256, dim_pre: int = 512, freq: int = 32,
                  depth: int = 1, channels: int = 512, kernel: int = 1024, stride: int = 256,
-                 enc_channels: int = 512, dec_lstm_dim: int = 1024, dtype: torch.dtype = torch.float32):
+                 enc_channels: int = 512, dec_lstm_dim: int = 1024, dtype: torch.dtype = torch.float32, *,
+                 scan: bool):
         super().__init__()
         self.dtype = dtype
         self.tas_encoder = ConvTasEncoder(depth, channels, kernel, stride, dtype)
-        self.encoder = Encoder(dim_neck, freq, channels, dim_emb, enc_channels, dtype)
-        self.decoder = Decoder(2 * dim_neck + dim_emb, channels, dim_pre, dec_lstm_dim, dtype)
+        self.encoder = Encoder(dim_neck, freq, channels, dim_emb, enc_channels, dtype, scan=scan)
+        self.decoder = Decoder(2 * dim_neck + dim_emb, channels, dim_pre, dec_lstm_dim, dtype, scan=scan)
         self.tas_decoder = ConvTasDecoder(depth, channels, kernel, stride, dtype)
 
     def _latent(self, x: torch.Tensor) -> torch.Tensor:

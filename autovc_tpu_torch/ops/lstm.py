@@ -49,9 +49,13 @@ LSTM, ``_lstm_scan`` under ``jit``, which the d-vector runs on a bfloat16
 input: a bfloat16 carry and every op rounded (``lstm_scan_bf16_train_ref``,
 ``lstm_scan_bf16_backward_ref``; on the card the scan forms of
 ``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu``, ``lstm_scan_forward_cuda``
-and ``lstm_scan_backward_cuda``). Its forward keeps the residuals of the
-scan's VJP, so its backward recomputes nothing; it has no dW (the d-vector
-is frozen).
+and ``lstm_scan_backward_cuda``), and which the Generator runs in bfloat16
+unless ``ModelConfig.use_pallas_lstm``. Its forward keeps the residuals of
+the scan's VJP, so its backward recomputes nothing. Its dW
+(``lstm_scan_bf16_weight_grad_ref``; on the card ``csrc/lstm_scan_dw.cu``,
+``lstm_scan_weight_grad_cuda``) is the transposed scan's: a bfloat16
+accumulator that each step's product is added to, rounded; it is left out
+where w_hh does not require grad (the frozen d-vector).
 """
 
 from __future__ import annotations
@@ -70,8 +74,9 @@ from autovc_tpu_torch.ops import _build
 # gate activations, one kernel launch each; a forward in bfloat16 counts in
 # launches and in bf16_launches, a backward in bfloat16 in bwd_launches and
 # in bf16_bwd_launches; one in the scan rounding counts in launches and
-# scan_launches, or in bwd_launches and scan_bwd_launches. Callers reset
-# them to 0 and read them back.
+# scan_launches, or in bwd_launches and scan_bwd_launches, and its dW in
+# scan_dw_launches (not in dw_launches). Callers reset them to 0 and read
+# them back.
 launches = 0
 bf16_launches = 0
 scan_launches = 0
@@ -79,6 +84,7 @@ bwd_launches = 0
 bf16_bwd_launches = 0
 scan_bwd_launches = 0
 dw_launches = 0
+scan_dw_launches = 0
 gates_launches = 0
 
 
@@ -328,6 +334,31 @@ def lstm_scan_bf16_backward_ref(w_hh: torch.Tensor, act: torch.Tensor, c_seq: to
     return dx.to(bf), carry.to(bf), dc.to(bf)
 
 
+def lstm_scan_bf16_weight_grad_ref(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: torch.Tensor,
+                                   reverse: bool = False) -> torch.Tensor:
+    """The plain dW_hh (H, 4H), bfloat16, of the scan rounding: the
+    cotangent of w_hh that ``jax.vjp`` of ``_lstm_scan`` in bfloat16 gives
+    under ``jit``. The scan's transpose carries it through the reversed loop
+    (read from the compiled HLO on the CPU: a dot of the step's bfloat16
+    gate gradients and hprev in float32, converted to bfloat16, added to the
+    bfloat16 carry in float32 and converted again), so, walking the steps in
+    the backward's order from a zero accumulator:
+
+        dW = rb(dW + rb(hprev_t^T @ dxproj_t))     (float32 sums over B)
+
+    hprev_t is the step's starting state (h0, or zero, then h_seq's
+    neighbour), dxproj the bfloat16 gate gradients of
+    ``lstm_scan_bf16_backward_ref``. Leading dims stack problems as there."""
+    *lead, b, t, h4 = dxproj.shape
+    hprev = _hprev(h_seq.float(), None if h0 is None else _rb(h0.float()), reverse)
+    dx = dxproj.float()
+    dw = torch.zeros(*lead, h4 // 4, h4, device=dxproj.device)
+    with exact_f32(dxproj.device):
+        for step in (range(t) if reverse else range(t - 1, -1, -1)):
+            dw = _rb(dw + _rb(_products(hprev[..., step, :].transpose(-1, -2), dx[..., step, :])))
+    return dw.to(torch.bfloat16)
+
+
 # ------------------------------------------------------------- launch plans
 
 SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
@@ -505,6 +536,9 @@ def _library(name: str) -> ctypes.CDLL:
     elif name == "lstm_gates":
         lib.autovc_lstm_gates.argtypes = [pointers] * 5 + [ints] * 5 + [pointers]
         entries = (lib.autovc_lstm_gates,)
+    elif name == "lstm_scan_dw":
+        lib.autovc_lstm_scan_dw.argtypes = [pointers] * 4 + [ints] * 4 + [pointers]
+        entries = (lib.autovc_lstm_scan_dw,)
     else:
         lib.autovc_lstm_bwd.argtypes = [pointers] * 9 + [ints] * 10 + tail
         lib.autovc_lstm_bwd_bf16.argtypes = [pointers] * 10 + [ints] * 10 + tail
@@ -524,9 +558,10 @@ def _check_dtypes(xproj: torch.Tensor, w_hh: torch.Tensor) -> None:
         raise TypeError(f"mixed dtypes: xproj {xproj.dtype} and w_hh {w_hh.dtype} (bfloat16 takes both)")
 
 
-# The tensors the bfloat16 forms take in bfloat16; the rest (the state, c_seq,
-# the gate activations and gradients, the cotangents of hN and cN) float32.
-_BF16_OPERANDS = ("xproj", "w_hh", "h_seq", "dy")
+# The tensors the bfloat16 forms take in bfloat16 (dxproj: the scan dW's
+# bfloat16 gate gradients); the rest (the state, c_seq, the gate activations
+# and gradients, the cotangents of hN and cN) float32.
+_BF16_OPERANDS = ("xproj", "w_hh", "h_seq", "dy", "dxproj")
 
 
 def _check(xproj: torch.Tensor, w_hh: torch.Tensor | None, kind: str = "fwd", first: str = "xproj",
@@ -804,6 +839,29 @@ def lstm_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: 
     return dw
 
 
+def lstm_scan_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: torch.Tensor,
+                               reverse: bool = False) -> torch.Tensor:
+    """Launch ``csrc/lstm_scan_dw.cu``: dW_hh (H, 4H) of the scan rounding,
+    bfloat16, one launch (the rounding of ``lstm_scan_bf16_weight_grad_ref``:
+    each step's product rounded and added to a bfloat16 accumulator). h_seq
+    and dxproj bfloat16 (the scan forward's sequence, the scan backward's
+    gate gradients), h0 bfloat16 or None (zero)."""
+    global scan_dw_launches
+    if h_seq.dtype != torch.bfloat16 or dxproj.dtype != torch.bfloat16:
+        raise TypeError(f"the scan dW takes bfloat16 h_seq and dxproj, got {h_seq.dtype} and {dxproj.dtype}")
+    h0 = _scan_state(h0, "h0")
+    b, t, hidden, _ = _check(dxproj, None, first="dxproj", h_seq=h_seq, h0=h0)
+    lib = _library("lstm_scan_dw")
+    h_seq, h0, dxproj = _dense(h_seq), _dense(h0), _dense(dxproj)
+    dw = torch.empty((hidden, 4 * hidden), device=dxproj.device, dtype=torch.bfloat16)
+    with torch.cuda.device(dxproj.device):
+        err = lib.autovc_lstm_scan_dw(_ptr(h_seq), _ptr(h0), _ptr(dxproj), _ptr(dw), b, t, hidden, int(reverse),
+                                      torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "lstm scan dW kernel")
+    scan_dw_launches += 1
+    return dw
+
+
 def lstm_gates_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None, h_seq: torch.Tensor,
                     reverse: bool = False) -> torch.Tensor:
     """Launch ``csrc/lstm_gates.cu``: the gate activations (B, T, 4H),
@@ -882,8 +940,9 @@ class LSTMSequenceFn(torch.autograd.Function):
     them; the backward on the card first recomputes the gate activations
     from the rounded h_seq (``lstm_gates_cuda``). With ``scan`` (bfloat16
     only) the scan rounding: a bfloat16 state (h0, c0, hN, cN), the forward's
-    bfloat16 residuals read by the backward, which computes no dW and raises
-    where w_hh requires grad."""
+    bfloat16 residuals read by the backward, and dW, where w_hh requires
+    grad, summed into a bfloat16 accumulator a step at a time
+    (``lstm_scan_weight_grad_cuda``)."""
 
     @staticmethod
     def forward(ctx, xproj, w_hh, h0, c0, reverse, scan=False):
@@ -896,7 +955,7 @@ class LSTMSequenceFn(torch.autograd.Function):
                 h_seq, c_seq, act, hn, cn = lstm_scan_forward_cuda(xproj, w_hh, h0, c0, reverse, with_residuals=True)
             else:
                 h_seq, c_seq, act, hn, cn = lstm_scan_bf16_train_ref(xproj, w_hh, h0, c0, reverse)
-            ctx.save_for_backward(w_hh, c0, c_seq, act)
+            ctx.save_for_backward(w_hh, h0, c0, h_seq, c_seq, act)
             return h_seq, hn, cn
         bf16 = xproj.dtype == torch.bfloat16
         if _device_kind(xproj) == "cuda":
@@ -926,18 +985,19 @@ class LSTMSequenceFn(torch.autograd.Function):
 
     @staticmethod
     def _scan_backward(ctx, dy, dhn, dcn):
-        w_hh, c0, c_seq, act = ctx.saved_tensors
-        if ctx.needs_input_grad[1]:
-            raise ValueError("the scan rounding's backward computes no dW: it serves a frozen w_hh (the d-vector)")
+        w_hh, h0, c0, h_seq, c_seq, act = ctx.saved_tensors
         dy = dy.to(torch.bfloat16) if dy is not None else torch.zeros(act.shape[:2] + (w_hh.shape[0],),
                                                                     dtype=torch.bfloat16, device=act.device)
         args = (w_hh, act, c_seq, c0, dy, dhn, dcn, ctx.reverse)
+        need_dw = ctx.needs_input_grad[1]  # no dW for a frozen w_hh (the d-vector)
         if _device_kind(act) == "cuda":
             dx, dh0, dc0 = lstm_scan_backward_cuda(*args)
+            dw = lstm_scan_weight_grad_cuda(h_seq, h0, dx, ctx.reverse) if need_dw else None
         else:
             dx, dh0, dc0 = lstm_scan_bf16_backward_ref(*args)
+            dw = lstm_scan_bf16_weight_grad_ref(h_seq, h0, dx, ctx.reverse) if need_dw else None
         h0_grad, c0_grad = ctx.needs_input_grad[2:4]
-        return dx, None, dh0 if h0_grad else None, dc0 if c0_grad else None, None, None
+        return dx, dw, dh0 if h0_grad else None, dc0 if c0_grad else None, None, None
 
 
 def lstm_sequence(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False, scan: bool = False

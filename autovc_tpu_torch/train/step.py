@@ -13,7 +13,10 @@ hand-written kernels (``ops.lstm.LSTMSequenceFn``). With
 ``cfg.model.compute_dtype="bfloat16"`` the generator computes in bfloat16
 (its kernels' bfloat16 forms) while the parameters, their gradients, Adam's
 state, the EMA, the BatchNorm statistics and the losses (which widen their
-inputs) stay float32, as the JAX step with ``--bf16 --pallas``.
+inputs) stay float32, as in the JAX step with ``--bf16``. Its LSTMs round as
+``cfg.model.use_pallas_lstm`` says: by default as JAX's ``lax.scan`` (a
+bfloat16 carry, each gate op rounded; JAX's ``--bf16``), and with it set as
+the Pallas kernel (JAX's ``--bf16 --pallas``).
 
 With ``cfg.train.lambda_spk > 0`` and a ``SpeakerAux``, the loss adds the
 speaker-consistency auxiliary: the batch is converted within itself (the

@@ -147,6 +147,38 @@ class WaveNet(nn.Module):
         return out @ self.last2.kernel + self.last2.bias
 
 
+def discretized_mol_loss(logits: torch.Tensor, target: torch.Tensor, num_classes: int = 65536,
+                         log_scale_min: float = WaveNetConfig.log_scale_min, reduce: bool = True) -> torch.Tensor:
+    """The discretized mixture-of-logistics NLL, the WaveNet training loss
+    (``autovc_tpu/vocoder/wavenet.py:200-236``): logits (..., 3K) = (mixture
+    logits, means, log scales clamped at ``log_scale_min``), target (...,)
+    in [-1, 1]. A target below -0.999 takes the log CDF at its bin's upper
+    edge, one above 0.999 the log of 1 - the CDF at its lower edge, the rest
+    the log of the bin's mass where that exceeds 1e-5, else the log density
+    at the bin's centre times the bin width. The mean over all samples, or
+    the (...,) NLLs when not ``reduce``."""
+    k = logits.shape[-1] // 3
+    logit_probs = logits[..., :k]
+    means = logits[..., k : 2 * k]
+    log_scales = torch.clamp(logits[..., 2 * k :], min=log_scale_min)
+    t = target[..., None] - means
+    inv_s = torch.exp(-log_scales)
+    half = 1.0 / (num_classes - 1)
+    plus_in, minus_in = inv_s * (t + half), inv_s * (t - half)
+    cdf_delta = torch.sigmoid(plus_in) - torch.sigmoid(minus_in)
+    mid = inv_s * t
+    log_pdf_mid = mid - log_scales - 2.0 * F.softplus(mid)
+    log_cdf_plus = plus_in - F.softplus(plus_in)
+    log_one_minus_cdf_min = -F.softplus(minus_in)
+    inner = torch.where(cdf_delta > 1e-5, torch.log(torch.clamp(cdf_delta, min=1e-12)),
+                        log_pdf_mid - math.log((num_classes - 1) / 2))
+    edge = target[..., None]
+    log_probs = torch.where(edge < -0.999, log_cdf_plus, torch.where(edge > 0.999, log_one_minus_cdf_min, inner))
+    log_probs = log_probs + torch.log_softmax(logit_probs, dim=-1)
+    nll = -torch.logsumexp(log_probs, dim=-1)
+    return nll.mean() if reduce else nll
+
+
 class WaveNetVocoder:
     """The WaveNet entry point: weights from an exported JAX artifact
     (``artifacts/wavenet_105k.npz``, ``artifacts/wavenet_f16.npz``) or drawn

@@ -3,9 +3,11 @@ each against its plain version, and drives spmel conversion, WaveNet
 vocoding, spmel generator training, feature extraction, the GE2E speaker
 encoder (speaker embeddings, its evaluation, the lambda_spk training
 auxiliary), bfloat16 conversion and vocoding (``cli.synthesize``),
-bfloat16 generator training (``cli.train --bf16``), and the stft and wav
-variants' conversion and training with the conversion and evaluation CLIs
-end to end.
+bfloat16 generator training (``cli.train --bf16 --pallas``), the stft and
+wav variants' conversion and training with the conversion and evaluation
+CLIs, the Generator's default bfloat16 rounding (JAX's ``lax.scan``) in
+conversion and training, and the training of the speaker encoder and the
+vocoders with ``cli.evaluate_vocoder``, end to end.
 
     python3 chip_smoke.py            # seeded random weights at full width
     python3 chip_smoke.py --trained  # the committed artifacts/*.npz weights
@@ -117,8 +119,9 @@ largest magnitude where the element is smaller), at least 99% bit-equal;
 its time beside the float32 kernel's, the plain loop's, cuDNN's LSTM in
 bfloat16 and the bound, with the plan; (b) the bench program in bfloat16
 (``bench.py:107-118``): phase 2's 32 mels through ``Converter.convert_batch``
-on the same seeded Generator with ``compute_dtype="bfloat16"`` (7 bfloat16
-LSTM launches) and the same HiFi-GAN in bfloat16, the waveform in float32:
+on the same seeded Generator with ``compute_dtype="bfloat16"`` and
+``use_pallas_lstm=True`` (7 bfloat16 LSTM launches in the Pallas
+rounding; 10a runs bench.py's default, the scan rounding) and the same HiFi-GAN in bfloat16, the waveform in float32:
 the warm iteration, its realtime factor, the Generator / HiFi-GAN / LSTM
 split, and ``bench.py``'s parity dict against phase 2's float32 run
 (recorded, not a gate: seeded weights on synthetic mels); (c) phase 3's
@@ -202,13 +205,51 @@ pkls of the right length and finite; (f) both variants converted in
 bfloat16 beside (a)'s and (d)'s float32 (the mel delta recorded, not
 gated) and 3 bfloat16 Solver steps of each (finite).
 
+Phase 10 runs the Generator's bfloat16 LSTMs in the scan rounding, the
+default of ``ModelConfig.use_pallas_lstm=False`` as of JAX's (``lax.scan``:
+h and c carried in bfloat16, every gate op rounded): (a) the forward
+kernel's scan form at the Generator's shapes (B=32, T=512; H=32 both
+directions, 512, 1024) against its plain loop by 8d's scan rule (its first
+16 steps within 1 ulp or the plain loop's own ulps there and 99%
+bit-equal; the sequence within twice the spread of 32 relabelled plain
+loops run stacked), timed beside the plain loop and the bound; then
+bench.py's default program (7b's, with the scan rounding): 7 scan
+launches, its iteration, realtime factor and parity dict beside 7b's; (b)
+the scan dW kernel (``csrc/lstm_scan_dw.cu``: each step's product rounded
+and added to a bfloat16 accumulator, as XLA transposes the scan) against
+``lstm_scan_bf16_weight_grad_ref`` at B=7, T=128, H in {32, 512, 1024},
+both directions (1 bfloat16 ulp floored at 2^-8 of the peak, 99%
+bit-equal), timed beside the plain loop, the bound and ``torch.matmul`` of
+the one-shot product; one bfloat16 train step in the scan rounding against
+the plain engine on the same kinks (8b's gate), 5 Solver steps (11 scan
+forward, backward and dW launches a step, none of the Pallas forms) and a
+warm step's profile; ``cli.train --bf16`` and ``--bf16 --pallas``, 3 steps
+each, their launches.
+Phase 11 trains the speaker encoder and the vocoders on phase 5's corpus:
+(a) GE2E (every speaker, 5 crops of 128 frames each): at H=768 and 256 and
+B=20 the LSTM training forward and the backward with dW against their
+plain versions (1e-4; dW 1e-4 of its peak), timed beside cuDNN; one
+``GE2ETrainer`` loss and gradient with the kernels against the plain engine
+on the card (loss 1e-5 relative, leaves 1e-4 of their scale or, where a
+leaf's sums cancel, phase 4c's float64 rule; 3 forward, backward and dW
+launches), a step and its profile;
+``cli.train_speaker_encoder`` for 3 steps and ``cli.make_metadata
+--dvector_ckpt`` on its checkpoint; (b) HiFi-GAN V1 reconstruction and GAN
+steps (MPD and MSD at their published widths) at B=2, 32 frames and the
+r9y9 WaveNet at B=2, 8000 samples: step p50 and p95, a warm step's device
+time and idle share; ``cli.train_vocoder`` for 3 steps of HiFi-GAN, of
+``--gan --init`` on it and of WaveNet; (c) ``cli.evaluate_vocoder`` with
+griffinlim, hifigan and hybrid on 4 utterances and wavenet on the shortest
+one (11b's checkpoints), the launches of each asserted (one mel_norm and
+two sosfilt an utterance, one WaveNet launch).
+
 The kernels are built first, one ``nvcc`` each, started together.
 
 The output ends with the card's name and power limit, one JSON line of
 kernel records, and ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; a watchdog ends a hung run with a stack dump. Without a CUDA
 device it exits non-zero before doing anything. It writes nothing outside
-the kernel build directory but the temporary directories of phases 4-9,
+the kernel build directory but the temporary directories of phases 4-11,
 which it removes.
 """
 
@@ -219,6 +260,7 @@ import sys
 sys.dont_write_bytecode = True  # keep the checkout free of __pycache__
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import faulthandler  # noqa: E402
 import functools  # noqa: E402
 import os  # noqa: E402
@@ -270,7 +312,7 @@ ROOT = Path(__file__).resolve().parent
 B, T, N_MELS, HOP = 32, 512, 80, 256
 LSTM_TOL = 1e-4  # f32 kernel vs f32 plain loop: summation order only
 MEL_TOL = 1e-3  # on the whole generator, after 7 recurrences and 11 convs
-KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_gates", "wavenet_gen", "mel_norm", "sosfilt")
+KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_gates", "lstm_scan_dw", "wavenet_gen", "mel_norm", "sosfilt")
 WN_B, WN_FRAMES = 8, 8  # utterances and mel frames vocoded by WaveNet: T = 2048 samples
 WN_TF_TOL = 1e-3  # kernel logits vs teacher-forced forward on its own waveform, f32
 WN_PREFIX_TOL, WN_MIN_PREFIX = 1e-4, 32  # kernel vs plain loop, same uniforms
@@ -397,7 +439,9 @@ def phase_build() -> None:
     _build.build(list(KERNELS))
     log(f"build {', '.join(KERNELS)}: {time.perf_counter() - t0:.1f} s wall")
     for name in KERNELS:
-        log(f"  {name}: nvcc {_build.build_seconds.get(name, 0.0):.1f} s")
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", _build.build_log.get(name, ""))]
+        log(f"  {name}: nvcc {_build.build_seconds.get(name, 0.0):.1f} s, ptxas spill stores up to "
+            f"{max(spills, default=0)} bytes a kernel")
         for line in _build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
@@ -884,7 +928,7 @@ LSTM_COUNTERS = ("launches", "bf16_launches", "scan_launches", "bwd_launches", "
 
 
 def zero_counts() -> None:
-    for c in LSTM_COUNTERS:
+    for c in LSTM_COUNTERS + ("scan_dw_launches",):
         setattr(lstm_ops, c, 0)
 
 
@@ -1500,7 +1544,11 @@ def phase_features(dev: torch.device, tmp: str) -> tuple[dict, dict, str]:
         f"{worst['tf32']:.3e} (tol 1e-6)")
 
     # (d) the CLI over the whole corpus on the card, then --exact and
-    # --device cpu (the float32 chain with the plain versions)
+    # --device cpu (the float32 chain with the plain versions; a host loop
+    # of about half a second a file): --device cpu on the first speaker,
+    # and on any other speaker with a file beyond EXACT_TOL of --exact,
+    # whose gate reads it (a speaker at a time: its dither stream runs over
+    # its files in order)
     dirs = {k: os.path.join(tmp, k) for k in ("card", "exact", "cpu")}
     wav_dir = os.path.join(tmp, "wavs")
     torch.cuda.synchronize()
@@ -1512,24 +1560,39 @@ def phase_features(dev: torch.device, tmp: str) -> tuple[dict, dict, str]:
     t0 = time.perf_counter()
     make_spect.main(["--main_dir", dirs["exact"], "--wav_dir", wav_dir, "--model_type", "spmel", "--exact"])
     exact_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    make_spect.main(["--main_dir", dirs["cpu"], "--wav_dir", wav_dir, "--model_type", "spmel", "--device", "cpu"])
-    cpu_s = time.perf_counter() - t0
-    if feature_counts() != launches:
-        raise AssertionError(f"--exact or --device cpu launched kernels: {launches} -> {feature_counts()}")
+    cpu_s, cpu_speakers = 0.0, []
+
+    def cpu_reference(path: str) -> np.ndarray:
+        nonlocal cpu_s
+        spk = os.path.basename(os.path.dirname(path))
+        if spk not in cpu_speakers:
+            one = os.path.join(tmp, f"wavs_{spk}")
+            os.makedirs(one)
+            os.symlink(os.path.join(wav_dir, spk), os.path.join(one, spk))
+            t0 = time.perf_counter()
+            make_spect.main(["--main_dir", dirs["cpu"], "--wav_dir", one, "--model_type", "spmel", "--device", "cpu"])
+            cpu_s += time.perf_counter() - t0
+            cpu_speakers.append(spk)
+        return np.load(path.replace(dirs["card"], dirs["cpu"]))
+
+    cpu_reference(written[0])
     n = len(written)
     worst = {"cpu": 0.0, "exact": 0.0, "cpu_exact": 0.0}
     over, zeros, ones, frames = [], 0, 0, 0
     for path in written:
         got = np.load(path)
-        ref = {k: np.load(path.replace(dirs["card"], dirs[k])) for k in ("exact", "cpu")}
+        ref = {"exact": np.load(path.replace(dirs["card"], dirs["exact"]))}
+        if np.abs(got - ref["exact"]).max() > EXACT_TOL or os.path.basename(os.path.dirname(path)) in cpu_speakers:
+            ref["cpu"] = cpu_reference(path)
+        else:
+            ref["cpu"] = ref["exact"] + np.inf  # not made: this file's gate holds without it
         if got.dtype != np.float32 or got.ndim != 2 or got.shape != ref["exact"].shape or got.shape[1] != N_MELS:
             raise AssertionError(f"{path}: {got.dtype} {got.shape} against {ref['exact'].shape}")
         if not (got.min() >= 0.0 and got.max() <= 1.0):
             raise AssertionError(f"{path}: values outside [0, 1]: {got.min()} .. {got.max()}")
         err = {"cpu": float(np.abs(got - ref["cpu"]).max()), "exact": float(np.abs(got - ref["exact"]).max()),
                "cpu_exact": float(np.abs(ref["cpu"] - ref["exact"]).max())}
-        worst = {k: max(v, err[k]) for k, v in worst.items()}
+        worst = {k: max(v, err[k]) if np.isfinite(err[k]) else v for k, v in worst.items()}
         if err["exact"] > EXACT_TOL:
             diff = np.abs(got - ref["exact"])
             over.append((os.path.basename(path), err["exact"], err["cpu_exact"],
@@ -1542,10 +1605,13 @@ def phase_features(dev: torch.device, tmp: str) -> tuple[dict, dict, str]:
             raise AssertionError(f"{path}: card vs --exact {err['exact']} (tol {EXACT_TOL}, or the CPU's "
                                  f"{err['cpu_exact']} + {FE_TOL}); vs --device cpu {err['cpu']}")
         zeros, ones, frames = zeros + int((got == 0).sum()), ones + int((got == 1).sum()), frames + got.shape[0]
+    if feature_counts() != launches:
+        raise AssertionError(f"--exact or --device cpu launched kernels: {launches} -> {feature_counts()}")
     log(f"features (d) make_spect on the card: {n} files, {frames} frames, {cli_s:.3f} s wall, "
         f"{n / cli_s:.1f} files/s, {audio_s / cli_s:.1f} s of audio per wall second; launches (mel_norm, "
-        f"sosfilt) {launches}; --exact (host f64) {exact_s:.3f} s, --device cpu {cpu_s:.1f} s; max_abs_err "
-        f"vs --exact {worst['exact']:.3e} (--device cpu vs --exact {worst['cpu_exact']:.3e}), vs --device cpu "
+        f"sosfilt) {launches}; --exact (host f64) {exact_s:.3f} s, --device cpu {cpu_s:.1f} s on "
+        f"{', '.join(cpu_speakers)}; max_abs_err vs --exact {worst['exact']:.3e} (--device cpu vs --exact "
+        f"{worst['cpu_exact']:.3e}, on those speakers), vs --device cpu "
         f"{worst['cpu']:.3e} (two highpass roundings); outputs at 0: {zeros / (frames * N_MELS):.4f}, at 1: "
         f"{ones / (frames * N_MELS):.5f} (card: {card_line()})")
     log(f"features (d) files beyond {EXACT_TOL} of --exact: {len(over)} of {n}" + "".join(
@@ -2035,14 +2101,18 @@ def phase_bf16_lstm(dev: torch.device) -> dict:
 
 
 def phase_bf16_bench(dev: torch.device, trained: bool, mels32: np.ndarray, f32_run: tuple,
-                     lstm_rec: dict) -> dict:
+                     lstm_rec: dict, use_pallas_lstm: bool = True) -> dict:
     """7b: phase 2's program in bfloat16, as bench.py runs it: the same
     seeded Generator with compute_dtype bfloat16 and the same HiFi-GAN with
     bfloat16 parameters, the mel cast to bfloat16 on its way in and the
-    waveform to float32 on its way out."""
+    waveform to float32 on its way out; its LSTMs in the Pallas rounding
+    (``use_pallas_lstm``, JAX's ``--pallas``), or, in 10a, in the scan
+    rounding, bench.py's default."""
     specs, wav32 = f32_run
     art = ROOT / "artifacts"
-    cfg = ModelConfig(compute_dtype="bfloat16")
+    cfg = ModelConfig(compute_dtype="bfloat16", use_pallas_lstm=use_pallas_lstm)
+    form = "bf16_launches" if use_pallas_lstm else "scan_launches"
+    label = "bf16" if use_pallas_lstm else "bf16 scan (bench.py's default)"
     gen = build_generator(cfg, artifact=str(art / "generator_spmel_f16.npz") if trained else None,
                           device=dev, seed=1)
     voc = HiFiGANVocoder(artifact=str(art / "hifigan.npz") if trained else None, device=dev, seed=2, dtype=BF16)
@@ -2053,16 +2123,16 @@ def phase_bf16_bench(dev: torch.device, trained: bool, mels32: np.ndarray, f32_r
         return mels, voc.generate(mels)
 
     torch.cuda.synchronize()
-    lstm_ops.launches = lstm_ops.bf16_launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     mels, wav = run()
     torch.cuda.synchronize()
-    launches, bf16_launches = lstm_ops.launches, lstm_ops.bf16_launches
-    log(f"bf16 main path (cold): {time.perf_counter() - t0:.3f} s, lstm kernel launches={launches} "
-        f"(bfloat16 form {bf16_launches})")
-    if launches != 7 or bf16_launches != 7:
-        raise AssertionError(f"expected 7 bfloat16 lstm launches per Generator forward, got {launches} "
-                             f"({bf16_launches} bfloat16)")
+    launches, form_launches = lstm_ops.launches, getattr(lstm_ops, form)
+    log(f"{label} main path (cold): {time.perf_counter() - t0:.3f} s, lstm kernel launches={launches} "
+        f"({form} {form_launches}; counts {all_counts()})")
+    if launches != 7 or form_launches != 7:
+        raise AssertionError(f"expected 7 lstm launches per Generator forward in {form}, got {launches} "
+                             f"({form_launches}; counts {all_counts()})")
     if wav.dtype != torch.float32 or wav.shape != (B, T * HOP) or not bool(torch.isfinite(wav).all()):
         raise AssertionError(f"bf16 waveform {wav.dtype} {tuple(wav.shape)} finite={bool(torch.isfinite(wav).all())}")
     if mels.shape != (B, T, N_MELS) or not np.isfinite(mels).all():
@@ -2071,7 +2141,7 @@ def phase_bf16_bench(dev: torch.device, trained: bool, mels32: np.ndarray, f32_r
               "mel_meanabs_delta": float(np.abs(mels - mels32).mean()),
               "wav_maxabs_delta": float((wav - wav32).abs().max())}
     parity["ok"] = parity["mel_maxabs_delta"] <= BENCH_MEL_DELTA
-    log(f"bf16 parity against phase 2's f32 run (bench.py's dict; recorded, not a gate): {json.dumps(parity)}")
+    log(f"{label} parity against phase 2's f32 run (bench.py's dict; recorded, not a gate): {json.dumps(parity)}")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2085,8 +2155,8 @@ def phase_bf16_bench(dev: torch.device, trained: bool, mels32: np.ndarray, f32_r
     with torch.inference_mode():
         gen_ms = cuda_ms(lambda: gen(x, e_src, e_trg), reps=3)
         voc_ms = cuda_ms(lambda: voc.model(x.to(BF16)), reps=3)
-    log(f"bf16 warm iteration: {warm_s * 1e3:.1f} ms wall for {audio_s:.1f} s of audio ({audio_s / warm_s:.1f}x "
-        f"realtime); generator {gen_ms:.1f} ms (of it the bf16 LSTM kernel {lstm_rec['ms']:.1f}), HiFi-GAN "
+    log(f"{label} warm iteration: {warm_s * 1e3:.1f} ms wall for {audio_s:.1f} s of audio ({audio_s / warm_s:.1f}x "
+        f"realtime); generator {gen_ms:.1f} ms (of it the LSTM kernels {lstm_rec['ms']:.1f}), HiFi-GAN "
         f"{voc_ms:.1f} ms (card: {card_line()})")
     return {"launches": launches, "iteration_ms": warm_s * 1e3, "realtime": audio_s / warm_s,
             "generator_ms": gen_ms, "hifigan_ms": voc_ms, "parity": parity}
@@ -2456,6 +2526,73 @@ def bf16_train_profile(solver: Solver, x: torch.Tensor, emb: torch.Tensor) -> di
             "lstm_ms": {k: mean * made / 1e3 for k, (mean, _, made) in kinds.items()}}
 
 
+def bf16_step_gate(dev: torch.device, cfg: Config, x: torch.Tensor, emb: torch.Tensor, label: str, counter,
+                   kinds: str) -> dict:
+    """One bfloat16 train step (``cfg``) with the kernels against the same
+    step on the plain engine on the card, on the kernel step's kinks, and
+    the float32 step on the same kinks: every gradient leaf no farther from
+    the plain step than BF16_SPREAD times the plain engine's own bfloat16
+    spread, the loss within twice its spread; ``counter`` (the launches
+    named ``kinds``) counts SEQS_PER_STEP of each over the kernel step and
+    none over the plain ones."""
+    def fresh(model_cfg: ModelConfig) -> TrainState:
+        model = build_generator(model_cfg, device=dev, seed=7, trainable=True)
+        return TrainState(0, model, make_optimizer(model, cfg), init_ema(model))
+
+    states = {"kernels": fresh(cfg.model), "plain": fresh(cfg.model), "f32": fresh(ModelConfig())}
+    step, step32 = make_train_step(cfg), make_train_step(Config(train=cfg.train))
+    tape = KinkTape()
+    torch.cuda.synchronize()
+    before = counter()
+    t0 = time.perf_counter()
+    with tape.record():
+        mk = step(states["kernels"], x, emb)
+        torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    k_counts = tuple(a - b for a, b in zip(counter(), before))
+    if k_counts != (SEQS_PER_STEP,) * len(k_counts):
+        raise AssertionError(f"{label}: one step launched {k_counts} {kinds}")
+    with plain_engine():
+        t0 = time.perf_counter()
+        with tape.replay():
+            mp = step(states["plain"], x, emb)
+            torch.cuda.synchronize()
+        p_s = time.perf_counter() - t0
+        bf_flips = tape.flips
+        with tape.replay():
+            m32 = step32(states["f32"], x, emb)
+    if tuple(a - b for a, b in zip(counter(), before)) != k_counts:
+        raise AssertionError(f"{label}: the plain steps launched kernels")
+    loss_k, loss_p, loss32 = (float(m["g_loss"]) for m in (mk, mp, m32))
+    grads = {k: {n: p.grad.double() for n, p in st.model.named_parameters()} for k, st in states.items()}
+    model = states["kernels"].model
+    dtypes = {p.dtype for p in model.parameters()} | {p.grad.dtype for p in model.parameters()} | {
+        b.dtype for b in model.buffers()}
+    rows = []
+    for n, g in grads["kernels"].items():
+        scale = grad_scale(n, grads["plain"])
+        rows.append(((g - grads["plain"][n]).abs().max().item() / scale,
+                     (grads["f32"][n] - grads["plain"][n]).abs().max().item() / scale, n))
+    grad_tol = BF16_SPREAD * float(np.median([r[1] for r in rows]))
+    over = [r for r in rows if r[0] > grad_tol]
+    worst = max(rows)
+    loss_tol = min(1e-3 * abs(loss_p), 2 * abs(loss_p - loss32) + 1e-5 * abs(loss_p))
+    rel_plain, rel_f32 = abs(loss_k - loss_p) / abs(loss_p), abs(loss_k - loss32) / abs(loss32)
+    log(f"{label} step with kernels vs the plain engine (bf16, on the card): loss {loss_k!r} vs {loss_p!r} "
+        f"({rel_plain:.3e} relative, tolerance {loss_tol / abs(loss_p):.3e}); the f32 step on the same batch and "
+        f"kinks {loss32!r} (the bf16 kernel step {rel_f32:.3e} relative from it); launches {kinds} "
+        f"{k_counts}; first step {k_s * 1e3:.1f} ms, plain {p_s * 1e3:.1f} ms; kinks {tape.elements} "
+        f"elements, the f32 step on the other side of {tape.flips}, the plain bf16 step of {bf_flips}")
+    log(f"{label} gradient gate {grad_tol:.3e} of a leaf's scale: {BF16_SPREAD}x the plain engine's own "
+        f"bf16 spread (the median over leaves of its distance from the f32 step; max "
+        f"{max(r[1] for r in rows):.3e}); kernel vs plain median {float(np.median([r[0] for r in rows])):.3e}, "
+        f"worst {worst[2]} at {worst[0]:.3e}")
+    if over or abs(loss_k - loss_p) > loss_tol or dtypes != {torch.float32}:
+        raise AssertionError(f"{label}: the step with the kernels: leaves over their gate {over}; loss "
+                             f"{loss_k} vs {loss_p} (tolerance {loss_tol}); dtypes {dtypes}")
+    return {"loss_rel_to_plain": rel_plain, "loss_rel_to_f32": rel_f32, "grad_tol": grad_tol, "grad_worst": worst[0]}
+
+
 def phase_bf16_training(dev: torch.device) -> dict:
     """8b: phase 4's Solver with compute_dtype bfloat16: one step with the
     kernels against the same step on the plain engine on the card (on the
@@ -2464,68 +2601,13 @@ def phase_bf16_training(dev: torch.device) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_bf16_")
     try:
         mel_dir = synthetic_features(tmp, np.random.RandomState(20), "spmel", N_MELS)
-        cfg = Config(model=ModelConfig(compute_dtype="bfloat16"),
+        cfg = Config(model=ModelConfig(compute_dtype="bfloat16", use_pallas_lstm=True),
                      train=TrainConfig(batch_size=TRAIN_B, len_crop=TRAIN_T, num_iters=TRAIN_STEPS, log_step=1,
                                        checkpoint_step=TRAIN_STEPS), main_dir=tmp, run_name="smoke_bf16")
         data = UtteranceDataset(mel_dir)
         x, emb = (torch.from_numpy(a).to(dev) for a in next(BatchIterator(data, TRAIN_B, TRAIN_T, seed=1)))
 
-        def fresh(model_cfg: ModelConfig) -> TrainState:
-            model = build_generator(model_cfg, device=dev, seed=7, trainable=True)
-            return TrainState(0, model, make_optimizer(model, cfg), init_ema(model))
-
-        states = {"kernels": fresh(cfg.model), "plain": fresh(cfg.model), "f32": fresh(ModelConfig())}
-        step, step32 = make_train_step(cfg), make_train_step(Config(train=cfg.train))
-        tape = KinkTape()
-        torch.cuda.synchronize()
-        before = bf16_counts()
-        t0 = time.perf_counter()
-        with tape.record():
-            mk = step(states["kernels"], x, emb)
-            torch.cuda.synchronize()
-        k_s = time.perf_counter() - t0
-        k_counts = tuple(a - b for a, b in zip(bf16_counts(), before))
-        if k_counts != (SEQS_PER_STEP,) * 4:
-            raise AssertionError(f"one bf16 train step launched {k_counts} (forward, gates, backward, dW)")
-        with plain_engine():
-            t0 = time.perf_counter()
-            with tape.replay():
-                mp = step(states["plain"], x, emb)
-                torch.cuda.synchronize()
-            p_s = time.perf_counter() - t0
-            bf_flips = tape.flips
-            with tape.replay():
-                m32 = step32(states["f32"], x, emb)
-        if tuple(a - b for a, b in zip(bf16_counts(), before)) != k_counts:
-            raise AssertionError("the plain steps launched kernels")
-        loss_k, loss_p, loss32 = (float(m["g_loss"]) for m in (mk, mp, m32))
-        grads = {k: {n: p.grad.double() for n, p in st.model.named_parameters()} for k, st in states.items()}
-        model = states["kernels"].model
-        dtypes = {p.dtype for p in model.parameters()} | {p.grad.dtype for p in model.parameters()} | {
-            b.dtype for b in model.buffers()}
-        rows = []
-        for n, g in grads["kernels"].items():
-            scale = grad_scale(n, grads["plain"])
-            rows.append(((g - grads["plain"][n]).abs().max().item() / scale,
-                         (grads["f32"][n] - grads["plain"][n]).abs().max().item() / scale, n))
-        grad_tol = BF16_SPREAD * float(np.median([r[1] for r in rows]))
-        over = [r for r in rows if r[0] > grad_tol]
-        worst = max(rows)
-        loss_tol = min(1e-3 * abs(loss_p), 2 * abs(loss_p - loss32) + 1e-5 * abs(loss_p))
-        rel_plain, rel_f32 = abs(loss_k - loss_p) / abs(loss_p), abs(loss_k - loss32) / abs(loss32)
-        log(f"train bf16 (b) step with kernels vs the plain engine (bf16, on the card): loss {loss_k!r} vs {loss_p!r} "
-            f"({rel_plain:.3e} relative, tolerance {loss_tol / abs(loss_p):.3e}); the f32 step on the same batch and "
-            f"kinks {loss32!r} (the bf16 kernel step {rel_f32:.3e} relative from it); launches (fwd, gates, bwd, "
-            f"dW) {k_counts}; first step {k_s * 1e3:.1f} ms, plain {p_s * 1e3:.1f} ms; kinks {tape.elements} "
-            f"elements, the f32 step on the other side of {tape.flips}, the plain bf16 step of {bf_flips}")
-        log(f"train bf16 (b) gradient gate {grad_tol:.3e} of a leaf's scale: {BF16_SPREAD}x the plain engine's own "
-            f"bf16 spread (the median over leaves of its distance from the f32 step; max "
-            f"{max(r[1] for r in rows):.3e}); kernel vs plain median {float(np.median([r[0] for r in rows])):.3e}, "
-            f"worst {worst[2]} at {worst[0]:.3e}")
-        if over or abs(loss_k - loss_p) > loss_tol or dtypes != {torch.float32}:
-            raise AssertionError(f"bf16 train step with the kernels: leaves over their gate {over}; loss "
-                                 f"{loss_k} vs {loss_p} (tolerance {loss_tol}); dtypes {dtypes}")
-        del states, grads
+        gate = bf16_step_gate(dev, cfg, x, emb, "train bf16 (b)", bf16_counts, "(fwd, gates, bwd, dW)")
 
         # 20 Solver steps through the entry point
         solver = Solver(cfg, BatchIterator(data, TRAIN_B, TRAIN_T, seed=2), run_dir=os.path.join(tmp, "run"),
@@ -2556,12 +2638,11 @@ def phase_bf16_training(dev: torch.device) -> dict:
     if os.path.exists(tmp):
         raise AssertionError(f"{tmp} was not removed")
     return {"launches": train_counts, "step_ms_p50": timing["step_ms_p50"], "step_ms_p95": timing["step_ms_p95"],
-            "loss_rel_to_plain": rel_plain, "loss_rel_to_f32": rel_f32,
-            "grad_tol": grad_tol, "grad_worst": worst[0], **prof}
+            **gate, **prof}
 
 
 def phase_bf16_cli(dev: torch.device) -> dict:
-    """8c: ``python -m autovc_tpu_torch.cli.train --bf16`` for 3 steps on a
+    """8c: ``python -m autovc_tpu_torch.cli.train --bf16 --pallas`` for 3 steps on a
     synthetic spmel tree in a temporary directory, once with ``--lambda_spk``
     on a seeded GE2E .npz (the d-vector in the scan forms), the launch
     counts set to 0 before each run and read after it; each exported, and
@@ -2583,9 +2664,9 @@ def phase_bf16_cli(dev: torch.device) -> dict:
             torch.cuda.synchronize()
             zero_counts()
             t0 = time.perf_counter()
-            cli_train.main(["--main_dir", tmp, "--run_name", name, "--bf16", "--num_iters", "3", "--batch_size",
-                            str(TRAIN_B), "--len_crop", str(TRAIN_T), "--log_step", "1", "--checkpoint_step", "3",
-                            "--export", export, *extra])
+            cli_train.main(["--main_dir", tmp, "--run_name", name, "--bf16", "--pallas", "--num_iters", "3",
+                            "--batch_size", str(TRAIN_B), "--len_crop", str(TRAIN_T), "--log_step", "1",
+                            "--checkpoint_step", "3", "--export", export, *extra])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launched, scan = bf16_counts(), (lstm_ops.scan_launches, lstm_ops.scan_bwd_launches)
@@ -2597,7 +2678,7 @@ def phase_bf16_cli(dev: torch.device) -> dict:
             want_scan = (3 * 3 * bool(extra),) * 2
             mels = {}
             for dtype in ("bfloat16", "float32"):
-                model_cfg = ModelConfig(compute_dtype=dtype)
+                model_cfg = ModelConfig(compute_dtype=dtype, use_pallas_lstm=True)
                 gen = build_generator(model_cfg, artifact=export, device=dev)
                 mels[dtype] = np.stack(Converter(gen, model_cfg).convert_batch(specs, batch_size=4))
             delta = float(np.abs(mels["bfloat16"] - mels["float32"]).max())
@@ -2813,7 +2894,7 @@ def phase_bf16_speaker_training(dev: torch.device) -> dict:
         ckpt = os.path.join(tmp, "ge2e_seeded.npz")
         save_dvector_artifact(speaker_encoder(torch.device("cpu"), False, 768).state_dict(), ckpt)
         base = dict(batch_size=TRAIN_B, len_crop=TRAIN_T, num_iters=SPK_STEPS, log_step=1, checkpoint_step=10_000)
-        model_cfg = ModelConfig(compute_dtype="bfloat16")
+        model_cfg = ModelConfig(compute_dtype="bfloat16", use_pallas_lstm=True)
         cfg = Config(model=model_cfg, train=TrainConfig(**base, lambda_spk=1.0, spk_protocol="windowed",
                                                         spk_ckpt=ckpt), main_dir=tmp, run_name="spk")
         data = UtteranceDataset(mel_dir)
@@ -3191,12 +3272,12 @@ def phase_variant_bf16(dev: torch.device, conv: dict, wav: dict, stft_data: Utte
     CLI_STEPS bfloat16 Solver steps of each (finite)."""
     zero_counts()
     mel_ops.launches = sosfilt_ops.launches = 0
-    cfg = ModelConfig(model_type="stft", compute_dtype="bfloat16")
+    cfg = ModelConfig(model_type="stft", compute_dtype="bfloat16", use_pallas_lstm=True)
     t0 = time.perf_counter()
     stft = np.stack(Converter(build_generator(cfg, device=dev, seed=11), cfg).convert_batch(conv["specs"],
                                                                                             batch_size=B))
     stft_s = time.perf_counter() - t0
-    cfg = ModelConfig(model_type="wav", compute_dtype="bfloat16")
+    cfg = ModelConfig(model_type="wav", compute_dtype="bfloat16", use_pallas_lstm=True)
     converter = WavConverter(build_generator(cfg, device=dev, seed=12), cfg)
     mels = [converter.convert_to_mel(s) for s in wav["specs"]]
     deltas = {"stft": float(np.abs(stft - conv["mels"]).max()),
@@ -3206,7 +3287,7 @@ def phase_variant_bf16(dev: torch.device, conv: dict, wav: dict, stft_data: Utte
     launched = all_counts() + feature_counts()
     steps = {}
     for mt, data, b, crop in (("stft", stft_data, TRAIN_B, TRAIN_T), ("wav", wav_data, WAV_B, WAV_L)):
-        cfg = Config(model=ModelConfig(model_type=mt, compute_dtype="bfloat16"),
+        cfg = Config(model=ModelConfig(model_type=mt, compute_dtype="bfloat16", use_pallas_lstm=True),
                      train=TrainConfig(batch_size=b, len_crop=crop, num_iters=CLI_STEPS, log_step=1,
                                        checkpoint_step=10**9), main_dir=tmp, run_name=f"bf16_{mt}")
         _, timing, by_solver = variant_solver(dev, cfg, data, os.path.join(tmp, f"run_bf16_{mt}"),
@@ -3249,6 +3330,489 @@ def phase_variants(dev: torch.device, main_dir: str, ckpt: str) -> dict:
             "bf16": bf16}
 
 
+# ------------------------------------------------ phase 10: the scan rounding
+# The Generator's LSTMs in bfloat16 as JAX's default lax.scan rounds them
+# (ModelConfig.use_pallas_lstm=False): (hidden, reverse, sequences a
+# Generator forward) at phase 1's B=32, T=512, held by 8d's scan rule
+SCAN_GEN_CASES = [(32, False, 2), (32, True, 2), (512, False, 1), (1024, False, 2)]
+# 10b: the scan dW kernel at the training shapes, both directions
+SCAN_DW_HIDDEN = (32, 512, 1024)
+SCAN_TRAIN_STEPS = 5  # Solver steps in the scan rounding
+SCAN_COUNTERS = ("scan_launches", "scan_bwd_launches", "scan_dw_launches")
+
+
+def scan_counts() -> tuple[int, int, int]:
+    """The scan rounding's training launches: forward, backward, dW."""
+    return tuple(getattr(lstm_ops, c) for c in SCAN_COUNTERS)
+
+
+def scan_fwd_relabelled(x, w, reverse, perms):
+    """The plain scan forward's h_seq of every relabelling in ``perms``, in
+    the first labels: one stacked plain loop (each problem its own
+    products), the first relabelling held bit for bit to its loop alone."""
+    cols = [gate_columns(p) for p in perms]
+    stacked = lstm_ops.lstm_scan_bf16_ref(torch.stack([x[..., c] for c in cols]),
+                                          torch.stack([w[p][:, c] for p, c in zip(perms, cols)]), reverse=reverse)
+    outs = [stacked[r][..., torch.argsort(p)] for r, p in enumerate(perms)]
+    alone = lstm_ops.lstm_scan_bf16_ref(x[..., cols[0]], w[perms[0]][:, cols[0]], reverse=reverse)
+    if not torch.equal(alone[..., torch.argsort(perms[0])], outs[0]):
+        raise AssertionError("the stacked plain scan loop does not round the first relabelling as its loop alone")
+    return outs
+
+
+def scan_inference_work(b: int, t: int, h: int) -> tuple[float, float]:
+    """(flops, bytes) of one scan-form inference forward: the recurrent
+    product of bfloat16 operands; xproj, w_hh and h_seq in bfloat16."""
+    return 2.0 * b * t * h * 4 * h, 2.0 * (b * t * 4 * h + h * 4 * h + b * t * h)
+
+
+def phase_scan_generator(dev: torch.device) -> dict:
+    """10a: the forward kernel's scan form at the Generator's shapes (B=32,
+    T=512) against its plain loop by the scan rule (the first SCAN_STEPS
+    steps within 1 ulp or the plain loop's own ulps there and 99%
+    bit-equal; the sequence within SCAN_SPREAD times the spread of
+    SCAN_RELABELLINGS relabelled plain loops run stacked), timed beside the
+    plain loop and the bound; the sums a Generator forward."""
+    rng = np.random.RandomState(100)
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0,
+           "cases": []}
+    for hidden, reverse, calls in SCAN_GEN_CASES:
+        lim = 1.0 / np.sqrt(hidden)
+        x = torch.from_numpy((rng.randn(B, T, 4 * hidden) * 0.5).astype(np.float32)).to(dev).to(BF16)
+        w = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev).to(BF16)
+        zero_counts()
+        got = lstm_ops.lstm_sequence(x, w, reverse, scan=True)
+        torch.cuda.synchronize()
+        if all_counts() != (1, 0, 1, 0, 0, 0, 0, 0) or got.dtype != BF16:
+            raise AssertionError(f"the scan forward H={hidden} launched {all_counts()} ({got.dtype})")
+        plan = plan_line("fwd")
+        want = lstm_ops.lstm_sequence_ref(x, w, reverse, scan=True)
+        others = scan_fwd_relabelled(x, w, reverse, [torch.from_numpy(np.random.RandomState(k).permutation(hidden))
+                                                     .to(dev) for k in range(SCAN_RELABELLINGS)])
+        first = slice(T - SCAN_STEPS, T) if reverse else slice(0, SCAN_STEPS)
+        held = scan_gate(got, want, others, first, 2.0 ** -16)
+        del others
+        fn = functools.partial(lstm_ops.lstm_sequence, x, w, reverse, True)
+        ms, dev_ms = cuda_ms(fn, 5), device_ms(fn, 5)
+        plain_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_ref(x, w, reverse, scan=True), 1)
+        flops, nbytes = scan_inference_work(B, T, hidden)
+        bound, bound_by = bf16_bound(flops, nbytes)
+        log(f"10a lstm scan forward H={hidden} {'reverse' if reverse else 'forward'} B={B} T={T}: {json.dumps(held)}; "
+            f"ms={ms:.4f} ({dev_ms:.4f} device; {dev_ms / T * 1e3:.2f} us a step), plain_ms={plain_ms:.1f}, "
+            f"bound_ms={bound:.4f} ({bound_by}); {plan}")
+        if not held["ok"]:
+            raise AssertionError(f"10a: the scan forward H={hidden} reverse={reverse} fails the scan rule: {held}")
+        rec["cases"].append(dict(hidden=hidden, reverse=reverse, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                 bound_ms=bound, **held))
+        rec["max_abs_err"] = max(rec["max_abs_err"], held["apart"])
+        for key, v in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms), ("flops", flops),
+                       ("bytes", nbytes)):
+            rec[key] += calls * v
+    rec["bound_ms"], rec["bound_by"] = bf16_bound(rec.pop("flops"), rec.pop("bytes"))
+    log(f"10a lstm scan forward per Generator forward (7 sequences): {rec['ms']:.3f} ms ({rec['device_ms']:.3f} "
+        f"device), plain {rec['plain_ms']:.1f}, bound {rec['bound_ms']:.4f} ({rec['bound_by']}) (card: {card_line()})")
+    return rec
+
+
+def scan_dw_work(b: int, t: int, h: int) -> tuple[float, float]:
+    """(flops, bytes) of one scan dW: 2*B*T*H*4H over products of two
+    bfloat16 values; h_seq and dxproj read once, dW written once, all
+    bfloat16."""
+    return 2.0 * b * t * h * 4 * h, 2.0 * (b * t * h + b * t * 4 * h + h * 4 * h)
+
+
+def phase_scan_dw(dev: torch.device) -> dict:
+    """10b (kernel): ``lstm_scan_weight_grad_cuda`` against
+    ``lstm_scan_bf16_weight_grad_ref`` on the plain scan chain's h_seq and
+    dxproj at B=7, T=128, H in SCAN_DW_HIDDEN, both directions, by the
+    bfloat16 backward rule (1 ulp floored at BWD_FLOOR of the peak, 99%
+    bit-equal), two calls the same bits; timed (device time) beside the
+    plain loop, the bound and torch.matmul's one-shot product over K = B*T
+    in bfloat16 (which rounds once: not the function)."""
+    rng = np.random.RandomState(101)
+    b, t = TRAIN_B, TRAIN_T
+    rec = {"max_abs_err": 0.0, "max_ulps": 0.0, "min_equal_share": 1.0, "shapes": []}
+    for hidden in SCAN_DW_HIDDEN:
+        lim = 1.0 / np.sqrt(hidden)
+        x = torch.from_numpy((rng.randn(b, t, 4 * hidden) * 0.5).astype(np.float32)).to(dev).to(BF16)
+        w = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev).to(BF16)
+        dy = torch.from_numpy(rng.randn(b, t, hidden).astype(np.float32)).to(dev).to(BF16)
+        for reverse in (False, True):
+            h_seq, _, _, dx = scan_plain(x, w, dy, reverse)
+            zero_counts()
+            got = lstm_ops.lstm_scan_weight_grad_cuda(h_seq, None, dx, reverse)
+            again = lstm_ops.lstm_scan_weight_grad_cuda(h_seq, None, dx, reverse)
+            torch.cuda.synchronize()
+            want = lstm_ops.lstm_scan_bf16_weight_grad_ref(h_seq, None, dx, reverse)
+            ulps, equal = bf16_ulps(got.float(), want.float(), BWD_FLOOR)
+            err = (got.float() - want.float()).abs().max().item()
+            if (lstm_ops.scan_dw_launches != 2 or lstm_ops.dw_launches or not torch.equal(got, again)
+                    or not (ulps <= LSTM_BF16_ULPS and equal >= LSTM_BF16_EQUAL)):
+                raise AssertionError(f"10b scan dW H={hidden} reverse={reverse}: {ulps} ulps, {equal} bit-equal, "
+                                     f"launches {lstm_ops.scan_dw_launches}, repeatable {torch.equal(got, again)}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["max_ulps"] = max(rec["max_ulps"], ulps)
+            rec["min_equal_share"] = min(rec["min_equal_share"], equal)
+            if reverse:
+                continue
+            fn = functools.partial(lstm_ops.lstm_scan_weight_grad_cuda, h_seq, None, dx)
+            hprev = torch.cat([torch.zeros_like(h_seq[:, :1]), h_seq[:, :-1]], dim=1).reshape(-1, hidden)
+            dxk = dx.reshape(-1, 4 * hidden)
+            case = dict(hidden=hidden, ms=cuda_ms(fn, 10), device_ms=device_ms(fn, 10),
+                        plain_ms=cuda_ms(lambda: lstm_ops.lstm_scan_bf16_weight_grad_ref(h_seq, None, dx), 1),
+                        library_ms=device_ms(lambda: hprev.T @ dxk, 10), ulps=ulps, equal=equal, max_abs_err=err)
+            case["bound_ms"], case["bound_by"] = bf16_bound(*scan_dw_work(b, t, hidden))
+            rec["shapes"].append(case)
+            log(f"10b lstm scan dW H={hidden} B={b} T={t}: {ulps:.2f} bf16 ulps (floor {BWD_FLOOR} of the peak), "
+                f"{equal:.5f} bit-equal, max_abs_err={err:.3e}; ms={case['ms']:.4f} ({case['device_ms']:.4f} device), "
+                f"plain_ms={case['plain_ms']:.1f}, bound_ms={case['bound_ms']:.5f} ({case['bound_by']}), "
+                f"torch.matmul of the one-shot product {case['library_ms']:.4f} ms (device)")
+    # a train step's 11 sequences: 8 at H=32 (the encoder's 4, run twice), 1
+    # at H=512, 2 at H=1024, as phase 4 counts them
+    per_seq = {c["hidden"]: c for c in rec["shapes"]}
+    calls = {32: 8, 512: 1, 1024: 2}
+    for key in ("ms", "device_ms", "plain_ms", "library_ms"):
+        rec[key] = sum(n * per_seq[h][key] for h, n in calls.items())
+    work = [scan_dw_work(b, t, h) for h, n in calls.items() for _ in range(n)]
+    rec["bound_ms"], rec["bound_by"] = bf16_bound(sum(f for f, _ in work), sum(y for _, y in work))
+    log(f"10b lstm scan dW per train step (11 sequences): {rec['device_ms']:.4f} ms device ({rec['ms']:.4f} events), "
+        f"plain {rec['plain_ms']:.1f}, bound {rec['bound_ms']:.5f} ({rec['bound_by']}), torch.matmul one-shot "
+        f"{rec['library_ms']:.4f} (card: {card_line()})")
+    return rec
+
+
+def phase_scan_training(dev: torch.device) -> dict:
+    """10b (training): phase 4's Solver in bfloat16 with the scan rounding
+    (``use_pallas_lstm=False``, JAX's ``--bf16``): one step with the kernels
+    against the plain engine on the same kinks (8b's gate), SCAN_TRAIN_STEPS
+    Solver steps (11 scan forward, backward and dW launches a step, no
+    Pallas-form launch), the profile of a warm step; then ``cli.train
+    --bf16`` and ``--bf16 --pallas``, 3 steps each, their launches."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_scan_")
+    try:
+        mel_dir = synthetic_features(tmp, np.random.RandomState(102), "spmel", N_MELS)
+        cfg = Config(model=ModelConfig(compute_dtype="bfloat16"),
+                     train=TrainConfig(batch_size=TRAIN_B, len_crop=TRAIN_T, num_iters=SCAN_TRAIN_STEPS, log_step=1,
+                                       checkpoint_step=10**9), main_dir=tmp, run_name="smoke_scan")
+        data = UtteranceDataset(mel_dir)
+        x, emb = (torch.from_numpy(a).to(dev) for a in next(BatchIterator(data, TRAIN_B, TRAIN_T, seed=1)))
+        zero_counts()
+        gate = bf16_step_gate(dev, cfg, x, emb, "10b train scan", scan_counts, "(scan fwd, bwd, dW)")
+        if bf16_counts() != (0, 0, 0, 0):
+            raise AssertionError(f"10b: the scan step launched Pallas-form kernels {bf16_counts()}")
+        solver = Solver(cfg, BatchIterator(data, TRAIN_B, TRAIN_T, seed=2), run_dir=os.path.join(tmp, "run"),
+                        device=dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        solver.train()
+        torch.cuda.synchronize()
+        launched, other = scan_counts(), bf16_counts()
+        losses = [h["g_loss"] for h in solver.history]
+        timing = solver.timer.summary()
+        if (launched != (SCAN_TRAIN_STEPS * SEQS_PER_STEP,) * 3 or other != (0, 0, 0, 0)
+                or len(losses) != SCAN_TRAIN_STEPS or not np.isfinite(losses).all()):
+            raise AssertionError(f"10b: {SCAN_TRAIN_STEPS} scan Solver steps launched {launched} (Pallas forms "
+                                 f"{other}), losses {losses}")
+        rows, wall_us, prof_launched = device_activity(lambda: solver._step_fn(solver.state, x, emb),
+                                                       counter=scan_counts)
+        busy = sum(t for _, _, t in rows)
+        scan_dw_us = sum(t for key, _, t in rows if "lstm_scan_dw_kernel" in key)
+        log(f"10b {SCAN_TRAIN_STEPS} scan Solver steps: g_loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+            f"(scan fwd, bwd, dW) {launched}; step p50 {timing['step_ms_p50']:.2f} ms, p95 {timing['step_ms_p95']:.2f} "
+            f"ms; one warm step: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall (idle share "
+            f"{1 - busy / wall_us:.3f}; the recorded scan forms: launches {prof_launched}, the scan dW kernel "
+            f"{scan_dw_us / 1e3:.3f} ms) (card: {card_line()})")
+        # every LSTM counter (LSTM_COUNTERS' order, then scan_dw_launches):
+        # the scan rounding launches only the scan forms, --pallas only the
+        # Pallas-rounding forms
+        n = 3 * SEQS_PER_STEP
+        cli = {}
+        for name, extra, counter, want in (
+                ("bf16", [], lambda: all_counts() + (lstm_ops.scan_dw_launches,), (n, 0, n, n, 0, n, 0, 0, n)),
+                ("bf16_pallas", ["--pallas"], lambda: all_counts() + (lstm_ops.scan_dw_launches,),
+                 (n, n, 0, n, n, 0, n, n, 0))):
+            export = os.path.join(tmp, f"{name}.npz")
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            cli_train.main(["--main_dir", tmp, "--run_name", name, "--bf16", *extra, "--num_iters", "3",
+                            "--batch_size", str(TRAIN_B), "--len_crop", str(TRAIN_T), "--log_step", "1",
+                            "--checkpoint_step", "3", "--export", export])
+            torch.cuda.synchronize()
+            wall, got = time.perf_counter() - t0, counter()
+            log(f"10b cli.train --bf16 {' '.join(extra)}: 3 steps in {wall:.2f} s wall, launches (LSTM_COUNTERS, "
+                f"scan dW) {got}")
+            if got != want:
+                raise AssertionError(f"10b cli.train --bf16 {extra} launched {got}, expected {want}")
+            cli[name] = {"wall_s": wall, "launches": got}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        raise AssertionError(f"{tmp} was not removed")
+    return {"launches": launched, "step_ms_p50": timing["step_ms_p50"], "step_ms_p95": timing["step_ms_p95"],
+            "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us, "scan_dw_step_ms": scan_dw_us / 1e3,
+            "cli": cli, **gate}
+
+
+# ----------------------------------------- phase 11: vocoder and GE2E training
+GE2E_M, GE2E_CROP = 5, 128  # utterances a speaker and crop frames; every corpus speaker a batch
+GE2E_CLI_STEPS = 3
+VOC_STEPS = 5  # timed train steps of each vocoder trainer (the first one is the warm-up)
+VOC_B, VOC_FRAMES, VOC_MAX_TIME = 2, 32, 8000  # the JAX CLI's --batch_size, --frames, --max_time
+EVAL_UTTS = 4  # 11c: utterances of phase 5's corpus a vocoder is evaluated on (WaveNet: the shortest one)
+
+
+def phase_ge2e(dev: torch.device, corpus: str, main_dir: str) -> dict:
+    """11a: GE2E training on phase 5's spmel tree (every speaker, M=5, crops
+    of 128): at H=768 and 256 and B = N*M, the LSTM training forward and
+    the backward with dW against their plain versions (1e-4; dW 1e-4 of its
+    peak), timed; one ``GE2ETrainer`` loss and gradient with the kernels
+    against the plain engine on the card (loss 1e-5 relative, every leaf
+    1e-4 of its scale, or no farther from the plain float64 step than twice
+    the plain float32 step plus 1e-4; 3 forward, backward and dW
+    launches), then a step;
+    ``cli.train_speaker_encoder`` for 3 steps and ``cli.make_metadata
+    --dvector_ckpt`` on the checkpoint it wrote, in a copy of the tree."""
+    from autovc_tpu_torch.cli import train_speaker_encoder
+    from autovc_tpu_torch.train.ge2e import GE2ETrainer, sample_ge2e_batch
+
+    ds = train_speaker_encoder.speaker_dataset(os.path.join(main_dir, "spmel"))
+    n = ds.num_speakers
+    batch = sample_ge2e_batch(ds.features, n, GE2E_M, GE2E_CROP, np.random.default_rng(0))
+    b = n * GE2E_M
+    rng = np.random.RandomState(110)
+    out = {"kernels": [], "launches": (0, 0, 0)}
+    for hidden in SPK_WIDTHS:
+        lim = 1.0 / np.sqrt(hidden)
+        x = torch.from_numpy((rng.randn(b, GE2E_CROP, 4 * hidden) * 0.5).astype(np.float32)).to(dev)
+        w = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev)
+        dy = torch.from_numpy(rng.randn(b, GE2E_CROP, hidden).astype(np.float32)).to(dev)
+        zero_counts()
+        h_seq, c_seq, hn, cn, gates = lstm_ops.lstm_forward_cuda(x, w, with_cseq=True, with_gates=True)
+        dx, dw, _, _ = lstm_ops.lstm_backward_cuda(x, w, None, None, h_seq, c_seq, dy, gates=gates)
+        torch.cuda.synchronize()
+        if counts() != (1, 1, 1):
+            raise AssertionError(f"11a H={hidden}: launched {counts()} (forward, backward, dW)")
+        want = lstm_ops.lstm_sequence_train_ref(x, w)
+        wdx, wdw, _, _ = lstm_ops.lstm_backward_ref(x, w, None, None, want[0], want[1], dy)
+        errs = {"h_seq": (h_seq - want[0]).abs().max().item(), "c_seq": (c_seq - want[1]).abs().max().item(),
+                "dxproj": (dx - wdx).abs().max().item(), "dW_rel": ((dw - wdw).abs().max() / wdw.abs().max()).item()}
+        if max(errs["h_seq"], errs["c_seq"], errs["dxproj"]) > LSTM_TOL or errs["dW_rel"] > LSTM_TOL:
+            raise AssertionError(f"11a H={hidden} B={b}: the training kernels against the plain loops {errs}")
+
+        def fwd_bwd():
+            o = lstm_ops.lstm_forward_cuda(x, w, with_cseq=True, with_gates=True)
+            return lstm_ops.lstm_backward_cuda(x, w, None, None, o[0], o[1], dy, gates=o[4])
+
+        zeros = torch.zeros(b, hidden, device=dev)
+        ms, dev_ms = cuda_ms(fwd_bwd, 5), device_ms(fwd_bwd, 5)
+        plain_ms = cuda_ms(lambda: lstm_ops.lstm_backward_ref(x, w, None, None, want[0], want[1], dy), 1) + cuda_ms(
+            lambda: lstm_ops.lstm_sequence_train_ref(x, w), 1)
+        work = [lstm_train_work(b, GE2E_CROP, hidden), lstm_bwd_work(b, GE2E_CROP, hidden)]
+        bound, bound_by = bound_ms(sum(f for f, _ in work), sum(y for _, y in work))
+        lib_ms = cudnn_train_ms(dev, hidden, zeros, zeros, dy)
+        out["kernels"].append(dict(hidden=hidden, batch=b, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                                   bound_by=bound_by, library_ms=lib_ms, **errs))
+        log(f"11a lstm training kernels with dW H={hidden} B={b} T={GE2E_CROP}: {json.dumps(errs)}; forward+backward "
+            f"with dW {ms:.4f} ms ({dev_ms:.4f} device), plain {plain_ms:.1f}, bound {bound:.4f} ({bound_by}), "
+            f"cuDNN forward+backward {lib_ms:.4f}; fwd {plan_line('fwd')}; bwd {plan_line('bwd')}")
+
+        # one trainer's loss and gradient, the kernels against the plain
+        # engine, and the plain engine in float64 (phase 4c's rule where a
+        # leaf's float32 sums over B*T terms cancel below GRAD_TOL)
+        trainers = {k: GE2ETrainer(dim_cell=hidden, seed=3, device=dev) for k in ("kernels", "plain", "f64")}
+        trainers["f64"].model.double()
+        for p in (trainers["f64"].w, trainers["f64"].b):
+            p.data = p.data.double()
+        batch_t = torch.from_numpy(batch).to(dev)
+        zero_counts()
+        losses = {}
+        for k, tr in trainers.items():
+            with exact_f32(dev), (plain_engine() if k != "kernels" else contextlib.nullcontext()):
+                loss = tr.loss(batch_t.to(tr.w.dtype))
+                loss.backward()
+                losses[k] = float(loss.detach())
+            if k == "kernels":
+                torch.cuda.synchronize()
+                k_counts = counts()
+        grads = {k: [p.grad.double() for p in tr.parameters()] for k, tr in trainers.items()}
+        rows = []
+        for g, p, e in zip(grads["kernels"], grads["plain"], grads["f64"]):
+            scale = max(float(p.abs().max()), 1e-30)
+            rows.append(tuple(float((a - c).abs().max()) / scale for a, c in ((g, p), (p, e), (g, e))))
+        worst = max(r[0] for r in rows)
+        over = [r for r in rows if r[0] > GRAD_TOL and r[2] > 2 * r[1] + GRAD_TOL]
+        loss_rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
+        if k_counts != (3, 3, 3) or counts() != k_counts or loss_rel > LOSS_RTOL or over:
+            raise AssertionError(f"11a GE2E H={hidden}: launches {k_counts} (then {counts()}), loss {loss_rel}, "
+                                 f"leaves over the gate (from plain, plain from f64, from f64) {over}")
+        zero_counts()
+        tr = trainers["kernels"]
+        t0 = time.perf_counter()
+        step_loss = float(tr.step(batch))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        prof_rows, wall_us, launched = device_activity(lambda: tr.step(batch))
+        busy = sum(t for _, _, t in prof_rows)
+        out["launches"] = tuple(a + c for a, c in zip(out["launches"], k_counts))
+        out.setdefault("steps", []).append(dict(hidden=hidden, loss_rel=loss_rel, grad_err=worst, step_ms=step_ms,
+                                                device_ms=busy / 1e3, idle_share=1 - busy / wall_us))
+        log(f"11a GE2ETrainer H={hidden} N={n} M={GE2E_M}: loss {losses['kernels']!r} vs the plain engine "
+            f"{losses['plain']!r} (rel {loss_rel:.3e}, tol {LOSS_RTOL}); worst gradient leaf {worst:.3e} of its "
+            f"scale (tol {GRAD_TOL}, else within twice the plain step's distance from float64 + {GRAD_TOL}: "
+            f"{sum(r[0] > GRAD_TOL for r in rows)} leaves took that rule); launches (fwd, bwd, dW) {k_counts}; a step "
+            f"{step_ms:.1f} ms (loss {step_loss:.4f}), a warm step's device busy {busy / 1e3:.3f} ms of "
+            f"{wall_us / 1e3:.3f} ms wall (idle share {1 - busy / wall_us:.3f}; launches {launched})")
+
+    # the CLIs in a copy of the spmel tree
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ge2e_", dir=corpus)
+    shutil.copytree(os.path.join(main_dir, "spmel"), os.path.join(tmp, "spmel"))
+    ckpt = os.path.join(tmp, "ge2e.npz")
+    zero_counts()
+    t0 = time.perf_counter()
+    train_speaker_encoder.main(["--main_dir", tmp, "--num_iters", str(GE2E_CLI_STEPS), "--m_utts", str(GE2E_M),
+                                "--log_step", "1", "--out", ckpt])
+    torch.cuda.synchronize()
+    cli_s, cli_counts = time.perf_counter() - t0, counts()
+    zero_counts()
+    t0 = time.perf_counter()
+    make_metadata.main(["--main_dir", tmp, "--dvector_ckpt", ckpt, "--seed", "0"])
+    torch.cuda.synchronize()
+    meta_s, meta_counts = time.perf_counter() - t0, counts()
+    entries = load_train_manifest(os.path.join(tmp, "spmel", "train.pkl"))
+    norms = [float(np.linalg.norm(e.embedding)) for e in entries]
+    log(f"11a cli.train_speaker_encoder {GE2E_CLI_STEPS} steps: {cli_s:.2f} s wall, launches (fwd, bwd, dW) "
+        f"{cli_counts}; cli.make_metadata on its checkpoint: {meta_s:.2f} s wall, launches {meta_counts}, "
+        f"{len(entries)} speakers, embedding norms {min(norms):.6f}..{max(norms):.6f}")
+    # make_metadata's embeddings are means of 10 unit d-vectors a speaker
+    if cli_counts != (3 * GE2E_CLI_STEPS,) * 3 or meta_counts[1:] != (0, 0) or len(entries) != n or not all(
+            0.0 < v <= 1.0 + 1e-5 for v in norms):
+        raise AssertionError(f"11a CLIs: launches {cli_counts}, make_metadata {meta_counts}, {len(entries)} speakers, "
+                             f"norms {norms}")
+    out.update(cli_launches=cli_counts, cli_s=cli_s, metadata_launches=meta_counts, metadata_s=meta_s)
+    out["launches"] = tuple(a + c for a, c in zip(out["launches"], cli_counts))
+    return out
+
+
+def timed_steps(step, batches, label: str) -> dict:
+    """VOC_STEPS synchronised train steps (the first a warm-up): the losses,
+    p50 and p95 of the rest, and the device busy time and idle share of one
+    more warm step (torch.profiler)."""
+    times, losses = [], []
+    for batch in batches[:VOC_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(*batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in m.items()} if isinstance(m, dict) else float(m))
+    rows, wall_us, _ = device_activity(lambda: step(*batches[VOC_STEPS]))
+    busy = sum(t for _, _, t in rows)
+    p50, p95 = float(np.percentile(times[1:], 50)), float(np.percentile(times[1:], 95))
+    finite = all(np.isfinite(list(v.values()) if isinstance(v, dict) else v).all() for v in losses)
+    log(f"11b {label}: step p50 {p50:.2f} ms, p95 {p95:.2f} ms (first {times[0]:.1f}); a warm step's device busy "
+        f"{busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall (idle share {1 - busy / wall_us:.3f}); losses "
+        f"{losses[0]} -> {losses[-1]} (card: {card_line()})")
+    if not finite:
+        raise AssertionError(f"11b {label}: a loss is not finite: {losses}")
+    return {"step_ms_p50": p50, "step_ms_p95": p95, "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us}
+
+
+def phase_vocoder_training(dev: torch.device, corpus: str, main_dir: str, tmp: str) -> dict:
+    """11b: HiFi-GAN V1 reconstruction and GAN steps at the JAX CLI's
+    --batch_size 2 --frames 32, WaveNet (the r9y9 widths) at --batch_size 2
+    --max_time 8000, on phase 5's (waveform, mel) pairs: step p50 and p95,
+    device time and idle share; then ``cli.train_vocoder`` for 3 steps of
+    HiFi-GAN, 3 of ``--gan --init`` on it, and 3 of WaveNet, each checkpoint
+    finite; returns where they are."""
+    from autovc_tpu_torch.cli import train_vocoder
+    from autovc_tpu_torch.config import HiFiGANConfig
+    from autovc_tpu_torch.vocoder.train_hifigan import HiFiGANGANTrainer, HiFiGANTrainer, hifigan_crop_batch
+    from autovc_tpu_torch.vocoder.train_wavenet import WaveNetTrainer, crop_batch
+
+    os.symlink(os.path.join(corpus, "wavs"), os.path.join(tmp, "wavs"))
+    os.symlink(os.path.join(main_dir, "spmel"), os.path.join(tmp, "spmel"))
+    wavs, mels = train_vocoder.load_corpus(tmp)
+    rng = np.random.default_rng(0)
+    hg_batches = [hifigan_crop_batch(wavs, mels, VOC_B, VOC_FRAMES, HOP, rng) for _ in range(VOC_STEPS + 1)]
+    wn_batches = [crop_batch(wavs, mels, VOC_B, VOC_MAX_TIME, HOP, rng) for _ in range(VOC_STEPS + 1)]
+    out = {}
+    rec = HiFiGANTrainer(HiFiGANConfig(), device=dev, seed=0)
+    out["hifigan"] = timed_steps(rec.step, hg_batches, f"HiFi-GAN reconstruction (B={VOC_B}, {VOC_FRAMES} frames)")
+    gan = HiFiGANGANTrainer(HiFiGANConfig(), device=dev, seed=0)
+    n_disc = sum(p.numel() for p in gan.disc.parameters())
+    out["hifigan_gan"] = timed_steps(gan.gan_step, hg_batches, f"HiFi-GAN GAN step (MPD+MSD, {n_disc} discriminator "
+                                                               f"parameters)")
+    del gan, rec
+    wn = WaveNetTrainer(WaveNetConfig(), device=dev, seed=0)
+    out["wavenet"] = timed_steps(wn.step, wn_batches, f"WaveNet (B={VOC_B}, {VOC_MAX_TIME // HOP * HOP} samples)")
+    del wn
+    ckpts = {k: os.path.join(tmp, f"{k}.npz") for k in ("hifigan", "gan", "wavenet")}
+    common = ["--main_dir", tmp, "--num_iters", "3", "--log_step", "1", "--batch_size", str(VOC_B)]
+    runs = (("hifigan", ["--vocoder", "hifigan", "--frames", str(VOC_FRAMES)]),
+            ("gan", ["--vocoder", "hifigan", "--gan", "--init", ckpts["hifigan"], "--frames", str(VOC_FRAMES)]),
+            ("wavenet", ["--vocoder", "wavenet", "--max_time", str(VOC_MAX_TIME)]))
+    for name, extra in runs:
+        t0 = time.perf_counter()
+        train_vocoder.main([*common, *extra, "--out", ckpts[name]])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with np.load(ckpts[name]) as z:
+            finite = all(np.isfinite(z[k]).all() for k in z.files)
+            size = sum(z[k].size for k in z.files)
+        state = ckpts[name] + ".train_state.npz"
+        log(f"11b cli.train_vocoder {' '.join(extra[:3])}: 3 steps in {wall:.2f} s wall, checkpoint of {size} "
+            f"parameters (finite {finite}), train state {os.path.exists(state)}")
+        if not finite or os.path.exists(state) != (name != "hifigan"):
+            raise AssertionError(f"11b cli.train_vocoder {name}: finite {finite}, train state {os.path.exists(state)}")
+        out[f"cli_{name}_s"] = wall
+        if os.path.exists(state):
+            os.remove(state)  # the GAN's holds the discriminators and both Adam states: GBs on disk
+    out["ckpts"] = ckpts
+    return out
+
+
+def phase_evaluate_vocoder(dev: torch.device, main_dir: str, tmp: str, ckpts: dict) -> dict:
+    """11c: ``cli.evaluate_vocoder`` on EVAL_UTTS utterances of phase 5's
+    spmel tree with griffinlim, hifigan and hybrid (11b's GAN checkpoint),
+    and wavenet (11b's checkpoint, float32) on the corpus's shortest
+    utterance alone; each one's launches from the wrappers' counts (the mel
+    re-extracted: one mel_norm and two sosfilt launches an utterance;
+    WaveNet: one generation launch) and its JSON line."""
+    from autovc_tpu_torch.cli import evaluate_vocoder
+
+    spmel = os.path.join(main_dir, "spmel")
+    files = sorted((os.path.join(spmel, s, f) for s in os.listdir(spmel) if os.path.isdir(os.path.join(spmel, s))
+                    for f in os.listdir(os.path.join(spmel, s)) if f.endswith(".npy")),
+                   key=lambda p: np.load(p, mmap_mode="r").shape[0])
+    short = os.path.join(tmp, "shortest", "spk")
+    os.makedirs(short)
+    shutil.copy(files[0], short)
+    frames = np.load(files[0], mmap_mode="r").shape[0]
+    out = {}
+    for vocoder, args, n in (("griffinlim", ["--spmel_dir", spmel, "--max_utts", str(EVAL_UTTS)], EVAL_UTTS),
+                             ("hifigan", ["--spmel_dir", spmel, "--max_utts", str(EVAL_UTTS), "--vocoder_ckpt",
+                                          ckpts["gan"]], EVAL_UTTS),
+                             ("hybrid", ["--spmel_dir", spmel, "--max_utts", str(EVAL_UTTS), "--vocoder_ckpt",
+                                         ckpts["gan"]], EVAL_UTTS),
+                             ("wavenet", ["--spmel_dir", os.path.dirname(short), "--vocoder_ckpt", ckpts["wavenet"],
+                                          "--max_utts", "1"], 1)):
+        torch.cuda.synchronize()
+        mel_ops.launches = sosfilt_ops.launches = wavenet_ops.launches = 0
+        t0 = time.perf_counter()
+        rec = evaluate_vocoder.main(["--vocoder", vocoder, *args])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = (mel_ops.launches, sosfilt_ops.launches, wavenet_ops.launches)
+        want = (n, 2 * n, 1 if vocoder == "wavenet" else 0)
+        log(f"11c cli.evaluate_vocoder --vocoder {vocoder}: {wall:.2f} s wall, launches (mel_norm, sosfilt, "
+            f"wavenet_gen) {launched}; {json.dumps(rec)}" + (f" ({frames} frames)" if vocoder == "wavenet" else ""))
+        if launched != want or rec["utterances"] != n or not np.isfinite(rec["mel_l1_mean"]):
+            raise AssertionError(f"11c evaluate_vocoder {vocoder}: launches {launched} (expected {want}), {rec}")
+        out[vocoder] = {"wall_s": wall, "launches": launched, **{k: rec[k] for k in ("mel_l1_mean", "mcd_db_mean")}}
+    return out
+
+
 def variant_launches(var: dict, counter: str) -> dict[str, int]:
     """Phase 9's launches of one wrapper (an LSTM_COUNTERS name, mel_norm or
     sosfilt) by sub-path."""
@@ -3256,24 +3820,28 @@ def variant_launches(var: dict, counter: str) -> dict[str, int]:
     return {path: launched[i] for path, launched in var["paths"].items()}
 
 
-def scan_entries(fwd: dict, bwd: dict, cli_launches: tuple[int, int], spk: dict) -> list[dict]:
-    """The scan forms' lines of the kernels JSON: launches on 8c's main path
-    (``cli.train --bf16 --lambda_spk``), the times a sequence at the
-    lambda_spk step's d-vector shape (H=768, B=7, T=128), every shape of 8d
-    beside them, 8e's step."""
+def scan_entries(fwd: dict, bwd: dict, by_path: dict[str, tuple[int, int]], spk: dict, generator: dict
+                 ) -> list[dict]:
+    """The scan forms' lines of the kernels JSON: launches on each main path
+    (``by_path``: forward, backward; 8c's ``cli.train --bf16 --lambda_spk``,
+    10a's bench program, 10b's Solver steps and ``cli.train --bf16``), the
+    times a sequence at the lambda_spk step's d-vector shape (H=768, B=7,
+    T=128), every shape of 8d beside them, 8e's step; 10a's Generator
+    shapes beside the forward's."""
     entries = []
-    for name, rec, launched, source in (
-            ("lstm_fwd_scan", fwd, cli_launches[0], "lstm_fwd.cu"), ("lstm_bwd_scan", bwd, cli_launches[1],
-                                                                       "lstm_bwd.cu")):
+    for i, (name, rec, source) in enumerate((("lstm_fwd_scan", fwd, "lstm_fwd.cu"),
+                                             ("lstm_bwd_scan", bwd, "lstm_bwd.cu"))):
         head = next(r for r in rec["shapes"] if (r["hidden"], r["batch"]) == (768, TRAIN_B))
         entries.append({
             "name": name, "route": "cuda", "source": f"autovc_tpu_torch/ops/csrc/{source}",
-            "replaces": "autovc_tpu/models/layers.py:123 (_lstm_scan, the lax.scan JAX's DVector runs in bfloat16; "
-                        "no Pallas kernel)",
-            "launches": launched, "max_abs_err": rec["max_abs_err"], "ms": head["device_ms"],
-            "events_ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shapes": rec["shapes"],
-            "bf16_spk_step": spk})
+            "replaces": "autovc_tpu/models/layers.py:123 (_lstm_scan, the lax.scan JAX's DVector runs in bfloat16, "
+                        "and its Generator in bfloat16 by default; no Pallas kernel)",
+            "launches": sum(n[i] for n in by_path.values()),
+            "launches_by_path": {path: n[i] for path, n in by_path.items()},
+            "max_abs_err": max(rec["max_abs_err"], generator["max_abs_err"] if i == 0 else 0.0),
+            "ms": head["device_ms"], "events_ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shapes": rec["shapes"], "bf16_spk_step": spk, **({"generator": generator} if i == 0 else {})})
     return entries
 
 
@@ -3337,6 +3905,23 @@ def main(argv: list[str] | None = None) -> int:
         t0 = time.perf_counter()
         var = phase_variants(dev, main_dir, speaker["ckpt"])
         log(f"phase 9 (stft and wav variants): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        scan_gen = phase_scan_generator(dev)
+        scan_bench = phase_bf16_bench(dev, args.trained, mels, f32_run, scan_gen, use_pallas_lstm=False)
+        log(f"10a bench.py's default bf16 program (scan) beside 7b's --pallas rounding: "
+            f"{scan_bench['iteration_ms']:.1f} ms an iteration, {scan_bench['realtime']:.1f}x realtime, mel "
+            f"{scan_bench['parity']['mel_maxabs_delta']:.4f} from f32; --pallas {bf_bench['iteration_ms']:.1f} ms, "
+            f"{bf_bench['realtime']:.1f}x, mel {bf_bench['parity']['mel_maxabs_delta']:.4f}")
+        scan_dw = phase_scan_dw(dev)
+        scan_train = phase_scan_training(dev)
+        log(f"phase 10 (the scan rounding): {time.perf_counter() - t0:.1f} s")
+        # phase 11 trains the speaker encoder and the vocoders on phase 5's corpus
+        t0 = time.perf_counter()
+        ge2e = phase_ge2e(dev, corpus, main_dir)
+        voc_dir = tempfile.mkdtemp(prefix="chip_smoke_vocoders_", dir=corpus)
+        voc = phase_vocoder_training(dev, corpus, main_dir, voc_dir)
+        evals = phase_evaluate_vocoder(dev, main_dir, voc_dir, voc.pop("ckpts"))
+        log(f"phase 11 (vocoder and speaker-encoder training): {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(corpus, ignore_errors=True)
     if os.path.exists(corpus):
@@ -3354,6 +3939,16 @@ def main(argv: list[str] | None = None) -> int:
     var_n = {c: sum(by.values()) for c, by in var_by.items()}
     mel_rec["launches"] += var_n["mel_norm"]
     sos_rec["launches"] += var_n["sosfilt"]
+    # 11c's launches of the feature kernels and WaveNet, by vocoder
+    eval_by = {k: dict(zip(("mel_norm", "sosfilt", "wavenet_gen"), v["launches"])) for k, v in evals.items()}
+    eval_n = {c: sum(v[c] for v in eval_by.values()) for c in ("mel_norm", "sosfilt", "wavenet_gen")}
+    mel_rec["launches"] += eval_n["mel_norm"]
+    sos_rec["launches"] += eval_n["sosfilt"]
+    ge2e_fwd, ge2e_bwd, ge2e_dw = ge2e["launches"]
+    cli_scan = scan_train["cli"]["bf16"]["launches"]  # LSTM_COUNTERS' order, then scan dW
+    scan_paths = {"cli_train_bf16_lambda_spk": bf_cli["lambda_spk"]["scan_launches"],
+                  "convert_bf16_default": (scan_bench["launches"], 0), "train_bf16_default": scan_train["launches"][:2],
+                  "cli_train_bf16_default": (cli_scan[2], cli_scan[5])}
 
     kernels = [{
         "name": "lstm_fwd",
@@ -3368,12 +3963,13 @@ def main(argv: list[str] | None = None) -> int:
         # in inference, the train_* ones per train step, the dvector ones
         # per d-vector forward (three sequences) at each width and batch
         # (the wrapper's "launches" count every forward, its bf16 ones too)
-        "launches": launches + train_fwd + speaker_fwd + spk_fwd_n + bf_train_fwd + var_n["launches"],
+        "launches": launches + train_fwd + speaker_fwd + spk_fwd_n + bf_train_fwd + var_n["launches"] + ge2e_fwd,
         "launches_by_path": {"convert": launches, "train": train_fwd, "speaker": speaker_fwd,
                              "train_spk": spk_fwd_n, "train_bf16": bf_train_fwd,
-                             "variants": var_by["launches"], "variants_bf16": var_by["bf16_launches"]},
+                             "variants": var_by["launches"], "variants_bf16": var_by["bf16_launches"],
+                             "ge2e_train": ge2e_fwd},
         "max_abs_err": max(record["max_abs_err"], fwd_train["max_abs_err"], speaker["max_abs_err"],
-                           *(r["max_abs_err"] for r in spk_fwd)),
+                           *(r["max_abs_err"] for r in spk_fwd), *(r["h_seq"] for r in ge2e["kernels"])),
         "ms": record["ms"],
         "plain_ms": record["plain_ms"],
         "bound_ms": lstm_bound,
@@ -3411,11 +4007,16 @@ def main(argv: list[str] | None = None) -> int:
         # the input projection's gradients (dx through w_ih, dW_ih, biases)
         # backward sequences of the two training paths; the dW launches
         # beside them: none for the frozen d-vector's three a step
-        "launches": train_bwd + spk_bwd_n + bf_train_bwd + var_n["bwd_launches"],
+        "launches": train_bwd + spk_bwd_n + bf_train_bwd + var_n["bwd_launches"] + ge2e_bwd,
         "launches_by_path": {"train": train_bwd, "train_spk": spk_bwd_n, "train_bf16": bf_train_bwd,
-                             "variants": var_by["bwd_launches"], "variants_bf16": var_by["bf16_bwd_launches"]},
+                             "variants": var_by["bwd_launches"], "variants_bf16": var_by["bf16_bwd_launches"],
+                             "ge2e_train": ge2e_bwd},
         "dw_launches_by_path": {"train": train_dw, "train_spk": spk_dw_n, "train_bf16": bf_train_dw,
-                                "variants": var_by["dw_launches"]},
+                                "variants": var_by["dw_launches"], "ge2e_train": ge2e_dw},
+        # 11a: GE2E training at H=768 and 256, B = N*M: the forward and the
+        # backward with dW a sequence against the plain loops, timed; the
+        # trainer's step against the plain engine
+        "ge2e": ge2e,
         # phase 9's train steps of the stft and wav variants (B=7, T=128;
         # B=2, L=33536): p50 and the one-step gate's worst leaf
         "variants_step_ms_p50": {"stft": var["stft"]["step_ms_p50"], "wav": var["wav"]["step_ms_p50"]},
@@ -3463,7 +4064,27 @@ def main(argv: list[str] | None = None) -> int:
                              "variants_bf16": var_by["gates_launches"]},
         "library_ms": None,
         **bf_gates,
-    }, *scan_entries(scan_fwd, scan_bwd, bf_cli["lambda_spk"]["scan_launches"], bf_spk), {
+    }, *scan_entries(scan_fwd, scan_bwd, scan_paths, bf_spk, scan_gen), {
+        "name": "lstm_bwd.scan_dw",
+        "route": "cuda",
+        "source": "autovc_tpu_torch/ops/csrc/lstm_scan_dw.cu",
+        "replaces": "autovc_tpu/models/layers.py:123 (the w_hh cotangent of _lstm_scan's transposed lax.scan in "
+                    "bfloat16, a bfloat16 accumulator a step; no Pallas kernel)",
+        # launches of 10b's Solver steps in the scan rounding (and of its
+        # cli.train --bf16 beside them); times per train step of 11
+        # sequences at B=7, T=128 (device time), the plain loop's, the
+        # bound at the bfloat16 tensor cores' peak, and torch.matmul of the
+        # one-shot product over K = B*T (which rounds once: not this
+        # function)
+        "launches": scan_train["launches"][2],
+        "launches_by_path": {"train_bf16_default": scan_train["launches"][2],
+                             "cli_train_bf16_default": cli_scan[8]},
+        "max_abs_err": scan_dw["max_abs_err"], "max_ulps": scan_dw["max_ulps"],
+        "min_equal_share": scan_dw["min_equal_share"],
+        "ms": scan_dw["device_ms"], "events_ms": scan_dw["ms"], "plain_ms": scan_dw["plain_ms"],
+        "bound_ms": scan_dw["bound_ms"], "bound_by": scan_dw["bound_by"], "library_ms": scan_dw["library_ms"],
+        "shapes": scan_dw["shapes"], "train_step": scan_train, "bench_default_bf16": scan_bench,
+    }, {
         "name": "wavenet_gen",
         "route": "cuda",
         "source": "autovc_tpu_torch/ops/csrc/wavenet_gen.cu",
@@ -3475,6 +4096,10 @@ def main(argv: list[str] | None = None) -> int:
         # bfloat16 weights (phase 7c-d): launches of 7c's main path, and of
         # cli.synthesize's wavenet run beside it
         "bf16": {**bf_wn, "cli_launches": syn["wavenet"]["wavenet_launches"]},
+        # 11c: cli.evaluate_vocoder --vocoder wavenet (float32) on one utterance
+        "evaluate_vocoder_launches": eval_n["wavenet_gen"],
+        # 11b: the vocoders' training (no Pallas kernel: cuDNN, cuBLAS, cuFFT)
+        "vocoder_training": voc,
     }, {
         "name": "mel_norm",
         "route": "cuda",
@@ -3485,7 +4110,10 @@ def main(argv: list[str] | None = None) -> int:
         # function, so the library time is torch.matmul of the projection alone
         "library_note": "torch.matmul of the projection alone, without the dB step",
         **mel_rec,
-        "launches_by_path": {"make_spect": mel_rec["launches"] - var_n["mel_norm"], "variants": var_by["mel_norm"]},
+        "launches_by_path": {"make_spect": mel_rec["launches"] - var_n["mel_norm"] - eval_n["mel_norm"],
+                             "variants": var_by["mel_norm"],
+                             "evaluate_vocoder": {k: v["mel_norm"] for k, v in eval_by.items()}},
+        "evaluate_vocoder": evals,
     }, {
         "name": "sosfilt",
         "route": "cuda",
@@ -3496,7 +4124,9 @@ def main(argv: list[str] | None = None) -> int:
         # passes at B=32, L=131072; no PyTorch call runs an IIR cascade
         "library_ms": None,
         **sos_rec,
-        "launches_by_path": {"make_spect": sos_rec["launches"] - var_n["sosfilt"], "variants": var_by["sosfilt"]},
+        "launches_by_path": {"make_spect": sos_rec["launches"] - var_n["sosfilt"] - eval_n["sosfilt"],
+                             "variants": var_by["sosfilt"],
+                             "evaluate_vocoder": {k: v["sosfilt"] for k, v in eval_by.items()}},
     }]
     faulthandler.cancel_dump_traceback_later()
     print(card, flush=True)

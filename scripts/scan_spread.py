@@ -16,6 +16,21 @@ A kernel that computes another function departs at its first step by more
 than a rounding flip; one that sums in another order departs by a flip.
 One JSON line per case, after the card's name and power limit. Needs a
 CUDA card and ``nvcc``.
+
+    python3 scripts/scan_spread.py --oracle [--seeds 1002] [--widths 768]
+
+settles a departure: beside the kernel and the plain loop it runs a float64
+oracle of the same rounding points (every product of bfloat16 values summed
+in float64 and rounded to float32 once, then to bfloat16 where the plain
+loop rounds), and gives each one's distance from the oracle and first
+departure from it; and, at the step where the kernel's dxproj first leaves
+the plain loop's, the dh carry that step reads (the one sum there whose
+order differs: dgates of the step before times w_hh^T, 4H terms): for the
+hidden units whose gate gradients differ, how far the exact carry lies from
+the bfloat16 rounding boundary between the two values, in float32 ulps of
+the carry, beside the float32 sum's error bound (4H x 2^-24 x the sum of
+the terms' magnitudes, in the same ulps). A boundary nearer than the bound
+is a flip that the order of a float32 sum decides: not a fault.
 """
 
 from __future__ import annotations
@@ -90,10 +105,80 @@ def case(tag: str, x, w, dy, reverse: bool, relabellings: int) -> dict:
     return rec
 
 
+def oracle_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``ops.lstm._products`` summed in float64 and rounded to float32 once."""
+    if b.dim() == 2:
+        return (a.double() @ b.double()).float()
+    return torch.stack([(x.double() @ y.double()).float() for x, y in zip(a, b)])
+
+
+def carry_margin(want, got, w, reverse: bool, steps) -> dict | None:
+    """At the first step where the kernel's dxproj leaves the plain loop's:
+    the exact carry into that step (the previous backward step's dgates @
+    w_hh^T in float64), for each hidden unit whose gate gradients differ
+    there, its distance from the bfloat16 rounding boundary between its two
+    neighbouring bfloat16 values and the float32 sum's error bound, both in
+    float32 ulps of the carry."""
+    dep = departure(got, want, steps, BWD_FLOOR)
+    if dep is None:
+        return None
+    s, hidden = dep[0], w.shape[0]
+    order = list(steps)
+    at = order.index(s)
+    if at == 0:
+        return {"step": s, "first_step": True}
+    prev = order[at - 1]
+    terms = want[:, prev].double()[..., :, None] * w.double().T[None]  # (B, 4H, H)
+    exact = terms.sum(-2)[0]
+    bound_abs = 4 * hidden * 2.0 ** -24 * terms.abs().sum(-2)[0]
+    diff = (got[0, s].float() != want[0, s].float()).reshape(4, hidden).any(0)
+    units = torch.nonzero(diff).flatten().tolist()
+    rows = []
+    for j in units:
+        v = float(exact[j])
+        lo = float(torch.tensor(v, dtype=torch.float64).to(torch.float32).to(torch.bfloat16).float())
+        e = np.float32(abs(v)) if v else np.float32(1e-38)
+        ulp32 = float(np.spacing(e))
+        ulp16 = float(np.spacing(np.float32(abs(lo) if lo else 1e-38))) * 2.0 ** 16
+        mid = lo + (ulp16 / 2 if v >= lo else -ulp16 / 2)
+        rows.append({"unit": j, "carry": v, "to_boundary_ulp32": abs(v - mid) / ulp32,
+                     "f32_bound_ulp32": float(bound_abs[j]) / ulp32})
+    return {"step": s, "units": rows}
+
+
+def oracle_case(tag: str, x, w, dy, reverse: bool) -> dict:
+    """The kernel, the plain loop and the float64 oracle of the same
+    rounding points: each one's distance from the oracle and first
+    departure from it, for h_seq and dxproj, and the carry at the kernel's
+    first departure from the plain loop (``carry_margin``)."""
+    want = scan_plain(x, w, dy, reverse)
+    got = kernels(x, w, dy, reverse)
+    saved = lstm_ops._products
+    lstm_ops._products = oracle_products
+    try:
+        exact = scan_plain(x, w, dy, reverse)
+    finally:
+        lstm_ops._products = saved
+    fwd_steps = range(T - 1, -1, -1) if reverse else range(T)
+    bwd_steps = range(T) if reverse else range(T - 1, -1, -1)
+    rec = {"case": tag, "H": w.shape[0], "reverse": reverse, "oracle": True}
+    for name, i, j, steps, floor in (("h_seq", 0, 0, fwd_steps, 2.0 ** -16), ("dxproj", 3, 1, bwd_steps, BWD_FLOOR)):
+        rec[name] = {"kernel_from_plain": float((got[j].float() - want[i].float()).abs().max()),
+                     "kernel_from_oracle": float((got[j].float() - exact[i].float()).abs().max()),
+                     "plain_from_oracle": float((want[i].float() - exact[i].float()).abs().max()),
+                     "kernel_departs_oracle": departure(got[j], exact[i], steps, floor),
+                     "plain_departs_oracle": departure(want[i], exact[i], steps, floor)}
+    rec["dxproj"]["carry_at_kernel_departure"] = carry_margin(want[3], got[1], w, reverse, bwd_steps)
+    return rec
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seeds", type=int, nargs="+", default=[1001, 1002])
     ap.add_argument("--relabellings", type=int, default=32)
+    ap.add_argument("--widths", type=int, nargs="+", default=list(WIDTHS))
+    ap.add_argument("--oracle", action="store_true",
+                    help="the float64 oracle of the same rounding points instead of the relabellings")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("scan_spread: no CUDA device")
@@ -109,8 +194,12 @@ def main() -> None:
             w = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev).to(bf16)
             x = torch.from_numpy((rng.randn(1, T, 4 * hidden) * 0.5).astype(np.float32)).to(dev).to(bf16)
             dy = torch.from_numpy(rng.randn(1, T, hidden).astype(np.float32)).to(dev).to(bf16)
+            if hidden not in args.widths:
+                continue  # drawn all the same, so that a seed's inputs do not depend on --widths
             for reverse in (False, True):
-                print(json.dumps(case(f"seed {seed}", x, w, dy, reverse, args.relabellings)), flush=True)
+                rec = (oracle_case(f"seed {seed}", x, w, dy, reverse) if args.oracle
+                       else case(f"seed {seed}", x, w, dy, reverse, args.relabellings))
+                print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":

@@ -215,7 +215,8 @@ def test_lstm_layer_bf16_matches_flax_pallas():
 def generator_mels():
     """B=2, T=128 uniform mels and two random unit embeddings through JAX's
     float32 Generator, its bfloat16 Generator with the Pallas LSTM and with
-    the scan, and the port's bfloat16 Generator, on the committed weights."""
+    the scan, and the port's bfloat16 Generator with the Pallas rounding
+    (``use_pallas_lstm=True``), on the committed weights."""
     variables, _ = jax_load_artifact(GEN_ARTIFACT)
     rng = np.random.RandomState(0)
     x = rng.rand(2, 128, 80).astype(np.float32)
@@ -229,7 +230,8 @@ def generator_mels():
             variables, jnp.asarray(x), jnp.asarray(e_org), jnp.asarray(e_trg), train=False)
         return out
 
-    gen = build_generator(ModelConfig(compute_dtype="bfloat16"), artifact=GEN_ARTIFACT, device="cpu")
+    gen = build_generator(ModelConfig(compute_dtype="bfloat16", use_pallas_lstm=True), artifact=GEN_ARTIFACT,
+                          device="cpu")
     with torch.inference_mode():
         port = gen(torch.from_numpy(x), torch.from_numpy(e_org), torch.from_numpy(e_trg))
     specs = [dataclasses.make_dataclass("Spec", ["src_features", "src_embedding", "trg_embedding"])(
@@ -242,9 +244,11 @@ def generator_mels():
 def test_generator_bf16_as_close_to_jax_f32_as_jax_pallas_bf16(generator_mels):
     """The port's bfloat16 Generator is no worse an approximation of JAX's
     float32 Generator than JAX's own bfloat16 Pallas path: max and mean
-    absolute mel delta each at most 1.25x JAX's. The port follows the
-    Pallas rounding (a float32 LSTM carry), not the scan's (a bfloat16
-    carry); the distances to both are recorded (ROADMAP Queue 3)."""
+    absolute mel delta each at most 1.25x JAX's. With
+    ``use_pallas_lstm=True`` the port follows the Pallas rounding (a
+    float32 LSTM carry), not the scan's (a bfloat16 carry, the default:
+    tests/test_torch_scan_generator.py); the distances to both are
+    recorded."""
     m = generator_mels
     outputs = [o.dtype for o in m["port"]] + [m["pallas"][1].dtype]
     assert outputs == [BF, BF, BF, jnp.bfloat16]

@@ -350,7 +350,8 @@ class NarrowGenerator(JaxGenerator):
         self.postnet = Postnet(self.n_bins, channels=32, dtype=self.dtype)
 
 
-PORT_MODEL = ModelConfig(**NARROW, enc_channels=32, dec_lstm_dim=64, postnet_channels=32, compute_dtype="bfloat16")
+PORT_MODEL = ModelConfig(**NARROW, enc_channels=32, dec_lstm_dim=64, postnet_channels=32, compute_dtype="bfloat16",
+                         use_pallas_lstm=True)
 PORT_CFG = Config(model=PORT_MODEL)
 JAX_BF16 = NarrowGenerator(**NARROW, dtype=jnp.bfloat16, use_pallas=True)
 JAX_F32 = NarrowGenerator(**NARROW)

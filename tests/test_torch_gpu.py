@@ -728,6 +728,70 @@ def test_lstm_kernels_at_the_dvector_shapes(cuda, b, t, hidden):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=0, msg=name)
 
 
+# GE2E training: N*M crops of 128 frames (4 speakers x 5) through the
+# d-vector with gradients on, at the published width and the independent
+# judge's: the backward's first caller with dW at these widths
+GE2E_SHAPES = [(20, 128, 768), (20, 128, 256)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t, hidden", GE2E_SHAPES)
+def test_lstm_training_kernels_with_dw_at_the_ge2e_shapes(cuda, b, t, hidden, reverse):
+    """The training forward and the backward with dW (one launch each and
+    one dW) against the plain loops: within 1e-4, dW within 1e-4 of its
+    largest magnitude."""
+    xproj, w_hh, h0, c0, dy, dhn, dcn = (torch.from_numpy(a).to(cuda) for a in _train_inputs(9, b, t, hidden))
+    before = lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches
+    out = lstm_ops.lstm_forward_cuda(xproj, w_hh, None, None, reverse, with_cseq=True, with_gates=True)
+    got = lstm_ops.lstm_backward_cuda(xproj, w_hh, None, None, out[0], out[1], dy, None, None, reverse,
+                                      gates=out[4])
+    torch.cuda.synchronize()
+    assert (lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches) == tuple(n + 1 for n in before)
+    want = lstm_ops.lstm_sequence_train_ref(xproj, w_hh, None, None, reverse)
+    for g, w in zip(out[:2], want[:2]):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+    _assert_backward_close(got, lstm_ops.lstm_backward_ref(xproj, w_hh, None, None, want[0], want[1], dy, None, None,
+                                                           reverse))
+
+
+@pytest.mark.parametrize("dim_cell", [768, 256])
+def test_ge2e_trainer_on_card_matches_the_plain_engine(cuda, dim_cell):
+    """``GE2ETrainer``'s loss and gradients on the card (the kernels: 3
+    forward, backward and dW launches) against the same trainer on the plain
+    loops on the card: the loss within 1e-5 relative; every gradient leaf
+    within 1e-4 of its largest magnitude, or, where its float32 sums over
+    B*T = 2560 terms cancel below that (a bias of the first layer at H=768:
+    1.2e-4 on the card), no farther from the plain loops' float64 step than
+    twice the plain float32 step's distance plus 1e-4 (phase 4c's rule);
+    then a step, finite."""
+    import contextlib
+    from unittest import mock
+
+    from autovc_tpu_torch.train.ge2e import GE2ETrainer
+
+    batch = torch.from_numpy(np.random.RandomState(dim_cell).rand(4, 5, 128, 80).astype(np.float32)).to(cuda)
+    trainers = [GE2ETrainer(dim_cell=dim_cell, seed=2, device=cuda) for _ in range(3)]
+    exact = trainers[2]
+    exact.model.double()
+    for p in (exact.w, exact.b):
+        p.data = p.data.double()
+    before = lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches
+    losses = []
+    for i, tr in enumerate(trainers):
+        with mock.patch.object(lstm_ops, "_device_kind", lambda x: "cpu") if i else contextlib.nullcontext():
+            loss = tr.loss(batch.to(tr.w.dtype))
+            loss.backward()
+            losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    assert (lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches) == tuple(n + 3 for n in before)
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    for g, p, e in zip(*([q.grad.double() for q in tr.parameters()] for tr in trainers)):
+        scale = float(p.abs().max())
+        apart, own, from_exact = (float((a - b).abs().max()) / scale for a, b in ((g, p), (p, e), (g, e)))
+        assert apart <= 1e-4 or from_exact <= 2 * own + 1e-4, (apart, own, from_exact)
+    assert np.isfinite(float(trainers[0].step(batch)))
+
+
 @pytest.mark.parametrize("dim_cell", [768, 256])
 def test_dvector_and_embedder_on_card_match_cpu(cuda, dim_cell):
     """The seeded d-vector (80/dim_cell/256 x3) on the card (the kernels)
@@ -1002,7 +1066,7 @@ def test_bf16_generator_and_hifigan_on_card_match_cpu(cuda):
     e = torch.from_numpy(rng.randn(2, 256).astype(np.float32))
     outs = {}
     for dev, dtype in (("cpu", "float32"), ("cpu", "bfloat16"), (cuda, "bfloat16")):
-        gen = build_generator(ModelConfig(compute_dtype=dtype), device=dev, seed=8)
+        gen = build_generator(ModelConfig(compute_dtype=dtype, use_pallas_lstm=True), device=dev, seed=8)
         voc = HiFiGANVocoder(device=dev, seed=9, dtype=BF if dtype == "bfloat16" else torch.float32)
         before = lstm_ops.bf16_launches
         with torch.inference_mode():
@@ -1031,7 +1095,8 @@ def test_bf16_entry_points_ignore_default_flags(cuda, torch_default_flags):
     emb = rng.randn(2, 256).astype(np.float32)
     specs = [type("Spec", (), dict(src_features=mel[i], src_embedding=emb[i], trg_embedding=emb[1 - i]))
              for i in range(2)]
-    converter = Converter(build_generator(ModelConfig(compute_dtype="bfloat16"), device=cuda, seed=5))
+    converter = Converter(build_generator(ModelConfig(compute_dtype="bfloat16", use_pallas_lstm=True), device=cuda,
+                                          seed=5))
     hifigan = HiFiGANVocoder(device=cuda, seed=6, dtype=BF)
     wavenet = WaveNetVocoder(WAVENET_TINY, device=cuda, seed=7)
     u = wavenet.uniforms(2, 512, torch.Generator().manual_seed(9))
@@ -1263,24 +1328,74 @@ def test_lstm_scan_kernels_match_plain(cuda, b, t, hidden, reverse):
 
 
 def test_lstm_scan_function_on_card_runs_the_scan_kernels(cuda):
-    """``LSTMSequenceFn`` in the scan rounding on the card is the two scan
+    """``LSTMSequenceFn`` in the scan rounding on the card is the scan
     kernels, bit for bit: a bfloat16 h0 and c0 in, h_seq out, and the
-    gradients of xproj, h0 and c0, bfloat16; a w_hh that requires grad is
-    refused (the form computes no dW)."""
+    gradients of xproj, h0 and c0, bfloat16; a frozen w_hh launches no dW,
+    and a w_hh that requires grad gets the scan dW kernel's (one launch)."""
     x, w, dy = _scan_inputs(37, 7, 40, 256, cuda)
     h0, c0 = (torch.from_numpy(np.random.RandomState(s).randn(7, 256).astype(np.float32) * 0.5).to(cuda).to(BF)
               for s in (38, 39))
     leaves = [v.clone().requires_grad_() for v in (x, h0, c0)]
+    before = lstm_ops.scan_dw_launches
     h_seq, hn, cn = lstm_ops.LSTMSequenceFn.apply(leaves[0], w, leaves[1], leaves[2], False, True)
     (h_seq.float() * dy.float()).sum().backward()
+    assert lstm_ops.scan_dw_launches == before
     fwd = lstm_ops.lstm_scan_forward_cuda(x, w, h0, c0, with_residuals=True)
     bwd = lstm_ops.lstm_scan_backward_cuda(w, fwd[2], fwd[1], c0, dy)
     torch.cuda.synchronize()
     for got, want in zip([h_seq, hn, cn] + [v.grad for v in leaves], [fwd[0], fwd[3], fwd[4], *bwd]):
         assert got.dtype == want.dtype == BF and torch.equal(got, want)
-    with pytest.raises(ValueError, match="no dW"):
-        lstm_ops.LSTMSequenceFn.apply(x.clone().requires_grad_(), w.clone().requires_grad_(), None, None, False,
-                                      True)[0].float().sum().backward()
+    trained = w.clone().requires_grad_()
+    lstm_ops.LSTMSequenceFn.apply(x, trained, h0, None, False, True)[0].backward(dy)
+    assert lstm_ops.scan_dw_launches == before + 1
+    fwd = lstm_ops.lstm_scan_forward_cuda(x, w, h0, None, with_residuals=True)
+    dx = lstm_ops.lstm_scan_backward_cuda(w, fwd[2], fwd[1], None, dy)[0]
+    want = lstm_ops.lstm_scan_weight_grad_cuda(fwd[0], h0, dx)
+    assert trained.grad.dtype == BF and torch.equal(trained.grad, want)
+
+
+# The scan dW kernel against its plain loop on the same inputs: each step's
+# float32 sum over the B rows in the plain product's order or another, then
+# the same two roundings, so 1 bfloat16 ulp (floored at BWD_FLOOR of the
+# peak) and 99% bit-equal.
+SCAN_DW_SHAPES = [(7, 128, 32), (7, 128, 512), (7, 128, 1024), (32, 128, 256), (37, 20, 64), (1, 5, 8),
+                  (20, 128, 768)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t, hidden", SCAN_DW_SHAPES)
+def test_lstm_scan_weight_grad_kernel_matches_plain(cuda, b, t, hidden, reverse):
+    """``lstm_scan_weight_grad_cuda`` against
+    ``lstm_scan_bf16_weight_grad_ref`` on the plain scan chain's h_seq and
+    dxproj (so the kernel is held alone), with a bfloat16 h0: within 1 ulp
+    floored at BWD_FLOOR of the peak, 99% bit-equal; one launch; two calls
+    the same bits. B=37 stages two chunks of batch rows, H=8 one partial
+    tile."""
+    x, w, dy = _scan_inputs(40, b, t, hidden, cuda)
+    h0 = torch.from_numpy(np.random.RandomState(41).randn(b, hidden).astype(np.float32) * 0.5).to(cuda).to(BF)
+    h_seq, c_seq, act, _, _ = lstm_ops.lstm_scan_bf16_train_ref(x, w, h0, None, reverse)
+    dx = lstm_ops.lstm_scan_bf16_backward_ref(w, act, c_seq, None, dy, reverse=reverse)[0]
+    before = lstm_ops.scan_dw_launches, lstm_ops.dw_launches
+    got = lstm_ops.lstm_scan_weight_grad_cuda(h_seq, h0, dx, reverse)
+    again = lstm_ops.lstm_scan_weight_grad_cuda(h_seq, h0, dx, reverse)
+    torch.cuda.synchronize()
+    assert (lstm_ops.scan_dw_launches, lstm_ops.dw_launches) == (before[0] + 2, before[1])
+    want = lstm_ops.lstm_scan_bf16_weight_grad_ref(h_seq, h0, dx, reverse)
+    assert got.dtype == BF and got.shape == (hidden, 4 * hidden) and torch.equal(got, again)
+    _bf16_close(got, want, floor=BWD_FLOOR)
+
+
+def test_lstm_scan_weight_grad_refuses_what_it_does_not_take(cuda):
+    """float32 operands, H % 8 != 0 and CPU tensors raise before a launch."""
+    x, w, dy = _scan_inputs(42, 2, 3, 8, cuda)
+    h_seq = torch.zeros(2, 3, 8, device=cuda, dtype=BF)
+    dx = torch.zeros(2, 3, 32, device=cuda, dtype=BF)
+    with pytest.raises(TypeError):
+        lstm_ops.lstm_scan_weight_grad_cuda(h_seq.float(), None, dx)
+    with pytest.raises(ValueError, match="H % 8"):
+        lstm_ops.lstm_scan_weight_grad_cuda(h_seq[..., :4], None, dx[..., :16])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        lstm_ops.lstm_scan_weight_grad_cuda(h_seq.cpu(), None, dx.cpu())
 
 
 @pytest.mark.parametrize("protocol", ["windowed", "crop"])
@@ -1292,7 +1407,7 @@ def test_bf16_speaker_step_launches_the_scan_forms(cuda, protocol):
     forward and backward, and no dW; the auxiliary's loss finite."""
     from autovc_tpu_torch.config import ModelConfig
 
-    cfg = Config(model=ModelConfig(compute_dtype="bfloat16"),
+    cfg = Config(model=ModelConfig(compute_dtype="bfloat16", use_pallas_lstm=True),
                  train=TrainConfig(batch_size=2, len_crop=160, lambda_spk=1.0, spk_protocol=protocol))
     rng = np.random.RandomState(12)
     x = torch.from_numpy(rng.rand(2, 160, 80).astype(np.float32)).to(cuda)
@@ -1420,7 +1535,8 @@ def test_bf16_train_step_on_card_matches_plain(cuda):
     BatchNorm statistics float32."""
     from autovc_tpu_torch.config import ModelConfig
 
-    cfg = Config(model=ModelConfig(compute_dtype="bfloat16"), train=TrainConfig(batch_size=2, len_crop=64))
+    cfg = Config(model=ModelConfig(compute_dtype="bfloat16", use_pallas_lstm=True),
+                 train=TrainConfig(batch_size=2, len_crop=64))
     x, emb = (v.to(cuda) for v in _small_batch(8))
     states = {}
     for name, model_cfg in (("kernels", cfg.model), ("plain", cfg.model), ("f32", ModelConfig())):

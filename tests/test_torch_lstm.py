@@ -270,8 +270,8 @@ def test_scan_function_on_the_cpu_is_the_plain_pair():
     """``LSTMSequenceFn`` with ``scan`` on CPU tensors runs the scan
     rounding's plain forward and backward: its outputs and gradients equal
     ``lstm_scan_bf16_train_ref`` and ``lstm_scan_bf16_backward_ref`` bit for
-    bit, bfloat16, with a bfloat16 h0 and c0; a w_hh that requires grad is
-    refused (no dW)."""
+    bit, bfloat16, with a bfloat16 h0 and c0; a w_hh that requires grad
+    gets ``lstm_scan_bf16_weight_grad_ref`` on them, bit for bit."""
     bf = torch.bfloat16
     rng = np.random.RandomState(7)
     x, h0, c0 = (torch.from_numpy((rng.randn(*s) * 0.5).astype(np.float32)).to(bf)
@@ -287,9 +287,12 @@ def test_scan_function_on_the_cpu_is_the_plain_pair():
                                                    torch.zeros_like(c0), reverse)
         for got, want in zip([h_seq, hn, cn] + [v.grad for v in leaves], [fwd[0], fwd[3], fwd[4], *bwd]):
             assert got.dtype == want.dtype == bf and torch.equal(got, want)
-    with pytest.raises(ValueError, match="no dW"):
-        lstm_ops.LSTMSequenceFn.apply(x.clone().requires_grad_(), w.clone().requires_grad_(), None, None, False,
-                                      True)[0].float().sum().backward()
+    trained = w.clone().requires_grad_()
+    lstm_ops.LSTMSequenceFn.apply(x, trained, h0, c0, False, True)[0].backward(dy)
+    fwd = lstm_ops.lstm_scan_bf16_train_ref(x, w, h0, c0)
+    dx = lstm_ops.lstm_scan_bf16_backward_ref(w, fwd[2], fwd[1], c0, dy)[0]
+    want = lstm_ops.lstm_scan_bf16_weight_grad_ref(fwd[0], h0, dx)
+    assert trained.grad.dtype == bf and torch.equal(trained.grad, want)
 
 
 @pytest.mark.parametrize("reverse", [False, True])

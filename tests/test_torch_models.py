@@ -106,7 +106,7 @@ def test_generator_state_round_trip_covers_every_artifact_key():
     with np.load(GEN_ARTIFACT) as z:
         flat = {k: z[k].astype(np.float32) for k in z.files if k != "__step__"}
     state = io.generator_state_from_jax(tree)
-    Generator().load_state_dict(state, strict=True)  # every module key, no extras
+    Generator(scan=True).load_state_dict(state, strict=True)  # every module key, no extras
     back = _jax_state_from_torch(state)
     assert sorted(back) == sorted(flat)
     for key, value in flat.items():

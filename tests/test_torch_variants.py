@@ -74,8 +74,8 @@ class NarrowStft(JaxGenerator):
 
 
 WIDTHS = dict(**NARROW, enc_channels=32, dec_lstm_dim=64, postnet_channels=32)
-WAV_MODEL = ModelConfig(model_type="wav", convtas_channels=CHANNELS, **WIDTHS)
-STFT_MODEL = ModelConfig(model_type="stft", **WIDTHS)
+WAV_MODEL = ModelConfig(model_type="wav", convtas_channels=CHANNELS, use_pallas_lstm=True, **WIDTHS)
+STFT_MODEL = ModelConfig(model_type="stft", use_pallas_lstm=True, **WIDTHS)
 JAX_WAV = NarrowWav(**NARROW, channels=CHANNELS)
 JAX_WAV_BF16 = NarrowWav(**NARROW, channels=CHANNELS, dtype=jnp.bfloat16, use_pallas=True)
 JAX_STFT = NarrowStft(**NARROW, n_bins=513)
