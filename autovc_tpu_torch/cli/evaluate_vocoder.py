@@ -58,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hybrid_iters", type=int, default=2, help="GL refinement iterations for --vocoder hybrid")
     ap.add_argument("--max_utts", type=int, default=0, help="0 = all")
     ap.add_argument("--wavenet_engine", default="scan", choices=["scan", "pallas"],
-                    help="the JAX CLI's engine names; both run the port's generation kernel, pallas in bfloat16")
+                    help="the JAX CLI's engine names: scan runs float32, pallas the generation kernel's "
+                         "bfloat16 form in the Pallas engine's rounding, as the JAX CLI does")
     ap.add_argument("--wavenet_bucket", type=int, default=64,
                     help="pad each mel (edge replication) to a multiple of this many frames before WaveNet "
                          "generation and trim the waveform back (0 = off)")
@@ -86,7 +87,7 @@ def make_vocoder(args, audio: AudioConfig, device: torch.device):
 
     voc = WaveNetVocoder.from_checkpoint(WaveNetConfig(), args.vocoder_ckpt, device=device)
     dtype = torch.bfloat16 if args.wavenet_engine == "pallas" else torch.float32
-    return lambda m: voc.generate_bucketed(m, bucket=args.wavenet_bucket, dtype=dtype)
+    return lambda m: voc.generate_bucketed(m, bucket=args.wavenet_bucket, dtype=dtype, engine=args.wavenet_engine)
 
 
 def main(argv: list[str] | None = None) -> dict:

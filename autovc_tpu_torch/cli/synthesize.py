@@ -12,10 +12,12 @@ Counterpart of ``autovc_tpu/cli/synthesize.py``, with its flags:
   --vocoder wavenet     autoregressive WaveNet, the CUDA generation kernel
   --vocoder hifigan     the parallel HiFi-GAN generator
 Neural vocoders load an exported .npz artifact from --vocoder_ckpt (seeded
-weights without it). --bf16 runs WaveNet with bfloat16 weights; the JAX
-CLI's two WaveNet engines both run the port's one generation kernel, and
-``--wavenet_engine pallas`` implies bfloat16 as there. With --batch N > 1
-the neural vocoders synthesize N conversions a call, the mels padded to the
+weights without it). --bf16 runs WaveNet with bfloat16 weights in the
+rounding of the JAX engine --wavenet_engine names: scan (the default) as
+JAX's lax.scan engine rounds, every op in bfloat16; pallas as its Pallas
+kernel does (float32 accumulators), and it implies bfloat16 as there. Both
+run the port's generation kernel, in its scan or its bfloat16 form. With
+--batch N > 1 the neural vocoders synthesize N conversions a call, the mels padded to the
 group's longest and each waveform trimmed to its own length; one at a time,
 WaveNet pads each mel to a multiple of 64 frames and trims. The random
 stream of WaveNet is seeded with 0 for every call (JAX's default key gives
@@ -49,8 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gl_iters", type=int, default=60)
     ap.add_argument("--bf16", action="store_true", help="bfloat16 WaveNet weights (half the bytes a sample)")
     ap.add_argument("--wavenet_engine", default="scan", choices=["scan", "pallas"],
-                    help="the JAX CLI's engine names; both run the port's generation kernel, and pallas "
-                         "implies --bf16")
+                    help="the JAX CLI's engine names: the bfloat16 rounding of JAX's scan engine (every op "
+                         "rounded) or of its Pallas kernel (float32 accumulators; implies --bf16); float32 is "
+                         "the same kernel for both")
     ap.add_argument("--batch", type=int, default=1,
                     help="synthesize N conversions per call (neural vocoders): mels padded to the group's "
                          "longest, each waveform trimmed to its own length")
@@ -78,9 +81,9 @@ def make_synth(args: argparse.Namespace, audio: AudioConfig, device: torch.devic
         voc = WaveNetVocoder.from_checkpoint(WaveNetConfig(), args.vocoder_ckpt, device=device)
         dt = torch.bfloat16 if (args.bf16 or args.wavenet_engine == "pallas") else torch.float32
         if args.batch > 1:
-            return lambda mel: voc.generate(mel, dtype=dt)
+            return lambda mel: voc.generate(mel, dtype=dt, engine=args.wavenet_engine)
         # one utterance at a time: lengths bucketed (a causal core, so the trim is exact)
-        return lambda mel: voc.generate_bucketed(mel, dtype=dt)
+        return lambda mel: voc.generate_bucketed(mel, dtype=dt, engine=args.wavenet_engine)
     from autovc_tpu_torch.vocoder.hifigan import HiFiGANVocoder
 
     voc = HiFiGANVocoder.from_checkpoint(HiFiGANConfig(), args.vocoder_ckpt, device=device)

@@ -7,6 +7,7 @@
 #include <cuda_bf16.h>
 
 #include "coop.cuh"
+#include "scan_round.cuh"
 
 namespace {
 
@@ -36,18 +37,6 @@ __device__ __forceinline__ float load_ro1(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// The scan rounding (ops/lstm.py:lstm_scan_bf16_train_ref): a float32 value
-// rounded to bfloat16 and widened back, each op of _lstm_scan rounded as XLA
-// rounds it. Products of two bfloat16 values are exact in float32, so a
-// contracted multiply-add could not change them; the conversions keep every
-// sum from fusing with a product.
-__device__ __forceinline__ float rb(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-// XLA's logistic on bfloat16, 1 / (1 + exp(-x)), each op rounded (IEEE
-// division: the build has no fast-math flags)
-__device__ __forceinline__ float sigmoid_scan(float x) { return rb(1.0f / rb(1.0f + rb(expf(-x)))); }
-// logistic's VJP residual s * (1 - s), each op rounded
-__device__ __forceinline__ float dsigmoid_scan(float s) { return rb(s * rb(1.0f - s)); }
 
 // acc[r][c] += sum over the float4 columns k4 = ks, ks + KS, ... < n4 of
 // A[row0 + r][4 k4 ..] * W[4 k4 .. ][col0 + c], A row stride lda, W row

@@ -75,24 +75,8 @@
 // recomputes the gate activations from the rounded h_seq (lstm_gates.cu),
 // as the Pallas backward does, so no gates are written here.
 //
-// Scan form (autovc_lstm_fwd_scan; SCAN = true, E = bfloat16). JAX's other
-// bfloat16 LSTM, _lstm_scan (autovc_tpu/models/layers.py:123-144), the one
-// the d-vector runs on a bfloat16 input: a lax.scan whose every op rounds
-// to bfloat16 under jit (ops/lstm.py:lstm_scan_bf16_train_ref). The same
-// kernels, the cell update rounding where XLA rounds:
-//   d = rb(sum_k h_k w_k)  (float32 FMAs of exact bfloat16 values)
-//   i, f, g, o = rb(xproj_t + d);  sigmoid(x) = rb(1 / rb(1 + rb(exp(-x))))
-//   c = rb(rb(sf c) + rb(si tg));   h = rb(so rb(tanh(c)))
-// so the carry (h in hs or hbuf, c in c_state) is bfloat16 held in float32.
-// The training form writes the residuals of the scan's VJP, c_seq and
-// act = [si, sf, tg, so] (float32 arrays of bfloat16 values), so its
-// backward (lstm_bwd.cu's scan form) recomputes nothing. The d-vector's
-// shapes (H=768, 256 at B=1, 7, 8) run in regime (b). Bound: unlike the
-// bfloat16 form's, whose h operand is the float32 carry, this product takes
-// two bfloat16 operands, so the card's peak for it is the bfloat16 tensor
-// cores' and the bytes set the bound (25.4 MB, 7.6 us at H=768, B=7, T=128:
-// chip_smoke.py 8d). The kernel keeps the float32 FMAs of the other forms,
-// T dependent steps with a grid barrier each, and sits far above it.
+// The scan rounding (JAX's _lstm_scan, a bfloat16 carry) has its own
+// kernel, csrc/lstm_scan_fwd.cu, its product on the tensor cores.
 
 #include <type_traits>
 
@@ -103,7 +87,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 // E is the element type of xproj, w_hh and h_seq: float, or __nv_bfloat16
-// (hbuf given in regime (b); gates null but in the scan form).
+// (hbuf given in regime (b), gates null).
 template <class E>
 struct Args {
   const E* xproj;
@@ -183,7 +167,7 @@ __device__ __forceinline__ void store_partial(float* red, const Layout& L, const
 // cell; writes h_t to h_seq (and to hs, row stride ldh, when hs is not null,
 // to hnext, row stride H, when hnext is not null, and at the `last` step to
 // h_last when that is not null), in float32 but for h_seq, which rounds to E.
-template <class E, bool SCAN>
+template <class E>
 __device__ void cell_update(const Args<E>& a, const Layout& L, const float* red, const Pairs& p, int b0, int j0,
                             int t, bool last, float* hs, int ldh, float* hnext) {
 #pragma unroll
@@ -200,22 +184,12 @@ __device__ void cell_update(const Args<E>& a, const Layout& L, const float* red,
       s.w += v.w;
     }
     const size_t bb = b0 + b, j = j0 + u;
-    float si, sf, tg, so, c, h;
-    if constexpr (SCAN) {
-      si = sigmoid_scan(rb(p.xp[i][0] + rb(s.x)));
-      sf = sigmoid_scan(rb(p.xp[i][1] + rb(s.y)));
-      tg = rb(tanhf(rb(p.xp[i][2] + rb(s.z))));
-      so = sigmoid_scan(rb(p.xp[i][3] + rb(s.w)));
-      c = rb(rb(sf * a.c_state[bb * a.H + j]) + rb(si * tg));
-      h = rb(so * rb(tanhf(c)));
-    } else {
-      si = sigmoid(p.xp[i][0] + s.x);
-      sf = sigmoid(p.xp[i][1] + s.y);
-      tg = tanhf(p.xp[i][2] + s.z);
-      so = sigmoid(p.xp[i][3] + s.w);
-      c = sf * a.c_state[bb * a.H + j] + si * tg;
-      h = so * tanhf(c);
-    }
+    const float si = sigmoid(p.xp[i][0] + s.x);
+    const float sf = sigmoid(p.xp[i][1] + s.y);
+    const float tg = tanhf(p.xp[i][2] + s.z);
+    const float so = sigmoid(p.xp[i][3] + s.w);
+    const float c = sf * a.c_state[bb * a.H + j] + si * tg;
+    const float h = so * tanhf(c);
     a.c_state[bb * a.H + j] = c;
     const size_t row = bb * a.T + t;
     store1(a.h_seq + row * a.H + j, h);
@@ -235,7 +209,7 @@ __device__ void cell_update(const Args<E>& a, const Layout& L, const float* red,
 
 // Regime (a): block y owns batch rows [y*rows, y*rows + rows) and all H
 // units. Shared memory: W (H x 4H), hs (rows x (H + PAD)), red.
-template <class E, bool SCAN>
+template <class E>
 __global__ void __launch_bounds__(NT) lstm_fwd_block_kernel(Args<E> a) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(a, a.H);
@@ -266,7 +240,7 @@ __global__ void __launch_bounds__(NT) lstm_fwd_block_kernel(Args<E> a) {
     if (ks >= 0 && (s > 0 || a.h0 != nullptr)) gemm_slice(acc, hs, ldh, W, L.NC, rg * RB, 4 * u, a.H / 4, ks, L.KS);
     store_partial(red, L, acc, rg, u, ks);
     __syncthreads();  // partials complete; hs (h_{t-1}) no longer read
-    cell_update<E, SCAN>(a, L, red, p, b0, 0, t, s == a.T - 1, hs, ldh, nullptr);
+    cell_update<E>(a, L, red, p, b0, 0, t, s == a.T - 1, hs, ldh, nullptr);
     __syncthreads();  // h_t in hs before the next product
   }
 }
@@ -274,7 +248,7 @@ __global__ void __launch_bounds__(NT) lstm_fwd_block_kernel(Args<E> a) {
 // Regime (b): block x owns units [x*units, x*units + units) for every batch
 // row. Shared memory: W (H x 4 units), two staging buffers
 // (rows x (kc + PAD)), red. Launched cooperatively only.
-template <class E, bool SCAN>
+template <class E>
 __global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args<E> a) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(a, a.units);
@@ -343,7 +317,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args<E> a) {
       }
       store_partial(red, L, acc, rg, u, ks);
       __syncthreads();
-      cell_update<E, SCAN>(a, L, red, p, b0, j0, t, s == a.T - 1, nullptr, 0, hnext);
+      cell_update<E>(a, L, red, p, b0, j0, t, s == a.T - 1, nullptr, 0, hnext);
       __syncthreads();  // red free for the next tile
     }
     if (s + 1 < a.T) grid.sync();  // every h_t written before any block reads it
@@ -359,9 +333,9 @@ size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks, int wb
   return wbytes * w + 4 * (staged + (size_t)ks * rows * nc);
 }
 
-template <class E, bool SCAN = false>
+template <class E>
 int run(const Args<E>& a, int regime, int blocks, int smem, int* info, cudaStream_t stream) {
-  return launch(lstm_fwd_block_kernel<E, SCAN>, lstm_fwd_grid_kernel<E, SCAN>, a, regime, blocks, smem, info, stream);
+  return launch(lstm_fwd_block_kernel<E>, lstm_fwd_grid_kernel<E>, a, regime, blocks, smem, info, stream);
 }
 
 }  // namespace
@@ -407,28 +381,6 @@ int autovc_lstm_fwd_bf16(const void* xproj, const void* w_hh, const float* h0, v
                               static_cast<__nv_bfloat16*>(h_seq), regime == 1 ? hbuf : nullptr, c_state, c_seq,
                               nullptr, h_last, B, T, H, reverse, units, rows, kc, ks};
   return run(a, regime, blocks, smem, info, stream);
-}
-
-// The scan form: xproj (B, T, 4H), w_hh (H, 4H) and h_seq (B, T, H) in
-// bfloat16; h0 (B, H) float32 holding bfloat16 values, or null (zero);
-// c_state (B, H) float32, c0 on entry (bfloat16 values; the caller zeroes
-// it for a zero state), cN on exit; hbuf the float32 (2, B, H) exchange
-// buffer of regime (b); the training form's residuals c_seq (B, T, H) and
-// act (B, T, 4H), float32, may be null (inference). Returns as
-// autovc_lstm_fwd.
-int autovc_lstm_fwd_scan(const void* xproj, const void* w_hh, const float* h0, void* h_seq, float* hbuf,
-                         float* c_state, float* c_seq, float* act, int B, int T, int H, int reverse, int regime,
-                         int blocks, int units, int rows, int kc, int smem, int* info, cudaStream_t stream) {
-  const int tasks = rows / RB * (regime == 0 ? H : units);
-  int ks = 0;
-  if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
-      smem_bytes(regime, H, units, rows, kc, ks, 2) != (size_t)smem || (regime == 1 && hbuf == nullptr) ||
-      (c_seq == nullptr) != (act == nullptr))
-    return ERR_PLAN;
-  const Args<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(xproj), static_cast<const __nv_bfloat16*>(w_hh), h0,
-                              static_cast<__nv_bfloat16*>(h_seq), regime == 1 ? hbuf : nullptr, c_state, c_seq,
-                              act, nullptr, B, T, H, reverse, units, rows, kc, ks};
-  return run<__nv_bfloat16, true>(a, regime, blocks, smem, info, stream);
 }
 
 const char* autovc_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -77,18 +77,17 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 
 #include <cstdint>
 #include <mutex>
 
 #include "coop.cuh"
+#include "tma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int ERR_TMA = -3;           // the tensor map could not be encoded
 constexpr int BM = 128;               // rows of pre a block: two consumer warpgroups of 64
 constexpr int BK = 64;                // K a stage: one 128-byte swizzle row of bfloat16
 constexpr int BN_SUB = 128;           // columns a wgmma
@@ -149,29 +148,6 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
 // Named barrier `id` over `count` threads (0 is __syncthreads').
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
-      "[%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor with the 128-byte swizzle: the start
-// address, the leading and the stride byte offsets (16-byte units).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, unsigned lbo, unsigned sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
 }
 
 // d (64 rows x 128 columns, this warpgroup's fragment) += A (64 x 16,
@@ -373,31 +349,6 @@ __global__ void __launch_bounds__(THREADS, 1)
       *reinterpret_cast<float4*>(a.act + ((size_t)b * T + t) * N + n) = v;
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the libcuda.so.1 the process has loaded.
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                              CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeFn encode_fn() {
-  static EncodeFn fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr : reinterpret_cast<EncodeFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// A bfloat16 tensor map with zero fill: `rank` dims (innermost first), byte
-// strides of dims 1.., the box, the swizzle.
-bool encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-            const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
-  const EncodeFn fn = encode_fn();
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn != nullptr && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-                             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The maps of the last calls, by (pointer, shape): a map holds only the

@@ -89,6 +89,7 @@
 #include <math.h>
 
 #include "coop.cuh"
+#include "scan_round.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -567,6 +568,23 @@ __global__ void __launch_bounds__(NT, 1) wavenet_kernel(Args a) {
 // write is separated from every read of another block by a grid barrier,
 // and z, written by the gate of layer l + 1, was last read by the residual
 // phase of layer l, before the barrier that ends it.
+//
+// Scan rounding (wavenet_kernel_bf16<true>, autovc_wavenet_gen_scan). What
+// the JAX scan engine computes in bfloat16 (_generate_scan(dtype=bfloat16),
+// autovc_tpu/vocoder/wavenet.py:244-310), every weight, bias and the first
+// conv cast to bfloat16 and every op rounded as XLA:CPU rounds it under jit
+// (ops/wavenet.py:generate_ref, scan=True): each of the four products of a
+// gate summed in float32 and rounded alone, then added in order,
+//   gates = rb(rb(rb(rb(d(t-2d) + d(t-d)) + d(h)) + bg) + d(cond))
+//   z     = rb(rb(tanh(a)) * sigmoid(b)),  sigmoid(x) = rb(1 / rb(1 + rb(exp(-x))))
+//   skip  = rb(rb(skip + rb(rb(z @ wskip) + bs)) * c)
+//   h     = rb(rb(h + rb(rb(z @ wout) + bo)) * c),   c = bf16(sqrt(.5)) = 0.70703125
+// and h_0 = rb(rb(rb(x_prev) * fk) + fb), so h and skip are bfloat16 values
+// and the ring takes h as it is. The head stays float32 on relu(skip). The
+// wrapper rounds the biases, fk and fb to bfloat16 values (float32 in the
+// same slices); the kernel runs the gate's product as four tile_dots over
+// the staged row's segments [ring(t-2d) | ring(t-d) | h | cond], each with
+// its own reduction, and keeps no float32 h (hf unused).
 struct ArgsBF {
   const float* slices;  // (2L, blocks, slot) phase slices: bfloat16 weights, float32 biases
   const float *fk, *fb, *l1k, *l1b, *l2k, *l2b;
@@ -574,7 +592,7 @@ struct ArgsBF {
   const float* unif;
   float *y, *logits;
   __nv_bfloat16* ring;  // (sum 2d, B, R)
-  float* hf;            // (2, B, R) float32 h
+  float* hf;            // (2, B, R) float32 h (null in the scan rounding)
   __nv_bfloat16* hb;    // (2, B, R) bf16(h)
   float* skip;          // (B, S)
   __nv_bfloat16* z;     // (B, G/2)
@@ -608,6 +626,29 @@ __device__ __forceinline__ float4 first_conv8(const ArgsBF& a, float x, int k) {
                      first_conv2(a, x, k + 6));
 }
 
+// The scan rounding (rb, sigmoid_scan: scan_round.cuh) multiplies by
+// bf16(sqrt(.5)), the constant XLA's bfloat16 program holds.
+constexpr float SQRT_HALF_BF16 = 0.70703125f;
+
+// h_0 in the scan rounding: rb(rb(rb(x) * fk) + fb), fk and fb bfloat16 values.
+__device__ __forceinline__ float first_conv_scan(const ArgsBF& a, float x, int k) {
+  return rb(__fadd_rn(rb(__fmul_rn(rb(x), __ldg(a.fk + k))), __ldg(a.fb + k)));
+}
+template <bool SCAN>
+__device__ __forceinline__ float4 first_conv8_of(const ArgsBF& a, float x, int k) {
+  if constexpr (SCAN) {
+    float4 out;
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] = __floats2bfloat162_rn(first_conv_scan(a, x, k + 2 * i), first_conv_scan(a, x, k + 2 * i + 1));
+    return out;
+  } else {
+    return first_conv8(a, x, k);
+  }
+}
+
+template <bool SCAN>
 __global__ void __launch_bounds__(NT, 1) wavenet_kernel_bf16(ArgsBF a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ unsigned long long wbar[MAX_DEPTH];
@@ -677,21 +718,44 @@ __global__ void __launch_bounds__(NT, 1) wavenet_kernel_bf16(ArgsBF a) {
               const int k = 8 * c4;  // eight bfloat16 values a 16-byte unit
               if (k < R) return load_cg8(ring_2d + (size_t)b * R + k);
               if (k < 2 * R) return load_cg8(ring_d + (size_t)b * R + k - R);
-              if (k < 3 * R) return l == 0 ? first_conv8(a, xprev[b], k - 2 * R)
+              if (k < 3 * R) return l == 0 ? first_conv8_of<SCAN>(a, xprev[b], k - 2 * R)
                                            : load_cg8(h_in + (size_t)b * R + k - 2 * R);
               return load_ro8(a.cond + ((size_t)b * a.T + t) * a.C + k - 3 * R);
             },
             [&](int b0) {
               if (np == 0) return;
               const int rows = min(BT, a.B - b0);
-              const int V = tile_dot(xb, K, w, K, Y.CG / 4, rows, red_g);
               const int r = tid / (Y.CG / 2), j = tid % (Y.CG / 2);
-              if (r < rows && j < np) {
-                const int i = r * Y.CG + 2 * j;
-                const float zv = tanhf(tile_sum(red_g, V, i) + bias[2 * j]) *
-                                 sigmoidf_(tile_sum(red_g, V, i + 1) + bias[2 * j + 1]);
-                a.z[(size_t)(b0 + r) * G2 + j0 + j] = __float2bfloat16_rn(zv);
+              const bool forms = r < rows && j < np;
+              const int i = r * Y.CG + 2 * j;
+              float zv;
+              if constexpr (SCAN) {
+                // the four products of the segments, each rounded, added in
+                // order (the two reduction buffers in turn: a buffer is
+                // written again only after every thread has read it)
+                const int off[5] = {0, R, 2 * R, 3 * R, K};
+                float ga = 0.0f, gb = 0.0f;
+#pragma unroll
+                for (int seg = 0; seg < 4; ++seg) {
+                  float* red = seg % 2 ? red_r : red_g;
+                  const int V = tile_dot(xb + off[seg], K, w + (size_t)off[seg] * Y.CG, off[seg + 1] - off[seg],
+                                         Y.CG / 4, rows, red);
+                  if (!forms) continue;
+                  const float da = rb(tile_sum(red, V, i)), db = rb(tile_sum(red, V, i + 1));
+                  if (seg == 3) {
+                    ga = rb(ga + bias[2 * j]);
+                    gb = rb(gb + bias[2 * j + 1]);
+                  }
+                  ga = seg == 0 ? da : rb(ga + da);
+                  gb = seg == 0 ? db : rb(gb + db);
+                }
+                zv = rb(tanhf(ga)) * sigmoid_scan(gb);
+              } else {
+                const int V = tile_dot(xb, K, w, K, Y.CG / 4, rows, red_g);
+                if (forms)
+                  zv = tanhf(tile_sum(red_g, V, i) + bias[2 * j]) * sigmoidf_(tile_sum(red_g, V, i + 1) + bias[2 * j + 1]);
               }
+              if (forms) a.z[(size_t)(b0 + r) * G2 + j0 + j] = __float2bfloat16_rn(zv);
             });
       } else {
         // the residual update of layer l from z_l: the block's columns of h and skip
@@ -705,17 +769,29 @@ __global__ void __launch_bounds__(NT, 1) wavenet_kernel_bf16(ArgsBF a) {
               const int rows = min(BT, a.B - b0);
               const int r = tid / Y.CR, c = tid % Y.CR, n = n0 + c, b = b0 + r;
               const bool writes = r < rows && c < nc;
-              float prev = 0.0f;  // the layer's input h_l (float32) or skip, loaded before the product
-              if (writes)
-                prev = n < R    ? (l == 0 ? first_conv(a, xprev[b], n) : __ldcg(a.hf + par_in + (size_t)b * R + n))
-                       : l == 0 ? 0.0f
-                                : __ldcg(a.skip + (size_t)b * S + n - R);
+              // the layer's input h_l (float32; in the scan rounding bfloat16) or skip,
+              // loaded before the product
+              float prev = 0.0f;
+              if (writes && n < R) {
+                if constexpr (SCAN)
+                  prev = l == 0 ? first_conv_scan(a, xprev[b], n)
+                                : __bfloat162float(__ushort_as_bfloat16(
+                                      __ldcg(reinterpret_cast<const unsigned short*>(a.hb + par_in + (size_t)b * R + n))));
+                else
+                  prev = l == 0 ? first_conv(a, xprev[b], n) : __ldcg(a.hf + par_in + (size_t)b * R + n);
+              } else if (writes && l > 0) {
+                prev = __ldcg(a.skip + (size_t)b * S + n - R);
+              }
               const int V = tile_dot(xb, G2, w, G2, Y.CR / 4, rows, red_r);
               if (writes) {
-                const float out = (prev + (tile_sum(red_r, V, tid) + bias[c])) * SQRT_HALF;
+                float out;
+                if constexpr (SCAN)
+                  out = rb(rb(prev + rb(rb(tile_sum(red_r, V, tid)) + bias[c])) * SQRT_HALF_BF16);
+                else
+                  out = (prev + (tile_sum(red_r, V, tid) + bias[c])) * SQRT_HALF;
                 if (n < R) {
                   ring_w[(size_t)b * R + n] = __float2bfloat16_rn(prev);
-                  a.hf[par_out + (size_t)b * R + n] = out;
+                  if constexpr (!SCAN) a.hf[par_out + (size_t)b * R + n] = out;
                   a.hb[par_out + (size_t)b * R + n] = __float2bfloat16_rn(out);
                 } else {
                   a.skip[(size_t)b * S + n - R] = out;
@@ -727,6 +803,37 @@ __global__ void __launch_bounds__(NT, 1) wavenet_kernel_bf16(ArgsBF a) {
     }
     emit_sample(a, Y, t, xs, l1s, l2s, lgs, xprev, red_r, l1b, h0, nh, grid);
   }
+}
+
+// Checks a bfloat16 plan and launches wavenet_kernel_bf16<SCAN> (the
+// entry points below).
+template <bool SCAN>
+int launch_bf16(const float* slices, const float* fk, const float* fb, const float* l1k, const float* l1b,
+                const float* l2k, const float* l2b, const void* cond, const float* unif, float* y, float* logits,
+                void* ring, float* hf, void* hb, float* skip, void* z, float* o1, const int* dils, int L, int B, int T,
+                int R, int G, int S, int C, int NOUT, float log_scale_min, int blocks, int pairs, int cols,
+                int head_cols, int depth, int smem, int* info, cudaStream_t stream) {
+  const int G2 = G / 2;
+  if (L <= 0 || L > MAX_L || B <= 0 || T <= 0 || G % 16 || R % 8 || S % 4 || C % 8 || NOUT <= 0 || NOUT % 3 ||
+      (3 * R + C) / 8 > 2 * NT || S / 4 > 2 * NT || (!SCAN && hf == nullptr))
+    return ERR_PLAN;
+  if (blocks <= 0 || pairs <= 0 || 2 * pairs > MAXC || cols <= 0 || cols > MAXC || head_cols <= 0 ||
+      head_cols > MAXC || depth < 1 || depth > MAX_DEPTH || (long)blocks * pairs < G2 ||
+      (long)blocks * cols < R + S || (long)blocks * head_cols < S)
+    return ERR_PLAN;
+  const Layout Y(B, R, G2, S, C, NOUT, pairs, cols, head_cols, depth, true);
+  if ((long)Y.total * 4 != smem) return ERR_PLAN;
+  ArgsBF a{slices, fk, fb, l1k, l1b, l2k, l2b, static_cast<const __nv_bfloat16*>(cond), unif, y, logits,
+           static_cast<__nv_bfloat16*>(ring), hf, static_cast<__nv_bfloat16*>(hb), skip,
+           static_cast<__nv_bfloat16*>(z), o1, L, B, T, R, G2, S, C, NOUT, pairs, cols, head_cols, depth,
+           log_scale_min, {}, {}};
+  for (int l = 0, off = 0; l < L; ++l) {
+    if (dils[l] < 1) return ERR_PLAN;
+    a.dil[l] = dils[l];
+    a.off[l] = off;
+    off += 2 * dils[l];
+  }
+  return launch_cooperative(wavenet_kernel_bf16<SCAN>, a, blocks, NT, smem, info, stream);
 }
 
 }  // namespace
@@ -782,27 +889,23 @@ int autovc_wavenet_gen_bf16(const float* slices, const float* fk, const float* f
                             const int* dils, int L, int B, int T, int R, int G, int S, int C, int NOUT,
                             float log_scale_min, int blocks, int pairs, int cols, int head_cols, int depth, int smem,
                             int* info, cudaStream_t stream) {
-  const int G2 = G / 2;
-  if (L <= 0 || L > MAX_L || B <= 0 || T <= 0 || G % 16 || R % 8 || S % 4 || C % 8 || NOUT <= 0 || NOUT % 3 ||
-      (3 * R + C) / 8 > 2 * NT || S / 4 > 2 * NT)
-    return ERR_PLAN;
-  if (blocks <= 0 || pairs <= 0 || 2 * pairs > MAXC || cols <= 0 || cols > MAXC || head_cols <= 0 ||
-      head_cols > MAXC || depth < 1 || depth > MAX_DEPTH || (long)blocks * pairs < G2 ||
-      (long)blocks * cols < R + S || (long)blocks * head_cols < S)
-    return ERR_PLAN;
-  const Layout Y(B, R, G2, S, C, NOUT, pairs, cols, head_cols, depth, true);
-  if ((long)Y.total * 4 != smem) return ERR_PLAN;
-  ArgsBF a{slices, fk, fb, l1k, l1b, l2k, l2b, static_cast<const __nv_bfloat16*>(cond), unif, y, logits,
-           static_cast<__nv_bfloat16*>(ring), hf, static_cast<__nv_bfloat16*>(hb), skip,
-           static_cast<__nv_bfloat16*>(z), o1, L, B, T, R, G2, S, C, NOUT, pairs, cols, head_cols, depth,
-           log_scale_min, {}, {}};
-  for (int l = 0, off = 0; l < L; ++l) {
-    if (dils[l] < 1) return ERR_PLAN;
-    a.dil[l] = dils[l];
-    a.off[l] = off;
-    off += 2 * dils[l];
-  }
-  return launch_cooperative(wavenet_kernel_bf16, a, blocks, NT, smem, info, stream);
+  return launch_bf16<false>(slices, fk, fb, l1k, l1b, l2k, l2b, cond, unif, y, logits, ring, hf, hb, skip, z, o1,
+                            dils, L, B, T, R, G, S, C, NOUT, log_scale_min, blocks, pairs, cols, head_cols, depth,
+                            smem, info, stream);
+}
+
+// The scan rounding: as autovc_wavenet_gen_bf16, with the slices' biases
+// and fk, fb bfloat16 values (ops/wavenet.py:scan_weights); hf is unused
+// (may be null).
+int autovc_wavenet_gen_scan(const float* slices, const float* fk, const float* fb, const float* l1k,
+                            const float* l1b, const float* l2k, const float* l2b, const void* cond, const float* unif,
+                            float* y, float* logits, void* ring, float* hf, void* hb, float* skip, void* z, float* o1,
+                            const int* dils, int L, int B, int T, int R, int G, int S, int C, int NOUT,
+                            float log_scale_min, int blocks, int pairs, int cols, int head_cols, int depth, int smem,
+                            int* info, cudaStream_t stream) {
+  return launch_bf16<true>(slices, fk, fb, l1k, l1b, l2k, l2b, cond, unif, y, logits, ring, hf, hb, skip, z, o1,
+                           dils, L, B, T, R, G, S, C, NOUT, log_scale_min, blocks, pairs, cols, head_cols, depth,
+                           smem, info, stream);
 }
 
 const char* autovc_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

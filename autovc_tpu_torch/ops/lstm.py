@@ -23,6 +23,7 @@ direction of a BLSTM) and returns the sequence in natural time order.
   persistent block per SM, each with its slice of w_hh, meeting at a grid
   barrier each step (regime b). Each kernel keeps its slice of w_hh in
   shared memory for the whole sequence; one launch runs the sequence.
+  ``scan_plan`` does the same for the scan rounding's forward.
 - ``lstm_sequence_train_ref``, ``lstm_backward_ref`` and
   ``lstm_weight_grad_ref`` are the plain versions: loops of the same formulas,
   not autograd, in float32 (float64 for float64 inputs, a reference of
@@ -47,11 +48,13 @@ gates kernel tiles (B*T, 4H) as ``gates_plan`` says (TMA loads, wgmma).
 The scan rounding (``scan=True``; bfloat16 only): JAX's other bfloat16
 LSTM, ``_lstm_scan`` under ``jit``, which the d-vector runs on a bfloat16
 input: a bfloat16 carry and every op rounded (``lstm_scan_bf16_train_ref``,
-``lstm_scan_bf16_backward_ref``; on the card the scan forms of
-``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu``, ``lstm_scan_forward_cuda``
-and ``lstm_scan_backward_cuda``), and which the Generator runs in bfloat16
-unless ``ModelConfig.use_pallas_lstm``. Its forward keeps the residuals of
-the scan's VJP, so its backward recomputes nothing. Its dW
+``lstm_scan_bf16_backward_ref``; on the card ``csrc/lstm_scan_fwd.cu``, its
+recurrent product on the bfloat16 tensor cores (wgmma; mma.sync at H <= 32) as ``scan_plan``
+launches it, and the scan form of ``csrc/lstm_bwd.cu``:
+``lstm_scan_forward_cuda`` and ``lstm_scan_backward_cuda``), and which the
+Generator runs in bfloat16 unless ``ModelConfig.use_pallas_lstm``. Its
+forward keeps the residuals of the scan's VJP, so its backward recomputes
+nothing. Its dW
 (``lstm_scan_bf16_weight_grad_ref``; on the card ``csrc/lstm_scan_dw.cu``,
 ``lstm_scan_weight_grad_cuda``) is the transposed scan's: a bfloat16
 accumulator that each step's product is added to, rounded; it is left out
@@ -513,6 +516,65 @@ def gates_plan(batch: int, time: int, hidden: int) -> GatesPlan:
     return GatesPlan(1, rows * -(-4 * hidden // GATES_COLS))
 
 
+SCAN_MCOLS, SCAN_KATOM, SCAN_MAX_ROWS = 64, 64, 32  # as in csrc/lstm_scan_fwd.cu: wgmma's M, a swizzle atom's k
+SCAN_MAX_PAIRS = 2  # (row, unit) pairs a thread in its cell update
+SCAN_RED_PAD = 20  # floats added to a row of its sums
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """How one sequence of the scan forward is launched (see the notes of
+    csrc/lstm_scan_fwd.cu). regime "a" (H <= 32): ``blocks`` = ceil(B /
+    ``rows``) blocks, each with all ``units`` = H units and ``rows`` batch
+    rows, no grid barrier. regime "b": ``blocks`` = H / ``units``
+    persistent blocks, each with its units' gate columns of w_hh, tiles of
+    ``rows`` batch rows, a grid barrier between steps. ``rows`` is the
+    tensor-core product's N (a multiple of 8: 8 in regime (a), mma.sync's;
+    wgmma's in regime (b)); ``smem`` the dynamic shared bytes of a block."""
+
+    regime: str
+    blocks: int
+    units: int
+    rows: int
+    smem: int
+
+
+def _scan_smem(hidden: int, rows: int, m_tiles: int, parts: int) -> int:
+    """Shared bytes of a scan block, laid out as the kernel lays them out:
+    1 KB of alignment slack, W^T (m_tiles x 64 columns x K bfloat16, K = H
+    rounded up to 64), the h tile (rows x 64 bfloat16 an atom, two K halves
+    of ceil(K / 128) atoms), the K parts' sums (``parts`` of rows x (64
+    m_tiles + SCAN_RED_PAD) floats) and two mbarriers."""
+    atoms = -(-hidden // SCAN_KATOM)
+    return (1024 + 2 * m_tiles * SCAN_MCOLS * atoms * SCAN_KATOM + 2 * rows * 2 * (-(-atoms // 2)) * SCAN_KATOM
+            + 4 * parts * rows * (SCAN_MCOLS * m_tiles + SCAN_RED_PAD) + 16)
+
+
+@functools.lru_cache(maxsize=None)
+def scan_plan(batch: int, hidden: int, sms: int = SMS) -> ScanPlan | None:
+    """The scan forward's plan at (B, H) on a card of ``sms`` SMs, or None
+    where w_hh does not fit. H <= 32: regime (a), 8 batch rows a block
+    (mma.sync's N; the most blocks), all of K in one part of sums. Else
+    regime (b), two K halves: 8 units a block (32 gate columns of wgmma's
+    64: each thread updates one (row, unit) pair a step, which measured
+    faster than 16 units' full 64 columns and two pairs a thread), or 16
+    where H / 8 blocks would outnumber the SMs; one tile of B rows rounded
+    up to 8 up to 32, else tiles of 32 (at H=1024, B=32: 128 blocks, 214
+    KB each)."""
+    if hidden % 8 or batch <= 0:
+        return None
+    if hidden <= 32:
+        rows = 8
+        return ScanPlan("a", -(-batch // rows), hidden, rows,
+                        _scan_smem(hidden, rows, -(-4 * hidden // SCAN_MCOLS), 1))
+    units = 8 if hidden // 8 <= sms else 16
+    rows = min(SCAN_MAX_ROWS, -(-batch // 8) * 8)
+    smem = _scan_smem(hidden, rows, 1, 2)
+    if hidden % units or hidden // units > sms or smem > SMEM_MAX:
+        return None
+    return ScanPlan("b", hidden // units, units, rows, smem)
+
+
 def _no_plan(batch: int, hidden: int, sms: int, wbytes: int = 4) -> ValueError:
     def fits(h: int) -> bool:
         return all(launch_plan(batch, h, kind, sms, wbytes) is not None for kind in ("fwd", "bwd"))
@@ -531,8 +593,10 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "lstm_fwd":
         lib.autovc_lstm_fwd.argtypes = [pointers] * 7 + [ints] * 10 + tail
         lib.autovc_lstm_fwd_bf16.argtypes = [pointers] * 8 + [ints] * 10 + tail
-        lib.autovc_lstm_fwd_scan.argtypes = [pointers] * 8 + [ints] * 10 + tail
-        entries = (lib.autovc_lstm_fwd, lib.autovc_lstm_fwd_bf16, lib.autovc_lstm_fwd_scan)
+        entries = (lib.autovc_lstm_fwd, lib.autovc_lstm_fwd_bf16)
+    elif name == "lstm_scan_fwd":
+        lib.autovc_lstm_scan_fwd.argtypes = [pointers] * 8 + [ints] * 9 + tail
+        entries = (lib.autovc_lstm_scan_fwd,)
     elif name == "lstm_gates":
         lib.autovc_lstm_gates.argtypes = [pointers] * 5 + [ints] * 5 + [pointers]
         entries = (lib.autovc_lstm_gates,)
@@ -619,8 +683,8 @@ def _dense(v: torch.Tensor | None) -> torch.Tensor | None:
     return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str, plan: LaunchPlan | DwPlan | GatesPlan | None = None,
-              info=None) -> None:
+def _raise_on(lib: ctypes.CDLL, err: int, what: str,
+              plan: LaunchPlan | DwPlan | GatesPlan | ScanPlan | None = None, info=None) -> None:
     if err == _ERR_PLAN:
         raise RuntimeError(f"{what}: the kernel refused the launch plan {plan}")
     if err == _ERR_TMA:
@@ -635,7 +699,7 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str, plan: LaunchPlan | DwPlan |
 _ERR_PLAN, _ERR_RESIDENT, _ERR_TMA = -1, -2, -3  # the launchers' own codes
 # The last launch of each kind: (plan, resident blocks per SM, SMs), for
 # chip_smoke.py's report.
-last_launch: dict[str, tuple[LaunchPlan, int, int]] = {}
+last_launch: dict[str, tuple[LaunchPlan | ScanPlan, int, int]] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -742,29 +806,45 @@ def _scan_state(v: torch.Tensor | None, name: str) -> torch.Tensor | None:
 
 def lstm_scan_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None = None,
                            c0: torch.Tensor | None = None, reverse: bool = False, with_residuals: bool = False):
-    """Launch the forward kernel's scan-rounding form (``autovc_lstm_fwd_scan``,
-    the rounding of ``lstm_scan_bf16_train_ref``) on the current stream, one
-    launch for the sequence -> (h_seq, c_seq, act, hN, cN): bfloat16 xproj,
-    w_hh and state (h0, c0, zero when None), h_seq, hN and cN in bfloat16;
-    with ``with_residuals`` the backward's residuals c_seq (B, T, H) and act
-    (B, T, 4H) = [si, sf, tg, so], float32 tensors that hold bfloat16
-    values, else None for both."""
+    """Launch ``csrc/lstm_scan_fwd.cu`` (the rounding of
+    ``lstm_scan_bf16_train_ref``, its product on the tensor cores) on the
+    current stream, one launch for the sequence -> (h_seq, c_seq, act, hN,
+    cN): bfloat16 xproj, w_hh and state (h0, c0, zero when None), h_seq, hN
+    and cN in bfloat16; with ``with_residuals`` the backward's residuals
+    c_seq (B, T, H) and act (B, T, 4H) = [si, sf, tg, so], float32 tensors
+    that hold bfloat16 values, else None for both; launched as ``scan_plan``
+    plans it at the card's SM count (the kernel refuses a plan that does not
+    fit the shapes). Raises, as the other forms do, where the scan backward
+    could not launch at this shape."""
     global launches, scan_launches
     if xproj.dtype != torch.bfloat16:
         raise TypeError(f"the scan form takes bfloat16 xproj and w_hh, got {xproj.dtype}")
     h0, c0 = _scan_state(h0, "h0"), _scan_state(c0, "c0")
-    b, t, hidden, plan = _check(xproj, w_hh, "fwd", h0=h0, c0=c0)
-    lib = _library("lstm_fwd")
-    xproj, w_hh, h0 = _dense(xproj), _dense(w_hh), _dense(h0)
+    b, t, hidden, _ = _check(xproj, w_hh, "bwd", h0=h0, c0=c0)
+    plan = scan_plan(b, hidden, _card_sms(_index(xproj.device)))
+    if plan is None:
+        raise ValueError(f"the scan forward holds 64 gate columns of w_hh and a tile of h in shared memory: "
+                         f"H={hidden} does not fit {SMEM_MAX} bytes")
+    lib = _library("lstm_scan_fwd")
+    xproj, w_hh = _dense(xproj), _dense(w_hh)
     dev = xproj.device
+    h0 = None if h0 is None else _dense(h0.to(torch.bfloat16))
     h_seq = torch.empty((b, t, hidden), device=dev, dtype=torch.bfloat16)
     c_seq = torch.empty((b, t, hidden), device=dev, dtype=torch.float32) if with_residuals else None
     act = torch.empty((b, t, 4 * hidden), device=dev, dtype=torch.float32) if with_residuals else None
     c = torch.zeros((b, hidden), device=dev, dtype=torch.float32) if c0 is None else _dense(c0).clone()
-    hbuf = torch.empty((2, b, hidden), device=dev, dtype=torch.float32) if plan.regime == "b" else None
+    hbuf = None
+    if plan.regime == "b":  # the exchange buffer, rows padded to 64 with zeros; step 0 reads h0 from its half 1
+        hbuf = torch.zeros((2, b, -(-hidden // SCAN_KATOM) * SCAN_KATOM), device=dev, dtype=torch.bfloat16)
+        if h0 is not None:
+            hbuf[1, :, :hidden].copy_(h0)
+    info = (ctypes.c_int * 2)(0, 0)
     with torch.cuda.device(dev):
-        _launch(lib, lib.autovc_lstm_fwd_scan, plan, [_ptr(v) for v in (xproj, w_hh, h0, h_seq, hbuf, c, c_seq, act)],
-                (b, t, hidden, int(reverse)), "lstm forward kernel (scan rounding)")
+        err = lib.autovc_lstm_scan_fwd(*[_ptr(v) for v in (xproj, w_hh, h0, h_seq, hbuf, c, c_seq, act)], b, t,
+                                       hidden, int(reverse), int(plan.regime == "b"), plan.blocks, plan.units,
+                                       plan.rows, plan.smem, info, torch.cuda.current_stream().cuda_stream)
+    last_launch["scan_fwd"] = (plan, info[0], info[1])
+    _raise_on(lib, err, "lstm scan forward kernel", plan, info)
     launches += 1
     scan_launches += 1
     return h_seq, c_seq, act, h_seq[:, 0 if reverse else -1].clone(), c.to(torch.bfloat16)

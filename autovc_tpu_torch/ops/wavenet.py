@@ -25,15 +25,35 @@ the other. The kernel is one persistent cooperative launch per call;
 ``generate_plan`` chooses, in plain Python, its blocks, the columns each block
 owns and the depth of its weight ring.
 
-bfloat16 weights (``pack_weights(..., dtype=torch.bfloat16)``, what
-``pallas_wavenet.pack_weights`` makes by default and the JAX CLI's Pallas
-engine always runs): w3, wcond, wout and wskip in bfloat16, the biases, the
-first conv and the head in float32, and the rounding points of
-``pallas_wavenet.py:74-127``: the layer input h is rounded to bfloat16 for
-the gate and the ring, cond is rounded, z is rounded; the products are
-exact products of bfloat16 values summed in float32; the (h, skip)
-accumulators stay float32 (h unrounded). The kernel's bfloat16 form and
-``generate_ref`` both follow them.
+bfloat16 weights (``pack_weights(..., dtype=torch.bfloat16)``) run in one of
+the JAX package's two bfloat16 roundings, by its engine names:
+
+- ``scan=False``, the Pallas engine's (what ``pallas_wavenet.pack_weights``
+  makes by default and ``engine="pallas"`` runs): w3, wcond, wout and wskip
+  in bfloat16, the biases, the first conv and the head in float32, and the
+  rounding points of ``pallas_wavenet.py:74-127``: the layer input h is
+  rounded to bfloat16 for the gate and the ring, cond is rounded, z is
+  rounded; the products are exact products of bfloat16 values summed in
+  float32; the (h, skip) accumulators stay float32 (h unrounded).
+- ``scan=True``, the scan engine's (``_generate_scan(dtype=bfloat16)``,
+  ``autovc_tpu/vocoder/wavenet.py:244-310``, what ``engine="scan"``, the
+  default, runs): every weight, bias and the first conv in bfloat16, h and
+  the skip sum bfloat16 values, every op rounded as XLA:CPU rounds it under
+  ``jit`` (read from the compiled HLO: each dot of two bfloat16 operands is
+  a float32 dot converted to bfloat16, each elementwise op converted back
+  to bfloat16, ``sqrt(0.5)`` a bfloat16 constant, 0.70703125):
+
+      h_0   = rb(rb(rb(x_prev) * fk) + fb)
+      gates = rb(rb(rb(rb(d(x(t-2d), w_prev2) + d(x(t-d), w_prev1)) + d(h, w_cur)) + bg) + d(cond_t, w_cond))
+      z     = rb(rb(tanh(a)) * sigmoid(b))      sigmoid(x) = rb(1 / rb(1 + rb(exp(-x))))
+      skip  = rb(rb(skip + rb(d(z, wskip) + bs)) * c)
+      h     = rb(rb(h + rb(d(z, wout) + bo)) * c)       c = 0.70703125
+
+  with d(x, w) = rb(x @ w) and rb rounding to bfloat16; the ring takes h
+  (already bfloat16), cond is rounded, and the head is float32 on
+  relu(skip), as JAX casts the skip sum to float32 before it.
+
+The kernel's bfloat16 form and scan form, and ``generate_ref``, follow them.
 """
 
 from __future__ import annotations
@@ -47,16 +67,18 @@ from typing import Mapping, Sequence
 import torch
 
 from autovc_tpu_torch.ops import _build
+from autovc_tpu_torch.ops.lstm import _rb, _sigmoid_scan  # the scan rounding's ops, as the LSTM's
 
 SQRT_HALF = math.sqrt(0.5)
 LOG_SCALE_MIN = -32.23619130191664
 U_MIN, U_MAX = 1e-5, 1.0 - 1e-5
 
 # Calls of generate that launched the CUDA kernel (one call = one utterance
-# batch); those with bfloat16 weights count in bf16_launches too. Callers
-# reset them to 0 and read them back.
+# batch); those with bfloat16 weights count in bf16_launches too, or, in the
+# scan rounding, in scan_launches. Callers reset them to 0 and read them back.
 launches = 0
 bf16_launches = 0
+scan_launches = 0
 # CUDA kernel launches made by the last call of generate_cuda: the plan's
 # (one, for all T samples).
 last_cuda_launches = 0
@@ -115,13 +137,29 @@ def sample_from_mol_uniforms(logits: torch.Tensor, uniforms: torch.Tensor, log_s
     return torch.clamp(x, -1.0, 1.0)
 
 
+SQRT_HALF_BF16 = 0.70703125  # bf16(sqrt(0.5)): the constant of the scan rounding
+
+
+def scan_weights(packed: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """bfloat16 packed weights for the scan rounding: the biases and the
+    first conv rounded to bfloat16 values (still float32 tensors, where the
+    kernel reads them); the head stays float32."""
+    if packed["w3"].dtype != torch.bfloat16:
+        raise ValueError(f"the scan rounding takes bfloat16 packed weights, got {packed['w3'].dtype}")
+    return {k: _rb(v).contiguous() if k in ("bg", "bo", "bs", "fk", "fb") else v for k, v in packed.items()}
+
+
 def generate_ref(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], cond: torch.Tensor,
-                 uniforms: torch.Tensor, log_scale_min: float = LOG_SCALE_MIN) -> tuple[torch.Tensor, torch.Tensor]:
+                 uniforms: torch.Tensor, log_scale_min: float = LOG_SCALE_MIN,
+                 scan: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version: a Python loop over samples and layers in float32,
     with the bfloat16 rounding points where the packed weights are bfloat16
     (the layer input, cond and z rounded; products of the bfloat16 values
-    summed in float32). cond (B, T, C), uniforms (B, T, K+1) -> samples
-    (B, T), logits (B, T, 3K)."""
+    summed in float32), or with ``scan`` (bfloat16 weights) those of the
+    scan rounding (the module's notes). cond (B, T, C), uniforms (B, T, K+1)
+    -> samples (B, T), logits (B, T, 3K)."""
+    if scan:
+        return _generate_scan_ref(scan_weights(packed), dilations, cond, uniforms, log_scale_min)
     b, t, _ = cond.shape
     dt = packed["w3"].dtype
     cond, uniforms = cond.float().to(dt).float(), uniforms.float()
@@ -143,6 +181,39 @@ def generate_ref(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], c
             skip = (skip + (z @ wskip[i] + packed["bs"][i])) * SQRT_HALF
             new_h = (h + (z @ wout[i] + packed["bo"][i])) * SQRT_HALF
             rings[i][:, slot] = h_in
+            h = new_h
+        out = torch.relu(torch.relu(skip) @ packed["l1k"] + packed["l1b"])
+        logits = out @ packed["l2k"] + packed["l2b"]
+        x_prev = sample_from_mol_uniforms(logits, uniforms[:, step], log_scale_min)
+        ys.append(x_prev)
+        all_logits.append(logits)
+    return torch.stack(ys, dim=1), torch.stack(all_logits, dim=1)
+
+
+def _generate_scan_ref(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], cond: torch.Tensor,
+                       uniforms: torch.Tensor, log_scale_min: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """generate_ref in the scan rounding, on ``scan_weights``' packing."""
+    b, t, _ = cond.shape
+    cond, uniforms = _rb(cond.float()), uniforms.float()
+    w3, wcond, wout, wskip = (packed[k].float() for k in ("w3", "wcond", "wout", "wskip"))
+    r, s = packed["fk"].shape[0], wskip.shape[-1]
+    g2 = wout.shape[1]
+    rings = [cond.new_zeros((b, 2 * d, r)) for d in dilations]
+    x_prev = cond.new_zeros(b)
+    ys, all_logits = [], []
+    for step in range(t):
+        h = _rb(_rb(_rb(x_prev)[:, None] * packed["fk"]) + packed["fb"])
+        skip = cond.new_zeros((b, s))
+        c_t = cond[:, step]
+        for i, d in enumerate(dilations):
+            slot, slot_d = step % (2 * d), (step + d) % (2 * d)
+            w = w3[i]
+            gates = _rb(rings[i][:, slot] @ w[:r]) + _rb(rings[i][:, slot_d] @ w[r:2 * r])
+            gates = _rb(_rb(_rb(_rb(gates) + _rb(h @ w[2 * r:])) + packed["bg"][i]) + _rb(c_t @ wcond[i]))
+            z = _rb(_rb(torch.tanh(gates[:, :g2])) * _sigmoid_scan(gates[:, g2:]))
+            skip = _rb(_rb(skip + _rb(_rb(z @ wskip[i]) + packed["bs"][i])) * SQRT_HALF_BF16)
+            new_h = _rb(_rb(h + _rb(_rb(z @ wout[i]) + packed["bo"][i])) * SQRT_HALF_BF16)
+            rings[i][:, slot] = h
             h = new_h
         out = torch.relu(torch.relu(skip) @ packed["l1k"] + packed["l1b"])
         logits = out @ packed["l2k"] + packed["l2b"]
@@ -378,10 +449,10 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_float]
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    fn = lib.autovc_wavenet_gen_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_float]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for fn in (lib.autovc_wavenet_gen_bf16, lib.autovc_wavenet_gen_scan):
+        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_float]
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.autovc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.autovc_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -427,11 +498,15 @@ _ERR_PLAN, _ERR_RESIDENT = -1, -2  # the launcher's own codes (csrc/coop.cuh)
 
 
 def generate_cuda(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], cond: torch.Tensor,
-                  uniforms: torch.Tensor, log_scale_min: float = LOG_SCALE_MIN) -> tuple[torch.Tensor, torch.Tensor]:
+                  uniforms: torch.Tensor, log_scale_min: float = LOG_SCALE_MIN,
+                  scan: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on the current stream (no synchronisation):
     one cooperative launch of ``generate_plan`` for all T samples, the
-    bfloat16 form where the packed weights are bfloat16."""
-    global launches, bf16_launches, last_cuda_launches, last_launch
+    bfloat16 form where the packed weights are bfloat16, its scan rounding
+    with ``scan``."""
+    global launches, bf16_launches, scan_launches, last_cuda_launches, last_launch
+    if scan:
+        packed = scan_weights(packed)
     if cond.dtype != torch.float32 or uniforms.dtype != torch.float32:
         raise TypeError(f"wavenet kernel takes float32 cond and uniforms, got {cond.dtype} and {uniforms.dtype}")
     if uniforms.device != cond.device:
@@ -464,11 +539,13 @@ def generate_cuda(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], 
         if bf16:
             slices = kernel_weights_bf16(packed, plan)
             cond_b = cond.to(torch.bfloat16)
-            hf, hb, z = empty(2, b, r), empty(2, b, r, dtype=wdt), empty(b, g // 2, dtype=wdt)
-            err = lib.autovc_wavenet_gen_bf16(
-                slices.data_ptr(), *head, cond_b.data_ptr(), uniforms.data_ptr(), y.data_ptr(), logits.data_ptr(),
-                ring.data_ptr(), hf.data_ptr(), hb.data_ptr(), skip.data_ptr(), z.data_ptr(), o1.data_ptr(),
-                ctypes.cast(dils, ctypes.c_void_p), *shape, info, stream)
+            hf = None if scan else empty(2, b, r)
+            hb, z = empty(2, b, r, dtype=wdt), empty(b, g // 2, dtype=wdt)
+            fn = lib.autovc_wavenet_gen_scan if scan else lib.autovc_wavenet_gen_bf16
+            err = fn(slices.data_ptr(), *head, cond_b.data_ptr(), uniforms.data_ptr(), y.data_ptr(),
+                     logits.data_ptr(), ring.data_ptr(), None if hf is None else hf.data_ptr(), hb.data_ptr(),
+                     skip.data_ptr(), z.data_ptr(), o1.data_ptr(), ctypes.cast(dils, ctypes.c_void_p), *shape, info,
+                     stream)
         else:
             slices = kernel_weights(packed, plan)
             h, z = empty(2, b, r), empty(2, b, g // 2)
@@ -485,18 +562,20 @@ def generate_cuda(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], 
     if err:
         raise RuntimeError(f"wavenet kernel launch failed: {lib.autovc_cuda_error_string(err).decode()}")
     launches += 1
-    bf16_launches += int(bf16)
+    bf16_launches += int(bf16 and not scan)
+    scan_launches += int(scan)
     last_cuda_launches = plan.launches
     return y, logits
 
 
 def generate(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], cond: torch.Tensor,
-             uniforms: torch.Tensor, log_scale_min: float = LOG_SCALE_MIN) -> tuple[torch.Tensor, torch.Tensor]:
+             uniforms: torch.Tensor, log_scale_min: float = LOG_SCALE_MIN,
+             scan: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """cond (B, T, C), uniforms (B, T, K+1) -> samples (B, T), logits
     (B, T, 3K): the kernel for a CUDA tensor, the plain version for a CPU
-    tensor."""
+    tensor; ``scan`` (bfloat16 weights) in the scan rounding."""
     if cond.device.type == "cuda":
-        return generate_cuda(packed, dilations, cond, uniforms, log_scale_min)
+        return generate_cuda(packed, dilations, cond, uniforms, log_scale_min, scan)
     if cond.device.type == "cpu":
-        return generate_ref(packed, dilations, cond, uniforms, log_scale_min)
+        return generate_ref(packed, dilations, cond, uniforms, log_scale_min, scan)
     raise ValueError(f"generate runs on cuda or cpu tensors, not {cond.device}")

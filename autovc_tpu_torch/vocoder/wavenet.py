@@ -15,12 +15,14 @@ Two paths, as in the JAX package:
   shifted matrix products over the whole sequence (plain PyTorch);
 - ``WaveNetVocoder.generate``: autoregressive generation through
   ``ops.wavenet.generate`` (the CUDA kernel on a card, the plain loop on the
-  CPU), with float32 weights or, ``dtype=torch.bfloat16``, the bfloat16
-  weights and rounding points of the JAX package's Pallas engine
-  (``pack_weights(..., dtype=jnp.bfloat16)``). Both JAX engine names map to
-  this one generator; the JAX scan in bfloat16 also keeps h, the skip sum,
-  the biases and the first conv in bfloat16, which this does not (ROADMAP
-  Queue 3).
+  CPU), with float32 weights or, ``dtype=torch.bfloat16``, bfloat16 weights
+  in the rounding of the JAX engine ``engine`` names: ``"scan"`` (the
+  default, as in JAX) rounds as ``_generate_scan(dtype=bfloat16)`` does (h,
+  the skip sum, the biases and the first conv in bfloat16 too, every op
+  rounded), ``"pallas"`` as the Pallas engine does (``pack_weights(...,
+  dtype=jnp.bfloat16)``: float32 h and skip accumulators and biases). In
+  float32 both engines compute the same function and run the one float32
+  kernel.
 
 Randomness stays outside the network: generation consumes a (B, T, K+1)
 stream of uniforms, given by the caller or drawn from a seeded
@@ -113,21 +115,28 @@ class WaveNet(nn.Module):
             h = F.conv_transpose2d(h, k[None, None], stride=(1, scale), padding=(k.shape[0] // 2, scale // 2))
         return h[:, 0].transpose(1, 2)[:, : tc * math.prod(self.cfg.upsample_scales)]
 
-    def apply(self, x: torch.Tensor, c: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    def apply(self, x: torch.Tensor, c: torch.Tensor, dtype: torch.dtype = torch.float32,
+              scan: bool = False) -> torch.Tensor:
         """Teacher-forced forward: x (B, T, 1) in [-1, 1], mel c (B, Tc, 80)
         with Tc * 256 >= T -> MoL logits (B, T, 3K); sample t is predicted
         from x[:t] (the input is shifted right by one inside). With
         ``dtype=torch.bfloat16``, at the rounding points of bfloat16
         generation (``ops.wavenet``): the layer weights, cond, each layer's
-        input and z rounded to bfloat16, the products summed in float32 (no
+        input and z rounded to bfloat16, the products summed in float32, or,
+        with ``scan``, every op rounded as the scan rounding rounds it (no
         JAX counterpart: it checks the bfloat16 generation on its own
         waveform)."""
         cond = self.upsample_conditioning(c)[:, : x.shape[1]]
         x_in = F.pad(x[:, :-1], (0, 0, 1, 0))
-        h = x_in @ self.first_conv.kernel + self.first_conv.bias
 
         def shift(a: torch.Tensor, n: int) -> torch.Tensor:
             return F.pad(a[:, : a.shape[1] - n], (0, 0, n, 0)) if n else a
+
+        if scan:
+            if dtype != torch.bfloat16:
+                raise ValueError(f"the scan rounding is a bfloat16 form, not {dtype}")
+            return self._apply_scan(x_in, cond, shift)
+        h = x_in @ self.first_conv.kernel + self.first_conv.bias
 
         def rd(a: torch.Tensor) -> torch.Tensor:  # rounded to dtype, computed on in float32
             return a.to(dtype).float()
@@ -145,6 +154,28 @@ class WaveNet(nn.Module):
             h = (h + (z @ rd(lp.w_out) + lp.b_out)) * SQRT_HALF
         out = torch.relu(torch.relu(skip) @ self.last1.kernel + self.last1.bias)
         return out @ self.last2.kernel + self.last2.bias
+
+    def _apply_scan(self, x_in: torch.Tensor, cond: torch.Tensor, shift) -> torch.Tensor:
+        """The teacher-forced forward in the scan rounding of
+        ``ops.wavenet`` (its notes), each product over the whole sequence."""
+        rb = wavenet_ops._rb
+        half = wavenet_ops.SQRT_HALF_BF16
+        cond = rb(cond)
+        h = rb(rb(rb(x_in) * rb(self.first_conv.kernel[0])) + rb(self.first_conv.bias))
+        skip = h.new_zeros(h.shape[:2] + (self.cfg.skip_channels,))
+        for i, d in enumerate(self.cfg.dilations()):
+            lp = self.layers[str(i)]
+            gates = rb(rb(shift(h, 2 * d) @ rb(lp.w_prev2)) + rb(shift(h, d) @ rb(lp.w_prev1)))
+            gates = rb(rb(rb(gates + rb(h @ rb(lp.w_cur))) + rb(lp.bias)) + rb(cond @ rb(lp.w_cond)))
+            a, b = gates.chunk(2, dim=-1)
+            z = rb(rb(torch.tanh(a)) * wavenet_ops._sigmoid_scan(b))
+            skip = rb(rb(skip + rb(rb(z @ rb(lp.w_skip)) + rb(lp.b_skip))) * half)
+            h = rb(rb(h + rb(rb(z @ rb(lp.w_out)) + rb(lp.b_out))) * half)
+        out = torch.relu(torch.relu(skip) @ self.last1.kernel + self.last1.bias)
+        return out @ self.last2.kernel + self.last2.bias
+
+
+ENGINES = ("scan", "pallas")  # the JAX package's engine names: which bfloat16 rounding generate runs
 
 
 def discretized_mol_loss(logits: torch.Tensor, target: torch.Tensor, num_classes: int = 65536,
@@ -226,13 +257,18 @@ class WaveNetVocoder:
 
     @torch.inference_mode()
     def generate(self, mel: np.ndarray | torch.Tensor, uniforms: torch.Tensor | None = None,
-                 generator: torch.Generator | None = None, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 generator: torch.Generator | None = None, dtype: torch.dtype = torch.float32,
+                 engine: str = "scan") -> torch.Tensor:
         """mel (Tc, 80) or (B, Tc, 80), normalized -> waveform (Tc*256,) or
         (B, Tc*256), float32 on the vocoder's device. ``uniforms`` (B, T,
         K+1) is the random stream; without it one is drawn from
         ``generator``. ``dtype`` is the layer weights' (float32 or
-        bfloat16, ``autovc_tpu/vocoder/wavenet.py:409-470``); the same
-        uniforms give the same stream as the JAX Pallas engine's."""
+        bfloat16), ``engine`` the JAX engine whose bfloat16 rounding runs
+        (``autovc_tpu/vocoder/wavenet.py:409-477``: "scan", the default, or
+        "pallas"; in float32 both are the one float32 kernel); the same
+        uniforms give the same stream as the JAX engine's."""
+        if engine not in ENGINES:
+            raise ValueError(f"engine is one of {ENGINES}, not {engine!r}")
         mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
         squeeze = mel.ndim == 2
         if squeeze:
@@ -246,13 +282,13 @@ class WaveNetVocoder:
         with exact_f32(self.device):
             cond = self.model.upsample_conditioning(mel)[:, :length]
             wav, _ = wavenet_ops.generate(self.packed_for(dtype), self.cfg.dilations(), cond, uniforms,
-                                          self.cfg.log_scale_min)
+                                          self.cfg.log_scale_min, dtype == torch.bfloat16 and engine == "scan")
         return wav[0] if squeeze else wav
 
     def generate_bucketed(self, mel: np.ndarray | torch.Tensor, bucket: int = 64,
                           uniforms: torch.Tensor | None = None,
                           generator: torch.Generator | None = None,
-                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                          dtype: torch.dtype = torch.float32, engine: str = "scan") -> torch.Tensor:
         """``generate`` on one (Tc, 80) mel padded (edge replication) to a
         multiple of ``bucket`` frames, the waveform trimmed back to Tc*256
         samples. ``uniforms`` covers the padded length; bucket=0 pads
@@ -264,11 +300,13 @@ class WaveNetVocoder:
         pad = (-t) % bucket if bucket else 0
         if pad:
             mel = torch.cat([mel, mel[-1:].expand(pad, -1)])
-        return self.generate(mel, uniforms, generator, dtype)[: t * self.cfg.hop_size]
+        return self.generate(mel, uniforms, generator, dtype, engine)[: t * self.cfg.hop_size]
 
     @torch.inference_mode()
-    def logits(self, x: torch.Tensor, mel: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    def logits(self, x: torch.Tensor, mel: torch.Tensor, dtype: torch.dtype = torch.float32,
+               scan: bool = False) -> torch.Tensor:
         """Teacher-forced MoL logits (B, T, 3K) of waveform x (B, T, 1), at
-        the rounding points of generation in ``dtype``."""
+        the rounding points of generation in ``dtype`` (``scan``: the scan
+        rounding's)."""
         with exact_f32(self.device):
-            return self.model.apply(x, mel, dtype)
+            return self.model.apply(x, mel, dtype, scan)

@@ -137,8 +137,14 @@ phase 3's float32 gates; a second call the same waveform; its time at B=1, 8
 and 32 beside the float32 kernel's and the bytes bound, and the profiler's
 split; (d) ``cli.synthesize`` on the card on a results pkl of 8 of phase
 2's converted mels (4-11 frames) in a temporary directory, ``--vocoder
-wavenet --wavenet_engine pallas --batch 8`` (one bfloat16 launch) and
-``--vocoder hifigan``: every wav finite, Tc*256 samples, and readme.md.
+wavenet --wavenet_engine pallas --batch 8`` (one launch of the bfloat16
+form), ``--vocoder wavenet --bf16 --batch 8`` (one of the scan form) and
+``--vocoder hifigan``: every wav finite, Tc*256 samples, and readme.md;
+(e) phase 3's WaveNet in the JAX scan engine's bfloat16 rounding
+(``WaveNetVocoder.generate``'s default engine: the kernel's scan form, one
+launch, B=8, T=2048), held by (c)'s rule against the plain scan loop and
+the teacher-forced forward in the same rounding, timed beside the bfloat16
+form and the float32 kernel in turns.
 Phase 8 runs bfloat16 training at phase 4's shapes (B=7, T=128, the
 published widths, seeded weights): (a) the LSTM kernels' bfloat16 training
 forms against their plain versions at H in {32, 512, 1024}, both
@@ -171,7 +177,8 @@ each op rounded, a bfloat16 carry) at the d-vector's widths (768, 256) and
 batches (1, 8, 7), T=128, both directions, against their plain loops (the
 first 16 steps >= 99% bit-equal and within 1 ulp or the plain loop's own
 ulps there, the sequence within twice the plain loop's own spread with its
-hidden units relabelled), timed beside the plain loops, the bound and
+hidden units relabelled), timed (us a step beside the replaced form's
+recorded time) beside the plain loops, the bound and
 cuDNN's bfloat16 LSTM, the bfloat16 d-vector's forward beside the float32
 one and cuDNN's bfloat16 3-layer LSTM; (e) 12 ``Solver`` steps in bfloat16
 with lambda_spk=1.0 ('windowed') and 12 without (p50, p95), the launches a
@@ -207,12 +214,14 @@ gated) and 3 bfloat16 Solver steps of each (finite).
 
 Phase 10 runs the Generator's bfloat16 LSTMs in the scan rounding, the
 default of ``ModelConfig.use_pallas_lstm=False`` as of JAX's (``lax.scan``:
-h and c carried in bfloat16, every gate op rounded): (a) the forward
-kernel's scan form at the Generator's shapes (B=32, T=512; H=32 both
-directions, 512, 1024) against its plain loop by 8d's scan rule (its first
-16 steps within 1 ulp or the plain loop's own ulps there and 99%
+h and c carried in bfloat16, every gate op rounded): (a) the scan forward
+(``csrc/lstm_scan_fwd.cu``, wgmma; mma.sync at H=32) at the Generator's shapes (B=32, T=512;
+H=32 both directions, 512, 1024) against its plain loop by 8d's scan rule
+(its first 16 steps within 1 ulp or the plain loop's own ulps there and 99%
 bit-equal; the sequence within twice the spread of 32 relabelled plain
-loops run stacked), timed beside the plain loop and the bound; then
+loops run stacked), timed (us a step, the plan, the replaced form's
+recorded time) beside the
+plain loop, the bound and cuDNN's bfloat16 one-layer LSTM forward; then
 bench.py's default program (7b's, with the scan rounding): 7 scan
 launches, its iteration, realtime factor and parity dict beside 7b's; (b)
 the scan dW kernel (``csrc/lstm_scan_dw.cu``: each step's product rounded
@@ -220,15 +229,18 @@ and added to a bfloat16 accumulator, as XLA transposes the scan) against
 ``lstm_scan_bf16_weight_grad_ref`` at B=7, T=128, H in {32, 512, 1024},
 both directions (1 bfloat16 ulp floored at 2^-8 of the peak, 99%
 bit-equal), timed beside the plain loop, the bound and ``torch.matmul`` of
-the one-shot product; one bfloat16 train step in the scan rounding against
+the one-shot product; the scan forward's training form at the same shapes
+by the scan rule, its us a step; one bfloat16 train step in the scan rounding against
 the plain engine on the same kinks (8b's gate), 5 Solver steps (11 scan
 forward, backward and dW launches a step, none of the Pallas forms) and a
 warm step's profile; ``cli.train --bf16`` and ``--bf16 --pallas``, 3 steps
 each, their launches.
 Phase 11 trains the speaker encoder and the vocoders on phase 5's corpus:
 (a) GE2E (every speaker, 5 crops of 128 frames each): at H=768 and 256 and
-B=20 the LSTM training forward and the backward with dW against their
-plain versions (1e-4; dW 1e-4 of its peak), timed beside cuDNN; one
+B=20 the scan forward by the scan rule (the bfloat16 d-vector at this
+batch; us a step), the LSTM training forward and the backward with dW
+against their plain versions (1e-4; dW 1e-4 of its peak), timed beside
+cuDNN; one
 ``GE2ETrainer`` loss and gradient with the kernels against the plain engine
 on the card (loss 1e-5 relative, leaves 1e-4 of their scale or, where a
 leaf's sums cancel, phase 4c's float64 rule; 3 forward, backward and dW
@@ -312,7 +324,8 @@ ROOT = Path(__file__).resolve().parent
 B, T, N_MELS, HOP = 32, 512, 80, 256
 LSTM_TOL = 1e-4  # f32 kernel vs f32 plain loop: summation order only
 MEL_TOL = 1e-3  # on the whole generator, after 7 recurrences and 11 convs
-KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_gates", "lstm_scan_dw", "wavenet_gen", "mel_norm", "sosfilt")
+KERNELS = ("lstm_fwd", "lstm_scan_fwd", "lstm_bwd", "lstm_gates", "lstm_scan_dw", "wavenet_gen", "mel_norm",
+           "sosfilt")
 WN_B, WN_FRAMES = 8, 8  # utterances and mel frames vocoded by WaveNet: T = 2048 samples
 WN_TF_TOL = 1e-3  # kernel logits vs teacher-forced forward on its own waveform, f32
 WN_PREFIX_TOL, WN_MIN_PREFIX = 1e-4, 32  # kernel vs plain loop, same uniforms
@@ -478,11 +491,17 @@ def phase_kernel(dev: torch.device) -> dict:
 
 
 def plan_line(kind: str) -> str:
-    """The launch plan of the last ``kind`` launch, with the occupancy query's
-    resident blocks per SM."""
+    """The launch plan of the last ``kind`` launch ("scan_fwd": the scan
+    forward's ``ScanPlan``), with the occupancy query's resident blocks per
+    SM."""
     plan, per_sm, sms = lstm_ops.last_launch[kind]
-    grid = (f"{plan.blocks} blocks x {plan.rows} rows" if plan.regime == "a"
-            else f"{plan.blocks} blocks x {plan.units} units, {plan.rows}-row tiles, K chunks of {plan.kc}")
+    if kind == "scan_fwd":
+        grid = (f"{plan.blocks} blocks x {plan.rows} rows (mma.sync m16n8k16)" if plan.regime == "a"
+                else f"{plan.blocks} blocks x {plan.units} units, {plan.rows}-row tiles (wgmma m64n{plan.rows}k16)")
+    elif plan.regime == "a":
+        grid = f"{plan.blocks} blocks x {plan.rows} rows"
+    else:
+        grid = f"{plan.blocks} blocks x {plan.units} units, {plan.rows}-row tiles, K chunks of {plan.kc}"
     return (f"plan: regime ({plan.regime}), {grid}, {lstm_ops.THREADS} threads, {plan.smem} shared bytes a block, "
             f"{per_sm} resident a SM on {sms} SMs")
 
@@ -2197,7 +2216,7 @@ def phase_bf16_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> di
     torch.cuda.synchronize()
     wavenet_ops.launches = wavenet_ops.bf16_launches = 0
     t0 = time.perf_counter()
-    wav = voc.generate(mel, uniforms=u, dtype=BF16)
+    wav = voc.generate(mel, uniforms=u, dtype=BF16, engine="pallas")
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches, bf16_launches = wavenet_ops.launches, wavenet_ops.bf16_launches
@@ -2280,18 +2299,106 @@ def phase_bf16_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> di
             "us_per_sample": {str(rows): {"bf16": v[0], "f32": v[1]} for rows, v in times.items()}}
 
 
+WN_SCAN_PLAIN_T = 128  # 7e: samples of the plain scan-rounding loop (it and its relabelled twin)
+
+
+def phase_scan_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> dict:
+    """7e: phase 3's WaveNet with bfloat16 weights in the JAX scan engine's
+    rounding (``WaveNetVocoder.generate``'s default engine, "scan": one
+    launch of the kernel's scan form, B=8, T=2048): its logits against the
+    teacher-forced forward in the same rounding on its own waveform, its
+    first 32 samples against the plain scan loop (over WN_SCAN_PLAIN_T
+    samples), each within WN_BF16_SPREAD times the plain loop's own spread
+    and no tighter than phase 3's float32 gates (7c's rule); a second call
+    the same waveform; us a sample at B=8 beside the Pallas-rounding
+    bfloat16 form and the float32 kernel, in turns, and the bound."""
+    cfg = WaveNetConfig()
+    art = ROOT / "artifacts" / "wavenet_105k.npz"
+    voc = WaveNetVocoder(cfg, artifact=str(art) if trained else None, device=dev, seed=3)
+    mel = torch.from_numpy(np.ascontiguousarray(mels[:WN_B, :WN_FRAMES])).to(dev)
+    t = WN_FRAMES * cfg.hop_size
+    u = voc.uniforms(WN_B, t, torch.Generator().manual_seed(6))
+    dils = cfg.dilations()
+    torch.cuda.synchronize()
+    wavenet_ops.launches = wavenet_ops.bf16_launches = wavenet_ops.scan_launches = 0
+    wav = voc.generate(mel, uniforms=u, dtype=BF16)
+    torch.cuda.synchronize()
+    counted = (wavenet_ops.launches, wavenet_ops.scan_launches, wavenet_ops.bf16_launches)
+    log(f"7e wavenet scan-bf16 main path (WaveNetVocoder.generate, engine scan): wrapper launches (all, scan, "
+        f"bfloat16) {counted}, CUDA launches {wavenet_ops.last_cuda_launches}")
+    if counted != (1, 1, 0) or wavenet_ops.last_cuda_launches != 1:
+        raise AssertionError(f"7e: wavenet scan launches {counted}, CUDA {wavenet_ops.last_cuda_launches}")
+    if wav.shape != (WN_B, t) or not bool(torch.isfinite(wav).all()) or float(wav.abs().max()) > 1.0:
+        raise AssertionError(f"7e: wavenet scan waveform {tuple(wav.shape)} finite={bool(torch.isfinite(wav).all())}")
+    packed = voc.packed_for(BF16)
+    n = WN_SCAN_PLAIN_T
+    with torch.inference_mode():
+        cond = voc.model.upsample_conditioning(mel)
+        y, logits = wavenet_ops.generate(packed, dils, cond, u, cfg.log_scale_min, scan=True)
+        torch.cuda.synchronize()
+        if not torch.equal(y, wav):
+            raise AssertionError("7e: the scan kernel gave another waveform on the same inputs")
+        tf_err = (logits - voc.logits(y[..., None], mel, BF16, scan=True)).abs().max().item()
+        cond_n, u_n = cond[:, :n].contiguous(), u[:, :n].contiguous()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y_ref, logits_ref = wavenet_ops.generate_ref(packed, dils, cond_n, u_n, cfg.log_scale_min, scan=True)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        spread_tf = (logits_ref - voc.logits(y_ref[..., None], mel, BF16, scan=True)[:, :n]).abs().max().item()
+        twin, pc = permuted_wavenet(packed, cfg, seed=12)
+        y_twin, _ = wavenet_ops.generate_ref(twin, dils, cond_n[..., pc].contiguous(), u_n, cfg.log_scale_min,
+                                             scan=True)
+        spread_prefix = (y_ref[:, :WN_MIN_PREFIX] - y_twin[:, :WN_MIN_PREFIX]).abs().max().item()
+        tf_tol = max(WN_TF_TOL, WN_BF16_SPREAD * spread_tf)
+        prefix_tol = max(WN_PREFIX_TOL, WN_BF16_SPREAD * spread_prefix)
+        apart = first_apart(y[:, :n], y_ref, prefix_tol)
+        prefix = min(apart)
+        prefix_err = (y[:, :prefix] - y_ref[:, :prefix]).abs().max().item() if prefix else float("inf")
+        log(f"7e wavenet scan plain loop's spread: teacher-forced logits {spread_tf:.3e}, first {WN_MIN_PREFIX} "
+            f"samples against its relabelled twin {spread_prefix:.3e} (twin first apart by > {WN_PREFIX_TOL}: "
+            f"{first_apart(y_ref, y_twin, WN_PREFIX_TOL)})")
+        log(f"7e wavenet scan (i) kernel logits vs teacher-forced scan forward: max_abs_err={tf_err:.3e} (tol "
+            f"{tf_tol:.3e}); (ii) vs plain loop over {n} samples: first apart by > {prefix_tol:.3e} per row {apart}, "
+            f"max_abs_err over the common prefix {prefix_err:.3e}")
+        if not tf_err <= tf_tol:
+            raise AssertionError(f"7e: wavenet scan teacher-forced check: {tf_err} > {tf_tol}")
+        if prefix < WN_MIN_PREFIX:
+            raise AssertionError(f"7e: wavenet scan kernel leaves the plain loop at sample {prefix} < {WN_MIN_PREFIX}")
+        call = lambda pk, scan: (lambda: wavenet_ops.generate(pk, dils, cond, u, cfg.log_scale_min, scan))
+        f32_a, bf_a = cuda_ms(call(voc.packed, False), 2), cuda_ms(call(packed, False), 2)
+        ms = cuda_ms(call(packed, True), 3)
+        bf_b, f32_b = cuda_ms(call(packed, False), 2), cuda_ms(call(voc.packed, False), 2)
+    bound, bound_by = bound_ms(*wavenet_work(cfg, packed, WN_B, t))
+    us = {"scan": ms / t * 1e3, "bf16": (bf_a + bf_b) / 2 / t * 1e3, "f32": (f32_a + f32_b) / 2 / t * 1e3}
+    log(f"7e wavenet scan-bf16 B={WN_B}, T={t}: {ms:.3f} ms a call, {us['scan']:.2f} us a sample "
+        f"({ms / (t * (2 * cfg.layers + 1)) * 1e3:.3f} us a phase); in turns the Pallas-rounding bf16 form "
+        f"{bf_a / t * 1e3:.2f}, {bf_b / t * 1e3:.2f} and the f32 kernel {f32_a / t * 1e3:.2f}, {f32_b / t * 1e3:.2f} "
+        f"us a sample; bound {bound:.3f} ms ({bound_by}), plain {plain_ms:.1f} ms over {n} samples "
+        f"(card: {card_line()})")
+    return {"launches": counted[0], "max_abs_err": max(tf_err, prefix_err), "ms": ms, "plain_ms": plain_ms,
+            "plain_samples": n, "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "tf_tol": tf_tol,
+            "prefix_tol": prefix_tol, "us_per_sample": us}
+
+
 def phase_synthesize(mels: np.ndarray, tmp: str) -> dict:
     """7d: cli.synthesize on the card on a results pkl of 8 converted mels
-    of 4 .. 11 frames: WaveNet through the pallas engine (bfloat16) in one
-    batch of 8, and HiFi-GAN one at a time."""
+    of 4 .. 11 frames: WaveNet in bfloat16 in one batch of 8 through the
+    pallas engine (the kernel's bfloat16 form) and through the default scan
+    engine (its scan form), and HiFi-GAN one at a time."""
     results = [(f"conv{i:02d}", np.ascontiguousarray(mels[i, :4 + i])) for i in range(SYN_UTTS)]
     pkl = os.path.join(tmp, "results_0.pkl")
     save_results(pkl, results)
     out = {}
-    for vocoder, extra in (("wavenet", ["--wavenet_engine", "pallas", "--batch", str(SYN_UTTS)]), ("hifigan", [])):
-        out_dir = os.path.join(tmp, vocoder)
+    # (vocoder, run, flags, wavenet launches: all, bfloat16, scan)
+    runs = (("wavenet", "pallas", ["--wavenet_engine", "pallas", "--batch", str(SYN_UTTS)], (1, 1, 0)),
+            ("wavenet", "scan", ["--bf16", "--batch", str(SYN_UTTS)], (1, 0, 1)),
+            ("hifigan", "hifigan", [], (0, 0, 0)))
+    for vocoder, run, extra, want in runs:
+        out_dir = os.path.join(tmp, run)
         torch.cuda.synchronize()
-        wavenet_ops.launches = wavenet_ops.bf16_launches = 0
+        wavenet_ops.launches = wavenet_ops.bf16_launches = wavenet_ops.scan_launches = 0
         t0 = time.perf_counter()
         synthesize.main(["--results", pkl, "--out_dir", out_dir, "--vocoder", vocoder, *extra])
         torch.cuda.synchronize()
@@ -2305,12 +2412,12 @@ def phase_synthesize(mels: np.ndarray, tmp: str) -> dict:
         listed = [line.split()[1] for line in readme if line.startswith("- ")]
         if readme[0] != "# Synthesized conversions" or listed != [f"{name}.wav" for name, _ in results]:
             raise AssertionError(f"synthesize {vocoder}: readme.md lists {listed}")
-        launched = (wavenet_ops.launches, wavenet_ops.bf16_launches)
-        if vocoder == "wavenet" and launched != (1, 1):
-            raise AssertionError(f"synthesize wavenet --batch {SYN_UTTS}: {launched} (kernel, bfloat16) launches")
+        launched = (wavenet_ops.launches, wavenet_ops.bf16_launches, wavenet_ops.scan_launches)
+        if launched != want:
+            raise AssertionError(f"synthesize {vocoder} {extra}: {launched} (kernel, bfloat16, scan) launches")
         log(f"cli.synthesize --vocoder {vocoder} {' '.join(extra)}: {len(results)} wavs of 4-11 frames, "
-            f"{wall:.2f} s wall; wavenet kernel launches (all, bfloat16) {launched} (card: {card_line()})")
-        out[vocoder] = {"wall_s": wall, "wavenet_launches": launched[0]}
+            f"{wall:.2f} s wall; wavenet kernel launches (all, bfloat16, scan) {launched} (card: {card_line()})")
+        out[run] = {"wall_s": wall, "wavenet_launches": launched[0]}
     return out
 
 
@@ -2812,7 +2919,7 @@ def phase_scan_kernels(dev: torch.device, trained: bool) -> tuple[dict, dict]:
             cases = {}
             for reverse in (False, True):
                 got = lstm_ops.lstm_scan_forward_cuda(x, w, reverse=reverse, with_residuals=True)
-                plan = plan_line("fwd")
+                plan = plan_line("scan_fwd")
                 want = scan_plain(x, w, dy, reverse)
                 dx = lstm_ops.lstm_scan_backward_cuda(w, want[2].float(), want[1].float(), None, dy, reverse=reverse)[0]
                 b_plan = plan_line("bwd")
@@ -2873,7 +2980,8 @@ def phase_scan_kernels(dev: torch.device, trained: bool) -> tuple[dict, dict]:
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
             fwd["shapes"][-1].update(dvector_bf16_ms=dvec_bf_ms, dvector_f32_ms=dvec_f32_ms,
                                      cudnn_bf16_3layer_ms=lib3_ms)
-            log(f"lstm scan H={hidden} B={b} T={SPK_T} times (ms): forward {f['ms']:.4f} ({f['device_ms']:.4f} device; "
+            log(f"lstm scan H={hidden} B={b} T={SPK_T} times (ms): forward {f['ms']:.4f} ({f['device_ms']:.4f} device, "
+                f"{f['device_ms'] / SPK_T * 1e3:.2f} us a step; the replaced form {old_scan_us(b, hidden)}; "
                 f"plain {f['plain_ms']:.2f}; bound {f['bound_ms']:.4f} {f['bound_by']}; cuDNN bf16 1-layer forward "
                 f"{lib_fwd_ms:.4f}), backward without dW {bk['ms']:.4f} ({bk['device_ms']:.4f} device; plain "
                 f"{bk['plain_ms']:.2f}; bound {bk['bound_ms']:.4f} {bk['bound_by']}; cuDNN bf16 backward "
@@ -3366,6 +3474,66 @@ def scan_inference_work(b: int, t: int, h: int) -> tuple[float, float]:
     return 2.0 * b * t * h * 4 * h, 2.0 * (b * t * 4 * h + h * 4 * h + b * t * h)
 
 
+# The form of csrc/lstm_fwd.cu that csrc/lstm_scan_fwd.cu replaced (float32
+# FMAs on the CUDA cores), its last recorded device time, us a step, by
+# (B, H) (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W: the d-vector's at T=128,
+# the Generator's at T=512); None where none was recorded
+OLD_SCAN_FWD_US = {(32, 32): 1.17, (32, 512): 7.5, (32, 1024): 16.24, (7, 768): 5.63, (7, 256): 4.28,
+                   (1, 768): 4.02, (1, 256): 3.95}
+OLD_SCAN_GEN_DEVICE_MS = 23.03  # the replaced form's 7 sequences a Generator forward (B=32, T=512), as recorded
+
+
+def old_scan_us(b: int, h: int) -> str:
+    old = OLD_SCAN_FWD_US.get((b, h))
+    return "not recorded" if old is None else f"{old:.2f} us a step"
+
+
+def cudnn_fwd_ms(dev: torch.device, hidden: int, b: int, t: int, dtype: torch.dtype) -> float:
+    """Yardstick only: torch.nn.LSTM (cuDNN), one layer of H units on a (B,
+    T, H) input, inference forward in ``dtype`` (its input product
+    included; it rounds otherwise than the scan forms)."""
+    net = torch.nn.LSTM(hidden, hidden, batch_first=True).to(dev, dtype)
+    x = torch.randn(b, t, hidden, device=dev, dtype=dtype)
+    with torch.inference_mode():
+        return cuda_ms(lambda: net(x), 3)
+
+
+def scan_forward_case(dev: torch.device, label: str, b: int, t: int, hidden: int, reverse: bool,
+                      rng: np.random.RandomState, train: bool = False) -> dict:
+    """The scan forward (``lstm_scan_forward_cuda``; with ``train`` its
+    training form, the residuals kept) at (B, T, H) on seeded inputs against
+    its plain loop by the scan rule (SCAN_RELABELLINGS relabelled plain
+    loops run stacked), one launch; its device time a step beside the bound,
+    the plan and the replaced form's recorded time."""
+    lim = 1.0 / np.sqrt(hidden)
+    x = torch.from_numpy((rng.randn(b, t, 4 * hidden) * 0.5).astype(np.float32)).to(dev).to(BF16)
+    w = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev).to(BF16)
+    zero_counts()
+    got = lstm_ops.lstm_scan_forward_cuda(x, w, reverse=reverse, with_residuals=train)[0]
+    torch.cuda.synchronize()
+    if (lstm_ops.launches, lstm_ops.scan_launches, lstm_ops.bf16_launches) != (1, 1, 0):
+        raise AssertionError(f"{label}: the scan forward launched {all_counts()}")
+    plan = plan_line("scan_fwd")
+    want = lstm_ops.lstm_scan_bf16_ref(x, w, reverse=reverse)
+    others = scan_fwd_relabelled(x, w, reverse, [torch.from_numpy(np.random.RandomState(k).permutation(hidden))
+                                                 .to(dev) for k in range(SCAN_RELABELLINGS)])
+    first = slice(t - SCAN_STEPS, t) if reverse else slice(0, SCAN_STEPS)
+    held = scan_gate(got, want, others, first, 2.0 ** -16)
+    del others
+    fn = functools.partial(lstm_ops.lstm_scan_forward_cuda, x, w, reverse=reverse, with_residuals=train)
+    dev_ms = device_ms(fn, 5)
+    bound, bound_by = bf16_bound(*(scan_fwd_work if train else scan_inference_work)(b, t, hidden))
+    log(f"{label} lstm scan forward{' (training form)' if train else ''} H={hidden} "
+        f"{'reverse' if reverse else 'forward'} B={b} T={t}: {json.dumps(held)}; {dev_ms:.4f} ms device, "
+        f"{dev_ms / t * 1e3:.2f} us a step (the replaced form: {old_scan_us(b, hidden)}), bound {bound:.4f} ms "
+        f"({bound_by}); {plan}")
+    if not held["ok"]:
+        raise AssertionError(f"{label}: the scan forward H={hidden} B={b} reverse={reverse} fails the scan rule: "
+                             f"{held}")
+    return dict(hidden=hidden, batch=b, reverse=reverse, device_ms=dev_ms, us_a_step=dev_ms / t * 1e3,
+                bound_ms=bound, bound_by=bound_by, **held)
+
+
 def phase_scan_generator(dev: torch.device) -> dict:
     """10a: the forward kernel's scan form at the Generator's shapes (B=32,
     T=512) against its plain loop by the scan rule (the first SCAN_STEPS
@@ -3385,7 +3553,7 @@ def phase_scan_generator(dev: torch.device) -> dict:
         torch.cuda.synchronize()
         if all_counts() != (1, 0, 1, 0, 0, 0, 0, 0) or got.dtype != BF16:
             raise AssertionError(f"the scan forward H={hidden} launched {all_counts()} ({got.dtype})")
-        plan = plan_line("fwd")
+        plan = plan_line("scan_fwd")
         want = lstm_ops.lstm_sequence_ref(x, w, reverse, scan=True)
         others = scan_fwd_relabelled(x, w, reverse, [torch.from_numpy(np.random.RandomState(k).permutation(hidden))
                                                      .to(dev) for k in range(SCAN_RELABELLINGS)])
@@ -3395,22 +3563,26 @@ def phase_scan_generator(dev: torch.device) -> dict:
         fn = functools.partial(lstm_ops.lstm_sequence, x, w, reverse, True)
         ms, dev_ms = cuda_ms(fn, 5), device_ms(fn, 5)
         plain_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_ref(x, w, reverse, scan=True), 1)
+        lib_ms = cudnn_fwd_ms(dev, hidden, B, T, BF16)
         flops, nbytes = scan_inference_work(B, T, hidden)
         bound, bound_by = bf16_bound(flops, nbytes)
         log(f"10a lstm scan forward H={hidden} {'reverse' if reverse else 'forward'} B={B} T={T}: {json.dumps(held)}; "
-            f"ms={ms:.4f} ({dev_ms:.4f} device; {dev_ms / T * 1e3:.2f} us a step), plain_ms={plain_ms:.1f}, "
-            f"bound_ms={bound:.4f} ({bound_by}); {plan}")
+            f"ms={ms:.4f} ({dev_ms:.4f} device; {dev_ms / T * 1e3:.2f} us a step; the replaced form: "
+            f"{old_scan_us(B, hidden)}), plain_ms={plain_ms:.1f}, bound_ms={bound:.4f} ({bound_by}), cuDNN bf16 "
+            f"1-layer forward {lib_ms:.4f}; {plan}")
         if not held["ok"]:
             raise AssertionError(f"10a: the scan forward H={hidden} reverse={reverse} fails the scan rule: {held}")
         rec["cases"].append(dict(hidden=hidden, reverse=reverse, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                                 bound_ms=bound, **held))
+                                 bound_ms=bound, library_ms=lib_ms, us_a_step=dev_ms / T * 1e3, **held))
         rec["max_abs_err"] = max(rec["max_abs_err"], held["apart"])
-        for key, v in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms), ("flops", flops),
-                       ("bytes", nbytes)):
-            rec[key] += calls * v
+        for key, v in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("flops", flops), ("bytes", nbytes)):
+            rec[key] = rec.get(key, 0.0) + calls * v
     rec["bound_ms"], rec["bound_by"] = bf16_bound(rec.pop("flops"), rec.pop("bytes"))
     log(f"10a lstm scan forward per Generator forward (7 sequences): {rec['ms']:.3f} ms ({rec['device_ms']:.3f} "
-        f"device), plain {rec['plain_ms']:.1f}, bound {rec['bound_ms']:.4f} ({rec['bound_by']}) (card: {card_line()})")
+        f"device; the replaced form {OLD_SCAN_GEN_DEVICE_MS} device as PERF.md §6 records it), plain "
+        f"{rec['plain_ms']:.1f}, bound {rec['bound_ms']:.4f} ({rec['bound_by']}), cuDNN bf16 1-layer forwards "
+        f"{rec['library_ms']:.3f} (card: {card_line()})")
     return rec
 
 
@@ -3479,6 +3651,15 @@ def phase_scan_dw(dev: torch.device) -> dict:
         f"plain {rec['plain_ms']:.1f}, bound {rec['bound_ms']:.5f} ({rec['bound_by']}), torch.matmul one-shot "
         f"{rec['library_ms']:.4f} (card: {card_line()})")
     return rec
+
+
+def phase_scan_forward_train(dev: torch.device) -> list[dict]:
+    """10b (forward): the scan forward's training form at phase 4's B=7,
+    T=128, H in SCAN_DW_HIDDEN, against its plain loop by the scan rule,
+    its device time a step beside the bound and the plan."""
+    rng = np.random.RandomState(103)
+    return [scan_forward_case(dev, "10b", TRAIN_B, TRAIN_T, hidden, False, rng, train=True)
+            for hidden in SCAN_DW_HIDDEN]
 
 
 def phase_scan_training(dev: torch.device) -> dict:
@@ -3582,6 +3763,9 @@ def phase_ge2e(dev: torch.device, corpus: str, main_dir: str) -> dict:
     b = n * GE2E_M
     rng = np.random.RandomState(110)
     out = {"kernels": [], "launches": (0, 0, 0)}
+    # the bfloat16 d-vector's scan forward at this batch (B = N*M), both widths
+    out["scan_forward"] = [scan_forward_case(dev, "11a", b, GE2E_CROP, hidden, False, np.random.RandomState(111))
+                           for hidden in SPK_WIDTHS]
     for hidden in SPK_WIDTHS:
         lim = 1.0 / np.sqrt(hidden)
         x = torch.from_numpy((rng.randn(b, GE2E_CROP, 4 * hidden) * 0.5).astype(np.float32)).to(dev)
@@ -3820,16 +4004,17 @@ def variant_launches(var: dict, counter: str) -> dict[str, int]:
     return {path: launched[i] for path, launched in var["paths"].items()}
 
 
-def scan_entries(fwd: dict, bwd: dict, by_path: dict[str, tuple[int, int]], spk: dict, generator: dict
-                 ) -> list[dict]:
+def scan_entries(fwd: dict, bwd: dict, by_path: dict[str, tuple[int, int]], spk: dict, generator: dict,
+                 more_shapes: dict) -> list[dict]:
     """The scan forms' lines of the kernels JSON: launches on each main path
     (``by_path``: forward, backward; 8c's ``cli.train --bf16 --lambda_spk``,
     10a's bench program, 10b's Solver steps and ``cli.train --bf16``), the
     times a sequence at the lambda_spk step's d-vector shape (H=768, B=7,
     T=128), every shape of 8d beside them, 8e's step; 10a's Generator
-    shapes beside the forward's."""
+    shapes beside the forward's, and ``more_shapes`` (10b's training form,
+    11a's GE2E batch)."""
     entries = []
-    for i, (name, rec, source) in enumerate((("lstm_fwd_scan", fwd, "lstm_fwd.cu"),
+    for i, (name, rec, source) in enumerate((("lstm_scan_fwd", fwd, "lstm_scan_fwd.cu"),
                                              ("lstm_bwd_scan", bwd, "lstm_bwd.cu"))):
         head = next(r for r in rec["shapes"] if (r["hidden"], r["batch"]) == (768, TRAIN_B))
         entries.append({
@@ -3841,7 +4026,8 @@ def scan_entries(fwd: dict, bwd: dict, by_path: dict[str, tuple[int, int]], spk:
             "max_abs_err": max(rec["max_abs_err"], generator["max_abs_err"] if i == 0 else 0.0),
             "ms": head["device_ms"], "events_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shapes": rec["shapes"], "bf16_spk_step": spk, **({"generator": generator} if i == 0 else {})})
+            "shapes": rec["shapes"], "bf16_spk_step": spk,
+            **({"generator": generator, **more_shapes} if i == 0 else {})})
     return entries
 
 
@@ -3886,6 +4072,7 @@ def main(argv: list[str] | None = None) -> int:
         bf_lstm = phase_bf16_lstm(dev)
         bf_bench = phase_bf16_bench(dev, args.trained, mels, f32_run, bf_lstm)
         bf_wn = phase_bf16_wavenet(dev, args.trained, mels)
+        scan_wn = phase_scan_wavenet(dev, args.trained, mels)
         syn_dir = tempfile.mkdtemp(prefix="chip_smoke_synthesize_")
         try:
             syn = phase_synthesize(mels, syn_dir)
@@ -3913,6 +4100,7 @@ def main(argv: list[str] | None = None) -> int:
             f"{scan_bench['parity']['mel_maxabs_delta']:.4f} from f32; --pallas {bf_bench['iteration_ms']:.1f} ms, "
             f"{bf_bench['realtime']:.1f}x, mel {bf_bench['parity']['mel_maxabs_delta']:.4f}")
         scan_dw = phase_scan_dw(dev)
+        scan_fwd_train = phase_scan_forward_train(dev)
         scan_train = phase_scan_training(dev)
         log(f"phase 10 (the scan rounding): {time.perf_counter() - t0:.1f} s")
         # phase 11 trains the speaker encoder and the vocoders on phase 5's corpus
@@ -4064,7 +4252,8 @@ def main(argv: list[str] | None = None) -> int:
                              "variants_bf16": var_by["gates_launches"]},
         "library_ms": None,
         **bf_gates,
-    }, *scan_entries(scan_fwd, scan_bwd, scan_paths, bf_spk, scan_gen), {
+    }, *scan_entries(scan_fwd, scan_bwd, scan_paths, bf_spk, scan_gen,
+                     {"train_form_b7": scan_fwd_train, "ge2e_batch": ge2e["scan_forward"]}), {
         "name": "lstm_bwd.scan_dw",
         "route": "cuda",
         "source": "autovc_tpu_torch/ops/csrc/lstm_scan_dw.cu",
@@ -4095,11 +4284,23 @@ def main(argv: list[str] | None = None) -> int:
         **wn,
         # bfloat16 weights (phase 7c-d): launches of 7c's main path, and of
         # cli.synthesize's wavenet run beside it
-        "bf16": {**bf_wn, "cli_launches": syn["wavenet"]["wavenet_launches"]},
+        "bf16": {**bf_wn, "cli_launches": syn["pallas"]["wavenet_launches"]},
         # 11c: cli.evaluate_vocoder --vocoder wavenet (float32) on one utterance
         "evaluate_vocoder_launches": eval_n["wavenet_gen"],
         # 11b: the vocoders' training (no Pallas kernel: cuDNN, cuBLAS, cuFFT)
         "vocoder_training": voc,
+    }, {
+        "name": "wavenet_gen.scan",
+        "route": "cuda",
+        "source": "autovc_tpu_torch/ops/csrc/wavenet_gen.cu",
+        "replaces": "autovc_tpu/vocoder/wavenet.py:244 (_generate_scan in bfloat16, the JAX scan engine's "
+                    "lax.scan, every op rounded; no Pallas kernel)",
+        # launches: 7e's WaveNetVocoder.generate (default engine) and 7d's
+        # cli.synthesize --bf16 beside it; times a call at B=8, T=2048; no
+        # single PyTorch call computes autoregressive generation
+        **scan_wn,
+        "launches": scan_wn["launches"] + syn["scan"]["wavenet_launches"],
+        "launches_by_path": {"generate_bf16": scan_wn["launches"], "cli_synthesize_bf16": syn["scan"]["wavenet_launches"]},
     }, {
         "name": "mel_norm",
         "route": "cuda",

@@ -31,11 +31,25 @@ the bfloat16 rounding boundary between the two values, in float32 ulps of
 the carry, beside the float32 sum's error bound (4H x 2^-24 x the sum of
 the terms' magnitudes, in the same ulps). A boundary nearer than the bound
 is a flip that the order of a float32 sum decides: not a fault.
+
+    python3 scripts/scan_spread.py --oracle --orders [--seeds 1000 ... 1005]
+
+weighs the scan forward's order of summation instead: at the training
+shapes (B=7, T=128; H = 512, 1024; xproj 0.5 x normal, then w_hh uniform in
++-1/sqrt(H), as ``chip_smoke.py`` 10b draws them), for each seed and width,
+the share of h_seq's elements off the oracle and the first step where any
+is, for the plain loop, the kernel, and copies of the kernel (built under
+``build/scan_spread/``) that add its k16 partial sums otherwise: each eight
+in sequence rather than pairwise, or all of K in one chain rather than two
+halves. A float32 sum in another order flips a bfloat16 rounding now and
+then, and the carry keeps the flip; the fewer flips, the nearer exact
+arithmetic. One JSON line an engine.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -47,10 +61,24 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from autovc_tpu_torch.ops import _build  # noqa: E402
 from autovc_tpu_torch.ops import lstm as lstm_ops  # noqa: E402
 from chip_smoke import BWD_FLOOR, bf16_ulps, gate_columns, labelled_back, relabelled, scan_plain  # noqa: E402
 
 T, WIDTHS = 128, (768, 256)
+ORDER_B, ORDER_WIDTHS = 7, (512, 1024)
+# the scan forward's other orders of its k16 partial sums, as edits of csrc/lstm_scan_fwd.cu
+PAIRWISE = """  if constexpr (G == 1)
+    return d[C][i];
+  else
+    return pairwise<N, C, G / 2>(d, i) + pairwise<N, C + G / 2, G / 2>(d, i);"""
+SEQUENCE = """  float r = d[C][i];
+#pragma unroll
+  for (int c = C + 1; c < C + G; ++c) r += d[c][i];
+  return r;"""
+HALVES = "const int steps = (a.H + 15) / 16, s0 = WG * steps / 2, s1 = (WG + 1) * steps / 2;"
+ONE_CHAIN = "const int steps = (a.H + 15) / 16, s0 = WG == 0 ? 0 : steps, s1 = steps;"
+ORDERS = {"eights in sequence": [(PAIRWISE, SEQUENCE)], "one chain over K": [(HALVES, ONE_CHAIN)]}
 
 
 def kernels(x, w, dy, reverse, perm=None):
@@ -172,6 +200,69 @@ def oracle_case(tag: str, x, w, dy, reverse: bool) -> dict:
     return rec
 
 
+def oracle_forward(x, w):
+    """The scan forward's plain loop with ``oracle_products``."""
+    saved = lstm_ops._products
+    lstm_ops._products = oracle_products
+    try:
+        return lstm_ops.lstm_scan_bf16_ref(x, w)
+    finally:
+        lstm_ops._products = saved
+
+
+def build_order(name: str, edits: list[tuple[str, str]]) -> ctypes.CDLL:
+    """A copy of the scan forward's kernel with ``edits`` made to its source."""
+    src = (_build.CSRC / "lstm_scan_fwd.cu").read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"lstm_scan_fwd.cu has changed: {old!r} is not there once")
+        src = src.replace(old, new)
+    out = ROOT / "build" / "scan_spread"
+    out.mkdir(parents=True, exist_ok=True)
+    stem = name.replace(" ", "_")
+    (out / f"{stem}.cu").write_text(src)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([_build.find_nvcc(), *flags, "-I", str(_build.CSRC), "-o", str(out / f"{stem}.so"),
+                    str(out / f"{stem}.cu")], check=True)
+    return ctypes.CDLL(str(out / f"{stem}.so"))
+
+
+def off_oracle(got: torch.Tensor, exact: torch.Tensor) -> tuple[float, int]:
+    """The share of h_seq's elements off the oracle, and the first step with one (T if none)."""
+    off = got.float() != exact.float()
+    steps = off.any(dim=0).any(dim=-1).nonzero()
+    return float(off.float().mean()), int(steps[0]) if len(steps) else T
+
+
+def orders(seeds: list[int]) -> None:
+    """The --orders lines (see the module's notes)."""
+    dev = torch.device("cuda")
+    cases = []
+    for seed in seeds:
+        for hidden in ORDER_WIDTHS:
+            rng = np.random.RandomState(seed)
+            x = torch.from_numpy((rng.randn(ORDER_B, T, 4 * hidden) * 0.5).astype(np.float32)).to(dev).bfloat16()
+            lim = 1.0 / np.sqrt(hidden)
+            w = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev).bfloat16()
+            cases.append((x, w, oracle_forward(x, w)))
+    results = {"plain loop": [off_oracle(lstm_ops.lstm_scan_bf16_ref(x, w), e) for x, w, e in cases],
+               "kernel": [off_oracle(lstm_ops.lstm_scan_forward_cuda(x, w)[0], e) for x, w, e in cases]}
+    kernel_lib = _build.load("lstm_scan_fwd")
+    try:
+        for name, edits in ORDERS.items():
+            _build._loaded["lstm_scan_fwd"] = build_order(name, edits)
+            results[f"kernel, {name}"] = [off_oracle(lstm_ops.lstm_scan_forward_cuda(x, w)[0], e)
+                                          for x, w, e in cases]
+    finally:
+        _build._loaded["lstm_scan_fwd"] = kernel_lib
+    for name, rows in results.items():
+        print(json.dumps({"engine": name, "B": ORDER_B, "T": T, "widths": ORDER_WIDTHS, "seeds": seeds,
+                          "share_off_oracle_mean": float(np.mean([r[0] for r in rows])),
+                          "share_off_oracle": [round(r[0], 5) for r in rows],
+                          "first_departure_step_mean": float(np.mean([r[1] for r in rows])),
+                          "first_departure_step": [r[1] for r in rows]}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seeds", type=int, nargs="+", default=[1001, 1002])
@@ -179,13 +270,20 @@ def main() -> None:
     ap.add_argument("--widths", type=int, nargs="+", default=list(WIDTHS))
     ap.add_argument("--oracle", action="store_true",
                     help="the float64 oracle of the same rounding points instead of the relabellings")
+    ap.add_argument("--orders", action="store_true",
+                    help="with --oracle: the scan forward's orders of summation at the training shapes")
     args = ap.parse_args()
+    if args.orders and not args.oracle:
+        ap.error("--orders goes with --oracle")
     if not torch.cuda.is_available():
         raise SystemExit("scan_spread: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0], flush=True)
+    if args.orders:
+        orders(args.seeds)
+        return
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     for seed in args.seeds:
         rng = np.random.RandomState(seed)

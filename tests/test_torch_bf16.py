@@ -356,8 +356,9 @@ def test_wavenet_plain_bf16_matches_pallas_kernel(tiny_wavenet):
 
 
 def test_wavenet_vocoder_bf16_matches_jax_pallas_engine(tiny_wavenet, tmp_path):
-    """The entry point: WaveNetVocoder.generate(dtype=bfloat16) against the
-    JAX vocoder's engine='pallas' with bfloat16 on the uniforms its key
+    """The entry point: WaveNetVocoder.generate(dtype=bfloat16,
+    engine="pallas") against the JAX vocoder's engine='pallas' with bfloat16
+    on the uniforms its key
     draws, (B, T, K+1) from the (T, B, K+1) stream; the first 128 samples
     within 1e-5. The mel is in sixteenths, so that both upsamplers give the
     same cond exactly (their float32 sums in another order would otherwise
@@ -372,7 +373,8 @@ def test_wavenet_vocoder_bf16_matches_jax_pallas_engine(tiny_wavenet, tmp_path):
     artifact = tmp_path / "wavenet_tiny.npz"
     np.savez(artifact, **jax_wavenet.flatten_params(jax.tree_util.tree_map(np.asarray, params)))
     voc = WaveNetVocoder.from_checkpoint(WaveNetConfig(**TINY_WN), str(artifact), device="cpu")
-    got = voc.generate(mel, uniforms=torch.from_numpy(np.array(np.asarray(u).swapaxes(0, 1))), dtype=BF)
+    got = voc.generate(mel, uniforms=torch.from_numpy(np.array(np.asarray(u).swapaxes(0, 1))), dtype=BF,
+                       engine="pallas")
     assert got.shape == want.shape == (2, 256)
     np.testing.assert_allclose(got[:, :128].numpy(), want[:, :128], atol=1e-5, rtol=0)
 
@@ -484,13 +486,13 @@ def _narrow_wavenet(monkeypatch, calls, fake: bool):
         voc = real(WaveNetConfig(**TINY_WN), ckpt, device=device)
         generate = voc.generate
 
-        def record(mel, uniforms=None, generator=None, dtype=torch.float32):
+        def record(mel, uniforms=None, generator=None, dtype=torch.float32, engine="scan"):
             mel = torch.as_tensor(mel)
             calls.append((tuple(mel.shape), dtype))
             if fake:
                 ramp = torch.linspace(-2.0, 2.0, mel.shape[-2] * 256)
                 return ramp * mel.mean(dim=-1).repeat_interleave(256, dim=-1)
-            return generate(mel, uniforms, generator, dtype)
+            return generate(mel, uniforms, generator, dtype, engine)
 
         voc.generate = record
         return voc
@@ -514,8 +516,8 @@ def test_synthesize_wavenet_pallas_engine_batched_runs_bf16(results_pkl, tmp_pat
     lengths = [m.shape[0] for _, m in results]
     group = np.zeros((2, 2, 80), np.float32)
     group[0, :1], group[1] = results[1][1], results[0][1]
-    out = voc.generate(group, dtype=BF)
-    want = {1: out[0, :256], 0: out[1], 2: voc.generate(results[2][1][None], dtype=BF)[0]}
+    out = voc.generate(group, dtype=BF, engine="pallas")
+    want = {1: out[0, :256], 0: out[1], 2: voc.generate(results[2][1][None], dtype=BF, engine="pallas")[0]}
     for i, (name, _) in enumerate(results):
         got, w = _read_wav(tmp_path / f"{name}.wav"), want[i].numpy()
         peak = np.abs(w).max()

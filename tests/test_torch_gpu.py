@@ -7,6 +7,7 @@ The file imports no JAX, so it also runs where JAX is not installed:
 """
 
 
+import dataclasses
 import os
 
 import numpy as np
@@ -997,6 +998,44 @@ def _wavenet_bf16_check(voc, mel, cond, u, cfg, plain_t=None):
     return y
 
 
+def _wavenet_scan_check(voc, mel, cond, u, cfg, plain_t=None):
+    """One generate call in the scan rounding against the plain scan loop
+    (over its first ``plain_t`` samples) and the teacher-forced forward in
+    the same rounding, at the bfloat16 form's gates; returns the waveform."""
+    packed = voc.packed_for(BF)
+    before = wavenet_ops.launches, wavenet_ops.scan_launches, wavenet_ops.bf16_launches
+    y, logits = wavenet_ops.generate(packed, cfg.dilations(), cond, u, cfg.log_scale_min, scan=True)
+    torch.cuda.synchronize()
+    assert (wavenet_ops.launches, wavenet_ops.scan_launches, wavenet_ops.bf16_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert wavenet_ops.last_cuda_launches == 1
+    assert bool(torch.isfinite(y).all()) and float(y.abs().max()) <= 1.0
+    n = plain_t or y.shape[1]
+    y_ref, _ = wavenet_ops.generate_ref(packed, cfg.dilations(), cond[:, :n].contiguous(), u[:, :n].contiguous(),
+                                        cfg.log_scale_min, scan=True)
+    assert min(_first_apart(y[:, :n], y_ref, WN_BF16_PREFIX_TOL)) >= 32
+    torch.testing.assert_close(logits, voc.logits(y[..., None], mel, BF, scan=True), atol=WN_BF16_TF_TOL, rtol=0)
+    return y
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("width", ["tiny", "full"])
+def test_wavenet_scan_kernel_matches_plain(cuda, width, b):
+    """The scan rounding's form (bfloat16 weights, biases, first conv, h and
+    skip sum, every op rounded; four reductions a gate) against the plain
+    scan loop on the same uniforms: the first 32 samples within 5e-4, the
+    logits within 2.5e-3 of the teacher-forced scan forward on the kernel's
+    own waveform (the bfloat16 form's gates); a second call the same
+    waveform bit for bit; the Pallas rounding's form another waveform."""
+    cfg, frames = (WAVENET_TINY, 4) if width == "tiny" else (WaveNetConfig(), 2)
+    voc, mel, cond, u = _wavenet_case(cuda, cfg, b, frames, seed=50 + b)
+    with torch.inference_mode():
+        y = _wavenet_scan_check(voc, mel, cond, u, cfg, plain_t=None if width == "tiny" else 128)
+        y2, _ = wavenet_ops.generate(voc.packed_for(BF), cfg.dilations(), cond, u, cfg.log_scale_min, scan=True)
+        pallas, _ = wavenet_ops.generate(voc.packed_for(BF), cfg.dilations(), cond, u, cfg.log_scale_min)
+    assert torch.equal(y, y2) and not torch.equal(y, pallas)
+
+
 @pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("width", ["tiny", "full"])
 def test_wavenet_bf16_kernel_matches_plain(cuda, width, b):
@@ -1039,12 +1078,14 @@ def test_wavenet_bf16_kernel_with_blocks_that_own_nothing(cuda, monkeypatch):
     assert wavenet_ops.last_launch[0] == plan
 
 
-def test_wavenet_bf16_vocoder_on_card_matches_cpu(cuda):
-    """generate(dtype=bfloat16) on the card and on the CPU, the seeded
-    vocoder's default stream: the same waveform over 32 samples."""
+@pytest.mark.parametrize("engine", ["scan", "pallas"])
+def test_wavenet_bf16_vocoder_on_card_matches_cpu(cuda, engine):
+    """generate(dtype=bfloat16) with each engine's rounding on the card and
+    on the CPU, the seeded vocoder's default stream: the same waveform over
+    32 samples."""
     mel = np.random.RandomState(42).rand(2, 1, 80).astype(np.float32)
-    on_card = WaveNetVocoder(WAVENET_TINY, device=cuda, seed=4).generate(mel, dtype=BF)
-    on_cpu = WaveNetVocoder(WAVENET_TINY, device="cpu", seed=4).generate(mel, dtype=BF)
+    on_card = WaveNetVocoder(WAVENET_TINY, device=cuda, seed=4).generate(mel, dtype=BF, engine=engine)
+    on_cpu = WaveNetVocoder(WAVENET_TINY, device="cpu", seed=4).generate(mel, dtype=BF, engine=engine)
     assert min(_first_apart(on_card.cpu(), on_cpu, WN_BF16_PREFIX_TOL)) >= 32
 
 
@@ -1299,7 +1340,7 @@ def test_lstm_scan_kernels_match_plain(cuda, b, t, hidden, reverse):
     backward on the plain forward's residuals, so that each kernel is held
     alone. The residuals c_seq and act within the same rule."""
     x, w, dy = _scan_inputs(36, b, t, hidden, cuda)
-    plan = lstm_ops.launch_plan(b, hidden, "fwd", lstm_ops._card_sms(0), 2)
+    plan = lstm_ops.scan_plan(b, hidden, lstm_ops._card_sms(0))
     assert plan.regime == ("a" if hidden == 32 else "b")
     before = [lstm_ops.launches, lstm_ops.scan_launches, lstm_ops.bwd_launches, lstm_ops.scan_bwd_launches,
               lstm_ops.bf16_launches, lstm_ops.dw_launches]
@@ -1310,6 +1351,7 @@ def test_lstm_scan_kernels_match_plain(cuda, b, t, hidden, reverse):
     after = [lstm_ops.launches, lstm_ops.scan_launches, lstm_ops.bwd_launches, lstm_ops.scan_bwd_launches,
              lstm_ops.bf16_launches, lstm_ops.dw_launches]
     assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 1, 0, 0]
+    assert lstm_ops.last_launch["scan_fwd"][0] == plan
     others = [_scan_plain(x, w, dy, reverse, torch.from_numpy(np.random.RandomState(k).permutation(hidden)).to(cuda))
               for k in range(RELABELLINGS)]
     early, late = slice(0, SCAN_STEPS), slice(t - SCAN_STEPS, t)
@@ -1352,6 +1394,86 @@ def test_lstm_scan_function_on_card_runs_the_scan_kernels(cuda):
     dx = lstm_ops.lstm_scan_backward_cuda(w, fwd[2], fwd[1], None, dy)[0]
     want = lstm_ops.lstm_scan_weight_grad_cuda(fwd[0], h0, dx)
     assert trained.grad.dtype == BF and torch.equal(trained.grad, want)
+
+
+def _scan_state_plain(x, w, h0, c0, reverse, perm=None):
+    """The plain scan forward's (h_seq, c_seq, act, hN, cN) from (h0, c0),
+    with the hidden units relabelled by ``perm`` (and back) when given."""
+    if perm is not None:
+        cols = torch.cat([perm + g * len(perm) for g in range(4)])
+        x, w = x[..., cols], w[perm][:, cols]
+        h0, c0 = (None if v is None else v[:, perm] for v in (h0, c0))
+    out = lstm_ops.lstm_scan_bf16_train_ref(x, w, h0, c0, reverse)
+    if perm is not None:
+        inv = torch.argsort(perm)
+        inv4 = torch.cat([inv + g * len(inv) for g in range(4)])
+        out = tuple(o[..., idx] for o, idx in zip(out, (inv, inv, inv4, inv, inv)))
+    return out
+
+
+# The scan forward (csrc/lstm_scan_fwd.cu, wgmma) at shapes beside 10a's and
+# 8d's: both regimes from a given bfloat16 (h0, c0) and from zero, B=37 in
+# two 32-row tiles, H=40 at 8 units a block, B=1 (n8), B=20 (n24), T=1.
+SCAN_STATE_SHAPES = [(37, 20, 64), (5, 20, 40), (1, 5, 8), (20, 24, 768), (32, 40, 1024), (7, 1, 512), (3, 30, 24)]
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b, t, hidden", SCAN_STATE_SHAPES)
+def test_lstm_scan_forward_matches_plain_from_a_state(cuda, b, t, hidden, reverse, with_state):
+    """``lstm_scan_forward_cuda`` against ``lstm_scan_bf16_train_ref`` from
+    the same bfloat16 (h0, c0), or from zero, by the scan rule (h_seq,
+    c_seq, act; hN and cN the last step's); one launch of ``scan_plan``'s
+    plan; two calls the same bits."""
+    x, w, _ = _scan_inputs(43, b, t, hidden, cuda)
+    h0 = c0 = None
+    if with_state:
+        h0, c0 = (torch.from_numpy(np.random.RandomState(s).randn(b, hidden).astype(np.float32) * 0.5).to(cuda).to(BF)
+                  for s in (44, 45))
+    before = lstm_ops.launches, lstm_ops.scan_launches
+    got = lstm_ops.lstm_scan_forward_cuda(x, w, h0, c0, reverse, with_residuals=True)
+    again = lstm_ops.lstm_scan_forward_cuda(x, w, h0, c0, reverse, with_residuals=True)
+    torch.cuda.synchronize()
+    assert (lstm_ops.launches, lstm_ops.scan_launches) == (before[0] + 2, before[1] + 2)
+    assert lstm_ops.last_launch["scan_fwd"][0] == lstm_ops.scan_plan(b, hidden, lstm_ops._card_sms(0))
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    want = _scan_state_plain(x, w, h0, c0, reverse)
+    others = [_scan_state_plain(x, w, h0, c0, reverse,
+                                torch.from_numpy(np.random.RandomState(k).permutation(hidden)).to(cuda))
+              for k in range(RELABELLINGS)]
+    steps = min(SCAN_STEPS, t)
+    first = slice(t - steps, t) if reverse else slice(0, steps)
+    for i, g in ((0, got[0]), (1, got[1].to(BF)), (2, got[2].to(BF))):
+        _hold_scan(g, want[i], [o[i] for o in others], first, 2.0 ** -16)
+    torch.testing.assert_close(got[3], got[0][:, 0 if reverse else -1], atol=0, rtol=0)
+    assert got[4].dtype == BF and torch.equal(got[4].float(), got[1][:, 0 if reverse else -1])
+
+
+@pytest.mark.parametrize("hidden", [512, 1024])
+def test_lstm_scan_forward_units_a_block(cuda, hidden, monkeypatch):
+    """The scan forward with 8 units a block (the default: the 64-column
+    W^T half zeros) and with 16 (``scan_plan``'s choice where H / 8 blocks
+    would outnumber the SMs, forced here by planning for a card of H / 16
+    SMs) at B=32: both by the scan rule against the plain loop; a plan that
+    does not fit the shapes is refused by the kernel, not run."""
+    x, w, _ = _scan_inputs(46, 32, 48, hidden, cuda)
+    want = _scan_state_plain(x, w, None, None, False)
+    others = [_scan_state_plain(x, w, None, None, False,
+                                torch.from_numpy(np.random.RandomState(k).permutation(hidden)).to(cuda))
+              for k in range(RELABELLINGS)]
+    card_plan = lstm_ops.scan_plan
+    for units, sms in ((8, lstm_ops._card_sms(0)), (16, hidden // 16)):
+        plan = card_plan(32, hidden, sms)
+        assert (plan.units, plan.blocks) == (units, hidden // units)
+        monkeypatch.setattr(lstm_ops, "scan_plan", lambda b, h, _sms, plan=plan: plan)
+        got = lstm_ops.lstm_scan_forward_cuda(x, w)[0]
+        torch.cuda.synchronize()
+        assert lstm_ops.last_launch["scan_fwd"][0] == plan
+        _hold_scan(got, want[0], [o[0] for o in others], slice(0, SCAN_STEPS), 2.0 ** -16)
+    bad = dataclasses.replace(card_plan(32, hidden, lstm_ops._card_sms(0)), blocks=hidden // 16 - 1)
+    monkeypatch.setattr(lstm_ops, "scan_plan", lambda b, h, _sms: bad)
+    with pytest.raises(RuntimeError, match="refused the launch plan"):
+        lstm_ops.lstm_scan_forward_cuda(x, w)
 
 
 # The scan dW kernel against its plain loop on the same inputs: each step's
