@@ -73,18 +73,8 @@
 // Bound: the float32 form's operations (the products stay FMAs on the CUDA
 // cores), fewer bytes.
 //
-// Scan form (autovc_lstm_bwd_scan; SCAN = true, E = bfloat16): the VJP of
-// _lstm_scan in bfloat16 as jax.vjp builds it and XLA rounds it
-// (ops/lstm.py:lstm_scan_bf16_backward_ref), on the residuals the forward's
-// scan form wrote (act = [si, sf, tg, so] and c_seq, float32 arrays of
-// bfloat16 values): nothing is recomputed. Each op of the cell gradient
-// rounds to bfloat16, dh's carry is the bfloat16 dgates (held in the float32
-// dgates buffer, exchanged as in the bfloat16 form) times w_hh^T summed in
-// float32 and rounded, dc is carried in bfloat16, dxproj is written in
-// bfloat16. No dW: the form serves a frozen w_hh (the d-vector), so the
-// wrapper launches no dW kernel after it. Bound: the dh contraction takes
-// two bfloat16 operands, so at the bfloat16 tensor cores' peak the bytes set
-// it (10.9 us at H=768, B=7, T=128: chip_smoke.py 8d).
+// The scan rounding's backward (the bfloat16 carry, every op rounded) is
+// csrc/lstm_scan_bwd.cu's, its dW csrc/lstm_scan_dw.cu's.
 
 #include <type_traits>
 
@@ -187,7 +177,7 @@ __device__ __forceinline__ void prefetch(Pairs& p, const Args<E>& a, const Layou
 // otherwise applies the cell gradient at step t, writing dgates[:, t], and
 // dxproj[:, t] rounded to E when it is not null (and dgs, row stride ldg,
 // when dgs is not null).
-template <class E, bool SCAN>
+template <class E>
 __device__ void cell_backward(const Args<E>& a, const Layout& L, const float* red, const Pairs& p, int b0, int j0,
                               int s, float* dgs, int ldg) {
   const int t = s < a.T ? step_t(a, s) : 0;
@@ -200,7 +190,6 @@ __device__ void cell_backward(const Args<E>& a, const Layout& L, const float* re
     float carry = 0.0f;
     if (s > 0) {
       for (int k = 0; k < L.KS; ++k) carry += red[(size_t)(k * L.BT + b) * L.NC + u];
-      if constexpr (SCAN) carry = rb(carry);
     } else if (a.dhn != nullptr) {
       carry = a.dhn[bb * a.H + j];
     }
@@ -209,28 +198,14 @@ __device__ void cell_backward(const Args<E>& a, const Layout& L, const float* re
       continue;
     }
     const float si = p.act[i][0], sf = p.act[i][1], tg = p.act[i][2], so = p.act[i][3];
-    float d_o, dc, di, dg, df, dc_next;
-    if constexpr (SCAN) {
-      const float tc = rb(tanhf(p.c[i]));
-      const float dh = rb(p.dy[i] + carry);
-      const float pc = rb(rb(so * dh) * rb(1.0f - tc));
-      dc = rb(rb(a.dc_state[bb * a.H + j] + pc) + rb(pc * tc));
-      d_o = rb(rb(dh * tc) * dsigmoid_scan(so));
-      di = rb(rb(dc * tg) * dsigmoid_scan(si));
-      const float dtg = rb(rb(si * dc) * rb(1.0f - tg));
-      dg = rb(dtg + rb(dtg * tg));
-      df = rb(rb(dc * p.cprev[i]) * dsigmoid_scan(sf));
-      dc_next = rb(sf * dc);
-    } else {
-      const float tc = tanhf(p.c[i]);
-      const float dh = p.dy[i] + carry;
-      d_o = dh * tc * so * (1.0f - so);
-      dc = a.dc_state[bb * a.H + j] + dh * so * (1.0f - tc * tc);
-      di = dc * tg * si * (1.0f - si);
-      dg = dc * si * (1.0f - tg * tg);
-      df = dc * p.cprev[i] * sf * (1.0f - sf);
-      dc_next = dc * sf;
-    }
+    const float tc = tanhf(p.c[i]);
+    const float dh = p.dy[i] + carry;
+    const float d_o = dh * tc * so * (1.0f - so);
+    const float dc = a.dc_state[bb * a.H + j] + dh * so * (1.0f - tc * tc);
+    const float di = dc * tg * si * (1.0f - si);
+    const float dg = dc * si * (1.0f - tg * tg);
+    const float df = dc * p.cprev[i] * sf * (1.0f - sf);
+    const float dc_next = dc * sf;
     const size_t at = (bb * a.T + t) * 4 * a.H + j;
     float* dx = a.dgates + at;
     dx[0] = di;
@@ -257,7 +232,7 @@ __device__ void cell_backward(const Args<E>& a, const Layout& L, const float* re
 
 // Regime (a): block x owns batch rows [x*rows, x*rows + rows) and all H
 // units. Shared memory: W (4H x H), dgs (rows x (4H + PAD)), red.
-template <class E, bool SCAN>
+template <class E>
 __global__ void __launch_bounds__(NT) lstm_bwd_block_kernel(Args<E> a) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(a, a.H);
@@ -283,7 +258,7 @@ __global__ void __launch_bounds__(NT) lstm_bwd_block_kernel(Args<E> a) {
     if (ks >= 0 && s > 0) gemm_slice(acc, dgs, ldg, W, L.NC, rg * RB, 4 * cgi, a.H, ks, L.KS);
     store_partial(red, L, acc, rg, cgi, ks);
     __syncthreads();  // partials complete; dgs (dgates_{t_next}) no longer read
-    cell_backward<E, SCAN>(a, L, red, p, b0, 0, s, dgs, ldg);
+    cell_backward<E>(a, L, red, p, b0, 0, s, dgs, ldg);
     __syncthreads();
   }
 }
@@ -291,7 +266,7 @@ __global__ void __launch_bounds__(NT) lstm_bwd_block_kernel(Args<E> a) {
 // Regime (b): block x owns units [x*units, x*units + units) for every batch
 // row. Shared memory: W (4H x NC), two staging buffers (rows x (kc + PAD)),
 // red. Launched cooperatively only.
-template <class E, bool SCAN>
+template <class E>
 __global__ void __launch_bounds__(NT, 1) lstm_bwd_grid_kernel(Args<E> a) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(a, a.units);
@@ -348,7 +323,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_bwd_grid_kernel(Args<E> a) {
       }
       store_partial(red, L, acc, rg, cgi, ks);
       __syncthreads();
-      cell_backward<E, SCAN>(a, L, red, p, b0, j0, s, nullptr, 0);
+      cell_backward<E>(a, L, red, p, b0, j0, s, nullptr, 0);
       __syncthreads();  // red free for the next tile
     }
     if (s < a.T) grid.sync();  // every dgates_t written before any block reads it
@@ -363,9 +338,9 @@ size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks, int wb
   return wbytes * K * nc + 4 * (staged + (size_t)ks * rows * nc);
 }
 
-template <class E, bool SCAN = false>
+template <class E>
 int run(const Args<E>& a, int regime, int blocks, int smem, int* info, cudaStream_t stream) {
-  return launch(lstm_bwd_block_kernel<E, SCAN>, lstm_bwd_grid_kernel<E, SCAN>, a, regime, blocks, smem, info, stream);
+  return launch(lstm_bwd_block_kernel<E>, lstm_bwd_grid_kernel<E>, a, regime, blocks, smem, info, stream);
 }
 
 // The weight gradient dW (H, 4H) = hprev^T @ dxproj over the K = B*T rows
@@ -662,25 +637,6 @@ int autovc_lstm_bwd_bf16(const float* act, const void* w_hh, const float* c0, co
   const Args<bf16> a{act, static_cast<const bf16*>(w_hh), c0, c_seq, static_cast<const bf16*>(dy), dhn, dgates,
                      static_cast<bf16*>(dxproj), dc_state, dh0, B, T, H, reverse, units, rows, kc, ks};
   return run(a, regime, blocks, smem, info, stream);
-}
-
-// The scan form: the arguments of autovc_lstm_bwd_bf16, with act and c_seq
-// the scan forward's residuals and c0, dhn and dc_state's dcN float32 arrays
-// of bfloat16 values (dgates, dc_state's dc0 and dh0 come back so too).
-// Returns as autovc_lstm_bwd.
-int autovc_lstm_bwd_scan(const float* act, const void* w_hh, const float* c0, const float* c_seq, const void* dy,
-                         const float* dhn, float* dgates, void* dxproj, float* dc_state, float* dh0, int B, int T,
-                         int H, int reverse, int regime, int blocks, int units, int rows, int kc, int smem, int* info,
-                         cudaStream_t stream) {
-  const int tasks = rows / RB * (((regime == 0 ? H : units) + 3) / 4);
-  int ks = 0;
-  if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
-      smem_bytes(regime, H, units, rows, kc, ks, 2) != (size_t)smem || dgates == nullptr || dxproj == nullptr)
-    return ERR_PLAN;
-  using bf16 = __nv_bfloat16;
-  const Args<bf16> a{act, static_cast<const bf16*>(w_hh), c0, c_seq, static_cast<const bf16*>(dy), dhn, dgates,
-                     static_cast<bf16*>(dxproj), dc_state, dh0, B, T, H, reverse, units, rows, kc, ks};
-  return run<bf16, true>(a, regime, blocks, smem, info, stream);
 }
 
 // dW (H, 4H) = hprev^T @ dxproj over all (b, t), one launch of the plan of

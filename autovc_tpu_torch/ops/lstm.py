@@ -23,7 +23,8 @@ direction of a BLSTM) and returns the sequence in natural time order.
   persistent block per SM, each with its slice of w_hh, meeting at a grid
   barrier each step (regime b). Each kernel keeps its slice of w_hh in
   shared memory for the whole sequence; one launch runs the sequence.
-  ``scan_plan`` does the same for the scan rounding's forward.
+  ``scan_plan`` and ``scan_bwd_plan`` do the same for the scan rounding's
+  forward and backward, ``scan_dw_plan`` for its dW.
 - ``lstm_sequence_train_ref``, ``lstm_backward_ref`` and
   ``lstm_weight_grad_ref`` are the plain versions: loops of the same formulas,
   not autograd, in float32 (float64 for float64 inputs, a reference of
@@ -50,15 +51,16 @@ LSTM, ``_lstm_scan`` under ``jit``, which the d-vector runs on a bfloat16
 input: a bfloat16 carry and every op rounded (``lstm_scan_bf16_train_ref``,
 ``lstm_scan_bf16_backward_ref``; on the card ``csrc/lstm_scan_fwd.cu``, its
 recurrent product on the bfloat16 tensor cores (wgmma; mma.sync at H <= 32) as ``scan_plan``
-launches it, and the scan form of ``csrc/lstm_bwd.cu``:
-``lstm_scan_forward_cuda`` and ``lstm_scan_backward_cuda``), and which the
-Generator runs in bfloat16 unless ``ModelConfig.use_pallas_lstm``. Its
-forward keeps the residuals of the scan's VJP, so its backward recomputes
-nothing. Its dW
+launches it, and ``csrc/lstm_scan_bwd.cu``, its dh product on mma.sync as
+``scan_bwd_plan`` launches it: ``lstm_scan_forward_cuda`` and
+``lstm_scan_backward_cuda``), and which the Generator runs in bfloat16
+unless ``ModelConfig.use_pallas_lstm``. Its forward keeps the residuals of
+the scan's VJP, so its backward recomputes nothing. Its dW
 (``lstm_scan_bf16_weight_grad_ref``; on the card ``csrc/lstm_scan_dw.cu``,
-``lstm_scan_weight_grad_cuda``) is the transposed scan's: a bfloat16
-accumulator that each step's product is added to, rounded; it is left out
-where w_hh does not require grad (the frozen d-vector).
+``lstm_scan_weight_grad_cuda``, as ``scan_dw_plan`` spreads it over the
+card) is the transposed scan's: a bfloat16 accumulator that each step's
+product is added to, rounded; it is left out where w_hh does not require
+grad (the frozen d-vector).
 """
 
 from __future__ import annotations
@@ -301,8 +303,10 @@ def lstm_scan_bf16_backward_ref(w_hh: torch.Tensor, act: torch.Tensor, c_seq: to
         q = rb(rb(si dc) rb(1 - tg))         dg = rb(q + rb(q tg))
         df = rb(rb(dc cprev) rb(sf (1 - sf)))  dc <- rb(sf dc)
 
-    dxproj_t = [di, df, dg, do]. No dW: the scan form serves a frozen
-    w_hh (the d-vector). Measured on the CPU against ``jax.vjp`` under
+    dxproj_t = [di, df, dg, do]. No dW: ``lstm_scan_bf16_weight_grad_ref``
+    forms it from this dxproj where w_hh is trained (the Generator's default
+    bfloat16 training), and a frozen w_hh (the d-vector) needs none.
+    Measured on the CPU against ``jax.vjp`` under
     ``jax.jit``: bit-equal at B=8, T=24, H=32; 97.2-97.5% bit-equal at B=7,
     T=128, H=256 (float32 sums of another order), up to 1.6e-2 where the
     cotangents peak at 2.0. Torch autograd through the forward loop on
@@ -575,6 +579,133 @@ def scan_plan(batch: int, hidden: int, sms: int = SMS) -> ScanPlan | None:
     return ScanPlan("b", hidden // units, units, rows, smem)
 
 
+SCAN_BWD_UNITS, SCAN_BWD_ROWS_A = 8, 8  # as in csrc/lstm_scan_bwd.cu: regime (b)'s units a block, (a)'s rows
+SCAN_BWD_SUMS = 8 * 16 * SCAN_BWD_UNITS  # regime (b)'s floats of the warps' sums: 8 warps x 16 rows x the units
+SCAN_BWD_MAX_HIDDEN = 1024  # its regime (b)'s W^T fragments in registers: 32 k16 steps a warp at most
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanBwdPlan:
+    """How one sequence of the scan backward is launched (see the notes of
+    csrc/lstm_scan_bwd.cu). regime "a" (H <= 32): ``blocks`` = ceil(B / 8)
+    blocks of H / 8 warps, each with all ``units`` = H units and ``rows`` = 8
+    batch rows, no grid barrier. regime "b": ``blocks`` = H / 8 persistent
+    blocks of 256 threads, 8 ``units`` each, batch tiles of ``rows`` (8 for
+    B <= 8, else 16: mma.sync's M), a grid barrier between steps. ``smem``
+    the dynamic shared bytes of a block."""
+
+    regime: str
+    blocks: int
+    units: int
+    rows: int
+    smem: int
+
+
+def _scan_bwd_smem(regime: str, batch: int, hidden: int, rows: int) -> int:
+    """Shared bytes of a scan backward block, as the kernel lays them out: 1
+    KB of alignment slack; (a) two dgates tiles of ceil(4H / 64) atoms of 8
+    rows x 128 bytes and a 128-byte zero line; (b) the tile's two K halves of
+    ceil(atoms / 2) atoms of ``rows`` x 128 bytes, the zero line, the eight
+    warps' sums (16 x 8 floats each), dc of the block's (row, unit) pairs
+    and two mbarriers."""
+    atoms = -(-4 * hidden // SCAN_KATOM)
+    if regime == "a":
+        return 1024 + 2 * atoms * SCAN_BWD_ROWS_A * 128 + 128
+    tiles = -(-batch // rows)
+    return 1024 + 2 * (-(-atoms // 2)) * rows * 128 + 128 + 4 * (SCAN_BWD_SUMS + tiles * rows * SCAN_BWD_UNITS) + 16
+
+
+@functools.lru_cache(maxsize=None)
+def scan_bwd_plan(batch: int, hidden: int, sms: int = SMS) -> ScanBwdPlan | None:
+    """The scan backward's plan at (B, H) on a card of ``sms`` SMs, or None
+    where it cannot launch: H > SCAN_BWD_MAX_HIDDEN, or more than ``sms``
+    blocks of 8 units, or a tile that does not fit. H <= 32: regime (a), 8
+    batch rows a block. Else regime (b): H / 8 blocks (at most one an SM),
+    batch tiles of 8 rows for B <= 8, else 16 (B=7: H=1024 128 blocks of
+    71 KB, H=512 64 of 38 KB)."""
+    if hidden % 8 or batch <= 0:
+        return None
+    if hidden <= 32:
+        rows = SCAN_BWD_ROWS_A
+        return ScanBwdPlan("a", -(-batch // rows), hidden, rows, _scan_bwd_smem("a", batch, hidden, rows))
+    rows = 8 if batch <= 8 else 16
+    smem = _scan_bwd_smem("b", batch, hidden, rows)
+    if hidden > SCAN_BWD_MAX_HIDDEN or hidden // SCAN_BWD_UNITS > sms or smem > SMEM_MAX:
+        return None
+    return ScanBwdPlan("b", hidden // SCAN_BWD_UNITS, SCAN_BWD_UNITS, rows, smem)
+
+
+SCAN_DW_WARPS = 4  # as in csrc/lstm_scan_dw.cu: warps a block
+# a block's tile, in 8 units by 32 gate columns, largest first
+SCAN_DW_PATCHES = ((8, 8), (4, 4), (2, 2), (1, 1))
+SCAN_DW_MAX_SLOTS = 32  # slots a buffer of its ring holds at most
+SCAN_DW_SMEM = 100 * 1024  # its shared bytes at most: two blocks an SM
+SCAN_DW_MAX_ROWS = 256  # batch rows of a TMA box at most
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanDwPlan:
+    """How the scan dW (csrc/lstm_scan_dw.cu) is launched: each block owns
+    a tile of 8·``mi`` hidden units by 32·``nj`` gate columns (a thread mi
+    units by 2·nj columns); ``blocks`` blocks, ``warps`` warps in all; a
+    step's batch staged as ``slabs`` boxes of ``rows`` rows (the last zero-
+    filled past B), a slot of the ring each; ``slots`` slots in each of the
+    ring's two buffers; ``smem`` the dynamic shared bytes of a block."""
+
+    mi: int
+    nj: int
+    rows: int
+    slabs: int
+    blocks: int
+    warps: int
+    slots: int
+    smem: int
+
+
+def _scan_dw_smem(rows: int, mi: int, nj: int, slots: int) -> int:
+    """Shared bytes of a scan dW block, as the kernel lays them out: 128
+    bytes of alignment slack, two buffers of ``slots`` slots' boxes (``rows``
+    batch rows of the tile's 8·mi bfloat16 units, and of its 32·nj gate
+    columns, each box rounded up to 128 bytes) and two mbarriers."""
+    boxes = -(-rows * 16 * mi // 128) * 128 + -(-rows * 64 * nj // 128) * 128
+    return 128 + 2 * slots * boxes + 16
+
+
+@functools.lru_cache(maxsize=None)
+def scan_dw_plan(batch: int, time: int, hidden: int, sms: int = SMS) -> ScanDwPlan | None:
+    """The scan dW's plan at (B, T, H) on a card of ``sms`` SMs, or None
+    where H % 8 != 0. The tile: the largest of SCAN_DW_PATCHES whose warps
+    still number 4 an SM (one a sub-partition), else the smallest. A step's
+    batch: one box of B rows where it fits SCAN_DW_MAX_ROWS and, twice (the
+    ring's two buffers), SCAN_DW_SMEM; else the fewest slabs of equal rows
+    that do, in a tile no wider than 128 columns (a thread's sums then one
+    run of columns, carried from slab to slab); a wider tile whose step does
+    not fit gives way to the next smaller. The most slots a buffer, up to
+    SCAN_DW_MAX_SLOTS and the sequence's, in SCAN_DW_SMEM (B=7, T=128:
+    H=1024 64 x 256 tiles, 256 blocks, 11 slots; H=512 32 x 128, 256 blocks,
+    22; H=32 8 x 32, 16 blocks, 32; B=96 at H=1024: 32 x 128 tiles, one box
+    a step; B=300 there: two boxes of 150 rows a step)."""
+    if hidden % 8 or batch <= 0 or time <= 0:
+        return None
+    first = next((k for k, (mi, nj) in enumerate(SCAN_DW_PATCHES)
+                  if -(-hidden // (8 * mi)) * -(-4 * hidden // (32 * nj)) * SCAN_DW_WARPS >= 4 * sms),
+                 len(SCAN_DW_PATCHES) - 1)
+    for mi, nj in SCAN_DW_PATCHES[first:]:
+        slabs = -(-batch // SCAN_DW_MAX_ROWS)
+        while _scan_dw_smem(-(-batch // slabs), mi, nj, 1) > SCAN_DW_SMEM:  # one row always fits
+            slabs += 1
+        rows = -(-batch // slabs)
+        slabs = -(-batch // rows)
+        if slabs > 1 and nj > 4:
+            continue
+        fixed = _scan_dw_smem(rows, mi, nj, 0)
+        slots = min(SCAN_DW_MAX_SLOTS, time * slabs, (SCAN_DW_SMEM - fixed) // (_scan_dw_smem(rows, mi, nj, 1) - fixed))
+        blocks = -(-hidden // (8 * mi)) * -(-4 * hidden // (32 * nj))
+        return ScanDwPlan(mi, nj, rows, slabs, blocks, blocks * SCAN_DW_WARPS, slots,
+                          _scan_dw_smem(rows, mi, nj, slots))
+    return None
+
+
 def _no_plan(batch: int, hidden: int, sms: int, wbytes: int = 4) -> ValueError:
     def fits(h: int) -> bool:
         return all(launch_plan(batch, h, kind, sms, wbytes) is not None for kind in ("fwd", "bwd"))
@@ -600,15 +731,17 @@ def _library(name: str) -> ctypes.CDLL:
     elif name == "lstm_gates":
         lib.autovc_lstm_gates.argtypes = [pointers] * 5 + [ints] * 5 + [pointers]
         entries = (lib.autovc_lstm_gates,)
+    elif name == "lstm_scan_bwd":
+        lib.autovc_lstm_scan_bwd.argtypes = [pointers] * 9 + [ints] * 9 + tail
+        entries = (lib.autovc_lstm_scan_bwd,)
     elif name == "lstm_scan_dw":
-        lib.autovc_lstm_scan_dw.argtypes = [pointers] * 4 + [ints] * 4 + [pointers]
+        lib.autovc_lstm_scan_dw.argtypes = [pointers] * 4 + [ints] * 11 + tail
         entries = (lib.autovc_lstm_scan_dw,)
     else:
         lib.autovc_lstm_bwd.argtypes = [pointers] * 9 + [ints] * 10 + tail
         lib.autovc_lstm_bwd_bf16.argtypes = [pointers] * 10 + [ints] * 10 + tail
-        lib.autovc_lstm_bwd_scan.argtypes = [pointers] * 10 + [ints] * 10 + tail
         lib.autovc_lstm_dw.argtypes = [pointers] * 6 + [ints] * 7 + [pointers]
-        entries = (lib.autovc_lstm_bwd, lib.autovc_lstm_bwd_bf16, lib.autovc_lstm_bwd_scan, lib.autovc_lstm_dw)
+        entries = (lib.autovc_lstm_bwd, lib.autovc_lstm_bwd_bf16, lib.autovc_lstm_dw)
     for fn in entries:
         fn.restype = ctypes.c_int
     lib.autovc_cuda_error_string.argtypes = [ctypes.c_int]
@@ -684,7 +817,8 @@ def _dense(v: torch.Tensor | None) -> torch.Tensor | None:
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, what: str,
-              plan: LaunchPlan | DwPlan | GatesPlan | ScanPlan | None = None, info=None) -> None:
+              plan: LaunchPlan | DwPlan | GatesPlan | ScanPlan | ScanBwdPlan | ScanDwPlan | None = None,
+              info=None) -> None:
     if err == _ERR_PLAN:
         raise RuntimeError(f"{what}: the kernel refused the launch plan {plan}")
     if err == _ERR_TMA:
@@ -699,7 +833,7 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str,
 _ERR_PLAN, _ERR_RESIDENT, _ERR_TMA = -1, -2, -3  # the launchers' own codes
 # The last launch of each kind: (plan, resident blocks per SM, SMs), for
 # chip_smoke.py's report.
-last_launch: dict[str, tuple[LaunchPlan | ScanPlan, int, int]] = {}
+last_launch: dict[str, tuple[LaunchPlan | ScanPlan | ScanBwdPlan | ScanDwPlan, int, int]] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -814,13 +948,15 @@ def lstm_scan_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Te
     c_seq (B, T, H) and act (B, T, 4H) = [si, sf, tg, so], float32 tensors
     that hold bfloat16 values, else None for both; launched as ``scan_plan``
     plans it at the card's SM count (the kernel refuses a plan that does not
-    fit the shapes). Raises, as the other forms do, where the scan backward
-    could not launch at this shape."""
+    fit the shapes). With ``with_residuals`` (training) it raises where the
+    scan backward could not launch at this shape, before the forward runs."""
     global launches, scan_launches
     if xproj.dtype != torch.bfloat16:
         raise TypeError(f"the scan form takes bfloat16 xproj and w_hh, got {xproj.dtype}")
     h0, c0 = _scan_state(h0, "h0"), _scan_state(c0, "c0")
     b, t, hidden, _ = _check(xproj, w_hh, "bwd", h0=h0, c0=c0)
+    if with_residuals:
+        _scan_bwd_plan_on_card(b, hidden, xproj.device)
     plan = scan_plan(b, hidden, _card_sms(_index(xproj.device)))
     if plan is None:
         raise ValueError(f"the scan forward holds 64 gate columns of w_hh and a tile of h in shared memory: "
@@ -853,31 +989,50 @@ def lstm_scan_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Te
 def lstm_scan_backward_cuda(w_hh: torch.Tensor, act: torch.Tensor, c_seq: torch.Tensor, c0: torch.Tensor | None,
                             dy: torch.Tensor, dhn: torch.Tensor | None = None, dcn: torch.Tensor | None = None,
                             reverse: bool = False):
-    """Launch the backward kernel's scan-rounding form (``autovc_lstm_bwd_scan``,
-    the rounding of ``lstm_scan_bf16_backward_ref``) on the current stream:
-    the reversed recurrence and dh0 in one launch, no dW (the scan form
-    serves a frozen w_hh) -> (dxproj, dh0, dc0), bfloat16. ``act`` and
-    ``c_seq`` are ``lstm_scan_forward_cuda``'s residuals; w_hh, dy and the
-    state's cotangents (zero when None) bfloat16."""
+    """Launch ``csrc/lstm_scan_bwd.cu`` (the rounding of
+    ``lstm_scan_bf16_backward_ref``, its dh product on the tensor cores) on
+    the current stream: the reversed recurrence and dh0 in one launch of
+    ``scan_bwd_plan`` at the card's SM count -> (dxproj, dh0, dc0),
+    bfloat16. No dW: ``LSTMSequenceFn`` launches ``lstm_scan_weight_grad_cuda``
+    on this dxproj where w_hh requires grad (the Generator's training), and
+    nothing for a frozen w_hh (the d-vector). ``act`` and ``c_seq`` are
+    ``lstm_scan_forward_cuda``'s residuals; w_hh, dy and the state's
+    cotangents (zero when None) bfloat16."""
     global bwd_launches, scan_bwd_launches
     if act.dtype != torch.float32 or c_seq.dtype != torch.float32:
         raise TypeError("the scan backward reads the scan forward's residuals (float32 tensors of bfloat16 values)")
     c0, dhn, dcn = _scan_state(c0, "c0"), _scan_state(dhn, "dhN"), _scan_state(dcn, "dcN")
-    b, t, hidden, plan = _check(act, w_hh, "bwd", first="gates", c0=c0, c_seq=c_seq, dy=dy, dhn=dhn, dcn=dcn)
-    lib = _library("lstm_bwd")
+    b, t, hidden, _ = _check(act, w_hh, "bwd", first="gates", c0=c0, c_seq=c_seq, dy=dy, dhn=dhn, dcn=dcn)
+    plan = _scan_bwd_plan_on_card(b, hidden, act.device)
+    lib = _library("lstm_scan_bwd")
     w_hh, act, c0, c_seq, dy, dhn = map(_dense, (w_hh, act, c0, c_seq, dy, dhn))
     dev = act.device
-    dgates = torch.empty((b, t, 4 * hidden), device=dev, dtype=torch.float32)
-    dx = torch.empty((b, t, 4 * hidden), device=dev, dtype=torch.bfloat16)
+    # 64 elements past the end: the kernel's copies read whole 64-k atoms of the last row
+    n = b * t * 4 * hidden
+    dx = torch.empty(n + SCAN_KATOM, device=dev, dtype=torch.bfloat16)[:n].view(b, t, 4 * hidden)
     dc = torch.zeros((b, hidden), device=dev, dtype=torch.float32) if dcn is None else _dense(dcn).clone()
     dh0 = torch.empty((b, hidden), device=dev, dtype=torch.float32)
+    info = (ctypes.c_int * 2)(0, 0)
     with torch.cuda.device(dev):
-        _launch(lib, lib.autovc_lstm_bwd_scan, plan,
-                [_ptr(v) for v in (act, w_hh, c0, c_seq, dy, dhn, dgates, dx, dc, dh0)],
-                (b, t, hidden, int(reverse)), "lstm backward kernel (scan rounding)")
+        err = lib.autovc_lstm_scan_bwd(*[_ptr(v) for v in (act, w_hh, c0, c_seq, dy, dhn, dx, dc, dh0)], b, t, hidden,
+                                       int(reverse), int(plan.regime == "b"), plan.blocks, plan.units, plan.rows,
+                                       plan.smem, info, torch.cuda.current_stream().cuda_stream)
+    last_launch["scan_bwd"] = (plan, info[0], info[1])
+    _raise_on(lib, err, "lstm scan backward kernel", plan, info)
     bwd_launches += 1
     scan_bwd_launches += 1
     return dx, dh0.to(torch.bfloat16), dc.to(torch.bfloat16)
+
+
+def _scan_bwd_plan_on_card(b: int, hidden: int, device: torch.device) -> ScanBwdPlan:
+    """``scan_bwd_plan`` at the SM count of the card the tensors lie on;
+    raises where there is none."""
+    sms = _card_sms(_index(device))
+    plan = scan_bwd_plan(b, hidden, sms)
+    if plan is None:
+        raise ValueError(f"the scan backward holds 8 units' W^T fragments in registers, one block an SM: H={hidden} "
+                         f"needs H <= {min(SCAN_BWD_MAX_HIDDEN, SCAN_BWD_UNITS * sms)} on this card of {sms} SMs")
+    return plan
 
 
 # The split dW's tile counters of each (device, stream): zero, and left zero
@@ -922,22 +1077,27 @@ def lstm_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: 
 def lstm_scan_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: torch.Tensor,
                                reverse: bool = False) -> torch.Tensor:
     """Launch ``csrc/lstm_scan_dw.cu``: dW_hh (H, 4H) of the scan rounding,
-    bfloat16, one launch (the rounding of ``lstm_scan_bf16_weight_grad_ref``:
-    each step's product rounded and added to a bfloat16 accumulator). h_seq
-    and dxproj bfloat16 (the scan forward's sequence, the scan backward's
-    gate gradients), h0 bfloat16 or None (zero)."""
+    bfloat16, one launch of ``scan_dw_plan`` at the card's SM count (the
+    rounding of ``lstm_scan_bf16_weight_grad_ref``: each step's product
+    rounded and added to a bfloat16 accumulator; its sums over the batch in
+    the plain version's order). h_seq and dxproj bfloat16 (the scan
+    forward's sequence, the scan backward's gate gradients), h0 bfloat16 or
+    None (zero)."""
     global scan_dw_launches
     if h_seq.dtype != torch.bfloat16 or dxproj.dtype != torch.bfloat16:
         raise TypeError(f"the scan dW takes bfloat16 h_seq and dxproj, got {h_seq.dtype} and {dxproj.dtype}")
-    h0 = _scan_state(h0, "h0")
-    b, t, hidden, _ = _check(dxproj, None, first="dxproj", h_seq=h_seq, h0=h0)
+    b, t, hidden, _ = _check(dxproj, None, first="dxproj", h_seq=h_seq, h0=_scan_state(h0, "h0"))
+    plan = scan_dw_plan(b, t, hidden, _card_sms(_index(dxproj.device)))
     lib = _library("lstm_scan_dw")
     h_seq, h0, dxproj = _dense(h_seq), _dense(h0), _dense(dxproj)
     dw = torch.empty((hidden, 4 * hidden), device=dxproj.device, dtype=torch.bfloat16)
+    info = (ctypes.c_int * 2)(0, 0)
     with torch.cuda.device(dxproj.device):
         err = lib.autovc_lstm_scan_dw(_ptr(h_seq), _ptr(h0), _ptr(dxproj), _ptr(dw), b, t, hidden, int(reverse),
-                                      torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "lstm scan dW kernel")
+                                      plan.mi, plan.nj, plan.rows, plan.slabs, plan.slots, plan.blocks, plan.smem,
+                                      info, torch.cuda.current_stream().cuda_stream)
+    last_launch["scan_dw"] = (plan, info[0], info[1])
+    _raise_on(lib, err, "lstm scan dW kernel", plan, info)
     scan_dw_launches += 1
     return dw
 

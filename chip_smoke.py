@@ -224,17 +224,22 @@ recorded time) beside the
 plain loop, the bound and cuDNN's bfloat16 one-layer LSTM forward; then
 bench.py's default program (7b's, with the scan rounding): 7 scan
 launches, its iteration, realtime factor and parity dict beside 7b's; (b)
-the scan dW kernel (``csrc/lstm_scan_dw.cu``: each step's product rounded
-and added to a bfloat16 accumulator, as XLA transposes the scan) against
-``lstm_scan_bf16_weight_grad_ref`` at B=7, T=128, H in {32, 512, 1024},
-both directions (1 bfloat16 ulp floored at 2^-8 of the peak, 99%
-bit-equal), timed beside the plain loop, the bound and ``torch.matmul`` of
-the one-shot product; the scan forward's training form at the same shapes
-by the scan rule, its us a step; one bfloat16 train step in the scan rounding against
-the plain engine on the same kinks (8b's gate), 5 Solver steps (11 scan
-forward, backward and dW launches a step, none of the Pallas forms) and a
-warm step's profile; ``cli.train --bf16`` and ``--bf16 --pallas``, 3 steps
-each, their launches.
+at B=7, T=128, H in {32, 512, 1024}, both directions, on the plain scan
+chain's outputs: the scan backward (``csrc/lstm_scan_bwd.cu``, its dh
+product on mma.sync) against ``lstm_scan_bf16_backward_ref`` by the scan
+rule, and the scan dW kernel (``csrc/lstm_scan_dw.cu``: each step's
+product rounded and added to a bfloat16 accumulator, as XLA transposes the
+scan) against ``lstm_scan_bf16_weight_grad_ref`` (1 bfloat16 ulp floored
+at 2^-8 of the peak, 99% bit-equal), each with its plan and timed beside
+the replaced kernel's recorded time, the plain loop and the bound (the
+backward beside cuDNN's bfloat16 backward, dW beside its latency bound and
+``torch.matmul`` of the one-shot product); the scan forward's training
+form at the same shapes by the scan rule, its us a step; one bfloat16
+train step in the scan rounding against the plain engine on the same kinks
+(8b's gate), 5 Solver steps (11 scan forward, backward and dW launches a
+step, none of the Pallas forms) and a warm step's profile split into the
+scan forward, backward, dW and the rest; ``cli.train --bf16`` and
+``--bf16 --pallas``, 3 steps each, their launches.
 Phase 11 trains the speaker encoder and the vocoders on phase 5's corpus:
 (a) GE2E (every speaker, 5 crops of 128 frames each): at H=768 and 256 and
 B=20 the scan forward by the scan rule (the bfloat16 d-vector at this
@@ -315,6 +320,9 @@ from autovc_tpu_torch.ops import wavenet as wavenet_ops  # noqa: E402
 from autovc_tpu_torch.train import Solver, TrainState, init_ema, make_optimizer, make_train_step  # noqa: E402
 from autovc_tpu_torch.train.compare import KinkTape, grad_scale  # noqa: E402
 from autovc_tpu_torch.train.ge2e import load_params  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+import scan_train_times as scan_times  # noqa: E402  (the scan training kernels' device times and work)
 from autovc_tpu_torch.train.step import windowed_embed  # noqa: E402
 from autovc_tpu_torch.vocoder.hifigan import HiFiGANVocoder  # noqa: E402
 from autovc_tpu_torch.vocoder.wavenet import WaveNetVocoder  # noqa: E402
@@ -324,8 +332,8 @@ ROOT = Path(__file__).resolve().parent
 B, T, N_MELS, HOP = 32, 512, 80, 256
 LSTM_TOL = 1e-4  # f32 kernel vs f32 plain loop: summation order only
 MEL_TOL = 1e-3  # on the whole generator, after 7 recurrences and 11 convs
-KERNELS = ("lstm_fwd", "lstm_scan_fwd", "lstm_bwd", "lstm_gates", "lstm_scan_dw", "wavenet_gen", "mel_norm",
-           "sosfilt")
+KERNELS = ("lstm_fwd", "lstm_scan_fwd", "lstm_bwd", "lstm_scan_bwd", "lstm_gates", "lstm_scan_dw", "wavenet_gen",
+           "mel_norm", "sosfilt")
 WN_B, WN_FRAMES = 8, 8  # utterances and mel frames vocoded by WaveNet: T = 2048 samples
 WN_TF_TOL = 1e-3  # kernel logits vs teacher-forced forward on its own waveform, f32
 WN_PREFIX_TOL, WN_MIN_PREFIX = 1e-4, 32  # kernel vs plain loop, same uniforms
@@ -491,18 +499,29 @@ def phase_kernel(dev: torch.device) -> dict:
 
 
 def plan_line(kind: str) -> str:
-    """The launch plan of the last ``kind`` launch ("scan_fwd": the scan
-    forward's ``ScanPlan``), with the occupancy query's resident blocks per
-    SM."""
+    """The launch plan of the last ``kind`` launch ("scan_fwd", "scan_bwd",
+    "scan_dw": the scan rounding's ``ScanPlan``, ``ScanBwdPlan``,
+    ``ScanDwPlan``), with the occupancy query's resident blocks per SM."""
     plan, per_sm, sms = lstm_ops.last_launch[kind]
+    threads = lstm_ops.THREADS
+    if kind == "scan_dw":
+        return (f"plan: {plan.blocks} blocks of {lstm_ops.SCAN_DW_WARPS} warps, tiles of {8 * plan.mi} units x "
+                f"{32 * plan.nj} columns ({plan.mi} x {2 * plan.nj} a thread), {plan.slabs} box(es) of {plan.rows} "
+                f"rows a step, {plan.slots} slots a buffer, "
+                f"{plan.smem} shared bytes a block, {per_sm} resident a SM on {sms} SMs")
     if kind == "scan_fwd":
         grid = (f"{plan.blocks} blocks x {plan.rows} rows (mma.sync m16n8k16)" if plan.regime == "a"
                 else f"{plan.blocks} blocks x {plan.units} units, {plan.rows}-row tiles (wgmma m64n{plan.rows}k16)")
+    elif kind == "scan_bwd":
+        grid = (f"{plan.blocks} blocks x {plan.rows} rows, 8 units a warp (mma.sync m16n8k16)" if plan.regime == "a"
+                else f"{plan.blocks} blocks x {plan.units} units, {plan.rows}-row tiles, an eighth of K a warp "
+                     f"(mma.sync m16n8k16)")
+        threads = 32 * plan.units // 8 if plan.regime == "a" else threads
     elif plan.regime == "a":
         grid = f"{plan.blocks} blocks x {plan.rows} rows"
     else:
         grid = f"{plan.blocks} blocks x {plan.units} units, {plan.rows}-row tiles, K chunks of {plan.kc}"
-    return (f"plan: regime ({plan.regime}), {grid}, {lstm_ops.THREADS} threads, {plan.smem} shared bytes a block, "
+    return (f"plan: regime ({plan.regime}), {grid}, {threads} threads, {plan.smem} shared bytes a block, "
             f"{per_sm} resident a SM on {sms} SMs")
 
 
@@ -2838,15 +2857,6 @@ def scan_fwd_work(b: int, t: int, h: int) -> tuple[float, float]:
     return 2.0 * b * t * h * 4 * h, 2.0 * (b * t * 4 * h + h * 4 * h + b * t * h) + 4.0 * (b * t * h + b * t * 4 * h)
 
 
-def scan_bwd_work(b: int, t: int, h: int) -> tuple[float, float]:
-    """(flops, bytes) of one scan-form backward (no dW): the dh contraction
-    (bfloat16 operands, float32 sums); act and c_seq read as float32, dy and
-    w_hh in bfloat16, dxproj written in bfloat16 and the gate gradients it
-    exchanges in float32."""
-    return (2.0 * b * t * 4 * h * h,
-            4.0 * (b * t * 4 * h + b * t * h + b * t * 4 * h) + 2.0 * (b * t * h + h * 4 * h + b * t * 4 * h))
-
-
 def scan_plain(x, w, dy, reverse):
     """The plain scan forward's (h_seq, c_seq, act) and its backward's
     dxproj (stacked problems given stacked)."""
@@ -2922,7 +2932,7 @@ def phase_scan_kernels(dev: torch.device, trained: bool) -> tuple[dict, dict]:
                 plan = plan_line("scan_fwd")
                 want = scan_plain(x, w, dy, reverse)
                 dx = lstm_ops.lstm_scan_backward_cuda(w, want[2].float(), want[1].float(), None, dy, reverse=reverse)[0]
-                b_plan = plan_line("bwd")
+                b_plan = plan_line("scan_bwd")
                 # the two kernels composed as LSTMSequenceFn runs them: the
                 # forward's own residuals into the backward
                 dx_both = lstm_ops.lstm_scan_backward_cuda(w, got[2], got[1], None, dy, reverse=reverse)[0]
@@ -2961,7 +2971,7 @@ def phase_scan_kernels(dev: torch.device, trained: bool) -> tuple[dict, dict]:
                       plain_ms=cuda_ms(lambda: lstm_ops.lstm_scan_bf16_backward_ref(w, want[2], want[1], None, dy), 1),
                       library_ms=lib_bwd_ms)
             f["bound_ms"], f["bound_by"] = bf16_bound(*scan_fwd_work(b, SPK_T, hidden))
-            bk["bound_ms"], bk["bound_by"] = bf16_bound(*scan_bwd_work(b, SPK_T, hidden))
+            bk["bound_ms"], bk["bound_by"] = bf16_bound(*scan_times.bwd_work(b, SPK_T, hidden))
             # the bfloat16 d-vector's forward: three scan sequences
             mel = torch.from_numpy(rng.rand(b, SPK_T, N_MELS).astype(np.float32)).to(dev)
             with torch.inference_mode():
@@ -3586,23 +3596,60 @@ def phase_scan_generator(dev: torch.device) -> dict:
     return rec
 
 
-def scan_dw_work(b: int, t: int, h: int) -> tuple[float, float]:
-    """(flops, bytes) of one scan dW: 2*B*T*H*4H over products of two
-    bfloat16 values; h_seq and dxproj read once, dW written once, all
-    bfloat16."""
-    return 2.0 * b * t * h * 4 * h, 2.0 * (b * t * h + b * t * 4 * h + h * 4 * h)
+# The kernels csrc/lstm_scan_bwd.cu and csrc/lstm_scan_dw.cu replaced, device
+# ms a sequence at B=7, T=128 by (H, reverse): the scan backward (the SCAN
+# instance of lstm_bwd.cu: float32 FMAs, float32 gate gradients exchanged)
+# and the scan dW (one block a 64 x 64 tile), as scripts/scan_train_times.py
+# measured them on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md §6).
+OLD_SCAN_BWD_MS = {(32, False): 0.14391, (32, True): 0.14454, (512, False): 0.86788, (512, True): 0.96359,
+                   (1024, False): 1.31988, (1024, True): 1.28765}
+OLD_SCAN_DW_MS = {(32, False): 0.20580, (32, True): 0.20474, (512, False): 0.25605, (512, True): 0.25603,
+                  (1024, False): 0.82735, (1024, True): 0.82728}
+# cycles of one rounded add in a dependent chain, add.rn.bf16x2 (the scan
+# dW's chain a step): scripts/scan_dw_phases.py, NVIDIA H100 80GB HBM3
+DW_ADD_CYCLES = 8.13
 
 
-def phase_scan_dw(dev: torch.device) -> dict:
-    """10b (kernel): ``lstm_scan_weight_grad_cuda`` against
-    ``lstm_scan_bf16_weight_grad_ref`` on the plain scan chain's h_seq and
-    dxproj at B=7, T=128, H in SCAN_DW_HIDDEN, both directions, by the
-    bfloat16 backward rule (1 ulp floored at BWD_FLOOR of the peak, 99%
-    bit-equal), two calls the same bits; timed (device time) beside the
-    plain loop, the bound and torch.matmul's one-shot product over K = B*T
-    in bfloat16 (which rounds once: not the function)."""
+def scan_dw_latency_ms(t: int) -> float:
+    """The scan dW's latency bound: each output is a chain of T rounded adds,
+    DW_ADD_CYCLES each at the SM clock, whatever the card's width."""
+    return t * DW_ADD_CYCLES / SM_CLOCK_HZ * 1e3
+
+
+# calls a device time of 10b's scan backward and dW queues (scan_times.queued_ms)
+SCAN_TIME_REPS = 20
+
+# a train step's 11 sequences: 8 at H=32 (the encoder's 4, run twice), 1 at
+# H=512, 2 at H=1024, as phase 4 counts them
+SCAN_STEP_CALLS = {32: 8, 512: 1, 1024: 2}
+
+
+def per_step(cases: list[dict], key: str) -> float:
+    """A per-sequence number of the forward-direction cases summed over a
+    train step's SCAN_STEP_CALLS sequences."""
+    by_h = {c["hidden"]: c for c in cases}
+    return sum(n * by_h[h][key] for h, n in SCAN_STEP_CALLS.items())
+
+
+def phase_scan_train_kernels(dev: torch.device) -> tuple[dict, dict]:
+    """10b (kernels): at B=7, T=128, H in SCAN_DW_HIDDEN, both directions,
+    on the plain scan chain's outputs: ``lstm_scan_backward_cuda`` on the
+    plain forward's residuals against ``lstm_scan_bf16_backward_ref`` by the
+    scan rule (its first SCAN_STEPS steps and the spread of
+    SCAN_RELABELLINGS relabelled plain loops run stacked), one launch; and
+    ``lstm_scan_weight_grad_cuda`` on the plain h_seq and dxproj against
+    ``lstm_scan_bf16_weight_grad_ref`` by the bfloat16 backward rule (1 ulp
+    floored at BWD_FLOOR of the peak, 99% bit-equal), one launch, two calls
+    the same bits. Each timed in the forward direction (device time: calls
+    queued behind a sleep, ``scripts/scan_train_times.py``'s) beside
+    the replaced kernel's recorded time, its plan, the plain loop and the
+    bound: the backward's beside cuDNN's bfloat16 LSTM backward alone (a
+    yardstick the port never calls), dW's beside its latency bound and
+    torch.matmul's one-shot product over K = B*T in bfloat16 (which rounds
+    once: not the function); summed over a train step's 11 sequences."""
     rng = np.random.RandomState(101)
     b, t = TRAIN_B, TRAIN_T
+    bwd = {"max_abs_err": 0.0, "cases": []}
     rec = {"max_abs_err": 0.0, "max_ulps": 0.0, "min_equal_share": 1.0, "shapes": []}
     for hidden in SCAN_DW_HIDDEN:
         lim = 1.0 / np.sqrt(hidden)
@@ -3610,11 +3657,32 @@ def phase_scan_dw(dev: torch.device) -> dict:
         w = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev).to(BF16)
         dy = torch.from_numpy(rng.randn(b, t, hidden).astype(np.float32)).to(dev).to(BF16)
         for reverse in (False, True):
-            h_seq, _, _, dx = scan_plain(x, w, dy, reverse)
+            h_seq, c_seq, act, dx = scan_plain(x, w, dy, reverse)
+            act32, c32 = act.float(), c_seq.float()
+            zero_counts()
+            got_dx = lstm_ops.lstm_scan_backward_cuda(w, act32, c32, None, dy, reverse=reverse)[0]
+            torch.cuda.synchronize()
+            launched = all_counts() + (lstm_ops.scan_dw_launches,)
+            if launched != (0, 0, 0, 1, 0, 1, 0, 0, 0):
+                raise AssertionError(f"10b scan backward H={hidden}: launched {launched} (LSTM_COUNTERS, scan dW)")
+            b_plan = plan_line("scan_bwd")
+            others = scan_plain_relabelled(x, w, dy, reverse, [torch.from_numpy(np.random.RandomState(k)
+                                                                                .permutation(hidden)).to(dev)
+                                                               for k in range(SCAN_RELABELLINGS)])
+            first = slice(0, SCAN_STEPS) if reverse else slice(t - SCAN_STEPS, t)  # the backward's first steps
+            held = scan_gate(got_dx, dx, [o[3] for o in others], first, BWD_FLOOR)
+            del others
+            log(f"10b lstm scan backward H={hidden} {'reverse' if reverse else 'forward'} B={b} T={t}: "
+                f"{json.dumps(held)}; {b_plan}")
+            if not held["ok"]:
+                raise AssertionError(f"10b: the scan backward H={hidden} reverse={reverse} fails the scan rule: "
+                                     f"{held}")
+            bwd["max_abs_err"] = max(bwd["max_abs_err"], held["apart"])
             zero_counts()
             got = lstm_ops.lstm_scan_weight_grad_cuda(h_seq, None, dx, reverse)
             again = lstm_ops.lstm_scan_weight_grad_cuda(h_seq, None, dx, reverse)
             torch.cuda.synchronize()
+            d_plan = plan_line("scan_dw")
             want = lstm_ops.lstm_scan_bf16_weight_grad_ref(h_seq, None, dx, reverse)
             ulps, equal = bf16_ulps(got.float(), want.float(), BWD_FLOOR)
             err = (got.float() - want.float()).abs().max().item()
@@ -3622,35 +3690,56 @@ def phase_scan_dw(dev: torch.device) -> dict:
                     or not (ulps <= LSTM_BF16_ULPS and equal >= LSTM_BF16_EQUAL)):
                 raise AssertionError(f"10b scan dW H={hidden} reverse={reverse}: {ulps} ulps, {equal} bit-equal, "
                                      f"launches {lstm_ops.scan_dw_launches}, repeatable {torch.equal(got, again)}")
+            log(f"10b lstm scan dW H={hidden} {'reverse' if reverse else 'forward'} B={b} T={t}: {ulps:.2f} bf16 "
+                f"ulps (floor {BWD_FLOOR} of the peak), {equal:.5f} bit-equal, max_abs_err={err:.3e}; {d_plan}")
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             rec["max_ulps"] = max(rec["max_ulps"], ulps)
             rec["min_equal_share"] = min(rec["min_equal_share"], equal)
             if reverse:
                 continue
+            # times, the forward direction
+            fn = functools.partial(lstm_ops.lstm_scan_backward_cuda, w, act32, c32, None, dy)
+            case = dict(hidden=hidden, ms=cuda_ms(fn, 5), device_ms=scan_times.queued_ms(fn, SCAN_TIME_REPS),
+                        plain_ms=cuda_ms(lambda: lstm_ops.lstm_scan_bf16_backward_ref(w, act, c_seq, None, dy), 1),
+                        library_ms=scan_times.cudnn_bwd_ms(dev, b, t, hidden, 5), **held)
+            case["bound_ms"], case["bound_by"] = bf16_bound(*scan_times.bwd_work(b, t, hidden))
+            bwd["cases"].append(case)
+            log(f"10b lstm scan backward H={hidden} B={b} T={t}: {case['device_ms']:.4f} ms device "
+                f"({case['device_ms'] / t * 1e3:.2f} us a step; {case['ms']:.4f} by events), the replaced kernel "
+                f"{OLD_SCAN_BWD_MS[(hidden, False)]:.4f} as recorded, plain {case['plain_ms']:.1f}, bound {case['bound_ms']:.5f} "
+                f"({case['bound_by']}), cuDNN bf16 backward alone {case['library_ms']:.4f} (a yardstick the port "
+                f"never calls)")
             fn = functools.partial(lstm_ops.lstm_scan_weight_grad_cuda, h_seq, None, dx)
             hprev = torch.cat([torch.zeros_like(h_seq[:, :1]), h_seq[:, :-1]], dim=1).reshape(-1, hidden)
             dxk = dx.reshape(-1, 4 * hidden)
-            case = dict(hidden=hidden, ms=cuda_ms(fn, 10), device_ms=device_ms(fn, 10),
+            case = dict(hidden=hidden, ms=cuda_ms(fn, 10), device_ms=scan_times.queued_ms(fn, SCAN_TIME_REPS),
                         plain_ms=cuda_ms(lambda: lstm_ops.lstm_scan_bf16_weight_grad_ref(h_seq, None, dx), 1),
-                        library_ms=device_ms(lambda: hprev.T @ dxk, 10), ulps=ulps, equal=equal, max_abs_err=err)
-            case["bound_ms"], case["bound_by"] = bf16_bound(*scan_dw_work(b, t, hidden))
+                        library_ms=scan_times.queued_ms(lambda: hprev.T @ dxk, SCAN_TIME_REPS), ulps=ulps,
+                        equal=equal, max_abs_err=err)
+            case["bound_ms"], case["bound_by"] = bf16_bound(*scan_times.dw_work(b, t, hidden))
             rec["shapes"].append(case)
-            log(f"10b lstm scan dW H={hidden} B={b} T={t}: {ulps:.2f} bf16 ulps (floor {BWD_FLOOR} of the peak), "
-                f"{equal:.5f} bit-equal, max_abs_err={err:.3e}; ms={case['ms']:.4f} ({case['device_ms']:.4f} device), "
-                f"plain_ms={case['plain_ms']:.1f}, bound_ms={case['bound_ms']:.5f} ({case['bound_by']}), "
-                f"torch.matmul of the one-shot product {case['library_ms']:.4f} ms (device)")
-    # a train step's 11 sequences: 8 at H=32 (the encoder's 4, run twice), 1
-    # at H=512, 2 at H=1024, as phase 4 counts them
-    per_seq = {c["hidden"]: c for c in rec["shapes"]}
-    calls = {32: 8, 512: 1, 1024: 2}
-    for key in ("ms", "device_ms", "plain_ms", "library_ms"):
-        rec[key] = sum(n * per_seq[h][key] for h, n in calls.items())
-    work = [scan_dw_work(b, t, h) for h, n in calls.items() for _ in range(n)]
-    rec["bound_ms"], rec["bound_by"] = bf16_bound(sum(f for f, _ in work), sum(y for _, y in work))
-    log(f"10b lstm scan dW per train step (11 sequences): {rec['device_ms']:.4f} ms device ({rec['ms']:.4f} events), "
-        f"plain {rec['plain_ms']:.1f}, bound {rec['bound_ms']:.5f} ({rec['bound_by']}), torch.matmul one-shot "
-        f"{rec['library_ms']:.4f} (card: {card_line()})")
-    return rec
+            log(f"10b lstm scan dW H={hidden} B={b} T={t}: {case['device_ms']:.4f} ms device ({case['ms']:.4f} by "
+                f"events), the replaced kernel {OLD_SCAN_DW_MS[(hidden, False)]:.4f} as recorded, plain "
+                f"{case['plain_ms']:.1f}, bound {case['bound_ms']:.5f} ({case['bound_by']}), latency bound "
+                f"{scan_dw_latency_ms(t):.5f} (T x "
+                f"{DW_ADD_CYCLES} cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz), torch.matmul of the one-shot product "
+                f"{case['library_ms']:.4f} ms (device)")
+    for r, work_fn in ((bwd, scan_times.bwd_work), (rec, scan_times.dw_work)):
+        cases = r["cases"] if r is bwd else r["shapes"]
+        for key in ("ms", "device_ms", "plain_ms", "library_ms"):
+            r[key] = per_step(cases, key)
+        work = [work_fn(b, t, h) for h, n in SCAN_STEP_CALLS.items() for _ in range(n)]
+        r["bound_ms"], r["bound_by"] = bf16_bound(sum(f for f, _ in work), sum(y for _, y in work))
+    before = {name: sum(n * old[(h, False)] for h, n in SCAN_STEP_CALLS.items())
+              for name, old in (("bwd", OLD_SCAN_BWD_MS), ("dw", OLD_SCAN_DW_MS))}
+    log(f"10b lstm scan backward per train step (11 sequences): {bwd['device_ms']:.4f} ms device ({bwd['ms']:.4f} "
+        f"events; the replaced kernel {before['bwd']:.4f} as recorded), plain {bwd['plain_ms']:.1f}, bound "
+        f"{bwd['bound_ms']:.5f} ({bwd['bound_by']}), cuDNN bf16 backward {bwd['library_ms']:.4f}; scan dW "
+        f"{rec['device_ms']:.4f} ms device ({rec['ms']:.4f} events; the replaced kernel {before['dw']:.4f} as "
+        f"recorded), plain {rec['plain_ms']:.1f}, bound {rec['bound_ms']:.5f} ({rec['bound_by']}), latency bound "
+        f"{scan_dw_latency_ms(t):.5f} (the 11 chains side by side), torch.matmul one-shot {rec['library_ms']:.4f} "
+        f"(card: {card_line()})")
+    return bwd, rec
 
 
 def phase_scan_forward_train(dev: torch.device) -> list[dict]:
@@ -3660,6 +3749,27 @@ def phase_scan_forward_train(dev: torch.device) -> list[dict]:
     rng = np.random.RandomState(103)
     return [scan_forward_case(dev, "10b", TRAIN_B, TRAIN_T, hidden, False, rng, train=True)
             for hidden in SCAN_DW_HIDDEN]
+
+
+# the scan forms' kernels by name stem, in SCAN_COUNTERS' order
+SCAN_KINDS = {"scan forward": "lstm_fwd_scan_", "scan backward": "lstm_bwd_scan_", "scan dW": "lstm_scan_dw_"}
+
+
+def scan_step_split(rows, launched: tuple[int, int, int]) -> dict[str, tuple[float, int | None, int | None]]:
+    """A profiled scan train step's device time by kind: the scan forward,
+    backward and dW (each launch whose record torch.profiler dropped counted
+    at its kind's mean: it drops cooperative kernels' records) and the rest;
+    (ms, launches recorded, launches the wrapper counted) each."""
+    split = {}
+    for (kind, stem), made in zip(SCAN_KINDS.items(), launched):
+        total = sum(t for key, _, t in rows if stem in key)
+        recorded = sum(c for key, c, _ in rows if stem in key)
+        if recorded > made:
+            raise AssertionError(f"the profiler recorded {recorded} {kind} launches, the wrapper made {made}")
+        split[kind] = ((total + (made - recorded) * (total / recorded if recorded else 0.0)) / 1e3, recorded, made)
+    rest = sum(t for key, _, t in rows if not any(stem in key for stem in SCAN_KINDS.values()))
+    split["rest"] = (rest / 1e3, None, None)
+    return split
 
 
 def phase_scan_training(dev: torch.device) -> dict:
@@ -3696,13 +3806,15 @@ def phase_scan_training(dev: torch.device) -> dict:
                                  f"{other}), losses {losses}")
         rows, wall_us, prof_launched = device_activity(lambda: solver._step_fn(solver.state, x, emb),
                                                        counter=scan_counts)
-        busy = sum(t for _, _, t in rows)
-        scan_dw_us = sum(t for key, _, t in rows if "lstm_scan_dw_kernel" in key)
+        split = scan_step_split(rows, prof_launched)
+        busy = sum(ms for ms, _, _ in split.values()) * 1e3
+        scan_dw_us = split["scan dW"][0] * 1e3
         log(f"10b {SCAN_TRAIN_STEPS} scan Solver steps: g_loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
             f"(scan fwd, bwd, dW) {launched}; step p50 {timing['step_ms_p50']:.2f} ms, p95 {timing['step_ms_p95']:.2f} "
             f"ms; one warm step: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall (idle share "
-            f"{1 - busy / wall_us:.3f}; the recorded scan forms: launches {prof_launched}, the scan dW kernel "
-            f"{scan_dw_us / 1e3:.3f} ms) (card: {card_line()})")
+            f"{1 - busy / wall_us:.3f}); its split: "
+            + ", ".join(f"{k} {ms:.3f} ms" + ("" if made is None else f" ({rec} of {made} launches recorded)")
+                        for k, (ms, rec, made) in split.items()) + f" (card: {card_line()})")
         # every LSTM counter (LSTM_COUNTERS' order, then scan_dw_launches):
         # the scan rounding launches only the scan forms, --pallas only the
         # Pallas-rounding forms
@@ -3732,6 +3844,7 @@ def phase_scan_training(dev: torch.device) -> dict:
         raise AssertionError(f"{tmp} was not removed")
     return {"launches": launched, "step_ms_p50": timing["step_ms_p50"], "step_ms_p95": timing["step_ms_p95"],
             "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us, "scan_dw_step_ms": scan_dw_us / 1e3,
+            "split_ms": {k: ms for k, (ms, _, _) in split.items()},
             "cli": cli, **gate}
 
 
@@ -4005,17 +4118,18 @@ def variant_launches(var: dict, counter: str) -> dict[str, int]:
 
 
 def scan_entries(fwd: dict, bwd: dict, by_path: dict[str, tuple[int, int]], spk: dict, generator: dict,
-                 more_shapes: dict) -> list[dict]:
+                 more_shapes: dict, bwd_train: dict) -> list[dict]:
     """The scan forms' lines of the kernels JSON: launches on each main path
     (``by_path``: forward, backward; 8c's ``cli.train --bf16 --lambda_spk``,
     10a's bench program, 10b's Solver steps and ``cli.train --bf16``), the
     times a sequence at the lambda_spk step's d-vector shape (H=768, B=7,
     T=128), every shape of 8d beside them, 8e's step; 10a's Generator
     shapes beside the forward's, and ``more_shapes`` (10b's training form,
-    11a's GE2E batch)."""
+    11a's GE2E batch); 10b's training shapes beside the backward's
+    (``bwd_train``: a sequence and a train step)."""
     entries = []
     for i, (name, rec, source) in enumerate((("lstm_scan_fwd", fwd, "lstm_scan_fwd.cu"),
-                                             ("lstm_bwd_scan", bwd, "lstm_bwd.cu"))):
+                                             ("lstm_scan_bwd", bwd, "lstm_scan_bwd.cu"))):
         head = next(r for r in rec["shapes"] if (r["hidden"], r["batch"]) == (768, TRAIN_B))
         entries.append({
             "name": name, "route": "cuda", "source": f"autovc_tpu_torch/ops/csrc/{source}",
@@ -4027,12 +4141,13 @@ def scan_entries(fwd: dict, bwd: dict, by_path: dict[str, tuple[int, int]], spk:
             "ms": head["device_ms"], "events_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shapes": rec["shapes"], "bf16_spk_step": spk,
-            **({"generator": generator, **more_shapes} if i == 0 else {})})
+            **({"generator": generator, **more_shapes} if i == 0 else {"train_b7": bwd_train})})
     return entries
 
 
 def main(argv: list[str] | None = None) -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    started = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--trained", action="store_true", help="load the committed artifacts instead of seeded weights")
     args = ap.parse_args(argv)
@@ -4099,7 +4214,7 @@ def main(argv: list[str] | None = None) -> int:
             f"{scan_bench['iteration_ms']:.1f} ms an iteration, {scan_bench['realtime']:.1f}x realtime, mel "
             f"{scan_bench['parity']['mel_maxabs_delta']:.4f} from f32; --pallas {bf_bench['iteration_ms']:.1f} ms, "
             f"{bf_bench['realtime']:.1f}x, mel {bf_bench['parity']['mel_maxabs_delta']:.4f}")
-        scan_dw = phase_scan_dw(dev)
+        scan_bwd_train, scan_dw = phase_scan_train_kernels(dev)
         scan_fwd_train = phase_scan_forward_train(dev)
         scan_train = phase_scan_training(dev)
         log(f"phase 10 (the scan rounding): {time.perf_counter() - t0:.1f} s")
@@ -4253,8 +4368,8 @@ def main(argv: list[str] | None = None) -> int:
         "library_ms": None,
         **bf_gates,
     }, *scan_entries(scan_fwd, scan_bwd, scan_paths, bf_spk, scan_gen,
-                     {"train_form_b7": scan_fwd_train, "ge2e_batch": ge2e["scan_forward"]}), {
-        "name": "lstm_bwd.scan_dw",
+                     {"train_form_b7": scan_fwd_train, "ge2e_batch": ge2e["scan_forward"]}, scan_bwd_train), {
+        "name": "lstm_scan_dw",
         "route": "cuda",
         "source": "autovc_tpu_torch/ops/csrc/lstm_scan_dw.cu",
         "replaces": "autovc_tpu/models/layers.py:123 (the w_hh cotangent of _lstm_scan's transposed lax.scan in "
@@ -4264,7 +4379,8 @@ def main(argv: list[str] | None = None) -> int:
         # sequences at B=7, T=128 (device time), the plain loop's, the
         # bound at the bfloat16 tensor cores' peak, and torch.matmul of the
         # one-shot product over K = B*T (which rounds once: not this
-        # function)
+        # function); the replaced kernel's recorded time and the latency
+        # bound are in the log only
         "launches": scan_train["launches"][2],
         "launches_by_path": {"train_bf16_default": scan_train["launches"][2],
                              "cli_train_bf16_default": cli_scan[8]},
@@ -4330,6 +4446,7 @@ def main(argv: list[str] | None = None) -> int:
                              "evaluate_vocoder": {k: v["sosfilt"] for k, v in eval_by.items()}},
     }]
     faulthandler.cancel_dump_traceback_later()
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s wall of the {WATCHDOG_S} s watchdog")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,20 +23,14 @@ over it give the clock the run held), and the card's largest SM clock. The kerne
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-
-from autovc_tpu_torch.ops import _build  # noqa: E402
-from autovc_tpu_torch.ops import lstm as lstm_ops  # noqa: E402
+import scan_stamps
+from autovc_tpu_torch.ops import _build
+from autovc_tpu_torch.ops import lstm as lstm_ops
 
 # (B, T, H, SMs to plan for: None the card's; H / 16 forces 16 units a block)
 CASES = [(32, 512, 1024, None), (32, 512, 1024, 64), (32, 512, 512, None), (32, 512, 32, None), (7, 128, 1024, None)]
@@ -44,24 +38,10 @@ PARTS = {"b": ("fence", "copies", "prefetch", "copy_product", "cell", "barrier")
 MAX_BLOCKS, SLOTS = 512, 6
 
 
-def card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def sm_clock_mhz() -> float:
-    """The card's largest SM clock (nvidia-smi reads the current one idle)."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    return float(out)
-
-
 def instrumented_source() -> str:
     """lstm_scan_fwd.cu with clock stamps (see the module's notes)."""
     src = (_build.CSRC / "lstm_scan_fwd.cu").read_text()
     edits = [
-        ('#include "lstm_common.cuh"\n',
-         f'#include "lstm_common.cuh"\n\n__device__ long long g_prof[{MAX_BLOCKS}][SLOTS];\n'),
         # regime (b)
         ("      const int b0 = tile * N, rows = min(N, a.B - b0);\n",
          "      const int b0 = tile * N, rows = min(N, a.B - b0);\n"
@@ -96,43 +76,15 @@ def instrumented_source() -> str:
          "    if (threadIdx.x == 0) {\n      g_prof[blockIdx.x][0] += T1 - T0;\n"
          "      g_prof[blockIdx.x][1] += T2 - T1;\n      g_prof[blockIdx.x][2] += clock64() - T2;\n    }\n  }\n"),
     ]
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"lstm_scan_fwd.cu has changed: the stamp anchor {old!r} is not there once")
-        src = src.replace(old, new)
-    src = src.replace("SLOTS", str(SLOTS))
-    return src + f"""
-extern "C" int autovc_scan_prof(long long* out, int zero) {{
-  if (zero) {{
-    static long long z[{MAX_BLOCKS}][{SLOTS}] = {{}};
-    return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
-  }}
-  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
-}}
-"""
-
-
-def build() -> ctypes.CDLL:
-    out = ROOT / "build" / "scan_fwd_phases"
-    out.mkdir(parents=True, exist_ok=True)
-    cu = out / "lstm_scan_fwd_phases.cu"
-    cu.write_text(instrumented_source())
-    lib = out / "lstm_scan_fwd_phases.so"
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    subprocess.run([_build.find_nvcc(), *flags, "-I", str(_build.CSRC), "-o", str(lib), str(cu)], check=True)
-    dll = ctypes.CDLL(str(lib))
-    dll.autovc_scan_prof.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    dll.autovc_scan_prof.restype = ctypes.c_int
-    return dll
+    return scan_stamps.instrument(src, edits, "lstm_scan_fwd.cu", MAX_BLOCKS, SLOTS)
 
 
 def main() -> None:
     dev = torch.device("cuda")
-    dll = build()
+    dll = scan_stamps.build(instrumented_source(), "scan_fwd_phases")
     _build._loaded["lstm_scan_fwd"] = dll  # the wrapper launches the instrumented copy
-    mhz = sm_clock_mhz()
-    print(f"card: {card()}; largest SM clock {mhz:.0f} MHz", flush=True)
-    prof = np.zeros((MAX_BLOCKS, SLOTS), dtype=np.int64)
+    mhz = scan_stamps.sm_clock_mhz()
+    print(f"card: {scan_stamps.card()}; largest SM clock {mhz:.0f} MHz", flush=True)
     card_plan = lstm_ops.scan_plan
     for b, t, hidden, sms in CASES:
         rng = np.random.RandomState(hidden)
@@ -141,22 +93,9 @@ def main() -> None:
         w = torch.from_numpy(rng.uniform(-lim, lim, (hidden, 4 * hidden)).astype(np.float32)).to(dev).bfloat16()
         plan = card_plan(b, hidden, sms or lstm_ops._card_sms(0))
         lstm_ops.scan_plan = lambda *_, plan=plan: plan  # the wrapper launches this plan
-        lstm_ops.lstm_scan_forward_cuda(x, w)  # warm
-        torch.cuda.synchronize()
-        if dll.autovc_scan_prof(None, 1) != 0:
-            raise RuntimeError("could not zero the stamps")
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        lstm_ops.lstm_scan_forward_cuda(x, w)
-        end.record()
-        torch.cuda.synchronize()
-        if dll.autovc_scan_prof(prof.ctypes.data, 0) != 0:
-            raise RuntimeError("could not read the stamps")
+        prof, ms = scan_stamps.stamped(dll, lambda: lstm_ops.lstm_scan_forward_cuda(x, w), MAX_BLOCKS, SLOTS)
         names = PARTS[plan.regime]
-        per_step = prof[:plan.blocks, :len(names)] / t
-        ms = start.elapsed_time(end)
-        parts = {n: {"mean": float(per_step[:, i].mean()), "max": float(per_step[:, i].max())}
-                 for i, n in enumerate(names)}
+        parts = scan_stamps.parts(prof[:plan.blocks, :len(names)] / t, names)
         total = sum(v["mean"] for v in parts.values())
         us = ms / t * 1e3
         print(json.dumps({"B": b, "T": t, "H": hidden, "plan": plan.__dict__, "cycles_a_step": parts,

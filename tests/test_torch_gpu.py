@@ -1295,7 +1295,10 @@ def test_lstm_gates_kernel_raises_for_what_tma_refuses(cuda):
 # loop's own spread: at B=1 a flip in the carry happens in few orders of the
 # sums (H100, 700 W: 1 in 32 at H=768 reverse), so the spread takes 32.
 SCAN_STEPS, SPREAD_MULT, RELABELLINGS = 16, 2.0, 32
-SCAN_SHAPES = [(7, 128, 32), (1, 128, 256), (7, 128, 256), (8, 128, 768), (7, 128, 768)]
+SCAN_SHAPES = [(7, 128, 32), (1, 128, 256), (7, 128, 256), (8, 128, 768), (7, 128, 768),
+               # the Generator's training sequences; a regime (a) of two blocks and a k16 tail; two batch
+               # tiles of 16 rows; a K of 2.5 swizzle atoms with a k16 tail
+               (7, 128, 512), (7, 128, 1024), (11, 40, 24), (20, 48, 64), (3, 40, 40)]
 
 
 def _scan_plain(x, w, dy, reverse, perm=None):
@@ -1341,7 +1344,7 @@ def test_lstm_scan_kernels_match_plain(cuda, b, t, hidden, reverse):
     alone. The residuals c_seq and act within the same rule."""
     x, w, dy = _scan_inputs(36, b, t, hidden, cuda)
     plan = lstm_ops.scan_plan(b, hidden, lstm_ops._card_sms(0))
-    assert plan.regime == ("a" if hidden == 32 else "b")
+    assert plan.regime == ("a" if hidden <= 32 else "b")
     before = [lstm_ops.launches, lstm_ops.scan_launches, lstm_ops.bwd_launches, lstm_ops.scan_bwd_launches,
               lstm_ops.bf16_launches, lstm_ops.dw_launches]
     h_seq, c_seq, act, hn, cn = lstm_ops.lstm_scan_forward_cuda(x, w, reverse=reverse, with_residuals=True)
@@ -1352,6 +1355,7 @@ def test_lstm_scan_kernels_match_plain(cuda, b, t, hidden, reverse):
              lstm_ops.bf16_launches, lstm_ops.dw_launches]
     assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 1, 0, 0]
     assert lstm_ops.last_launch["scan_fwd"][0] == plan
+    assert lstm_ops.last_launch["scan_bwd"][0] == lstm_ops.scan_bwd_plan(b, hidden, lstm_ops._card_sms(0))
     others = [_scan_plain(x, w, dy, reverse, torch.from_numpy(np.random.RandomState(k).permutation(hidden)).to(cuda))
               for k in range(RELABELLINGS)]
     early, late = slice(0, SCAN_STEPS), slice(t - SCAN_STEPS, t)
@@ -1367,6 +1371,30 @@ def test_lstm_scan_kernels_match_plain(cuda, b, t, hidden, reverse):
           f"steps {_bf16_ulps(h_seq[:, fwd_first], want[0][:, fwd_first]):.1f} ulps, own {fwd[2]:.1f}), dxproj "
           f"{bwd[0]:.2e} ({bwd[1]:.2e}; {_bf16_ulps(dx[:, bwd_first], want[3][:, bwd_first], BWD_FLOOR):.1f}, "
           f"own {bwd[2]:.1f})")
+
+
+def test_lstm_scan_forward_checks_the_backward_only_in_training(cuda, monkeypatch):
+    """On a card of 100 SMs (fewer than H / 8 at H=1024) the scan forward's
+    inference takes ``scan_plan``'s 16 units a block, within the scan rule
+    against the plain loop; its training form (with residuals) raises
+    before a launch, where the scan backward has no plan."""
+    b, t, hidden = 7, 24, 1024
+    monkeypatch.setattr(lstm_ops, "_card_sms", lambda index: 100)
+    assert lstm_ops.scan_bwd_plan(b, hidden, 100) is None
+    x, w, dy = _scan_inputs(43, b, t, hidden, cuda)
+    before = lstm_ops.scan_launches
+    h_seq = lstm_ops.lstm_scan_forward_cuda(x, w)[0]
+    torch.cuda.synchronize()
+    assert lstm_ops.scan_launches == before + 1
+    assert lstm_ops.last_launch["scan_fwd"][0] == lstm_ops.scan_plan(b, hidden, 100)
+    assert lstm_ops.last_launch["scan_fwd"][0].units == 16
+    want = _scan_plain(x, w, dy, False)
+    others = [_scan_plain(x, w, dy, False, torch.from_numpy(np.random.RandomState(k).permutation(hidden)).to(cuda))
+              for k in range(RELABELLINGS)]
+    _hold_scan(h_seq, want[0], [o[0] for o in others], slice(0, SCAN_STEPS), 2.0 ** -16)
+    with pytest.raises(ValueError, match="scan backward"):
+        lstm_ops.lstm_scan_forward_cuda(x, w, with_residuals=True)
+    assert lstm_ops.scan_launches == before + 1
 
 
 def test_lstm_scan_function_on_card_runs_the_scan_kernels(cuda):
@@ -1481,7 +1509,10 @@ def test_lstm_scan_forward_units_a_block(cuda, hidden, monkeypatch):
 # the same two roundings, so 1 bfloat16 ulp (floored at BWD_FLOOR of the
 # peak) and 99% bit-equal.
 SCAN_DW_SHAPES = [(7, 128, 32), (7, 128, 512), (7, 128, 1024), (32, 128, 256), (37, 20, 64), (1, 5, 8),
-                  (20, 128, 768)]
+                  (20, 128, 768),
+                  # batches past one box a step at the widest tile: a narrower tile; two slabs of 150 rows
+                  # (past a TMA box's 256) in it and in the smallest tile; two of 80 (two buffers' bytes)
+                  (96, 16, 1024), (300, 8, 1024), (300, 8, 32), (160, 8, 512)]
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -1491,8 +1522,9 @@ def test_lstm_scan_weight_grad_kernel_matches_plain(cuda, b, t, hidden, reverse)
     ``lstm_scan_bf16_weight_grad_ref`` on the plain scan chain's h_seq and
     dxproj (so the kernel is held alone), with a bfloat16 h0: within 1 ulp
     floored at BWD_FLOOR of the peak, 99% bit-equal; one launch; two calls
-    the same bits. B=37 stages two chunks of batch rows, H=8 one partial
-    tile."""
+    the same bits. H=8 is one partial tile; B=96 at H=1024 takes a
+    narrower tile than B=7 (one box a step no longer fits the widest), and
+    B=300 and B=160 split each step's batch into slabs (``scan_dw_plan``)."""
     x, w, dy = _scan_inputs(40, b, t, hidden, cuda)
     h0 = torch.from_numpy(np.random.RandomState(41).randn(b, hidden).astype(np.float32) * 0.5).to(cuda).to(BF)
     h_seq, c_seq, act, _, _ = lstm_ops.lstm_scan_bf16_train_ref(x, w, h0, None, reverse)
