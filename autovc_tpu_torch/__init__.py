@@ -23,7 +23,9 @@ HiFi-GAN); and the generator family's other two variants, stft (513 bins)
 and wav (``models.GeneratorWav``, a ConvTasNet front and back end around
 the core), trained and converted in float32 and bfloat16, with the
 conversion and evaluation CLIs (``cli.convert``, ``cli.evaluate``,
-``cli.evaluate_conversion``).
+``cli.evaluate_conversion``); and serving: ``torch.export`` bundles of the
+converter and vocoder programs (``serve``), ``cli.export_ckpt``,
+``cli.export_serving`` and the HTTP server ``cli.serve``.
 
     config     AudioConfig / ModelConfig / TrainConfig / Config / WaveNetConfig /
                HiFiGANConfig
@@ -44,10 +46,12 @@ conversion and evaluation CLIs (``cli.convert``, ``cli.evaluate``,
     vocoder    HiFi-GAN, WaveNet and Griffin-Lim
     convert    Converter (spmel, stft: the mel projection, buckets),
                WavConverter, run_conversions, all_pairs_specs
+    serve      export_converter and ServingConverter: exported programs
     cli        python -m autovc_tpu_torch.cli.train, cli.make_spect,
                cli.make_metadata, cli.evaluate_speaker_encoder,
                cli.synthesize, cli.convert, cli.evaluate,
-               cli.evaluate_conversion
+               cli.evaluate_conversion, cli.export_ckpt,
+               cli.export_serving, cli.serve
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card they
 raise. Pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.

@@ -203,11 +203,13 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class Config:
-    """Top-level config tree of the training path."""
+    """Top-level config tree of the training and serving paths."""
 
+    audio: AudioConfig = field(default_factory=AudioConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     speaker: SpeakerEncoderConfig = field(default_factory=SpeakerEncoderConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    hifigan: HiFiGANConfig = field(default_factory=HiFiGANConfig)
     main_dir: str = "."
     run_name: str = "run"
     run_id: str | None = None

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Any, Sequence
+from typing import TYPE_CHECKING, Any, Sequence
 
 import numpy as np
 import torch
@@ -34,7 +34,9 @@ from autovc_tpu_torch.config import AudioConfig, ModelConfig, wav_len_crop
 from autovc_tpu_torch.data.manifest import ConversionSpec, SpeakerEntry, save_results
 from autovc_tpu_torch.dsp.features import MelFrontend
 from autovc_tpu_torch.dsp.mel import mel_filterbank
-from autovc_tpu_torch.models import Generator, GeneratorWav
+
+if TYPE_CHECKING:  # the serving path imports pad_seq without the model code
+    from autovc_tpu_torch.models import Generator, GeneratorWav
 
 
 def pad_seq(x: np.ndarray, base: int = 32) -> tuple[np.ndarray, int]:

@@ -18,6 +18,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def hann_window(n_fft: int, dtype=np.float32) -> np.ndarray:
@@ -74,6 +75,28 @@ def stft_magnitude(x: torch.Tensor, n_fft: int = 1024, hop: int = 256) -> torch.
     return torch.abs(stft_complex(x, n_fft, hop))
 
 
+def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """(..., T, n_fft) frames at stride hop -> (..., n_fft + (T-1)*hop),
+    summed as the JAX package sums them: k = n_fft / hop phase streams (the
+    frames f with f % k == p, which do not overlap), added in phase order.
+    Hop block j of the output takes chunk q of frame j - q for q < k: each
+    chunk is shifted into place by padding, and stream p takes at block j
+    the chunk of the one frame of phase p there (q = (j - p) % k, zero past
+    the ends), so that no size hangs on a comparison with T (which
+    torch.export cannot prove for a symbolic T: ``serve.py``'s hybrid
+    program)."""
+    t, n_fft = frames.shape[-2:]
+    k = n_fft // hop
+    chunks = frames.reshape(*frames.shape[:-1], k, hop)
+    shifted = torch.stack([F.pad(chunks[..., q, :], (0, 0, q, k - 1 - q)) for q in range(k)], dim=-3)
+    block = torch.arange(t + k - 1, device=frames.device)
+    total = None
+    for p in range(k):
+        stream = shifted[..., (block - p) % k, block, :]  # (..., T + k - 1, hop)
+        total = stream if total is None else total + stream
+    return total.reshape(*frames.shape[:-2], -1)
+
+
 def istft(
     spec: torch.Tensor,
     n_fft: int = 1024,
@@ -91,32 +114,11 @@ def istft(
 
     t = spec.shape[-2]
     out_len = n_fft + (t - 1) * hop
-    batch_shape = frames.shape[:-2]
     if n_fft % hop:
         raise ValueError("istft requires n_fft divisible by hop")
-    k = n_fft // hop
-
-    # k phase streams of frames, each made of non-overlapping frames (stride
-    # k*hop = n_fft), added in phase order as the JAX package adds them
-    pad_t = (-t) % k
-    frames_p = torch.cat([frames, frames.new_zeros(*batch_shape, pad_t, n_fft)], dim=-2)
-    size = out_len + pad_t * hop + n_fft
-    total = frames.new_zeros(*batch_shape, size)
-    wsum = torch.zeros(size, dtype=torch.float32, device=frames.device)
-    w2 = window.float() ** 2
-    for phase in range(k):
-        sub = frames_p[..., phase::k, :]
-        n_sub = sub.shape[-2]
-        start = phase * hop
-        total[..., start : start + n_sub * n_fft] += sub.reshape(*batch_shape, n_sub * n_fft)
-        # the window sum counts real frames only, not the zero frames padded
-        # in to make t divide k
-        n_real = (t - phase + k - 1) // k if phase < t else 0
-        if n_real:
-            wsum[start : start + n_real * n_fft] += w2.repeat(n_real)
-
-    total = total[..., :out_len]
-    wsum = wsum[:out_len]
+    total = _overlap_add(frames, hop)
+    # the window sum counts real frames only
+    wsum = _overlap_add((window.float() ** 2).expand(t, n_fft), hop)
     y = total / torch.clamp(wsum, min=1e-10).to(total.dtype)
     pad = n_fft // 2
     if length is None:

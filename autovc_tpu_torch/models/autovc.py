@@ -57,11 +57,12 @@ class Encoder(nn.Module):
             h = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(h)))
         out = self.blstm(h)
         # Per block of freq steps: the forward state at the block's end and
-        # the backward state at its start.
-        nb = t // self.freq
-        fwd = out[..., : self.dim_neck].reshape(b, nb, self.freq, self.dim_neck)
-        bwd = out[..., self.dim_neck :].reshape(b, nb, self.freq, self.dim_neck)
-        return torch.cat([fwd[:, :, -1], bwd[:, :, 0]], dim=-1)
+        # the backward state at its start. The contiguous output is viewed
+        # as blocks before it is sliced, so that under torch.export
+        # (``autovc_tpu_torch.serve``) no size of the batch or of T is
+        # guarded on.
+        blocks = out.reshape(b, t // self.freq, self.freq, 2 * self.dim_neck)
+        return torch.cat([blocks[:, :, -1, : self.dim_neck], blocks[:, :, 0, self.dim_neck :]], dim=-1)
 
 
 class Decoder(nn.Module):
@@ -124,9 +125,12 @@ class Generator(nn.Module):
         return codes.reshape(codes.shape[0], -1)
 
     def decode(self, codes: torch.Tensor, c_trg: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """codes (B, nb, 2 * dim_neck) + target embedding -> (x_identic, x_identic_psnt)."""
-        nb = codes.shape[1]
-        dec_in = _cat(codes.repeat_interleave(t // nb, dim=1), c_trg)
+        """codes (B, nb, 2 * dim_neck) + target embedding -> (x_identic,
+        x_identic_psnt) over t = nb * freq steps (each code repeated freq
+        times: a constant, which torch.export keeps provable)."""
+        if t != codes.shape[1] * self.encoder.freq:
+            raise ValueError(f"{t} steps are not {codes.shape[1]} blocks of freq {self.encoder.freq}")
+        dec_in = _cat(codes.repeat_interleave(self.encoder.freq, dim=1), c_trg)
         x_identic = self.decoder(dec_in)
         return x_identic, x_identic + self.postnet(x_identic)
 

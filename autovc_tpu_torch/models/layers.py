@@ -256,6 +256,10 @@ class LSTM(nn.Module):
         bf16 = x.dtype == torch.bfloat16 if self.bf16 is None else self.bf16
         h = x
         for layer in range(self.num_layers):
+            # contiguous, the input product is one (B*T, C) product; a strided
+            # h takes matmul's batched path, whose export (serve.py) guards
+            # the batch against 1
+            h = h.contiguous()
             outs = []
             for d in self.directions:
                 w_ih = getattr(self, f"w_ih_l{layer}_{d}")

@@ -2,7 +2,8 @@
 
     lstm    LSTM recurrence, forward and backward (CUDA, csrc/lstm_fwd.cu,
             csrc/lstm_bwd.cu; csrc/lstm_gates.cu, the bfloat16 backward's
-            gate activations)
+            gate activations); the inference forward is also the operator
+            torch.ops.autovc.lstm_sequence
     wavenet autoregressive WaveNet generation (CUDA, csrc/wavenet_gen.cu)
     mel     mel projection fused with the dB normalization (CUDA,
             csrc/mel_norm.cu)

@@ -10,6 +10,10 @@ direction of a BLSTM) and returns the sequence in natural time order.
 - ``lstm_sequence`` (inference, and training through ``LSTMSequenceFn`` when
   grad is on) launches ``csrc/lstm_fwd.cu`` for a CUDA tensor and runs the
   plain version for a CPU tensor; there is no fallback from one to the other.
+  Its inference form is the operator ``torch.ops.autovc.lstm_sequence``
+  (``torch.library.custom_op``: a CPU and a CUDA kernel, no default, a fake
+  implementation), which ``torch.export`` keeps as one graph node
+  (``autovc_tpu_torch.serve``).
 - ``LSTMSequenceFn`` is the differentiable form, (xproj, w_hh, h0, c0) ->
   (h_seq, hN, cN): its forward runs the kernel's training form, which also
   keeps the cell sequence and the gate activations; its backward runs
@@ -1240,15 +1244,33 @@ class LSTMSequenceFn(torch.autograd.Function):
         return dx, dw, dh0 if h0_grad else None, dc0 if c0_grad else None, None, None
 
 
+@torch.library.custom_op("autovc::lstm_sequence", mutates_args=(), device_types="cpu")
+def _lstm_sequence_op(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool, scan: bool) -> torch.Tensor:
+    """The inference forward as the operator ``torch.ops.autovc.lstm_sequence``,
+    so that ``torch.export`` keeps each recurrence as one graph node (the
+    serving bundles, ``autovc_tpu_torch.serve``): the plain version for a CPU
+    tensor, ``lstm_sequence_cuda`` for a CUDA tensor (registered below); any
+    other device raises, as no default implementation is registered."""
+    return lstm_sequence_ref(xproj, w_hh, reverse, scan)
+
+
+_lstm_sequence_op.register_kernel("cuda")(lstm_sequence_cuda)
+
+
+@_lstm_sequence_op.register_fake
+def _(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool, scan: bool) -> torch.Tensor:
+    # B and T are symbolic under export: sizes pass through, never as ints
+    return xproj.new_empty((xproj.shape[0], xproj.shape[1], w_hh.shape[0]))
+
+
 def lstm_sequence(xproj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False, scan: bool = False
                   ) -> torch.Tensor:
     """(B, T, 4H), (H, 4H) -> (B, T, H) from a zero state: the kernel for a
-    CUDA tensor, the plain version for a CPU tensor; through
-    ``LSTMSequenceFn`` when grad is on and an input requires it. ``scan``
-    (bfloat16): the scan rounding (``lstm_scan_bf16_train_ref``)."""
-    kind = _device_kind(xproj)
+    CUDA tensor, the plain version for a CPU tensor (both through the
+    operator ``autovc::lstm_sequence``); through ``LSTMSequenceFn`` when
+    grad is on and an input requires it. ``scan`` (bfloat16): the scan
+    rounding (``lstm_scan_bf16_train_ref``)."""
+    _device_kind(xproj)
     if torch.is_grad_enabled() and (xproj.requires_grad or w_hh.requires_grad):
         return LSTMSequenceFn.apply(xproj, w_hh, None, None, reverse, scan)[0]
-    if kind == "cuda":
-        return lstm_sequence_cuda(xproj, w_hh, reverse, scan)
-    return lstm_sequence_ref(xproj, w_hh, reverse, scan)
+    return torch.ops.autovc.lstm_sequence(xproj, w_hh, reverse, scan)

@@ -260,13 +260,28 @@ griffinlim, hifigan and hybrid on 4 utterances and wavenet on the shortest
 one (11b's checkpoints), the launches of each asserted (one mel_norm and
 two sosfilt an utterance, one WaveNet launch).
 
+Phase 12 serves (``autovc_tpu_torch.serve``, ``cli.serve``): (a) bundles
+of phase 2's Generator and HiFi-GAN in float32, in bfloat16 (the scan rounding, the default) and in the Pallas rounding,
+loaded with ``ServingConverter`` on the card; each converter program at
+B=32, T=512 bit for bit against the live ``Converter``, 7 launches of its
+LSTM form a call and 7 ``autovc::lstm_sequence`` nodes in its graph, and
+against the plain engine on the card (float32 1e-4; bfloat16 within half
+the plain engine's own distance from float32); its ms and the vocoder's
+beside the live pipeline's; (b) an stft bundle and a hybrid bundle
+(gl_iters=2) converting one utterance each, within 5e-4 of the live
+staging; (c) ``cli.serve``'s server in a thread (--batch_window 5
+--max_batch 16 --bucket 256 --warmup 256,512): 32 requests of 228-484
+frames from 8 client threads, each response within 1e-6 of a solo call at
+the same bucket padding; requests/s, p50 and p95 latency, the mean batch; a request
+without batching, and a malformed one (400).
+
 The kernels are built first, one ``nvcc`` each, started together.
 
 The output ends with the card's name and power limit, one JSON line of
 kernel records, and ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; a watchdog ends a hung run with a stack dump. Without a CUDA
 device it exits non-zero before doing anything. It writes nothing outside
-the kernel build directory but the temporary directories of phases 4-11,
+the kernel build directory but the temporary directories of phases 4-12,
 which it removes.
 """
 
@@ -2074,6 +2089,8 @@ def phase_speaker_training(dev: torch.device, ckpt: str) -> dict:
 BF16 = torch.bfloat16
 LSTM_BF16_ULPS, LSTM_BF16_EQUAL = 1.0, 0.99  # the same rounding points, float32 sums in another order
 BENCH_MEL_DELTA = 0.06  # bench.py:151-158's bound on the bf16-vs-f32 mel (recorded here, not a gate)
+# 10a's iteration before serving, as PERF.md §5 records it (NVIDIA H100 80GB HBM3, 700.00 W)
+RECORDED_BENCH_BF16_MS = 124.9
 WN_BF16_PLAIN_T = 256  # samples of the plain bfloat16 loop (it and its reordered twin: ~10 s on the card)
 # the bfloat16 kernel's gates: this many times the plain loop's own spread
 # in this run, and no tighter than phase 3's float32 gates
@@ -4110,6 +4127,287 @@ def phase_evaluate_vocoder(dev: torch.device, main_dir: str, tmp: str, ckpts: di
     return out
 
 
+# ------------------------------------------------------ phase 12: serving
+# Bundles of the published spmel Generator and HiFi-GAN V1 (serve.py) at
+# phase 2's cell (B=32, T=512); the server (cli.serve) on requests of phase
+# 9d's utterance lengths. Cut: 32 requests from 8 clients.
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_FRAMES = 32, 8, (228, 484)
+SERVE_ARGS = ["--batch_window", "5", "--max_batch", "16", "--bucket", "256", "--warmup", "256,512"]
+# a batched response against the same request alone at the bucket's padding
+# (tests/test_serve.py's 1e-6): the LSTM plans and cuBLAS's and cuDNN's
+# kernels are chosen by the batch, so a row's sums may take another order
+SERVE_BATCH_TOL = 1e-6
+SERVE_TOL = 5e-4  # the stft and hybrid bundles against the live staging (tests/test_serve.py:132's)
+SERVE_BF16_SHARE = 0.5  # the bf16 program from the plain bf16 engine, of the plain engine's distance from f32
+
+
+def serving_weights(trained: bool) -> tuple[dict, dict]:
+    """The JAX-layout trees a bundle takes: phase 2's generator and HiFi-GAN
+    (seeded, or the artifacts)."""
+    from autovc_tpu_torch.io import conv_state_to_jax, generator_state_to_jax, load_artifact, unflatten_params
+
+    art = ROOT / "artifacts"
+    if trained:
+        return load_artifact(str(art / "generator_spmel_f16.npz"))[0], load_artifact(str(art / "hifigan.npz"))[0]
+    gen = build_generator(ModelConfig(), device="cpu", seed=1)
+    voc = HiFiGANVocoder(device="cpu", seed=2)
+    return generator_state_to_jax(gen.state_dict()), unflatten_params(conv_state_to_jax(voc.model.state_dict()))
+
+
+def live_staging(dev: torch.device, cfg: Config, variables: dict, hifigan: dict | None, gl_iters: int | None = None):
+    """The live pipeline on the same weights: Converter and HiFiGANVocoder
+    (HybridVocoder with gl_iters)."""
+    from autovc_tpu_torch.io import generator_state_from_jax, hifigan_state_from_jax
+    from autovc_tpu_torch.vocoder import HybridVocoder
+
+    gen = build_generator(cfg.model, device=dev)
+    gen.load_state_dict(generator_state_from_jax(variables))
+    voc = None
+    if hifigan is not None:
+        voc = HiFiGANVocoder(device=dev, dtype=BF16 if cfg.model.compute_dtype == "bfloat16" else torch.float32)
+        voc.model.load_state_dict(hifigan_state_from_jax(hifigan))
+        if gl_iters is not None:
+            voc = HybridVocoder(voc, cfg.audio, n_iter=gl_iters)
+    return Converter(gen, cfg.model, cfg.audio), voc
+
+
+def serve_counts() -> tuple[int, int, int]:
+    return lstm_ops.launches, lstm_ops.bf16_launches, lstm_ops.scan_launches
+
+
+def phase_serving_programs(dev: torch.device, trained: bool, tmp: str, variables: dict, hifigan: dict) -> dict:
+    """12a: bundles of the spmel Generator in float32 (with the HiFi-GAN
+    program), in bfloat16 (the scan rounding, the default; with HiFi-GAN in
+    bfloat16) and in the Pallas rounding (converter alone), exported for
+    the card and loaded with ServingConverter there: the converter program
+    at B=32, T=512 bit for bit against the live Converter, 7 launches of
+    its form a call and 7 operator nodes in the graph, and against the
+    plain engine on the card (float32 LSTM_TOL; bf16 the relative rule:
+    within SERVE_BF16_SHARE of the plain engine's own distance from
+    float32); its ms and the vocoder's beside the live pipeline's. Cut: no
+    cpu program (a second trace of both programs on the host; the CPU
+    tests hold it)."""
+    from autovc_tpu_torch.serve import CONVERTER_NAME, ServingConverter, export_converter
+
+    rng = np.random.RandomState(12)
+    x = rng.rand(B, T, N_MELS).astype(np.float32)
+    emb = rng.randn(2, 256).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    eo, et = np.tile(emb[0], (B, 1)), np.tile(emb[1], (B, 1))
+    card = (dev.type,)
+    forms = {"f32": (ModelConfig(), card, True, 0),
+             "bf16": (ModelConfig(compute_dtype="bfloat16"), card, True, 2),
+             "bf16_pallas": (ModelConfig(compute_dtype="bfloat16", use_pallas_lstm=True), card, False, 1)}
+    out, served = {}, {}
+    for name, (mcfg, platforms, with_voc, counter) in forms.items():
+        cfg = Config(model=mcfg)
+        t0 = time.perf_counter()
+        bundle = export_converter(variables, cfg, os.path.join(tmp, name), hifigan_params=hifigan if with_voc else None,
+                                  platforms=platforms)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv = ServingConverter(bundle, device=dev)
+        load_s = time.perf_counter() - t0
+        program = torch.export.load(os.path.join(bundle, CONVERTER_NAME.format(platform=dev.type)))
+        nodes = sum(n.target == torch.ops.autovc.lstm_sequence.default for n in program.graph.nodes)
+        converter, voc = live_staging(dev, cfg, variables, hifigan if with_voc else None)
+        torch.cuda.synchronize()
+        zero_counts()
+        got = srv(x, eo, et)
+        torch.cuda.synchronize()
+        launched = serve_counts()
+        want = converter._forward(x, eo, et)
+        bits = bool(torch.equal(got, want))
+        apart = float((got - want).abs().max())
+        if launched[0] != 7 or launched[counter] != 7 or sum(launched[1:]) != (7 if counter else 0) or nodes != 7:
+            raise AssertionError(f"12a {name}: launches (all, bf16, scan) {launched}, {nodes} operator nodes")
+        with plain_recurrence():
+            plain = converter._forward(x, eo, et)
+        rec = {"export_s": export_s, "load_s": load_s, "launches": launched[counter], "nodes": nodes,
+               "bit_equal_live": bits, "live_max_abs": apart,
+               "plain_max_abs": float((got - plain).abs().max()), "plain_mean_abs": float((got - plain).abs().mean())}
+        if name == "f32":
+            held = rec["plain_max_abs"] <= LSTM_TOL
+        else:
+            rec["plain_f32_mean_abs"] = float((plain - served["f32"]).abs().mean())
+            held = rec["plain_mean_abs"] <= SERVE_BF16_SHARE * rec["plain_f32_mean_abs"]
+        with torch.inference_mode():
+            rec["ms"] = cuda_ms(lambda: srv(x, eo, et), reps=3)
+            rec["live_ms"] = cuda_ms(lambda: converter._forward(x, eo, et), reps=3)
+            if with_voc:
+                mels = got.clone()
+                rec["vocoder_ms"] = cuda_ms(lambda: srv.vocode(mels), reps=3)
+                rec["live_vocoder_ms"] = cuda_ms(lambda: voc.generate(mels), reps=3)
+                wav = srv.vocode(mels)
+                rec["vocoder_bit_equal_live"] = bool(torch.equal(wav, voc.generate(mels)))
+                finite = bool(torch.isfinite(wav).all())
+                if wav.shape != (B, T * HOP) or not finite:
+                    raise AssertionError(f"12a {name}: waveform {tuple(wav.shape)} finite={finite}")
+        log(f"12a serving {name}: export {export_s:.1f} s ({'+'.join(platforms)}), load {load_s:.1f} s; "
+            f"converter at B={B}, T={T}: launches {launched} (all, bf16, scan), {nodes} operator nodes; bit-equal "
+            f"to the live Converter {bits} (max abs {apart:.3e}); from the plain engine on the card max "
+            f"{rec['plain_max_abs']:.3e}, mean {rec['plain_mean_abs']:.3e}"
+            + (f" (the plain engine's mean from f32 {rec['plain_f32_mean_abs']:.3e})" if name != "f32" else "")
+            + f"; converter {rec['ms']:.2f} ms a call, live {rec['live_ms']:.2f}"
+            + (f"; vocoder {rec['vocoder_ms']:.2f} ms, live {rec['live_vocoder_ms']:.2f}, bit-equal "
+               f"{rec['vocoder_bit_equal_live']}" if with_voc else "") + f" (card: {card_line()})")
+        if not bits or not held or (with_voc and not rec["vocoder_bit_equal_live"]):
+            raise AssertionError(f"12a {name}: served against live / plain: {rec}")
+        if name == "f32":
+            out["srv"] = srv
+        served[name] = got
+        out[name] = rec
+    return out
+
+
+def phase_serving_variants(dev: torch.device, tmp: str, variables: dict, hifigan: dict) -> dict:
+    """12b: an stft bundle (a seeded 513-bin Generator, the mel projection in
+    the vocoder program) and a hybrid bundle (gl_iters=2), each converting
+    one utterance on the card: shape, finite, and within SERVE_TOL of the
+    live staging (Converter, its mel projection and HiFiGANVocoder /
+    HybridVocoder)."""
+    from autovc_tpu_torch.io import generator_state_to_jax
+    from autovc_tpu_torch.serve import ServingConverter, export_converter
+
+    rng = np.random.RandomState(13)
+    out = {}
+    for name, mcfg, gl_iters in (("stft", ModelConfig(model_type="stft"), None), ("hybrid", ModelConfig(), 2)):
+        cfg = Config(model=mcfg)
+        v = variables if name == "hybrid" else generator_state_to_jax(
+            build_generator(mcfg, device="cpu", seed=3).state_dict())
+        t0 = time.perf_counter()
+        srv = ServingConverter(export_converter(v, cfg, os.path.join(tmp, name), hifigan_params=hifigan,
+                                                platforms=(dev.type,), gl_iters=gl_iters), device=dev)
+        setup_s = time.perf_counter() - t0
+        frames = 300
+        feats = rng.rand(frames, mcfg.n_bins).astype(np.float32)
+        e = rng.randn(2, 256).astype(np.float32)
+        e /= np.linalg.norm(e, axis=1, keepdims=True)
+        converter, voc = live_staging(dev, cfg, v, hifigan, gl_iters)
+        zero_counts()
+        wav = srv.convert(feats, e[0], e[1])
+        torch.cuda.synchronize()
+        launched = serve_counts()
+        mel = converter.convert_to_mel(types.SimpleNamespace(src_features=feats, src_embedding=e[0],
+                                                             trg_embedding=e[1]))
+        want = voc.generate(mel).cpu().numpy()
+        apart = float(np.abs(wav - want).max())
+        log(f"12b serving {name}: export + load {setup_s:.1f} s; one utterance of {frames} frames -> {wav.shape}, "
+            f"launches (all, bf16, scan) {launched}; from the live staging max abs {apart:.3e} (peak "
+            f"{np.abs(want).max():.3f})")
+        if (wav.shape != (frames * HOP,) or not np.isfinite(wav).all() or launched != (7, 0, 0)
+                or not apart <= SERVE_TOL):
+            raise AssertionError(f"12b {name}: {wav.shape}, finite {np.isfinite(wav).all()}, launches {launched}, "
+                                 f"{apart} from the live staging")
+        out[name] = {"setup_s": setup_s, "live_max_abs": apart, "launches": launched[0]}
+    return out
+
+
+def phase_serving_http(dev: torch.device, srv, bundle: str) -> dict:
+    """12c: cli.serve's server (its parser and make_server: the bundle
+    loaded on the card, --batch_window 5 --max_batch 16 --bucket 256) on
+    127.0.0.1 at an ephemeral port, in a thread; SERVE_REQUESTS requests of
+    SERVE_FRAMES frames from SERVE_CLIENTS client threads, each response
+    held against a solo ServingConverter call at the same bucket padding
+    (SERVE_BATCH_TOL); requests/s, p50/p95 latency, /stats' mean batch; then
+    one request to the same bundle without batching (cli.serve's solo
+    handler) and a malformed one, which gets 400."""
+    import io as _io
+    import threading
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    from http.server import ThreadingHTTPServer
+
+    from autovc_tpu_torch.cli import serve as cli_serve
+    from autovc_tpu_torch.convert import bucket_length
+
+    args = cli_serve.build_parser().parse_args(["--bundle", bundle, "--port", "0", "--device", dev.type, *SERVE_ARGS])
+    httpd, server_srv, batcher = cli_serve.make_server(args)
+    solo = ThreadingHTTPServer(("127.0.0.1", 0), cli_serve.make_handler(server_srv, threading.Lock()))
+    threads = [threading.Thread(target=h.serve_forever, daemon=True) for h in (httpd, solo)]
+    for th in threads:
+        th.start()
+    url, solo_url = (f"http://127.0.0.1:{h.server_address[1]}" for h in (httpd, solo))
+    rng = np.random.RandomState(14)
+    reqs = []
+    for _ in range(SERVE_REQUESTS):
+        t = int(rng.randint(SERVE_FRAMES[0], SERVE_FRAMES[1] + 1))
+        e = rng.randn(2, 256).astype(np.float32)
+        reqs.append((rng.rand(t, N_MELS).astype(np.float32), *(e / np.linalg.norm(e, axis=1, keepdims=True))))
+
+    def post(base, req, **bad):
+        buf = _io.BytesIO()
+        np.savez(buf, **{"features": req[0], "emb_org": req[1], "emb_trg": req[2], **bad})
+        t0 = time.perf_counter()
+        body = urllib.request.urlopen(base + "/convert", data=buf.getvalue(), timeout=120).read()
+        return np.load(_io.BytesIO(body)), time.perf_counter() - t0
+
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            results = list(pool.map(lambda r: post(url, r), reqs))
+        wall = time.perf_counter() - t0
+        launched = serve_counts()
+        stats = json.loads(urllib.request.urlopen(url + "/stats", timeout=60).read())
+        lat = np.array([s for _, s in results]) * 1e3
+        worst = 0.0
+        for (feats, eo, et), (got, _) in zip(reqs, results):
+            tb = bucket_length(feats.shape[0], srv.manifest["freq"], 256)
+            row = srv(np.pad(feats, ((0, tb - feats.shape[0]), (0, 0)))[None], eo[None], et[None])[0, : feats.shape[0]]
+            want = srv.vocode(row[None])[0].cpu().numpy()
+            worst = max(worst, float(np.abs(got - want).max()))
+        solo_out, solo_s = post(solo_url, reqs[0])
+        solo_apart = float(np.abs(solo_out - srv.convert(*reqs[0])).max())
+        try:
+            post(url, reqs[0], features=np.zeros((4, 3), np.float32))
+            bad = None
+        except urllib.error.HTTPError as exc:
+            bad = exc.code
+        healthy = urllib.request.urlopen(url + "/healthz", timeout=60).read() == b"ok"
+    finally:
+        for h in (httpd, solo):
+            h.shutdown()
+            h.server_close()
+        batcher.close()
+        for th in threads:
+            th.join(timeout=30)
+    rec = {"requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS, "wall_s": wall,
+           "requests_per_s": SERVE_REQUESTS / wall,
+           "p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
+           "mean_batch": stats["mean_batch"], "program_calls": stats["program_calls"], "launches": launched[0],
+           "max_abs_from_solo": worst, "solo_ms": solo_s * 1e3, "solo_max_abs": solo_apart, "malformed_status": bad}
+    log(f"12c cli.serve ({' '.join(SERVE_ARGS)}): {SERVE_REQUESTS} requests of {SERVE_FRAMES[0]}-{SERVE_FRAMES[1]} "
+        f"frames from {SERVE_CLIENTS} clients in {wall:.2f} s: {rec['requests_per_s']:.1f} requests/s, latency p50 "
+        f"{rec['p50_ms']:.1f} ms, p95 {rec['p95_ms']:.1f} ms; /stats {json.dumps(stats)}; lstm launches "
+        f"{launched} (all, bf16, scan); each response from its solo call at the bucket's padding max abs {worst:.3e}; "
+        f"a request without batching {rec['solo_ms']:.1f} ms (max abs {solo_apart:.3e}); malformed -> {bad} "
+        f"(card: {card_line()})")
+    if (not worst <= SERVE_BATCH_TOL or solo_apart != 0.0 or bad != 400 or not healthy
+            or stats["requests"] != SERVE_REQUESTS or launched[0] != 7 * stats["program_calls"]):
+        raise AssertionError(f"12c: {rec}, /stats {stats}, healthy {healthy}")
+    return rec
+
+
+def phase_serving(dev: torch.device, trained: bool) -> dict:
+    """Phase 12: the serving path (12a-c), its bundles in a temp dir."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        variables, hifigan = serving_weights(trained)
+        programs = phase_serving_programs(dev, trained, tmp, variables, hifigan)
+        srv = programs.pop("srv")
+        variants = phase_serving_variants(dev, tmp, variables, hifigan)
+        http = phase_serving_http(dev, srv, os.path.join(tmp, "f32"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        raise AssertionError(f"{tmp} was not removed")
+    return {"programs": programs, "variants": variants, "http": http,
+            "f32_launches": programs["f32"]["launches"] + sum(v["launches"] for v in variants.values())
+            + http["launches"]}
+
+
 def variant_launches(var: dict, counter: str) -> dict[str, int]:
     """Phase 9's launches of one wrapper (an LSTM_COUNTERS name, mel_norm or
     sosfilt) by sub-path."""
@@ -4211,7 +4509,8 @@ def main(argv: list[str] | None = None) -> int:
         scan_gen = phase_scan_generator(dev)
         scan_bench = phase_bf16_bench(dev, args.trained, mels, f32_run, scan_gen, use_pallas_lstm=False)
         log(f"10a bench.py's default bf16 program (scan) beside 7b's --pallas rounding: "
-            f"{scan_bench['iteration_ms']:.1f} ms an iteration, {scan_bench['realtime']:.1f}x realtime, mel "
+            f"{scan_bench['iteration_ms']:.1f} ms an iteration (PERF.md §5 recorded {RECORDED_BENCH_BF16_MS} ms), "
+            f"{scan_bench['realtime']:.1f}x realtime, mel "
             f"{scan_bench['parity']['mel_maxabs_delta']:.4f} from f32; --pallas {bf_bench['iteration_ms']:.1f} ms, "
             f"{bf_bench['realtime']:.1f}x, mel {bf_bench['parity']['mel_maxabs_delta']:.4f}")
         scan_bwd_train, scan_dw = phase_scan_train_kernels(dev)
@@ -4229,6 +4528,9 @@ def main(argv: list[str] | None = None) -> int:
         shutil.rmtree(corpus, ignore_errors=True)
     if os.path.exists(corpus):
         raise AssertionError(f"{corpus} was not removed")
+    t0 = time.perf_counter()
+    serving = phase_serving(dev, args.trained)
+    log(f"phase 12 (serving): {time.perf_counter() - t0:.1f} s")
     lstm_bound, lstm_bound_by = bound_ms(record["flops"], record["bytes"])
     fwd_train_bound, _ = bound_ms(fwd_train["flops"], fwd_train["bytes"])
     bwd_bound, bwd_bound_by = bound_ms(bwd["flops"], bwd["bytes"])
@@ -4251,7 +4553,9 @@ def main(argv: list[str] | None = None) -> int:
     cli_scan = scan_train["cli"]["bf16"]["launches"]  # LSTM_COUNTERS' order, then scan dW
     scan_paths = {"cli_train_bf16_lambda_spk": bf_cli["lambda_spk"]["scan_launches"],
                   "convert_bf16_default": (scan_bench["launches"], 0), "train_bf16_default": scan_train["launches"][:2],
-                  "cli_train_bf16_default": (cli_scan[2], cli_scan[5])}
+                  "cli_train_bf16_default": (cli_scan[2], cli_scan[5]),
+                  "serve_bf16": (serving["programs"]["bf16"]["launches"], 0)}
+    serve_fwd = {"serve_f32": serving["f32_launches"], "serve_bf16": serving["programs"]["bf16_pallas"]["launches"]}
 
     kernels = [{
         "name": "lstm_fwd",
@@ -4266,11 +4570,17 @@ def main(argv: list[str] | None = None) -> int:
         # in inference, the train_* ones per train step, the dvector ones
         # per d-vector forward (three sequences) at each width and batch
         # (the wrapper's "launches" count every forward, its bf16 ones too)
-        "launches": launches + train_fwd + speaker_fwd + spk_fwd_n + bf_train_fwd + var_n["launches"] + ge2e_fwd,
+        "launches": launches + train_fwd + speaker_fwd + spk_fwd_n + bf_train_fwd + var_n["launches"] + ge2e_fwd
+        + sum(serve_fwd.values()),
         "launches_by_path": {"convert": launches, "train": train_fwd, "speaker": speaker_fwd,
                              "train_spk": spk_fwd_n, "train_bf16": bf_train_fwd,
                              "variants": var_by["launches"], "variants_bf16": var_by["bf16_launches"],
-                             "ge2e_train": ge2e_fwd},
+                             "ge2e_train": ge2e_fwd, **serve_fwd},
+        # phase 12: the exported programs (serve.py) through the operator
+        # autovc::lstm_sequence: 12a's float32, bf16 (scan) and bf16 (Pallas
+        # rounding) converter calls at B=32, T=512 with their times beside
+        # the live pipeline's, 12b's stft and hybrid bundles, 12c's server
+        "serving": serving,
         "max_abs_err": max(record["max_abs_err"], fwd_train["max_abs_err"], speaker["max_abs_err"],
                            *(r["max_abs_err"] for r in spk_fwd), *(r["h_seq"] for r in ge2e["kernels"])),
         "ms": record["ms"],

@@ -1796,3 +1796,59 @@ def test_variant_train_step_on_card_matches_cpu(cuda, model_type):
     for n, g in grads["cuda"].items():
         apart = float((g - grads["cpu"][n]).abs().max()) / grad_scale(n, grads["cpu"])
         assert apart <= 1e-3, f"{n}: the card's step {apart:.3e} of its scale from the CPU step"
+
+
+@pytest.mark.parametrize("compute_dtype,use_pallas_lstm,counter", [("float32", False, None),
+                                                                   ("bfloat16", False, "scan_launches"),
+                                                                   ("bfloat16", True, "bf16_launches")])
+def test_serving_bundle_on_card_matches_live_converter(cuda, tmp_path, compute_dtype, use_pallas_lstm, counter):
+    """A bundle exported for cuda at the published widths (seeded weights),
+    called through ServingConverter at B=3, T=160 and at B=1, T=32: bit for
+    bit against the live Converter on the same weights, 7 launches of its
+    LSTM form a call, and a frame count off freq raised as ValueError."""
+    from autovc_tpu_torch.io import generator_state_to_jax
+    from autovc_tpu_torch.serve import ServingConverter, export_converter
+
+    cfg = Config(model=dataclasses.replace(Config().model, compute_dtype=compute_dtype,
+                                           use_pallas_lstm=use_pallas_lstm))
+    gen = build_generator(cfg.model, device=cuda, seed=5)
+    srv = ServingConverter(export_converter(generator_state_to_jax(gen.state_dict()), cfg, str(tmp_path / "b")),
+                           device=cuda)
+    converter = Converter(gen, cfg.model)
+    rng = np.random.RandomState(5)
+    for b, t in ((3, 160), (1, 32)):
+        x = rng.rand(b, t, 80).astype(np.float32)
+        eo, et = rng.rand(b, 256).astype(np.float32), rng.rand(b, 256).astype(np.float32)
+        counts = (lstm_ops.launches, lstm_ops.bf16_launches, lstm_ops.scan_launches)
+        got = srv(x, eo, et)
+        torch.cuda.synchronize()
+        launched = [a - c for a, c in zip((lstm_ops.launches, lstm_ops.bf16_launches, lstm_ops.scan_launches),
+                                          counts)]
+        assert launched == [7, 7 * (counter == "bf16_launches"), 7 * (counter == "scan_launches")]
+        assert got.dtype == torch.float32 and got.shape == (b, t, 80)
+        assert torch.equal(got, converter._forward(x, eo, et))
+    with pytest.raises(ValueError, match="multiple of freq 32"):
+        srv(np.zeros((1, 100, 80), np.float32), np.zeros((1, 256), np.float32), np.zeros((1, 256), np.float32))
+
+
+def test_serving_vocoder_program_on_card_matches_live_hifigan(cuda, tmp_path):
+    """The fused HiFi-GAN bundle on the card: a T=100 utterance's waveform
+    (the pad stripped before the vocoder program) bit for bit against the
+    live Converter + HiFiGANVocoder."""
+    from autovc_tpu_torch.data import ConversionSpec
+    from autovc_tpu_torch.io import conv_state_to_jax, generator_state_to_jax, unflatten_params
+    from autovc_tpu_torch.serve import ServingConverter, export_converter
+
+    cfg = Config()
+    gen = build_generator(cfg.model, device=cuda, seed=6)
+    voc = HiFiGANVocoder(device=cuda, seed=7)
+    srv = ServingConverter(export_converter(generator_state_to_jax(gen.state_dict()), cfg, str(tmp_path / "b"),
+                                            hifigan_params=unflatten_params(conv_state_to_jax(voc.model.state_dict()))),
+                           device=cuda)
+    rng = np.random.RandomState(6)
+    feats, eo, et = rng.rand(100, 80).astype(np.float32), rng.rand(256).astype(np.float32), rng.rand(256).astype(
+        np.float32)
+    wav = srv.convert(feats, eo, et)
+    mel = Converter(gen, cfg.model).convert(ConversionSpec(0, "u", eo, feats, "t", et))
+    assert wav.shape == (100 * 256,) and np.isfinite(wav).all()
+    np.testing.assert_array_equal(wav, voc.generate(mel).cpu().numpy())
