@@ -25,7 +25,11 @@ the core), trained and converted in float32 and bfloat16, with the
 conversion and evaluation CLIs (``cli.convert``, ``cli.evaluate``,
 ``cli.evaluate_conversion``); and serving: ``torch.export`` bundles of the
 converter and vocoder programs (``serve``), ``cli.export_ckpt``,
-``cli.export_serving`` and the HTTP server ``cli.serve``.
+``cli.export_serving`` and the HTTP server ``cli.serve``; and parallelism on
+``torch.distributed`` (data and tensor parallel training,
+``cli.train --multihost``, sequence-parallel conversion,
+``cli.convert --seq_devices``), the reference's torch checkpoints
+(``interop``, ``cli.import_torch``), ``cli.visualize`` and the native loader.
 
     config     AudioConfig / ModelConfig / TrainConfig / Config / WaveNetConfig /
                HiFiGANConfig
@@ -47,11 +51,16 @@ converter and vocoder programs (``serve``), ``cli.export_ckpt``,
     convert    Converter (spmel, stft: the mel projection, buckets),
                WavConverter, run_conversions, all_pairs_specs
     serve      export_converter and ServingConverter: exported programs
+    parallel   the ('data', 'model') mesh and its collectives, tensor-parallel
+               rules, sequence parallelism, a world of spawned ranks
+    interop    the reference's torch state dicts as JAX parameter trees
+    runtime    the native WAV/.npy loader and batch packer (C++, ctypes)
     cli        python -m autovc_tpu_torch.cli.train, cli.make_spect,
                cli.make_metadata, cli.evaluate_speaker_encoder,
                cli.synthesize, cli.convert, cli.evaluate,
                cli.evaluate_conversion, cli.export_ckpt,
-               cli.export_serving, cli.serve
+               cli.export_serving, cli.serve, cli.import_torch,
+               cli.visualize
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card they
 raise. Pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.

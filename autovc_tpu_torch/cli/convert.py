@@ -5,7 +5,7 @@ vocoder's input) and, with --pdf, before/after spectrogram PDFs.
     python -m autovc_tpu_torch.cli.convert --main_dir DIR
         (--run_dir RUNDIR | --artifact FILE.npz)
         [--model_type spmel|stft|wav] [--use_ema] [--all_pairs] [--raw]
-        [--out R.pkl] [--depth D] [--pdf] [--device cuda|cpu]
+        [--out R.pkl] [--depth D] [--pdf] [--seq_devices N] [--device cuda|cpu]
 
 Counterpart of ``autovc_tpu/cli/convert.py``, with its flags. --run_dir
 reads the newest ``checkpoints/step_*.pt`` that the port's ``train.Solver``
@@ -18,7 +18,14 @@ the model's own domain; wav outputs are waveforms whose mel is re-extracted
 on --device (``convert.WavConverter``). --pallas sets
 ``ModelConfig.use_pallas_lstm`` as the JAX CLI does; conversion here runs in
 float32, where both LSTM roundings are the same float32 kernels, so it
-changes no number. --seq_devices above 1 raises (ROADMAP Queue 1 #8). --pdf needs matplotlib.
+changes no number. --seq_devices N above 1 converts each spmel or stft
+utterance with its time axis split over N ranks that the CLI starts itself
+(``convert.sequence_parallel.convert_specs``: ``SPGenerator``, the
+utterance padded to a multiple of N * freq), as the JAX CLI splits it over N
+devices of one process: rank r on ``cuda:r`` where the host has N cards;
+ranks that share a card need ``AUTOVC_DIST_BACKEND=gloo`` and raise without
+it; on the CPU they run under gloo. The wav variant converts as without it,
+as in the JAX CLI. --pdf needs matplotlib.
 
 Everything runs on --device (default cuda, in exact float32 there; cpu runs
 the plain PyTorch versions).
@@ -35,6 +42,7 @@ import torch
 from autovc_tpu_torch import exact_f32, resolve_device
 from autovc_tpu_torch.config import AudioConfig, ModelConfig
 from autovc_tpu_torch.convert import Converter, WavConverter, all_pairs_specs, run_conversions
+from autovc_tpu_torch.convert.sequence_parallel import convert_specs
 from autovc_tpu_torch.data.manifest import load_conversion_metadata, load_train_manifest, save_results
 from autovc_tpu_torch.io import load_artifact
 from autovc_tpu_torch.models import build_generator
@@ -123,16 +131,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--raw", action="store_true",
                     help="save the model-domain outputs (513-bin STFT for stft, the waveform for wav) instead "
                          "of mels")
-    ap.add_argument("--seq_devices", type=int, default=0, help="not ported (ROADMAP Queue 1 #8)")
+    ap.add_argument("--seq_devices", type=int, default=0,
+                    help="split each utterance's time axis over N ranks (sequence-parallel SPGenerator)")
     ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (the plain versions)")
     return ap
 
 
 def main(argv: list[str] | None = None) -> list[tuple[str, np.ndarray]]:
     args = build_parser().parse_args(argv)
-    if args.seq_devices > 1:
-        raise SystemExit("--seq_devices: sequence-parallel conversion is not ported yet (ROADMAP Queue 1 #8)")
     device = resolve_device(args.device)
+    seq = args.seq_devices > 1 and args.model_type != "wav"
     feature_dir = os.path.join(args.main_dir, args.model_type)
     with exact_f32(device):
         converter, step = build_converter(args, device)
@@ -141,7 +149,12 @@ def main(argv: list[str] | None = None) -> list[tuple[str, np.ndarray]]:
         else:
             specs = load_conversion_metadata(os.path.join(feature_dir, "metadata.pkl"))
         out_path = args.out or os.path.join(feature_dir, f"results_step{step}.pkl")
-        if args.raw:
+        if seq:
+            outs = convert_specs(converter.generator, converter.cfg, specs, args.seq_devices, device,
+                                 to_mel=not args.raw)
+            results = [(str(s.conversion_id), o) for s, o in zip(specs, outs)]
+            save_results(out_path, results)
+        elif args.raw:
             results = [(str(s.conversion_id), converter.convert(s)) for s in specs]
             save_results(out_path, results)
         elif args.all_pairs and args.model_type != "wav":

@@ -10,8 +10,9 @@ generator artifact (``cli.export_ckpt``, ``cli.train --export`` or the JAX
 package's) -> a bundle directory (``autovc_tpu_torch.serve``) of the
 converter program (any batch, any multiple of freq frames), optionally the
 vocoder program, the weights and a manifest, one program per platform of
---platforms (cuda needs a card). --hifigan takes an exported .npz (a torch
-checkpoint raises: its importer is not ported, ROADMAP Queue 1 #9);
+--platforms (cuda needs a card). --hifigan takes an exported .npz or a
+public torch HiFi-GAN checkpoint (``.pt``/``.pth``/``.ckpt``, through
+``interop.hifigan_params_from_torch``);
 --vocoder_mode hybrid bakes --gl_iters Griffin-Lim projections seeded by
 the neural phase into the vocoder program (``vocoder.hybrid``). Load the
 bundle with ``serve.ServingConverter`` or serve it with ``cli.serve``, on
@@ -29,7 +30,8 @@ def main(argv=None) -> str:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--artifact", required=True, help="generator .npz (cli.export_ckpt)")
     ap.add_argument("--out", required=True, help="output bundle directory")
-    ap.add_argument("--hifigan", default=None, help="HiFi-GAN .npz: add the waveform-synthesis program")
+    ap.add_argument("--hifigan", default=None,
+                    help="HiFi-GAN .npz or torch checkpoint: add the waveform-synthesis program")
     ap.add_argument("--vocoder_mode", default="hifigan", choices=["hifigan", "hybrid"],
                     help="hybrid bakes Griffin-Lim magnitude projections seeded by the neural phase into the "
                          "vocoder program (vocoder/hybrid.py)")

@@ -1,7 +1,7 @@
 """Speaker embeddings and manifests (reference make_metadata.py + main.py:27-33).
 
     python -m autovc_tpu_torch.cli.make_metadata --main_dir DIR
-        [--model_type spmel|stft|wav] [--dvector_ckpt GE2E.npz | --one_hot |
+        [--model_type spmel|stft|wav] [--dvector_ckpt GE2E.npz|BL.ckpt | --one_hot |
          --reuse train.pkl] [--dim_emb 256] [--seed 0]
         [--conversions src:sentence:trg,...] [--device cuda|cpu]
 
@@ -9,17 +9,18 @@ Writes <main_dir>/<model_type>/train.pkl, metadata.pkl and metadata.log, as
 ``autovc_tpu/cli/make_metadata.py`` does. The embedding source:
 
   --dvector_ckpt PATH  a GE2E checkpoint .npz (artifacts/ge2e.npz, or one the
-                       JAX package's cli.train_speaker_encoder wrote): the mean
-                       d-vector of 10 random 128-frame crops of each speaker,
-                       on ``--device`` (default cuda: the LSTM kernels)
+                       JAX package's cli.train_speaker_encoder wrote), or the
+                       reference's torch d-vector checkpoint (3000000-BL.ckpt,
+                       any other extension): the mean d-vector of 10 random
+                       128-frame crops of each speaker, on ``--device``
+                       (default cuda: the LSTM kernels)
   --one_hot            legacy one-hot encoding
   --reuse PATH         the embeddings of an existing train.pkl
   (none)               <main_dir>/spmel/train.pkl's embeddings if it exists,
                        else one-hot
 
 Embeddings always come from <main_dir>/spmel, whatever ``--model_type``.
-A torch d-vector checkpoint (the reference's 3000000-BL.ckpt) does not load
-here yet (ROADMAP Queue 1 #9). The speaker table is <main_dir>/speaker_info.txt
+The speaker table is <main_dir>/speaker_info.txt
 (or ./speaker_info.txt) and the transcripts <main_dir>/txt, where present.
 """
 
@@ -60,16 +61,22 @@ def fallback_conversions(feature_dir: str, speakers: list[str]):
 
 
 def dvector_apply_fn(dvector_ckpt: str, device: str | torch.device = "cuda"):
-    """A GE2E ``.npz`` checkpoint -> ``apply_fn`` for ``embed_speaker``:
-    a (1, 128, 80) float32 crop -> its (1, dim_emb) d-vector, computed on
-    ``device``."""
+    """A GE2E ``.npz`` checkpoint, or the reference's torch d-vector
+    checkpoint (the 3000000-BL.ckpt format: its ``model_b`` entry or the
+    state dict itself, ``interop.dvector_params_from_torch``) -> ``apply_fn``
+    for ``embed_speaker``: a (1, 128, 80) float32 crop -> its (1, dim_emb)
+    d-vector, computed on ``device``."""
     from autovc_tpu_torch.models import build_dvector
     from autovc_tpu_torch.train.ge2e import load_params
 
-    if not dvector_ckpt.endswith(".npz"):
-        raise ValueError(f"{dvector_ckpt}: only GE2E .npz checkpoints load here; the torch d-vector importer "
-                         f"(the reference's 3000000-BL.ckpt) is not ported yet (ROADMAP Queue 1 #9)")
-    model = build_dvector(load_params(dvector_ckpt)["dvector"], device=device)
+    if dvector_ckpt.endswith(".npz"):
+        params = load_params(dvector_ckpt)["dvector"]
+    else:
+        from autovc_tpu_torch.interop import dvector_params_from_torch
+
+        ckpt = torch.load(dvector_ckpt, map_location="cpu", weights_only=True)
+        params = dvector_params_from_torch(ckpt.get("model_b", ckpt))
+    model = build_dvector(params, device=device)
     dev = next(model.parameters()).device
 
     @torch.inference_mode()

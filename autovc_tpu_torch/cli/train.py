@@ -1,4 +1,5 @@
-"""Train the AutoVC generator (spmel, stft or wav) on one device.
+"""Train the AutoVC generator (spmel, stft or wav) on one device, or on the
+ranks of a multi-process run.
 
     python -m autovc_tpu_torch.cli.train --main_dir DIR --run_name NAME
         [--model_type spmel|stft|wav] [--num_iters N] [--batch_size B]
@@ -7,7 +8,7 @@
         [--ema DECAY] [--resume] [--log_step N] [--checkpoint_step N]
         [--watch_step N] [--seed S] [--bf16 [--pallas]] [--export OUT.npz] [--device cuda|cpu]
         [--lambda_spk W --spk_ckpt GE2E.npz [--spk_protocol windowed|crop]
-         [--spk_margin M]]
+         [--spk_margin M]] [--multihost [--data_parallel N] [--model_parallel M]]
 
 The flags of ``autovc_tpu/cli/train.py`` for this slice, plus ``--device``
 (default ``cuda``); the generator has the published widths (--depth sets
@@ -29,6 +30,20 @@ and BatchNorm statistics as the JAX CLI does: a flat ``.npz`` of
 ``params/...`` and ``batch_stats/...`` in the JAX layouts, plus
 ``__step__``, which ``autovc_tpu`` and ``build_generator(artifact=...)``
 both load.
+
+``--multihost`` runs this process as one rank of a world: the process group
+comes from ``AUTOVC_COORDINATOR`` (host:port of rank 0's TCP store),
+``AUTOVC_NUM_PROCESSES`` and ``AUTOVC_PROCESS_ID``, as the JAX CLI's
+``jax.distributed`` setup; start one process a rank with the same
+arguments. Under NCCL (the card's default) each rank takes its own card;
+ranks that share a card run with ``AUTOVC_DIST_BACKEND=gloo``, and on the
+CPU gloo is the default. ``--data_parallel`` defaults to the world's size
+over ``--model_parallel`` (printed as ``data_parallel -> N``); each rank
+reads its rows of every global batch (``BatchIterator(host_index,
+host_count)`` over the 'data' ranks); ``--export`` gathers the
+tensor-parallel slices and rank 0 writes; every rank meets at an exit
+barrier before it leaves the process group. ``--resume`` (a run name
+without a timestamp) lets the ranks find the same run directory.
 """
 
 from __future__ import annotations
@@ -37,9 +52,13 @@ import argparse
 import os
 from datetime import datetime
 
+import torch
+import torch.distributed as dist
+
 from autovc_tpu_torch.config import AudioConfig, Config, ModelConfig, TrainConfig, wav_len_crop
 from autovc_tpu_torch.data import BatchIterator, UtteranceDataset
 from autovc_tpu_torch.io import save_generator_artifact
+from autovc_tpu_torch.parallel.mesh import init_process_group
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,7 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data_parallel", type=int, default=1)
     ap.add_argument("--model_parallel", type=int, default=1)
-    ap.add_argument("--multihost", action="store_true", help="not ported (ROADMAP Queue 1 #8)")
+    ap.add_argument("--multihost", action="store_true",
+                    help="one rank of a multi-process run (AUTOVC_COORDINATOR, AUTOVC_NUM_PROCESSES, "
+                         "AUTOVC_PROCESS_ID); each rank feeds its rows of the global batch")
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 compute, float32 parameters, Adam state and losses; the LSTMs round as the JAX "
                          "CLI's lax.scan (a bfloat16 carry)")
@@ -90,12 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.multihost:
-        raise SystemExit("--multihost: multi-process training is not ported yet (ROADMAP Queue 1 #8)")
     if args.lambda_spk > 0 and not args.spk_ckpt:
         raise SystemExit("--lambda_spk > 0 requires --spk_ckpt (a frozen GE2E encoder .npz)")
     if args.lambda_spk > 0 and args.model_type == "stft":
         raise SystemExit("--lambda_spk requires mel-domain outputs (model_type spmel), not stft")
+    device = join_world(args) if args.multihost else args.device
     manifest = os.path.join(args.main_dir, args.model_type, "train.pkl")
     if not os.path.exists(manifest):
         raise SystemExit(f"{manifest} not found: make the {args.model_type} features with "
@@ -120,15 +140,44 @@ def main(argv: list[str] | None = None) -> None:
         run_id=args.run_id,
     )
     ds = UtteranceDataset(os.path.dirname(manifest))
-    it = BatchIterator(ds, cfg.train.batch_size, cfg.train.len_crop, seed=cfg.train.seed)
+    rank = dist.get_rank() if args.multihost else 0
+    # this rank's rows: the 'data' coordinate of rank = data * model_parallel + model
+    it = BatchIterator(ds, cfg.train.batch_size, cfg.train.len_crop, seed=cfg.train.seed,
+                       host_index=rank // args.model_parallel, host_count=args.data_parallel)
 
     from autovc_tpu_torch.train import Solver
 
-    solver = Solver(cfg, it, device=args.device)
+    solver = Solver(cfg, it, device=device)
     solver.train()
     if args.export:
-        save_generator_artifact(solver.state.model.state_dict(), solver.state.step, args.export)
-        print(f"[train] exported params -> {args.export}")
+        state = solver.model_state()  # every rank: the tensor-parallel slices are gathered
+        if rank == 0:
+            save_generator_artifact(state, solver.state.step, args.export)
+            print(f"[train] exported params -> {args.export}")
+    if args.multihost:
+        # every rank leaves together, its checkpoint work done (train ends
+        # in finish_saves): no rank's exit aborts a peer's collective
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def join_world(args: argparse.Namespace) -> torch.device:
+    """Start this process's rank from AUTOVC_COORDINATOR,
+    AUTOVC_NUM_PROCESSES and AUTOVC_PROCESS_ID; default ``data_parallel`` to
+    the ranks that model parallelism leaves (the mesh must span every rank).
+    Returns the rank's device."""
+    try:
+        coord = os.environ["AUTOVC_COORDINATOR"]
+        world, rank = int(os.environ["AUTOVC_NUM_PROCESSES"]), int(os.environ["AUTOVC_PROCESS_ID"])
+    except KeyError as exc:
+        raise SystemExit(f"--multihost needs AUTOVC_COORDINATOR (host:port), AUTOVC_NUM_PROCESSES and "
+                         f"AUTOVC_PROCESS_ID in the environment; {exc.args[0]} is not set") from exc
+    device = init_process_group(f"tcp://{coord}", world, rank, args.device)
+    if args.data_parallel == 1:
+        args.data_parallel = world // args.model_parallel
+        print(f"[train] multihost: data_parallel -> {args.data_parallel} ({world} processes, model_parallel "
+              f"{args.model_parallel})", flush=True)
+    return device
 
 
 if __name__ == "__main__":

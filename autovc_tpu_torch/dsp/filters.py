@@ -23,7 +23,6 @@ import functools
 
 import numpy as np
 import torch
-from scipy import signal as _scipy_signal
 
 from autovc_tpu_torch.ops.sosfilt import note_host_copy
 from autovc_tpu_torch.ops.sosfilt import sosfilt as _sosfilt
@@ -34,6 +33,8 @@ def butter_highpass(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Butterworth highpass transfer-function coefficients (b, a), float64."""
     nyq = 0.5 * fs
+    from scipy import signal as _scipy_signal  # imported here: scipy.signal takes seconds to import
+
     b, a = _scipy_signal.butter(order, cutoff_hz / nyq, btype="high", analog=False)
     return np.asarray(b, np.float64), np.asarray(a, np.float64)
 
@@ -138,6 +139,8 @@ def butter_highpass_sos(
     cutoff_hz: float = 30.0, fs: int = 16_000, order: int = 5
 ) -> np.ndarray:
     """Butterworth highpass as second-order sections (stable in float32)."""
+    from scipy import signal as _scipy_signal
+
     nyq = 0.5 * fs
     return _scipy_signal.butter(
         order, cutoff_hz / nyq, btype="high", analog=False, output="sos"
@@ -150,6 +153,8 @@ def _sos_tensors(sos_bytes: bytes, shape: tuple[int, ...], dtype: torch.dtype,
     """The sections (S, 6) and their unit steady state ``sosfilt_zi`` (S, 2)
     on ``device``, made once per filter: a file adds no host->device copy,
     and ``ops.sosfilt`` makes its scan tables from the sections' host copy."""
+    from scipy import signal as _scipy_signal
+
     sos = np.frombuffer(sos_bytes, np.float64).reshape(shape).copy()
     host = torch.as_tensor(sos, dtype=dtype)
     sos_t = host.to(device)

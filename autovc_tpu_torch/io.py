@@ -151,26 +151,38 @@ def _wrapper(key: str, weight: torch.Tensor) -> str | None:
     return _WRAPPER_BY_NDIM[weight.ndim]
 
 
+def generator_jax_paths(state: Mapping[str, torch.Tensor]) -> dict[str, tuple[str, str, tuple[int, ...]]]:
+    """State-dict key of a ``Generator`` or ``GeneratorWav`` -> (its JAX
+    collection, its '/'-joined path in that collection, and for each axis
+    of the tensor here the axis of the JAX leaf it holds): a dense or conv
+    kernel's axes are reversed, every other leaf keeps its layout. A
+    module's flax wrapper follows from its ``weight`` (``_wrapper``); the
+    LSTM leaves and the PReLU slopes (``alpha``) have none."""
+    wrappers = {key.rsplit(".", 1)[0]: _wrapper(key, v) for key, v in state.items() if key.endswith(".weight")}
+    out = {}
+    for key, value in state.items():
+        module, leaf = key.rsplit(".", 1)
+        wrapper = wrappers.get(module)
+        collection = "batch_stats" if leaf in _JAX_LEAF else "params"
+        axes = tuple(range(value.ndim))
+        if leaf == "weight":
+            leaf = "scale" if wrapper == "BatchNorm_0" else "kernel"
+            axes = axes[::-1]
+        leaf = _JAX_LEAF.get(leaf, leaf)
+        out[key] = collection, "/".join([*module.split("."), *([wrapper] if wrapper else []), leaf]), axes
+    return out
+
+
 def generator_state_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
     """State dict of ``autovc_tpu_torch.models.Generator`` or
     ``GeneratorWav`` -> ``{'params': ..., 'batch_stats': ...}`` of the JAX
     ``Generator`` or ``GeneratorWav``, float32 numpy in JAX layouts: the
-    inverse of ``generator_state_from_jax``. A module's flax wrapper follows
-    from its ``weight`` (``_wrapper``); the LSTM leaves and the PReLU slopes
-    (``alpha``) have none."""
-    wrappers = {key.rsplit(".", 1)[0]: _wrapper(key, v) for key, v in state.items() if key.endswith(".weight")}
+    inverse of ``generator_state_from_jax``, leaf by leaf as
+    ``generator_jax_paths`` names and lays them out."""
     flat: dict[str, np.ndarray] = {}
-    for key, value in state.items():
-        module, leaf = key.rsplit(".", 1)
-        arr = value.detach().cpu().numpy().astype(np.float32)
-        wrapper = wrappers.get(module)
-        collection = "batch_stats" if leaf in _JAX_LEAF else "params"
-        if leaf == "weight":
-            leaf = "scale" if wrapper == "BatchNorm_0" else "kernel"
-            arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
-        leaf = _JAX_LEAF.get(leaf, leaf)
-        parts = [collection, *module.split("."), *([wrapper] if wrapper else []), leaf]
-        flat["/".join(parts)] = np.ascontiguousarray(arr)
+    for key, (collection, path, axes) in generator_jax_paths(state).items():
+        arr = state[key].detach().cpu().numpy().astype(np.float32).transpose(np.argsort(axes))
+        flat[f"{collection}/{path}"] = np.ascontiguousarray(arr)
     return unflatten_params(flat)
 
 

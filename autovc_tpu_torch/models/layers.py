@@ -177,9 +177,17 @@ class BatchNorm(nn.Module):
     the input widened to float32 (the same two-pass variance; flax's
     ``_compute_stats`` with ``force_float32_reductions``), normalises in
     float32 and rounds the output (flax's ``_normalize``); the running
-    statistics stay float32."""
+    statistics stay float32.
+
+    ``reduce``, when set (``parallel.mesh.sync_batch_norm``), sums a tensor
+    over the ranks of a data-parallel batch, differentiably: the training
+    statistics are then the global batch's, as JAX's ``jnp.mean`` over a
+    sharded batch axis takes them (the sums and counts reduced, then the sum
+    of squared deviations from the global mean), and the running statistics
+    move toward those global values."""
 
     momentum = 0.1
+    reduce = None
 
     def __init__(self, channels: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -203,9 +211,14 @@ class BatchNorm(nn.Module):
         return self._normalize(x)
 
     def _normalize(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and self.reduce is not None:
+            sums = self.reduce(torch.cat([x.sum(dim=(0, 1)), x.new_tensor([x.shape[0] * x.shape[1]])]))
+            mean = sums[:-1] / sums[-1]
+            var = self.reduce(((x - mean) ** 2).sum(dim=(0, 1))) / sums[-1]
+        elif self.training:
             mean = x.mean(dim=(0, 1))
             var = ((x - mean) ** 2).mean(dim=(0, 1))
+        if self.training:
             with torch.no_grad():
                 keep = 1.0 - self.momentum
                 self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)

@@ -16,13 +16,28 @@ one step; ``KinkTape.replay`` makes another step take the same sides, as
 ``x * sign`` for ``abs``, and counts the elements that had fallen on the
 other side (``flips``). The two steps' gradients can then be held to
 rounding.
+
+``history_gap`` and ``moment_gap`` hold a whole run against another of the
+same steps (a data- or tensor-parallel run against the single process).
+Parameters after a few Adam steps cannot separate two such runs: Adam moves
+every element by about the learning rate a step whatever its gradient, so
+two runs differ by a few times lr even where one never averaged its
+gradients over the ranks. These compare what the gradients make: the first
+step's metrics (its ``grad_norm`` is the norm of the gradient before any
+update) and Adam's moments after it (the first gradient itself), which only
+rounding separates in sound runs, and a later step's loss terms, which see
+the parameters after the updates (a rank that kept a stale slice of them
+shows there). The first update moves each element by about lr * sign(g),
+so rounding in a near-zero gradient becomes a step of 2 * lr there: from
+the second step on, sound runs drift apart, by little at narrow widths and
+by more at the published ones.
 """
 
 from __future__ import annotations
 
 import re
 from contextlib import contextmanager
-from typing import Iterator, Mapping
+from typing import Any, Iterator, Mapping, Sequence
 from unittest import mock
 
 import torch
@@ -50,6 +65,35 @@ def grad_scale(name: str, grads: Mapping[str, torch.Tensor]) -> float:
         if f"{parent}.bn{i}" in has and f"{parent}.prelu{i}" not in has:
             name = f"{module}.weight"
     return max(float(grads[name].abs().max()), 1e-30)
+
+
+def history_gap(got: Sequence[Mapping[str, float]], want: Sequence[Mapping[str, float]],
+                step: int = 1) -> tuple[float, str]:
+    """The largest relative distance of one run's record of ``step`` from
+    another's (as ``Solver.history`` or the metrics stream holds them) ->
+    (distance, '<metric>@<step>'): at the first step every metric but
+    ``lr``, at a later one its loss terms (``g_loss*``). Both runs must have
+    logged the same metrics at that step."""
+    g, w = ({r["step"]: r for r in run}.get(step) for run in (got, want))
+    if g is None or w is None or g.keys() != w.keys():
+        raise ValueError(f"step {step}: metrics {None if g is None else sorted(g)} against "
+                         f"{None if w is None else sorted(w)}")
+    return max((abs(g[k] - v) / max(abs(v), 1e-6), f"{k}@{step}") for k, v in w.items()
+               if k not in ("step", "time", "lr") and (step == 1 or k.startswith("g_loss")))
+
+
+def moment_gap(got: Mapping[str, Any], want: Mapping[str, Any], names: Sequence[str]) -> tuple[float, str]:
+    """The largest distance of one Adam ``state_dict``'s moments from
+    another's, each leaf's in units of its ``grad_scale`` among the other's
+    moments of that kind -> (distance, '<kind>:<parameter>'). ``names``: the
+    parameters in the optimizer's order."""
+    worst = (0.0, "")
+    for kind in ("exp_avg", "exp_avg_sq"):
+        ref = {n: want["state"][i][kind] for i, n in enumerate(names)}
+        for i, n in enumerate(names):
+            dist = float((got["state"][i][kind] - ref[n]).abs().max()) / grad_scale(n, ref)
+            worst = max(worst, (dist, f"{kind}:{n}"))
+    return worst
 
 
 class KinkTape:

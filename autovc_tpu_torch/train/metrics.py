@@ -12,6 +12,13 @@ import time
 from typing import Any, Mapping
 
 
+def read_metrics(path: str) -> list[dict]:
+    """The scalar records of a metrics stream (each step ``log`` wrote), in
+    order; histogram records left out."""
+    with open(path) as f:
+        return [rec for rec in map(json.loads, f) if "histograms" not in rec]
+
+
 class MetricsLogger:
     def __init__(self, run_dir: str, run_name: str):
         os.makedirs(run_dir, exist_ok=True)

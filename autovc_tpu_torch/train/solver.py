@@ -14,8 +14,24 @@ ema_params, step}`` under ``<run_dir>/checkpoints``. A save takes a copy of
 the state on the device (the step updates it in place) and writes it from
 one background thread, under a temporary name then renamed; a periodic save
 that finds the previous one still in flight is skipped, and the last three
-are kept. There is no mesh and no multi-process path here: data and model
-parallelism other than 1 raise (ROADMAP Queue 1 #8).
+are kept.
+
+Data and model parallelism (``cfg.train.data_parallel``, ``model_parallel``)
+run one process a rank of an initialised process group
+(``parallel.mesh.init_process_group``; ``cli.train --multihost``) over a
+('data', 'model') mesh that must span every rank, as the JAX Solver's mesh
+must span every process. Each rank's iterator yields its rows of the global
+batch (``BatchIterator(host_index, host_count)`` over the 'data' ranks), and
+the step computes the global batch's loss and gradients as JAX's GSPMD step
+does (``train.step.backward``): BatchNorm takes the global statistics
+(``parallel.mesh.sync_batch_norm``), the lambda_spk cross-pairs roll over
+the global batch, and the gradients and metrics are averaged over 'data'.
+Tensor parallelism keeps each rank's slice of the parameters and EMA that
+``parallel.mesh.param_shardings`` shards between steps; Adam's moments stay
+whole. A checkpoint gathers the sharded leaves and is written once, by rank
+0, synchronously (its collectives stay on the train loop's thread), and
+every rank restores it. Only rank 0 prints the console line; the others
+write their metrics stream beside rank 0's (``metrics_<run>.rank<r>.jsonl``).
 
 With ``lambda_spk > 0`` the frozen GE2E encoder of ``spk_ckpt`` and, for the
 'windowed' protocol, its tables (the unit-norm train.pkl embeddings and the
@@ -26,6 +42,7 @@ on the Solver's device) are built once and shared by the train step and
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import signal
@@ -35,11 +52,14 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from autovc_tpu_torch import resolve_device
 from autovc_tpu_torch.config import Config
 from autovc_tpu_torch.data.prefetch import DevicePrefetcher
 from autovc_tpu_torch.models import build_generator
+from autovc_tpu_torch.parallel.mesh import (Mesh, gather_leaves, gather_params, make_mesh, param_shardings,
+                                            put_global_batch, shard_leaves, shard_params, sync_batch_norm)
 from autovc_tpu_torch.train.metrics import MetricsLogger
 from autovc_tpu_torch.train.profiler import StepTimer
 from autovc_tpu_torch.train.schedule import ReduceLROnPlateau
@@ -86,15 +106,14 @@ def _tree_map(fn, tree):
 class Solver:
     def __init__(self, cfg: Config, data_iter: Iterator, run_dir: str | None = None,
                  device: str | torch.device = "cuda"):
-        if cfg.train.data_parallel != 1 or cfg.train.model_parallel != 1:
-            raise NotImplementedError("data_parallel/model_parallel other than 1 are not ported yet "
-                                      "(ROADMAP Queue 1 #8)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = self._make_mesh()
+        self.rank = self.mesh.rank
         self.data_iter = data_iter
         self.run_dir = run_dir or os.path.join(cfg.main_dir, "runs", cfg.run_name)
         os.makedirs(self.run_dir, exist_ok=True)
-        self.metrics = MetricsLogger(self.run_dir, cfg.run_name)
+        self.metrics = MetricsLogger(self.run_dir, f"{cfg.run_name}.rank{self.rank}" if self.rank else cfg.run_name)
         if self.device.type == "cpu":
             self.metrics.alert("CPU", "training on the CPU with the plain LSTM recurrence")
         self.plateau = (ReduceLROnPlateau(cfg.train.plateau_factor, cfg.train.plateau_patience)
@@ -110,15 +129,48 @@ class Solver:
         self._last_saved_step = -1
 
         model = build_generator(cfg.model, device=self.device, seed=cfg.train.seed, trainable=True)
+        sync_batch_norm(model, self.mesh if self.mesh.size("data") > 1 else None)
+        self.shards = param_shardings(model, self.mesh, tensor_parallel=self.mesh.size("model") > 1)
+        self._tp = any(a is not None for a in self.shards.values())
         self.state = TrainState(step=0, model=model, optimizer=make_optimizer(model, cfg),
                                 ema_params=init_ema(model))
         self.spk_aux = self._build_spk_aux()
-        self._step_fn = make_train_step(cfg, spk=self.spk_aux)
+        self._step_fn = make_train_step(cfg, spk=self.spk_aux, mesh=self.mesh, shards=self.shards)
         self._eval_fn = make_eval_loss(model, cfg, spk=self.spk_aux)
+        if self._tp:
+            shard_params(model, self.shards, self.mesh)
+            self.state.ema_params = shard_leaves(self.state.ema_params, self.shards, self.mesh)
         latest = self.latest_step()
         if latest is not None:
             self.restore(latest)
-            print(f"Continue from iteration: {self.state.step}")
+            if self.rank == 0:
+                print(f"Continue from iteration: {self.state.step}")
+
+    # ------------------------------------------------------------- the mesh
+
+    def _make_mesh(self) -> Mesh:
+        """The ('data', 'model') mesh of ``cfg.train``, which must span every
+        rank of the process group (one rank when none is initialised)."""
+        tc = self.cfg.train
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if tc.data_parallel * tc.model_parallel != world:
+            raise ValueError(f"mesh {tc.data_parallel}x{tc.model_parallel} (data x model) does not span the "
+                             f"{world} rank(s) of this run: in multi-process runs the mesh must span every rank "
+                             f"(e.g. data_parallel={world // tc.model_parallel}); start one process a rank "
+                             f"(cli.train --multihost, parallel.launch.run_world)")
+        return make_mesh(tc.data_parallel, tc.model_parallel, self.device)
+
+    @contextlib.contextmanager
+    def whole_params(self) -> Iterator[None]:
+        """The sharded parameters whole for the duration (a collective over
+        'model': every rank enters it together), sliced again after."""
+        if self._tp:
+            gather_params(self.state.model, self.shards, self.mesh)
+        try:
+            yield
+        finally:
+            if self._tp:
+                shard_params(self.state.model, self.shards, self.mesh)
 
     # ------------------------------------------------------- speaker encoder
 
@@ -219,8 +271,7 @@ class Solver:
                     print(f"[solver] data error ({exc}); retry {data_failures}/3")
                     continue
                 if prefetcher is None:
-                    x = torch.as_tensor(x).to(self.device)
-                    emb = torch.as_tensor(emb).to(self.device)
+                    x, emb = put_global_batch(x, self.mesh), put_global_batch(emb, self.mesh)
                 m = self._step_fn(self.state, x, emb, lr_scale)
                 i += 1
 
@@ -235,10 +286,12 @@ class Solver:
                     last_metrics = {k: float(v) for k, v in m.items()}
                     self.history.append(dict(last_metrics, step=i))
                     self.metrics.log(i, last_metrics)
-                    self.metrics.console(i, num_iters, last_metrics, keys=log_keys(cfg))
+                    if self.rank == 0:
+                        self.metrics.console(i, num_iters, last_metrics, keys=log_keys(cfg))
                 self.timer.tick()
                 if cfg.train.watch_step and i % cfg.train.watch_step == 0:
-                    self.metrics.log_histograms(i, watch_histograms(self.state.model))
+                    with self.whole_params():
+                        self.metrics.log_histograms(i, watch_histograms(self.state.model))
                 if i % cfg.train.checkpoint_step == 0:
                     if not np.isfinite(float(m["g_loss"])):  # never persist a poisoned state
                         raise FloatingPointError(f"non-finite loss at checkpoint step {i}; last good "
@@ -271,15 +324,24 @@ class Solver:
         return steps[-1] if steps else None
 
     def state_tree(self) -> dict[str, Any]:
-        """The checkpoint's contents, referring to the live tensors."""
+        """The checkpoint's contents, referring to the live tensors; under
+        tensor parallelism the sharded leaves gathered (a collective)."""
         model = self.state.model
+        params = {n: p.detach() for n, p in model.named_parameters()}
         return {
-            "params": {n: p.detach() for n, p in model.named_parameters()},
+            "params": gather_leaves(params, self.shards, self.mesh),
             "batch_stats": {n: b for n, b in model.named_buffers()},
             "opt_state": self.state.optimizer.state_dict(),
-            "ema_params": self.state.ema_params,
+            "ema_params": gather_leaves(self.state.ema_params, self.shards, self.mesh),
             "step": self.state.step,
         }
+
+    def model_state(self) -> dict[str, torch.Tensor]:
+        """The generator's whole state dict (a collective under tensor
+        parallelism: every rank calls it), as ``cli.train --export`` writes
+        it."""
+        tree = self.state_tree()
+        return {**tree["params"], **tree["batch_stats"]}
 
     def save(self, step: int, wait: bool = False) -> None:
         t0 = time.perf_counter()
@@ -290,6 +352,15 @@ class Solver:
             print(f"[solver] checkpoint save blocked the loop {stall:.0f} ms")
 
     def _save(self, step: int, wait: bool) -> None:
+        if self.mesh.backend is not None:
+            # every rank gathers (collectives stay on this thread, in step
+            # order); rank 0 alone writes, before the next step
+            snap = _tree_map(torch.clone, self.state_tree())
+            if self.rank == 0:
+                self._write(step, snap)
+            dist.barrier()  # written before any rank goes on (a resume finds it)
+            self._last_saved_step = step
+            return
         if self._save_thread is not None:
             if self._save_thread.is_alive() and not wait:
                 self._saves_skipped += 1
@@ -340,11 +411,14 @@ class Solver:
         # moves the optimizer's moments to the parameters' device while its
         # step counts stay on the host, as Adam keeps them (a step count on
         # the card would cost a device sync per parameter and step)
+        # every rank reads the whole checkpoint and keeps its slices
         tree = torch.load(self.checkpoint_path(step), map_location="cpu", weights_only=True)
         model = self.state.model
-        model.load_state_dict({**tree["params"], **tree["batch_stats"]})
+        with self.whole_params():
+            model.load_state_dict({**tree["params"], **tree["batch_stats"]})
         self.state.optimizer.load_state_dict(tree["opt_state"])
-        self.state.ema_params = {k: v.to(self.device) for k, v in tree["ema_params"].items()}
+        ema = {k: v.to(self.device) for k, v in tree["ema_params"].items()}
+        self.state.ema_params = shard_leaves(ema, self.shards, self.mesh)
         self.state.step = int(tree["step"])
 
     # ------------------------------------------------------------------ eval
@@ -354,4 +428,5 @@ class Solver:
         mutated)."""
         x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
         emb = torch.as_tensor(emb, dtype=torch.float32).to(self.device)
-        return {k: float(v) for k, v in self._eval_fn(x, emb).items()}
+        with self.whole_params():
+            return {k: float(v) for k, v in self._eval_fn(x, emb).items()}

@@ -37,12 +37,14 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from autovc_tpu_torch import exact_f32
 from autovc_tpu_torch.config import Config, SpeakerEncoderConfig
 from autovc_tpu_torch.eval import WINDOW_STRIDE
 from autovc_tpu_torch.losses import l1, mse, si_snr_loss
 from autovc_tpu_torch.models import DVector, Generator, GeneratorWav
+from autovc_tpu_torch.parallel.mesh import Mesh, all_reduce, gather_params, roll_rows, shard_params
 from autovc_tpu_torch.train import schedule as sched
 from autovc_tpu_torch.train.state import TrainState, ema_update
 
@@ -91,23 +93,37 @@ def _unit(v: torch.Tensor) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-8)
 
 
-def speaker_loss(spk: SpeakerAux, cfg: Config, x_conv: torch.Tensor, emb: torch.Tensor
+def roll_batch(t: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
+    """``torch.roll(t, 1, 0)`` of the global batch: each row takes the
+    previous row's value; over a data-parallel mesh the roll crosses rank
+    boundaries (``parallel.mesh.roll_rows``), as JAX's ``jnp.roll`` over a
+    sharded batch axis does."""
+    return torch.roll(t, 1, dims=0) if mesh is None else roll_rows(t, mesh, "data")
+
+
+def speaker_loss(spk: SpeakerAux, cfg: Config, x_conv: torch.Tensor, emb: torch.Tensor, mesh: Mesh | None = None
                  ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(g_loss_spk, extra metrics) of the cross-converted batch ``x_conv``
-    (row i converted toward row i-1's embedding)."""
+    (row i converted toward row i-1's embedding). Over a data-parallel
+    ``mesh`` these are this rank's shares: the mean of the ranks' values is
+    the global batch's (the 'windowed' mean divides by the global count of
+    valid rows over the number of ranks)."""
     if cfg.train.spk_protocol == "windowed" and spk.centroids is not None:
         e_conv = windowed_embed(spk.model, x_conv)
         src_idx = torch.argmax(_unit(emb) @ spk.emb_table.T, dim=-1)
-        trg_idx = torch.roll(src_idx, 1, dims=0)
+        trg_idx = roll_batch(src_idx, mesh)
         cos_trg = torch.sum(e_conv * spk.centroids[trg_idx], dim=-1)
         cos_src = torch.sum(e_conv * spk.centroids[src_idx], dim=-1)
         margin = cos_trg - cos_src
         valid = (src_idx != trg_idx).to(margin.dtype)
-        n_valid = torch.clamp(valid.sum(), min=1.0)
+        if mesh is None:
+            n_valid = torch.clamp(valid.sum(), min=1.0)
+        else:
+            n_valid = torch.clamp(all_reduce(valid.sum(), mesh, "data"), min=1.0) / mesh.size("data")
         g_loss_spk = torch.sum(torch.relu(cfg.train.spk_margin - margin) * valid) / n_valid
         return g_loss_spk, {"g_spk_margin": torch.sum(margin * valid) / n_valid}
     e_conv = spk.model(x_conv)
-    e_trg = _unit(torch.roll(emb, 1, dims=0))
+    e_trg = _unit(roll_batch(emb, mesh))
     return torch.mean(1.0 - torch.sum(e_conv * e_trg, dim=-1)), {}
 
 
@@ -118,7 +134,7 @@ def make_optimizer(model: Generator | GeneratorWav, cfg: Config) -> torch.optim.
 
 
 def loss_fn(model: Generator | GeneratorWav, cfg: Config, x: torch.Tensor, emb: torch.Tensor, train: bool = True,
-            spk: SpeakerAux | None = None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+            spk: SpeakerAux | None = None, mesh: Mesh | None = None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(total, metrics) of one batch; ``train`` runs the generator in train
     mode (batch statistics, running statistics updated), else in eval mode.
     The model's mode is restored afterwards.
@@ -135,7 +151,13 @@ def loss_fn(model: Generator | GeneratorWav, cfg: Config, x: torch.Tensor, emb: 
     the MSE between the front end's latent and the core decoder's output
     (a gradient into both), and the content L1 against the codes of the
     reconstructed waveform, re-encoded with the statistics the first pass
-    updated. ``spk`` is ignored, as the JAX wav loss ignores it."""
+    updated. ``spk`` is ignored, as the JAX wav loss ignores it.
+
+    ``mesh``: x and emb are this rank's rows of a batch split over the
+    mesh's 'data' axis. Each term is then this rank's share, whose mean over
+    the ranks is the global batch's term (equal shards: a local mean), the
+    within-batch cross-pairs are the global batch's, and BatchNorm takes
+    the global statistics where ``parallel.mesh.sync_batch_norm`` set it."""
     mt = cfg.model.model_type
     if mt not in ("spmel", "stft", "wav"):
         raise ValueError(f"unknown model_type {mt!r}")
@@ -147,7 +169,7 @@ def loss_fn(model: Generator | GeneratorWav, cfg: Config, x: torch.Tensor, emb: 
         x_conv = None
         if use_spk:
             model.eval()
-            x_conv = model(x, emb, torch.roll(emb, 1, dims=0))[1]  # within-batch cross-pairs
+            x_conv = model(x, emb, roll_batch(emb, mesh))[1]  # within-batch cross-pairs
         model.train(train)
         if mt == "wav":
             lat, x_identic, x_dec, codes = model(x, emb, emb)
@@ -166,7 +188,7 @@ def loss_fn(model: Generator | GeneratorWav, cfg: Config, x: torch.Tensor, emb: 
     else:
         total = metrics["g_loss_id"] + metrics["g_loss_id_psnt"] + cfg.train.lambda_cd * metrics["g_loss_cd"]
     if use_spk:
-        g_loss_spk, extra = speaker_loss(spk, cfg, x_conv, emb)
+        g_loss_spk, extra = speaker_loss(spk, cfg, x_conv, emb, mesh)
         total = total + cfg.train.lambda_spk * g_loss_spk
         metrics.update(extra, g_loss_spk=g_loss_spk)
     return total, {k: v.detach() for k, v in dict(metrics, g_loss=total).items()}
@@ -183,26 +205,57 @@ def learning_rate(cfg: Config, step: int, lr_scale: float = 1.0) -> float:
     return tc.lr * scale
 
 
-def make_train_step(cfg: Config, spk: SpeakerAux | None = None) -> Callable[..., dict[str, torch.Tensor]]:
+def backward(model: Generator | GeneratorWav, cfg: Config, x: torch.Tensor, emb: torch.Tensor,
+             spk: SpeakerAux | None = None, mesh: Mesh | None = None) -> dict[str, torch.Tensor]:
+    """The training loss of one batch and its gradients in the parameters'
+    ``.grad`` (which must be None or zero) -> the metrics. Over a mesh whose
+    'data' axis is longer than 1, the gradients and metrics are averaged
+    over it (one collective each): every rank then holds the global batch's
+    gradient, as JAX's GSPMD step computes it."""
+    total, metrics = loss_fn(model, cfg, x, emb, train=True, spk=spk, mesh=mesh)
+    total.backward()
+    if mesh is None or mesh.groups.get("data") is None:
+        return metrics
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = all_reduce(_flatten_dense_tensors(grads), mesh, "data", "avg")
+    for g, v in zip(grads, _unflatten_dense_tensors(flat, grads)):
+        g.copy_(v)
+    names = sorted(metrics)
+    values = all_reduce(torch.stack([metrics[k].float() for k in names]), mesh, "data", "avg")
+    return dict(zip(names, values.unbind()))
+
+
+def make_train_step(cfg: Config, spk: SpeakerAux | None = None, mesh: Mesh | None = None,
+                    shards: dict[str, int | None] | None = None) -> Callable[..., dict[str, torch.Tensor]]:
     """The step: (state, x, emb, lr_scale) -> metrics, updating ``state`` in
     place. The metrics stay on the device (no host sync) and include ``lr``
     and ``grad_norm``, the global L2 norm of the gradients. ``spk``: the
-    lambda_spk auxiliary's encoder (see ``loss_fn``)."""
+    lambda_spk auxiliary's encoder (see ``loss_fn``). ``mesh``: data
+    parallelism over its 'data' axis (``backward``). ``shards``: tensor
+    parallelism over its 'model' axis, the sharded axis of each parameter
+    (``parallel.mesh.param_shardings``): between steps each rank holds its
+    slice of those parameters and of their EMA; the step gathers the slices,
+    updates the whole parameters (Adam's moments are whole on every rank, as
+    JAX keeps them replicated) and keeps its slice again."""
+    tp = mesh is not None and shards is not None and any(a is not None for a in shards.values())
 
     def step_fn(state: TrainState, x: torch.Tensor, emb: torch.Tensor, lr_scale: float = 1.0):
         model, opt = state.model, state.optimizer
         lr = learning_rate(cfg, state.step, lr_scale)
+        if tp:
+            gather_params(model, shards, mesh)
         params = dict(model.named_parameters())
         opt.zero_grad(set_to_none=True)
         with exact_f32(x.device):
-            total, metrics = loss_fn(model, cfg, x, emb, train=True, spk=spk)
-            total.backward()
+            metrics = backward(model, cfg, x, emb, spk, mesh)
             grad_norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm([p.grad for p in params.values()])))
             for group in opt.param_groups:
                 group["lr"] = lr
             opt.step()
-            ema_update(state.ema_params, params, cfg.train.ema_decay)
+            if tp:
+                shard_params(model, shards, mesh)
+            ema_update(state.ema_params, dict(model.named_parameters()), cfg.train.ema_decay)
         state.step += 1
         return dict(metrics, lr=torch.tensor(lr), grad_norm=grad_norm)
 

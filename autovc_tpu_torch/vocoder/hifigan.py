@@ -19,6 +19,7 @@ convolutions run on cuDNN (on the CPU, PyTorch's own).
 from __future__ import annotations
 
 import math
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -110,32 +111,44 @@ class HiFiGANGenerator(nn.Module):
 
 class HiFiGANVocoder:
     """The vocoder entry point: weights from an exported JAX artifact
-    (``artifacts/hifigan.npz``) or drawn from ``seed``, on ``device``, run in
-    ``dtype`` (float32, or bfloat16: the parameters cast once here)."""
+    (``artifacts/hifigan.npz``), from a JAX parameter tree ``params`` (what
+    ``interop.hifigan_params_from_torch`` makes of a torch checkpoint), or
+    drawn from ``seed``, on ``device``, run in ``dtype`` (float32, or
+    bfloat16: the parameters cast once here)."""
 
     def __init__(self, cfg: HiFiGANConfig = HiFiGANConfig(), *, artifact: str | None = None,
-                 device: str | torch.device = "cuda", seed: int = 0, dtype: torch.dtype = torch.float32):
+                 params: Mapping | None = None, device: str | torch.device = "cuda", seed: int = 0,
+                 dtype: torch.dtype = torch.float32):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"HiFi-GAN runs in float32 or bfloat16, not {dtype}")
+        if artifact is not None and params is not None:
+            raise ValueError("pass an artifact or a parameter tree, not both")
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
         model = HiFiGANGenerator(cfg)
-        if artifact is None:
+        if artifact is not None:
+            params = load_artifact(artifact)[0]
+        if params is None:
             model.reset_parameters(seed)
         else:
-            model.load_state_dict(hifigan_state_from_jax(load_artifact(artifact)[0]))
+            model.load_state_dict(hifigan_state_from_jax(params))
         self.model = model.to(self.device, dtype).eval().requires_grad_(False)
 
     @classmethod
     def from_checkpoint(cls, cfg: HiFiGANConfig, path: str | None, *,
                         device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32) -> "HiFiGANVocoder":
         """The JAX ``from_checkpoint(cfg, path)``: an exported ``.npz``
-        artifact, or weights drawn from seed 0 when ``path`` is None. A torch
-        checkpoint raises: its importer is not ported yet (ROADMAP Queue 1 #9)."""
+        artifact, a public torch HiFi-GAN checkpoint (``.pt``, ``.pth``,
+        ``.ckpt``: its ``generator`` or ``state_dict`` entry, or the state dict
+        itself; weight norm folded by ``interop.hifigan_params_from_torch``),
+        or weights drawn from seed 0 when ``path`` is None."""
         if path is not None and path.endswith((".pt", ".pth", ".ckpt")):
-            raise ValueError(f"{path}: torch HiFi-GAN checkpoints do not load yet (ROADMAP Queue 1 #9); "
-                             f"export an .npz artifact")
+            from autovc_tpu_torch.interop import hifigan_params_from_torch
+
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+            sd = ckpt.get("generator", ckpt.get("state_dict", ckpt))
+            return cls(cfg, params=hifigan_params_from_torch(sd, cfg), device=device, dtype=dtype)
         return cls(cfg, artifact=path, device=device, dtype=dtype)
 
     @torch.inference_mode()

@@ -34,6 +34,7 @@ the same samples.
 from __future__ import annotations
 
 import math
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -212,20 +213,25 @@ def discretized_mol_loss(logits: torch.Tensor, target: torch.Tensor, num_classes
 
 class WaveNetVocoder:
     """The WaveNet entry point: weights from an exported JAX artifact
-    (``artifacts/wavenet_105k.npz``, ``artifacts/wavenet_f16.npz``) or drawn
-    from ``seed``, on ``device``. The kernel's weight layout is packed once
-    here in float32 (``packed``), and once in bfloat16 at the first bfloat16
-    call."""
+    (``artifacts/wavenet_105k.npz``, ``artifacts/wavenet_f16.npz``), from a
+    JAX parameter tree ``params`` (what ``interop.wavenet_params_from_torch``
+    makes of an r9y9 torch checkpoint), or drawn from ``seed``, on
+    ``device``. The kernel's weight layout is packed once here in float32
+    (``packed``), and once in bfloat16 at the first bfloat16 call."""
 
     def __init__(self, cfg: WaveNetConfig = WaveNetConfig(), *, artifact: str | None = None,
-                 device: str | torch.device = "cuda", seed: int = 0):
+                 params: Mapping | None = None, device: str | torch.device = "cuda", seed: int = 0):
+        if artifact is not None and params is not None:
+            raise ValueError("pass an artifact or a parameter tree, not both")
         self.cfg = cfg
         self.device = resolve_device(device)
         model = WaveNet(cfg)
-        if artifact is None:
+        if artifact is not None:
+            params = load_artifact(artifact)[0]
+        if params is None:
             model.reset_parameters(seed)
         else:
-            model.load_state_dict(wavenet_state_from_jax(load_artifact(artifact)[0]))
+            model.load_state_dict(wavenet_state_from_jax(params))
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.packed = wavenet_ops.pack_weights(self.model.state_dict(), cfg.layers)
         self._packs = {torch.float32: self.packed}
@@ -240,12 +246,16 @@ class WaveNetVocoder:
     def from_checkpoint(cls, cfg: WaveNetConfig, path: str | None, *,
                         device: str | torch.device = "cuda") -> "WaveNetVocoder":
         """The JAX ``from_checkpoint(cfg, path)``: an exported ``.npz``
-        artifact (f16 storage is upcast to f32), or weights drawn from seed 0
-        when ``path`` is None. A torch checkpoint raises: its importer is not
-        ported yet (ROADMAP Queue 1 #9)."""
+        artifact (f16 storage is upcast to f32), any other path an r9y9 torch
+        checkpoint (its ``state_dict`` entry or the state dict itself; weight
+        norm folded by ``interop.wavenet_params_from_torch``), or weights
+        drawn from seed 0 when ``path`` is None."""
         if path is not None and not path.endswith(".npz"):
-            raise ValueError(f"only exported .npz artifacts load here, not {path!r}: the torch WaveNet importer "
-                             f"is not ported yet (ROADMAP Queue 1 #9)")
+            from autovc_tpu_torch.interop import wavenet_params_from_torch
+
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+            sd = ckpt.get("state_dict", ckpt)
+            return cls(cfg, params=wavenet_params_from_torch(sd, cfg), device=device)
         return cls(cfg, artifact=path, device=device)
 
     def uniforms(self, batch: int, length: int, generator: torch.Generator | None = None) -> torch.Tensor:

@@ -275,13 +275,35 @@ frames from 8 client threads, each response within 1e-6 of a solo call at
 the same bucket padding; requests/s, p50 and p95 latency, the mean batch; a request
 without batching, and a malformed one (400).
 
-The kernels are built first, one ``nvcc`` each, started together.
+Phase 13 runs the port's parallelism on torch.distributed, on phase 5's
+corpus, after phase 12 and on processes started during phase 12 (after
+12a's timed programs: their start, seconds of imports and of the card's
+context, overlaps 12b-c; each waits for a signal before its timed or
+training work): (a) ``convert.sequence_parallel.SPGenerator``
+at the published widths on B=2 utterances of T=4096 frames, over a world of
+2 ranks sharing the card under gloo (the LSTM state handed through host
+memory) and over a world of 1 under NCCL, each against the single-process
+Generator forward on the card (codes 2e-5, x_identic 2e-4, x_psnt 2e-3), 7
+``lstm_fwd.cu`` launches a rank, every block after a direction's first run
+from a received (h, c), the SP forward's ms beside the dense one's; then
+``cli.convert --seq_devices 2`` against the dense Generator at its padding
+(a multiple of 2 * freq) and against the same CLI without it where both
+paddings agree (2e-3; the other utterances' distance recorded);
+(b) ``cli.train --multihost`` as 2 OS processes on the card under gloo
+(B=4 global, len_crop 128, 3 steps), at data_parallel 2 and at
+--model_parallel 2, the two runs at once (let go once (a)'s worlds are
+timed), each rank 0's --export against the single-process run's (params 1e-3, batch_stats 2e-2), 33 forward, backward
+and dW launches a rank, each run's wall time.
+
+The kernels are built first, one ``nvcc`` each, started together; the
+LSTM kernels are waited for, the WaveNet and feature kernels finish
+building while phases 1-2 run.
 
 The output ends with the card's name and power limit, one JSON line of
 kernel records, and ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; a watchdog ends a hung run with a stack dump. Without a CUDA
 device it exits non-zero before doing anything. It writes nothing outside
-the kernel build directory but the temporary directories of phases 4-12,
+the kernel build directory but the temporary directories of phases 4-13,
 which it removes.
 """
 
@@ -293,11 +315,13 @@ sys.dont_write_bytecode = True  # keep the checkout free of __pycache__
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 import faulthandler  # noqa: E402
 import functools  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
 import tempfile  # noqa: E402
+import threading  # noqa: E402
 import json  # noqa: E402
 import pickle  # noqa: E402
 import re  # noqa: E402
@@ -338,6 +362,7 @@ from autovc_tpu_torch.train.ge2e import load_params  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
 import scan_train_times as scan_times  # noqa: E402  (the scan training kernels' device times and work)
+import parallel_ranks  # noqa: E402  (phase 13a's work of a rank)
 from autovc_tpu_torch.train.step import windowed_embed  # noqa: E402
 from autovc_tpu_torch.vocoder.hifigan import HiFiGANVocoder  # noqa: E402
 from autovc_tpu_torch.vocoder.wavenet import WaveNetVocoder  # noqa: E402
@@ -349,9 +374,11 @@ LSTM_TOL = 1e-4  # f32 kernel vs f32 plain loop: summation order only
 MEL_TOL = 1e-3  # on the whole generator, after 7 recurrences and 11 convs
 KERNELS = ("lstm_fwd", "lstm_scan_fwd", "lstm_bwd", "lstm_scan_bwd", "lstm_gates", "lstm_scan_dw", "wavenet_gen",
            "mel_norm", "sosfilt")
+LATE_KERNELS = ("wavenet_gen", "mel_norm", "sosfilt")  # built while phases 1-2 run (the longest nvcc runs)
 WN_B, WN_FRAMES = 8, 8  # utterances and mel frames vocoded by WaveNet: T = 2048 samples
 WN_TF_TOL = 1e-3  # kernel logits vs teacher-forced forward on its own waveform, f32
 WN_PREFIX_TOL, WN_MIN_PREFIX = 1e-4, 32  # kernel vs plain loop, same uniforms
+WN_PLAIN = 512  # samples of the plain loop held against the kernel, and timed
 WN_TIME_B = (1, WN_B, 32)  # batches the kernel is timed at
 # us a sample at B=8, T=2048 of the per-layer kernels this one replaced, 49
 # launches a sample (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W)
@@ -469,11 +496,38 @@ def plain_recurrence():
     return mock.patch.object(lstm_ops, "lstm_sequence", lstm_ops.lstm_sequence_ref)
 
 
-def phase_build() -> None:
-    """Build every kernel from the checkout, one nvcc each, all at once."""
+def phase_build():
+    """Build every kernel from the checkout, one nvcc each, all started at
+    once: returns when the LSTM kernels (phases 1-2's) are built; the
+    longest builds (LATE_KERNELS) go on in a thread, and the function
+    returned waits for them (before phase 3), raises a failed build and logs
+    each build."""
     t0 = time.perf_counter()
-    _build.build(list(KERNELS))
-    log(f"build {', '.join(KERNELS)}: {time.perf_counter() - t0:.1f} s wall")
+    failed: list[Exception] = []
+
+    def build_late() -> None:
+        try:
+            _build.build(list(LATE_KERNELS))
+        except Exception as exc:  # raised by finish() on the main thread
+            failed.append(exc)
+
+    late = threading.Thread(target=build_late, daemon=True)
+    late.start()
+    _build.build([k for k in KERNELS if k not in LATE_KERNELS])
+    log(f"build of the LSTM kernels: {time.perf_counter() - t0:.1f} s wall; {', '.join(LATE_KERNELS)} building on")
+
+    def finish() -> None:
+        late.join()
+        if failed:
+            raise failed[0]
+        log(f"build {', '.join(KERNELS)}: {time.perf_counter() - t0:.1f} s wall since the first nvcc started")
+        log_build()
+
+    return finish
+
+
+def log_build() -> None:
+    """Each kernel's nvcc time, spills and ptxas registers."""
     for name in KERNELS:
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", _build.build_log.get(name, ""))]
         log(f"  {name}: nvcc {_build.build_seconds.get(name, 0.0):.1f} s, ptxas spill stores up to "
@@ -725,17 +779,18 @@ def phase_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> dict:
         log(f"wavenet (i) kernel logits vs teacher-forced forward: max_abs_err={tf_err:.3e} (tol {WN_TF_TOL})")
         if not tf_err <= WN_TF_TOL:
             raise AssertionError(f"wavenet teacher-forced check: {tf_err} > {WN_TF_TOL}")
-        # (ii) the plain loop on the same uniforms, timed
+        # (ii) the plain loop on the first WN_PLAIN samples of the same uniforms, timed
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        y_ref, _ = wavenet_ops.generate_ref(voc.packed, dils, cond, u, cfg.log_scale_min)
+        y_ref, _ = wavenet_ops.generate_ref(voc.packed, dils, cond[:, :WN_PLAIN].contiguous(),
+                                            u[:, :WN_PLAIN].contiguous(), cfg.log_scale_min)
         end.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
-        apart = first_apart(y, y_ref, WN_PREFIX_TOL)
+        apart = first_apart(y[:, :WN_PLAIN], y_ref, WN_PREFIX_TOL)
         prefix = min(apart)
         prefix_err = (y[:, :prefix] - y_ref[:, :prefix]).abs().max().item() if prefix else float("inf")
-        log(f"wavenet (ii) kernel vs plain loop over {t} samples: first sample apart by > {WN_PREFIX_TOL} "
+        log(f"wavenet (ii) kernel vs plain loop over {WN_PLAIN} samples: first sample apart by > {WN_PREFIX_TOL} "
             f"per row {apart}; max_abs_err over the common prefix {prefix_err:.3e}")
         if prefix < WN_MIN_PREFIX:
             raise AssertionError(f"wavenet kernel leaves the plain loop at sample {prefix} < {WN_MIN_PREFIX}")
@@ -762,11 +817,12 @@ def phase_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> dict:
     w_bound_ms, w_bound_by = bound_ms(flops, nbytes)
     audio_s = WN_B * t / cfg.sample_rate
     log(f"wavenet kernel: {ms:.3f} ms per call, {ms / t * 1e3:.2f} us per sample, "
-        f"{WN_B * t / ms * 1e3:.0f} samples/s; bound {w_bound_ms:.3f} ms ({w_bound_by}), plain {plain_ms:.1f} ms; "
+        f"{WN_B * t / ms * 1e3:.0f} samples/s; bound {w_bound_ms:.3f} ms ({w_bound_by}), plain {plain_ms:.1f} ms over {WN_PLAIN} samples; "
         f"vocoder call {warm_s * 1e3:.1f} ms wall for {audio_s:.3f} s of audio ({audio_s / warm_s:.3f}x realtime) "
         f"(card: {card_line()})")
     # the larger of check (i)'s logit error and check (ii)'s sample error
     return {"launches": launches, "max_abs_err": max(tf_err, prefix_err), "ms": ms, "plain_ms": plain_ms,
+            "plain_samples": WN_PLAIN,
             "bound_ms": w_bound_ms, "bound_by": w_bound_by}
 
 
@@ -1415,8 +1471,8 @@ def feature_check_sosfilt(dev: torch.device, batch: torch.Tensor) -> dict:
     """(b) the filter kernel against sosfilt_ref and scipy's float64 filter
     (``sosfilt_gate``) on 4 rows of 16000 samples and 2 rows of 80000 (a
     5-s file, 1013 chunks), forward and backward pass as sos_filtfilt runs
-    them; both passes timed at 32 rows of 131072 samples, the plain version
-    on the same rows."""
+    them; both passes timed at 32 rows of 131072 samples, and beside the
+    plain version on the first eighth of the same rows."""
     sos = torch.from_numpy(butter_highpass_sos().astype(np.float32)).to(dev)
     zi_unit = torch.from_numpy(scipy_signal.sosfilt_zi(butter_highpass_sos()).astype(np.float32)).to(dev)
     for length in (16_000, 80_036, TIME_L + 36):
@@ -1454,25 +1510,36 @@ def feature_check_sosfilt(dev: torch.device, batch: torch.Tensor) -> dict:
     log(f"sosfilt (b) host time of a call at a new chunk length (L=100000, C="
         f"{sosfilt_ops.scan_plan(100_000).chunk}): {new_ms:.3f} ms, its tables made and copied; "
         f"the next call {warm_ms:.3f} ms")
+    # the plain version, a Python loop a sample (the host's time), on the
+    # first eighth of every row, beside the kernel's two launches on the
+    # same eighth (the whole rows' plain loop took 28-32 s of the watchdog)
+    b, length = batch.shape
+    part = batch[:, : length // 8].contiguous()
+    zp1 = zi_unit * part[:, :1, None]
+    back_part = sosfilt_ops.sosfilt(sos, part, zp1).flip(-1).contiguous()
+    zp2 = zi_unit * back_part[:, :1, None]
+    part_ms = cuda_ms(lambda: (sosfilt_ops.sosfilt(sos, part, zp1), sosfilt_ops.sosfilt(sos, back_part, zp2)),
+                      reps=5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sosfilt_ops.sosfilt_ref(sos, batch, zi1), sosfilt_ops.sosfilt_ref(sos, back, zi2)
+    sosfilt_ops.sosfilt_ref(sos, part, zp1), sosfilt_ops.sosfilt_ref(sos, back_part, zp2)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    b, length = batch.shape
     bound, bound_by = bound_ms(2 * b * length * 27.0, 2 * 8.0 * b * length)
     plan = sosfilt_ops.scan_plan(length)
     chain_ms = 2 * sosfilt_chain_cycles(plan) / SM_CLOCK_HZ * 1e3
     fma_ms = 2 * sosfilt_fma_cycles(length) / SM_CLOCK_HZ * 1e3
     sequential_ms = 2 * length * SEQUENTIAL_CYCLES / SM_CLOCK_HZ * 1e3
     log(f"sosfilt (b) two passes at ({b}, {length}): ms={ms:.4f} (CUDA events), device time {dev_ms:.4f}; "
-        f"plain_ms={plain_ms:.1f} (a Python loop: the host) bound_ms={bound:.4f} ({bound_by}); the chunked "
+        f"at ({b}, {length // 8}) {part_ms:.4f} ms beside plain_ms={plain_ms:.1f} (a Python loop: the host); "
+        f"bound_ms={bound:.4f} ({bound_by}); the chunked "
         f"chain (C={plan.chunk}, {plan.levels} scan levels) {chain_ms:.4f} ms; one SM's float64 FMAs for a row "
         f"{fma_ms:.4f} ms; the sequential chain {sequential_ms:.3f} ms ({SEQUENTIAL_CYCLES} cycles a sample at "
         f"{SM_CLOCK_HZ / 1e9:.2f} GHz)")
     return {"max_abs_err": err, "gate_share": share, "gate_note": "the worst row's distance from scipy's float64 "
             "filter as a share of its gate (twice the plain pass's distance + 1e-6 of the row's max-abs)",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "chain_bound_ms": chain_ms,
+            "ms": ms, "plain_ms": plain_ms, "plain_shape": [b, length // 8], "ms_at_plain_shape": part_ms,
+            "bound_ms": bound, "bound_by": bound_by, "chain_bound_ms": chain_ms,
             "f64_fma_bound_ms": fma_ms, "device_ms": dev_ms, "new_chunk_length_host_ms": new_ms}
 
 
@@ -2091,7 +2158,7 @@ LSTM_BF16_ULPS, LSTM_BF16_EQUAL = 1.0, 0.99  # the same rounding points, float32
 BENCH_MEL_DELTA = 0.06  # bench.py:151-158's bound on the bf16-vs-f32 mel (recorded here, not a gate)
 # 10a's iteration before serving, as PERF.md §5 records it (NVIDIA H100 80GB HBM3, 700.00 W)
 RECORDED_BENCH_BF16_MS = 124.9
-WN_BF16_PLAIN_T = 256  # samples of the plain bfloat16 loop (it and its reordered twin: ~10 s on the card)
+WN_BF16_PLAIN_T = 128  # samples of the plain bfloat16 loop (it and its reordered twin: ~3.4 s on the card)
 # the bfloat16 kernel's gates: this many times the plain loop's own spread
 # in this run, and no tighter than phase 3's float32 gates
 WN_BF16_SPREAD = 4.0
@@ -2335,7 +2402,7 @@ def phase_bf16_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> di
             "us_per_sample": {str(rows): {"bf16": v[0], "f32": v[1]} for rows, v in times.items()}}
 
 
-WN_SCAN_PLAIN_T = 128  # 7e: samples of the plain scan-rounding loop (it and its relabelled twin)
+WN_SCAN_PLAIN_T = 64  # 7e: samples of the plain scan-rounding loop (it and its relabelled twin)
 
 
 def phase_scan_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> dict:
@@ -4390,14 +4457,18 @@ def phase_serving_http(dev: torch.device, srv, bundle: str) -> dict:
     return rec
 
 
-def phase_serving(dev: torch.device, trained: bool) -> dict:
-    """Phase 12: the serving path (12a-c), its bundles in a temp dir."""
+def phase_serving(dev: torch.device, trained: bool, after_programs=lambda: None, before_http=lambda: None) -> dict:
+    """Phase 12: the serving path (12a-c), its bundles in a temp dir;
+    ``after_programs()`` between 12a's timed programs and 12b,
+    ``before_http()`` between 12b and 12c."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
     try:
         variables, hifigan = serving_weights(trained)
         programs = phase_serving_programs(dev, trained, tmp, variables, hifigan)
         srv = programs.pop("srv")
+        after_programs()
         variants = phase_serving_variants(dev, tmp, variables, hifigan)
+        before_http()
         http = phase_serving_http(dev, srv, os.path.join(tmp, "f32"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4406,6 +4477,360 @@ def phase_serving(dev: torch.device, trained: bool) -> dict:
     return {"programs": programs, "variants": variants, "http": http,
             "f32_launches": programs["f32"]["launches"] + sum(v["launches"] for v in variants.values())
             + http["launches"]}
+
+
+# ---------------------------------------------------------------- phase 13
+# parallelism on torch.distributed with ranks that share the one card:
+# sequence-parallel conversion (13a) and multi-process training (13b)
+SP_B, SP_T, SP_REPS = 2, 4096, 3  # 13a: utterances of 4096 frames
+SP_TOLS = (2e-4, 2e-3, 2e-5)  # x_identic, x_psnt, codes: tests/test_parallel.py:127-129
+SP_CLI_TOL = 2e-3  # cli.convert --seq_devices 2 against the dense Generator, and the CLI where both pad alike
+MH_B, MH_STEPS = 4, 3  # 13b: cli.train --multihost, the global batch, at TRAIN_T frames
+MH_PARAMS_TOL, MH_STATS_TOL = 1e-3, 2e-2  # tests/test_multihost.py's ceilings of the exported trees
+# train.compare.history_gap's ceiling (relative) of the first step's metrics:
+# the loss terms and grad_norm, the norm of the gradient averaged over
+# 'data'. Ranks at B=2 round otherwise than one process at B=4, and without
+# a KinkTape an element that falls on the other side of a kink moves
+# grad_norm: a sound data-parallel run read 6.3e-5 on an H100, the planted
+# fault (gradients not averaged) 1.7-1.9. The second step's loss terms are
+# printed, not held: Adam's first update turns rounding in near-zero
+# gradients into steps of 2 lr (1.2e-4 there in a sound run);
+# tests/test_torch_dist_train.py holds them on the CPU at narrow widths
+MH_STEP_TOL = 1e-3
+MH_THREADS = 2  # host threads a process of 13b (six at once, on the card machine's cores)
+# cli.train in a child process, started during phase 12: its imports and the
+# card's context made, it touches MH_READY and waits for the file MH_GO names
+# ("go": train, then print its LSTM launches a rank (forward, backward, dW)
+# and its memory: allocated after the last step, the peak, the parameters it
+# holds between steps; "stop", or its parent gone: leave). MH_FAULT=local_grads
+# plants the fault 13b's gate must catch: each rank keeps its own gradient
+# where the all-reduce over 'data' averaged them.
+MH_STUB = ("import json, os, sys, time\nimport torch\ntorch.cuda.init()\n"
+           "from autovc_tpu_torch.cli import train\nfrom autovc_tpu_torch.ops import lstm\n"
+           "from autovc_tpu_torch.train import Solver, step\n"
+           "if os.environ.get('MH_FAULT') == 'local_grads':\n"
+           "    step._unflatten_dense_tensors = lambda flat, grads: grads\n"
+           "mem, fit = {}, Solver.train\n"
+           "def held(self, *args, **kwargs):\n    out = fit(self, *args, **kwargs)\n    torch.cuda.synchronize()\n"
+           "    mem.update(held=torch.cuda.memory_allocated(), peak=torch.cuda.max_memory_allocated(),\n"
+           "               params=sum(p.numel() * p.element_size() for p in self.state.model.parameters()))\n"
+           "    return out\n"
+           "Solver.train = held\nopen(os.environ['MH_READY'], 'w').close()\nparent = os.getppid()\n"
+           "while not os.path.exists(os.environ['MH_GO']):\n"
+           "    if os.getppid() != parent:\n        sys.exit(0)\n"
+           "    time.sleep(0.05)\n"
+           "if open(os.environ['MH_GO']).read() == 'go':\n    train.main(sys.argv[1:])\n"
+           "    launched = [lstm.launches, lstm.bwd_launches, lstm.dw_launches]\n"
+           "    print('LSTM_LAUNCHES ' + json.dumps(launched), flush=True)\n"
+           "    print('MEMORY ' + json.dumps(mem), flush=True)")
+MH_RUNS = {"data_parallel_2": [], "model_parallel_2": ["--model_parallel", "2"], "local_grads": ["--num_iters", "1"]}
+
+
+@contextlib.contextmanager
+def dist_backend(name: str | None):
+    """AUTOVC_DIST_BACKEND set to ``name`` (None: unset) for the duration."""
+    old = os.environ.pop("AUTOVC_DIST_BACKEND", None)
+    if name:
+        os.environ["AUTOVC_DIST_BACKEND"] = name
+    try:
+        yield
+    finally:
+        os.environ.pop("AUTOVC_DIST_BACKEND", None)
+        if old is not None:
+            os.environ["AUTOVC_DIST_BACKEND"] = old
+
+
+def background(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` in a daemon thread -> a function that joins it
+    and returns its result or raises its exception."""
+    box: dict = {}
+
+    def run() -> None:
+        try:
+            box["result"] = fn(*args, **kwargs)
+        except BaseException as exc:  # re-raised by join on the main thread
+            box["error"] = exc
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    return join
+
+
+def signal_ranks(path: str, word: str) -> None:
+    """Tell the ranks waiting on ``path`` to go on ("go") or to leave ("stop")."""
+    if not os.path.exists(path):
+        with open(path + ".tmp", "w") as f:
+            f.write(word)
+        os.replace(path + ".tmp", path)
+
+
+def mh_cmd(main_dir: str, name: str, export: str, *extra: str) -> list[str]:
+    """cli.train for MH_STEPS steps exporting to ``export``, every step's
+    metrics logged, no checkpoint (the multi-process save and restore:
+    tests/test_torch_dist_train.py)."""
+    return [sys.executable, "-c", MH_STUB, "--main_dir", main_dir, "--run_name", name, "--resume", "--batch_size",
+            str(MH_B), "--len_crop", str(TRAIN_T), "--num_iters", str(MH_STEPS), "--log_step", "1",
+            "--checkpoint_step", str(10 * MH_STEPS), "--export", export, *extra]
+
+
+def prestart_parallel(dev: torch.device, main_dir: str, pre: dict) -> None:
+    """Phase 13's processes, started after 12a's timed programs (their start
+    beside 12b's exports; 12c waits until they are ready); each waits, idle,
+    for its go-file: 13a's gloo world of 2 (each
+    rank, its model on the card, touches ``go_sp.ready<rank>`` and waits for
+    ``go_sp``) and 13b's six cli.train processes on phase 5's corpus under
+    ``main_dir`` (each touches its ready file and waits for ``go_mh``); each
+    recorded in ``pre`` as it starts. A waiting process leaves when this one
+    is gone. Ranks that share the card run gloo: AUTOVC_DIST_BACKEND stays
+    set until ``stop_parallel`` (nothing else in phase 12 reads it)."""
+    from autovc_tpu_torch.parallel.launch import run_world
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    pre.update(tmp=tmp, go_sp=os.path.join(tmp, "go_sp"), go_mh=os.path.join(tmp, "go_mh"), runs={},
+               backend=os.environ.get("AUTOVC_DIST_BACKEND"), started=time.perf_counter())
+    os.environ["AUTOVC_DIST_BACKEND"] = "gloo"
+    gen = build_generator(ModelConfig(), device=dev, seed=13)
+    pre["gen"] = gen
+    pre["state"] = state = {k: v.detach().cpu() for k, v in gen.state_dict().items()}
+    rng = np.random.RandomState(130)
+    pre["x"] = rng.rand(SP_B, SP_T, N_MELS).astype(np.float32)
+    pre["c_org"], pre["c_trg"] = (rng.randn(SP_B, 256).astype(np.float32) for _ in range(2))
+    pre["sp_world"] = background(run_world, parallel_ranks.sp_rank, 2, state, pre["x"], pre["c_org"], pre["c_trg"],
+                                 SP_REPS, pre["go_sp"], device="cuda", threads=MH_THREADS)
+    pre["ready"] = [f"{pre['go_sp']}.ready{r}" for r in range(2)]
+    for label, extra in MH_RUNS.items():
+        env = dict(os.environ, AUTOVC_COORDINATOR=f"localhost:{socket_port()}", AUTOVC_NUM_PROCESSES="2",
+                   MH_GO=pre["go_mh"], OMP_NUM_THREADS=str(MH_THREADS))
+        if label == "local_grads":
+            env["MH_FAULT"] = label
+        export = os.path.join(tmp, f"mh_{label}.npz")
+        ready = [os.path.join(tmp, f"mh_{label}.ready{r}") for r in range(2)]
+        procs = [subprocess.Popen(mh_cmd(main_dir, f"mh_{label}", export, "--multihost", *extra), cwd=str(ROOT),
+                                  env=dict(env, AUTOVC_PROCESS_ID=str(r), MH_READY=ready[r]), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        pre["ready"] += ready
+        pre["runs"][label] = [extra, export, procs, None]
+    log("phase 13's processes started (13a's world of 2, 13b's six cli.train ranks): they wait for their go-files")
+
+
+def wait_ready(pre: dict, timeout: float = 180.0) -> float:
+    """Wait until every process ``prestart_parallel`` started has its model
+    or its context on the card -> seconds since they were started."""
+    t0 = time.perf_counter()
+    while not all(os.path.exists(p) for p in pre["ready"]):
+        dead = [p.returncode for _, _, procs, _ in pre["runs"].values() for p in procs if p.poll() is not None]
+        if dead or time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"phase 13: processes not ready ({[p for p in pre['ready'] if not os.path.exists(p)]}"
+                                 f"; exit codes of those that left: {dead})")
+        time.sleep(0.05)
+    return time.perf_counter() - pre["started"]
+
+
+def stop_parallel(pre: dict) -> None:
+    """Let phase 13's processes leave (a stop where they were not let go),
+    kill what is left, remove the temp dir, restore AUTOVC_DIST_BACKEND."""
+    for key in ("go_sp", "go_mh"):
+        signal_ranks(pre[key], "stop")
+    for _, _, procs, _ in pre["runs"].values():
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    try:
+        if "sp_world" in pre:
+            pre["sp_world"]()
+    except Exception:  # already reported where it was joined, or moot after an earlier failure
+        pass
+    shutil.rmtree(pre["tmp"], ignore_errors=True)
+    os.environ.pop("AUTOVC_DIST_BACKEND", None)
+    if pre["backend"] is not None:
+        os.environ["AUTOVC_DIST_BACKEND"] = pre["backend"]
+
+
+def phase_sequence_parallel(dev: torch.device, main_dir: str, pre: dict) -> dict:
+    """13a: SPGenerator on B=2 utterances of T=4096 frames over 2 ranks on
+    the card under gloo (the world ``prestart_parallel`` started, let go
+    now; every phase-13 process idle) and over 1 rank under NCCL (this
+    process), each against the single-process Generator forward on the
+    card (codes 2e-5, x_identic 2e-4, x_psnt 2e-3), 7 forward launches a
+    rank, every block after a direction's first run from a received (h, c);
+    the SP forward's ms beside the dense forward's. Then 13b's ranks let go,
+    and beside their training ``cli.convert --seq_devices 2`` and the same
+    CLI without it on phase 5's conversions and one more, the first's
+    source cut to a length whose paddings differ, each held to the dense
+    Generator."""
+    from autovc_tpu_torch.data.manifest import save_conversion_metadata
+    from autovc_tpu_torch.io import save_generator_artifact
+    from autovc_tpu_torch.parallel.mesh import init_process_group
+
+    gen, state, x, c_org, c_trg, tmp = (pre[k] for k in ("gen", "state", "x", "c_org", "c_trg", "tmp"))
+    out = {"start_s": wait_ready(pre)}
+    args = [torch.from_numpy(a).to(dev) for a in (x, c_org, c_trg)]
+    with torch.inference_mode(), exact_f32(dev):
+        want = [o.cpu().numpy() for o in gen(*args)]
+        dense_ms = cuda_ms(lambda: gen(*args), SP_REPS)
+    out.update(dense_ms=dense_ms, worlds={})
+    for world, backend in ((2, "gloo"), (1, "nccl")):
+        t0 = time.perf_counter()
+        if world == 1:  # this process as the one rank: no process to start
+            with dist_backend(None):
+                init_process_group(f"file://{os.path.join(tmp, 'store')}", 1, 0, "cuda")
+            try:
+                ranks = [parallel_ranks.sp_rank(dev, state, x, c_org, c_trg, SP_REPS)]
+            finally:
+                torch.distributed.destroy_process_group()
+        else:
+            signal_ranks(pre["go_sp"], "go")
+            ranks = pre["sp_world"]()
+        wall = time.perf_counter() - t0
+        worst = [float(np.abs(g - w).max()) for g, w in zip(ranks[0]["outs"], want)]
+        rec = {"backend": backend, "ranks": world, "wall_s": wall, "sp_ms": ranks[0]["ms"],
+               "launches": [r["launches"] for r in ranks], "relays": [r["relays"] for r in ranks],
+               "max_abs": dict(zip(("x_identic", "x_psnt", "codes"), worst))}
+        out["worlds"][f"{backend}_{world}"] = rec
+        log(f"13a SPGenerator B={SP_B}, T={SP_T} over {world} rank(s) ({backend}, {[r['device'] for r in ranks]}): "
+            f"{rec['sp_ms']:.1f} ms a forward beside the dense forward's {dense_ms:.1f} ms (card: {card_line()}); "
+            f"lstm_fwd launches a rank {rec['launches']}, blocks run from a received (h, c) {rec['relays']}; "
+            f"max abs from the dense forward {rec['max_abs']} ({wall:.1f} s wall from the go signal)")
+        if (any(not w <= tol for w, tol in zip(worst, SP_TOLS)) or rec["launches"] != [7] * world
+                or sum(rec["relays"]) != 7 * (world - 1)):
+            raise AssertionError(f"13a: {rec}")
+    signal_ranks(pre["go_mh"], "go")  # 13b trains from here, beside the CLIs
+    for run in pre["runs"].values():
+        run[3] = time.perf_counter()
+    # the CLIs' corpus: phase 5's conversions and the first's source cut to
+    # a length whose ceil(t / 32) is odd (the two paddings differ)
+    specs = load_conversion_metadata(os.path.join(main_dir, "spmel", "metadata.pkl"))
+    n = -(-specs[0].src_features.shape[0] // 32)
+    specs.append(dataclasses.replace(specs[0], conversion_id=max(s.conversion_id for s in specs) + 1,
+                                     src_features=specs[0].src_features[:32 * (n - 1 + n % 2) - 5]))
+    cli_dir = os.path.join(tmp, "cli")
+    os.makedirs(os.path.join(cli_dir, "spmel"))
+    save_conversion_metadata(os.path.join(cli_dir, "spmel", "metadata.pkl"), specs)
+    art = os.path.join(tmp, "sp_generator.npz")
+    save_generator_artifact(gen.state_dict(), 0, art)
+    results = {}
+    for devices in (2, 0):
+        t0 = time.perf_counter()
+        results[devices] = cli_convert.main(["--main_dir", cli_dir, "--artifact", art, "--seq_devices", str(devices),
+                                             "--out", os.path.join(tmp, f"sp_{devices}.pkl")])
+        out[f"cli_seq_{devices}_s"] = time.perf_counter() - t0
+    # --seq_devices 2 pads an utterance to a multiple of 2 * freq, the CLI
+    # without it to a multiple of freq (as the JAX CLI's two paths): where the
+    # paddings differ, the backward LSTM and the last convolutions see other
+    # frames. Each result is held to the dense Generator at its own padding;
+    # against the CLI without it where the two paddings agree.
+    same_pad, at_pad, apart = [], [], []
+    for spec, (_, sp_mel), (_, mel) in zip(specs, results[2], results[0]):
+        t = spec.src_features.shape[0]
+        padded = np.zeros((1, -(-t // 64) * 64, N_MELS), np.float32)
+        padded[0, :t] = spec.src_features
+        with torch.inference_mode(), exact_f32(dev):
+            dense = gen(*(torch.from_numpy(a).to(dev) for a in (padded, spec.src_embedding[None],
+                                                              spec.trg_embedding[None])))[1][0, :t].cpu().numpy()
+        at_pad.append(float(np.abs(sp_mel - dense).max()))
+        apart.append(float(np.abs(sp_mel - mel).max()))
+        same_pad.append(-(-t // 32) == -(-t // 64) * 2)
+    out.update(cli_max_abs_at_its_padding=max(at_pad), cli_max_abs_same_padding=max(
+        [a for a, same in zip(apart, same_pad) if same], default=None), cli_max_abs_other_padding=max(
+        [a for a, same in zip(apart, same_pad) if not same], default=None), cli_conversions=len(specs))
+    log(f"13a cli.convert --seq_devices 2 (two ranks on the card, gloo, beside 13b's training): "
+        f"{len(specs)} conversions in {out['cli_seq_2_s']:.1f} s (its ranks' start included); without it "
+        f"{out['cli_seq_0_s']:.1f} s; from the dense Generator at the same padding (a multiple of 64 frames) max abs "
+        f"{max(at_pad):.3e}; from the CLI without it {out['cli_max_abs_same_padding']} where both pad alike "
+        f"({sum(same_pad)} of {len(specs)}), {out['cli_max_abs_other_padding']} where they do not (the padded "
+        f"frames' context)")
+    if ([k for k, _ in results[2]] != [k for k, _ in results[0]] or all(same_pad) or not max(at_pad) <= SP_CLI_TOL
+            or not all(a <= SP_CLI_TOL for a, same in zip(apart, same_pad) if same)):
+        raise AssertionError(f"13a cli.convert --seq_devices 2: {out}")
+    return out
+
+
+def finish_multihost(main_dir: str, pre: dict) -> dict:
+    """13b: cli.train's single-process run of the same 3 steps (B=4 global,
+    len_crop 128, on phase 5's corpus), then each multihost run held
+    against it: both ranks' first step (``compare.history_gap``: the loss
+    terms and grad_norm) within MH_STEP_TOL, rank 0's --export within
+    tests/test_multihost.py's ceilings (params 1e-3, batch_stats 2e-2); the
+    planted fault (local gradients, one step) must fail the step gate. Each
+    run's wall time from its go signal, the second step's loss terms' gap,
+    LSTM launches a rank and memory a rank."""
+    from autovc_tpu_torch.io import flatten_params, load_artifact
+    from autovc_tpu_torch.train.compare import history_gap
+    from autovc_tpu_torch.train.metrics import read_metrics
+
+    def steps(run: str, rank: int) -> list[dict]:
+        return read_metrics(os.path.join(main_dir, "runs", run, f"metrics_{run}{f'.rank{rank}' if rank else ''}.jsonl"))
+
+    solo = os.path.join(pre["tmp"], "mh_solo.npz")
+    zero_counts()
+    t0 = time.perf_counter()
+    cli_train.main(mh_cmd(main_dir, "mh_solo", solo)[3:])
+    torch.cuda.synchronize()
+    out = {"solo": {"wall_s": time.perf_counter() - t0,
+                    "launches": [lstm_ops.launches, lstm_ops.bwd_launches, lstm_ops.dw_launches]}}
+    want, want_steps = flatten_params(load_artifact(solo)[0]), steps("mh_solo", 0)
+    expect = [MH_STEPS * SEQS_PER_STEP] * 3
+    for label, (extra, export, procs, t0) in pre["runs"].items():
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+        wall = time.perf_counter() - t0
+        for p, text in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"13b {label}: a rank exited {p.returncode}:\n{text[-3000:]}")
+        launched, memory = ([json.loads(next(ln for ln in text.splitlines() if ln.startswith(key))[len(key) + 1:])
+                             for text in logs] for key in ("LSTM_LAUNCHES", "MEMORY"))
+        got = flatten_params(load_artifact(export)[0])
+        (worst_p, leaf_p), (worst_s, leaf_s) = (max((float(np.abs(got[k] - want[k]).max()), k) for k in got
+                                                    if k.startswith(tree)) for tree in ("params/", "batch_stats/"))
+        got_steps = [steps(f"mh_{label}", r) for r in range(2)]
+        step_gap = [history_gap(g, want_steps) for g in got_steps]
+        second = [history_gap(g, want_steps, step=2) if len(g) > 1 else None for g in got_steps]
+        rec = {"wall_s": wall, "launches_per_rank": launched, "params_max_abs": worst_p, "params_leaf": leaf_p,
+               "stats_max_abs": worst_s, "stats_leaf": leaf_s, "stats_leaf_peak": float(np.abs(want[leaf_s]).max()),
+               "step_gap": step_gap, "second_step_gap": second, "memory_per_rank": memory,
+               "data_parallel_line": f"data_parallel -> {1 if '--model_parallel' in extra else 2}" in logs[0]}
+        out[label] = rec
+        mib = [{k: round(v / 2**20, 1) for k, v in m.items()} for m in memory]
+        log(f"13b cli.train --multihost {' '.join(extra) or '(data_parallel 2)'}"
+            f"{' (data_parallel 2) with the planted fault (local gradients)' if label == 'local_grads' else ''}: 2 "
+            f"ranks on the card (gloo; the other runs' 4 at the same time), B={MH_B} global, in {wall:.1f} s wall from "
+            f"the go signal (the single process {out['solo']['wall_s']:.1f} s); LSTM launches a rank (fwd, bwd, dW) "
+            f"{launched}; from the single process (relative): step 1 {step_gap}, step 2's loss terms {second}; "
+            f"export params {worst_p:.3e} ({leaf_p}), batch_stats {worst_s:.3e} ({leaf_s}, whose peak is "
+            f"{rec['stats_leaf_peak']:.3f}); MiB a rank (after the last step, peak, parameters held) {mib} "
+            f"(card: {card_line()})")
+        if label == "local_grads":
+            if not max(g for g, _ in step_gap) >= MH_STEP_TOL:
+                raise AssertionError(f"13b: the planted fault passed the step gate: {rec}")
+            continue
+        if (got.keys() != want.keys() or not worst_p < MH_PARAMS_TOL or not worst_s < MH_STATS_TOL
+                or not max(g for g, _ in step_gap) < MH_STEP_TOL or launched != [expect] * 2
+                or not rec["data_parallel_line"] or out["solo"]["launches"] != expect):
+            raise AssertionError(f"13b {label}: {rec}, solo {out['solo']}, expected launches {expect}")
+    return out
+
+
+def socket_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel(dev: torch.device, main_dir: str, pre: dict) -> dict:
+    """Phase 13 on the processes ``prestart_parallel`` started: 13a, then
+    13b's checks; ``stop_parallel`` cleans up after it."""
+    return {"sp": phase_sequence_parallel(dev, main_dir, pre), "multihost": finish_multihost(main_dir, pre)}
 
 
 def variant_launches(var: dict, counter: str) -> dict[str, int]:
@@ -4459,21 +4884,25 @@ def main(argv: list[str] | None = None) -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    phase_build()
-    record = phase_kernel(dev)
-    launches, mels, f32_run = phase_end_to_end(dev, args.trained)
-    t0 = time.perf_counter()
-    wn = phase_wavenet(dev, args.trained, mels)
-    log(f"phase 3 (wavenet): {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    fwd_train, bwd = phase_train_kernels(dev)
-    lstm_step_split(dev)
-    train = phase_training(dev)
-    log(f"phase 4 (training): {time.perf_counter() - t0:.1f} s")
     corpus = tempfile.mkdtemp(prefix="chip_smoke_features_")
+    main_dir = os.path.join(corpus, "card")  # phase 5's corpus (phase_features writes it)
+    pre: dict = {}
     try:
+        finish_build = phase_build()
+        record = phase_kernel(dev)
+        launches, mels, f32_run = phase_end_to_end(dev, args.trained)
+        finish_build()
         t0 = time.perf_counter()
-        mel_rec, sos_rec, main_dir = phase_features(dev, corpus)
+        wn = phase_wavenet(dev, args.trained, mels)
+        log(f"phase 3 (wavenet): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        fwd_train, bwd = phase_train_kernels(dev)
+        lstm_step_split(dev)
+        train = phase_training(dev)
+        log(f"phase 4 (training): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mel_rec, sos_rec, features_dir = phase_features(dev, corpus)
+        assert features_dir == main_dir, (features_dir, main_dir)
         log(f"phase 5 (features): {time.perf_counter() - t0:.1f} s")
         # phase 6 runs on the spmel tree phase 5's make_spect wrote on the card
         t0 = time.perf_counter()
@@ -4524,13 +4953,24 @@ def main(argv: list[str] | None = None) -> int:
         voc = phase_vocoder_training(dev, corpus, main_dir, voc_dir)
         evals = phase_evaluate_vocoder(dev, main_dir, voc_dir, voc.pop("ckpts"))
         log(f"phase 11 (vocoder and speaker-encoder training): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        # phase 13's processes start after 12a's timed programs, beside 12b's
+        # exports, and wait idle for their go-files; 12c waits until they are
+        # ready, so none of their start or work runs beside 12a's or 12c's
+        # timed work
+        serving = phase_serving(dev, args.trained, lambda: prestart_parallel(dev, main_dir, pre),
+                                lambda: log(f"phase 13's processes ready {wait_ready(pre):.1f} s after their start"))
+        log(f"phase 12 (serving): {time.perf_counter() - t0:.1f} s")
+        # phase 13 on phase 5's corpus, on the processes started in phase 12
+        t0 = time.perf_counter()
+        par = phase_parallel(dev, main_dir, pre)
+        log(f"phase 13 (parallelism): {time.perf_counter() - t0:.1f} s")
     finally:
+        if pre:
+            stop_parallel(pre)
         shutil.rmtree(corpus, ignore_errors=True)
     if os.path.exists(corpus):
         raise AssertionError(f"{corpus} was not removed")
-    t0 = time.perf_counter()
-    serving = phase_serving(dev, args.trained)
-    log(f"phase 12 (serving): {time.perf_counter() - t0:.1f} s")
     lstm_bound, lstm_bound_by = bound_ms(record["flops"], record["bytes"])
     fwd_train_bound, _ = bound_ms(fwd_train["flops"], fwd_train["bytes"])
     bwd_bound, bwd_bound_by = bound_ms(bwd["flops"], bwd["bytes"])
@@ -4556,6 +4996,13 @@ def main(argv: list[str] | None = None) -> int:
                   "cli_train_bf16_default": (cli_scan[2], cli_scan[5]),
                   "serve_bf16": (serving["programs"]["bf16"]["launches"], 0)}
     serve_fwd = {"serve_f32": serving["f32_launches"], "serve_bf16": serving["programs"]["bf16_pallas"]["launches"]}
+    # phase 13: 13a's SPGenerator forwards (every rank of both worlds) and
+    # 13b's cli.train runs (both ranks of both multihost runs, the single
+    # process beside them): (forward, backward, dW)
+    sp_fwd = sum(sum(w["launches"]) for w in par["sp"]["worlds"].values())
+    mh = par["multihost"]
+    mh_n = [sum(rank[i] for k in ("data_parallel_2", "model_parallel_2") for rank in mh[k]["launches_per_rank"])
+            + mh["solo"]["launches"][i] for i in range(3)]
 
     kernels = [{
         "name": "lstm_fwd",
@@ -4571,11 +5018,14 @@ def main(argv: list[str] | None = None) -> int:
         # per d-vector forward (three sequences) at each width and batch
         # (the wrapper's "launches" count every forward, its bf16 ones too)
         "launches": launches + train_fwd + speaker_fwd + spk_fwd_n + bf_train_fwd + var_n["launches"] + ge2e_fwd
-        + sum(serve_fwd.values()),
+        + sum(serve_fwd.values()) + sp_fwd + mh_n[0],
         "launches_by_path": {"convert": launches, "train": train_fwd, "speaker": speaker_fwd,
                              "train_spk": spk_fwd_n, "train_bf16": bf_train_fwd,
                              "variants": var_by["launches"], "variants_bf16": var_by["bf16_launches"],
-                             "ge2e_train": ge2e_fwd, **serve_fwd},
+                             "ge2e_train": ge2e_fwd, **serve_fwd, "sequence_parallel": sp_fwd,
+                             "train_multihost": mh_n[0]},
+        # phase 13a: the SP forward at B=2, T=4096 a world beside the dense one
+        "sequence_parallel": par["sp"],
         # phase 12: the exported programs (serve.py) through the operator
         # autovc::lstm_sequence: 12a's float32, bf16 (scan) and bf16 (Pallas
         # rounding) converter calls at B=32, T=512 with their times beside
@@ -4620,12 +5070,14 @@ def main(argv: list[str] | None = None) -> int:
         # the input projection's gradients (dx through w_ih, dW_ih, biases)
         # backward sequences of the two training paths; the dW launches
         # beside them: none for the frozen d-vector's three a step
-        "launches": train_bwd + spk_bwd_n + bf_train_bwd + var_n["bwd_launches"] + ge2e_bwd,
+        "launches": train_bwd + spk_bwd_n + bf_train_bwd + var_n["bwd_launches"] + ge2e_bwd + mh_n[1],
         "launches_by_path": {"train": train_bwd, "train_spk": spk_bwd_n, "train_bf16": bf_train_bwd,
                              "variants": var_by["bwd_launches"], "variants_bf16": var_by["bf16_bwd_launches"],
-                             "ge2e_train": ge2e_bwd},
+                             "ge2e_train": ge2e_bwd, "train_multihost": mh_n[1]},
         "dw_launches_by_path": {"train": train_dw, "train_spk": spk_dw_n, "train_bf16": bf_train_dw,
-                                "variants": var_by["dw_launches"], "ge2e_train": ge2e_dw},
+                                "variants": var_by["dw_launches"], "ge2e_train": ge2e_dw, "train_multihost": mh_n[2]},
+        # phase 13b: cli.train --multihost, its runs' walls and exports' distances
+        "multihost": mh,
         # 11a: GE2E training at H=768 and 256, B = N*M: the forward and the
         # backward with dW a sequence against the plain loops, timed; the
         # trainer's step against the plain engine

@@ -87,8 +87,8 @@ def test_convert_batch_groups_and_keeps_order(converters):
 def test_port_and_chip_smoke_import_without_jax():
     """With jax, flax, pandas and autovc_tpu blocked, every module of the
     port (the WaveNet, training, feature-extraction, speaker-encoder,
-    synthesis, wav-variant, conversion and evaluation modules among them)
-    and chip_smoke still import."""
+    synthesis, wav-variant, conversion, evaluation, parallelism, interop
+    and native-runtime modules among them) and chip_smoke still import."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'pandas', 'autovc_tpu'):\n"
@@ -109,7 +109,14 @@ def test_port_and_chip_smoke_import_without_jax():
         "        'autovc_tpu_torch.cli.evaluate_speaker_encoder', 'autovc_tpu_torch.cli.synthesize',\n"
         "        'autovc_tpu_torch.vocoder.griffinlim', 'autovc_tpu_torch.models.convtas',\n"
         "        'autovc_tpu_torch.cli.convert', 'autovc_tpu_torch.cli.evaluate',\n"
-        "        'autovc_tpu_torch.cli.evaluate_conversion'} <= set(mods), mods\n"
+        "        'autovc_tpu_torch.cli.evaluate_conversion', 'autovc_tpu_torch.parallel',\n"
+        "        'autovc_tpu_torch.parallel.mesh', 'autovc_tpu_torch.parallel.sequence',\n"
+        "        'autovc_tpu_torch.parallel.launch', 'autovc_tpu_torch.convert.sequence_parallel',\n"
+        "        'autovc_tpu_torch.interop', 'autovc_tpu_torch.interop.torch_import',\n"
+        "        'autovc_tpu_torch.interop.hifigan_import', 'autovc_tpu_torch.interop.wavenet_import',\n"
+        "        'autovc_tpu_torch.interop._torch_utils', 'autovc_tpu_torch.cli.import_torch',\n"
+        "        'autovc_tpu_torch.cli.visualize', 'autovc_tpu_torch.runtime',\n"
+        "        'autovc_tpu_torch.runtime.bindings'} <= set(mods), mods\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "from autovc_tpu_torch.vocoder import WaveNetVocoder\n"

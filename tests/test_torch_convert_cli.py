@@ -294,15 +294,13 @@ def test_convert_cli_reads_a_port_run_dir(tmp_path, narrow_clis, use_ema):
 
 def test_convert_cli_refuses_what_it_cannot_read(tmp_path, narrow_clis):
     """An orbax run (the JAX Solver's) raises and says what it is; no
-    checkpoint raises; --seq_devices above 1 names its ROADMAP item."""
+    checkpoint raises (--seq_devices: tests/test_torch_parallel.py)."""
     _tree(tmp_path)
     (tmp_path / "orbax" / "checkpoints" / "100").mkdir(parents=True)
     with pytest.raises(ValueError, match="orbax"):
         convert_cli.main(["--main_dir", str(tmp_path), "--run_dir", str(tmp_path / "orbax"), "--device", "cpu"])
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         convert_cli.main(["--main_dir", str(tmp_path), "--run_dir", str(tmp_path), "--device", "cpu"])
-    with pytest.raises(SystemExit, match="Queue 1 #8"):
-        convert_cli.main(["--main_dir", str(tmp_path), "--artifact", "a.npz", "--seq_devices", "2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             convert_cli.main(["--main_dir", str(tmp_path), "--artifact", "a.npz"])

@@ -1852,3 +1852,83 @@ def test_serving_vocoder_program_on_card_matches_live_hifigan(cuda, tmp_path):
     mel = Converter(gen, cfg.model).convert(ConversionSpec(0, "u", eo, feats, "t", et))
     assert wav.shape == (100 * 256,) and np.isfinite(wav).all()
     np.testing.assert_array_equal(wav, voc.generate(mel).cpu().numpy())
+
+
+# ------------------------------------------------------------ parallelism
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("hidden", [32, 512, 1024])
+def test_sp_chunk_chain_on_card_matches_plain_chain(cuda, hidden, reverse):
+    """Sequence parallelism's relay on one card: 4 blocks of 64 steps, each
+    one launch of the forward kernel from the (h, c) the block before it
+    handed on (zeros for the first), against the plain loop over the whole
+    sequence on the CPU: within LSTM_TOL-like 1e-4, 4 launches."""
+    xproj, w_hh = _inputs(11, 2, 256, hidden)
+    want = lstm_ops.lstm_sequence_train_ref(torch.from_numpy(xproj), torch.from_numpy(w_hh), reverse=reverse)[0]
+    x, w = torch.from_numpy(xproj).to(cuda), torch.from_numpy(w_hh).to(cuda)
+    blocks = list(x.split(64, dim=1))
+    order = range(3, -1, -1) if reverse else range(4)
+    out, h, c = [None] * 4, None, None
+    before = lstm_ops.launches
+    with torch.no_grad():
+        for i in order:
+            out[i], _, h, c = lstm_ops.lstm_forward_cuda(blocks[i], w, h, c, reverse)
+    assert lstm_ops.launches - before == 4
+    torch.testing.assert_close(torch.cat(out, dim=1).cpu(), want, atol=1e-4, rtol=0)
+
+
+def _gloo_card_world(dev, state: dict, model_cfg, x: np.ndarray, e1: np.ndarray, e2: np.ndarray) -> dict:
+    """Two ranks sharing the card under gloo: SPGenerator over 'seq' (the
+    state handed through host memory), a differentiable all-reduce, and a
+    data-parallel BatchNorm's global statistics."""
+    from autovc_tpu_torch.convert.sequence_parallel import SPGenerator
+    from autovc_tpu_torch.models.layers import BatchNorm
+    from autovc_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.mesh_over({"seq": 2}, dev)
+    gen = build_generator(model_cfg, device="cpu")
+    gen.load_state_dict(state)
+    before = lstm_ops.launches
+    outs = [o.cpu().numpy() for o in SPGenerator(gen.to(dev), mesh)(x, e1, e2)]
+    launched = lstm_ops.launches - before
+    data = pmesh.mesh_over({"data": 2}, dev)
+    t = torch.full((3,), float(data.index("data") + 1), device=dev, requires_grad=True)
+    s = pmesh.all_reduce_sum(t, data, "data")
+    (s * s).sum().backward()
+    bn = BatchNorm(4)
+    bn.reset_parameters(None)
+    bn = bn.to(dev).train()
+    bn.reduce = lambda v: pmesh.all_reduce_sum(v, data, "data")
+    rows = torch.arange(16.0, device=dev).reshape(4, 1, 4) * (data.index("data") + 1)
+    bn(rows)
+    return {"outs": outs, "launched": launched, "sum": s.detach().cpu(), "grad": t.grad.cpu(),
+            "running_mean": bn.running_mean.cpu(), "device": str(dev)}
+
+
+def test_two_rank_gloo_world_on_card(cuda, monkeypatch):
+    """A 2-rank world on one card (AUTOVC_DIST_BACKEND=gloo): SPGenerator at
+    narrow widths, T=128, against the dense Generator on the card (codes
+    2e-5, x_identic 2e-4, x_psnt 2e-3; 7 forward launches a rank), an
+    all-reduce and its gradient, and BatchNorm's global mean across the
+    ranks' rows; both ranks on cuda:0."""
+    from autovc_tpu_torch.config import ModelConfig
+    from autovc_tpu_torch.parallel.launch import run_world
+
+    monkeypatch.setenv("AUTOVC_DIST_BACKEND", "gloo")
+    cfg = ModelConfig(dim_neck=8, dim_emb=16, dim_pre=32, enc_channels=32, dec_lstm_dim=64, postnet_channels=32)
+    gen = build_generator(cfg, device="cpu", seed=4)
+    rng = np.random.RandomState(12)
+    x, e1, e2 = rng.rand(2, 128, 80).astype(np.float32), *rng.randn(2, 2, 16).astype(np.float32)
+    with torch.no_grad():
+        want = [o.cpu().numpy() for o in gen.to(cuda)(*(torch.from_numpy(a).to(cuda) for a in (x, e1, e2)))]
+    got = run_world(_gloo_card_world, 2, {k: v.cpu() for k, v in gen.state_dict().items()}, cfg, x, e1, e2,
+                    device="cuda")
+    for rank in got:
+        assert rank["device"] == "cuda:0" and rank["launched"] == 7
+        for tol, g, w in zip((2e-4, 2e-3, 2e-5), rank["outs"], want):
+            np.testing.assert_allclose(g, w, atol=tol, rtol=0)
+        assert torch.equal(rank["sum"], torch.full((3,), 3.0)) and torch.equal(rank["grad"], torch.full((3,), 12.0))
+        # rows 0..15 and 0..30 by 2: channel j's mean over both ranks' rows
+        want_mean = 0.1 * (torch.arange(4.0) + 6.0) * 1.5
+        torch.testing.assert_close(rank["running_mean"], want_mean, atol=1e-6, rtol=0)

@@ -121,8 +121,8 @@ def test_from_checkpoint_takes_the_jax_arguments(path):
     """``from_checkpoint(cfg, path)`` as JAX's takes them, on a narrow
     config for None (seeded weights, compared for shape and finiteness
     only: the two packages' seeds draw differently) and the committed
-    artifact (JAX's weights exactly); a torch checkpoint raises and names
-    the ROADMAP item of its importer."""
+    artifact (JAX's weights exactly). A torch checkpoint:
+    tests/test_torch_interop.py."""
     kw = dict(upsample_initial_channel=32) if path is None else {}
     jax_voc = JaxHiFiGANVocoder.from_checkpoint(JaxHiFiGANConfig(**kw), path)
     port = HiFiGANVocoder.from_checkpoint(HiFiGANConfig(**kw), path, device="cpu")
@@ -133,5 +133,3 @@ def test_from_checkpoint_takes_the_jax_arguments(path):
         assert got[k].shape == v.shape and bool(torch.isfinite(got[k]).all()), k
         if path is not None:
             assert torch.equal(got[k], v), k
-    with pytest.raises(ValueError, match="Queue 1 #9"):
-        HiFiGANVocoder.from_checkpoint(HiFiGANConfig(), "generator_v1.pt", device="cpu")

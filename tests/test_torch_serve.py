@@ -587,9 +587,11 @@ def test_export_serving_refuses_cuda_without_a_card_and_torch_checkpoints(tmp_pa
         with pytest.raises(RuntimeError, match="no CUDA device"):
             export_serving_cli.main(["--artifact", art, "--out", str(out)])  # --platforms cuda, the default
         assert not out.exists()
-    with pytest.raises(ValueError, match="torch HiFi-GAN checkpoints"):
-        export_serving_cli.main(["--artifact", art, "--out", str(out), "--hifigan", str(tmp_path / "g.pt"),
-                                 "--platforms", "cpu"])
+    # a torch HiFi-GAN checkpoint loads (tests/test_torch_interop.py); one that holds no generator raises
+    bad = str(tmp_path / "g.pt")
+    torch.save({"generator": {"conv_pre.bias": torch.zeros(4)}}, bad)
+    with pytest.raises(KeyError, match="conv_pre"):
+        export_serving_cli.main(["--artifact", art, "--out", str(out), "--hifigan", bad, "--platforms", "cpu"])
 
 
 def _istft_slices(spec, n_fft=1024, hop=256, length=None):

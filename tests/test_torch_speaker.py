@@ -509,9 +509,13 @@ def test_make_metadata_cli_matches_jax(tmp_path, mode, capsys):
 
 
 def test_make_metadata_refuses_a_torch_checkpoint(tmp_path):
+    """A torch checkpoint that holds no d-vector raises on the first missing
+    key (the reference's d-vector loads: tests/test_torch_interop.py)."""
     _spmel_tree(str(tmp_path))
-    with pytest.raises(ValueError, match="Queue 1 #9"):
-        make_metadata.main(["--main_dir", str(tmp_path), "--dvector_ckpt", "3000000-BL.ckpt", "--device", "cpu"])
+    ckpt = str(tmp_path / "not-a-dvector.ckpt")
+    torch.save({"model_b": {"encoder.lstm.weight_ih_l0": torch.zeros(4, 2)}}, ckpt)
+    with pytest.raises(KeyError, match="lstm.weight_ih_l0"):
+        make_metadata.main(["--main_dir", str(tmp_path), "--dvector_ckpt", ckpt, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("holdout", [0, 4])

@@ -663,7 +663,10 @@ def test_periodic_saves_skip_while_previous_in_flight(tmp_path):
 
 
 def test_solver_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
+    """data_parallel 2 in one process with no process group: the mesh does
+    not span the world (data and tensor parallelism:
+    tests/test_torch_dist_train.py); no card: cuda raises."""
+    with pytest.raises(ValueError, match="does not span"):
         _solver(tmp_path, _solver_cfg(tmp_path, data_parallel=2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -718,6 +721,9 @@ def test_cli_trains_published_widths_and_exports(tmp_path, monkeypatch):
         def train(self):
             self.state.step = seen["cfg"].train.num_iters
 
+        def model_state(self):
+            return self.state.model.state_dict()
+
     monkeypatch.setattr(train_pkg, "Solver", NarrowSolver)
     _write_corpus(tmp_path)
     out = str(tmp_path / "gen.npz")
@@ -739,7 +745,7 @@ def test_cli_trains_published_widths_and_exports(tmp_path, monkeypatch):
     assert got.keys() == want.keys() and all(np.array_equal(got[k], v) for k, v in want.items())
 
 
-@pytest.mark.parametrize("flag, item", [(["--multihost"], "Queue 1 #8"),
+@pytest.mark.parametrize("flag, item", [(["--multihost"], "AUTOVC_COORDINATOR"),
                                         (["--lambda_spk", "0.5"], "requires --spk_ckpt"),
                                         (["--model_type", "stft", "--lambda_spk", "0.5", "--spk_ckpt", "ge2e.npz"],
                                          "mel-domain"), ([], "train.pkl")])
