@@ -7,7 +7,8 @@
 //   _chunk_bwd_call (-> _lstm_bwd_kernel, dW_hh accumulated on-chip) and
 //   _split_bwd_rule (-> _lstm_bwd_kernel_split, dW as one matmul outside).
 // The TPU split the gates only because a (H, 4H) f32 w_hh of 16 MB at H=1024
-// does not fit its VMEM; here one kernel set serves every H.
+// does not fit its VMEM; here one kernel set serves every H, streaming what
+// does not fit the blocks' shared memory (regime (c) below).
 //
 // Inputs are the forward's training form (csrc/lstm_fwd.cu): the gate
 // activations act (B, T, 4H) = [sigmoid(i), sigmoid(f), tanh(g), sigmoid(o)],
@@ -46,6 +47,15 @@
 //      its columns of dxproj[:, t], and meets the other blocks at
 //      cooperative_groups' grid barrier; dh0 is the last step of the launch.
 //      cudaLaunchCooperativeKernel, after an occupancy check.
+//  (c) a block's rows of w_hh past its shared memory (H=2048: 512 KB in
+//      float32 a block of 16 units): (b)'s kernel and blocks, with only the
+//      first kres of its 4H rows of K resident (a multiple of kc). At its
+//      start each block writes the rest, laid out as in shared memory, to
+//      its part of wst (device memory); each step streams them chunk by
+//      chunk into a ring of two kc-row buffers in the same commit group as
+//      the chunk of dgates they multiply (cp.async.cg). The counterpart of
+//      _lstm_bwd_kernel_split (pallas_lstm.py:169), which streams w_hh's
+//      gate blocks from HBM each step.
 // A thread computes RB batch rows x 4 units over a slice of K = 4H, the
 // slices are added in shared memory, and one thread per (row, unit) applies
 // the cell gradient and updates dc in place (only it reads and writes it).
@@ -98,8 +108,10 @@ struct Args {
   E* dxproj;      // the same rounded to E, or null
   float* dc_state;
   float* dh0;
+  E* wst;  // regime (c): each block's streamed rows of W, (4H - kres) x NC, or null
   int B, T, H, reverse;
   int units, rows, kc, ks;
+  int kres;  // rows of K = 4H of W resident in shared memory: 4H but in regime (c)
 };
 
 // The block's shape: units TJ (padded to NC, a multiple of 4, with zero
@@ -112,14 +124,15 @@ struct Layout {
       : TJ(tj), BT(a.rows), NC((tj + 3) / 4 * 4), RG(a.rows / RB), tasks(RG * NC / 4), KS(a.ks) {}
 };
 
-// Loads the block's rows of w_hh, transposed: W[k][u] = w_hh[j0 + u, k] for
-// k < 4H (zero for u >= TJ), read along the rows.
+// Loads rows [k0, k1) of the block's rows of w_hh, transposed: W[k - k0][u]
+// = w_hh[j0 + u, k] (zero for u >= TJ), read along the rows; W is shared
+// memory, or the block's part of wst in regime (c).
 template <class E>
-__device__ void load_w(E* W, const Args<E>& a, const Layout& L, int j0) {
-  const int K = 4 * a.H, n = K * L.NC;
+__device__ void load_w(E* W, const Args<E>& a, const Layout& L, int j0, int k0, int k1) {
+  const int K = 4 * a.H, nk = k1 - k0, n = nk * L.NC;
   for (int e = threadIdx.x; e < n; e += NT) {
-    const int k = e % K, u = e / K;
-    W[k * L.NC + u] = u < L.TJ ? a.w_hh[(size_t)(j0 + u) * K + k] : static_cast<E>(0.0f);
+    const int k = e % nk, u = e / nk;
+    W[(size_t)k * L.NC + u] = u < L.TJ ? a.w_hh[(size_t)(j0 + u) * K + k0 + k] : static_cast<E>(0.0f);
   }
 }
 
@@ -242,7 +255,7 @@ __global__ void __launch_bounds__(NT) lstm_bwd_block_kernel(Args<E> a) {
   float* red = dgs + (size_t)L.BT * ldg;
   const int b0 = blockIdx.x * L.BT;
 
-  load_w(W, a, L, 0);
+  load_w(W, a, L, 0, 0, K);
   for (int e = threadIdx.x; e < L.BT * ldg; e += NT) dgs[e] = 0.0f;
   __syncthreads();
 
@@ -263,23 +276,30 @@ __global__ void __launch_bounds__(NT) lstm_bwd_block_kernel(Args<E> a) {
   }
 }
 
-// Regime (b): block x owns units [x*units, x*units + units) for every batch
-// row. Shared memory: W (4H x NC), two staging buffers (rows x (kc + PAD)),
-// red. Launched cooperatively only.
+// Regimes (b) and (c): block x owns units [x*units, x*units + units) for
+// every batch row. Shared memory: W (kres x NC: all 4H rows in (b)), two
+// staging buffers (rows x (kc + PAD)), red, and in (c) the ring of two
+// streamed chunks of W (kc x NC). Launched cooperatively only.
 template <class E>
 __global__ void __launch_bounds__(NT, 1) lstm_bwd_grid_kernel(Args<E> a) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(a, a.units);
   const int K = 4 * a.H, lds = a.kc + PAD;
   E* W = reinterpret_cast<E*>(smem);
-  float* stage = reinterpret_cast<float*>(W + (size_t)K * L.NC);
+  float* stage = reinterpret_cast<float*>(W + (size_t)a.kres * L.NC);
   float* red = stage + 2 * (size_t)L.BT * lds;
+  E* ring = reinterpret_cast<E*>(red + (size_t)L.KS * L.BT * L.NC);
   const int j0 = blockIdx.x * L.TJ;
   const int ntiles = (a.B + L.BT - 1) / L.BT;
   const int nch = (K + a.kc - 1) / a.kc;
+  E* wst = a.wst != nullptr ? a.wst + (size_t)blockIdx.x * (K - a.kres) * L.NC : nullptr;
   cg::grid_group grid = cg::this_grid();
 
-  load_w(W, a, L, j0);
+  load_w(W, a, L, j0, 0, a.kres);
+  if (wst != nullptr) {
+    load_w(wst, a, L, j0, a.kres, K);
+    __threadfence();  // the streamed rows written before any thread's copies read them back
+  }
   for (int e = threadIdx.x; e < 2 * L.BT * lds; e += NT) stage[e] = 0.0f;
   __syncthreads();
 
@@ -291,13 +311,19 @@ __global__ void __launch_bounds__(NT, 1) lstm_bwd_grid_kernel(Args<E> a) {
     const float* src = s == 0 ? nullptr : a.dgates + (size_t)step_t(a, s - 1) * K;
     const size_t stride = (size_t)a.T * K;
     const int nst = src != nullptr ? ntiles * nch : 0;
-    auto stage_in = [&](int q) {  // stage q = (tile, chunk) into buffer q % 2
+    auto stage_in = [&](int q) {  // stage q = (tile, chunk) into buffer q % 2, with its rows of W in (c)
       const int b0 = (q / nch) * L.BT, k0 = (q % nch) * a.kc;
       const int nrow = min(L.BT, a.B - b0), n4 = min(a.kc, K - k0) / 4;
       float* buf = stage + (size_t)(q & 1) * L.BT * lds;
       for (int e = threadIdx.x; e < nrow * n4; e += NT) {
         const int r = e / n4, c4 = e % n4;
         cp_async16(buf + r * lds + 4 * c4, src + (b0 + r) * stride + k0 + 4 * c4);
+      }
+      if (k0 >= a.kres) {  // a streamed chunk: its kc x NC elements are contiguous in wst
+        const int n16 = (int)((size_t)min(a.kc, K - k0) * L.NC * sizeof(E) / 16);
+        const float* from = reinterpret_cast<const float*>(wst + (size_t)(k0 - a.kres) * L.NC);
+        float* to = reinterpret_cast<float*>(ring + (size_t)(q & 1) * a.kc * L.NC);
+        for (int e = threadIdx.x; e < n16; e += NT) cp_async16(to + 4 * e, from + 4 * e);
       }
       cp_async_commit();
     };
@@ -316,8 +342,9 @@ __global__ void __launch_bounds__(NT, 1) lstm_bwd_grid_kernel(Args<E> a) {
         }
         __syncthreads();  // stage q visible to every thread
         const int k0 = ch * a.kc;
+        const E* w = k0 < a.kres ? W + (size_t)k0 * L.NC : ring + (size_t)(q & 1) * a.kc * L.NC;
         if (ks >= 0)
-          gemm_slice(acc, stage + (size_t)(q & 1) * L.BT * lds, lds, W + (size_t)k0 * L.NC, L.NC, rg * RB, 4 * cgi,
+          gemm_slice(acc, stage + (size_t)(q & 1) * L.BT * lds, lds, w, L.NC, rg * RB, 4 * cgi,
                      min(a.kc, K - k0) / 4, ks, L.KS);
         __syncthreads();  // buffer q % 2 free for stage q + 2
       }
@@ -331,16 +358,19 @@ __global__ void __launch_bounds__(NT, 1) lstm_bwd_grid_kernel(Args<E> a) {
 }
 
 // Shared bytes of a plan, computed as the kernels lay them out: w_hh's rows
-// in elements of `wbytes` bytes, the rest float32.
-size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks, int wbytes) {
+// (its kres rows and the ring of two kc-row chunks in regime (c)) in
+// elements of `wbytes` bytes, the rest float32.
+size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks, int wbytes, int kres) {
   const size_t K = 4 * (size_t)H, nc = (size_t)(units + 3) / 4 * 4;
+  const size_t w = (regime == 2 ? (size_t)kres + 2 * (size_t)kc : K) * nc;
   const size_t staged = regime == 0 ? (size_t)rows * (K + PAD) : 2 * (size_t)rows * (kc + PAD);
-  return wbytes * K * nc + 4 * (staged + (size_t)ks * rows * nc);
+  return wbytes * w + 4 * (staged + (size_t)ks * rows * nc);
 }
 
 template <class E>
 int run(const Args<E>& a, int regime, int blocks, int smem, int* info, cudaStream_t stream) {
-  return launch(lstm_bwd_block_kernel<E>, lstm_bwd_grid_kernel<E>, a, regime, blocks, smem, info, stream);
+  return launch(lstm_bwd_block_kernel<E>, lstm_bwd_grid_kernel<E>, a, regime == 0 ? 0 : 1, blocks, smem, info,
+                stream);
 }
 
 // The weight gradient dW (H, 4H) = hprev^T @ dxproj over the K = B*T rows
@@ -601,41 +631,47 @@ __global__ void __launch_bounds__(NT, DW_BLOCKS_PER_SM) lstm_dw_kernel(DwArgs<TH
 extern "C" {
 
 // The backward recurrence over the whole sequence, dh0 included, in one
-// launch on `stream`, without synchronising. regime 0 is (a), 1 is (b);
-// blocks, units, rows, kc and smem are the plan of ops/lstm.py:launch_plan
-// (kind "bwd"). c0 and dhn may be null (zero); dc_state holds dcN on entry
-// (the caller zeroes it for a zero cotangent) and dc0 on exit; dh0 may be
-// null (not wanted). info (2 ints, may be null) receives the blocks that can
-// be resident on one SM and the SM count. Returns 0, ERR_PLAN, ERR_RESIDENT
-// or the CUDA error of the launch.
+// launch on `stream`, without synchronising. regime 0 is (a), 1 is (b), 2
+// is (c); blocks, units, rows, kc, kres and smem are the plan of
+// ops/lstm.py:launch_plan (kind "bwd"). c0 and dhn may be null (zero);
+// dc_state holds dcN on entry (the caller zeroes it for a zero cotangent)
+// and dc0 on exit; dh0 may be null (not wanted); wst, regime (c)'s streamed
+// rows (blocks x (4H - kres) x NC floats, NC = units rounded up to 4,
+// scratch), null otherwise. info (2 ints, may be null) receives the blocks
+// that can be resident on one SM and the SM count. Returns 0, ERR_PLAN,
+// ERR_RESIDENT or the CUDA error of the launch.
 int autovc_lstm_bwd(const float* act, const float* w_hh, const float* c0, const float* c_seq, const float* dy,
-                    const float* dhn, float* dxproj, float* dc_state, float* dh0, int B, int T, int H, int reverse,
-                    int regime, int blocks, int units, int rows, int kc, int smem, int* info, cudaStream_t stream) {
+                    const float* dhn, float* dxproj, float* dc_state, float* dh0, float* wst, int B, int T, int H,
+                    int reverse, int regime, int blocks, int units, int rows, int kc, int kres, int smem, int* info,
+                    cudaStream_t stream) {
   const int tasks = rows / RB * (((regime == 0 ? H : units) + 3) / 4);  // (row group, 4 units)
   int ks = 0;
-  if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
-      smem_bytes(regime, H, units, rows, kc, ks, 4) != (size_t)smem)
+  if (check_plan(B, T, H, 4 * H, regime, blocks, units, rows, kc, kres, tasks, ks) != 0 ||
+      smem_bytes(regime, H, units, rows, kc, ks, 4, kres) != (size_t)smem || (regime == 2) != (wst != nullptr))
     return ERR_PLAN;
-  const Args<float> a{act, w_hh, c0, c_seq, dy, dhn, dxproj, nullptr, dc_state, dh0,
-                      B, T, H, reverse, units, rows, kc, ks};
+  const Args<float> a{act, w_hh, c0, c_seq, dy, dhn, dxproj, nullptr, dc_state, dh0, wst,
+                      B, T, H, reverse, units, rows, kc, ks, regime == 2 ? kres : 4 * H};
   return run(a, regime, blocks, smem, info, stream);
 }
 
 // The bfloat16 form: w_hh (H, 4H), dy (B, T, H) and dxproj (B, T, 4H) in
 // bfloat16, dgates (B, T, 4H) float32 (both written: the gate gradients,
-// rounded and not); the rest as autovc_lstm_bwd. Returns as autovc_lstm_bwd.
+// rounded and not), wst in bfloat16; the rest as autovc_lstm_bwd. Returns as
+// autovc_lstm_bwd.
 int autovc_lstm_bwd_bf16(const float* act, const void* w_hh, const float* c0, const float* c_seq, const void* dy,
-                         const float* dhn, float* dgates, void* dxproj, float* dc_state, float* dh0, int B, int T,
-                         int H, int reverse, int regime, int blocks, int units, int rows, int kc, int smem, int* info,
-                         cudaStream_t stream) {
+                         const float* dhn, float* dgates, void* dxproj, float* dc_state, float* dh0, void* wst, int B,
+                         int T, int H, int reverse, int regime, int blocks, int units, int rows, int kc, int kres,
+                         int smem, int* info, cudaStream_t stream) {
   const int tasks = rows / RB * (((regime == 0 ? H : units) + 3) / 4);
   int ks = 0;
-  if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
-      smem_bytes(regime, H, units, rows, kc, ks, 2) != (size_t)smem || dgates == nullptr || dxproj == nullptr)
+  if (check_plan(B, T, H, 4 * H, regime, blocks, units, rows, kc, kres, tasks, ks) != 0 ||
+      smem_bytes(regime, H, units, rows, kc, ks, 2, kres) != (size_t)smem || dgates == nullptr || dxproj == nullptr ||
+      (regime == 2) != (wst != nullptr))
     return ERR_PLAN;
   using bf16 = __nv_bfloat16;
   const Args<bf16> a{act, static_cast<const bf16*>(w_hh), c0, c_seq, static_cast<const bf16*>(dy), dhn, dgates,
-                     static_cast<bf16*>(dxproj), dc_state, dh0, B, T, H, reverse, units, rows, kc, ks};
+                     static_cast<bf16*>(dxproj), dc_state, dh0, static_cast<bf16*>(wst), B, T, H, reverse, units, rows,
+                     kc, ks, regime == 2 ? kres : 4 * H};
   return run(a, regime, blocks, smem, info, stream);
 }
 

@@ -65,17 +65,21 @@ __device__ __forceinline__ void gemm_slice(float (&acc)[RB][4], const float* A, 
 }
 
 // ERR_PLAN unless the plan fits the shapes: regime 0 (a) has H units a
-// block and ceil(B / rows) blocks, regime 1 (b) H / units blocks and K
-// chunks of kc floats; the product's tasks and the (row, unit) pairs, RB a
-// thread, fit the threads. Else 0, with ks = NT / tasks.
-inline int check_plan(int B, int T, int H, int regime, int blocks, int units, int rows, int kc, int tasks, int& ks) {
+// block and ceil(B / rows) blocks, regimes 1 (b) and 2 (c) H / units blocks
+// and chunks of kc floats of K (H in the forward, 4H in the backward), (c)
+// its first kres rows of K resident, a multiple of kc short of K; the
+// product's tasks and the (row, unit) pairs, RB a thread, fit the threads.
+// Else 0, with ks = NT / tasks.
+inline int check_plan(int B, int T, int H, int K, int regime, int blocks, int units, int rows, int kc, int kres,
+                      int tasks, int& ks) {
   const int tj = regime == 0 ? H : units;
   if (B <= 0 || T <= 0 || H <= 0 || H % 8 != 0 || rows <= 0 || rows % RB != 0 || units <= 0 || tasks <= 0 ||
-      tasks > NT || rows * tj > RB * NT || regime < 0 || regime > 1)
+      tasks > NT || rows * tj > RB * NT || regime < 0 || regime > 2)
     return ERR_PLAN;
   if (regime == 0 ? (units != H || blocks != (B + rows - 1) / rows)
                   : (H % units != 0 || blocks != H / units || kc <= 0 || kc % 4 != 0))
     return ERR_PLAN;
+  if (regime == 2 && (kres < 0 || kres % kc != 0 || kres >= K)) return ERR_PLAN;
   ks = NT / tasks;
   return 0;
 }

@@ -7,7 +7,9 @@
 //   _lstm_chunk_split_impl (-> _lstm_kernel_split, _lstm_kernel_split_train).
 // The TPU kernel kept w_hh in VMEM for the whole call, with the (h, c) carry
 // on chip; the TPU needed the gate split only because a 16 MB w_hh at H=1024
-// does not fit its VMEM. Here the card's 132 SMs hold it together instead.
+// does not fit its VMEM. Here the card's 132 SMs hold it together instead,
+// up to the width where their shared memory is full; past it (regime (c)
+// below) each block streams what does not fit, as the split kernel does.
 //
 // Computes, for t in time order (or reversed):
 //   gates = xproj[:, t] + h_{t-1} @ w_hh        (B, 4H), gate order i, f, g, o
@@ -45,7 +47,21 @@
 //      at cooperative_groups' grid barrier. The launch is
 //      cudaLaunchCooperativeKernel, which refuses a grid that cannot be
 //      resident, after an occupancy check that reports both numbers.
-// In both, a thread computes RB batch rows x the 4 gates of one unit over a
+//  (c) a block's slice of w_hh past its shared memory (H=2048: 512 KB in
+//      float32 a block of 16 units): (b)'s kernel and blocks, with only the
+//      slice's first kres rows of K resident (a multiple of kc). At its
+//      start each block writes the rest of its slice, laid out as in shared
+//      memory, to its part of wst (device memory); each step then streams
+//      those rows chunk by chunk into a ring of two kc-row buffers, each
+//      chunk copied (cp.async.cg) in the same commit group as the chunk of
+//      h it multiplies, so the next chunk of both is in flight while one is
+//      multiplied. The counterpart of _lstm_kernel_split(_train)
+//      (pallas_lstm.py:102, 135), which streams w_hh's (H, H) gate blocks
+//      from HBM each step where they outgrow VMEM. Bound: w_hh's streamed
+//      bytes every step, from L2 where they fit it (the bfloat16 form at
+//      H=2048, 32 MB), else from HBM (float32: 64 MB, 67 MB a step less the
+//      resident part).
+// In all three, a thread computes RB batch rows x the 4 gates of one unit over a
 // slice of K (register tile), the slices are added in shared memory, and one
 // thread per (row, unit) updates the cell; c stays in place in c_state
 // (one thread reads and writes each element). Batch rows are tiled by the
@@ -99,8 +115,10 @@ struct Args {
   float* c_seq;
   float* gates;
   float* h_last;  // (B, H) float32 h of the last step, or null
+  E* wst;         // regime (c): each block's streamed rows of its slice, (H - kres) x 4 units, or null
   int B, T, H, reverse;
   int units, rows, kc, ks;  // the plan; ks = NT / tasks, derived here
+  int kres;                 // rows of K of the slice resident in shared memory: H but in regime (c)
 };
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
@@ -114,14 +132,15 @@ struct Layout {
       : TJ(tj), BT(a.rows), NC(4 * tj), RG(a.rows / RB), tasks(RG * tj), KS(a.ks) {}
 };
 
-// Loads the block's gate columns of w_hh: W[k][4u + g] = w_hh[k, g*H + j0 + u]
-// (read in runs of TJ consecutive units).
+// Loads rows [k0, k1) of the block's gate columns of w_hh: W[k - k0][4u + g]
+// = w_hh[k, g*H + j0 + u] (read in runs of TJ consecutive units); W is
+// shared memory, or the block's part of wst in regime (c).
 template <class E>
-__device__ void load_w(E* W, const Args<E>& a, const Layout& L, int j0) {
-  const int n = a.H * L.NC;
+__device__ void load_w(E* W, const Args<E>& a, const Layout& L, int j0, int k0, int k1) {
+  const int n = (k1 - k0) * L.NC;
   for (int e = threadIdx.x; e < n; e += NT) {
     const int u = e % L.TJ, g = (e / L.TJ) % 4, k = e / L.NC;
-    W[k * L.NC + 4 * u + g] = a.w_hh[(size_t)k * 4 * a.H + (size_t)g * a.H + j0 + u];
+    W[k * L.NC + 4 * u + g] = a.w_hh[(size_t)(k0 + k) * 4 * a.H + (size_t)g * a.H + j0 + u];
   }
 }
 
@@ -219,7 +238,7 @@ __global__ void __launch_bounds__(NT) lstm_fwd_block_kernel(Args<E> a) {
   float* red = hs + (size_t)L.BT * ldh;
   const int b0 = blockIdx.x * L.BT;
 
-  load_w(W, a, L, 0);
+  load_w(W, a, L, 0, 0, a.H);
   for (int e = threadIdx.x; e < L.BT * ldh; e += NT) {
     const int b = e / ldh, k = e % ldh;
     hs[e] = (a.h0 != nullptr && k < a.H && b0 + b < a.B) ? a.h0[(size_t)(b0 + b) * a.H + k] : 0.0f;
@@ -245,23 +264,30 @@ __global__ void __launch_bounds__(NT) lstm_fwd_block_kernel(Args<E> a) {
   }
 }
 
-// Regime (b): block x owns units [x*units, x*units + units) for every batch
-// row. Shared memory: W (H x 4 units), two staging buffers
-// (rows x (kc + PAD)), red. Launched cooperatively only.
+// Regimes (b) and (c): block x owns units [x*units, x*units + units) for
+// every batch row. Shared memory: W (kres x 4 units: all H rows in (b)), two
+// staging buffers (rows x (kc + PAD)), red, and in (c) the ring of two
+// streamed chunks of W (kc x 4 units). Launched cooperatively only.
 template <class E>
 __global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args<E> a) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(a, a.units);
   const int lds = a.kc + PAD;
   E* W = reinterpret_cast<E*>(smem);
-  float* stage = reinterpret_cast<float*>(W + (size_t)a.H * L.NC);
+  float* stage = reinterpret_cast<float*>(W + (size_t)a.kres * L.NC);
   float* red = stage + 2 * (size_t)L.BT * lds;
+  E* ring = reinterpret_cast<E*>(red + (size_t)L.KS * L.BT * L.NC);
   const int j0 = blockIdx.x * L.TJ;
   const int ntiles = (a.B + L.BT - 1) / L.BT;
   const int nch = (a.H + a.kc - 1) / a.kc;
+  E* wst = a.wst != nullptr ? a.wst + (size_t)blockIdx.x * (a.H - a.kres) * L.NC : nullptr;
   cg::grid_group grid = cg::this_grid();
 
-  load_w(W, a, L, j0);
+  load_w(W, a, L, j0, 0, a.kres);
+  if (wst != nullptr) {
+    load_w(wst, a, L, j0, a.kres, a.H);
+    __threadfence();  // the streamed rows written before any thread's copies read them back
+  }
   for (int e = threadIdx.x; e < 2 * L.BT * lds; e += NT) stage[e] = 0.0f;
   __syncthreads();
 
@@ -285,13 +311,19 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args<E> a) {
       }
     }
     const int nst = src != nullptr ? ntiles * nch : 0;
-    auto stage_in = [&](int q) {  // stage q = (tile, chunk) into buffer q % 2
+    auto stage_in = [&](int q) {  // stage q = (tile, chunk) into buffer q % 2, with its rows of W in (c)
       const int b0 = (q / nch) * L.BT, k0 = (q % nch) * a.kc;
       const int nrow = min(L.BT, a.B - b0), n4 = min(a.kc, a.H - k0) / 4;
       float* buf = stage + (size_t)(q & 1) * L.BT * lds;
       for (int e = threadIdx.x; e < nrow * n4; e += NT) {
         const int r = e / n4, c4 = e % n4;
         cp_async16(buf + r * lds + 4 * c4, src + (b0 + r) * stride + k0 + 4 * c4);
+      }
+      if (k0 >= a.kres) {  // a streamed chunk: its kc x NC elements are contiguous in wst
+        const int n16 = (int)((size_t)min(a.kc, a.H - k0) * L.NC * sizeof(E) / 16);
+        const float* from = reinterpret_cast<const float*>(wst + (size_t)(k0 - a.kres) * L.NC);
+        float* to = reinterpret_cast<float*>(ring + (size_t)(q & 1) * a.kc * L.NC);
+        for (int e = threadIdx.x; e < n16; e += NT) cp_async16(to + 4 * e, from + 4 * e);
       }
       cp_async_commit();
     };
@@ -310,8 +342,9 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args<E> a) {
         }
         __syncthreads();  // stage q visible to every thread
         const int k0 = ch * a.kc;
+        const E* w = k0 < a.kres ? W + (size_t)k0 * L.NC : ring + (size_t)(q & 1) * a.kc * L.NC;
         if (ks >= 0)
-          gemm_slice(acc, stage + (size_t)(q & 1) * L.BT * lds, lds, W + (size_t)k0 * L.NC, L.NC, rg * RB, 4 * u,
+          gemm_slice(acc, stage + (size_t)(q & 1) * L.BT * lds, lds, w, L.NC, rg * RB, 4 * u,
                      min(a.kc, a.H - k0) / 4, ks, L.KS);
         __syncthreads();  // buffer q % 2 free for stage q + 2
       }
@@ -325,17 +358,19 @@ __global__ void __launch_bounds__(NT, 1) lstm_fwd_grid_kernel(Args<E> a) {
 }
 
 // Shared bytes of a plan, computed as the kernels lay them out: w_hh's
-// slice in elements of `wbytes` bytes, the rest float32.
-size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks, int wbytes) {
+// slice (its kres rows and the ring of two kc-row chunks in regime (c)) in
+// elements of `wbytes` bytes, the rest float32.
+size_t smem_bytes(int regime, int H, int units, int rows, int kc, int ks, int wbytes, int kres) {
   const size_t nc = 4 * (size_t)units;
-  const size_t w = (size_t)H * nc;
+  const size_t w = (regime == 2 ? (size_t)kres + 2 * (size_t)kc : (size_t)H) * nc;
   const size_t staged = regime == 0 ? (size_t)rows * (H + PAD) : 2 * (size_t)rows * (kc + PAD);
   return wbytes * w + 4 * (staged + (size_t)ks * rows * nc);
 }
 
 template <class E>
 int run(const Args<E>& a, int regime, int blocks, int smem, int* info, cudaStream_t stream) {
-  return launch(lstm_fwd_block_kernel<E>, lstm_fwd_grid_kernel<E>, a, regime, blocks, smem, info, stream);
+  return launch(lstm_fwd_block_kernel<E>, lstm_fwd_grid_kernel<E>, a, regime == 0 ? 0 : 1, blocks, smem, info,
+                stream);
 }
 
 }  // namespace
@@ -343,22 +378,24 @@ int run(const Args<E>& a, int regime, int blocks, int smem, int* info, cudaStrea
 extern "C" {
 
 // Runs the whole sequence in one launch on `stream`, without synchronising.
-// regime 0 is (a), 1 is (b); blocks, units, rows, kc and smem are the plan of
-// ops/lstm.py:launch_plan. h0, c_seq and gates may be null; c_state holds c0
-// on entry and cN on exit. info (2 ints, may be null) receives the blocks
+// regime 0 is (a), 1 is (b), 2 is (c); blocks, units, rows, kc, kres and
+// smem are the plan of ops/lstm.py:launch_plan. h0, c_seq and gates may be
+// null; c_state holds c0 on entry and cN on exit; wst, regime (c)'s
+// streamed rows (blocks x (H - kres) x 4 units floats, scratch), null
+// otherwise. info (2 ints, may be null) receives the blocks
 // that can be resident on one SM and the SM count. Returns 0, ERR_PLAN for a
 // plan that does not fit the shapes, ERR_RESIDENT for a grid that cannot be
 // resident, or the CUDA error of the launch (cudaGetLastError).
 int autovc_lstm_fwd(const float* xproj, const float* w_hh, const float* h0, float* h_seq, float* c_state,
-                    float* c_seq, float* gates, int B, int T, int H, int reverse, int regime, int blocks, int units,
-                    int rows, int kc, int smem, int* info, cudaStream_t stream) {
+                    float* c_seq, float* gates, float* wst, int B, int T, int H, int reverse, int regime, int blocks,
+                    int units, int rows, int kc, int kres, int smem, int* info, cudaStream_t stream) {
   const int tasks = rows / RB * (regime == 0 ? H : units);  // (row group, unit)
   int ks = 0;
-  if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
-      smem_bytes(regime, H, units, rows, kc, ks, 4) != (size_t)smem)
+  if (check_plan(B, T, H, H, regime, blocks, units, rows, kc, kres, tasks, ks) != 0 ||
+      smem_bytes(regime, H, units, rows, kc, ks, 4, kres) != (size_t)smem || (regime == 2) != (wst != nullptr))
     return ERR_PLAN;
-  const Args<float> a{xproj, w_hh, h0, h_seq, nullptr, c_state, c_seq, gates, nullptr,
-                      B, T, H, reverse, units, rows, kc, ks};
+  const Args<float> a{xproj, w_hh, h0, h_seq, nullptr, c_state, c_seq, gates, nullptr, wst,
+                      B, T, H, reverse, units, rows, kc, ks, regime == 2 ? kres : H};
   return run(a, regime, blocks, smem, info, stream);
 }
 
@@ -367,19 +404,22 @@ int autovc_lstm_fwd(const float* xproj, const float* w_hh, const float* h0, floa
 // entry (the caller zeroes it for a zero state), cN on exit; hbuf the
 // float32 (2, B, H) exchange buffer of regime (b) (scratch, no initial
 // value; may be null in regime (a)); the training form's c_seq (B, T, H)
-// and h_last (B, H), float32, may be null (inference). Returns as
-// autovc_lstm_fwd.
+// and h_last (B, H), float32, may be null (inference); wst as
+// autovc_lstm_fwd's, in bfloat16. Returns as autovc_lstm_fwd.
 int autovc_lstm_fwd_bf16(const void* xproj, const void* w_hh, const float* h0, void* h_seq, float* hbuf,
-                         float* c_state, float* c_seq, float* h_last, int B, int T, int H, int reverse, int regime,
-                         int blocks, int units, int rows, int kc, int smem, int* info, cudaStream_t stream) {
+                         float* c_state, float* c_seq, float* h_last, void* wst, int B, int T, int H, int reverse,
+                         int regime, int blocks, int units, int rows, int kc, int kres, int smem, int* info,
+                         cudaStream_t stream) {
   const int tasks = rows / RB * (regime == 0 ? H : units);
   int ks = 0;
-  if (check_plan(B, T, H, regime, blocks, units, rows, kc, tasks, ks) != 0 ||
-      smem_bytes(regime, H, units, rows, kc, ks, 2) != (size_t)smem || (regime == 1 && hbuf == nullptr))
+  if (check_plan(B, T, H, H, regime, blocks, units, rows, kc, kres, tasks, ks) != 0 ||
+      smem_bytes(regime, H, units, rows, kc, ks, 2, kres) != (size_t)smem || (regime != 0 && hbuf == nullptr) ||
+      (regime == 2) != (wst != nullptr))
     return ERR_PLAN;
   const Args<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(xproj), static_cast<const __nv_bfloat16*>(w_hh), h0,
-                              static_cast<__nv_bfloat16*>(h_seq), regime == 1 ? hbuf : nullptr, c_state, c_seq,
-                              nullptr, h_last, B, T, H, reverse, units, rows, kc, ks};
+                              static_cast<__nv_bfloat16*>(h_seq), regime != 0 ? hbuf : nullptr, c_state, c_seq,
+                              nullptr, h_last, static_cast<__nv_bfloat16*>(wst), B, T, H, reverse, units, rows, kc,
+                              ks, regime == 2 ? kres : H};
   return run(a, regime, blocks, smem, info, stream);
 }
 

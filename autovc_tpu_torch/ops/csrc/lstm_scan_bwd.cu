@@ -61,6 +61,22 @@
 //    the blocks meet at cooperative groups' grid barrier. No float32 gate
 //    gradients are written or exchanged: the carry is the rounded dxproj's
 //    product, so the exchange holds half the bytes of the replaced form's.
+//  - Regime (c), past (b)'s registers (H > 1024, or H / 8 blocks more than
+//    the SMs): (b)'s kernel and step loop (one template, its number of n8
+//    groups the parameter), with 16 units a block (H / 16 blocks, at most
+//    one an SM), two n8 groups of mma.sync sharing each ldmatrix of the
+//    dgates tile, batch tiles of 8 rows (a 16-row tile's 4H x 16 bfloat16
+//    would not fit at H=2048), the eight warps' K ranges as in (b). A
+//    warp's W^T fragments (4H x 16 bfloat16 a block: 256 KB at H=2048) do
+//    not fit its registers:
+//    at the launch's start each lane writes its own, in fragment order, for
+//    its warp's first kres k16 steps to shared memory and for the rest to
+//    its block's part of wst (device memory); each product reads the
+//    resident ones with a shared load and streams the rest from L2 (ld.cg:
+//    each lane reads back only what it wrote), a group of eight steps'
+//    fragments at a time, 256 contiguous bytes a warp a step and group.
+//    The sums' order is (b)'s. The first one or two warps run the cells of
+//    units 0-7 and 8-15 of the tile's 8 rows.
 //  - Ordering (regime (b)). dxproj_t written by the cell's threads (the
 //    generic proxy) is read by the other blocks' TMA (the async proxy): the
 //    writers fence (fence.proxy.async.global) before the grid barrier, and
@@ -91,6 +107,7 @@ constexpr int UNITS = 8;   // units a block in regime (b): mma.sync's N
 constexpr int NWB = NT / 32;   // warps a block in regime (b): each an eighth of K
 constexpr int MAXKS = 32;      // k16 steps a warp at most: regime (b) takes H <= 1024
 constexpr int RED_ROWS = 16;   // rows of a tile's sums in shared memory
+constexpr int UNITS_C = 16;    // units a block in regime (c): two n8 groups
 
 struct BwdArgs {
   // regime (b): dxproj (B, T, 4H) seen as (64 k, B, atoms, T), boxes of 64 x rows x kh x 1, 128-byte swizzle
@@ -105,8 +122,12 @@ struct BwdArgs {
   float* dc_state;
   float* dh0;
   int B, T, H, reverse;
-  int rows;     // batch rows a tile: RA in regime (a); 8 or 16 in regime (b)
+  int rows;     // batch rows a tile: RA in regime (a); 8 or 16 in regime (b); 8 in regime (c)
   int nkc, kh;  // 64-k atoms of K = 4H, ceil(4H / 64); atoms a K half's copy, ceil(nkc / 2)
+  // regime (c): the k16 steps of a warp's fragments in shared memory, the steps a warp (whole eights), and
+  // each block's streamed fragments (null but in regime (c))
+  int kres, per;
+  uint2* wst;
 };
 
 // Byte offset of element (row, k) in K-major tiles of `rows` rows: 64-k atoms
@@ -357,35 +378,122 @@ __global__ void __launch_bounds__(128) lstm_bwd_scan_block_kernel(const __grid_c
   if (g < rows) *reinterpret_cast<float2*>(a.dc_state + (size_t)b * a.H + u) = make_float2(dc[0], dc[1]);
 }
 
-// Regime (b): block x owns units [8x, 8x + 8) for every batch row; warp w
-// an eighth of K. Shared memory: the dgates tile (two K halves of kh atoms
-// of `rows` rows x 128 bytes), a zero line, the warps' sums (NWB x 16 x 8
-// floats), dc of its (row, unit) pairs, two mbarriers. Launched
-// cooperatively only.
+// Regime (c)'s fragments of one k16 step for the lane: group n's (b0, b1),
+// w_hh[j0 + 8n + g, 16 s + 2q, + 1] and [.., 16 s + 2q + 8, + 9].
+__device__ __forceinline__ uint2 frag_of(const BwdArgs& a, int j0, int n, int s) {
+  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const bf16* row = a.w_hh + (size_t)(j0 + 8 * n + g) * 4 * a.H + 2 * q + 16 * s;
+  return make_uint2(ldg32(row), ldg32(row + 8));
+}
+
+// acc[n] += the pairwise sum of the G k16 steps from the warp's local step
+// i (global k0 + i), each into its own accumulator, for both n8 groups; the
+// fragments from f (shared memory, or the warp's part of wst read through
+// L2), (step, group, lane) apart.
+template <int G>
+__device__ __forceinline__ void steps_c(float (&acc)[2][4], const uint2* f, bool resident, int k0, int i,
+                                        unsigned tile, int rows, unsigned zero) {
+  const int lane = threadIdx.x % 32, r = (lane & 7) + 8 * ((lane >> 3) & 1), kk = 8 * (lane >> 4);
+  uint2 bw[G][2];
+#pragma unroll
+  for (int c = 0; c < G; ++c)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) bw[c][n] = resident ? f[(c * 2 + n) * 32 + lane] : __ldcg(f + (c * 2 + n) * 32 + lane);
+  float d[2][G][4];
+#pragma unroll
+  for (int c = 0; c < G; ++c) {
+    unsigned af[4];
+    ldsm_x4(af, r < rows ? tile + sw_off(r, 16 * (k0 + i + c) + kk, rows) : zero);
+    mma16816(d[0][c], af, bw[c][0].x, bw[c][0].y);
+    mma16816(d[1][c], af, bw[c][1].x, bw[c][1].y);
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int w = 1; w < G; w *= 2)
+#pragma unroll
+      for (int c = 0; c < G; c += 2 * w)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[n][c][e] += d[n][c + w][e];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += d[n][0][e];
+  }
+}
+
+// Regime (c)'s product of the warp's n k16 steps from k0: groups of eight
+// in order, then 4, 2 and 1 (product's order); steps below kres from the
+// shared fragments fs, the rest from the streamed ones fg.
+__device__ __forceinline__ void product_c(float (&acc)[2][4], const uint2* fs, const uint2* fg, int kres, int k0,
+                                          int n, unsigned tile, int rows, unsigned zero) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
+  auto at = [&](int i) { return i < kres ? fs + (size_t)i * 64 : fg + (size_t)(i - kres) * 64; };
+  int i = 0;
+  for (; i + 8 <= n; i += 8) steps_c<8>(acc, at(i), i < kres, k0, i, tile, rows, zero);
+  if ((n - i) & 4) {
+    steps_c<4>(acc, at(i), i < kres, k0, i, tile, rows, zero);
+    i += 4;
+  }
+  if ((n - i) & 2) {
+    steps_c<2>(acc, at(i), i < kres, k0, i, tile, rows, zero);
+    i += 2;
+  }
+  if ((n - i) & 1) steps_c<1>(acc, at(i), i < kres, k0, i, tile, rows, zero);
+}
+
+// Regimes (b) and (c), one kernel: block x owns U = 8·NG units [Ux, Ux + U)
+// for every batch row (NG n8 groups: 1 in (b), 2 in (c)), in tiles of
+// `rows` rows; warp w a.per k16 steps of K. Cell warp w (the first
+// rows / 8 · NG warps) runs rows 8 (w / NG) .. + 7 of a tile by units
+// 8 (w % NG) .. + 7 of the block: in (b) warp 0 rows 0-7 and warp 1 rows
+// 8-15, in (c) warp 0 units 0-7 and warp 1 units 8-15. The fragments: in
+// registers in (b), from shared memory and wst in (c). Shared memory: the
+// dgates tile (two K halves of kh atoms of `rows` rows x 128 bytes), a zero
+// line, the warps' sums (NWB x 16 x U floats), dc of its (row, unit) pairs,
+// two mbarriers, then in (c) the warps' resident fragments (kres steps x 2
+// groups x 32 lanes a warp). Launched cooperatively only.
+template <int NG>
 __global__ void __launch_bounds__(NT, 1) lstm_bwd_scan_grid_kernel(const __grid_constant__ BwdArgs a) {
+  constexpr int U = 8 * NG;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* stage = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int R = a.rows, half_bytes = a.kh * R * 128, ntiles = (a.B + R - 1) / R, H4 = 4 * a.H;
   unsigned char* zero = stage + 2 * half_bytes;
   float* red = reinterpret_cast<float*>(zero + 128);
-  float* dcs = red + NWB * RED_ROWS * UNITS;
-  unsigned long long* bar = reinterpret_cast<unsigned long long*>(dcs + ntiles * R * UNITS);
+  float* dcs = red + NWB * RED_ROWS * U;
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(dcs + ntiles * R * U);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
-  const int j0 = UNITS * blockIdx.x, u = j0 + 2 * q;
-  const bool cell_warp = warp < R / 8;  // warp 0 the rows 0-7 of a tile, warp 1 rows 8-15
+  const int row = 8 * (warp / NG) + g, j0 = U * blockIdx.x, uu = 8 * (warp % NG) + 2 * q, u = j0 + uu;
+  const bool cell_warp = warp < R / 8 * NG;
   cg::grid_group grid = cg::this_grid();
 
   // this warp's k16 steps: whole eights, an equal number a warp, the last ones cut at K
-  const int ks = a.H / 4, per = 8 * (((ks + 7) / 8 + NWB - 1) / NWB), k0 = min(ks, warp * per);
-  Steps st;
-  load_w(st, a, j0, k0, min(ks, k0 + per) - k0);
+  const int ks = a.H / 4, k0 = min(ks, warp * a.per), n = min(ks, k0 + a.per) - k0;
+  Steps st;  // (b)
+  uint2* fs = reinterpret_cast<uint2*>(bar + 2) + (size_t)warp * a.kres * 64;     // (c)
+  uint2* fg = a.wst + ((size_t)blockIdx.x * NWB + warp) * (a.per - a.kres) * 64;  // (c)
+  if constexpr (NG == 1) {
+    load_w(st, a, j0, k0, n);
+  } else {
+    for (int i = 0; i < n; ++i)
+#pragma unroll
+      for (int m = 0; m < NG; ++m) {
+        const uint2 v = frag_of(a, j0, m, k0 + i);
+        if (i < a.kres)
+          fs[(size_t)(i * 2 + m) * 32 + lane] = v;
+        else
+          fg[(size_t)((i - a.kres) * 2 + m) * 32 + lane] = v;
+      }
+  }
   // the K halves this warp reads: atoms [0, kh) and [kh, nkc)
-  const bool first_half = st.n > 0 && (16 * k0) / KATOM < a.kh;
-  const bool second_half = st.n > 0 && (16 * (k0 + st.n) - 1) / KATOM >= a.kh;
+  const bool first_half = n > 0 && (16 * k0) / KATOM < a.kh;
+  const bool second_half = n > 0 && (16 * (k0 + n) - 1) / KATOM >= a.kh;
   for (int e = threadIdx.x; e < 128 / 16; e += NT) reinterpret_cast<uint4*>(zero)[e] = make_uint4(0, 0, 0, 0);
-  for (int e = threadIdx.x; e < ntiles * R * UNITS; e += NT) {
-    const int bb = e / UNITS, uu = e % UNITS;
-    dcs[e] = bb < a.B ? a.dc_state[(size_t)bb * a.H + j0 + uu] : 0.f;
+  for (int e = threadIdx.x; e < ntiles * R * U; e += NT) {
+    const int bb = e / U;
+    dcs[e] = bb < a.B ? a.dc_state[(size_t)bb * a.H + j0 + e % U] : 0.f;
   }
   if (threadIdx.x == 0) {
     mbar_init(bar);
@@ -399,7 +507,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_bwd_scan_grid_kernel(const __grid_
   for (int s = 0; s <= a.T; ++s) {  // s == T: the dh0 step
     const int t = s < a.T ? step_t(a, s) : 0;
     for (int tl = 0; tl < ntiles; ++tl) {
-      const int b0 = tl * R, b = b0 + 8 * warp + g;
+      const int b0 = tl * R, b = b0 + row;
       if (s > 0 && threadIdx.x == 0) {
         // the other blocks' dxproj_{t_next}, and this block's reads of the tile, before the copies
         asm volatile("fence.proxy.async.global;\n" ::: "memory");
@@ -413,26 +521,29 @@ __global__ void __launch_bounds__(NT, 1) lstm_bwd_scan_grid_kernel(const __grid_
       }
       if (cell_warp && s < a.T) prefetch(p, a, b, u, t);
       if (s > 0) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        if (st.n > 0) {
+        float acc[NG][4] = {};
+        if (n > 0) {
           if (first_half) mbar_wait(bar, copies & 1u);
           if (second_half) mbar_wait(bar + 1, copies & 1u);
-          product(acc, st, tile, R, zero_line);
+          if constexpr (NG == 1)
+            product(acc[0], st, tile, R, zero_line);
+          else
+            product_c(acc, fs, fg, a.kres, k0, n, tile, R, zero_line);
         }
-        // accumulator i: row g + 8 (i / 2), unit 2q + i % 2
+        // accumulator e of group m: row g + 8 (e / 2), unit 8m + 2q + e % 2
 #pragma unroll
-        for (int i = 0; i < 4; ++i) red[(warp * RED_ROWS + g + 8 * (i / 2)) * UNITS + 2 * q + i % 2] = acc[i];
+        for (int m = 0; m < NG; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) red[(warp * RED_ROWS + g + 8 * (e / 2)) * U + 8 * m + 2 * q + e % 2] = acc[m][e];
         ++copies;
       }
       __syncthreads();  // the warps' sums complete
       if (cell_warp) {
         float carry[2];
         if (s > 0) {
-          const int row = 8 * warp + g;
           float2 w[NWB];
 #pragma unroll
-          for (int k = 0; k < NWB; ++k)
-            w[k] = *reinterpret_cast<const float2*>(red + (k * RED_ROWS + row) * UNITS + 2 * q);
+          for (int k = 0; k < NWB; ++k) w[k] = *reinterpret_cast<const float2*>(red + (k * RED_ROWS + row) * U + uu);
 #pragma unroll
           for (int h = 1; h < NWB; h *= 2)
 #pragma unroll
@@ -449,7 +560,7 @@ __global__ void __launch_bounds__(NT, 1) lstm_bwd_scan_grid_kernel(const __grid_
           if (a.dh0 != nullptr && b < a.B)
             *reinterpret_cast<float2*>(a.dh0 + (size_t)b * a.H + u) = make_float2(carry[0], carry[1]);
         } else {
-          float* dcp = dcs + (size_t)(b0 + 8 * warp + g) * UNITS + 2 * q;
+          float* dcp = dcs + (size_t)b * U + uu;
           float dc[2] = {dcp[0], dcp[1]};
           unsigned dgates[4];
           cells(p, carry, dc, dgates);
@@ -467,14 +578,15 @@ __global__ void __launch_bounds__(NT, 1) lstm_bwd_scan_grid_kernel(const __grid_
     }
     if (s < a.T) grid.sync();  // every dxproj_t written before any block reads it
   }
-  for (int e = threadIdx.x; e < a.B * UNITS; e += NT) a.dc_state[(size_t)(e / UNITS) * a.H + j0 + e % UNITS] = dcs[e];
+  for (int e = threadIdx.x; e < a.B * U; e += NT) a.dc_state[(size_t)(e / U) * a.H + j0 + e % U] = dcs[e];
 }
 
-size_t smem_bytes(int regime, int B, int H, int rows) {
+size_t smem_bytes(int regime, int B, int H, int rows, int kres) {
   const size_t nkc = (4 * (size_t)H + KATOM - 1) / KATOM, kh = (nkc + 1) / 2;
   if (regime == 0) return 1024 + 2 * nkc * RA * 128 + 128;
-  const size_t ntiles = (B + rows - 1) / rows;
-  return 1024 + 2 * kh * rows * 128 + 128 + 4 * (NWB * RED_ROWS * UNITS + ntiles * rows * UNITS) + 16;
+  const size_t ntiles = (B + rows - 1) / rows, units = regime == 1 ? UNITS : UNITS_C;
+  return 1024 + 2 * kh * rows * 128 + 128 + 4 * (NWB * RED_ROWS * units + ntiles * rows * units) + 16 +
+         (regime == 2 ? (size_t)kres * NWB * 2 * 32 * sizeof(uint2) : 0);
 }
 
 int launch_block(const BwdArgs& a, int blocks, int smem, int* info, cudaStream_t stream) {
@@ -497,10 +609,13 @@ extern "C" {
 
 // The backward recurrence of the scan rounding over the whole sequence, dh0
 // included, in one launch on `stream`, without synchronising. regime 0 is
-// (a), 1 is (b); blocks, units, rows and smem are the plan of
-// ops/lstm.py:scan_bwd_plan: (a) units = H <= 32, rows = 8, ceil(B / 8)
+// (a), 1 is (b), 2 is (c); blocks, units, rows, kres and smem are the plan
+// of ops/lstm.py:scan_bwd_plan: (a) units = H <= 32, rows = 8, ceil(B / 8)
 // blocks of H / 8 warps; (b) units 8, H / 8 <= the SM count blocks of 256
-// threads, H <= 1024, rows 8 (B <= 8) or 16. dxproj is written as a whole
+// threads, H <= 1024, rows 8 (B <= 8) or 16; (c) units 16, H / 16 blocks of
+// 256 threads, rows 8, kres resident k16 steps a warp (a multiple of 8),
+// wst (scratch) the rest: blocks x 8 warps x (steps a warp - kres) x 512
+// bytes, null but in (c). dxproj is written as a whole
 // and, in regime (b), read back by TMA boxes of 64-k atoms: it must have
 // 64 more elements of memory after its end when 4H % 64 != 0 (the wrapper
 // allocates them). info (2 ints, may be null) receives the blocks that can
@@ -509,16 +624,19 @@ extern "C" {
 // ERR_TMA where dxproj's tensor map cannot be encoded, or the CUDA error of
 // the launch.
 int autovc_lstm_scan_bwd(const float* act, const void* w_hh, const float* c0, const float* c_seq, const void* dy,
-                         const float* dhn, void* dxproj, float* dc_state, float* dh0, int B, int T, int H,
-                         int reverse, int regime, int blocks, int units, int rows, int smem, int* info,
+                         const float* dhn, void* dxproj, float* dc_state, float* dh0, void* wst, int B, int T, int H,
+                         int reverse, int regime, int blocks, int units, int rows, int kres, int smem, int* info,
                          cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || H % 8 != 0 || regime < 0 || regime > 1 || (long)B * T * 4 * H > (1L << 31))
+  if (B <= 0 || T <= 0 || H <= 0 || H % 8 != 0 || regime < 0 || regime > 2 || (long)B * T * 4 * H > (1L << 31))
     return ERR_PLAN;
+  const int per = 8 * (((H / 4 + 7) / 8 + NWB - 1) / NWB);  // regime (c): k16 steps a warp
   if (regime == 0 ? (units != H || H > 32 || rows != RA || blocks != (B + RA - 1) / RA)
-                  : (units != UNITS || H > 4 * MAXKS * NWB || blocks != H / UNITS || (rows != 8 && rows != 16) ||
-                     (rows == 8) != (B <= 8)))
+      : regime == 1 ? (units != UNITS || H > 4 * MAXKS * NWB || blocks != H / UNITS || (rows != 8 && rows != 16) ||
+                       (rows == 8) != (B <= 8))
+                    : (units != UNITS_C || H % UNITS_C != 0 || blocks != H / UNITS_C || rows != 8 || kres < 0 ||
+                       kres % 8 != 0 || kres > per || (kres < per && wst == nullptr) || (uintptr_t)wst % 16 != 0))
     return ERR_PLAN;
-  if (smem_bytes(regime, B, H, rows) != (size_t)smem) return ERR_PLAN;
+  if (smem_bytes(regime, B, H, rows, kres) != (size_t)smem) return ERR_PLAN;
   const int nkc = (4 * H + KATOM - 1) / KATOM;
   BwdArgs a{{},
             act,
@@ -536,7 +654,10 @@ int autovc_lstm_scan_bwd(const float* act, const void* w_hh, const float* c0, co
             reverse,
             rows,
             nkc,
-            (nkc + 1) / 2};
+            (nkc + 1) / 2,
+            kres,
+            per,
+            static_cast<uint2*>(wst)};
   if (regime == 0) return launch_block(a, blocks, smem, info, stream);
   // (B, T, 4H) seen as (64 k, B, atoms, T): an atom's 64 k are 128 bytes on from the last's
   const cuuint64_t dims[4] = {KATOM, (cuuint64_t)B, (cuuint64_t)nkc, (cuuint64_t)T};
@@ -544,7 +665,8 @@ int autovc_lstm_scan_bwd(const float* act, const void* w_hh, const float* c0, co
   const cuuint32_t box[4] = {KATOM, (cuuint32_t)rows, (cuuint32_t)a.kh, 1};
   if ((uintptr_t)dxproj % 16 || !encode(&a.map_dx, dxproj, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
     return ERR_TMA;
-  return launch_cooperative(lstm_bwd_scan_grid_kernel, a, blocks, NT, smem, info, stream);
+  if (regime == 2) return launch_cooperative(lstm_bwd_scan_grid_kernel<2>, a, blocks, NT, smem, info, stream);
+  return launch_cooperative(lstm_bwd_scan_grid_kernel<1>, a, blocks, NT, smem, info, stream);
 }
 
 const char* autovc_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

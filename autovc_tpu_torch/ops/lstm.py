@@ -72,6 +72,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import inspect
 
 import torch
 
@@ -95,6 +96,9 @@ scan_bwd_launches = 0
 dw_launches = 0
 scan_dw_launches = 0
 gates_launches = 0
+# The same launches of the recurrences by kind and regime ("fwd_c",
+# "scan_bwd_b", ...), counted where the kernel is launched.
+regime_launches: dict[str, int] = {}
 
 
 def _compute_dtype(xproj: torch.Tensor) -> torch.dtype:
@@ -387,6 +391,9 @@ class LaunchPlan:
     regime "b": ``blocks`` = H / ``units`` persistent blocks, each with its
     units' slice of w_hh, tiles of ``rows`` batch rows staged from global
     memory ``kc`` columns at a time, a grid barrier between steps.
+    regime "c": as (b), but only the slice's first ``kres`` rows of K (a
+    multiple of ``kc``) stay in shared memory; the rest is streamed from a
+    copy in device memory, ``kc`` rows at a time, beside each staged chunk.
     ``smem`` is the dynamic shared memory of one block in bytes."""
 
     kind: str
@@ -396,32 +403,152 @@ class LaunchPlan:
     rows: int
     kc: int
     smem: int
+    kres: int = 0
 
 
-def _smem(kind: str, regime: str, hidden: int, units: int, rows: int, kc: int, wbytes: int = 4) -> int:
+def _smem(kind: str, regime: str, hidden: int, units: int, rows: int, kc: int, wbytes: int = 4,
+          kres: int = 0) -> int:
     """Shared bytes of a block, laid out as the kernels lay them out: w_hh's
-    slice (K x NC, elements of ``wbytes`` bytes), the staged rows and the
-    partial sums of the K split (float32)."""
+    slice (K x NC, elements of ``wbytes`` bytes; in regime (c) its first
+    ``kres`` rows and a ring of two chunks of ``kc`` rows), the staged rows
+    and the partial sums of the K split (float32)."""
     k = hidden if kind == "fwd" else 4 * hidden
     nc = 4 * units if kind == "fwd" else -(-units // 4) * 4
     tasks = rows // ROWS_PER_THREAD * (nc // 4)
     staged = rows * (k + PAD) if regime == "a" else 2 * rows * (kc + PAD)
-    return wbytes * k * nc + 4 * (staged + THREADS // tasks * rows * nc)
+    resident = wbytes * (kres + 2 * kc) * nc if regime == "c" else wbytes * k * nc
+    return resident + 4 * (staged + THREADS // tasks * rows * nc)
+
+
+STREAM_SMEM = SMEM_MAX // 4  # regime (c): the bytes of a block its staged rows and its ring of w_hh chunks take at most
+
+
+def pad_hidden(hidden: int, sms: int = SMS) -> int:
+    """The width the kernels run an LSTM of ``hidden`` units at on a card of
+    ``sms`` SMs: the next multiple of 8 (the kernels' 16-byte rows), or of
+    16 where that width is past SCAN_BWD_MAX_HIDDEN or would need more than
+    ``sms`` blocks of 8 units (the scan kernels then take 16 units a block).
+    The added units are zero in every gate block (``pad_gates``): exact, in
+    every rounding. The package's widths (32, 256, 512, 768, 1024) are
+    their own."""
+    width = -(-hidden // 8) * 8
+    if width > SCAN_BWD_MAX_HIDDEN or width // 8 > sms:
+        width = -(-hidden // 16) * 16
+    return width
+
+
+def pad_units(v: torch.Tensor | None, width: int, dim: int = -1) -> torch.Tensor | None:
+    """(..., H, ...) -> (..., width, ...) along ``dim``, zeros appended (the
+    state, the hidden sequences, w_hh's rows); ``v`` itself at H = width."""
+    if v is None or v.shape[dim] == width:
+        return v
+    pad = list(v.shape)
+    pad[dim] = width - v.shape[dim]
+    return torch.cat([v, v.new_zeros(pad)], dim=dim)
+
+
+def pad_gates(v: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., 4H) -> (..., 4 width): zero units appended inside each of the
+    i, f, g, o blocks (xproj, the gate activations and gradients, w_hh's
+    columns). A padded unit's preactivation is 0, so its c is 0.5·0 +
+    0.5·tanh(0) = 0 and its h 0.5·tanh(0) = 0, exactly: it never reaches a
+    real unit, whose values are the unpadded ones."""
+    *lead, h4 = v.shape
+    if h4 == 4 * width:
+        return v
+    return pad_units(v.reshape(*lead, 4, h4 // 4), width).reshape(*lead, 4 * width)
+
+
+def strip_units(v: torch.Tensor | None, hidden: int, dim: int = -1) -> torch.Tensor | None:
+    """The inverse of ``pad_units``: the first ``hidden`` of ``dim``, contiguous."""
+    if v is None or v.shape[dim] == hidden:
+        return v
+    return v.narrow(dim, 0, hidden).contiguous()
+
+
+def strip_gates(v: torch.Tensor | None, hidden: int) -> torch.Tensor | None:
+    """The inverse of ``pad_gates``: each gate block's first ``hidden`` units."""
+    if v is None or v.shape[-1] == 4 * hidden:
+        return v
+    *lead, h4 = v.shape
+    return v.reshape(*lead, 4, h4 // 4)[..., :hidden].reshape(*lead, 4 * hidden)
+
+
+def pad_w(w_hh: torch.Tensor, width: int) -> torch.Tensor:
+    """w_hh (H, 4H) -> (width, 4 width): zero rows and zero gate columns."""
+    return pad_gates(pad_units(w_hh, width, 0), width)
+
+
+def strip_w(dw: torch.Tensor | None, hidden: int) -> torch.Tensor | None:
+    """The inverse of ``pad_w`` (a dW_hh at the padded width)."""
+    return None if dw is None else strip_gates(strip_units(dw, hidden, 0), hidden)
+
+
+# A tensor's role in the padding: "u" H units on its last axis, "g" the 4H
+# gates on its last axis, "w" w_hh or a dW_hh (H, 4H).
+_PAD = {"u": pad_units, "g": pad_gates, "w": pad_w}
+_STRIP = {"u": strip_units, "g": strip_gates, "w": strip_w}
+
+
+def pad_all(roles: str, width: int, *vs: torch.Tensor | None) -> list:
+    """Each of ``vs`` padded to ``width`` by its role (None stays None)."""
+    return [None if v is None else _PAD[r](v, width) for r, v in zip(roles, vs, strict=True)]
+
+
+def strip_all(roles: str, hidden: int, *vs: torch.Tensor | None) -> list:
+    """The inverse of ``pad_all``."""
+    return [_STRIP[r](v, hidden) for r, v in zip(roles, vs, strict=True)]
+
+
+def _any_width(outs: str, **roles: str):
+    """Let a kernel wrapper take any H: its tensor arguments named in
+    ``roles`` (the first is the wrapper's first parameter, and gives H) are
+    padded to ``_width``'s width and its outputs, of roles ``outs``, stripped
+    back to H. At a width that is its own (every width on the CPU, the
+    package's widths on the card) the wrapper runs on its arguments as they
+    are, with no copy."""
+    first, role0 = next(iter(roles.items()))
+
+    def wrap(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            v = args[0] if args else kwargs[first]
+            hidden = v.shape[0] if role0 == "w" else v.shape[-1] // (4 if role0 == "g" else 1)
+            width = _width(v, hidden)
+            if width == hidden:
+                return fn(*args, **kwargs)
+            call = sig.bind(*args, **kwargs)
+            names = [k for k in roles if k in call.arguments]
+            padded = pad_all("".join(roles[k] for k in names), width, *(call.arguments[k] for k in names))
+            call.arguments.update(zip(names, padded))
+            out = fn(*call.args, **call.kwargs)
+            if len(outs) == 1:
+                return strip_all(outs, hidden, out)[0]
+            return tuple(strip_all(outs[:len(out)], hidden, *out))
+        return run
+    return wrap
 
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(batch: int, hidden: int, kind: str = "fwd", sms: int = SMS, wbytes: int = 4) -> LaunchPlan | None:
     """The launch plan of one forward (``kind="fwd"``) or backward ("bwd")
     sequence at (B, H) with w_hh in elements of ``wbytes`` bytes (4 float32,
-    2 bfloat16: the bfloat16 forms), or None when w_hh does not fit the
-    shared memory of ``sms`` blocks. Regime (a) where w_hh and the staged
-    rows fit one block (the forward in float32 up to H=112, in bfloat16 up to
-    H=160), else (b) with the fewest units per block (the most blocks, at
-    most one per SM). Batch rows per block follow B, in steps of 4."""
+    2 bfloat16: the bfloat16 forms), planned at ``pad_hidden(H, sms)``.
+    Regime (a) where w_hh and the staged rows fit one block (the forward in
+    float32 up to H=112, in bfloat16 up to H=160), else (b) with the fewest
+    units per block (the most blocks, at most one per SM) where each block's
+    slice fits its shared memory, else (c): (b)'s blocks with as much of
+    their slice resident as shared memory holds beside a ring of two chunks
+    (STREAM_SMEM for the ring and the staged rows), the rest streamed every
+    step. Batch rows per block follow B, in steps of 4. None only where no
+    split of the units gives at most ``sms`` blocks of at most THREADS."""
     if kind not in ("fwd", "bwd"):
         raise ValueError(f"kind is 'fwd' or 'bwd', not {kind!r}")
     if wbytes not in (2, 4):
         raise ValueError(f"w_hh elements are 4 bytes (float32) or 2 (bfloat16), not {wbytes}")
+    hidden = pad_hidden(hidden, sms)
     k = hidden if kind == "fwd" else 4 * hidden
     row_groups = -(-batch // ROWS_PER_THREAD)
 
@@ -452,6 +579,20 @@ def launch_plan(batch: int, hidden: int, kind: str = "fwd", sms: int = SMS, wbyt
             kc = (-(-k // chunks) + 31) // 32 * 32
             return LaunchPlan(kind, "b", hidden // units, units, rows, kc,
                               _smem(kind, "b", hidden, units, rows, kc, wbytes))
+    for units in range(1, min(hidden, THREADS) + 1):
+        if hidden % units or hidden // units > sms:
+            continue
+        rows = min(row_groups, MAX_TILE_ROWS // ROWS_PER_THREAD, THREADS // units) * ROWS_PER_THREAD
+        nc = 4 * units if kind == "fwd" else -(-units // 4) * 4
+        # the chunk: the longest (a multiple of 32) whose ring and staged
+        # rows take at most STREAM_SMEM, and no longer than K
+        kc = max(32, min(STREAM_SMEM // (2 * (wbytes * nc + 4 * rows)) // 32 * 32, -(-k // 32) * 32))
+        fixed = _smem(kind, "c", hidden, units, rows, kc, wbytes, 0)
+        kres = min((SMEM_MAX - fixed) // (wbytes * nc) // kc * kc, k // kc * kc)
+        if kres < 0:
+            continue
+        return LaunchPlan(kind, "c", hidden // units, units, rows, kc,
+                          _smem(kind, "c", hidden, units, rows, kc, wbytes, kres), kres)
     return None
 
 
@@ -516,7 +657,8 @@ def gates_plan(batch: int, time: int, hidden: int) -> GatesPlan:
     """The gates kernel's tile at (B, T, H): 128 x 256 where those tiles
     still number GATES_WIDE_BLOCKS (fewer L2 reads of each operand), else
     128 x 128 (B=7, T=128: H=1024 wide, 112 blocks; H=512 128 x 128, 112;
-    H=32, 7)."""
+    H=32, 7); planned at H rounded up to 8, the padded width's."""
+    hidden = -(-hidden // 8) * 8
     rows = batch * -(-time // GATES_ROWS)
     wide = rows * -(-4 * hidden // (2 * GATES_COLS))
     if wide >= GATES_WIDE_BLOCKS:
@@ -536,56 +678,78 @@ class ScanPlan:
     ``rows``) blocks, each with all ``units`` = H units and ``rows`` batch
     rows, no grid barrier. regime "b": ``blocks`` = H / ``units``
     persistent blocks, each with its units' gate columns of w_hh, tiles of
-    ``rows`` batch rows, a grid barrier between steps. ``rows`` is the
-    tensor-core product's N (a multiple of 8: 8 in regime (a), mma.sync's;
-    wgmma's in regime (b)); ``smem`` the dynamic shared bytes of a block."""
+    ``rows`` batch rows, a grid barrier between steps. regime "c": as (b),
+    but each warpgroup keeps only the first ``kres`` 64-k atoms of its K
+    half of W^T in shared memory and streams the rest, an atom at a time,
+    through a ring of SCAN_RING slots. ``rows`` is the tensor-core
+    product's N (a multiple of 8: 8 in regime (a), mma.sync's; wgmma's in
+    regimes (b) and (c)); ``smem`` the dynamic shared bytes of a block."""
 
     regime: str
     blocks: int
     units: int
     rows: int
     smem: int
+    kres: int = 0
 
 
-def _scan_smem(hidden: int, rows: int, m_tiles: int, parts: int) -> int:
+SCAN_RING = 2  # regime (c): a warpgroup's ring slots of streamed W^T atoms
+
+
+def _scan_smem(hidden: int, rows: int, m_tiles: int, parts: int, kres: int | None = None) -> int:
     """Shared bytes of a scan block, laid out as the kernel lays them out:
     1 KB of alignment slack, W^T (m_tiles x 64 columns x K bfloat16, K = H
-    rounded up to 64), the h tile (rows x 64 bfloat16 an atom, two K halves
-    of ceil(K / 128) atoms), the K parts' sums (``parts`` of rows x (64
-    m_tiles + SCAN_RED_PAD) floats) and two mbarriers."""
+    rounded up to 64; in regime (c), ``kres`` given, each K half's first
+    ``kres`` atoms and its ring of SCAN_RING), the h tile (rows x 64
+    bfloat16 an atom, two K halves of ceil(K / 128) atoms), the K parts'
+    sums (``parts`` of rows x (64 m_tiles + SCAN_RED_PAD) floats) and the
+    mbarriers (two; six in regime (c))."""
     atoms = -(-hidden // SCAN_KATOM)
-    return (1024 + 2 * m_tiles * SCAN_MCOLS * atoms * SCAN_KATOM + 2 * rows * 2 * (-(-atoms // 2)) * SCAN_KATOM
-            + 4 * parts * rows * (SCAN_MCOLS * m_tiles + SCAN_RED_PAD) + 16)
+    half = -(-atoms // 2)
+    w_atoms = atoms if kres is None else min(kres, half) + min(kres, atoms - half) + 2 * SCAN_RING
+    return (1024 + 2 * m_tiles * SCAN_MCOLS * w_atoms * SCAN_KATOM + 2 * rows * 2 * half * SCAN_KATOM
+            + 4 * parts * rows * (SCAN_MCOLS * m_tiles + SCAN_RED_PAD) + (16 if kres is None else 16 + 32))
 
 
 @functools.lru_cache(maxsize=None)
 def scan_plan(batch: int, hidden: int, sms: int = SMS) -> ScanPlan | None:
-    """The scan forward's plan at (B, H) on a card of ``sms`` SMs, or None
-    where w_hh does not fit. H <= 32: regime (a), 8 batch rows a block
+    """The scan forward's plan at (B, ``pad_hidden(H, sms)``) on a card of
+    ``sms`` SMs, or None for an empty batch or where even 16 units a block
+    would outnumber the SMs. H <= 32: regime (a), 8 batch rows a block
     (mma.sync's N; the most blocks), all of K in one part of sums. Else
     regime (b), two K halves: 8 units a block (32 gate columns of wgmma's
     64: each thread updates one (row, unit) pair a step, which measured
     faster than 16 units' full 64 columns and two pairs a thread), or 16
     where H / 8 blocks would outnumber the SMs; one tile of B rows rounded
     up to 8 up to 32, else tiles of 32 (at H=1024, B=32: 128 blocks, 214
-    KB each)."""
-    if hidden % 8 or batch <= 0:
+    KB each). Where W^T and the h tile overflow a block's shared memory,
+    regime (c) with the same blocks and tiles: the atoms of W^T that fit
+    stay, the rest stream (B=32: from H=1088)."""
+    if batch <= 0:
         return None
+    hidden = pad_hidden(hidden, sms)
     if hidden <= 32:
         rows = 8
         return ScanPlan("a", -(-batch // rows), hidden, rows,
                         _scan_smem(hidden, rows, -(-4 * hidden // SCAN_MCOLS), 1))
     units = 8 if hidden // 8 <= sms else 16
     rows = min(SCAN_MAX_ROWS, -(-batch // 8) * 8)
-    smem = _scan_smem(hidden, rows, 1, 2)
-    if hidden % units or hidden // units > sms or smem > SMEM_MAX:
+    if hidden % units or hidden // units > sms:
         return None
-    return ScanPlan("b", hidden // units, units, rows, smem)
+    smem = _scan_smem(hidden, rows, 1, 2)
+    if smem <= SMEM_MAX:
+        return ScanPlan("b", hidden // units, units, rows, smem)
+    atom = 2 * SCAN_MCOLS * SCAN_KATOM
+    kres = max(0, (SMEM_MAX - _scan_smem(hidden, rows, 1, 2, 0)) // atom // 2)
+    smem = _scan_smem(hidden, rows, 1, 2, kres)
+    return ScanPlan("c", hidden // units, units, rows, smem, kres) if smem <= SMEM_MAX else None
 
 
 SCAN_BWD_UNITS, SCAN_BWD_ROWS_A = 8, 8  # as in csrc/lstm_scan_bwd.cu: regime (b)'s units a block, (a)'s rows
 SCAN_BWD_SUMS = 8 * 16 * SCAN_BWD_UNITS  # regime (b)'s floats of the warps' sums: 8 warps x 16 rows x the units
 SCAN_BWD_MAX_HIDDEN = 1024  # its regime (b)'s W^T fragments in registers: 32 k16 steps a warp at most
+SCAN_BWD_C_UNITS = 16  # regime (c): units a block, two mma.sync n8 groups
+SCAN_BWD_FRAG = 8 * 2 * 32 * 8  # regime (c): bytes of the eight warps' W^T fragments of one k16 step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -595,48 +759,74 @@ class ScanBwdPlan:
     blocks of H / 8 warps, each with all ``units`` = H units and ``rows`` = 8
     batch rows, no grid barrier. regime "b": ``blocks`` = H / 8 persistent
     blocks of 256 threads, 8 ``units`` each, batch tiles of ``rows`` (8 for
-    B <= 8, else 16: mma.sync's M), a grid barrier between steps. ``smem``
-    the dynamic shared bytes of a block."""
+    B <= 8, else 16: mma.sync's M), a grid barrier between steps. regime
+    "c" (past regime (b)'s registers): H / 16 such blocks of 16 units, batch
+    tiles of 8 rows, each warp's first ``kres`` k16 steps of W^T's
+    fragments in shared memory, the rest read from a copy in device memory
+    every step. ``smem`` the dynamic shared bytes of a block."""
 
     regime: str
     blocks: int
     units: int
     rows: int
     smem: int
+    kres: int = 0
 
 
-def _scan_bwd_smem(regime: str, batch: int, hidden: int, rows: int) -> int:
+def _scan_bwd_steps(hidden: int) -> int:
+    """The k16 steps of K = 4H a warp of the scan backward takes: whole
+    eights, an equal number for each of the 8 warps."""
+    eights = -(-(hidden // 4) // 8)
+    return 8 * -(-eights // 8)
+
+
+def _scan_bwd_smem(regime: str, batch: int, hidden: int, rows: int, kres: int = 0) -> int:
     """Shared bytes of a scan backward block, as the kernel lays them out: 1
     KB of alignment slack; (a) two dgates tiles of ceil(4H / 64) atoms of 8
-    rows x 128 bytes and a 128-byte zero line; (b) the tile's two K halves of
-    ceil(atoms / 2) atoms of ``rows`` x 128 bytes, the zero line, the eight
-    warps' sums (16 x 8 floats each), dc of the block's (row, unit) pairs
-    and two mbarriers."""
+    rows x 128 bytes and a 128-byte zero line; (b) and (c) the tile's two K
+    halves of ceil(atoms / 2) atoms of ``rows`` x 128 bytes, the zero line,
+    the eight warps' sums (16 x units floats each), dc of the block's (row,
+    unit) pairs and two mbarriers; (c) then the warps' resident fragments,
+    ``kres`` k16 steps each."""
     atoms = -(-4 * hidden // SCAN_KATOM)
     if regime == "a":
         return 1024 + 2 * atoms * SCAN_BWD_ROWS_A * 128 + 128
     tiles = -(-batch // rows)
-    return 1024 + 2 * (-(-atoms // 2)) * rows * 128 + 128 + 4 * (SCAN_BWD_SUMS + tiles * rows * SCAN_BWD_UNITS) + 16
+    units = SCAN_BWD_UNITS if regime == "b" else SCAN_BWD_C_UNITS
+    return (1024 + 2 * (-(-atoms // 2)) * rows * 128 + 128 + 4 * (8 * 16 * units + tiles * rows * units) + 16
+            + kres * SCAN_BWD_FRAG)
 
 
 @functools.lru_cache(maxsize=None)
 def scan_bwd_plan(batch: int, hidden: int, sms: int = SMS) -> ScanBwdPlan | None:
-    """The scan backward's plan at (B, H) on a card of ``sms`` SMs, or None
-    where it cannot launch: H > SCAN_BWD_MAX_HIDDEN, or more than ``sms``
-    blocks of 8 units, or a tile that does not fit. H <= 32: regime (a), 8
-    batch rows a block. Else regime (b): H / 8 blocks (at most one an SM),
-    batch tiles of 8 rows for B <= 8, else 16 (B=7: H=1024 128 blocks of
-    71 KB, H=512 64 of 38 KB)."""
-    if hidden % 8 or batch <= 0:
+    """The scan backward's plan at (B, ``pad_hidden(H, sms)``) on a card of
+    ``sms`` SMs, or None for an empty batch or where H / 16 blocks would
+    outnumber the SMs. H <= 32: regime (a), 8 batch rows a block. Else
+    regime (b) up to SCAN_BWD_MAX_HIDDEN where H / 8 blocks fit the SMs: H
+    / 8 blocks (at most one an SM), batch tiles of 8 rows for B <= 8, else
+    16 (B=7: H=1024 128 blocks of 71 KB, H=512 64 of 38 KB). Else regime
+    (c): H / 16 blocks, tiles of 8 rows, as many k16 steps of each warp's
+    fragments resident as shared memory holds, in eights."""
+    if batch <= 0:
         return None
+    hidden = pad_hidden(hidden, sms)
     if hidden <= 32:
         rows = SCAN_BWD_ROWS_A
         return ScanBwdPlan("a", -(-batch // rows), hidden, rows, _scan_bwd_smem("a", batch, hidden, rows))
-    rows = 8 if batch <= 8 else 16
-    smem = _scan_bwd_smem("b", batch, hidden, rows)
-    if hidden > SCAN_BWD_MAX_HIDDEN or hidden // SCAN_BWD_UNITS > sms or smem > SMEM_MAX:
+    if hidden <= SCAN_BWD_MAX_HIDDEN and hidden // SCAN_BWD_UNITS <= sms:
+        rows = 8 if batch <= 8 else 16
+        smem = _scan_bwd_smem("b", batch, hidden, rows)
+        if smem <= SMEM_MAX:
+            return ScanBwdPlan("b", hidden // SCAN_BWD_UNITS, SCAN_BWD_UNITS, rows, smem)
+    if hidden % SCAN_BWD_C_UNITS or hidden // SCAN_BWD_C_UNITS > sms:
         return None
-    return ScanBwdPlan("b", hidden // SCAN_BWD_UNITS, SCAN_BWD_UNITS, rows, smem)
+    rows = 8
+    room = SMEM_MAX - _scan_bwd_smem("c", batch, hidden, rows)
+    if room < 0:
+        return None
+    kres = min(_scan_bwd_steps(hidden), room // SCAN_BWD_FRAG // 8 * 8)
+    return ScanBwdPlan("c", hidden // SCAN_BWD_C_UNITS, SCAN_BWD_C_UNITS, rows,
+                       _scan_bwd_smem("c", batch, hidden, rows, kres), kres)
 
 
 SCAN_DW_WARPS = 4  # as in csrc/lstm_scan_dw.cu: warps a block
@@ -677,8 +867,9 @@ def _scan_dw_smem(rows: int, mi: int, nj: int, slots: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def scan_dw_plan(batch: int, time: int, hidden: int, sms: int = SMS) -> ScanDwPlan | None:
-    """The scan dW's plan at (B, T, H) on a card of ``sms`` SMs, or None
-    where H % 8 != 0. The tile: the largest of SCAN_DW_PATCHES whose warps
+    """The scan dW's plan at (B, T, H rounded up to 8: the padded width's)
+    on a card of ``sms`` SMs, or None for an empty batch or sequence. The
+    tile: the largest of SCAN_DW_PATCHES whose warps
     still number 4 an SM (one a sub-partition), else the smallest. A step's
     batch: one box of B rows where it fits SCAN_DW_MAX_ROWS and, twice (the
     ring's two buffers), SCAN_DW_SMEM; else the fewest slabs of equal rows
@@ -689,8 +880,9 @@ def scan_dw_plan(batch: int, time: int, hidden: int, sms: int = SMS) -> ScanDwPl
     H=1024 64 x 256 tiles, 256 blocks, 11 slots; H=512 32 x 128, 256 blocks,
     22; H=32 8 x 32, 16 blocks, 32; B=96 at H=1024: 32 x 128 tiles, one box
     a step; B=300 there: two boxes of 150 rows a step)."""
-    if hidden % 8 or batch <= 0 or time <= 0:
+    if batch <= 0 or time <= 0:
         return None
+    hidden = -(-hidden // 8) * 8
     first = next((k for k, (mi, nj) in enumerate(SCAN_DW_PATCHES)
                   if -(-hidden // (8 * mi)) * -(-4 * hidden // (32 * nj)) * SCAN_DW_WARPS >= 4 * sms),
                  len(SCAN_DW_PATCHES) - 1)
@@ -710,40 +902,30 @@ def scan_dw_plan(batch: int, time: int, hidden: int, sms: int = SMS) -> ScanDwPl
     return None
 
 
-def _no_plan(batch: int, hidden: int, sms: int, wbytes: int = 4) -> ValueError:
-    def fits(h: int) -> bool:
-        return all(launch_plan(batch, h, kind, sms, wbytes) is not None for kind in ("fwd", "bwd"))
-
-    return ValueError(
-        f"lstm kernels hold w_hh in shared memory for the whole sequence: at H={hidden} its "
-        f"{4 * wbytes * hidden * hidden} bytes do not fit {sms} blocks of at most {SMEM_MAX} bytes of shared "
-        f"memory each; the largest H that fits at B={batch} is {max(h for h in range(8, hidden, 8) if fits(h))}")
-
-
 # ------------------------------------------------------------- the kernels
 
 def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     pointers, ints, tail = ctypes.c_void_p, ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]
     if name == "lstm_fwd":
-        lib.autovc_lstm_fwd.argtypes = [pointers] * 7 + [ints] * 10 + tail
-        lib.autovc_lstm_fwd_bf16.argtypes = [pointers] * 8 + [ints] * 10 + tail
+        lib.autovc_lstm_fwd.argtypes = [pointers] * 8 + [ints] * 11 + tail
+        lib.autovc_lstm_fwd_bf16.argtypes = [pointers] * 9 + [ints] * 11 + tail
         entries = (lib.autovc_lstm_fwd, lib.autovc_lstm_fwd_bf16)
     elif name == "lstm_scan_fwd":
-        lib.autovc_lstm_scan_fwd.argtypes = [pointers] * 8 + [ints] * 9 + tail
+        lib.autovc_lstm_scan_fwd.argtypes = [pointers] * 9 + [ints] * 10 + tail
         entries = (lib.autovc_lstm_scan_fwd,)
     elif name == "lstm_gates":
         lib.autovc_lstm_gates.argtypes = [pointers] * 5 + [ints] * 5 + [pointers]
         entries = (lib.autovc_lstm_gates,)
     elif name == "lstm_scan_bwd":
-        lib.autovc_lstm_scan_bwd.argtypes = [pointers] * 9 + [ints] * 9 + tail
+        lib.autovc_lstm_scan_bwd.argtypes = [pointers] * 10 + [ints] * 10 + tail
         entries = (lib.autovc_lstm_scan_bwd,)
     elif name == "lstm_scan_dw":
         lib.autovc_lstm_scan_dw.argtypes = [pointers] * 4 + [ints] * 11 + tail
         entries = (lib.autovc_lstm_scan_dw,)
     else:
-        lib.autovc_lstm_bwd.argtypes = [pointers] * 9 + [ints] * 10 + tail
-        lib.autovc_lstm_bwd_bf16.argtypes = [pointers] * 10 + [ints] * 10 + tail
+        lib.autovc_lstm_bwd.argtypes = [pointers] * 10 + [ints] * 11 + tail
+        lib.autovc_lstm_bwd_bf16.argtypes = [pointers] * 11 + [ints] * 11 + tail
         lib.autovc_lstm_dw.argtypes = [pointers] * 6 + [ints] * 7 + [pointers]
         entries = (lib.autovc_lstm_bwd, lib.autovc_lstm_bwd_bf16, lib.autovc_lstm_dw)
     for fn in entries:
@@ -769,11 +951,11 @@ def _check(xproj: torch.Tensor, w_hh: torch.Tensor | None, kind: str = "fwd", fi
            **others: torch.Tensor | None) -> tuple[int, int, int, LaunchPlan | None]:
     """Validate what a kernel takes, before it is built: float32 throughout,
     or the bfloat16 form (``_BF16_OPERANDS`` in bfloat16, the rest float32);
-    the first tensor, named ``first``, (B, T, 4H) and w_hh (H, 4H) with
-    H % 8 == 0 and a w_hh that fits the card's shared memory, the named
-    (B, H), (B, T, H) and (B, T, 4H) tensors of matching shape, all on one
-    CUDA device. Returns (B, T, H) and, when w_hh is given, the ``kind``
-    launch plan at the card's SM count."""
+    the first tensor, named ``first``, (B, T, 4H) and w_hh (H, 4H), the
+    named (B, H), (B, T, H) and (B, T, 4H) tensors of matching shape, all on
+    one CUDA device. Returns (B, T, H) and, when w_hh is given, the ``kind``
+    launch plan at the card's SM count. The wrappers call it at the padded
+    width (``pad_hidden``), where every plan exists."""
     b, t, h4 = xproj.shape
     hidden = h4 // 4
     given = {first: xproj, "w_hh": w_hh, **others}
@@ -788,8 +970,6 @@ def _check(xproj: torch.Tensor, w_hh: torch.Tensor | None, kind: str = "fwd", fi
     if h4 % 4 or (w_hh is not None and w_hh.shape != (hidden, h4)):
         raise ValueError(f"shapes do not match: {first} {tuple(xproj.shape)}, "
                          f"w_hh {None if w_hh is None else tuple(w_hh.shape)}")
-    if hidden % 8:
-        raise ValueError(f"lstm kernels need H % 8 == 0, got H={hidden}")
     plan = None if w_hh is None else _plan_on_card(b, hidden, kind, xproj.device, 2 if bf16 else 4)
     for name, v in others.items():
         want = ((b, hidden) if name in ("h0", "c0", "dhn", "dcn")
@@ -849,31 +1029,63 @@ def _index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
+def _sms_of(device: torch.device) -> int:
+    """The SM count of the card a tensor lies on; an H100's, ``SMS``, for a
+    tensor elsewhere (which ``_check`` refuses)."""
+    return _card_sms(_index(device)) if device.type == "cuda" else SMS
+
+
+def _width(v: torch.Tensor, hidden: int) -> int:
+    """The width the kernels take an LSTM of ``hidden`` units at, for
+    tensors on v's device: ``pad_hidden`` at the card's SM count; a CPU
+    tensor's own (the plain versions take any width; ``_check`` refuses it
+    for the kernels)."""
+    return pad_hidden(hidden, _sms_of(v.device)) if v.device.type == "cuda" else hidden
+
+
 def _plan_on_card(b: int, hidden: int, kind: str, device: torch.device, wbytes: int = 4) -> LaunchPlan:
     """The ``kind`` launch plan at the SM count of the card the tensors lie
-    on (an H100's, ``SMS``, for tensors elsewhere, which ``_check`` refuses
-    after this). Raises with the limit unless the forward's and the
-    backward's w_hh both fit, so that no forward trains into a backward
-    that cannot launch."""
-    if device.type != "cuda":
-        sms = SMS
-    else:
-        sms = _card_sms(_index(device))
+    on. Raises unless the forward and the backward both have one, so that no
+    forward trains into a backward that cannot launch (every width of at
+    most THREADS units a block for each of the SMs has both)."""
+    sms = _sms_of(device)
     plan = launch_plan(b, hidden, kind, sms, wbytes)
     if plan is None or launch_plan(b, hidden, "bwd" if kind == "fwd" else "fwd", sms, wbytes) is None:
-        raise _no_plan(b, hidden, sms, wbytes)
+        raise ValueError(f"lstm kernels split H={hidden} into at most {sms} blocks of at most {THREADS} units: "
+                         f"no split on this card of {sms} SMs")
     return plan
+
+
+_REGIMES = {"a": 0, "b": 1, "c": 2}  # the launchers' regime codes
+
+
+def _stream_buffer(plan: LaunchPlan, hidden: int, w_hh: torch.Tensor) -> torch.Tensor | None:
+    """Regime (c)'s copy of the streamed rows of each block's slice of w_hh
+    (its K - kres rows x NC columns, in w_hh's dtype), which the kernel
+    writes at its start and streams from every step; None in (a) and (b)."""
+    if plan.regime != "c":
+        return None
+    k = hidden if plan.kind == "fwd" else 4 * hidden
+    nc = 4 * plan.units if plan.kind == "fwd" else -(-plan.units // 4) * 4
+    return torch.empty(plan.blocks * (k - plan.kres) * nc, device=w_hh.device, dtype=w_hh.dtype)
 
 
 def _launch(lib: ctypes.CDLL, fn, plan: LaunchPlan, pointers: list, shape: tuple, what: str) -> None:
     info = (ctypes.c_int * 2)(0, 0)
     stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*pointers, *shape, int(plan.regime == "b"), plan.blocks, plan.units, plan.rows, plan.kc,
+    err = fn(*pointers, *shape, _REGIMES[plan.regime], plan.blocks, plan.units, plan.rows, plan.kc, plan.kres,
              plan.smem, info, stream)
     last_launch[plan.kind] = (plan, info[0], info[1])
     _raise_on(lib, err, what, plan, info)
+    _count_regime(plan.kind, plan.regime)
 
 
+def _count_regime(kind: str, regime: str) -> None:
+    key = f"{kind}_{regime}"
+    regime_launches[key] = regime_launches.get(key, 0) + 1
+
+
+@_any_width("uuuug", xproj="g", w_hh="w", h0="u", c0="u")
 def lstm_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None = None,
                       c0: torch.Tensor | None = None, reverse: bool = False, with_cseq: bool = False,
                       with_gates: bool = False):
@@ -883,7 +1095,7 @@ def lstm_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor 
     h_seq's last step. bfloat16 xproj and w_hh launch the bfloat16 form:
     h_seq in bfloat16, the state (h0, c0 in; c_seq, hN, cN out) in float32,
     and no gate activations (its backward recomputes them from the rounded
-    h_seq: ``lstm_gates_cuda``)."""
+    h_seq: ``lstm_gates_cuda``). Any H (``_any_width``)."""
     global launches
     if xproj.dtype == torch.bfloat16 and with_gates:
         raise ValueError("the bfloat16 forward keeps no gate activations: its backward recomputes them from the "
@@ -893,12 +1105,13 @@ def lstm_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor 
         return _forward_bf16(xproj, w_hh, h0, c0, reverse, with_cseq, b, t, hidden, plan)
     lib = _library("lstm_fwd")
     xproj, w_hh, h0 = _dense(xproj), _dense(w_hh), _dense(h0)
+    wst = _stream_buffer(plan, hidden, w_hh)
     h_seq = torch.empty((b, t, hidden), device=xproj.device, dtype=torch.float32)
     c_seq = torch.empty_like(h_seq) if with_cseq else None
     gates = torch.empty_like(xproj) if with_gates else None
     c = torch.zeros((b, hidden), device=xproj.device, dtype=torch.float32) if c0 is None else _dense(c0).clone()
     with torch.cuda.device(xproj.device):
-        _launch(lib, lib.autovc_lstm_fwd, plan, [_ptr(v) for v in (xproj, w_hh, h0, h_seq, c, c_seq, gates)],
+        _launch(lib, lib.autovc_lstm_fwd, plan, [_ptr(v) for v in (xproj, w_hh, h0, h_seq, c, c_seq, gates, wst)],
                 (b, t, hidden, int(reverse)), "lstm forward kernel")
     launches += 1
     out = (h_seq, c_seq, h_seq[:, 0 if reverse else -1].clone(), c)
@@ -907,7 +1120,7 @@ def lstm_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor 
 
 def _forward_bf16(xproj, w_hh, h0, c0, reverse, with_cseq, b, t, hidden, plan):
     """The bfloat16 form's launch: h_seq in bfloat16, (h, c) carried in
-    float32 from (h0, c0), exchanged in regime (b) through a float32 (2, B, H)
+    float32 from (h0, c0), exchanged in regimes (b) and (c) through a float32 (2, B, H)
     buffer; c_seq (the training form) and hN, cN in float32."""
     global launches, bf16_launches
     lib = _library("lstm_fwd")
@@ -917,9 +1130,11 @@ def _forward_bf16(xproj, w_hh, h0, c0, reverse, with_cseq, b, t, hidden, plan):
     c_seq = torch.empty((b, t, hidden), device=dev, dtype=torch.float32) if with_cseq else None
     c = torch.zeros((b, hidden), device=dev, dtype=torch.float32) if c0 is None else _dense(c0).clone()
     hn = torch.empty((b, hidden), device=dev, dtype=torch.float32)
-    hbuf = torch.empty((2, b, hidden), device=dev, dtype=torch.float32) if plan.regime == "b" else None
+    hbuf = torch.empty((2, b, hidden), device=dev, dtype=torch.float32) if plan.regime != "a" else None
+    wst = _stream_buffer(plan, hidden, w_hh)
     with torch.cuda.device(dev):
-        _launch(lib, lib.autovc_lstm_fwd_bf16, plan, [_ptr(v) for v in (xproj, w_hh, h0, h_seq, hbuf, c, c_seq, hn)],
+        _launch(lib, lib.autovc_lstm_fwd_bf16, plan,
+                [_ptr(v) for v in (xproj, w_hh, h0, h_seq, hbuf, c, c_seq, hn, wst)],
                 (b, t, hidden, int(reverse)), "lstm forward kernel (bfloat16)")
     launches += 1
     bf16_launches += 1
@@ -942,6 +1157,7 @@ def _scan_state(v: torch.Tensor | None, name: str) -> torch.Tensor | None:
     return None if v is None else v.float()
 
 
+@_any_width("uuguu", xproj="g", w_hh="w", h0="u", c0="u")
 def lstm_scan_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None = None,
                            c0: torch.Tensor | None = None, reverse: bool = False, with_residuals: bool = False):
     """Launch ``csrc/lstm_scan_fwd.cu`` (the rounding of
@@ -953,7 +1169,8 @@ def lstm_scan_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Te
     that hold bfloat16 values, else None for both; launched as ``scan_plan``
     plans it at the card's SM count (the kernel refuses a plan that does not
     fit the shapes). With ``with_residuals`` (training) it raises where the
-    scan backward could not launch at this shape, before the forward runs."""
+    scan backward could not launch at this shape, before the forward runs.
+    Any H (``_any_width``)."""
     global launches, scan_launches
     if xproj.dtype != torch.bfloat16:
         raise TypeError(f"the scan form takes bfloat16 xproj and w_hh, got {xproj.dtype}")
@@ -961,10 +1178,11 @@ def lstm_scan_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Te
     b, t, hidden, _ = _check(xproj, w_hh, "bwd", h0=h0, c0=c0)
     if with_residuals:
         _scan_bwd_plan_on_card(b, hidden, xproj.device)
-    plan = scan_plan(b, hidden, _card_sms(_index(xproj.device)))
+    sms = _card_sms(_index(xproj.device))
+    plan = scan_plan(b, hidden, sms)
     if plan is None:
-        raise ValueError(f"the scan forward holds 64 gate columns of w_hh and a tile of h in shared memory: "
-                         f"H={hidden} does not fit {SMEM_MAX} bytes")
+        raise ValueError(f"the scan forward takes at most 16 units a block, one block an SM: H={hidden} needs "
+                         f"more than the {sms} SMs of this card")
     lib = _library("lstm_scan_fwd")
     xproj, w_hh = _dense(xproj), _dense(w_hh)
     dev = xproj.device
@@ -973,23 +1191,30 @@ def lstm_scan_forward_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Te
     c_seq = torch.empty((b, t, hidden), device=dev, dtype=torch.float32) if with_residuals else None
     act = torch.empty((b, t, 4 * hidden), device=dev, dtype=torch.float32) if with_residuals else None
     c = torch.zeros((b, hidden), device=dev, dtype=torch.float32) if c0 is None else _dense(c0).clone()
-    hbuf = None
-    if plan.regime == "b":  # the exchange buffer, rows padded to 64 with zeros; step 0 reads h0 from its half 1
+    hbuf = wst = None
+    if plan.regime != "a":  # the exchange buffer, rows padded to 64 with zeros; step 0 reads h0 from its half 1
         hbuf = torch.zeros((2, b, -(-hidden // SCAN_KATOM) * SCAN_KATOM), device=dev, dtype=torch.bfloat16)
         if h0 is not None:
             hbuf[1, :, :hidden].copy_(h0)
+    if plan.regime == "c":  # the streamed W^T atoms of every block (64 x 64 bfloat16 each), written by the kernel
+        atoms = -(-hidden // SCAN_KATOM)
+        half = -(-atoms // 2)
+        streamed = atoms - min(plan.kres, half) - min(plan.kres, atoms - half)
+        wst = torch.empty(plan.blocks * streamed * SCAN_MCOLS * SCAN_KATOM, device=dev, dtype=torch.bfloat16)
     info = (ctypes.c_int * 2)(0, 0)
     with torch.cuda.device(dev):
-        err = lib.autovc_lstm_scan_fwd(*[_ptr(v) for v in (xproj, w_hh, h0, h_seq, hbuf, c, c_seq, act)], b, t,
-                                       hidden, int(reverse), int(plan.regime == "b"), plan.blocks, plan.units,
-                                       plan.rows, plan.smem, info, torch.cuda.current_stream().cuda_stream)
+        err = lib.autovc_lstm_scan_fwd(*[_ptr(v) for v in (xproj, w_hh, h0, h_seq, hbuf, c, c_seq, act, wst)], b, t,
+                                       hidden, int(reverse), _REGIMES[plan.regime], plan.blocks, plan.units,
+                                       plan.rows, plan.kres, plan.smem, info, torch.cuda.current_stream().cuda_stream)
     last_launch["scan_fwd"] = (plan, info[0], info[1])
     _raise_on(lib, err, "lstm scan forward kernel", plan, info)
+    _count_regime("scan_fwd", plan.regime)
     launches += 1
     scan_launches += 1
     return h_seq, c_seq, act, h_seq[:, 0 if reverse else -1].clone(), c.to(torch.bfloat16)
 
 
+@_any_width("guu", w_hh="w", act="g", c_seq="u", c0="u", dy="u", dhn="u", dcn="u")
 def lstm_scan_backward_cuda(w_hh: torch.Tensor, act: torch.Tensor, c_seq: torch.Tensor, c0: torch.Tensor | None,
                             dy: torch.Tensor, dhn: torch.Tensor | None = None, dcn: torch.Tensor | None = None,
                             reverse: bool = False):
@@ -1001,7 +1226,7 @@ def lstm_scan_backward_cuda(w_hh: torch.Tensor, act: torch.Tensor, c_seq: torch.
     on this dxproj where w_hh requires grad (the Generator's training), and
     nothing for a frozen w_hh (the d-vector). ``act`` and ``c_seq`` are
     ``lstm_scan_forward_cuda``'s residuals; w_hh, dy and the state's
-    cotangents (zero when None) bfloat16."""
+    cotangents (zero when None) bfloat16. Any H (``_any_width``)."""
     global bwd_launches, scan_bwd_launches
     if act.dtype != torch.float32 or c_seq.dtype != torch.float32:
         raise TypeError("the scan backward reads the scan forward's residuals (float32 tensors of bfloat16 values)")
@@ -1016,13 +1241,20 @@ def lstm_scan_backward_cuda(w_hh: torch.Tensor, act: torch.Tensor, c_seq: torch.
     dx = torch.empty(n + SCAN_KATOM, device=dev, dtype=torch.bfloat16)[:n].view(b, t, 4 * hidden)
     dc = torch.zeros((b, hidden), device=dev, dtype=torch.float32) if dcn is None else _dense(dcn).clone()
     dh0 = torch.empty((b, hidden), device=dev, dtype=torch.float32)
+    # regime (c): the streamed k16 steps' W^T fragments of every block's eight warps (two n8 groups), which the
+    # kernel writes at its start
+    wst = None
+    if plan.regime == "c":
+        wst = torch.empty(plan.blocks * (_scan_bwd_steps(hidden) - plan.kres) * SCAN_BWD_FRAG // 2 + 8, device=dev,
+                          dtype=torch.bfloat16)
     info = (ctypes.c_int * 2)(0, 0)
     with torch.cuda.device(dev):
-        err = lib.autovc_lstm_scan_bwd(*[_ptr(v) for v in (act, w_hh, c0, c_seq, dy, dhn, dx, dc, dh0)], b, t, hidden,
-                                       int(reverse), int(plan.regime == "b"), plan.blocks, plan.units, plan.rows,
-                                       plan.smem, info, torch.cuda.current_stream().cuda_stream)
+        err = lib.autovc_lstm_scan_bwd(*[_ptr(v) for v in (act, w_hh, c0, c_seq, dy, dhn, dx, dc, dh0, wst)], b, t,
+                                       hidden, int(reverse), _REGIMES[plan.regime], plan.blocks, plan.units, plan.rows,
+                                       plan.kres, plan.smem, info, torch.cuda.current_stream().cuda_stream)
     last_launch["scan_bwd"] = (plan, info[0], info[1])
     _raise_on(lib, err, "lstm scan backward kernel", plan, info)
+    _count_regime("scan_bwd", plan.regime)
     bwd_launches += 1
     scan_bwd_launches += 1
     return dx, dh0.to(torch.bfloat16), dc.to(torch.bfloat16)
@@ -1034,8 +1266,8 @@ def _scan_bwd_plan_on_card(b: int, hidden: int, device: torch.device) -> ScanBwd
     sms = _card_sms(_index(device))
     plan = scan_bwd_plan(b, hidden, sms)
     if plan is None:
-        raise ValueError(f"the scan backward holds 8 units' W^T fragments in registers, one block an SM: H={hidden} "
-                         f"needs H <= {min(SCAN_BWD_MAX_HIDDEN, SCAN_BWD_UNITS * sms)} on this card of {sms} SMs")
+        raise ValueError(f"the scan backward takes at most 16 units a block, one block an SM: H={hidden} needs more "
+                         f"than the {sms} SMs of this card")
     return plan
 
 
@@ -1052,12 +1284,13 @@ def _dw_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return _counters[key]
 
 
+@_any_width("w", h_seq="u", h0="u", dxproj="g")
 def lstm_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: torch.Tensor,
                           reverse: bool = False) -> torch.Tensor:
     """Launch the dW kernel: (H, 4H) = sum over (b, t) of hprev^T dxproj,
     one launch of ``dw_plan`` at the card's SM count. dxproj is float32 (in
     the bfloat16 form the float32 gate gradients); a bfloat16 h_seq gives
-    dW rounded once to bfloat16."""
+    dW rounded once to bfloat16. Any H (``_any_width``)."""
     global dw_launches
     b, t, hidden, _ = _check(dxproj, None, first="dgates", h_seq=h_seq, h0=h0)
     plan = dw_plan(b, t, hidden, _card_sms(_index(dxproj.device)))
@@ -1078,6 +1311,7 @@ def lstm_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: 
     return dw
 
 
+@_any_width("w", h_seq="u", h0="u", dxproj="g")
 def lstm_scan_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxproj: torch.Tensor,
                                reverse: bool = False) -> torch.Tensor:
     """Launch ``csrc/lstm_scan_dw.cu``: dW_hh (H, 4H) of the scan rounding,
@@ -1086,7 +1320,7 @@ def lstm_scan_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxp
     rounded and added to a bfloat16 accumulator; its sums over the batch in
     the plain version's order). h_seq and dxproj bfloat16 (the scan
     forward's sequence, the scan backward's gate gradients), h0 bfloat16 or
-    None (zero)."""
+    None (zero). Any H (``_any_width``)."""
     global scan_dw_launches
     if h_seq.dtype != torch.bfloat16 or dxproj.dtype != torch.bfloat16:
         raise TypeError(f"the scan dW takes bfloat16 h_seq and dxproj, got {h_seq.dtype} and {dxproj.dtype}")
@@ -1106,15 +1340,15 @@ def lstm_scan_weight_grad_cuda(h_seq: torch.Tensor, h0: torch.Tensor | None, dxp
     return dw
 
 
+@_any_width("g", xproj="g", w_hh="w", h0="u", h_seq="u")
 def lstm_gates_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | None, h_seq: torch.Tensor,
                     reverse: bool = False) -> torch.Tensor:
     """Launch ``csrc/lstm_gates.cu``: the gate activations (B, T, 4H),
     float32, of a bfloat16 sequence, recomputed from its rounded h_seq (and
     the float32 h0, or zero) as the Pallas backward recomputes them; one
     launch of ``gates_plan``'s tiles (TMA loads, wgmma). The float32
-    backward reads the forward's own (``with_gates``). Raises for what TMA
-    does not take: H % 8 != 0 (its 16-byte strides) or an operand that is
-    not contiguous and 16-byte aligned."""
+    backward reads the forward's own (``with_gates``). Any H
+    (``_any_width``; TMA's 16-byte strides take H % 8 == 0)."""
     global gates_launches
     if xproj.dtype != torch.bfloat16:
         raise TypeError("the gates kernel takes the bfloat16 form; the float32 forward keeps its gate "
@@ -1132,6 +1366,8 @@ def lstm_gates_cuda(xproj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor | 
     return act
 
 
+@_any_width("gwuu", xproj="g", w_hh="w", h0="u", c0="u", h_seq="u", c_seq="u", dy="u", dhn="u", dcn="u",
+            gates="g")
 def lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None, reverse: bool = False, *,
                        gates, need_dw: bool = True):
     """Launch the backward kernels on the current stream -> (dxproj, dW_hh,
@@ -1141,7 +1377,7 @@ def lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None
     (its ``with_gates`` output), or, in the bfloat16 form, those
     ``lstm_gates_cuda`` recomputes from the rounded h_seq. In the bfloat16
     form dxproj and dW_hh come back in bfloat16 (dW summed over the float32
-    gate gradients), dh0 and dc0 in float32."""
+    gate gradients), dh0 and dc0 in float32. Any H (``_any_width``)."""
     global bwd_launches, bf16_bwd_launches
     if gates is None:
         raise ValueError("lstm_backward_cuda takes the gate activations (the float32 forward's with_gates=True, "
@@ -1156,13 +1392,15 @@ def lstm_backward_cuda(xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn=None, dcn=None
     dx = torch.empty((b, t, 4 * hidden), device=dev, dtype=torch.bfloat16) if bf16 else dgates
     dc = torch.zeros((b, hidden), device=dev, dtype=torch.float32) if dcn is None else _dense(dcn).clone()
     dh0 = torch.empty((b, hidden), device=dev, dtype=torch.float32)
+    wst = _stream_buffer(plan, hidden, w_hh)
     with torch.cuda.device(dev):
         if bf16:
             _launch(lib, lib.autovc_lstm_bwd_bf16, plan,
-                    [_ptr(v) for v in (gates, w_hh, c0, c_seq, dy, dhn, dgates, dx, dc, dh0)],
+                    [_ptr(v) for v in (gates, w_hh, c0, c_seq, dy, dhn, dgates, dx, dc, dh0, wst)],
                     (b, t, hidden, int(reverse)), "lstm backward kernel (bfloat16)")
         else:
-            _launch(lib, lib.autovc_lstm_bwd, plan, [_ptr(v) for v in (gates, w_hh, c0, c_seq, dy, dhn, dx, dc, dh0)],
+            _launch(lib, lib.autovc_lstm_bwd, plan,
+                    [_ptr(v) for v in (gates, w_hh, c0, c_seq, dy, dhn, dx, dc, dh0, wst)],
                     (b, t, hidden, int(reverse)), "lstm backward kernel")
     bwd_launches += 1
     bf16_bwd_launches += bf16
@@ -1186,12 +1424,23 @@ class LSTMSequenceFn(torch.autograd.Function):
     only) the scan rounding: a bfloat16 state (h0, c0, hN, cN), the forward's
     bfloat16 residuals read by the backward, and dW, where w_hh requires
     grad, summed into a bfloat16 accumulator a step at a time
-    (``lstm_scan_weight_grad_cuda``)."""
+    (``lstm_scan_weight_grad_cuda``). On the card any H runs at
+    ``pad_hidden``'s width, padded once here by the wrappers' own helpers
+    (``pad_all``, ``strip_all``): the kernels take the padded residuals as
+    they are (their wrappers find the width their own and copy nothing), and
+    every output and gradient is stripped back to H."""
 
     @staticmethod
     def forward(ctx, xproj, w_hh, h0, c0, reverse, scan=False):
         _check_dtypes(xproj, w_hh)
         ctx.reverse, ctx.scan = reverse, scan
+        # on the card, padded once (pad_hidden) where the sequence enters: the
+        # residuals stay at the padded width, so that the backward's kernels
+        # take them as they are; what leaves is stripped
+        hidden = w_hh.shape[0]
+        width = _width(xproj, hidden)
+        ctx.hidden = hidden
+        xproj, w_hh, h0, c0 = pad_all("gwuu", width, xproj, w_hh, h0, c0)
         if scan:
             if xproj.dtype != torch.bfloat16:
                 raise TypeError(f"the scan rounding is a bfloat16 form, got {xproj.dtype}")
@@ -1200,7 +1449,7 @@ class LSTMSequenceFn(torch.autograd.Function):
             else:
                 h_seq, c_seq, act, hn, cn = lstm_scan_bf16_train_ref(xproj, w_hh, h0, c0, reverse)
             ctx.save_for_backward(w_hh, h0, c0, h_seq, c_seq, act)
-            return h_seq, hn, cn
+            return tuple(strip_all("uuu", hidden, h_seq, hn, cn))
         bf16 = xproj.dtype == torch.bfloat16
         if _device_kind(xproj) == "cuda":
             out = lstm_forward_cuda(xproj, w_hh, h0, c0, reverse, with_cseq=True, with_gates=not bf16)
@@ -1210,13 +1459,15 @@ class LSTMSequenceFn(torch.autograd.Function):
             h_seq, c_seq, hn, cn = lstm_sequence_train_ref(xproj, w_hh, h0, c0, reverse)
             gates = None
         ctx.save_for_backward(xproj, w_hh, h0, c0, h_seq, c_seq, gates)
-        return h_seq, hn, cn
+        return tuple(strip_all("uuu", hidden, h_seq, hn, cn))
 
     @staticmethod
     def backward(ctx, dy, dhn, dcn):
         if ctx.scan:
             return LSTMSequenceFn._scan_backward(ctx, dy, dhn, dcn)
         xproj, w_hh, h0, c0, h_seq, c_seq, gates = ctx.saved_tensors
+        width, hidden = w_hh.shape[0], ctx.hidden
+        dy, dhn, dcn = pad_all("uuu", width, dy, dhn, dcn)
         args = (xproj, w_hh, h0, c0, h_seq, c_seq, dy, dhn, dcn, ctx.reverse)
         need_dw = ctx.needs_input_grad[1]  # no dW for a frozen w_hh
         if _device_kind(xproj) == "cuda":
@@ -1225,13 +1476,16 @@ class LSTMSequenceFn(torch.autograd.Function):
             dx, dw, dh0, dc0 = lstm_backward_cuda(*args, gates=gates, need_dw=need_dw)
         else:
             dx, dw, dh0, dc0 = lstm_backward_ref(*args, need_dw=need_dw)
-        return dx, dw, None if h0 is None else dh0, None if c0 is None else dc0, None, None
+        dh0, dc0 = (None if h0 is None else dh0), (None if c0 is None else dc0)
+        return (*strip_all("gwuu", hidden, dx, dw, dh0, dc0), None, None)
 
     @staticmethod
     def _scan_backward(ctx, dy, dhn, dcn):
         w_hh, h0, c0, h_seq, c_seq, act = ctx.saved_tensors
-        dy = dy.to(torch.bfloat16) if dy is not None else torch.zeros(act.shape[:2] + (w_hh.shape[0],),
-                                                                    dtype=torch.bfloat16, device=act.device)
+        width, hidden = w_hh.shape[0], ctx.hidden
+        dy = dy.to(torch.bfloat16) if dy is not None else torch.zeros(
+            act.shape[:2] + (width,), dtype=torch.bfloat16, device=act.device)
+        dy, dhn, dcn = pad_all("uuu", width, dy, dhn, dcn)
         args = (w_hh, act, c_seq, c0, dy, dhn, dcn, ctx.reverse)
         need_dw = ctx.needs_input_grad[1]  # no dW for a frozen w_hh (the d-vector)
         if _device_kind(act) == "cuda":
@@ -1241,7 +1495,8 @@ class LSTMSequenceFn(torch.autograd.Function):
             dx, dh0, dc0 = lstm_scan_bf16_backward_ref(*args)
             dw = lstm_scan_bf16_weight_grad_ref(h_seq, h0, dx, ctx.reverse) if need_dw else None
         h0_grad, c0_grad = ctx.needs_input_grad[2:4]
-        return dx, dw, dh0 if h0_grad else None, dc0 if c0_grad else None, None, None
+        dh0, dc0 = (dh0 if h0_grad else None), (dc0 if c0_grad else None)
+        return (*strip_all("gwuu", hidden, dx, dw, dh0, dc0), None, None)
 
 
 @torch.library.custom_op("autovc::lstm_sequence", mutates_args=(), device_types="cpu")

@@ -78,10 +78,10 @@ def test_other_device_raises():
     [
         ((2, 3, 32), (8, 32), torch.float64, TypeError),  # kernel is float32 only
         ((2, 3, 32), (8, 16), torch.float32, ValueError),  # w_hh is not (H, 4H)
-        ((2, 3, 24), (6, 24), torch.float32, ValueError),  # H % 8 != 0
-        # w_hh beyond the card's shared memory: the limit's own message, which
-        # the device check (these are CPU tensors) cannot give
-        ((2, 3, 8192), (2048, 8192), torch.float32, (ValueError, "do not fit 132 blocks")),
+        ((2, 3, 24), (6, 24), torch.float32, ValueError),  # H % 8 != 0: padded, then CPU tensors
+        # w_hh beyond the card's shared memory is regime (c)'s, so only the
+        # device check (these are CPU tensors) refuses it
+        ((2, 3, 8192), (2048, 8192), torch.float32, (ValueError, "one CUDA device")),
     ],
 )
 def test_kernel_wrapper_rejects_before_building(xshape, wshape, dtype, error):
@@ -115,17 +115,20 @@ def test_launch_plan(hidden, batch):
 
 def test_launch_plan_follows_batch_and_card():
     """B=7 takes 8-row tiles, not 32; regime (a) spreads the batch over the
-    SMs, 4 rows a block; a card with fewer SMs gets more units a block; the
-    widest H the kernels take is refused one step beyond."""
+    SMs, 4 rows a block; a card with fewer SMs gets more units a block; one
+    step past the widest H whose slices fit shared memory, regime (c)
+    streams what does not, with the same blocks."""
     assert lstm_ops.launch_plan(7, 1024).rows == 8 and lstm_ops.launch_plan(32, 1024).rows == 32
     assert lstm_ops.launch_plan(7, 32).blocks == 2 and lstm_ops.launch_plan(64, 64).blocks == 16
     assert lstm_ops.launch_plan(600, 32).rows == 8 and lstm_ops.launch_plan(600, 32, sms=150).rows == 4
     assert lstm_ops.launch_plan(7, 512, sms=114).units == 8 and lstm_ops.launch_plan(7, 512).units == 4
-    assert lstm_ops.launch_plan(7, 1024, sms=114) is None  # 16 units a block: 256 KB of w_hh
-    widest = max(h for h in range(8, 1400, 8) if lstm_ops.launch_plan(7, h, "bwd") is not None)
-    assert lstm_ops.launch_plan(7, widest, "fwd") is not None
-    assert lstm_ops.launch_plan(7, widest + 8, "bwd") is None
-    with pytest.raises(ValueError, match=f"the largest H that fits at B=7 is {widest}"):
+    slim = lstm_ops.launch_plan(7, 1024, sms=114)  # 16 units a block: 256 KB of w_hh
+    assert (slim.regime, slim.blocks, slim.units) == ("c", 64, 16) and 0 < slim.kres < 1024
+    widest = max(h for h in range(8, 1400, 8) if lstm_ops.launch_plan(7, h, "bwd").regime != "c")
+    assert lstm_ops.launch_plan(7, widest, "fwd").regime == "b"
+    beyond = lstm_ops.launch_plan(7, widest + 8, "bwd")
+    assert beyond.regime == "c" and beyond.kres % beyond.kc == 0 and beyond.kres < 4 * (widest + 8)
+    with pytest.raises(ValueError, match="one CUDA device"):
         lstm_ops._check(torch.zeros(7, 2, 4 * (widest + 8)), torch.zeros(widest + 8, 4 * (widest + 8)))
 
 

@@ -373,3 +373,46 @@ def test_convert_cli_seq_devices_matches_one_device(tmp_path, monkeypatch, model
     for (_, g), (_, w) in zip(got, want):
         assert g.shape == w.shape and g.shape[-1] == 80
         np.testing.assert_allclose(g, w, atol=2e-3, rtol=0)
+
+
+def test_convert_cli_seq_devices_matches_jax_where_paddings_differ(tmp_path, monkeypatch):
+    """``cli.convert --seq_devices 2`` (two gloo ranks) against JAX's
+    ``autovc_tpu.cli.convert --seq_devices 2`` (two of conftest's virtual
+    CPU devices) on one narrow artifact, with the first conversion's source
+    cut to 90 frames, which pads to 128 frames for two blocks (2 * freq) and
+    to 96 for one: the same ids and each mel within 1e-4 of JAX's. The two
+    CLIs without --seq_devices part there by the padded frames' context
+    (both packages alike), which the same rule must show."""
+    import autovc_tpu.cli.convert as jax_convert_cli
+    from autovc_tpu.config import ModelConfig as JaxModelConfig
+    from test_torch_convert_cli import NARROW, _artifact, _tree, jax_narrow, narrow_config
+
+    import autovc_tpu.models as jax_models
+    from autovc_tpu_torch.cli import convert as convert_cli
+    from autovc_tpu_torch.data import load_results, save_conversion_metadata
+
+    monkeypatch.setattr(convert_cli, "ModelConfig", narrow_config)
+    monkeypatch.setattr(jax_convert_cli, "ModelConfig", lambda **kw: JaxModelConfig(**NARROW, **kw))
+    monkeypatch.setattr(jax_convert_cli, "build_generator", jax_narrow)
+    monkeypatch.setattr(jax_models, "build_generator", jax_narrow)
+    _tree(tmp_path)
+    meta = str(tmp_path / "spmel" / "metadata.pkl")
+    specs = load_conversion_metadata(meta)
+    specs[0].src_features = specs[0].src_features[:90]
+    save_conversion_metadata(meta, specs)
+    art = _artifact(tmp_path / "spmel.npz", "spmel")
+    args = ["--main_dir", str(tmp_path), "--artifact", art, "--model_type", "spmel"]
+    got = convert_cli.main(args + ["--device", "cpu", "--out", str(tmp_path / "port.pkl"), "--seq_devices", "2"])
+    jax_convert_cli.main(args + ["--out", str(tmp_path / "jax.pkl"), "--seq_devices", "2"])
+    want = load_results(str(tmp_path / "jax.pkl"))
+    assert [n for n, _ in got] == [n for n, _ in want] and len(got) == 2
+    assert -(-90 // 32) * 32 != -(-90 // 64) * 64
+    apart = [float(np.abs(g - np.asarray(w, np.float32)).max()) for (_, g), (_, w) in zip(got, want)]
+    print(f"cli.convert --seq_devices 2, port against JAX: {apart}")
+    for (name, g), (_, w) in zip(got, want):
+        assert g.shape == np.asarray(w).shape and g.shape[0] in (90, specs[1].src_features.shape[0]), name
+    assert max(apart) <= 1e-4, apart
+    one = convert_cli.main(args + ["--device", "cpu", "--out", str(tmp_path / "one.pkl")])
+    alone = float(np.abs(one[0][1] - got[0][1]).max())
+    print(f"the same utterance without --seq_devices (96 frames padded, not 128): {alone}")
+    assert alone > 1e-4  # the 32 padded frames' context differs

@@ -41,24 +41,29 @@ def test_scan_bwd_plan_fits_every_shape(b, t, hidden):
 def test_scan_bwd_plan_regime_b_one_block_an_sm():
     """Regime (b) stays at one persistent block an SM: H / 8 blocks, none
     where they would outnumber the SMs or where a warp's eighth of K would
-    hold more than 32 k16 steps' fragments (H > 1024); H % 8 != 0 gets no
-    plan. The Generator's H=1024 at B=7: 128 blocks of 71,056 bytes."""
+    hold more than 32 k16 steps' fragments (H > 1024): there regime (c)
+    takes 16 units a block (H=1032 padded to 1040: 65 blocks); H % 8 != 0
+    is planned at the padded width (36 -> 40). The Generator's H=1024 at
+    B=7: 128 blocks of 71,056 bytes."""
     assert lstm_ops.scan_bwd_plan(7, 1024, SMS) == lstm_ops.ScanBwdPlan("b", 128, 8, 8, 71_056)
-    assert lstm_ops.scan_bwd_plan(7, 1024, 127) is None
+    assert lstm_ops.scan_bwd_plan(7, 1024, 127).regime == "c"
     assert lstm_ops.scan_bwd_plan(7, 512, 64).blocks == 64
-    assert lstm_ops.scan_bwd_plan(7, 1032, SMS) is None
-    assert lstm_ops.scan_bwd_plan(7, 36, SMS) is None
+    wide = lstm_ops.scan_bwd_plan(7, 1032, SMS)
+    assert (wide.regime, wide.blocks, wide.units, wide.rows) == ("c", 65, 16, 8)
+    assert lstm_ops.scan_bwd_plan(7, 36, SMS) == lstm_ops.scan_bwd_plan(7, 40, SMS)
     assert lstm_ops.scan_bwd_plan(0, 64, SMS) is None
 
 
 def test_scan_bwd_plan_absent_where_the_forward_takes_16_units():
     """On a card of fewer SMs than H / 8 the forward plans 16 units a block
-    and the backward has no plan: only training needs the latter
-    (``lstm_scan_forward_cuda`` checks it with ``with_residuals`` alone;
-    ``tests/test_torch_gpu.py`` runs both on the card)."""
+    and so does the backward, in regime (c) (its regime (b) takes 8):
+    ``lstm_scan_forward_cuda`` checks it with ``with_residuals``;
+    ``tests/test_torch_gpu.py`` runs both on the card. Where even H / 16
+    blocks outnumber the SMs, neither has a plan."""
     assert lstm_ops.scan_plan(7, 1024, 100).units == 16
-    assert lstm_ops.scan_bwd_plan(7, 1024, 100) is None
+    assert lstm_ops.scan_bwd_plan(7, 1024, 100).units == 16
     assert lstm_ops.scan_bwd_plan(7, 512, 100) is not None
+    assert lstm_ops.scan_plan(7, 1024, 60) is None and lstm_ops.scan_bwd_plan(7, 1024, 60) is None
 
 
 @pytest.mark.parametrize("b, t, hidden", sorted(set(GENERATOR + DVECTOR + SCAN_DW_SHAPES)))
@@ -95,9 +100,9 @@ def test_scan_dw_plan_fills_the_card():
 
 
 def test_scan_dw_plan_refusals():
-    """No plan for H % 8 != 0 or an empty batch or sequence; a card of
-    fewer SMs takes a tile no smaller."""
-    assert lstm_ops.scan_dw_plan(7, 128, 36, SMS) is None
+    """No plan for an empty batch or sequence; H % 8 != 0 is planned at the
+    padded width (36 -> 40); a card of fewer SMs takes a tile no smaller."""
+    assert lstm_ops.scan_dw_plan(7, 128, 36, SMS) == lstm_ops.scan_dw_plan(7, 128, 40, SMS)
     assert lstm_ops.scan_dw_plan(0, 128, 64, SMS) is None
     assert lstm_ops.scan_dw_plan(7, 0, 64, SMS) is None
     assert lstm_ops.scan_dw_plan(7, 128, 512, 32).mi >= lstm_ops.scan_dw_plan(7, 128, 512, SMS).mi

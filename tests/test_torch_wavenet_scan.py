@@ -265,14 +265,18 @@ def test_scan_plan_shapes(batch, hidden, want):
 
 
 def test_scan_plan_refusals_and_forced_units():
-    """H % 8 != 0 and an H whose W^T and h tile overflow shared memory get no
-    plan (the wrapper raises on None); where H / 8 blocks would outnumber
-    the SMs, 16 units a block: at H=1024 on 100 SMs 64 blocks of the same
+    """H % 8 != 0 is planned at the padded width (36 -> 40); an H whose W^T
+    and h tile overflow shared memory takes regime (c) (its first atoms
+    resident, the rest streamed); where H / 8 blocks would outnumber the
+    SMs, 16 units a block: at H=1024 on 100 SMs 64 blocks of the same
     bytes (all 64 columns of the tile), and none where H / 16 blocks do
     too."""
-    assert lstm_ops.scan_plan(32, 36, 132) is None
-    assert lstm_ops.scan_plan(32, 1152, 132) is None
-    assert lstm_ops.scan_plan(7, 2048, 132) is None
+    assert lstm_ops.scan_plan(32, 36, 132) == lstm_ops.scan_plan(32, 40, 132)
+    assert lstm_ops.scan_plan(32, 1152, 132).regime == "c"
+    # H=2048, B=7: 9 of each half's 16 atoms resident and 4 ring slots of 8 KB, the h tile, the two K
+    # halves' sums, six mbarriers
+    assert lstm_ops.scan_plan(7, 2048, 132) == lstm_ops.ScanPlan(
+        "c", 128, 16, 8, 1024 + (9 + 9 + 4) * 8192 + 2 * 16 * 8 * 128 + 4 * 2 * 8 * 84 + 6 * 8, 9)
     assert lstm_ops.scan_plan(32, 1024, 100) == lstm_ops.ScanPlan("b", 64, 16, 32, 219152)
     assert lstm_ops.scan_plan(32, 512, 63) == lstm_ops.ScanPlan("b", 32, 16, 32, _smem(512, 32, 1, 2))
     assert lstm_ops.scan_plan(32, 1024, 60) is None
