@@ -232,6 +232,17 @@ TILE_ROWS = THREADS // 32  # batch rows a tile: one per warp
 MAX_COLS = 8  # columns a block owns in a phase (a pair is two)
 MAX_DEPTH = 4  # phase slots of the weight ring
 MAX_LAYERS = 64
+# The bfloat16 forms (csrc/wavenet_gen.cu:wavenet_kernel_bf16): a block owns a
+# tile of 16 columns a phase (mma.sync's M: 8 gate pairs, or 16 residual
+# columns), the batch runs in passes of 8, 16 or 32 rows (n8 tiles), each
+# weight ring has at most 2 slots, and a phase's sums take a slot a warp, one
+# more a segment boundary and one a segment's total, each 512 bytes an n8
+# tile.
+BF16_TILE = 16
+BF16_PASS_ROWS = (32, 16, 8)
+BF16_MAX_DEPTH = 2
+BF16_SUM_SLOTS = THREADS // 32 + 7
+BF16_STATIC = 1024  # bytes left for the kernel's static shared memory (its mbarriers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,8 +253,10 @@ class GeneratePlan:
     [i*cols, (i+1)*cols) of [wout | wskip] (R + S) and head columns
     [i*head_cols, (i+1)*head_cols) of last1 (S), each range cut at its
     width (a block past it owns none); a ring of ``depth`` phase slots of
-    its weight slices (``kernel_weights``); ``smem`` dynamic shared bytes a block; ``launches``
-    CUDA launches a call."""
+    its weight slices (``kernel_weights``; in the bfloat16 forms a ring of
+    each kind, gate and residual, ``kernel_weights_bf16``); ``smem`` dynamic
+    shared bytes a block; ``launches`` CUDA launches a call; ``rows`` the
+    bfloat16 forms' batch rows a pass (0 in float32)."""
 
     blocks: int
     pairs: int
@@ -252,45 +265,78 @@ class GeneratePlan:
     depth: int
     smem: int
     launches: int = 1
+    rows: int = 0
 
 
 def _r4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def _r16(n: int) -> int:
-    return -(-n // 16) * 16
+def _r8(n: int) -> int:
+    return -(-n // 8) * 8
 
 
-def slot_bytes(widths: Sequence[int], pairs: int, cols: int) -> tuple[int, int]:
-    """The bfloat16 form's (gate, residual) bytes of one block's phase
-    slice: K = 3R + C rows of CG bfloat16 gate weights, then CG float32
-    biases at the next 16 bytes; G/2 rows of CR bfloat16 residual weights,
-    then CR float32 biases."""
+def _r64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+def _r128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _r1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def _smem(batch: int, widths: Sequence[int], pairs: int, cols: int, head_cols: int, depth: int) -> int:
+    """Shared bytes of a block of the float32 kernel, laid out as it lays
+    them out: the weight ring, the staged rows of a tile, last1's slice and
+    last2, the tile's logits, x_prev, two buffers of the warps' sums."""
     r, g, s, c, nout = widths
-    cg, cr = _r4(2 * pairs), _r4(cols)
-    return _r16(2 * (3 * r + c) * cg) + 4 * cg, _r16(g * cr) + 4 * cr
-
-
-def _smem(batch: int, widths: Sequence[int], pairs: int, cols: int, head_cols: int, depth: int,
-          esize: int = 4) -> int:
-    """Shared bytes of a block, laid out as the kernel lays them out: the
-    weight ring, the staged rows of a tile, last1's slice and last2, the
-    tile's logits, x_prev, two buffers of the warps' sums. ``esize`` 2 is
-    the bfloat16 form: a slot holds the larger of a layer's two phase
-    slices and a staged row K = 3R + C or G/2 bfloat16 values (or S
-    floats)."""
-    r, g, s, c, nout = widths
-    if esize == 2:
-        slot = max(slot_bytes(widths, pairs, cols)) // 4
-        row = _r4(max(max(3 * r + c, g // 2) // 2, s))
-    else:
-        k = 3 * r + g // 2 + c
-        slot = (k + 1) * _r4(2 * pairs) + (g // 2 + 3) * _r4(cols)
-        row = _r4(max(k, s))
-    floats = (depth * slot + TILE_ROWS * row + s * _r4(head_cols) + _r4((s + 1) * nout)
+    k = 3 * r + g // 2 + c
+    slot = (k + 1) * _r4(2 * pairs) + (g // 2 + 3) * _r4(cols)
+    floats = (depth * slot + TILE_ROWS * _r4(max(k, s)) + s * _r4(head_cols) + _r4((s + 1) * nout)
               + TILE_ROWS * _r4(nout) + _r4(batch) + 2 * (THREADS // 32) * TILE_ROWS * MAX_COLS)
     return 4 * floats
+
+
+def bf16_widths(widths: Sequence[int]) -> tuple[int, int, int, int, int]:
+    """(Rq, Cq, Gq, gate k16 steps, residual k16 steps) of the bfloat16
+    forms: R, C and G/2 padded to 64 (a staged row is whole 128-byte
+    atoms), the gate's K = 3 Rq + Cq and the residual's Gq in steps of 16."""
+    r, g, s, c, nout = widths
+    rq, cq, gq = _r64(r), _r64(c), _r64(g // 2)
+    return rq, cq, gq, (3 * rq + cq) // 16, gq // 16
+
+
+def bf16_slice_bytes(widths: Sequence[int]) -> tuple[int, int]:
+    """Bytes of one block's (gate, residual) slice of a layer in the
+    bfloat16 forms: 512 bytes a k16 step (32 lanes' A fragments of 16
+    bytes), then the tile's 16 float32 biases."""
+    _, _, _, kg, kr = bf16_widths(widths)
+    return kg * 512 + 4 * BF16_TILE, kr * 512 + 4 * BF16_TILE
+
+
+def bf16_smem(batch: int, widths: Sequence[int], rows: int, head_cols: int, depth: int) -> int:
+    """Shared bytes of a block of the bfloat16 forms, as the kernel lays them
+    out (csrc/wavenet_gen.cu:LayoutBF): the gate and residual weight rings,
+    the staged rows of a pass (the gate's warp sums and the head's staged
+    rows reuse them), cond of a pass, z of a pass (the residual's warp sums
+    and the head's reuse it), the block's residual columns of h and skip
+    where the batch is one pass (in device memory else), last1's slice,
+    last2, the tile's logits, x_prev; the staged buffers at 1024 bytes
+    (TMA's swizzle), the rest at 128, and 1024 bytes to raise the base to
+    1024. Only x_prev grows with B past one pass."""
+    r, g, s, c, nout = widths
+    rq, cq, gq, _, _ = bf16_widths(widths)
+    gate, res = bf16_slice_bytes(widths)
+    passes, warps = -(-batch // rows), THREADS // 32
+    staged = (_r1024(depth * (_r128(gate) + _r128(res)))
+              + _r1024(max(6 * rq * rows, BF16_SUM_SLOTS * (rows // 8) * 512, 4 * TILE_ROWS * s))
+              + 2 * cq * rows + _r1024(max(2 * gq * rows, warps * (rows // 8) * 512, 4 * warps * TILE_ROWS * MAX_COLS)))
+    kept = _r128(4 * _r8(batch) * BF16_TILE) if passes == 1 else 0
+    return (staged + kept + _r128(4 * s * _r4(head_cols)) + _r128(4 * (s + 1) * nout)
+            + _r128(4 * TILE_ROWS * _r4(nout)) + _r128(4 * _r4(batch)) + 1024)
 
 
 @functools.lru_cache(maxsize=None)
@@ -298,33 +344,64 @@ def generate_plan(batch: int, widths: tuple[int, int, int, int, int], sms: int =
                   esize: int = 4) -> GeneratePlan:
     """The plan at B = ``batch`` for ``widths`` = (R, G, S, C, 3K) on a card
     of ``sms`` SMs with weights of ``esize`` bytes (4 float32, 2 the
-    bfloat16 form): the fewest columns a block that ``sms`` blocks cover,
-    as many blocks as the widest phase needs, and the deepest weight ring
-    (at most MAX_DEPTH phases) that fits SMEM_MAX. Raises where the widths
-    need more SMs or more shared memory than there is. At full width (512,
-    512, 256, 80, 30) on 132 SMs: 128 blocks of 2 pairs, 6 columns and 2
-    head columns, 3 phases deep in float32, 4 in bfloat16."""
+    bfloat16 forms). float32: the fewest columns a block that ``sms``
+    blocks cover, as many blocks as the widest phase needs, and the deepest
+    weight ring (at most MAX_DEPTH phases) that fits SMEM_MAX; at full width
+    (512, 512, 256, 80, 30) on 132 SMs 128 blocks of 2 pairs, 6 columns and
+    2 head columns, 3 phases deep. bfloat16 (``_plan_bf16``): tiles of 16
+    columns, 48 blocks at full width. Raises where the widths need more SMs
+    or more shared memory than there is."""
     r, g, s, c, nout = widths
     if esize not in (2, 4):
         raise ValueError(f"wavenet weights are 4 or 2 bytes, not {esize}")
+    if esize == 2:
+        return _plan_bf16(batch, widths, sms)
     g2 = g // 2
-    # a staged row, in 16-byte units: 4 floats or 8 bfloat16 values
-    k = 3 * r + g // 2 + c if esize == 4 else 3 * r + c
+    k = 3 * r + g // 2 + c  # a staged row, in 16-byte units of 4 floats
     if max(k * esize, 4 * s) > 32 * THREADS:
         raise ValueError(f"wavenet kernel stages rows of at most {32 * THREADS} bytes: {k} weights of {esize} "
-                         f"bytes (3R + C{'' if esize == 2 else ' + G/2'}), S = {s}")
+                         f"bytes (3R + C + G/2), S = {s}")
     pairs, cols, head_cols = -(-g2 // sms), -(-(r + s) // sms), -(-s // sms)
     if 2 * pairs > MAX_COLS or cols > MAX_COLS or head_cols > MAX_COLS:
         raise ValueError(f"wavenet kernel needs at least {-(-max(2 * g2, r + s) // MAX_COLS)} SMs for G={g}, "
                          f"R+S={r + s} ({MAX_COLS} columns a block), the card has {sms}")
     blocks = max(-(-g2 // pairs), -(-(r + s) // cols), -(-s // head_cols))
     for depth in range(MAX_DEPTH, 0, -1):
-        smem = _smem(batch, widths, pairs, cols, head_cols, depth, esize)
+        smem = _smem(batch, widths, pairs, cols, head_cols, depth)
         if smem <= SMEM_MAX:
             return GeneratePlan(blocks, pairs, cols, head_cols, depth, smem)
     raise ValueError(f"wavenet kernel: one layer's weight slices and the staged rows take "
-                     f"{_smem(batch, widths, pairs, cols, head_cols, 1, esize)} bytes of shared memory, more than "
+                     f"{_smem(batch, widths, pairs, cols, head_cols, 1)} bytes of shared memory, more than "
                      f"{SMEM_MAX}")
+
+
+def _plan_bf16(batch: int, widths: tuple[int, int, int, int, int], sms: int) -> GeneratePlan:
+    """The bfloat16 forms' plan: block i owns gate tile i (pairs 8i ..
+    8i + 7) and residual tile i (columns 16i .. 16i + 15 of R + S), so as
+    many blocks as the wider phase has tiles (the head's S columns at most
+    MAX_COLS a block); the batch in one pass where it fits (8, 16 or 32
+    rows: a batch up to 32 is one pass), then the deeper weight rings. At
+    full width on 132 SMs: 48 blocks, 6 head columns; B=8 one pass of 8
+    rows, rings of 2; B=32 one pass of 32 rows, rings of 1; B=64 two
+    passes of 32. Past one pass only x_prev grows with B (``bf16_smem``):
+    at full width a plan up to B=24288."""
+    r, g, s, c, nout = widths
+    if 4 * s > 32 * THREADS:
+        raise ValueError(f"wavenet kernel stages head rows of at most {32 * THREADS} bytes, S = {s}")
+    blocks = max(-(-(g // 2) // (BF16_TILE // 2)), -(-(r + s) // BF16_TILE), -(-s // MAX_COLS))
+    if blocks > sms:
+        raise ValueError(f"wavenet kernel needs at least {blocks} SMs for G={g}, R+S={r + s} (tiles of "
+                         f"{BF16_TILE} columns), the card has {sms}")
+    head_cols = -(-s // blocks)
+    one_pass = min([rows for rows in BF16_PASS_ROWS if rows >= batch] or [max(BF16_PASS_ROWS)])
+    for rows in (rows for rows in BF16_PASS_ROWS if rows <= one_pass):
+        for depth in range(BF16_MAX_DEPTH, 0, -1):
+            smem = bf16_smem(batch, widths, rows, head_cols, depth)
+            if smem <= SMEM_MAX - BF16_STATIC:
+                return GeneratePlan(blocks, BF16_TILE // 2, BF16_TILE, head_cols, depth, smem, rows=rows)
+    raise ValueError(f"wavenet kernel: one layer's weight slices and the staged rows take "
+                     f"{bf16_smem(batch, widths, 8, head_cols, 1)} bytes of shared memory, more than "
+                     f"{SMEM_MAX - BF16_STATIC}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -399,48 +476,62 @@ def kernel_weights(packed: Mapping[str, torch.Tensor], plan: GeneratePlan) -> to
                       res.permute(0, 2, 1, 3).reshape(n_layers + 1, plan.blocks, -1)], dim=2).contiguous()
 
 
-def kernel_weights_bf16(packed: Mapping[str, torch.Tensor], plan: GeneratePlan) -> torch.Tensor:
-    """The bfloat16 form's weights in its layout for ``plan``: (2L, blocks,
-    slot) floats' worth of bytes, phase 2l the gate of layer l and phase
-    2l + 1 its residual update, block i's slot of a phase holding what it
-    keeps in shared memory for it: the gate slice, the K = 3R + C rows
-    [w3_l; wcond_l] in bfloat16, columns [tanh j, sigmoid j] for each of
-    the block's pairs j, zeros to CG = 2*pairs rounded up to 4, then at the
-    next 16 bytes the CG float32 biases of bg_l; or the residual slice, the
-    G/2 rows of [wout_l | wskip_l] in bfloat16 at the block's CR columns,
-    then the CR float32 biases of [bo_l | bs_l]. No fold: the gate takes
+def fragment_order(device: torch.device | str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(m, k), each (32, 8): the element (row m, column k) of a 16 x 16 A
+    tile of mma.sync m16n8k16 that lane i holds as its i-th bfloat16 value
+    (its four registers a0a1, a2a3, a4a5, a6a7; g = lane / 4, c = lane % 4:
+    (g, 2c), (g, 2c+1), (g+8, 2c), (g+8, 2c+1), then the same at k + 8)."""
+    lane = torch.arange(32, device=device)
+    g, c = lane // 4, 2 * (lane % 4)
+    m = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], dim=1)
+    k = torch.stack([c, c + 1, c, c + 1, c + 8, c + 9, c + 8, c + 9], dim=1)
+    return m, k
+
+
+def kernel_weights_bf16(packed: Mapping[str, torch.Tensor], plan: GeneratePlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bfloat16 forms' weights in their layout for ``plan``: (gate,
+    residual) uint8 tensors (L, blocks, bytes), block i's slice of layer l
+    what it keeps in shared memory for that phase (``bf16_slice_bytes``).
+    The gate slice: the rows [w3_l; wcond_l] with each of the four segments
+    [x(t-2d) | x(t-d) | h | cond] padded with zero rows to a multiple of 64
+    (K = 3 Rq + Cq, ``bf16_widths``), at the tile's 16 columns (the tanh
+    columns of pairs 8i .. 8i + 7, then their sigmoid columns; zero past
+    G/2), in mma.sync's
+    A-fragment order: k16 step s, lane, then the lane's 8 values
+    (``fragment_order``; A[m][k] = W[k][column m]), then the 16 float32
+    biases of bg_l. The residual slice: the G/2 rows of [wout_l | wskip_l]
+    padded to 64 at the tile's columns 16i .. 16i + 15 (zero past R + S),
+    the same way, then the biases of [bo_l | bs_l]. No fold: the gate takes
     bf16(h_l), which the float32 form's fold cannot give. Made on the
     weights' device, once a call."""
     w3, wcond, wout, wskip = (packed[k] for k in ("w3", "wcond", "wout", "wskip"))
     n_layers, g = w3.shape[0], w3.shape[-1]
     g2, r, s, c = g // 2, wout.shape[-1], wskip.shape[-1], wcond.shape[1]
     dev = w3.device
+    rq, cq, gq, _, _ = bf16_widths((r, g, s, c, packed["l2b"].shape[0]))
+    pad = lambda w, rows: torch.cat([w, w.new_zeros((n_layers, rows - w.shape[1], w.shape[2]))], dim=1)
+    gate_rows = torch.cat([pad(w3[:, i * r:(i + 1) * r], rq) for i in range(3)] + [pad(wcond, cq)], dim=1)
+    res_rows = pad(torch.cat([wout, wskip], dim=2), gq)
     blk = torch.arange(plan.blocks, device=dev)[:, None]
-    cg, cr = _r4(2 * plan.pairs), _r4(plan.cols)
-    slot = max(slot_bytes((r, g, s, c, packed["l2b"].shape[0]), plan.pairs, plan.cols))
+    m = torch.arange(BF16_TILE, device=dev)[None, :]
+    pair = blk * (BF16_TILE // 2) + m % (BF16_TILE // 2)
+    gate_cols, gate_ok = pair + (m >= BF16_TILE // 2) * g2, pair < g2
+    res_cols = blk * BF16_TILE + m
+    res_ok = res_cols < r + s
+    fm, fk = fragment_order(dev)
 
     def cut(w: torch.Tensor, bias: torch.Tensor, cols: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-        """(L, blocks, slot) bytes: the bfloat16 rows of w at each block's
-        columns, the float32 bias row at the next 16 bytes, zeros after."""
-        rows = torch.where(ok, w[:, :, cols], torch.zeros((), dtype=w.dtype, device=dev))  # (L, K, blocks, n)
-        rows = rows.permute(0, 2, 1, 3).reshape(n_layers, plan.blocks, -1).contiguous().view(torch.uint8)
-        b = torch.where(ok, bias[:, cols], torch.zeros((), device=dev)).contiguous().view(torch.uint8)
-        out = torch.zeros((n_layers, plan.blocks, slot), dtype=torch.uint8, device=dev)
-        at = _r16(rows.shape[-1])
-        out[..., :rows.shape[-1]] = rows
-        out[..., at:at + b.shape[-1]] = b
-        return out
+        """(L, blocks, bytes): each block's tile of w (L, K, N) in fragment
+        order, then its float32 biases."""
+        tiles = torch.where(ok, w[:, :, torch.where(ok, cols, 0)], torch.zeros((), dtype=w.dtype, device=dev))
+        steps = tiles.shape[1] // 16
+        tiles = tiles.permute(0, 2, 1, 3).reshape(n_layers, plan.blocks, steps, 16, BF16_TILE)  # (.., step, k, m)
+        frags = tiles[..., fk, fm].reshape(n_layers, plan.blocks, -1).contiguous().view(torch.uint8)
+        b = torch.where(ok, bias[:, torch.where(ok, cols, 0)], torch.zeros((), device=dev)).contiguous()
+        return torch.cat([frags, b.view(torch.uint8)], dim=2).contiguous()
 
-    c_ar = torch.arange(cg, device=dev)[None, :]
-    gate_cols = (blk * plan.pairs + c_ar // 2) + (c_ar % 2) * g2
-    gate_ok = (c_ar < 2 * plan.pairs) & (blk * plan.pairs + c_ar // 2 < g2)
-    r_ar = torch.arange(cr, device=dev)[None, :]
-    res_cols = blk * plan.cols + r_ar
-    res_ok = (r_ar < plan.cols) & (res_cols < r + s)
-    gate = cut(torch.cat([w3, wcond], dim=1), packed["bg"], torch.where(gate_ok, gate_cols, 0), gate_ok)
-    res = cut(torch.cat([wout, wskip], dim=2), torch.cat([packed["bo"], packed["bs"]], dim=1),
-              torch.where(res_ok, res_cols, 0), res_ok)
-    return torch.stack([gate, res], dim=1).reshape(2 * n_layers, plan.blocks, slot).view(torch.float32)
+    return (cut(gate_rows, packed["bg"], gate_cols, gate_ok),
+            cut(res_rows, torch.cat([packed["bo"], packed["bs"]], dim=1), res_cols, res_ok))
 
 
 def _library() -> ctypes.CDLL:
@@ -450,8 +541,8 @@ def _library() -> ctypes.CDLL:
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     for fn in (lib.autovc_wavenet_gen_bf16, lib.autovc_wavenet_gen_scan):
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_float]
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.autovc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.autovc_cuda_error_string.restype = ctypes.c_char_p
@@ -494,7 +585,7 @@ def _check_layout(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], 
     return n_layers, r, g, s, c, nout
 
 
-_ERR_PLAN, _ERR_RESIDENT = -1, -2  # the launcher's own codes (csrc/coop.cuh)
+_ERR_PLAN, _ERR_RESIDENT, _ERR_TMA = -1, -2, -3  # the launcher's own codes (csrc/coop.cuh, csrc/tma.cuh)
 
 
 def generate_cuda(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], cond: torch.Tensor,
@@ -523,42 +614,52 @@ def generate_cuda(packed: Mapping[str, torch.Tensor], dilations: Sequence[int], 
     empty = lambda *shape, dtype=torch.float32: torch.empty(shape, device=dev, dtype=dtype)
     y, logits = empty(b, t), empty(b, t, nout)
     # Scratch: the rings (sum 2d slots of (B, R), zero: x(t - d) before t = 0),
-    # h and z (two of each, a layer's in and out; the bfloat16 form keeps
-    # one z and h twice, in float32 and rounded), skip and last1's output,
-    # each written before it is read.
+    # h and z (float32: two of each, a layer's in and out; the bfloat16
+    # forms keep one z, bf16(h) for the next gate and, past one pass, the
+    # blocks' h and skip columns), skip and last1's output, each written
+    # before it is read (the pads of the bfloat16 forms' rows never are, and
+    # stay zero).
     wdt = torch.bfloat16 if bf16 else torch.float32
-    ring = torch.zeros((2 * sum(dilations), b, r), device=dev, dtype=wdt)
     skip, o1 = empty(b, s), empty(b, s)
     dils = (ctypes.c_int * n_layers)(*dilations)
     info = (ctypes.c_int * 2)(0, 0)
     head = [packed[k].data_ptr() for k in ("fk", "fb", "l1k", "l1b", "l2k", "l2b")]
-    shape = (n_layers, b, t, r, g, s, c, nout, log_scale_min,
-             plan.blocks, plan.pairs, plan.cols, plan.head_cols, plan.depth, plan.smem)
+    shape = (n_layers, b, t, r, g, s, c, nout, log_scale_min)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if bf16:
-            slices = kernel_weights_bf16(packed, plan)
-            cond_b = cond.to(torch.bfloat16)
-            hf = None if scan else empty(2, b, r)
-            hb, z = empty(2, b, r, dtype=wdt), empty(b, g // 2, dtype=wdt)
+            # the rows the kernel stages by TMA, padded with zeros to whole
+            # 128-byte atoms: the rings and bf16(h) to Rq, z to Gq, cond as
+            # (T, B, Cq)
+            rq, cq, gq, _, _ = bf16_widths((r, g, s, c, nout))
+            ring = torch.zeros((2 * sum(dilations), b, rq), device=dev, dtype=wdt)
+            hb, z = torch.zeros((b, rq), device=dev, dtype=wdt), torch.zeros((b, gq), device=dev, dtype=wdt)
+            cond_q = torch.zeros((t, b, cq), device=dev, dtype=wdt)
+            cond_q[..., :c] = cond.transpose(0, 1)
+            hs = empty(b, r + s)
+            gate_w, res_w = kernel_weights_bf16(packed, plan)
             fn = lib.autovc_wavenet_gen_scan if scan else lib.autovc_wavenet_gen_bf16
-            err = fn(slices.data_ptr(), *head, cond_b.data_ptr(), uniforms.data_ptr(), y.data_ptr(),
-                     logits.data_ptr(), ring.data_ptr(), None if hf is None else hf.data_ptr(), hb.data_ptr(),
-                     skip.data_ptr(), z.data_ptr(), o1.data_ptr(), ctypes.cast(dils, ctypes.c_void_p), *shape, info,
-                     stream)
+            err = fn(gate_w.data_ptr(), res_w.data_ptr(), *head, cond_q.data_ptr(), uniforms.data_ptr(), y.data_ptr(),
+                     logits.data_ptr(), ring.data_ptr(), hb.data_ptr(), skip.data_ptr(), z.data_ptr(), o1.data_ptr(),
+                     hs.data_ptr(), ctypes.cast(dils, ctypes.c_void_p), *shape, plan.blocks, plan.rows, plan.head_cols, plan.depth,
+                     plan.smem, info, stream)
         else:
+            ring = torch.zeros((2 * sum(dilations), b, r), device=dev)
             slices = kernel_weights(packed, plan)
             h, z = empty(2, b, r), empty(2, b, g // 2)
             err = lib.autovc_wavenet_gen(
                 slices.data_ptr(), *head, cond.data_ptr(), uniforms.data_ptr(), y.data_ptr(), logits.data_ptr(),
                 ring.data_ptr(), h.data_ptr(), skip.data_ptr(), z.data_ptr(), o1.data_ptr(),
-                ctypes.cast(dils, ctypes.c_void_p), *shape, info, stream)
+                ctypes.cast(dils, ctypes.c_void_p), *shape, plan.blocks, plan.pairs, plan.cols, plan.head_cols,
+                plan.depth, plan.smem, info, stream)
     last_launch = (plan, info[0], info[1])
     if err == _ERR_PLAN:
         raise RuntimeError(f"wavenet kernel refused the launch plan {plan}")
     if err == _ERR_RESIDENT:
         raise RuntimeError(f"wavenet kernel: {plan.blocks} blocks must be resident for the grid barrier, but the "
                            f"card holds {info[0]} per SM on {info[1]} SMs")
+    if err == _ERR_TMA:
+        raise RuntimeError(f"wavenet kernel: the staged rows' tensor maps could not be encoded (plan {plan})")
     if err:
         raise RuntimeError(f"wavenet kernel launch failed: {lib.autovc_cuda_error_string(err).decode()}")
     launches += 1

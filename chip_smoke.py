@@ -2349,6 +2349,14 @@ def permuted_wavenet(packed: dict, cfg: WaveNetConfig, seed: int) -> tuple[dict,
     return p, pc
 
 
+def bf16_plan_line(plan: wavenet_ops.GeneratePlan, per_sm: int, sms: int, layers: int) -> str:
+    """The bfloat16 forms' launch plan, as 7c and 7e print it."""
+    return (f"plan: {plan.blocks} blocks, {per_sm} resident a SM on {sms} SMs; a block owns a tile of {plan.pairs} "
+            f"gate pairs and one of {plan.cols} residual columns (mma.sync m16n8k16, M the columns, N the batch), "
+            f"{plan.head_cols} head columns; the batch in passes of {plan.rows} rows; weight rings of {plan.depth} "
+            f"slot(s) each way; {plan.smem} shared bytes; {2 * layers + 1} grid barriers a sample")
+
+
 def phase_bf16_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> dict:
     """7c: phase 3's WaveNet with bfloat16 weights, its gates derived from
     the plain loop's own spread, timings beside the float32 kernel."""
@@ -2369,9 +2377,7 @@ def phase_bf16_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> di
     launches, bf16_launches = wavenet_ops.launches, wavenet_ops.bf16_launches
     plan, per_sm, sms = wavenet_ops.last_launch
     log(f"wavenet bf16 main path (cold): {cold_s:.3f} s, wrapper launches={launches} (bfloat16 {bf16_launches}), "
-        f"CUDA launches={wavenet_ops.last_cuda_launches}; plan: {plan.blocks} blocks, {per_sm} resident a SM on "
-        f"{sms} SMs, {plan.pairs} pairs / {plan.cols} columns / {plan.head_cols} head columns a block, a ring "
-        f"of {plan.depth} phases, {plan.smem} shared bytes; {2 * cfg.layers + 1} grid barriers a sample")
+        f"CUDA launches={wavenet_ops.last_cuda_launches}; {bf16_plan_line(plan, per_sm, sms, cfg.layers)}")
     if launches != 1 or bf16_launches != 1 or wavenet_ops.last_cuda_launches != plan.launches:
         raise AssertionError(f"wavenet bf16 launches: wrapper {launches} ({bf16_launches} bfloat16), CUDA "
                              f"{wavenet_ops.last_cuda_launches}, plan {plan.launches}")
@@ -2471,8 +2477,10 @@ def phase_scan_wavenet(dev: torch.device, trained: bool, mels: np.ndarray) -> di
     wav = voc.generate(mel, uniforms=u, dtype=BF16)
     torch.cuda.synchronize()
     counted = (wavenet_ops.launches, wavenet_ops.scan_launches, wavenet_ops.bf16_launches)
+    plan, per_sm, sms = wavenet_ops.last_launch
     log(f"7e wavenet scan-bf16 main path (WaveNetVocoder.generate, engine scan): wrapper launches (all, scan, "
-        f"bfloat16) {counted}, CUDA launches {wavenet_ops.last_cuda_launches}")
+        f"bfloat16) {counted}, CUDA launches {wavenet_ops.last_cuda_launches}; "
+        f"{bf16_plan_line(plan, per_sm, sms, cfg.layers)}")
     if counted != (1, 1, 0) or wavenet_ops.last_cuda_launches != 1:
         raise AssertionError(f"7e: wavenet scan launches {counted}, CUDA {wavenet_ops.last_cuda_launches}")
     if wav.shape != (WN_B, t) or not bool(torch.isfinite(wav).all()) or float(wav.abs().max()) > 1.0:

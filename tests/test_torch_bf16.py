@@ -398,45 +398,119 @@ def test_wavenet_teacher_forced_bf16_matches_generation(tiny_wavenet):
     assert (tf32 - logits).abs().max() > 1e-3
 
 
+def _unpack_bf16_slices(raw: torch.Tensor, steps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A plain reading of kernel_weights_bf16's slices (L, blocks, bytes):
+    ``steps`` k16 steps of 32 lanes x 8 bfloat16 values, lane l = 4g + c
+    holding the A tile's (row m, column k) = (g, 2c), (g, 2c+1), (g+8, 2c),
+    (g+8, 2c+1), then the same at k + 8 (mma.sync m16n8k16's a0..a7), then
+    16 float32 biases -> the weights (L, blocks, 16 steps, 16 columns) and
+    the biases (L, blocks, 16)."""
+    n_layers, blocks, _ = raw.shape
+    frag = raw[..., :steps * 512].contiguous().view(BF).reshape(n_layers, blocks, steps, 32, 8)
+    w = torch.zeros((n_layers, blocks, steps, 16, 16), dtype=BF)
+    for lane in range(32):
+        g, c = lane // 4, 2 * (lane % 4)
+        for i, (m, k) in enumerate([(g, c), (g, c + 1), (g + 8, c), (g + 8, c + 1),
+                                    (g, c + 8), (g, c + 9), (g + 8, c + 8), (g + 8, c + 9)]):
+            w[:, :, :, k, m] = frag[:, :, :, lane, i]
+    bias = raw[..., steps * 512:steps * 512 + 64].contiguous().view(torch.float32)
+    return w.reshape(n_layers, blocks, steps * 16, 16), bias
+
+
+def _check_bf16_slices(packed: dict, widths: tuple, plan) -> None:
+    """Every (layer, block) slice of kernel_weights_bf16 unpacked against
+    [w3; wcond] (each segment padded with zero rows to 64, a staged atom) at
+    the block's gate tile (tanh of pairs 8i .. 8i + 7, then their sigmoid
+    columns) and [wout | wskip] (G/2 padded to 64) at its residual columns
+    16i .. 16i + 15, with bg and [bo | bs]; zero where a block owns no
+    column."""
+    r, g, s, c, _ = widths
+    rp, cp, g2p = -(-r // 64) * 64, -(-c // 64) * 64, -(-(g // 2) // 64) * 64
+    gate_raw, res_raw = wavenet_ops.kernel_weights_bf16(packed, plan)
+    n_layers = packed["w3"].shape[0]
+    assert gate_raw.dtype == torch.uint8 and gate_raw.shape == (n_layers, plan.blocks, (3 * rp + cp) // 16 * 512 + 64)
+    assert res_raw.shape == (n_layers, plan.blocks, g2p // 16 * 512 + 64)
+    gate_w, gate_b = _unpack_bf16_slices(gate_raw, (3 * rp + cp) // 16)
+    res_w, res_b = _unpack_bf16_slices(res_raw, g2p // 16)
+    # the padded rows: [w_prev2 | pad | w_prev1 | pad | w_cur | pad | wcond | pad]
+    rows = torch.zeros((n_layers, 3 * rp + cp, g), dtype=BF)
+    for i in range(3):
+        rows[:, i * rp:i * rp + r] = packed["w3"][:, i * r:(i + 1) * r]
+    rows[:, 3 * rp:3 * rp + c] = packed["wcond"]
+    res_rows = torch.zeros((n_layers, g2p, r + s), dtype=BF)
+    res_rows[:, :g // 2] = torch.cat([packed["wout"], packed["wskip"]], dim=2)
+    res_bias = torch.cat([packed["bo"], packed["bs"]], dim=1)
+    for blk in range(plan.blocks):
+        for m in range(16):
+            pair = 8 * blk + m % 8
+            if pair < g // 2:
+                col = pair + (g // 2 if m >= 8 else 0)
+                assert torch.equal(gate_w[:, blk, :, m], rows[:, :, col])
+                assert torch.equal(gate_b[:, blk, m], packed["bg"][:, col])
+            else:
+                assert not gate_w[:, blk, :, m].any() and not gate_b[:, blk, m].any()
+            col = 16 * blk + m
+            if col < r + s:
+                assert torch.equal(res_w[:, blk, :, m], res_rows[:, :, col])
+                assert torch.equal(res_b[:, blk, m], res_bias[:, col])
+            else:
+                assert not res_w[:, blk, :, m].any() and not res_b[:, blk, m].any()
+
+
+def _random_packed(widths: tuple, n_layers: int, seed: int) -> dict:
+    r, g, s, c, nout = widths
+    gen = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=gen)
+    return {"w3": rand(n_layers, 3 * r, g).to(BF), "wcond": rand(n_layers, c, g).to(BF),
+            "wout": rand(n_layers, g // 2, r).to(BF), "wskip": rand(n_layers, g // 2, s).to(BF),
+            "bg": rand(n_layers, g), "bo": rand(n_layers, r), "bs": rand(n_layers, s), "fk": rand(r), "fb": rand(r),
+            "l1k": rand(s, s), "l1b": rand(s), "l2k": rand(s, nout), "l2b": rand(nout)}
+
+
 def test_wavenet_bf16_kernel_layout(tiny_wavenet):
-    """kernel_weights_bf16 lays each (phase, block) slot out as the kernel
-    reads it: the gate's bfloat16 [w3; wcond] columns [tanh j, sigmoid j]
-    and their float32 biases at the next 16 bytes, the residual's bfloat16
-    [wout | wskip] columns and float32 [bo | bs]; zeros for columns a block
-    does not own. At full width: 128 blocks, 4 phases deep."""
+    """kernel_weights_bf16 lays each (layer, block) slice out as the kernel
+    reads it: [w3; wcond] at the block's gate tile and [wout | wskip] at its
+    residual tile in mma.sync's A-fragment order, each then its float32
+    biases; zeros for columns a block does not own. At full width: 48
+    blocks of one 16-column tile each way, slices of 53,312 and 8,256 bytes
+    (K = 3 x 512 + 128: cond padded to 128).
+    The tiny width: one gate tile (block 1 owns none) and two residual
+    tiles (8 of block 1's 16 columns past R + S)."""
     full = (512, 512, 256, 80, 30)
     plan = wavenet_ops.generate_plan(8, full, 132, 2)
-    assert (plan.blocks, plan.pairs, plan.cols, plan.head_cols, plan.depth) == (128, 2, 6, 2, 4)
-    assert wavenet_ops.slot_bytes(full, 2, 6) == (12944, 4128)
+    assert (plan.blocks, plan.pairs, plan.cols, plan.head_cols) == (48, 8, 16, 6)
+    assert wavenet_ops.bf16_slice_bytes(full) == (104 * 512 + 64, 16 * 512 + 64)
     jcfg, _, model = tiny_wavenet
     packed = wavenet_ops.pack_weights(model.state_dict(), jcfg.layers, BF)
-    r, g, s, c = 16, 16, 8, 80
-    widths = (r, g, s, c, 12)
+    widths = (16, 16, 8, 80, 12)
     plan = wavenet_ops.generate_plan(3, widths, 132, 2)
-    assert (plan.blocks, plan.pairs, plan.cols) == (24, 1, 1)  # one gate pair or one h/skip column a block
-    gate_bytes, resid_bytes = wavenet_ops.slot_bytes(widths, plan.pairs, plan.cols)
-    raw = wavenet_ops.kernel_weights_bf16(packed, plan).view(torch.uint8)
-    assert raw.shape == (2 * jcfg.layers, plan.blocks, max(gate_bytes, resid_bytes))
-    k, cg, cr = 3 * r + c, 4, 4
-    for layer in (0, 5):
-        gate_w = torch.cat([packed["w3"][layer], packed["wcond"][layer]])
-        res_w = torch.cat([packed["wout"][layer], packed["wskip"][layer]], 1)
-        res_b = torch.cat([packed["bo"][layer], packed["bs"][layer]])
-        for blk in range(plan.blocks):
-            gate, res = raw[2 * layer, blk], raw[2 * layer + 1, blk]
-            w, bias = gate[:2 * k * cg].view(BF).reshape(k, cg), gate[gate_bytes - 4 * cg:gate_bytes].view(torch.float32)
-            if blk < g // 2:
-                torch.testing.assert_close(w[:, :2], gate_w[:, [blk, blk + g // 2]], atol=0, rtol=0)
-                torch.testing.assert_close(bias[:2], packed["bg"][layer][[blk, blk + g // 2]], atol=0, rtol=0)
-                w, bias = w[:, 2:], bias[2:]
-            assert (w == 0).all() and (bias == 0).all()
-            w = res[:g * cr].view(BF).reshape(g // 2, cr)
-            bias = res[resid_bytes - 4 * cr:resid_bytes].view(torch.float32)
-            if blk < r + s:
-                torch.testing.assert_close(w[:, 0], res_w[:, blk], atol=0, rtol=0)
-                assert bias[0] == res_b[blk]
-                w, bias = w[:, 1:], bias[1:]
-            assert (w == 0).all() and (bias == 0).all()
+    assert (plan.blocks, plan.pairs, plan.cols, plan.head_cols, plan.rows) == (2, 8, 16, 4, 8)
+    _check_bf16_slices(packed, widths, plan)
+    _check_bf16_slices(wavenet_ops.scan_weights(packed), widths, plan)
+
+
+def test_wavenet_bf16_kernel_layout_full_width():
+    """The full-width slices (two layers of seeded weights) read back every
+    block's tiles and biases: 32 blocks own a gate tile, all 48 a residual
+    tile."""
+    full = (512, 512, 256, 80, 30)
+    _check_bf16_slices(_random_packed(full, 2, 5), full, wavenet_ops.generate_plan(8, full, 132, 2))
+
+
+def test_wavenet_bf16_kernel_layout_pads_segments():
+    """Widths whose segments are no multiple of 64 (R = 72, C = 40, G/2 =
+    24): each is padded with zero rows (R to 128, C and G/2 to 64), the
+    columns past G/2 and R + S are zero."""
+    widths = (72, 48, 8, 40, 12)
+    plan = wavenet_ops.generate_plan(3, widths, 132, 2)
+    assert plan.blocks == 5  # gate tiles 3 (24 pairs), residual tiles 5 (80 columns)
+    packed = _random_packed(widths, 3, 6)
+    _check_bf16_slices(packed, widths, plan)
+    gate, res = wavenet_ops.kernel_weights_bf16(packed, plan)
+    gate_w, _ = _unpack_bf16_slices(gate, (3 * 128 + 64) // 16)
+    for lo, hi in ((72, 128), (200, 256), (328, 384), (384 + 40, 384 + 64)):
+        assert not gate_w[:, :, lo:hi].any()
+    assert not _unpack_bf16_slices(res, 64 // 16)[0][:, :, 24:].any()
 
 
 # ------------------------------------------------------- (f) cli.synthesize

@@ -488,6 +488,49 @@ def test_bf16_gradient_shares_hold_on_more_batches(init, batch, train):
     assert all(gates.values()), (gates, readings)
 
 
+class WideGenerator(JaxGenerator):
+    """The JAX generator at chosen widths: encoder channels ``enc``, decoder
+    lstm_dim ``lstm``, postnet channels ``post``."""
+
+    enc: int = 32
+    lstm: int = 64
+    post: int = 32
+
+    def setup(self):
+        self.encoder = Encoder(self.dim_neck, self.freq, channels=self.enc, dtype=self.dtype,
+                               use_pallas=self.use_pallas)
+        self.decoder = Decoder(self.n_bins, self.dim_pre, lstm_dim=self.lstm, dtype=self.dtype,
+                               use_pallas=self.use_pallas)
+        self.postnet = Postnet(self.n_bins, channels=self.post, dtype=self.dtype)
+
+
+def test_bf16_gradients_on_wider_layers_nearer_jax_than_float32():
+    """ROADMAP Queue 3's (1, 2): at the narrow widths the port's worst leaf
+    (decoder.lstm1.w_hh_l0_fwd) lies 1.20 of its scale from JAX bfloat16's,
+    1.72x JAX float32's own 0.70. The same step with layers four times as
+    wide (encoder 128, lstm_dim 256, postnet 128), where one bfloat16 flip
+    weighs less in a leaf's sums: the port's worst and mean leaf distances
+    both below JAX float32's own (measured 0.409 against 0.961 and 0.154
+    against 0.358, scripts/bf16_step_widths.py), as a rounding point the
+    port missed would not let them fall."""
+    wide = dict(enc=128, lstm=256, post=128)
+    f32, bf = WideGenerator(**NARROW, **wide), WideGenerator(**NARROW, **wide, dtype=jnp.bfloat16, use_pallas=True)
+    x0, e0 = _batch(100)
+    variables = f32.init(jax.random.PRNGKey(1), jnp.asarray(x0), jnp.asarray(e0), jnp.asarray(e0))
+    params, stats = variables["params"], variables["batch_stats"]
+    x, emb = _batch(2)
+    _, g32 = _jax_loss_and_grads(f32, params, stats, x, emb, True)
+    _, g_bf = _jax_loss_and_grads(bf, params, stats, x, emb, True)
+    cfg = Config(model=dataclasses.replace(PORT_MODEL, enc_channels=128, dec_lstm_dim=256, postnet_channels=128))
+    model = _port_model(params, stats, cfg)
+    total, _ = loss_fn(model, cfg, torch.from_numpy(x), torch.from_numpy(emb), train=True)
+    total.backward()
+    got = {n: p.grad for n, p in model.named_parameters()}
+    port, own = _leaf_distances(got, g_bf, got), _leaf_distances(g32, g_bf, got)
+    assert port.max() < own.max() and port.mean() <= MEAN_SHARE * own.mean(), (port.max(), own.max(),
+                                                                                  port.mean(), own.mean())
+
+
 @pytest.mark.parametrize("train", [True, False])
 @pytest.mark.parametrize("init, batch", [(0, 1), *MORE_BATCHES])
 def test_whole_loss_gates_refuse_a_float32_port(init, batch, train):

@@ -1057,24 +1057,85 @@ def test_wavenet_bf16_kernel_matches_plain(cuda, width, b):
 
 
 def test_wavenet_bf16_kernel_full_width_batch_32(cuda):
-    """B=32 at full width: 4 batch tiles inside each phase; the plain loop
-    over the first 64 samples."""
+    """B=32 at full width: one pass of four n8 tiles in each phase; the
+    plain loop over the first 64 samples."""
     cfg = WaveNetConfig()
     voc, mel, cond, u = _wavenet_case(cuda, cfg, 32, 2, seed=40)
     with torch.inference_mode():
         _wavenet_bf16_check(voc, mel, cond, u, cfg, plain_t=64)
+    assert wavenet_ops.last_launch[0].rows == 32
+
+
+def test_wavenet_scan_kernel_full_width_batch_32(cuda):
+    """The scan rounding's form at B=32, full width: one pass of four n8
+    tiles; the plain scan loop over the first 64 samples."""
+    cfg = WaveNetConfig()
+    voc, mel, cond, u = _wavenet_case(cuda, cfg, 32, 2, seed=42)
+    with torch.inference_mode():
+        _wavenet_scan_check(voc, mel, cond, u, cfg, plain_t=64)
+    assert wavenet_ops.last_launch[0].rows == 32
+
+
+_WN_CHECKS = {"pallas": _wavenet_bf16_check, "scan": _wavenet_scan_check}
+
+
+@pytest.mark.parametrize("engine", ["pallas", "scan"])
+@pytest.mark.parametrize("b, rows, passes", [(16, 16, 1), (64, 32, 2), (512, 32, 16)])
+def test_wavenet_bf16_kernels_full_width_batch_in_passes(cuda, engine, b, rows, passes):
+    """Both bfloat16 forms at full width where the plan takes two n8 tiles
+    in one pass (B=16), and in several passes (B=64, B=512: cond_t copied
+    by each pass, the blocks' h and skip columns in device memory, the next
+    gate's ring rows not copied ahead): the plain loop over the first 32
+    samples (64 at B <= 64), the teacher-forced logits, the same gates."""
+    cfg = WaveNetConfig()
+    voc, mel, cond, u = _wavenet_case(cuda, cfg, b, 1, seed=60 + b)
+    with torch.inference_mode():
+        _WN_CHECKS[engine](voc, mel, cond, u, cfg, plain_t=64 if b <= 64 else 32)
+    plan = wavenet_ops.last_launch[0]
+    assert (plan.rows, -(-b // plan.rows)) == (rows, passes)
+
+
+@pytest.mark.parametrize("engine", ["pallas", "scan"])
+@pytest.mark.parametrize("b, rows", [(20, 8), (40, 16)])
+def test_wavenet_bf16_kernels_with_forced_smaller_passes(cuda, monkeypatch, engine, b, rows):
+    """Both bfloat16 forms at full width under the card's plan with its
+    passes forced to 8 or 16 rows: three passes, the last one part empty."""
+    cfg = WaveNetConfig()
+    widths = (cfg.residual_channels, cfg.gate_channels, cfg.skip_channels, cfg.cin_channels, cfg.out_channels)
+    plan = wavenet_ops.generate_plan(b, widths, wavenet_ops._card_sms(0), 2)
+    plan = dataclasses.replace(plan, rows=rows, smem=wavenet_ops.bf16_smem(b, widths, rows, plan.head_cols, plan.depth))
+    monkeypatch.setattr(wavenet_ops, "_plan_on_card", lambda b, w, device, esize=4: plan)
+    voc, mel, cond, u = _wavenet_case(cuda, cfg, b, 1, seed=70 + b)
+    with torch.inference_mode():
+        _WN_CHECKS[engine](voc, mel, cond, u, cfg, plain_t=64)
+    assert wavenet_ops.last_launch[0] == plan
+
+
+def _forced_bf16_plan(monkeypatch, batch: int, widths: tuple) -> wavenet_ops.GeneratePlan:
+    """A forced plan of 100 blocks (98 of them owning no column at the tiny
+    width) with weight rings of 1 slot, so that each slot takes every
+    layer's slice in turn."""
+    plan = wavenet_ops.GeneratePlan(100, 8, 16, 1, 1, wavenet_ops.bf16_smem(batch, widths, 8, 1, 1), rows=8)
+    monkeypatch.setattr(wavenet_ops, "_plan_on_card", lambda b, w, device, esize=4: plan)
+    return plan
 
 
 def test_wavenet_bf16_kernel_with_blocks_that_own_nothing(cuda, monkeypatch):
-    """A forced plan of 100 blocks at the tiny width, 76 of them owning no
-    column, with a ring of 2 phase slots, so that each slot takes gate and
-    residual slices in turn."""
-    widths = (16, 16, 8, 80, 12)
-    plan = wavenet_ops.GeneratePlan(100, 1, 1, 1, 2, wavenet_ops._smem(3, widths, 1, 1, 1, 2, esize=2))
-    monkeypatch.setattr(wavenet_ops, "_plan_on_card", lambda b, w, device, esize=4: plan)
+    """The bfloat16 form under a forced plan of 100 blocks at the tiny
+    width, 98 of them owning no column."""
+    plan = _forced_bf16_plan(monkeypatch, 3, (16, 16, 8, 80, 12))
     voc, mel, cond, u = _wavenet_case(cuda, WAVENET_TINY, 3, 2, seed=41)
     with torch.inference_mode():
         _wavenet_bf16_check(voc, mel, cond, u, WAVENET_TINY)
+    assert wavenet_ops.last_launch[0] == plan
+
+
+def test_wavenet_scan_kernel_with_blocks_that_own_nothing(cuda, monkeypatch):
+    """The scan rounding's form under the same forced plan."""
+    plan = _forced_bf16_plan(monkeypatch, 3, (16, 16, 8, 80, 12))
+    voc, mel, cond, u = _wavenet_case(cuda, WAVENET_TINY, 3, 2, seed=43)
+    with torch.inference_mode():
+        _wavenet_scan_check(voc, mel, cond, u, WAVENET_TINY)
     assert wavenet_ops.last_launch[0] == plan
 
 

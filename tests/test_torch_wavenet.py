@@ -5,6 +5,7 @@ Generation consumes an external stream of uniforms, so both sides get the
 same numbers: the uniforms that ``jax.random.uniform`` draws inside
 ``_generate_scan`` for a key are drawn here too and handed to the port."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -318,6 +319,62 @@ def test_generate_plan_refuses_what_does_not_fit():
         wavenet_ops.generate_plan(8, (1024, 512, 256, 80, 30))
     with pytest.raises(ValueError, match="shared memory"):
         wavenet_ops.generate_plan(8, (32, 1024, 1024, 80, 60))
+
+
+@pytest.mark.parametrize("batch, rows, depth", [(1, 8, 2), (8, 8, 2), (32, 32, 1)])
+def test_generate_plan_bf16_at_full_width(batch, rows, depth):
+    """The bfloat16 forms' plan: 48 blocks, each one tile of 8 gate pairs
+    and one of 16 residual columns, 6 head columns; the batch in one pass of
+    8 or 32 rows (n8 tiles), weight rings as deep as fit (2 slots at B <= 8,
+    1 at B=32), the shared bytes the layout's; a deeper ring does not fit
+    beside 32 rows."""
+    plan = wavenet_ops.generate_plan(batch, FULL_WIDTHS, 132, 2)
+    assert (plan.blocks, plan.pairs, plan.cols, plan.head_cols, plan.rows, plan.depth, plan.launches) == (
+        48, 8, 16, 6, rows, depth, 1)
+    assert plan.smem == wavenet_ops.bf16_smem(batch, FULL_WIDTHS, rows, 6, depth)
+    assert plan.smem <= wavenet_ops.SMEM_MAX - wavenet_ops.BF16_STATIC
+    if depth < wavenet_ops.BF16_MAX_DEPTH:
+        assert wavenet_ops.bf16_smem(batch, FULL_WIDTHS, rows, 6, depth + 1) > wavenet_ops.SMEM_MAX - 1024
+    assert plan.blocks * plan.pairs >= FULL_WIDTHS[1] // 2 and plan.blocks * plan.cols >= sum(FULL_WIDTHS[::2][:2])
+
+
+@pytest.mark.parametrize("batch, rows", [(3, 8), (9, 16), (20, 32), (37, 32), (64, 32), (512, 32), (2048, 16),
+                                         (20000, 8)])
+def test_generate_plan_bf16_passes(batch, rows):
+    """A batch past a pass runs in passes: the smallest pass of 8, 16 or 32
+    rows that holds it where the shared memory allows, else smaller."""
+    plan = wavenet_ops.generate_plan(batch, FULL_WIDTHS, 132, 2)
+    assert plan.rows == rows and plan.smem <= wavenet_ops.SMEM_MAX - wavenet_ops.BF16_STATIC
+
+
+@pytest.mark.parametrize("batch", [33, 512, 2048])
+def test_bf16_smem_past_one_pass_grows_by_x_prev_alone(batch):
+    """Past one pass a block keeps one pass's rows of cond_t and none of
+    its h and skip columns (those go through device memory), so its shared
+    memory grows with B by x_prev's 4 bytes a row alone, and a batch of
+    tens of thousands still has a plan."""
+    for rows in wavenet_ops.BF16_PASS_ROWS:
+        grown = wavenet_ops.bf16_smem(batch + 32, FULL_WIDTHS, rows, 6, 1)
+        assert grown - wavenet_ops.bf16_smem(batch, FULL_WIDTHS, rows, 6, 1) == 4 * 32
+    assert wavenet_ops.generate_plan(24000, FULL_WIDTHS, 132, 2).rows == 8
+
+
+def test_generate_plan_bf16_blocks_that_own_nothing(tiny):
+    """At the tiny width one gate tile (8 pairs) and two residual tiles (24
+    columns): two blocks, the second owning no gate pair and 8 residual
+    columns; its gate slices are zero. Widths that need more tiles than the
+    card has SMs are refused."""
+    plan = wavenet_ops.generate_plan(1, TINY_WIDTHS, 132, 2)
+    assert (plan.blocks, plan.pairs, plan.cols, plan.head_cols, plan.rows) == (2, 8, 16, 4, 8)
+    _, _, model = tiny
+    packed = wavenet_ops.pack_weights(model.state_dict(), model.cfg.layers, torch.bfloat16)
+    gate, res = wavenet_ops.kernel_weights_bf16(packed, plan)
+    assert gate[:, 0].any() and not gate[:, 1].any() and res[:, 1].any()
+    forced = dataclasses.replace(plan, blocks=100)
+    gate, res = wavenet_ops.kernel_weights_bf16(packed, forced)
+    assert gate.shape[1] == res.shape[1] == 100 and not gate[:, 1:].any() and not res[:, 2:].any()
+    with pytest.raises(ValueError, match="needs at least 48 SMs"):
+        wavenet_ops.generate_plan(8, FULL_WIDTHS, 32, 2)
 
 
 def test_kernel_refuses_before_building(tiny, monkeypatch):
